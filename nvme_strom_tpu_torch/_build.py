@@ -1,8 +1,8 @@
 """Build the package's CUDA kernels with ``nvcc`` at first use.
 
-Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
-plain C interface (``-gencode arch=compute_90a,code=sm_90a``), loaded with
-``ctypes``.  Outputs go to ``_build/`` beside this file, named by a hash of
+Each ``csrc/<name>.cu`` (with the shared ``csrc/*.cuh`` headers) compiles
+on its own into a shared library with a plain C interface
+(``-gencode arch=compute_90a,code=sm_90a``), loaded with ``ctypes``.  Outputs go to ``_build/`` beside this file, named by a hash of
 the source and the flags, so an edited source rebuilds and an unchanged one
 loads at once.  Builds of several sources run in parallel, one ``nvcc``
 each.  A failed build raises: nothing falls back to a plain version.
@@ -12,17 +12,19 @@ from __future__ import annotations
 
 import ctypes
 import errno as _errno
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 from .api import StromError
 
-__all__ = ["NVCC_FLAGS", "sources", "build_all", "load"]
+__all__ = ["NVCC_FLAGS", "sources", "build_all", "load", "launcher",
+           "grid_cap"]
 
 _PKG = Path(__file__).resolve().parent
 _SRC = _PKG / "csrc"
@@ -50,6 +52,9 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (_SRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source
+    for hdr in sorted(_SRC.glob("*.cuh")):
+        src += hdr.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return _OUT / f"lib{name}-{digest[:16]}.so"
 
@@ -92,5 +97,39 @@ def load(name: str) -> ctypes.CDLL:
             if not target.exists():
                 build_all([name])
             lib = ctypes.CDLL(str(target))
+            lib.strom_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.strom_cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+def launcher(name: str, symbol: str, argtypes) -> Callable[..., None]:
+    """A caller of the launch function *symbol* of ``csrc/<name>.cu`` (a
+    C function that returns the launch's ``cudaError_t``).  The library is
+    built and bound on the first call, never before; a nonzero return
+    raises :class:`StromError` EIO with CUDA's message."""
+    bound: list = []
+
+    def call(*args) -> None:
+        if not bound:
+            lib = load(name)
+            fn = getattr(lib, symbol)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            bound[:] = [lib, fn]
+        lib, fn = bound
+        err = fn(*args)
+        if err:
+            raise StromError(_errno.EIO, f"{name} kernel launch failed: "
+                             + lib.strom_cuda_error_string(err).decode())
+
+    return call
+
+
+@functools.lru_cache(maxsize=None)
+def grid_cap(device_index: int, blocks_per_sm: int) -> int:
+    """The most blocks a grid-stride kernel launches on the card: its
+    multiprocessors times *blocks_per_sm*."""
+    import torch
+    props = torch.cuda.get_device_properties(device_index)
+    return props.multi_processor_count * blocks_per_sm

@@ -39,6 +39,19 @@ def _landing(val: str) -> None:
         raise ConfigError(f"landing must be auto|direct|staged, got {val!r}")
 
 
+def _pushdown(val: str) -> None:
+    if val not in ("auto", "on", "off"):
+        raise ConfigError(f"pushdown must be auto|on|off, got {val!r}")
+
+
+def _pushdown_codecs(val: str) -> None:
+    bad = [c for c in val.split(",") if c.strip()
+           and c.strip() not in ("bitpack", "dict", "rle")]
+    if bad:
+        raise ConfigError(f"pushdown_codecs must be a comma list of "
+                          f"bitpack|dict|rle, got {bad[0]!r}")
+
+
 @dataclass(frozen=True)
 class _Var:
     default: Any
@@ -83,6 +96,16 @@ _VARS: Dict[str, _Var] = {
     "dma_max_size": _Var(1 << 20, int, 4 << 10, 16 << 20, _pow2),
     # destination landing: auto | direct (CPU only) | staged
     "landing": _Var("auto", str, check=_landing),
+    # packed-sidecar (.cpk) scans of aggregates: auto | on | off
+    "pushdown": _Var("auto", str, check=_pushdown),
+    # codecs the packed-extent encoder may choose (raw is always there)
+    "pushdown_codecs": _Var("bitpack,dict,rle", str,
+                            check=_pushdown_codecs),
+    # least codec ratio (logical / packed bytes) for on-device expansion
+    "pushdown_chip_ratio": _Var(1.15, float, 1.0),
+    # planner's host->device and SSD read rates in GB/s (0 = measured)
+    "pushdown_h2d_gbps": _Var(0.0, float, 0.0),
+    "pushdown_ssd_gbps": _Var(0.0, float, 0.0),
 }
 
 

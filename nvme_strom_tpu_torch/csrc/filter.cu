@@ -24,61 +24,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define MAXC 16
-#define MAXT 8
-#define PAGE_WORDS 2048
+#include "strom_common.cuh"
+
 #define THREADS 256
 #define WARPS (THREADS / 32)
-
-enum { K_I32 = 0, K_U32 = 1, K_F32 = 2 };
-enum { OP_GT = 0, OP_GE, OP_LT, OP_LE, OP_EQ, OP_NE };
 
 // Mirrored field for field by ctypes in ops/filter_cuda.py (_Spec).
 struct FilterSpec {
     int n_cols;
     int tuples;            // tuples per page (T)
     int vis_off;           // visibility word offset, -1 = none
-    int n_terms;
     int col_off[MAXC];     // first word of each column region
     int col_kind[MAXC];    // K_I32 | K_U32 | K_F32
     int col_slot[MAXC];    // index in isums (int kinds) or fsums (float)
-    int term_col[MAXT];
-    int term_op[MAXT];
-    unsigned term_val[MAXT];   // comparison value as the column's 32 bits
+    Terms terms;
 };
-
-template <typename T>
-__device__ __forceinline__ bool compare(T a, T b, int op) {
-    switch (op) {
-    case OP_GT: return a > b;
-    case OP_GE: return a >= b;
-    case OP_LT: return a < b;
-    case OP_LE: return a <= b;
-    case OP_EQ: return a == b;
-    default:    return a != b;
-    }
-}
-
-__device__ __forceinline__ bool term_holds(unsigned bits, int kind, int op,
-                                           unsigned val) {
-    if (kind == K_F32)
-        return compare(__uint_as_float(bits), __uint_as_float(val), op);
-    if (kind == K_U32)
-        return compare(bits, val, op);
-    return compare((int)bits, (int)val, op);
-}
-
-__device__ __forceinline__ unsigned warp_sum(unsigned v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    return v;
-}
 
 __global__ void __launch_bounds__(THREADS)
 filter_pages_kernel(const int32_t* __restrict__ words, long long n_pages,
@@ -101,11 +61,11 @@ filter_pages_kernel(const int32_t* __restrict__ words, long long n_pages,
         // instead of each waiting on the previous branch
         for (int t = threadIdx.x; t < nt; t += THREADS) {
             bool sel = s.vis_off < 0 || __ldg(w + s.vis_off + t) != 0;
-            for (int k = 0; k < s.n_terms; ++k) {
-                const int c = s.term_col[k];
+            for (int k = 0; k < s.terms.n; ++k) {
+                const int c = s.terms.col[k];
                 const unsigned v = (unsigned)__ldg(w + s.col_off[c] + t);
-                sel &= term_holds(v, s.col_kind[c], s.term_op[k],
-                                  s.term_val[k]);
+                sel &= term_holds(v, s.col_kind[c], s.terms.kind[k],
+                                  s.terms.op[k], s.terms.val[k]);
             }
             cnt += sel;
 #pragma unroll
@@ -174,11 +134,5 @@ int strom_filter_pages(const void* words, long long n_pages,
         static_cast<float*>(fsums));
     return static_cast<int>(cudaGetLastError());
 }
-
-const char* strom_cuda_error_string(int err) {
-    return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-int strom_filter_threads(void) { return THREADS; }
 
 }  // extern "C"

@@ -15,6 +15,16 @@ word pairs and sum in their own dtype.
 A predicate is either a :class:`FilterPred` (a conjunction of column
 comparisons, the form the CUDA kernel takes) or a callable
 ``predicate(cols, threshold) -> bool (B, T)`` built from torch ops.
+
+A term compares as ``jnp`` would compare the column with the same value
+(jnp type promotion, 32-bit mode): a float value against an int32 or
+uint32 column compares in float32, both sides converted; a Python int
+outside the int32 range is refused (EINVAL) wherever jnp raises
+OverflowError, against a uint32 column too, and a negative one wraps
+against a uint32 column; numpy integer scalars are not weak types, so
+they wrap to 32 bits and a signed one turns a uint32 column's compare
+signed (``np.uint32(3_000_000_000)`` is how a uint32 column meets a value
+above 2^31).  A float16 value is refused: jnp would compare in float16.
 """
 
 from __future__ import annotations
@@ -30,7 +40,8 @@ from ..api import StromError
 from ..scan.heap import PAGE_SIZE, HeapSchema
 
 __all__ = ["DEFAULT_SCHEMA", "FilterPred", "Cols", "page_words",
-           "decode_pages", "make_filter_fn", "scan_filter_step"]
+           "decode_pages", "make_filter_fn", "scan_filter_step",
+           "term_value", "compare_view"]
 
 #: default demo schema: two int32 data columns + visibility
 DEFAULT_SCHEMA = HeapSchema(n_cols=2, visibility=True)
@@ -41,11 +52,86 @@ _CMP = {"gt": torch.gt, "ge": torch.ge, "lt": torch.lt, "le": torch.le,
 MAX_TERMS = 8
 
 
+_INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def _wrap32(v: int, signed: bool):
+    u = int(v) & 0xFFFFFFFF
+    return np.uint32(u).view(np.int32) if signed else np.uint32(u)
+
+
+def term_value(dt: np.dtype, value):
+    """``(kind, value)`` of one comparison against a column of dtype *dt*:
+    ``kind`` is "i" (int32 compare), "u" (uint32) or "f" (float32, the
+    column converted to float32), and ``value`` the comparison value as a
+    numpy scalar of that type — the promotion ``jnp`` applies.  An 8-byte
+    column gives "w": the value cast to the column's dtype."""
+    if isinstance(value, np.ndarray) and value.ndim == 0:
+        value = value[()]
+    if dt.itemsize == 8:
+        # wide columns (plain version only) compare in their own dtype
+        return "w", np.asarray(value).astype(dt)[()]
+    if isinstance(value, (bool, np.bool_)):
+        value = int(value)
+    if isinstance(value, np.floating):
+        if value.dtype.itemsize < 4:
+            raise StromError(_errno.EINVAL, f"comparison value of dtype "
+                                            f"{value.dtype}: jnp would compare "
+                                            f"in it; use float32")
+        return "f", np.float32(value)
+    if isinstance(value, float):
+        return "f", np.float32(value)
+    if isinstance(value, int):
+        # a weak type: jnp converts it to the column's type through int32
+        # and refuses what int32 cannot hold, whatever the column's type
+        if not _INT32_MIN <= value <= _INT32_MAX:
+            raise StromError(_errno.EINVAL, f"comparison value {value} "
+                                            f"outside the range a {dt} "
+                                            f"compare takes (jnp raises "
+                                            f"OverflowError)")
+        if dt.kind == "f":
+            return "f", np.float32(value)
+        if dt == np.dtype(np.uint32):
+            return "u", _wrap32(value, False)
+        return "i", np.int32(value)
+    if isinstance(value, np.integer):
+        # not weak: canonicalised to 32 bits (wrapping), then promoted
+        # with the column (u32 with a signed type promotes to int32)
+        signed = value.dtype.kind == "i"
+        if dt.kind == "f":
+            return "f", np.float32(_wrap32(value, signed))
+        if dt == np.dtype(np.uint32) and not signed:
+            return "u", _wrap32(value, False)
+        return "i", _wrap32(value, True)
+    raise StromError(_errno.EINVAL, f"comparison value {value!r}: a Python "
+                                    f"or numpy int or float")
+
+
+def compare_view(col: torch.Tensor, kind: str) -> torch.Tensor:
+    """A decoded column (int32, uint32 as int64, float32) in the type a
+    term of *kind* compares in."""
+    if kind == "f":
+        return col.to(torch.float32)
+    if kind == "i" and col.dtype == torch.int64:
+        return col.to(torch.int32)          # uint32 bits, read signed
+    return col
+
+
+def _scalar(value, kind: str, device) -> torch.Tensor:
+    if kind == "w":
+        return torch.from_numpy(np.asarray(value)).to(device)
+    if kind == "f":
+        return torch.tensor(float(value), dtype=torch.float32, device=device)
+    return torch.tensor(int(value), dtype=torch.int64 if kind == "u"
+                        else torch.int32, device=device)
+
+
 @dataclass(frozen=True)
 class FilterPred:
     """Conjunction of at most 8 terms ``(col, op, value)``: ``op`` one of
-    gt/ge/lt/le/eq/ne, ``value`` taken in the column's dtype, or None for
-    the run-time ``threshold``.  No terms selects every valid row."""
+    gt/ge/lt/le/eq/ne, ``value`` a Python or numpy int or float compared
+    with jnp's promotion (:func:`term_value`), or None for the run-time
+    ``threshold``.  No terms selects every valid row."""
 
     terms: tuple = ()
 
@@ -63,23 +149,28 @@ class FilterPred:
                                                 f"{col!r}")
         object.__setattr__(self, "terms", terms)
 
-    def values(self, schema: HeapSchema, threshold) -> list:
-        """Each term's comparison value cast to its column's dtype."""
+    def values(self, dtypes, threshold) -> list:
+        """Each term's ``(kind, value)`` (:func:`term_value`) against its
+        column; *dtypes* is a :class:`HeapSchema` or a sequence of column
+        dtypes."""
+        if isinstance(dtypes, HeapSchema):
+            dtypes = [dtypes.col_dtype(c) for c in range(dtypes.n_cols)]
         out = []
         for col, _op, value in self.terms:
-            if col >= schema.n_cols:
+            if col >= len(dtypes):
                 raise StromError(_errno.EINVAL, f"predicate column {col} "
                                                 f"outside the schema")
-            v = threshold if value is None else value
-            out.append(np.asarray(v).astype(schema.col_dtype(col)).item())
+            out.append(term_value(np.dtype(dtypes[col]),
+                                  threshold if value is None else value))
         return out
 
-    def mask(self, cols, valid: torch.Tensor, schema: HeapSchema,
+    def mask(self, cols, valid: torch.Tensor, dtypes,
              threshold) -> torch.Tensor:
         sel = valid
-        for (col, op, _), v in zip(self.terms,
-                                   self.values(schema, threshold)):
-            sel = sel & _CMP[op](cols[col], v)
+        for (col, op, _), (kind, v) in zip(self.terms,
+                                           self.values(dtypes, threshold)):
+            sel = sel & _CMP[op](compare_view(cols[col], kind),
+                                 _scalar(v, kind, valid.device))
         return sel
 
 

@@ -28,18 +28,20 @@ from __future__ import annotations
 
 import ctypes
 import errno as _errno
-import functools
 from typing import Callable, Union
 
 import numpy as np
 import torch
 
+from .. import _build
 from ..api import StromError
 from ..scan.heap import PAGE_SIZE, HeapSchema
-from .filter import (DEFAULT_SCHEMA, STEP_PRED, FilterPred, make_filter_fn)
+from .filter import (DEFAULT_SCHEMA, MAX_TERMS, STEP_PRED, FilterPred,
+                     make_filter_fn)
 
 __all__ = ["launches", "launch", "scan_filter_step_cuda",
-           "make_filter_fn_cuda", "filter_pages_cuda", "kernel_refusal"]
+           "make_filter_fn_cuda", "filter_pages_cuda", "kernel_refusal",
+           "encode_terms"]
 
 #: kernel launches since the last reset (set to 0 to reset)
 launches = 0
@@ -48,39 +50,49 @@ MAX_COLS = 16
 _KIND = {np.dtype(np.int32): 0, np.dtype(np.uint32): 1,
          np.dtype(np.float32): 2}
 _OP = {"gt": 0, "ge": 1, "lt": 2, "le": 3, "eq": 4, "ne": 5}
+_TERM_KIND = {"i": 0, "u": 1, "f": 2}
 _BLOCKS_PER_SM = 8
+
+
+class _Terms(ctypes.Structure):
+    """Field-for-field mirror of ``Terms`` in csrc/strom_common.cuh."""
+
+    _fields_ = [("n", ctypes.c_int),
+                ("col", ctypes.c_int * MAX_TERMS),
+                ("op", ctypes.c_int * MAX_TERMS),
+                ("kind", ctypes.c_int * MAX_TERMS),
+                ("val", ctypes.c_uint * MAX_TERMS)]
 
 
 class _Spec(ctypes.Structure):
     """Field-for-field mirror of ``FilterSpec`` in csrc/filter.cu."""
 
     _fields_ = [("n_cols", ctypes.c_int), ("tuples", ctypes.c_int),
-                ("vis_off", ctypes.c_int), ("n_terms", ctypes.c_int),
+                ("vis_off", ctypes.c_int),
                 ("col_off", ctypes.c_int * MAX_COLS),
                 ("col_kind", ctypes.c_int * MAX_COLS),
                 ("col_slot", ctypes.c_int * MAX_COLS),
-                ("term_col", ctypes.c_int * 8),
-                ("term_op", ctypes.c_int * 8),
-                ("term_val", ctypes.c_uint * 8)]
+                ("terms", _Terms)]
 
 
-_lib_state: dict = {}
+def encode_terms(pred: FilterPred, dtypes, threshold) -> _Terms:
+    """The predicate's terms as the kernels take them: per term the
+    column, op, compare kind and value bits (jnp promotion, see
+    :func:`.filter.term_value`)."""
+    terms = _Terms()
+    terms.n = len(pred.terms)
+    for k, ((col, op, _), (kind, v)) in enumerate(
+            zip(pred.terms, pred.values(dtypes, threshold))):
+        terms.col[k] = col
+        terms.op[k] = _OP[op]
+        terms.kind[k] = _TERM_KIND[kind]
+        terms.val[k] = int(np.asarray(v).view(np.uint32))
+    return terms
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _lib_state.get("lib")
-    if lib is None:
-        from .._build import load
-        lib = load("filter")
-        lib.strom_filter_pages.argtypes = [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_void_p]
-        lib.strom_filter_pages.restype = ctypes.c_int
-        lib.strom_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.strom_cuda_error_string.restype = ctypes.c_char_p
-        _lib_state["lib"] = lib
-    return lib
+_launch = _build.launcher("filter", "strom_filter_pages", [
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 
 
 def kernel_refusal(schema: HeapSchema, predicate) -> str:
@@ -123,20 +135,8 @@ def _spec(schema: HeapSchema, pred: FilterPred, threshold) -> _Spec:
         spec.col_off[c] = schema.col_word_range(c)[0]
         spec.col_kind[c] = _KIND[schema.col_dtype(c)]
         spec.col_slot[c] = slots[c]
-    values = pred.values(schema, threshold)
-    spec.n_terms = len(pred.terms)
-    for k, ((col, op, _), v) in enumerate(zip(pred.terms, values)):
-        spec.term_col[k] = col
-        spec.term_op[k] = _OP[op]
-        spec.term_val[k] = int(np.asarray(v, dtype=schema.col_dtype(col))
-                               .view(np.uint32))
+    spec.terms = encode_terms(pred, schema, threshold)
     return spec
-
-
-@functools.lru_cache(maxsize=None)
-def _grid_cap(device_index: int) -> int:
-    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return sms * _BLOCKS_PER_SM
 
 
 def launch(pages_u8: torch.Tensor, spec: _Spec, count: torch.Tensor,
@@ -146,15 +146,10 @@ def launch(pages_u8: torch.Tensor, spec: _Spec, count: torch.Tensor,
     global launches
     n_pages = pages_u8.shape[0]
     dev = pages_u8.device
-    lib = _lib()
-    err = lib.strom_filter_pages(
-        pages_u8.data_ptr(), n_pages, ctypes.addressof(spec),
-        count.data_ptr(), isums.data_ptr(), fsums.data_ptr(),
-        int(min(n_pages, _grid_cap(dev.index or 0))),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise StromError(_errno.EIO, "filter kernel launch failed: "
-                         + lib.strom_cuda_error_string(err).decode())
+    _launch(pages_u8.data_ptr(), n_pages, ctypes.addressof(spec),
+            count.data_ptr(), isums.data_ptr(), fsums.data_ptr(),
+            min(n_pages, _build.grid_cap(dev.index or 0, _BLOCKS_PER_SM)),
+            torch.cuda.current_stream(dev).cuda_stream)
     launches += 1
 
 

@@ -30,7 +30,8 @@ import numpy as np
 
 __all__ = ["PAGE_SIZE", "HEAP_MAGIC", "HEADER_BYTES", "HEADER_WORDS",
            "CHECKSUM_WORD", "HeapSchema", "build_pages", "build_heap_file",
-           "page_checksums"]
+           "page_checksums", "crc32c_rows", "pages_from_bytes",
+           "read_column"]
 
 PAGE_SIZE = 8192                  # BLCKSZ, matching the reference
 HEADER_BYTES = 64
@@ -58,16 +59,17 @@ def _crc_tables() -> np.ndarray:
     return np.stack(tabs)
 
 
-def _page_crcs_numpy(pages: np.ndarray, block: int = 8192) -> np.ndarray:
-    """crc32c of every row of a (n, PAGE_SIZE) uint8 array, slicing-by-4,
-    vectorised across rows (one pass over the page's words)."""
+def crc32c_rows(rows: np.ndarray, block: int = 8192) -> np.ndarray:
+    """crc32c of every row of a (n, L) uint8 array (L a multiple of 4),
+    slicing-by-4, vectorised across rows (one pass over the row's
+    words)."""
     t = _crc_tables()
     t0, t1, t2, t3 = t[0], t[1], t[2], t[3]
     m = np.uint32(0xFF)
-    out = np.empty(pages.shape[0], dtype=np.uint32)
-    for lo in range(0, pages.shape[0], block):
+    out = np.empty(rows.shape[0], dtype=np.uint32)
+    for lo in range(0, rows.shape[0], block):
         words = np.ascontiguousarray(
-            pages[lo:lo + block].view("<u4").T)        # (2048, nb)
+            rows[lo:lo + block].view("<u4").T)         # (L/4, nb)
         crc = np.full(words.shape[1], 0xFFFFFFFF, dtype=np.uint32)
         for w in words:
             crc ^= w
@@ -83,7 +85,7 @@ def page_checksums(pages: np.ndarray) -> np.ndarray:
     try:
         from google_crc32c import value
     except ImportError:
-        return _page_crcs_numpy(pages)
+        return crc32c_rows(pages)
     return np.fromiter((value(p.tobytes()) for p in pages),
                        dtype=np.uint32, count=pages.shape[0])
 
@@ -236,11 +238,14 @@ def _paged(vals: np.ndarray, n_pages: int, t: int) -> np.ndarray:
 def build_pages(columns: Sequence[np.ndarray], schema: HeapSchema, *,
                 visibility: Optional[np.ndarray] = None,
                 nulls: Optional[dict] = None,
-                start_page_id: int = 0) -> np.ndarray:
+                start_page_id: int = 0,
+                checksum: bool = True) -> np.ndarray:
     """Pack column arrays (each shape (n_rows,), schema dtypes) into pages.
     ``nulls`` — optional ``{col: (n_rows,) bool}`` NULL masks for nullable
     columns (True = NULL; stored word zeroed, validity bit cleared).
-    Returns a uint8 array of shape (n_pages, PAGE_SIZE)."""
+    ``checksum=False`` leaves the checksum word 0 (pages that are scanned
+    at once and never stored).  Returns a uint8 array of shape
+    (n_pages, PAGE_SIZE)."""
     if len(columns) != schema.n_cols:
         raise ValueError(f"expected {schema.n_cols} columns, "
                          f"got {len(columns)}")
@@ -294,9 +299,10 @@ def build_pages(columns: Sequence[np.ndarray], schema: HeapSchema, *,
         pages[:, s:s + nb] = packed.view("<u4").astype(np.uint32) \
             .view(np.int32)
     out = pages.view(np.uint8).reshape(n_pages, PAGE_SIZE)
-    # checksum word is still zero here: the crc covers the page with it
-    # zeroed, exactly what a verifier recomputes
-    pages.view(np.uint32)[:, CHECKSUM_WORD] = page_checksums(out)
+    if checksum:
+        # checksum word is still zero here: the crc covers the page with
+        # it zeroed, exactly what a verifier recomputes
+        pages.view(np.uint32)[:, CHECKSUM_WORD] = page_checksums(out)
     return out
 
 
@@ -310,3 +316,26 @@ def build_heap_file(path: str, columns: Sequence[np.ndarray],
         f.write(memoryview(pages).cast("B"))
     return len(pages)
 
+
+
+def pages_from_bytes(raw) -> np.ndarray:
+    """View raw bytes as (n_pages, PAGE_SIZE) uint8 without copying."""
+    arr = np.frombuffer(raw, dtype=np.uint8) \
+        if not isinstance(raw, np.ndarray) else raw
+    if arr.size % PAGE_SIZE:
+        raise ValueError(f"byte length {arr.size} not page-aligned")
+    return arr.reshape(-1, PAGE_SIZE)
+
+
+def read_column(pages: np.ndarray, schema: HeapSchema, c: int,
+                dtype=None) -> np.ndarray:
+    """Host-side column extraction: column *c*'s live values (the first
+    n_tuples of each page), in page order."""
+    dtype = np.dtype(dtype if dtype is not None else schema.col_dtype(c))
+    words = pages.view(np.int32).reshape(pages.shape[0], PAGE_SIZE // 4)
+    t = schema.tuples_per_page
+    s, _e = schema.col_word_range(c)
+    w = dtype.itemsize // 4
+    region = np.ascontiguousarray(words[:, s:s + t * w]).view(dtype)
+    n = np.clip(words[:, 2], 0, t)
+    return region[np.arange(t)[None, :] < n[:, None]]

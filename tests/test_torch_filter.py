@@ -133,7 +133,8 @@ def test_uint32_sum_wraps_like_pallas():
 def test_filter_pred_matches_equivalent_callable(op, fn):
     _, ts, f, u, i, vis, pages = _typed(seed=23, pages=2)
     t = torch.from_numpy(pages)
-    pred = FilterPred(((2, op, None), (1, "ge", 1 << 31)))
+    # a Python int of 2^31 would be refused, as jnp refuses it
+    pred = FilterPred(((2, op, None), (1, "ge", np.uint32(1 << 31))))
     a = make_filter_fn(ts, pred)(t, 7)
     b = make_filter_fn(ts, lambda cols, th: fn(cols[2], th)
                        & (cols[1] >= (1 << 31)))(t, 7)
@@ -192,16 +193,81 @@ def test_kernel_refusals_and_spec_encoding():
     assert "int64" in filter_cuda.kernel_refusal(
         HeapSchema(n_cols=1, dtypes=("int64",)), pred)
     spec = filter_cuda._spec(typed, pred, 0.25)
-    assert (spec.n_cols, spec.n_terms) == (3, 3)
+    assert (spec.n_cols, spec.terms.n) == (3, 3)
     assert spec.tuples == typed.tuples_per_page
     assert spec.vis_off == typed.col_word_range(3)[0]
     assert list(spec.col_off)[:3] == [typed.col_word_range(c)[0]
                                       for c in range(3)]
     assert list(spec.col_kind)[:3] == [2, 1, 0]
     assert list(spec.col_slot)[:3] == [0, 0, 1]
-    assert list(spec.term_op)[:3] == [0, 3, 5]
-    assert list(spec.term_val)[:3] == [
+    assert list(spec.terms.op)[:3] == [0, 3, 5]
+    assert list(spec.terms.kind)[:3] == [2, 1, 0]
+    assert list(spec.terms.val)[:3] == [
         int(np.float32(0.25).view(np.uint32)), 7, 0xFFFFFFFF]
+
+
+_PROMO_OPS = {"ge": lambda a, b: a >= b, "lt": lambda a, b: a < b,
+              "eq": lambda a, b: a == b, "ne": lambda a, b: a != b}
+
+
+@pytest.mark.parametrize("op", sorted(_PROMO_OPS))
+@pytest.mark.parametrize("value", [0.25, -0.5, (1 << 24) + 0.5])
+def test_float_value_against_int_column_compares_in_float32(op, value):
+    """A fractional value against an int32 column compares in float32, as
+    jnp promotes it (the column converted too: above 2^24 int32 values
+    round), never truncated to the column's type."""
+    rng = np.random.default_rng(41)
+    schema = HeapSchema(n_cols=1)
+    n = schema.tuples_per_page * 8
+    c = rng.integers(-5, 5, n).astype(np.int32)
+    if value > 1 << 24:
+        c = c + np.int32((1 << 24) + 2)      # 2^24-3 .. 2^24+6
+    pages = build_pages([c], schema)
+    fn = _PROMO_OPS[op]
+    pal = make_filter_fn_pallas(JSchema(n_cols=1),
+                                lambda cols, th: fn(cols[0], th),
+                                interpret=True)(pages, value)
+    want = int(fn(c.astype(np.float32), np.float32(value)).sum())
+    t = torch.from_numpy(pages)
+    for th, pred in ((value, FilterPred(((0, op, None),))),
+                     (0, FilterPred(((0, op, value),)))):
+        got = make_filter_fn(schema, pred)(t, th)
+        assert int(got["count"]) == int(pal["count"]) == want
+        assert int(got["sums"][0]) == int(pal["sums"][0])
+
+
+def test_integer_values_follow_jnp_promotion():
+    schema = HeapSchema(n_cols=2, dtypes=("int32", "uint32"))
+    assert FilterPred(((1, "ge", -1),)).values(schema, 0) == \
+        [("u", np.uint32(0xFFFFFFFF))]
+    assert FilterPred(((1, "ge", np.int64(-1)),)).values(schema, 0) == \
+        [("i", np.int32(-1))]
+    assert FilterPred(((0, "lt", 0.5),)).values(schema, 0) == \
+        [("f", np.float32(0.5))]
+    assert FilterPred(((1, "ge", np.uint32(3_000_000_000)),)).values(
+        schema, 0) == [("u", np.uint32(3_000_000_000))]
+    js = JSchema(n_cols=2, dtypes=("int32", "uint32"))
+    probe = build_pages([np.zeros(4, np.int32), np.zeros(4, np.uint32)],
+                        schema)
+    for col, bad in ((0, 1 << 31), (0, -(1 << 31) - 1), (1, 1 << 31),
+                     (1, 3_000_000_000), (1, 1 << 32), (1, -(1 << 31) - 1)):
+        with pytest.raises(StromError) as e:
+            FilterPred(((col, "gt", bad),)).values(schema, 0)
+        assert e.value.errno == errno.EINVAL
+        # the JAX function raises on the same value
+        with pytest.raises(OverflowError):
+            make_filter_fn_pallas(js, lambda cols, t, c=col: cols[c] > t,
+                                  interpret=True)(probe, bad)
+    rng = np.random.default_rng(3)
+    n = schema.tuples_per_page * 3
+    a = rng.integers(-5, 5, n).astype(np.int32)
+    pages = build_pages([a, a.astype(np.uint32)], schema)
+    for th in (-1, np.int64(-1), -3, np.uint32(3_000_000_000)):
+        pal = make_filter_fn_pallas(js, lambda cols, t: cols[1] >= t,
+                                    interpret=True)(pages, th)
+        got = make_filter_fn(schema, FilterPred(((1, "ge", None),)))(
+            torch.from_numpy(pages), th)
+        assert int(got["count"]) == int(pal["count"])
 
 
 def test_wrapper_on_other_devices_raises_not_falls_back():

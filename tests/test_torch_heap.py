@@ -85,6 +85,23 @@ def test_numpy_crc32c_matches_reference_checksum():
     installed) equals the JAX package's per-page checksum."""
     rng = np.random.default_rng(3)
     pages = rng.integers(0, 256, (5, theap.PAGE_SIZE), dtype=np.uint8)
-    got = theap._page_crcs_numpy(pages, block=2)
+    got = theap.crc32c_rows(pages, block=2)
     assert [int(x) for x in got] == \
         [jheap.crc32c(p.tobytes()) for p in pages]
+
+
+@pytest.mark.parametrize("name", ["typed_vis", "int64_wide"])
+def test_read_column_and_pages_from_bytes_match_reference(name):
+    js, ts = _pair(SCHEMAS[name])
+    rng = np.random.default_rng(8)
+    n = ts.tuples_per_page * 3 + 17
+    cols = [rng.integers(-9, 9, n).astype(ts.col_dtype(c))
+            for c in range(ts.n_cols)]
+    raw = theap.build_pages(cols, ts).tobytes()
+    tp, jp = theap.pages_from_bytes(raw), jheap.pages_from_bytes(raw)
+    assert tp.shape == jp.shape == (4, theap.PAGE_SIZE)
+    for c in range(ts.n_cols):
+        got = theap.read_column(tp, ts, c)
+        want = jheap.read_column(jp, js, c)
+        assert got.dtype == want.dtype
+        assert np.array_equal(got, want) and np.array_equal(got, cols[c])

@@ -33,6 +33,10 @@ _SCRIPT = textwrap.dedent("""
                                                    pkg.__name__ + ".")]
     for name in names:
         importlib.import_module(name)
+    for mod in ("ops.groupby", "ops.groupby_cuda", "ops.decode",
+                "ops.decode_cuda", "scan.colpack", "scan.planner",
+                "scan.query"):
+        assert pkg.__name__ + "." + mod in names, mod
     import chip_smoke  # noqa: F401
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "nvme_strom_tpu")]
@@ -55,7 +59,13 @@ _SCRIPT = textwrap.dedent("""
             sc.scan_filter(lambda p: {"n": p.shape[0]})
         except StromError as e:
             codes.append(e.errno)
-    assert codes == [errno.ENODEV, errno.ENODEV], codes
+    from nvme_strom_tpu_torch.scan.heap import HeapSchema
+    from nvme_strom_tpu_torch.scan.query import Query
+    try:
+        Query(path, HeapSchema(n_cols=2)).aggregate([0]).run()
+    except StromError as e:
+        codes.append(e.errno)
+    assert codes == [errno.ENODEV] * 3, codes
     print("ISOLATED", len(names))
 """)
 
@@ -78,3 +88,52 @@ _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|nvme_strom_tpu)\b"
 @pytest.mark.parametrize("rel", PY_FILES)
 def test_no_source_imports_jax_or_the_jax_package(rel):
     assert not _IMPORT.search((ROOT / rel).read_text()), rel
+
+
+def _meta_pages(n=2):
+    import torch
+    return torch.zeros((n, 8192), dtype=torch.uint8, device="meta")
+
+
+@pytest.mark.parametrize("case", ["callable key", "callable predicate",
+                                  "G above the cap", "decode callable"])
+def test_non_cpu_tensor_never_reaches_a_plain_version(case):
+    """A tensor that is not on the CPU (a meta tensor here, a CUDA tensor
+    on the card) goes to the kernel or raises EINVAL: a callable key or
+    predicate and a G above the kernel's cap are refused, never run by the
+    plain version."""
+    import errno
+
+    from nvme_strom_tpu_torch.api import StromError
+    from nvme_strom_tpu_torch.ops import decode_cuda, groupby_cuda
+    from nvme_strom_tpu_torch.ops.filter import FilterPred
+    from nvme_strom_tpu_torch.ops.groupby import GroupKey
+    from nvme_strom_tpu_torch.scan.colpack import ColCodec, PackedMeta
+    from nvme_strom_tpu_torch.scan.heap import HeapSchema
+    schema = HeapSchema(n_cols=2)
+    before = (groupby_cuda.launches, decode_cuda.launches)
+    with pytest.raises(StromError) as e:
+        if case == "callable key":
+            groupby_cuda.groupby_pages_cuda(
+                _meta_pages(), 0, schema, lambda c, t: c[1] % 4, 4,
+                agg_cols=[0])
+        elif case == "callable predicate":
+            groupby_cuda.groupby_pages_cuda(
+                _meta_pages(), 0, schema, GroupKey(1, 4), 4, agg_cols=[0],
+                predicate=lambda c, t: c[0] > t)
+        elif case == "G above the cap":
+            g = groupby_cuda.MAX_GROUPS + 1
+            groupby_cuda.groupby_pages_cuda(
+                _meta_pages(), 0, schema, GroupKey(1, g), g, agg_cols=[0],
+                predicate=FilterPred(((0, "gt", 1),)))
+        else:
+            meta = PackedMeta(1, 32, 1, 32, ("int32",),
+                              (ColCodec("raw", 16, 32),), 0, 0)
+            decode_cuda.decode_filter_pages_cuda(
+                _meta_pages(), 0, meta, lambda c, t: c[0] > t)
+    assert e.value.errno == errno.EINVAL
+    if case == "G above the cap":
+        assert str(groupby_cuda.MAX_GROUPS) in str(e.value)
+    else:
+        assert "callable" in str(e.value)
+    assert (groupby_cuda.launches, decode_cuda.launches) == before
