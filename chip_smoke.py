@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of nvme_strom_tpu_torch on one CUDA card.
 
-Drives the port's main paths — load, scan, GROUP BY and the packed-sidecar
-(pushdown) aggregate — at full size and holds every CUDA kernel of those
+Drives the port's main paths — load, scan, GROUP BY, the packed-sidecar
+(pushdown) aggregate, the multi-host sharded load and the ring scan — at
+full size and holds every CUDA kernel of those
 paths against its plain PyTorch version:
 
 1. environment: the card's name and power limit (``nvidia-smi``);
@@ -34,7 +35,21 @@ paths against its plain PyTorch version:
    of phase 3; then each kernel timed at that batch shape with CUDA events
    over a ring of distinct batches, its bound from the bytes it must read
    (the regions its query touches, not the whole page), and the plain
-   version's time.
+   version's time;
+9. the ring (members are N x ``cuda:0`` on one card):
+   a. the ring permute (B4) against its plain version, bit-exact, over
+      rings of 2/3/4/8 members, uint8/int32/float32 (NaN, -0.0) blocks of
+      1 to 32768 rows, three steps each; a stalled wait raises ETIMEDOUT;
+   b. a 1 GiB file through ``load_pages_multihost`` on a 4-member ring at
+      hosts 1, 2 and 4, hosts 4 with the gather, and as a 4-member RAID-0
+      stripe (512 KiB chunks) with the gather, each shard and replica
+      checked against the file in 64 MiB pieces;
+   c. ``ring_scan_source`` over phase 5's table, four thresholds, against
+      numpy truth;
+   d. B4 timed at the redistribution's and the ring scan's block shapes
+      beside ``dst.copy_(src)`` and its plain version;
+   with two or more cards, 9a and 9b again with the members on distinct
+   cards; with one, that leg is reported as not run.
 
 Every main path sets the kernels' launch counts to 0 just before it runs
 and reads them just after; each kernel of a path must have launched once
@@ -44,6 +59,7 @@ output is ``{"ok": true, "device": {...}}``; the line before it is the
 kernel table.
 
 Usage: python3 chip_smoke.py [--load-gib G] [--scan-pages N] [--seed S]
+       python3 chip_smoke.py --cross-card   # only the cross-card leg
 """
 
 from __future__ import annotations
@@ -60,6 +76,7 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
+NVLINK_BYTES_PER_S = 450e9         # H100 SXM NVLink, one direction
 F32_OPS_PER_S = 67e12              # H100 SXM 32-bit rate outside tensor cores
 SCAN_BATCH_PAGES = 2048            # 16 MiB chunk_size / 8 KiB pages
 INT_MIN, INT_MAX = -(1 << 31), (1 << 31) - 1
@@ -439,15 +456,46 @@ def _write_random_file(path, nbytes, seed, piece=64 << 20):
             f.write(rng.bytes(min(piece, nbytes - off)))
 
 
-def _time_ms(torch, fn, iters):
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+def _time_ms(torch, fn, iters, queued=False):
+    """Milliseconds per call of *fn*, from CUDA events around *iters* calls
+    on the current stream.  As issued (the default), the device runs each
+    call when the host gets to it, so a call whose host side is slower
+    than its device side measures the host; that is the time of the plain
+    versions and wrappers.  *queued* times the device alone: the calls
+    queue behind a GPU sleep sized from an untimed pass (doubled until the
+    device was still asleep when the last call was queued), then run back
+    to back.  *fn* must not wait for the device."""
+    if not queued:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(iters):
+            fn(i)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+    t0 = time.perf_counter()
     for i in range(iters):
         fn(i)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    torch.cuda.synchronize()
+    cycles = int(4e9 * (time.perf_counter() - t0)) + 2_000_000
+    for _ in range(4):
+        awake = torch.cuda.Event()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)     # cycles of the SM clock (<= ~2 GHz)
+        awake.record()
+        start.record()
+        for i in range(iters):
+            fn(i)
+        end.record()
+        asleep = not awake.query()
+        end.synchronize()
+        if asleep:
+            return start.elapsed_time(end) / iters
+        cycles *= 2
+    raise AssertionError("the timed calls could not be queued ahead of the "
+                         "device")
 
 
 def _first_batch(torch, dev, path):
@@ -718,11 +766,320 @@ def _pushdown_path(torch, dev, tmp, seed, n_pages, read_gbs, h2d_gbs):
     return cnt_c["b2"], ring, meta, pred
 
 
+RING_THRESHOLDS = (-500, 0, 250, 900)   # one query per member of [9c]
+
+
+def _bits(torch, t):
+    """A tensor's bytes, for bit-exact comparison (NaN and -0.0 too)."""
+    return t.contiguous().view(-1).view(torch.uint8)
+
+
+def _random_block(torch, gen, dev, dtype, rows):
+    if dtype == torch.uint8:
+        return torch.randint(0, 256, (rows, 8192), dtype=torch.uint8,
+                             device=dev, generator=gen)
+    if dtype == torch.int32:
+        return torch.randint(INT_MIN, INT_MAX, (rows,), dtype=torch.int32,
+                             device=dev, generator=gen)
+    x = torch.randn((rows, 3), dtype=torch.float32, device=dev, generator=gen)
+    x.view(-1)[0] = float("nan")
+    x.view(-1)[-1] = -0.0
+    return x
+
+
+def _permute_cases(torch, members, seed, label):
+    """Phase 9a: B4 against its plain version over rings of 2, 3, 4 and 8
+    members on *members* (a device per position, cycled), three
+    consecutive steps each so the signal epochs advance; every result
+    bit-exact.  Returns the number of cases."""
+    from nvme_strom_tpu_torch.ops import permute_cuda
+    from nvme_strom_tpu_torch.ops.permute import permute_step_plain
+    gen = {d: torch.Generator(device=d).manual_seed(seed + 9)
+           for d in dict.fromkeys(members)}
+    sends0, waits0 = permute_cuda.launches, permute_cuda.wait_launches
+    expect, cases = 0, 0
+    for n in (2, 3, 4, 8):
+        devs = [members[i % len(members)] for i in range(n)]
+        for dtype in (torch.uint8, torch.int32, torch.float32):
+            for rows in (1, 3, 5, 512, 32768):
+                blocks = [_random_block(torch, gen[d], d, dtype, rows)
+                          for d in devs]
+                for step in range(3):
+                    got = permute_cuda.ring_permute_cuda(blocks)
+                    want = permute_step_plain(blocks)
+                    for d in dict.fromkeys(devs):
+                        torch.cuda.synchronize(d)
+                    for i, (g, w) in enumerate(zip(got, want)):
+                        if g.device != devs[i] or \
+                                not torch.equal(_bits(torch, g),
+                                                _bits(torch, w)):
+                            raise AssertionError(
+                                f"{label}: B4 ring of {n}, {dtype} x {rows} "
+                                f"rows, step {step}: member {i} differs "
+                                f"from plain")
+                    blocks = got
+                    expect += n
+                cases += 1
+                del blocks, got, want
+    if permute_cuda.launches - sends0 != expect or \
+            permute_cuda.wait_launches - waits0 != expect:
+        raise AssertionError(f"{label}: B4 {permute_cuda.launches - sends0} "
+                             f"sends, {permute_cuda.wait_launches - waits0} "
+                             f"waits, expected {expect} each")
+    return cases
+
+
+def _stalled_wait(torch, dev):
+    """Phase 9a: a wait that no signal will satisfy raises ETIMEDOUT
+    within its budget, and the ring works again afterwards."""
+    import errno
+    from nvme_strom_tpu_torch.api import StromError
+    from nvme_strom_tpu_torch.ops import permute_cuda
+    t0 = time.monotonic()
+    try:
+        permute_cuda.wait_signals([dev] * 4, 1, 1, budget_s=0.05)
+    except StromError as e:
+        if e.errno != errno.ETIMEDOUT:
+            raise
+    else:
+        raise AssertionError("a stalled B4 wait returned without error")
+    stall_s = time.monotonic() - t0
+    blocks = [torch.full((5,), i, dtype=torch.int32, device=dev)
+              for i in range(4)]
+    got = permute_cuda.ring_permute_cuda(blocks)
+    if [int(g[0]) for g in got] != [3, 0, 1, 2]:
+        raise AssertionError("the ring after a timeout rotated wrongly")
+    return stall_s
+
+
+def _file_mismatch(torch, shards, path, offsets, piece=64 << 20):
+    """Compare each tensor in *shards* with the file's bytes at its offset
+    in *offsets*, *piece* bytes at a time (the file read once per piece
+    for replicas at one offset).  Returns the first bad file offset."""
+    flats = [s.reshape(-1).view(torch.uint8) for s in shards]
+    with open(path, "rb", buffering=0) as f:
+        for base in sorted(set(offsets)):
+            group = [fl for fl, o in zip(flats, offsets) if o == base]
+            n = group[0].numel()
+            f.seek(base)
+            for off in range(0, n, piece):
+                want = np.frombuffer(f.read(min(piece, n - off)), np.uint8)
+                for fl in group:
+                    got = fl[off:off + len(want)].cpu().numpy()
+                    if not np.array_equal(got, want):
+                        return base + off
+    return None
+
+
+def _write_striped(path, members, chunk, piece=64 << 20):
+    """Split *path* into RAID-0 member files of *chunk*-byte stripes."""
+    outs = [open(m, "wb") for m in members]
+    try:
+        with open(path, "rb") as f:
+            c = 0
+            while True:
+                buf = f.read(piece)
+                if not buf:
+                    break
+                for off in range(0, len(buf), chunk):
+                    outs[c % len(outs)].write(buf[off:off + chunk])
+                    c += 1
+    finally:
+        for o in outs:
+            o.close()
+
+
+def _multihost_path(torch, members, tmp, seed, label, nbytes=1 << 30):
+    """Phase 9b: a 1 GiB seeded file through load_pages_multihost on a
+    ring over *members*: hosts 1, 2 and 4, hosts 4 with the gather, then
+    the same bytes as a 4-member RAID-0 stripe (512 KiB chunks) with the
+    gather.  Every shard and replica byte-identical to the file; B4
+    launches as designed.  Returns the B4 launches."""
+    from nvme_strom_tpu_torch.engine import open_source
+    from nvme_strom_tpu_torch.ops import permute_cuda
+    from nvme_strom_tpu_torch.parallel import (load_pages_multihost,
+                                               make_scan_mesh)
+    from nvme_strom_tpu_torch.scan.heap import PAGE_SIZE
+    from nvme_strom_tpu_torch.stats import stats
+    from nvme_strom_tpu_torch.tools.common import drop_page_cache
+    path = os.path.join(tmp, "multihost.bin")
+    _write_random_file(path, nbytes, seed + 5)
+    paths = [os.path.join(tmp, f"md0.m{k}") for k in range(4)]
+    _write_striped(path, paths, 512 << 10)
+    mesh = make_scan_mesh(members)
+    n = mesh.size
+    shard = nbytes // n
+    total = 0
+    runs = [(1, False, "plain"), (2, False, "plain"), (4, False, "plain"),
+            (4, True, "plain"), (4, True, "md0 4x512KiB")]
+    for hosts, gather, kind in runs:
+        for p in [path] + paths:
+            drop_page_cache(p)
+        src = open_source(path) if kind == "plain" else \
+            open_source(paths, stripe_chunk_size=512 << 10)
+        stats.reset()
+        permute_cuda.launches = 0
+        torch.cuda.reset_peak_memory_stats(members[0])
+        t0 = time.monotonic()
+        with src:
+            out = load_pages_multihost(src, mesh, hosts=hosts, gather=gather)
+        wall = time.monotonic() - t0
+        launches = permute_cuda.launches
+        c = stats.snapshot()
+        steps = (n - 1) * (3 if gather else 2)
+        if launches != n * steps:
+            raise AssertionError(f"{label} hosts={hosts} gather={gather}: "
+                                 f"{launches} B4 launches, expected "
+                                 f"{n * steps}")
+        offsets = [0] * n if gather else [i * shard for i in range(n)]
+        bad = _file_mismatch(torch, out, path, offsets)
+        if bad is not None:
+            raise AssertionError(f"{label} {kind} hosts={hosts} gather="
+                                 f"{gather}: bytes differ at {bad}")
+        read_s = c["clk_shard_load"] / 1e9
+        peak = torch.cuda.max_memory_allocated(members[0]) / (1 << 30)
+        print(f"[9b] {label} {kind}, hosts={hosts}"
+              f"{', gather' if gather else ''}: read {read_s:.3f} s = "
+              f"{nbytes / read_s / 1e9:.3f} GB/s aggregate; redistribution "
+              f"{c['clk_ici_redistribute'] / 1e6:.2f} ms"
+              + (f", gather {c['clk_ici_gather'] / 1e6:.2f} ms" if gather
+                 else "")
+              + f"; whole call {wall:.3f} s; B4 {launches} launches, "
+              f"bytes_ici {c['bytes_ici']}; peak {peak:.2f} GiB on "
+              f"{members[0]}; {'every replica' if gather else 'every shard'}"
+              f" byte-identical")
+        total += launches
+        del out
+    print("     (the host counts share one local disk here, so their GB/s "
+          "are not expected to scale)")
+    for p in [path] + paths:
+        os.unlink(p)
+    return total
+
+
+def _ring_scan_path(torch, dev, heap_path, truth):
+    """Phase 9c: ring_scan_source over phase [5]'s 1 GiB table on a
+    4-member ring on *dev*, one threshold a member; counts and wrapping
+    sums against numpy truth, B1 and B4 launches as designed."""
+    from nvme_strom_tpu_torch.engine import open_source
+    from nvme_strom_tpu_torch.ops import filter_cuda, permute_cuda
+    from nvme_strom_tpu_torch.parallel import ring_scan_source
+    from nvme_strom_tpu_torch.stats import stats
+    from nvme_strom_tpu_torch.tools.common import drop_page_cache
+    n = len(RING_THRESHOLDS)
+    n_pages = os.path.getsize(heap_path) // 8192
+    batches = -(-n_pages // SCAN_BATCH_PAGES)
+    drop_page_cache(heap_path)
+    filter_cuda.launches = permute_cuda.launches = 0
+    stats.reset()
+    t0 = time.monotonic()
+    with open_source(heap_path) as src:
+        out = ring_scan_source(src, np.array(RING_THRESHOLDS, np.int32),
+                               batch_pages=SCAN_BATCH_PAGES,
+                               devices=[dev] * n)
+    run_s = time.monotonic() - t0
+    b1, b4 = filter_cuda.launches, permute_cuda.launches
+    for q, (count, s0, s1) in enumerate(truth):
+        if int(out["count"][q]) != count or \
+                [int(out["sums"][q, 0]), int(out["sums"][q, 1])] != [s0, s1]:
+            raise AssertionError(f"ring scan query {q}: count "
+                                 f"{int(out['count'][q])} sums "
+                                 f"{out['sums'][q].tolist()}, numpy truth "
+                                 f"{count} {[s0, s1]}")
+    if b1 != batches * n * n or b4 != batches * n * (n - 1):
+        raise AssertionError(f"ring scan: {b1} B1 and {b4} B4 launches for "
+                             f"{batches} batches; expected {batches * n * n}"
+                             f" and {batches * n * (n - 1)}")
+    size = os.path.getsize(heap_path)
+    print(f"[9c] ring scan: {size} bytes, {n} members on {dev}, thresholds "
+          f"{list(RING_THRESHOLDS)}: {run_s:.3f} s = "
+          f"{size / run_s / 1e9:.3f} GB/s of table ({n} queries); counts "
+          f"{out['count'].tolist()} and both columns' int32 sums match "
+          f"numpy; {b1} B1 launches (= {batches} batches x {n} x {n}), "
+          f"{b4} B4 launches (= {batches} x {n} x {n - 1})")
+    return b4
+
+
+def _permute_times(torch, dev, peer=None, tag="[9d]"):
+    """Phase 9d: the bare B4 launch timed on the device (queued back to
+    back, :func:`_time_ms`) over a ring of distinct blocks, at the
+    redistribution's blocks ((32768, 8192) uint8 and its (32768,) int32
+    ids) and the ring scan's (512, 8192) uint8;
+    beside it one dst.copy_(src) of the same bytes (the library call), the
+    plain version per block, and the bound: 2 x bytes / HBM rate on one
+    card, bytes / one direction of NVLink from *dev* to a *peer* card
+    (where the plain version's per-block work, a fresh tensor on the peer
+    and a ``copy_``, is timed alone: its ring would run on two streams)."""
+    from nvme_strom_tpu_torch.ops import permute_cuda
+    from nvme_strom_tpu_torch.ops.permute import permute_step_plain
+    to = peer or dev
+    if peer is not None:      # enables peer access both ways, once
+        permute_cuda.ring_permute_cuda([
+            torch.zeros(1, device=dev), torch.zeros(1, device=peer)])
+    cnt = torch.zeros(1, dtype=torch.int64, device=to)
+    rows = []
+    for name, shape, dtype, iters in (
+            ("redistribution data (32768, 8192) uint8", (32768, 8192),
+             torch.uint8, 24),
+            ("redistribution ids (32768,) int32", (32768,), torch.int32, 256),
+            ("ring scan block (512, 8192) uint8", (512, 8192), torch.uint8,
+             256)):
+        nbytes = int(np.prod(shape)) * torch.empty((), dtype=dtype) \
+            .element_size()
+        # enough distinct blocks that sources and destinations (128 MiB)
+        # overflow the 50 MB L2: each timed launch reads and writes HBM
+        k = max(4, -(-(64 << 20) // nbytes))
+        src = [torch.randint(0, 100, shape, dtype=dtype, device=dev)
+               for _ in range(k)]
+        dst = [torch.empty_like(s, device=to) for s in src]
+        for i in range(k):
+            permute_cuda.launch(src[i], dst[i], cnt)
+            dst[i].copy_(src[i])
+        ms = _time_ms(torch, lambda i: permute_cuda.launch(
+            src[i % k], dst[(i + 1) % k], cnt), iters, queued=True)
+        # across cards a copy_ call does not return before the device
+        # reaches it (it could not be queued behind the sleep on four
+        # H100s), so there it is timed as issued
+        lib = _time_ms(torch, lambda i: dst[(i + 1) % k].copy_(src[i % k]),
+                       iters, queued=peer is None)
+        if peer is None:
+            permute_step_plain(src)
+            plain = _time_ms(torch, lambda i: permute_step_plain(src),
+                             max(iters // k, 4)) / k
+            bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+        else:
+            plain = _time_ms(torch, lambda i: torch.empty_like(
+                src[i % k], device=peer).copy_(src[i % k]), iters)
+            bound = nbytes / NVLINK_BYTES_PER_S * 1e3
+        rows.append((name, nbytes, ms, plain, bound, lib))
+        print(f"{tag} B4 {name}, {nbytes} bytes a block, {dev} -> {to}: "
+              f"{ms:.4f} ms (bound {bound:.4f} ms = {bound / ms:.1%}); copy_ "
+              f"{lib:.4f} ms{' as issued' if peer else ''}; plain "
+              f"{plain:.4f} ms a block")
+        del src, dst
+    return rows
+
+
+def _cross_card_leg(torch, tmp, seed):
+    """Phases 9a and 9b again with the ring's members on distinct cards,
+    and B4 timed from card 0 to card 1 (NVLink)."""
+    cards = [torch.device("cuda", i)
+             for i in range(torch.cuda.device_count())]
+    n_cases = _permute_cases(torch, cards, seed, "cross-card")
+    print(f"[9x] cross-card leg: B4 vs plain with members cycling over "
+          f"{len(cards)} cards: {n_cases} cases bit-exact")
+    _multihost_path(torch, [cards[i % len(cards)] for i in range(4)], tmp,
+                    seed, f"4 members on {len(cards)} cards")
+    _permute_times(torch, cards[0], cards[1], "[9x]")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--load-gib", type=float, default=1.0)
     ap.add_argument("--scan-pages", type=int, default=131072)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cross-card", action="store_true",
+                    help="run only the cross-card leg (needs two cards)")
     args = ap.parse_args()
     if args.load_gib < 1.0 or args.scan_pages < 131072:
         ap.error("the load is at least 1 GiB and the scan 131072 pages")
@@ -767,6 +1124,21 @@ def main() -> int:
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
+
+    if args.cross_card:
+        if torch.cuda.device_count() < 2:
+            print("chip_smoke: --cross-card needs two cards", file=sys.stderr)
+            return 2
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            _cross_card_leg(torch, tmp, args.seed)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(f"    total {time.monotonic() - t_start:.1f} s")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -825,7 +1197,14 @@ def main() -> int:
         want_count = int(sel.sum())
         want_sum = int(np.uint32(c1[sel].astype(np.int64).sum()
                                  & 0xFFFFFFFF).view(np.int32))
-        del c0, c1, vis, sel
+        # numpy truth of phase [9c]'s ring scan over this same table
+        ring_truth = []
+        for rth in RING_THRESHOLDS:
+            rsel = (vis != 0) & (c0 > rth)
+            ring_truth.append((int(rsel.sum()), *(
+                int(np.uint32(c[rsel].astype(np.int64).sum() & 0xFFFFFFFF)
+                    .view(np.int32)) for c in (c0, c1))))
+        del c0, c1, vis, sel, rsel
         table_bytes = os.path.getsize(heap_path)
         # read-only pass (SSD -> pinned pool, no device work), then the
         # counted scan, each from a cold page cache
@@ -868,7 +1247,6 @@ def main() -> int:
               f"{read_gbs:.3f} GB/s; scanner set-up, not in the scan's "
               f"time: {setup_s * 1e3:.1f} ms")
         filter_ring = _first_batch(torch, dev, heap_path)
-        os.unlink(heap_path)
         h2d = measure_h2d(dev)
 
         # -- main paths: GROUP BY, then the packed-sidecar aggregate -----
@@ -887,7 +1265,7 @@ def main() -> int:
         f_ms = _time_ms(
             torch, lambda i: filter_cuda.launch(
                 filter_ring[i % 8], spec, outb[:1], outb[1:3],
-                outb[3:].view(torch.float32)), 256)
+                outb[3:].view(torch.float32)), 256, queued=True)
         f_wrap_ms = _time_ms(
             torch, lambda i: filter_cuda.scan_filter_step_cuda(
                 filter_ring[i % 8], th), 64)
@@ -928,7 +1306,7 @@ def main() -> int:
             for b in gb_ring:
                 groupby_cuda.launch(b, gspec, dt, buf)
             g_ms = _time_ms(torch, lambda i: groupby_cuda.launch(
-                gb_ring[i % 8], gspec, dt, buf), 128)
+                gb_ring[i % 8], gspec, dt, buf), 128, queued=True)
             g_plain_ms = _time_ms(torch, lambda i: plain(gb_ring[i % 8]), 8)
             tuples = SCAN_BATCH_PAGES * gb_schema.tuples_per_page
             g_bytes = _groupby_bytes(gb_schema, key, agg, pred,
@@ -960,7 +1338,7 @@ def main() -> int:
                                dout[1 + ni:].view(torch.float32))
         d_ms = _time_ms(torch, lambda i: decode_cuda.launch(
             dec_ring[i % 8], dspec, dout[:1], dout[1:1 + ni],
-            dout[1 + ni:].view(torch.float32)), 256)
+            dout[1 + ni:].view(torch.float32)), 256, queued=True)
         d_plain_ms = _time_ms(torch, lambda i: dplain(dec_ring[i % 8]), 8)
         rows = SCAN_BATCH_PAGES * meta.rows_per_block
         n_c = len(meta.cols)
@@ -977,8 +1355,9 @@ def main() -> int:
               f"{share_g:.1%} of its tolerance at most; B2 max |float err| "
               f"{worst_d:.3g})")
         print(f"    times at the main paths' batch shape ({SCAN_BATCH_PAGES}"
-              f", {PAGE_SIZE}) uint8, bare launches over 8 distinct batches;"
-              f" bounds from the bytes each kernel must read:")
+              f", {PAGE_SIZE}) uint8, bare launches over 8 distinct batches "
+              f"queued back to back (device time; wrapper and plain times as "
+              f"issued); bounds from the bytes each kernel must read:")
         print(f"    B1 filter_pages: {f_ms:.4f} ms (bound {f_bound_ms:.4f} ms "
               f"by {f_bytes} bytes = {f_bound_ms / f_ms:.1%}); wrapper call "
               f"{f_wrap_ms:.4f} ms; plain {f_plain_ms:.4f} ms")
@@ -990,8 +1369,28 @@ def main() -> int:
               f"block): {d_ms:.4f} ms (bound {d_bound_ms:.4f} ms by "
               f"{d_bytes} bytes = {d_bound_ms / d_ms:.1%}); plain "
               f"{d_plain_ms:.4f} ms")
-        print(f"    pinned h2d {h2d:.3f} GB/s; total "
-              f"{time.monotonic() - t_start:.1f} s")
+        print(f"    pinned h2d {h2d:.3f} GB/s")
+
+        # -- the ring: B4 against plain, then its main paths ------------
+        del filter_ring, gb_ring, dec_ring
+        n_cases = _permute_cases(torch, [dev], args.seed, "one card")
+        stall_s = _stalled_wait(torch, dev)
+        print(f"[9a] B4 vs plain on {dev}: {n_cases} cases (rings of 2, 3, "
+              f"4 and 8 members; uint8 pages, int32 ids, float32 with NaN "
+              f"and -0.0; 1 to 32768 rows; three steps each) bit-exact; a "
+              f"stalled wait raised ETIMEDOUT after {stall_s:.3f} s and the "
+              f"ring rotated correctly after it")
+        ring_launches = _multihost_path(torch, [dev] * 4, tmp, args.seed,
+                                        "4 members on one card")
+        ring_launches += _ring_scan_path(torch, dev, heap_path, ring_truth)
+        os.unlink(heap_path)
+        ring_rows = _permute_times(torch, dev)
+        if torch.cuda.device_count() >= 2:
+            _cross_card_leg(torch, tmp, args.seed)
+        else:
+            print("[9x] cross-card leg: not run: one card visible "
+                  "(not passed, not failed)")
+        print(f"    total {time.monotonic() - t_start:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1032,6 +1431,18 @@ def main() -> int:
         "bound_ms": d_bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
+    }, {
+        "name": "ring_permute",
+        "route": "cuda",
+        "source": "nvme_strom_tpu_torch/csrc/permute.cu",
+        "replaces": "nvme_strom_tpu/parallel/ring.py:108",
+        "launches": ring_launches,
+        "max_abs_err": 0.0,
+        "ms": ring_rows[0][2],
+        "plain_ms": ring_rows[0][3],
+        "bound_ms": ring_rows[0][4],
+        "bound_by": "bytes",
+        "library_ms": ring_rows[0][5],
     }]}
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,10 @@ with no CUDA device they raise ``StromError(ENODEV)``.
 * :mod:`.engine` — file check, sources, pinned buffers, async read tasks.
 * :mod:`.hbm` — device registry, bounded fences, the staging pipeline.
 * :mod:`.scan` — heap page format, DMA pool, table scanner.
-* :mod:`.ops` — the page filter: plain PyTorch and the CUDA kernel.
+* :mod:`.ops` — the kernels (page filter, GROUP BY, packed decode, ring
+  permute): plain PyTorch versions and the CUDA kernels.
+* :mod:`.parallel` — the ring of members: sharded and multi-host loading,
+  the ring permute, all-gather and the ring multi-query scan.
 """
 
 from .api import BufferInfo, FileInfo, FsKind, MemCopyResult, StromError

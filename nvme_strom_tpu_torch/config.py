@@ -52,6 +52,11 @@ def _pushdown_codecs(val: str) -> None:
                           f"bitpack|dict|rle, got {bad[0]!r}")
 
 
+def _ici_permute(val: str) -> None:
+    if val not in ("auto", "cuda", "plain"):
+        raise ConfigError(f"ici_permute must be auto|cuda|plain, got {val!r}")
+
+
 @dataclass(frozen=True)
 class _Var:
     default: Any
@@ -106,6 +111,12 @@ _VARS: Dict[str, _Var] = {
     # planner's host->device and SSD read rates in GB/s (0 = measured)
     "pushdown_h2d_gbps": _Var(0.0, float, 0.0),
     "pushdown_ssd_gbps": _Var(0.0, float, 0.0),
+    # host count the multi-host sharded loader plans ownership for
+    # (member % shard_hosts); 0 = one host unless a call passes hosts
+    "shard_hosts": _Var(0, int, 0, 4096),
+    # ring permute transport: auto (from the members' device type) |
+    # cuda (the hand-written kernel) | plain (PyTorch copies)
+    "ici_permute": _Var("auto", str, check=_ici_permute),
 }
 
 

@@ -8,6 +8,9 @@ reads with ``O_DIRECT`` ``os.preadv`` on a thread pool (the JAX engine's
 * ``check_file`` — O_DIRECT probe, fs class, logical block size, request
   cap (reference ``ioctl_check_file``, :188-583);
 * ``PlainSource`` — one regular file, direct and buffered fds;
+* ``StripedSource`` — a read-only RAID-0 set of member files
+  (:mod:`.stripe`), and the host-ownership planner of the multi-host
+  sharded loader (``plan_shard_ownership``);
 * ``DmaBuffer`` — page-aligned anonymous mmap (hugepages when the length
   allows), optionally mlock'd, and registered with the CUDA runtime
   (``cudaHostRegister``) so host→device copies from it run asynchronously;
@@ -15,10 +18,10 @@ reads with ``O_DIRECT`` ``os.preadv`` on a thread pool (the JAX engine's
   error latched and retained until a wait reaps it (reference design memo
   :612-626).
 
-Stripes, mirrors, the fault ladder, hedging, residency tiers, integrity,
-autotune, NVMe passthrough, the native io_uring engine and page-cache
-(mincore) arbitration are not part of this copy: every chunk is read
-direct, in the caller's order.
+Mirrors, writable stripes, segmented sources, the fault ladder, hedging,
+residency tiers, integrity, autotune, NVMe passthrough, the native
+io_uring engine and page-cache (mincore) arbitration are not part of this
+copy: every chunk is read direct, in the caller's order.
 """
 
 from __future__ import annotations
@@ -31,14 +34,15 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from .api import BufferInfo, FileInfo, FsKind, MemCopyResult, StromError
 from .config import config
 from .log import pr_warn
 from .stats import stats
 
-__all__ = ["check_file", "Source", "PlainSource", "open_source",
+__all__ = ["check_file", "Source", "PlainSource", "StripedSource",
+           "open_source", "reorder_chunks", "plan_shard_ownership",
            "DmaBuffer", "Session", "Request", "plan_requests"]
 
 PAGE_SIZE = mmap.PAGESIZE
@@ -205,10 +209,137 @@ class PlainSource(Source):
         self._fd_direct = self._fd_buffered = -1
 
 
-def open_source(path: str) -> Source:
-    """Open a plain file source, aligned to its device's block size."""
-    info = check_file(path)
-    return PlainSource(path, info.logical_block_size)
+class _FileMember:
+    """One member file of a striped source: a direct and a buffered fd."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.size = os.stat(path).st_size
+        try:
+            self.fd_direct = os.open(path, os.O_RDONLY | os.O_DIRECT)
+        except OSError:
+            self.fd_direct = -1
+        self.fd_buffered = os.open(path, os.O_RDONLY)
+
+    def close(self) -> None:
+        for fd in (self.fd_direct, self.fd_buffered):
+            if fd >= 0:
+                os.close(fd)
+        self.fd_direct = self.fd_buffered = -1
+
+
+class StripedSource(Source):
+    """A read-only RAID-0 member set resolved with
+    :class:`..stripe.StripeMap` (BASELINE's md0 configuration as plain
+    member files)."""
+
+    def __init__(self, paths: Sequence[str], stripe_chunk_size: int,
+                 block_size: int = 512):
+        from .stripe import StripeMap
+        self.members = [_FileMember(p) for p in paths]
+        try:
+            self.map = StripeMap([m.size for m in self.members],
+                                 stripe_chunk_size)
+        except ValueError as e:
+            self.close()
+            raise StromError(_errno.EINVAL, str(e)) from None
+        self.size = self.map.total_size
+        self.block_size = block_size
+        self.stripe_chunk_size = stripe_chunk_size
+
+    def extents(self, offset: int, length: int) -> List[Extent]:
+        try:
+            pieces = self.map.map_range(offset, length)
+        except ValueError as e:
+            raise StromError(_errno.EINVAL, str(e)) from None
+        return [Extent(e.member, e.member_offset, e.length, e.logical_offset)
+                for e in pieces]
+
+    def member_fds(self) -> List[int]:
+        return [m.fd_direct for m in self.members]
+
+    def read_buffered(self, offset: int, dest: memoryview) -> None:
+        for e in self.extents(offset, len(dest)):
+            rel = e.logical_off - offset
+            self.read_member_buffered(e.member, e.file_off,
+                                      dest[rel:rel + e.length])
+
+    def read_member_buffered(self, member: int, file_off: int,
+                             dest: memoryview) -> None:
+        n = os.preadv(self.members[member].fd_buffered, [dest], file_off)
+        if n != len(dest):
+            raise StromError(_errno.EIO, "short buffered read")
+
+    def close(self) -> None:
+        for m in self.members:
+            m.close()
+
+
+def open_source(spec: Union[str, Sequence[str]], *,
+                stripe_chunk_size: Optional[int] = None) -> Source:
+    """Open a plain file (a path), aligned to its device's block size, or
+    a striped member set (a list of paths and ``stripe_chunk_size``)."""
+    if isinstance(spec, str):
+        info = check_file(spec)
+        return PlainSource(spec, info.logical_block_size)
+    if not stripe_chunk_size:
+        raise StromError(_errno.EINVAL,
+                         "a multi-path source needs stripe_chunk_size")
+    return StripedSource(list(spec), stripe_chunk_size)
+
+
+def reorder_chunks(raw: "np.ndarray", chunk_size: int,
+                   got_ids: Sequence[int],
+                   want_ids: Sequence[int]) -> "np.ndarray":
+    """Rearrange a chunk-strided buffer from the engine's completion order
+    back to the caller's requested order (the reference's chunk_ids
+    contract, kmod/nvme_strom.h:99-101).  Returns *raw* unchanged when the
+    orders already match, else an owned copy."""
+    import numpy as np
+    got = list(got_ids)
+    want = list(want_ids)
+    if got == want:
+        return raw
+    pos = {cid: j for j, cid in enumerate(want)}
+    blocks = raw.reshape(len(got), chunk_size)
+    ordered = np.empty_like(blocks)
+    ordered[[pos[c] for c in got]] = blocks
+    return ordered.reshape(raw.shape)
+
+
+def plan_shard_ownership(source: Source, chunk_ids: Sequence[int],
+                         chunk_size: int, n_hosts: int
+                         ) -> Dict[int, List[int]]:
+    """Partition a chunk list by host for the multi-host sharded loader:
+    host → the chunks whose first extent lives on a member that host
+    holds (:func:`..stripe.host_of`, member % n_hosts).  A single-member
+    source has no placement to follow, so it splits into contiguous
+    near-equal ranges.  Every chunk lands in exactly one host's list;
+    hosts owning no member of a narrow stripe get empty lists."""
+    from .stripe import host_of
+    n_hosts = max(int(n_hosts), 1)
+    ids = [int(c) for c in chunk_ids]
+    owned: Dict[int, List[int]] = {h: [] for h in range(n_hosts)}
+    if n_hosts < 2:
+        owned[0] = ids
+        return owned
+    if len(source.member_fds()) < 2:
+        q, r = divmod(len(ids), n_hosts)
+        pos = 0
+        for h in range(n_hosts):
+            take = q + (1 if h < r else 0)
+            owned[h] = ids[pos:pos + take]
+            pos += take
+        return owned
+    for cid in ids:
+        off = cid * chunk_size
+        length = min(chunk_size, max(source.size - off, 0))
+        if length <= 0:
+            owned[host_of(0, n_hosts)].append(cid)
+            continue
+        member = source.extents(off, length)[0].member
+        owned[host_of(member, n_hosts)].append(cid)
+    return owned
 
 
 # ---------------------------------------------------------------------------

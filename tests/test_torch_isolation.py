@@ -35,7 +35,9 @@ _SCRIPT = textwrap.dedent("""
         importlib.import_module(name)
     for mod in ("ops.groupby", "ops.groupby_cuda", "ops.decode",
                 "ops.decode_cuda", "scan.colpack", "scan.planner",
-                "scan.query"):
+                "scan.query", "stripe", "ops.permute", "ops.permute_cuda",
+                "parallel", "parallel.mesh", "parallel.ring",
+                "parallel.stream", "parallel.shardload"):
         assert pkg.__name__ + "." + mod in names, mod
     import chip_smoke  # noqa: F401
     leaked = [m for m in sys.modules
@@ -65,7 +67,12 @@ _SCRIPT = textwrap.dedent("""
         Query(path, HeapSchema(n_cols=2)).aggregate([0]).run()
     except StromError as e:
         codes.append(e.errno)
-    assert codes == [errno.ENODEV] * 3, codes
+    from nvme_strom_tpu_torch.parallel import make_ring_multi_query_scan
+    try:
+        make_ring_multi_query_scan()
+    except StromError as e:
+        codes.append(e.errno)
+    assert codes == [errno.ENODEV] * 4, codes
     print("ISOLATED", len(names))
 """)
 
@@ -96,7 +103,8 @@ def _meta_pages(n=2):
 
 
 @pytest.mark.parametrize("case", ["callable key", "callable predicate",
-                                  "G above the cap", "decode callable"])
+                                  "G above the cap", "decode callable",
+                                  "ring permute"])
 def test_non_cpu_tensor_never_reaches_a_plain_version(case):
     """A tensor that is not on the CPU (a meta tensor here, a CUDA tensor
     on the card) goes to the kernel or raises EINVAL: a callable key or
@@ -105,13 +113,15 @@ def test_non_cpu_tensor_never_reaches_a_plain_version(case):
     import errno
 
     from nvme_strom_tpu_torch.api import StromError
-    from nvme_strom_tpu_torch.ops import decode_cuda, groupby_cuda
+    from nvme_strom_tpu_torch.ops import decode_cuda, groupby_cuda, \
+        permute_cuda
     from nvme_strom_tpu_torch.ops.filter import FilterPred
     from nvme_strom_tpu_torch.ops.groupby import GroupKey
     from nvme_strom_tpu_torch.scan.colpack import ColCodec, PackedMeta
     from nvme_strom_tpu_torch.scan.heap import HeapSchema
     schema = HeapSchema(n_cols=2)
-    before = (groupby_cuda.launches, decode_cuda.launches)
+    before = (groupby_cuda.launches, decode_cuda.launches,
+              permute_cuda.launches)
     with pytest.raises(StromError) as e:
         if case == "callable key":
             groupby_cuda.groupby_pages_cuda(
@@ -126,6 +136,8 @@ def test_non_cpu_tensor_never_reaches_a_plain_version(case):
             groupby_cuda.groupby_pages_cuda(
                 _meta_pages(), 0, schema, GroupKey(1, g), g, agg_cols=[0],
                 predicate=FilterPred(((0, "gt", 1),)))
+        elif case == "ring permute":
+            permute_cuda.ring_permute_cuda([_meta_pages()] * 2)
         else:
             meta = PackedMeta(1, 32, 1, 32, ("int32",),
                               (ColCodec("raw", 16, 32),), 0, 0)
@@ -134,6 +146,9 @@ def test_non_cpu_tensor_never_reaches_a_plain_version(case):
     assert e.value.errno == errno.EINVAL
     if case == "G above the cap":
         assert str(groupby_cuda.MAX_GROUPS) in str(e.value)
+    elif case == "ring permute":
+        assert "CUDA tensors" in str(e.value)
     else:
         assert "callable" in str(e.value)
-    assert (groupby_cuda.launches, decode_cuda.launches) == before
+    assert (groupby_cuda.launches, decode_cuda.launches,
+            permute_cuda.launches) == before
