@@ -11,7 +11,10 @@ paths against its plain PyTorch version:
    all sources at once;
 3. kernel vs plain on the card, over seeded random pages:
    a. the page filter (B1) for several schemas and predicates, and the
-      jnp-promotion cases (float values against an int32 column);
+      jnp-promotion cases (float values against an int32 column); batches
+      of 1 to 2048 pages, 1 to 16 columns (each accumulator template),
+      headers with n_tuples 0, negative and above T, a view 16 bytes into
+      its buffer, and a view 4 bytes in, which must raise EINVAL;
    b. GROUP BY (B3): int32, uint32 (wrapping sums) and float32 with
       NaN/±inf, G in {1, 7, 64, the kernel's cap}, keys with INT_MIN/INT_MAX,
       negatives and out-of-range ids, with and without predicates;
@@ -35,11 +38,14 @@ paths against its plain PyTorch version:
    of phase 3; then each kernel timed at that batch shape with CUDA events
    over a ring of distinct batches, its bound from the bytes it must read
    (the regions its query touches, not the whole page), and the plain
-   version's time;
+   version's time; B1 also at the ring scan's (512, 8192) block;
 9. the ring (members are N x ``cuda:0`` on one card):
    a. the ring permute (B4) against its plain version, bit-exact, over
       rings of 2/3/4/8 members, uint8/int32/float32 (NaN, -0.0) blocks of
-      1 to 32768 rows, three steps each; a stalled wait raises ETIMEDOUT;
+      1 to 32768 rows, three steps each, and its edges (1 byte to 24 MiB,
+      around a bulk piece and the bulk kernel's least block, views 4
+      bytes into their buffers); a stalled wait raises ETIMEDOUT, alone
+      and read by a deferred ``finish_ring``, and the ring works after;
    b. a 1 GiB file through ``load_pages_multihost`` on a 4-member ring at
       hosts 1, 2 and 4, hosts 4 with the gather, and as a 4-member RAID-0
       stripe (512 KiB chunks) with the gather, each shard and replica
@@ -107,12 +113,46 @@ def _int_bits(t):
     return int(t.view(torch.int32)) if t.dtype == torch.uint32 else int(t)
 
 
+def _check_filter(torch, name, pages, schema, pred, th):
+    """B1 against its plain version on one CUDA batch: count and integer
+    sums exact, float sums within 1e-5 * sum(|x|) + 1e-6.  Returns (max
+    |float error|, the count)."""
+    from nvme_strom_tpu_torch.ops import filter_cuda
+    from nvme_strom_tpu_torch.ops.filter import decode_pages, make_filter_fn
+    got = filter_cuda.make_filter_fn_cuda(schema, pred)(pages, th)
+    want = make_filter_fn(schema, pred)(pages, th)
+    torch.cuda.synchronize(pages.device)
+    if int(got["count"]) != int(want["count"]):
+        raise AssertionError(f"{name}: count {int(got['count'])} != "
+                             f"plain {int(want['count'])}")
+    dcols, valid = decode_pages(pages, schema)
+    sel = pred.mask(dcols, valid, schema, th)
+    worst = 0.0
+    for c in range(schema.n_cols):
+        g, w = got["sums"][c], want["sums"][c]
+        if schema.col_dtype(c).kind == "f":
+            a, b = float(g), float(w)
+            mag = float(torch.where(sel, dcols[c].abs(), 0.0)
+                        .sum(dtype=torch.float64))
+            tol = 1e-5 * mag + 1e-6
+            worst = max(worst, abs(a - b))
+            if abs(a - b) > tol:
+                raise AssertionError(f"{name}: col {c} float sum {a} vs "
+                                     f"plain {b} (tol {tol})")
+        elif _int_bits(g) != _int_bits(w):
+            raise AssertionError(f"{name}: col {c} int sum bits "
+                                 f"{_int_bits(g)} != plain {_int_bits(w)}")
+    return worst, int(got["count"])
+
+
 def _filter_cases(torch, dev, seed):
     """Phase 3a: B1 vs plain on the card.  Returns max |float error|."""
+    import errno
+    from nvme_strom_tpu_torch.api import StromError
     from nvme_strom_tpu_torch.ops import filter_cuda
-    from nvme_strom_tpu_torch.ops.filter import (FilterPred, decode_pages,
-                                                 make_filter_fn)
-    from nvme_strom_tpu_torch.scan.heap import HeapSchema, build_pages
+    from nvme_strom_tpu_torch.ops.filter import FilterPred
+    from nvme_strom_tpu_torch.scan.heap import PAGE_SIZE, HeapSchema, \
+        build_pages
     rng = np.random.default_rng(seed)
     gt = FilterPred(((0, "gt", None),))
     cases = [
@@ -129,6 +169,21 @@ def _filter_cases(torch, dev, seed):
          FilterPred(()), 0, 4099, None),
         ("int32+vis all", HeapSchema(2, True), FilterPred(()), 0, 1237, None),
     ]
+    # batch sizes: one page, around one CTA an SM, the ring scan's block
+    # and the scan's batch (past 13 CTAs an SM a CTA takes two pages; the
+    # 4096-page cases above give some three, refilling a stage)
+    for n_pages in (1, 131, 132, 133, 512, 2048):
+        cases.append((f"int32+vis gt, {n_pages} pages", HeapSchema(2, True),
+                      gt, 100, n_pages, None))
+    # each template (4, 8, 16 accumulators) at and past its edge; columns
+    # cycle int32, uint32, float32
+    for n_cols in (1, 4, 5, 8, 9, 16):
+        dts = tuple(("int32", "uint32", "float32")[c % 3]
+                    for c in range(n_cols))
+        terms = ((0, "gt", None),) + (((2, "lt", 0.5),) if n_cols > 2
+                                      else ())
+        cases.append((f"{n_cols} columns+vis", HeapSchema(n_cols, True, dts),
+                      FilterPred(terms), -100, 300, None))
     # jnp promotion: a float value against an int32 column in [-5, 5)
     # compares in float32; above 2^24 the column's values round too
     numpy_op = {"ge": np.greater_equal, "lt": np.less, "eq": np.equal,
@@ -150,42 +205,55 @@ def _filter_cases(torch, dev, seed):
             cols = [rng.integers(-5, 5, n).astype(np.int32)]
             if promo[1] > 1 << 24:
                 cols[0] += np.int32((1 << 24) + 2)
-        pages_np = build_pages(cols, schema, visibility=vis)
-        pages = torch.from_numpy(pages_np).to(dev)
-        got = filter_cuda.make_filter_fn_cuda(schema, pred)(pages, th)
-        want = make_filter_fn(schema, pred)(pages, th)
-        torch.cuda.synchronize(dev)
-        if int(got["count"]) != int(want["count"]):
-            raise AssertionError(f"{name}: count {int(got['count'])} != "
-                                 f"plain {int(want['count'])}")
+        pages = torch.from_numpy(build_pages(cols, schema,
+                                             visibility=vis)).to(dev)
+        err, count = _check_filter(torch, name, pages, schema, pred, th)
+        worst = max(worst, err)
         if promo is not None:
             truth = promo[0](cols[0].astype(np.float32), np.float32(promo[1]))
-            if int(got["count"]) != int(truth.sum()):
-                raise AssertionError(f"{name}: count {int(got['count'])} != "
-                                     f"numpy float32 truth "
-                                     f"{int(truth.sum())}")
-        dcols, valid = decode_pages(pages, schema)
-        sel = pred.mask(dcols, valid, schema, th)
-        for c in range(schema.n_cols):
-            g, w = got["sums"][c], want["sums"][c]
-            if schema.col_dtype(c).kind == "f":
-                a, b = float(g), float(w)
-                mag = float(torch.where(sel, dcols[c].abs(), 0.0)
-                            .sum(dtype=torch.float64))
-                tol = 1e-5 * mag + 1e-6
-                worst = max(worst, abs(a - b))
-                if abs(a - b) > tol:
-                    raise AssertionError(f"{name}: col {c} float sum {a} vs "
-                                         f"plain {b} (tol {tol})")
-            elif _int_bits(g) != _int_bits(w):
-                raise AssertionError(f"{name}: col {c} int sum bits "
-                                     f"{_int_bits(g)} != plain {_int_bits(w)}")
-        print(f"  B1 == plain: {name} ({n_pages} pages, count "
-              f"{int(got['count'])})")
-    if filter_cuda.launches - before != len(cases):
+            if count != int(truth.sum()):
+                raise AssertionError(f"{name}: count {count} != numpy "
+                                     f"float32 truth {int(truth.sum())}")
+        print(f"  B1 == plain: {name} ({n_pages} pages, count {count})")
+    # headers: n_tuples of 0, negative and above T (the kernel clamps to
+    # [0, T], as the plain version's mask does), in one 16-byte-aligned
+    # view at an offset of 16 bytes into its buffer
+    schema = HeapSchema(3, True, ("float32", "uint32", "int32"))
+    n_pages = 133
+    n = schema.tuples_per_page * n_pages
+    built = build_pages(_random_columns(rng, schema, n), schema,
+                        visibility=(rng.random(n) > 0.25).astype(np.int32))
+    words = built.view(np.int32).reshape(n_pages, -1)
+    words[::3, 2] = 0
+    words[1::7, 2] = schema.tuples_per_page + 1000
+    words[2::11, 2] = -5
+    flat = torch.zeros(n_pages * PAGE_SIZE + 32, dtype=torch.uint8,
+                       device=dev)
+    view = flat[16:16 + n_pages * PAGE_SIZE].view(n_pages, PAGE_SIZE)
+    view.copy_(torch.from_numpy(built))
+    err, count = _check_filter(torch, "headers 0/-5/>T, 16-byte offset view",
+                               view, schema, gt, 0.25)
+    worst = max(worst, err)
+    print(f"  B1 == plain: n_tuples 0, -5 and T + 1000 in one batch, a view "
+          f"16 bytes into its buffer ({n_pages} pages, count {count})")
+    # a view 4 bytes into its buffer cannot take bulk copies: EINVAL, no
+    # launch and no plain version
+    launched = filter_cuda.launches
+    bad = flat[4:4 + n_pages * PAGE_SIZE].view(n_pages, PAGE_SIZE)
+    try:
+        filter_cuda.make_filter_fn_cuda(schema, gt)(bad, 0.25)
+    except StromError as e:
+        if e.errno != errno.EINVAL:
+            raise
+    else:
+        raise AssertionError("B1 took a 4-byte-misaligned page view")
+    if filter_cuda.launches != launched:
+        raise AssertionError("B1 launched on a misaligned view")
+    print("  B1 refused a view 4 bytes into its buffer with EINVAL")
+    if filter_cuda.launches - before != len(cases) + 1:
         raise AssertionError(f"B1 launches moved by "
                              f"{filter_cuda.launches - before}, expected "
-                             f"{len(cases)}")
+                             f"{len(cases) + 1}")
     return worst
 
 
@@ -769,6 +837,45 @@ def _pushdown_path(torch, dev, tmp, seed, n_pages, read_gbs, h2d_gbs):
 RING_THRESHOLDS = (-500, 0, 250, 900)   # one query per member of [9c]
 
 
+def _filter_times(torch, dev, batches, th):
+    """Phase 8's B1 times: the bare launch (prebuilt spec and outputs) on
+    the device, queued back to back, the wrapper call and the plain
+    version as issued, at the scan's (2048, 8192) batch over the 8
+    distinct *batches* and at the ring scan's (512, 8192) block over their
+    32 distinct quarters (128 MiB each way > the 50 MB L2: every launch
+    reads cold).  The bound: the bytes B1 must read (every region of the
+    default schema's pages, a 32-byte header sector each) and write (its
+    count and sum words) over the HBM rate."""
+    from nvme_strom_tpu_torch.ops import filter_cuda
+    from nvme_strom_tpu_torch.ops.filter import (DEFAULT_SCHEMA, STEP_PRED,
+                                                 scan_filter_step)
+    from nvme_strom_tpu_torch.ops.groupby import GroupKey
+    ring_pages = SCAN_BATCH_PAGES // len(RING_THRESHOLDS)
+    quarters = [b[k * ring_pages:(k + 1) * ring_pages] for b in batches
+                for k in range(SCAN_BATCH_PAGES // ring_pages)]
+    spec = filter_cuda._spec(DEFAULT_SCHEMA, STEP_PRED, th)
+    outb = filter_cuda.new_outputs(DEFAULT_SCHEMA, dev)
+    rows = []
+    for blocks in (batches, quarters):
+        k = len(blocks)
+        for b in blocks:
+            filter_cuda.scan_filter_step_cuda(b, th)
+        ms = _time_ms(torch, lambda i: filter_cuda.launch(
+            blocks[i % k], spec, outb), 256, queued=True)
+        wrap_ms = _time_ms(torch, lambda i: filter_cuda.scan_filter_step_cuda(
+            blocks[i % k], th), 64)
+        scan_filter_step(blocks[0], th)
+        plain_ms = _time_ms(torch, lambda i: scan_filter_step(
+            blocks[i % k], th), 16)
+        n_pages = blocks[0].shape[0]
+        nbytes = _groupby_bytes(DEFAULT_SCHEMA, GroupKey(0),
+                                range(DEFAULT_SCHEMA.n_cols), None,
+                                n_pages) + 16
+        rows.append((n_pages, ms, wrap_ms, plain_ms,
+                     nbytes / HBM_BYTES_PER_S * 1e3, nbytes))
+    return rows
+
+
 def _bits(torch, t):
     """A tensor's bytes, for bit-exact comparison (NaN and -0.0 too)."""
     return t.contiguous().view(-1).view(torch.uint8)
@@ -829,26 +936,103 @@ def _permute_cases(torch, members, seed, label):
     return cases
 
 
+def _permute_edges(torch, dev, seed):
+    """Phase 9a: B4's split at its edges, on a ring of 3 members on *dev*,
+    three steps each, bit-exact against the plain version: blocks of 1 to
+    15 bytes, byte counts that are not multiples of 16 or of a bulk piece,
+    just under, at and over a piece and the bulk kernel's least block, and
+    sources and destinations 4 bytes into their buffers (a 12-byte head
+    on both, or unequal alignment: the SIMT kernel).  Returns the number
+    of cases and of bulk sends among them."""
+    from nvme_strom_tpu_torch.ops import permute_cuda
+    from nvme_strom_tpu_torch.ops.permute import permute_step_plain
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    piece, big = permute_cuda.STAGE_BYTES, permute_cuda.BULK_MIN_BYTES
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sizes = list(range(1, 16)) + [16, 17, 31, 100, piece - 1, piece,
+                                  piece + 1, 3 * piece + 5, (4 << 20) + 7,
+                                  big - 1, big, big + 5, big + 3 * piece,
+                                  big + 528 * piece + 29]
+    n, sends0, expect, cases, bulk = 3, permute_cuda.launches, 0, 0, 0
+
+    def views(nbytes, off):
+        return [torch.empty(nbytes + 16, dtype=torch.uint8, device=dev)
+                [off:off + nbytes] for _ in range(n)]
+
+    for nbytes in sizes:
+        for src_off, dst_off in ((0, 0), (4, 4), (4, 0), (0, 4)):
+            blocks = views(nbytes, src_off)
+            for b in blocks:
+                b.copy_(torch.randint(0, 256, (nbytes,), dtype=torch.uint8,
+                                      device=dev, generator=gen))
+            for step in range(3):
+                want = permute_step_plain(blocks)
+                out = views(nbytes, dst_off)
+                bulk += sum(permute_cuda.plan_send(
+                    b.data_ptr(), o.data_ptr(), nbytes, peer=False,
+                    sms=sms).bulk for b, o in zip(blocks, out[1:] + out[:1]))
+                got = permute_cuda.ring_permute_cuda(blocks, out=out)
+                torch.cuda.synchronize(dev)
+                for i, (g, w) in enumerate(zip(got, want)):
+                    if not torch.equal(g, w):
+                        raise AssertionError(
+                            f"B4 edge: {nbytes} bytes, source offset "
+                            f"{src_off}, destination offset {dst_off}, step "
+                            f"{step}: member {i} differs from plain")
+                blocks = got
+                expect += n
+            cases += 1
+    if permute_cuda.launches - sends0 != expect:
+        raise AssertionError(f"B4 edges: {permute_cuda.launches - sends0} "
+                             f"sends, expected {expect}")
+    if not bulk:
+        raise AssertionError("B4 edges: no send took the bulk kernel")
+    return cases, bulk
+
+
 def _stalled_wait(torch, dev):
     """Phase 9a: a wait that no signal will satisfy raises ETIMEDOUT
-    within its budget, and the ring works again afterwards."""
+    within its budget, both when it finishes itself and when a later
+    deferred step's :func:`finish_ring` reads it; the ring step right
+    after works, bit-exact.  Returns the seconds the first stall took."""
     import errno
     from nvme_strom_tpu_torch.api import StromError
     from nvme_strom_tpu_torch.ops import permute_cuda
+    from nvme_strom_tpu_torch.ops.permute import permute_step_plain
+    ring = [dev] * 4
+    blocks = [torch.full((5,), i, dtype=torch.int32, device=dev)
+              for i in range(4)]
     t0 = time.monotonic()
     try:
-        permute_cuda.wait_signals([dev] * 4, 1, 1, budget_s=0.05)
+        permute_cuda.wait_signals(ring, 1, 1, budget_s=0.05)
     except StromError as e:
         if e.errno != errno.ETIMEDOUT:
             raise
     else:
         raise AssertionError("a stalled B4 wait returned without error")
     stall_s = time.monotonic() - t0
-    blocks = [torch.full((5,), i, dtype=torch.int32, device=dev)
-              for i in range(4)]
     got = permute_cuda.ring_permute_cuda(blocks)
     if [int(g[0]) for g in got] != [3, 0, 1, 2]:
         raise AssertionError("the ring after a timeout rotated wrongly")
+    # deferred: a stall, then a step whose member 1 waits on the stalled
+    # count; one finish_ring reads both
+    permute_cuda.wait_signals(ring, 1, 1, budget_s=0.05, finish=False)
+    permute_cuda.ring_permute_cuda(blocks, budget_s=0.05, finish=False)
+    try:
+        permute_cuda.finish_ring(ring)
+    except StromError as e:
+        if e.errno != errno.ETIMEDOUT:
+            raise
+    else:
+        raise AssertionError("finish_ring missed a stalled B4 wait")
+    pages = [torch.randint(0, 256, (512, 8192), dtype=torch.uint8,
+                           device=dev) for _ in range(4)]
+    got = permute_cuda.ring_permute_cuda(pages)
+    want = permute_step_plain(pages)
+    torch.cuda.synchronize(dev)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("the ring step after a deferred timeout "
+                             "differs from plain")
     return stall_s
 
 
@@ -1051,11 +1235,16 @@ def _permute_times(torch, dev, peer=None, tag="[9d]"):
             plain = _time_ms(torch, lambda i: torch.empty_like(
                 src[i % k], device=peer).copy_(src[i % k]), iters)
             bound = nbytes / NVLINK_BYTES_PER_S * 1e3
+        plan = permute_cuda.plan_send(
+            src[0].data_ptr(), dst[1].data_ptr(), nbytes,
+            peer=peer is not None,
+            sms=torch.cuda.get_device_properties(dev).multi_processor_count)
         rows.append((name, nbytes, ms, plain, bound, lib))
         print(f"{tag} B4 {name}, {nbytes} bytes a block, {dev} -> {to}: "
               f"{ms:.4f} ms (bound {bound:.4f} ms = {bound / ms:.1%}); copy_ "
               f"{lib:.4f} ms{' as issued' if peer else ''}; plain "
-              f"{plain:.4f} ms a block")
+              f"{plain:.4f} ms a block; "
+              f"{'bulk' if plan.bulk else 'SIMT'} kernel, {plan.grid} CTAs")
         del src, dst
     return rows
 
@@ -1092,8 +1281,7 @@ def main() -> int:
     from nvme_strom_tpu_torch import _build
     from nvme_strom_tpu_torch.ops import decode_cuda, filter_cuda, groupby_cuda
     from nvme_strom_tpu_torch.ops.decode import make_decode_filter_fn
-    from nvme_strom_tpu_torch.ops.filter import (DEFAULT_SCHEMA, STEP_PRED,
-                                                 FilterPred, scan_filter_step)
+    from nvme_strom_tpu_torch.ops.filter import FilterPred
     from nvme_strom_tpu_torch.ops.groupby import GroupKey, make_groupby_fn
     from nvme_strom_tpu_torch.scan.executor import TableScanner
     from nvme_strom_tpu_torch.scan.heap import (PAGE_SIZE, HeapSchema,
@@ -1122,7 +1310,8 @@ def main() -> int:
     print(f"[2] build: {sorted(logs) or 'cached'} in {build_s:.2f} s")
     for name, out in logs.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill")):
                 print(f"    {name}: {line.strip()}")
 
     if args.cross_card:
@@ -1256,28 +1445,7 @@ def main() -> int:
             torch, dev, tmp, args.seed, args.scan_pages, read_gbs, h2d)
 
         # -- times at the main paths' batch shapes ------------------------
-        # the bare launch (prebuilt spec and outputs) times each kernel;
-        # the wrapper's time adds its per-call host work
-        for b in filter_ring:
-            filter_cuda.scan_filter_step_cuda(b, th)
-        spec = filter_cuda._spec(DEFAULT_SCHEMA, STEP_PRED, th)
-        outb = torch.zeros(4, dtype=torch.int32, device=dev)
-        f_ms = _time_ms(
-            torch, lambda i: filter_cuda.launch(
-                filter_ring[i % 8], spec, outb[:1], outb[1:3],
-                outb[3:].view(torch.float32)), 256, queued=True)
-        f_wrap_ms = _time_ms(
-            torch, lambda i: filter_cuda.scan_filter_step_cuda(
-                filter_ring[i % 8], th), 64)
-        scan_filter_step(filter_ring[0], th)
-        f_plain_ms = _time_ms(
-            torch, lambda i: scan_filter_step(filter_ring[i % 8], th), 16)
-        # B1 reads every region of the default schema's pages, and writes
-        # its count and sum banks (four words)
-        f_bytes = _groupby_bytes(DEFAULT_SCHEMA, GroupKey(0),
-                                 range(DEFAULT_SCHEMA.n_cols), None,
-                                 SCAN_BATCH_PAGES) + 16
-        f_bound_ms = f_bytes / HBM_BYTES_PER_S * 1e3
+        f_rows = _filter_times(torch, dev, filter_ring, th)
 
         # B3 at both GROUP BY queries' batches: the kernel against the
         # plain version on the first batch, then timed; the first query
@@ -1358,9 +1526,11 @@ def main() -> int:
               f", {PAGE_SIZE}) uint8, bare launches over 8 distinct batches "
               f"queued back to back (device time; wrapper and plain times as "
               f"issued); bounds from the bytes each kernel must read:")
-        print(f"    B1 filter_pages: {f_ms:.4f} ms (bound {f_bound_ms:.4f} ms "
-              f"by {f_bytes} bytes = {f_bound_ms / f_ms:.1%}); wrapper call "
-              f"{f_wrap_ms:.4f} ms; plain {f_plain_ms:.4f} ms")
+        for pages, ms, wrap_ms, plain_ms, bound_ms, nbytes in f_rows:
+            print(f"    B1 filter_pages ({pages}, {PAGE_SIZE}): {ms:.4f} ms "
+                  f"(bound {bound_ms:.4f} ms by {nbytes} bytes = "
+                  f"{bound_ms / ms:.1%}); wrapper call {wrap_ms:.4f} ms; "
+                  f"plain {plain_ms:.4f} ms")
         for name, g_ms, g_plain_ms, g_bound_ms, g_bytes in gb_times:
             print(f"    B3 groupby_pages {name}: {g_ms:.4f} ms (bound "
                   f"{g_bound_ms:.4f} ms by {g_bytes} bytes = "
@@ -1374,12 +1544,16 @@ def main() -> int:
         # -- the ring: B4 against plain, then its main paths ------------
         del filter_ring, gb_ring, dec_ring
         n_cases = _permute_cases(torch, [dev], args.seed, "one card")
+        n_edges, n_bulk = _permute_edges(torch, dev, args.seed)
         stall_s = _stalled_wait(torch, dev)
         print(f"[9a] B4 vs plain on {dev}: {n_cases} cases (rings of 2, 3, "
               f"4 and 8 members; uint8 pages, int32 ids, float32 with NaN "
-              f"and -0.0; 1 to 32768 rows; three steps each) bit-exact; a "
-              f"stalled wait raised ETIMEDOUT after {stall_s:.3f} s and the "
-              f"ring rotated correctly after it")
+              f"and -0.0; 1 to 32768 rows; three steps each) and {n_edges} "
+              f"edge cases (1 B to 24.25 MiB + 29 B, offsets of 4 bytes; "
+              f"{n_bulk} bulk sends) bit-exact; a stalled wait raised "
+              f"ETIMEDOUT after "
+              f"{stall_s:.3f} s, a deferred one at finish_ring, and the "
+              f"ring rotated correctly after each")
         ring_launches = _multihost_path(torch, [dev] * 4, tmp, args.seed,
                                         "4 members on one card")
         ring_launches += _ring_scan_path(torch, dev, heap_path, ring_truth)
@@ -1402,9 +1576,9 @@ def main() -> int:
         "replaces": "nvme_strom_tpu/ops/filter_pallas.py:140",
         "launches": main_launches,
         "max_abs_err": worst_f,
-        "ms": f_ms,
-        "plain_ms": f_plain_ms,
-        "bound_ms": f_bound_ms,
+        "ms": f_rows[0][1],
+        "plain_ms": f_rows[0][3],
+        "bound_ms": f_rows[0][4],
         "bound_by": "bytes",
         "library_ms": None,
     }, {

@@ -8,9 +8,11 @@ sm_90a and bound with ``ctypes``.
 Bound: bytes.  The kernel reads each page once and does a few compares and
 adds per tuple, so its least time is the batch's bytes over device-memory
 bandwidth (16 MiB over 3.35 TB/s is 5.0 us on an H100 SXM).  Its design
-(see the source) keeps every tuple's work in registers and touches device
-memory only for coalesced column loads and one atomic per block and
-output.
+(see the source): persistent CTAs (:func:`filter_grid`, from the kernel's
+occupancy), whole pages brought into shared memory by TMA bulk copies,
+accumulators in registers sized by a template on the column count
+(:func:`column_template`), and one reduction per CTA and output.  A bulk
+copy needs 16-byte-aligned pages (:func:`check_pages`).
 
 A CUDA kernel cannot take a Python callable the way Pallas traces one
 into its body (``filter_pallas.py:104``), so the predicate is a
@@ -19,15 +21,16 @@ non-nullable columns (int32/uint32/float32), as the TPU kernel does.
 
 The wrapper follows the tensor: a CPU tensor goes through the plain
 version (:mod:`.filter`); a CUDA tensor launches the kernel or raises
-(:class:`~..api.StromError` EINVAL for a callable predicate or a schema the
-kernel does not take, EIO for a launch error).  ``launches`` counts kernel
-launches and nothing else.
+(:class:`~..api.StromError` EINVAL for a callable predicate, a schema the
+kernel does not take or pages it cannot copy, EIO for a launch error).
+``launches`` counts kernel launches and nothing else.
 """
 
 from __future__ import annotations
 
 import ctypes
 import errno as _errno
+import functools
 from typing import Callable, Union
 
 import numpy as np
@@ -41,7 +44,8 @@ from .filter import (DEFAULT_SCHEMA, MAX_TERMS, STEP_PRED, FilterPred,
 
 __all__ = ["launches", "launch", "scan_filter_step_cuda",
            "make_filter_fn_cuda", "filter_pages_cuda", "kernel_refusal",
-           "encode_terms"]
+           "encode_terms", "column_template", "filter_grid", "check_pages",
+           "new_outputs"]
 
 #: kernel launches since the last reset (set to 0 to reset)
 launches = 0
@@ -51,7 +55,10 @@ _KIND = {np.dtype(np.int32): 0, np.dtype(np.uint32): 1,
          np.dtype(np.float32): 2}
 _OP = {"gt": 0, "ge": 1, "lt": 2, "le": 3, "eq": 4, "ne": 5}
 _TERM_KIND = {"i": 0, "u": 1, "f": 2}
-_BLOCKS_PER_SM = 8
+#: the kernel's variants: accumulators for up to this many columns
+TEMPLATES = (4, 8, 16)
+#: the bulk copies' alignment rule for the page batch
+ALIGN = 16
 
 
 class _Terms(ctypes.Structure):
@@ -92,7 +99,55 @@ def encode_terms(pred: FilterPred, dtypes, threshold) -> _Terms:
 
 _launch = _build.launcher("filter", "strom_filter_pages", [
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p])
+
+
+def column_template(n_cols: int) -> int:
+    """The kernel variant for *n_cols* columns: the fewest accumulator
+    slots of :data:`TEMPLATES` that hold them (EINVAL above the last)."""
+    for nc in TEMPLATES:
+        if n_cols <= nc:
+            return nc
+    raise StromError(_errno.EINVAL, f"{n_cols} columns; the kernel takes "
+                                    f"{TEMPLATES[-1]}")
+
+
+def filter_grid(n_pages: int, blocks_per_sm: int, sms: int) -> int:
+    """CTAs of a launch over *n_pages*: as many as fit on the card at once
+    (*blocks_per_sm* on each of *sms*), never more than the pages."""
+    return max(1, min(n_pages, blocks_per_sm * sms))
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(device_index: int, nc: int) -> int:
+    lib = _build.load("filter")
+    fn = lib.strom_filter_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = fn(nc, ctypes.byref(blocks))
+    if err or blocks.value < 1:
+        raise StromError(_errno.EIO, f"filter kernel occupancy query failed: "
+                         + lib.strom_cuda_error_string(err).decode())
+    return blocks.value
+
+
+def check_pages(pages_u8: torch.Tensor) -> None:
+    """EINVAL unless *pages_u8* is a contiguous (B, 8192) uint8 batch that
+    starts on a 16-byte boundary (the bulk copies' rule; every caller
+    passes page-granular slices of allocator or staging memory)."""
+    if (pages_u8.dtype != torch.uint8 or pages_u8.dim() != 2
+            or pages_u8.shape[1] != PAGE_SIZE):
+        raise StromError(_errno.EINVAL, f"pages must be (B, {PAGE_SIZE}) "
+                                        f"uint8, got {tuple(pages_u8.shape)} "
+                                        f"{pages_u8.dtype}")
+    if not pages_u8.is_contiguous() or pages_u8.data_ptr() % ALIGN:
+        raise StromError(_errno.EINVAL, f"pages must be contiguous and "
+                                        f"{ALIGN}-byte aligned (the kernel's "
+                                        f"bulk copies), got address "
+                                        f"{pages_u8.data_ptr():#x}")
 
 
 def kernel_refusal(schema: HeapSchema, predicate) -> str:
@@ -139,16 +194,32 @@ def _spec(schema: HeapSchema, pred: FilterPred, threshold) -> _Spec:
     return spec
 
 
-def launch(pages_u8: torch.Tensor, spec: _Spec, count: torch.Tensor,
-           isums: torch.Tensor, fsums: torch.Tensor) -> None:
-    """Launch the kernel on the current stream over validated CUDA inputs
-    (outputs zeroed by the caller); the one place ``launches`` moves."""
+def new_outputs(schema: HeapSchema, device) -> torch.Tensor:
+    """The zeroed int32 output words of a launch over *schema*: ``[count |
+    isums | fsums]`` (zero bits are 0.0f; at least one sum slot of each
+    kind)."""
+    _, _, ni, nf = _slots(schema)
+    return torch.zeros(1 + max(ni, 1) + max(nf, 1), dtype=torch.int32,
+                       device=device)
+
+
+def launch(pages_u8: torch.Tensor, spec: _Spec, out: torch.Tensor) -> None:
+    """Launch the kernel on the current stream over a validated CUDA batch;
+    it adds its results to *out* (:func:`new_outputs`).  The one place
+    ``launches`` moves."""
     global launches
     n_pages = pages_u8.shape[0]
     dev = pages_u8.device
-    _launch(pages_u8.data_ptr(), n_pages, ctypes.addressof(spec),
-            count.data_ptr(), isums.data_ptr(), fsums.data_ptr(),
-            min(n_pages, _build.grid_cap(dev.index or 0, _BLOCKS_PER_SM)),
+    index = dev.index or 0
+    nc = column_template(spec.n_cols)
+    grid = filter_grid(n_pages, _blocks_per_sm(index, nc),
+                       _build.grid_cap(index, 1))
+    # out's words: count, the int sums (one slot at least), the float sums
+    n_isums = max(sum(spec.col_kind[c] != _KIND[np.dtype(np.float32)]
+                      for c in range(spec.n_cols)), 1)
+    base = out.data_ptr()
+    _launch(pages_u8.data_ptr(), n_pages, ctypes.addressof(spec), base,
+            base + 4, base + 4 * (1 + n_isums), nc, grid,
             torch.cuda.current_stream(dev).cuda_stream)
     launches += 1
 
@@ -165,24 +236,13 @@ def filter_pages_cuda(pages_u8: torch.Tensor, threshold, schema: HeapSchema,
     why = kernel_refusal(schema, predicate)
     if why:
         raise StromError(_errno.EINVAL, why)
-    if (pages_u8.dtype != torch.uint8 or pages_u8.dim() != 2
-            or pages_u8.shape[1] != PAGE_SIZE):
-        raise StromError(_errno.EINVAL, f"pages must be (B, {PAGE_SIZE}) "
-                                        f"uint8, got {tuple(pages_u8.shape)} "
-                                        f"{pages_u8.dtype}")
-    if not pages_u8.is_contiguous() or pages_u8.data_ptr() % 4:
-        raise StromError(_errno.EINVAL, "pages must be contiguous and "
-                                        "4-byte aligned (int32 word view)")
-    kinds, slots, ni, nf = _slots(schema)
-    # one zeroed output buffer: [count | isums | fsums] (zero bits are
-    # 0.0f, so the float tail needs no separate fill)
-    ni, nf = max(ni, 1), max(nf, 1)
-    out = torch.zeros(1 + ni + nf, dtype=torch.int32, device=pages_u8.device)
-    count, isums = out[:1], out[1:1 + ni]
-    fsums = out[1 + ni:].view(torch.float32)
+    check_pages(pages_u8)
+    kinds, slots, ni, _ = _slots(schema)
+    out = new_outputs(schema, pages_u8.device)
+    count, isums = out[:1], out[1:1 + max(ni, 1)]
+    fsums = out[1 + max(ni, 1):].view(torch.float32)
     if pages_u8.shape[0]:
-        launch(pages_u8, _spec(schema, predicate, threshold), count, isums,
-               fsums)
+        launch(pages_u8, _spec(schema, predicate, threshold), out)
     sums = []
     for c in range(schema.n_cols):
         if kinds[c] == "f":

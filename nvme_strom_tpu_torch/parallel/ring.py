@@ -34,12 +34,13 @@ from ..config import config
 from ..ops.filter import DEFAULT_SCHEMA, STEP_PRED
 from ..ops.filter_cuda import filter_pages_cuda
 from ..ops.permute import check_blocks, permute_step_plain
-from ..ops.permute_cuda import ring_permute_cuda
+from ..ops.permute_cuda import finish_ring, ring_permute_cuda
 from ..scan.heap import PAGE_SIZE, HeapSchema
 from .mesh import RingMesh, make_scan_mesh
 
 __all__ = ["make_ring_multi_query_scan", "ring_scan_source",
-           "permute_backend", "ring_permute_step", "ring_all_gather"]
+           "permute_backend", "ring_permute_step", "ring_finish",
+           "ring_all_gather"]
 
 
 def permute_backend(backend: Optional[str] = None, *,
@@ -63,20 +64,31 @@ def permute_backend(backend: Optional[str] = None, *,
 def ring_permute_step(blocks: Sequence[torch.Tensor], *,
                       ring: Union[int, RingMesh],
                       backend: Optional[str] = None,
-                      out: Optional[Sequence[torch.Tensor]] = None
-                      ) -> List[torch.Tensor]:
+                      out: Optional[Sequence[torch.Tensor]] = None,
+                      finish: bool = True) -> List[torch.Tensor]:
     """Rotate per-member *blocks* one step (+1): the result's entry
     ``(i + 1) % N`` holds ``blocks[i]``'s bytes, in fresh tensors on the
     receiving members' devices or in *out*.  *ring* is the ring size or
-    the ring itself."""
+    the ring itself.  ``finish=False`` leaves the CUDA transport's
+    timeout check to a :func:`ring_finish` after the caller's last step."""
     n = ring if isinstance(ring, int) else ring.size
     if len(blocks) != n:
         raise StromError(_errno.EINVAL, f"{len(blocks)} blocks for a ring "
                                         f"of {n}")
     if permute_backend(backend, device=blocks[0].device) == "cuda":
-        return ring_permute_cuda(blocks, out=out)
+        return ring_permute_cuda(blocks, out=out, finish=finish)
     check_blocks(blocks, [b.device for b in blocks], out)
     return permute_step_plain(blocks, out)
+
+
+def ring_finish(devices: Sequence, *,
+                backend: Optional[str] = None) -> None:
+    """End a run of ``finish=False`` steps over the ring of *devices*: on
+    the CUDA transport one bounded fence and one read of the waits' error
+    words (ETIMEDOUT when a wait ran out of budget); nothing on the plain
+    one."""
+    if permute_backend(backend, device=devices[0]) == "cuda":
+        finish_ring([torch.device(d) for d in devices])
 
 
 def ring_all_gather(shards: Sequence[torch.Tensor], mesh: RingMesh, *,
@@ -103,7 +115,9 @@ def ring_all_gather(shards: Sequence[torch.Tensor], mesh: RingMesh, *,
         # originated at i - s + 1; it receives the one from i - s
         ring_permute_step([part(i, i - s + 1) for i in range(n)], ring=n,
                           backend=backend,
-                          out=[part(i, i - s) for i in range(n)])
+                          out=[part(i, i - s) for i in range(n)],
+                          finish=False)
+    ring_finish(mesh.devices, backend=backend)
     return outs
 
 
@@ -144,7 +158,8 @@ def make_ring_multi_query_scan(devices: Optional[Sequence] = None, *,
                 acc[i] = (out["count"], sums) if acc[i] is None else \
                     (acc[i][0] + out["count"], acc[i][1] + sums)
             if s < n - 1:
-                blocks = ring_permute_step(blocks, ring=n)
+                blocks = ring_permute_step(blocks, ring=n, finish=False)
+        ring_finish(mesh.devices)
         return acc
 
     def run(pages, thresholds) -> dict:

@@ -32,7 +32,7 @@ from ..hbm.staging import bounded_fence
 from ..scan.heap import PAGE_SIZE
 from ..stats import stats
 from .mesh import RingMesh
-from .ring import ring_all_gather, ring_permute_step
+from .ring import ring_all_gather, ring_finish, ring_permute_step
 
 __all__ = ["load_pages_multihost", "shard_ownership"]
 
@@ -103,8 +103,11 @@ def _redistribute(data: List[torch.Tensor], idx: List[torch.Tensor],
             outs[i].index_copy_(0, torch.where(ok, dest, rows_per_dev),
                                 data[i])
         if s < n - 1:
-            data = ring_permute_step(data, ring=n, backend=backend)
-            idx = ring_permute_step(idx, ring=n, backend=backend)
+            data = ring_permute_step(data, ring=n, backend=backend,
+                                     finish=False)
+            idx = ring_permute_step(idx, ring=n, backend=backend,
+                                    finish=False)
+    ring_finish(mesh.devices, backend=backend)
     return [o[:rows_per_dev] for o in outs]
 
 

@@ -34,6 +34,7 @@ from nvme_strom_tpu_torch.parallel import (make_ring_multi_query_scan,
                                            ring_all_gather,
                                            ring_permute_step,
                                            ring_scan_source)
+from nvme_strom_tpu_torch.parallel.ring import ring_finish
 from nvme_strom_tpu_torch.scan.heap import (PAGE_SIZE, HeapSchema,
                                             build_heap_file, build_pages)
 
@@ -82,8 +83,11 @@ def test_permute_step_matches_jax_ppermute(n, kind, rows):
         assert got[i].numpy().tobytes() == \
             want[i * rows:(i + 1) * rows].tobytes(), f"member {i}"
     # three steps in a row: the epoch count of the card has no role here,
-    # but the rotation must compose
-    again = ring_permute_step(ring_permute_step(got, ring=n), ring=n)
+    # but the rotation must compose, also with the timeout check deferred
+    # to one ring_finish as the multi-step callers do
+    again = ring_permute_step(ring_permute_step(got, ring=n, finish=False),
+                              ring=n, finish=False)
+    ring_finish(mesh.devices)
     for i in range(n):
         src = (i - 3) % n
         assert again[i].numpy().tobytes() == \
