@@ -17,10 +17,15 @@ paths against its plain PyTorch version:
       its buffer, and a view 4 bytes in, which must raise EINVAL;
    b. GROUP BY (B3): int32, uint32 (wrapping sums) and float32 with
       NaN/±inf, G in {1, 7, 64, the kernel's cap}, keys with INT_MIN/INT_MAX,
-      negatives and out-of-range ids, with and without predicates;
+      negatives and out-of-range ids, with and without predicates; G on
+      both sides of every switch of the plan's accumulator strategy; every
+      tuple in one group (float32 with NaN/±inf) at each strategy; headers
+      with n_tuples 0, negative and above T in a view 16 bytes into its
+      buffer, and a view 4 bytes in, which must raise EINVAL;
    c. the packed decode-filter (B2): every codec (bitpack at 1/2/4/8/16
-      bits, dict, rle, raw), 512- to 32768-row blocks, ``need_cols``, the
-      file's header page and zero padding;
+      bits, dict, rle, raw), 32- to 32768-row blocks, ``need_cols``, 64
+      one-row runs, a dictionary of 64, the file's header page and zero
+      padding;
    counts, integer sums, mins and maxs exact; float sums within
    ``1e-5 * sum(|x|) + 1e-6`` (sums of squares ``1e-5 * sum(x^2) + 1e-6``)
    because atomics add in a varying order;
@@ -38,7 +43,10 @@ paths against its plain PyTorch version:
    of phase 3; then each kernel timed at that batch shape with CUDA events
    over a ring of distinct batches, its bound from the bytes it must read
    (the regions its query touches, not the whole page), and the plain
-   version's time; B1 also at the ring scan's (512, 8192) block;
+   version's time, and each kernel's plan (B3's accumulator strategy and
+   bulk copies, B2's packed geometry and staged span) with the bytes it
+   stages against the bytes counted; B1 also at the ring scan's (512,
+   8192) block;
 9. the ring (members are N x ``cuda:0`` on one card):
    a. the ring permute (B4) against its plain version, bit-exact, over
       rings of 2/3/4/8 members, uint8/int32/float32 (NaN, -0.0) blocks of
@@ -313,13 +321,55 @@ def _group_mags(torch, pages, schema, key, G, agg, pred):
     return torch.stack(m1), torch.stack(m2)
 
 
+def _group_strategy(schema, key, G, agg, pred):
+    """B3's plan for a query (strategy, threads, stages), for the log."""
+    from nvme_strom_tpu_torch.ops import groupby_cuda
+    from nvme_strom_tpu_torch.ops.filter import FilterPred
+    return groupby_cuda.plan_groupby(
+        schema, groupby_cuda._regions(schema, key, agg, pred or FilterPred()),
+        G, len(agg))
+
+
+def _check_group(torch, name, pages, schema, key, G, agg, pred):
+    """B3 against its plain version on one CUDA batch (see _same_groups).
+    Returns (max |float error|, its largest share of the tolerance, rows
+    in groups, the plan)."""
+    from nvme_strom_tpu_torch.ops import groupby_cuda
+    from nvme_strom_tpu_torch.ops.groupby import make_groupby_fn
+    got = groupby_cuda.groupby_pages_cuda(pages, 0, schema, key, G,
+                                          agg_cols=agg, predicate=pred)
+    want = make_groupby_fn(schema, key, G, agg_cols=agg,
+                           predicate=pred)(pages)
+    torch.cuda.synchronize(pages.device)
+    m1, m2 = _group_mags(torch, pages, schema, key, G, agg, pred)
+    w, r = _same_groups(torch, name, got, want, m1, m2)
+    plan = _group_strategy(schema, key, G, agg, pred)
+    return w, r, int(got["count"].sum()), plan
+
+
+def _strategy_switches(schema, regions, n_agg):
+    """The G on both sides of each strategy switch of B3's plan for
+    *n_agg* aggregated columns, G in 1..MAX_GROUPS."""
+    from nvme_strom_tpu_torch.ops import groupby_cuda
+    names = [groupby_cuda.plan_groupby(schema, regions, g, n_agg).strategy
+             for g in range(1, groupby_cuda.MAX_GROUPS + 1)]
+    out = []
+    for g in range(1, len(names)):
+        if names[g] != names[g - 1]:
+            out += [g, g + 1]        # G = g (the old side) and g + 1
+    return out
+
+
 def _groupby_cases(torch, dev, seed):
     """Phase 3b: B3 vs plain on the card.  Returns max |float error| and
     the largest error over its tolerance."""
+    import errno
+    from nvme_strom_tpu_torch.api import StromError
     from nvme_strom_tpu_torch.ops import groupby_cuda
     from nvme_strom_tpu_torch.ops.filter import FilterPred
-    from nvme_strom_tpu_torch.ops.groupby import GroupKey, make_groupby_fn
-    from nvme_strom_tpu_torch.scan.heap import HeapSchema, build_pages
+    from nvme_strom_tpu_torch.ops.groupby import GroupKey
+    from nvme_strom_tpu_torch.scan.heap import PAGE_SIZE, HeapSchema, \
+        build_pages
     rng = np.random.default_rng(seed + 1)
     schema = HeapSchema(5, True, ("int32", "int32", "int32", "uint32",
                                   "float32"))
@@ -342,53 +392,114 @@ def _groupby_cases(torch, dev, seed):
         ("f32 G=7 value key c0 (ids out of range)", GroupKey(0), 7, [4],
          FilterPred(((1, "lt", 0),)), 777),
     ]
+    # G on both sides of every switch of the plan's strategy, for two int32
+    # columns with a predicate and for one float32 column
+    regions_i = sorted({1, 0, 2, schema.n_cols})
+    for g in _strategy_switches(schema, regions_i, 2):
+        cases.append((f"i32 G={g} c1 % {g} where c0 > -3 (switch)",
+                      GroupKey(1, g), g, [0, 2],
+                      FilterPred(((0, "gt", -3),)), 300))
+    regions_f = sorted({1, 4, schema.n_cols})
+    for g in _strategy_switches(schema, regions_f, 1):
+        cases.append((f"f32 G={g} abs(c1) % {g} (switch)",
+                      GroupKey(1, g, True), g, [4], None, 300))
     # every aggregated column of one dtype: 15 float32 columns beside an
     # int32 key take dynamic shared memory above 48 KiB at G = cap
     wide = HeapSchema(16, True, ("int32",) + ("float32",) * 15)
     cases.append((f"f32 G={cap} V=15 (shared memory above 48 KiB)",
                   GroupKey(0, cap, True), cap, list(range(1, 16)), None, 513))
+    # every tuple in one group (the key is 5 modulo G), float32 with
+    # NaN/+inf/-inf, at each strategy's G
+    for g in (8, 64, cap):
+        cases.append((f"f32 G={g} one group, NaN/+-inf", GroupKey(1, g), g,
+                      [4], None, ("one", 700)))
     worst, share = 0.0, 0.0
     before = groupby_cuda.launches
-    for name, key, G, agg, pred, n_pages in cases:
-        sch = wide if len(agg) == 15 else schema
-        n = sch.tuples_per_page * n_pages - 5
+
+    def table(sch, n, one_group=False, p_nonf=2e-5):
         c1 = rng.integers(INT_MIN, INT_MAX, n, dtype=np.int32, endpoint=True)
         c1[:6] = [INT_MIN, INT_MAX, -7, -1, 5, 0]
+        if one_group:
+            c1 = (rng.integers(-1 << 20, 1 << 20, n) * cap + 5) \
+                .astype(np.int32)
         floats = []
         for _ in range(15 if sch is wide else 1):
             f = (rng.standard_normal(n) * 10).astype(np.float32)
-            for v, p in ((np.nan, 2e-5), (np.inf, 2e-5), (-np.inf, 2e-5)):
-                f[rng.random(n) < p] = v
+            for v in (np.nan, np.inf, -np.inf):
+                f[rng.random(n) < p_nonf] = v
             floats.append(f)
         if sch is wide:
-            cols = [c1] + floats
-        else:
-            c0 = rng.integers(-6, 6, n).astype(np.int32)
-            c2 = rng.integers(INT_MIN, INT_MAX, n, dtype=np.int32,
-                              endpoint=True)
-            c3 = rng.integers(0, 0xFFFF_FFFF, n, dtype=np.uint32,
-                              endpoint=True)
-            c3[:2] = [0, 7]
-            small = rng.random(n) < 0.02          # value-key ids 0..99
-            c3[small] %= 100
-            cols = [c0, c1, c2, c3] + floats
+            return [c1] + floats
+        c0 = rng.integers(-6, 6, n).astype(np.int32)
+        c2 = rng.integers(INT_MIN, INT_MAX, n, dtype=np.int32,
+                          endpoint=True)
+        c3 = rng.integers(0, 0xFFFF_FFFF, n, dtype=np.uint32, endpoint=True)
+        c3[:2] = [0, 7]
+        small = rng.random(n) < 0.02          # value-key ids 0..99
+        c3[small] %= 100
+        return [c0, c1, c2, c3] + floats
+
+    for name, key, G, agg, pred, n_pages in cases:
+        sch = wide if len(agg) == 15 else schema
+        one = isinstance(n_pages, tuple)
+        if one:
+            n_pages = n_pages[1]
+        n = sch.tuples_per_page * n_pages - 5
+        cols = table(sch, n, one, 1e-3 if one else 2e-5)
         vis = (rng.random(n) > 0.2).astype(np.int32)
         pages = torch.from_numpy(build_pages(cols, sch,
                                              visibility=vis)).to(dev)
-        got = groupby_cuda.groupby_pages_cuda(pages, 0, sch, key, G,
-                                              agg_cols=agg, predicate=pred)
-        want = make_groupby_fn(sch, key, G, agg_cols=agg,
-                               predicate=pred)(pages)
-        torch.cuda.synchronize(dev)
-        m1, m2 = _group_mags(torch, pages, sch, key, G, agg, pred)
-        w, r = _same_groups(torch, name, got, want, m1, m2)
+        w, r, rows, plan = _check_group(torch, name, pages, sch, key, G, agg,
+                                        pred)
         worst, share = max(worst, w), max(share, r)
-        print(f"  B3 == plain: {name} ({n_pages} pages, "
-              f"{int(got['count'].sum())} rows in groups)")
-    if groupby_cuda.launches - before != len(cases):
+        print(f"  B3 == plain: {name} ({n_pages} pages, {rows} rows in "
+              f"groups; {plan.strategy}, {plan.threads} threads, "
+              f"{plan.stages} stages)")
+    # headers: n_tuples of 0, negative and above T (the kernel clamps to
+    # [0, T], as the plain version does), in one 16-byte-aligned view at an
+    # offset of 16 bytes into its buffer, for each strategy's G
+    n_pages = 133
+    n = schema.tuples_per_page * n_pages
+    built = build_pages(table(schema, n), schema,
+                        visibility=(rng.random(n) > 0.25).astype(np.int32))
+    words = built.view(np.int32).reshape(n_pages, -1)
+    words[::3, 2] = 0
+    words[1::7, 2] = schema.tuples_per_page + 1000
+    words[2::11, 2] = -5
+    flat = torch.zeros(n_pages * PAGE_SIZE + 32, dtype=torch.uint8,
+                       device=dev)
+    view = flat[16:16 + n_pages * PAGE_SIZE].view(n_pages, PAGE_SIZE)
+    view.copy_(torch.from_numpy(built))
+    n_edge = 0
+    for g, agg in ((8, [4]), (64, [0, 2]), (cap, [4])):
+        key = GroupKey(1, g, True)
+        w, r, rows, plan = _check_group(
+            torch, f"G={g} headers 0/-5/>T, 16-byte offset view", view,
+            schema, key, g, agg, FilterPred(((0, "ge", -3),)))
+        worst, share = max(worst, w), max(share, r)
+        n_edge += 1
+        print(f"  B3 == plain: G={g} ({plan.strategy}), n_tuples 0, -5 and "
+              f"T + 1000 in one batch, a view 16 bytes into its buffer "
+              f"({n_pages} pages, {rows} rows in groups)")
+    # a view 4 bytes into its buffer cannot take bulk copies: EINVAL, no
+    # launch and no plain version
+    launched = groupby_cuda.launches
+    bad = flat[4:4 + n_pages * PAGE_SIZE].view(n_pages, PAGE_SIZE)
+    try:
+        groupby_cuda.groupby_pages_cuda(bad, 0, schema, GroupKey(1, 8), 8,
+                                        agg_cols=[4])
+    except StromError as e:
+        if e.errno != errno.EINVAL:
+            raise
+    else:
+        raise AssertionError("B3 took a 4-byte-misaligned page view")
+    if groupby_cuda.launches != launched:
+        raise AssertionError("B3 launched on a misaligned view")
+    print("  B3 refused a view 4 bytes into its buffer with EINVAL")
+    if groupby_cuda.launches - before != len(cases) + n_edge:
         raise AssertionError(f"B3 launches moved by "
                              f"{groupby_cuda.launches - before}, expected "
-                             f"{len(cases)}")
+                             f"{len(cases) + n_edge}")
     return worst, share
 
 
@@ -510,11 +621,83 @@ def _decode_cases(torch, dev, seed, tmp):
               f"block, {len(raw)} pages, count {int(got['count'])})")
         os.unlink(path)
         os.unlink(meta.path)
-    if decode_cuda.launches - before != len(cases):
+    # layouts the encoder does not pick for these tables, built block by
+    # block at a fixed rows_per_block: 32-row blocks in every codec, 64
+    # one-row runs, a dictionary of 64
+    n = 32 * 700 + 17
+    steps = (np.arange(n) // 3 % 16 + 100).astype(np.int32)
+    hand = [
+        ("32-row blocks, bitpack/dict/rle/raw", 32,
+         [rng.integers(0, 16, n).astype(np.int32),
+          vals8[rng.integers(0, 8, n)], (np.arange(n) // 40).astype(np.int32),
+          f32[:n]],
+         [(1 + 4, "bitpack", 4, 0, 0), (8 + 4, "dict", 4, 8, 0),
+          (1 + 2 * 2, "rle", 0, 0, 2), (32, "raw", 0, 0, 0)],
+         FilterPred(((0, "lt", 12), (1, "ne", 5), (3, "gt", -1.0)))),
+        ("rle at 64 one-row runs", 64,
+         [np.arange(n, dtype=np.int32) * 3 - 5000, f32[:n]],
+         [(1 + 2 * 64, "rle", 0, 0, 64), (64, "raw", 0, 0, 0)],
+         FilterPred(((0, "ge", 0),))),
+        ("dict of 64", 1024,
+         [(rng.integers(0, 64, n) * 1000 - 31000).astype(np.int32), steps],
+         [(64 + 256, "dict", 8, 64, 0), (1 + 128, "bitpack", 4, 0, 0)],
+         FilterPred(((0, "lt", 2000), (1, "ne", 108)))),
+    ]
+    for name, rpb, cols, picks, pred in hand:
+        raw, meta = _packed_pages(cols, rpb, picks)
+        raw = np.concatenate([np.zeros((1, 8192), np.uint8), raw,
+                              np.zeros((2, 8192), np.uint8)])
+        pages = torch.from_numpy(raw).to(dev)
+        got = decode_cuda.decode_filter_pages_cuda(pages, 0, meta, pred)
+        want = make_decode_filter_fn(meta, pred)(pages)
+        torch.cuda.synchronize(dev)
+        worst = max(worst, _same_decode(torch, name, got, want, pages, meta,
+                                        pred, None))
+        print(f"  B2 == plain: {name} ({meta.rows_per_block} rows a block, "
+              f"{len(raw)} pages, count {int(got['count'])})")
+    if decode_cuda.launches - before != len(cases) + len(hand):
         raise AssertionError(f"B2 launches moved by "
                              f"{decode_cuda.launches - before}, expected "
-                             f"{len(cases)}")
+                             f"{len(cases) + len(hand)}")
     return worst
+
+
+def _packed_pages(cols, rpb, picks):
+    """Data blocks of a packed file at *rpb* rows a block with the given
+    per-column ``(nwords, codec, bits, dsize, rmax)``, laid out as
+    ``build_packed`` lays them, and their meta."""
+    from nvme_strom_tpu_torch.scan.colpack import (CPK_MAGIC, ColCodec,
+                                                   PackedMeta, _blocks,
+                                                   _encode_rows,
+                                                   decode_pages_numpy)
+    from nvme_strom_tpu_torch.scan.heap import HEADER_WORDS
+    n = len(cols[0])
+    nb, nfull = -(-n // rpb), n // rpb
+    metas, off = [], HEADER_WORDS
+    for nwords, codec, bits, dsize, rmax in picks:
+        metas.append(ColCodec(codec, off, nwords, bits, dsize, rmax))
+        off += nwords
+    blocks = np.zeros((nb, 2048), np.uint32)
+    blocks[:, 0] = CPK_MAGIC
+    blocks[:, 1] = np.arange(nb, dtype=np.uint32)
+    blocks[:, 2] = rpb
+    blocks[-1, 2] = n - nfull * rpb if nfull < nb else rpb
+    for c, pick, cm in zip(cols, picks, metas):
+        full, tail = _blocks(np.ascontiguousarray(c).view(np.uint32), rpb)
+        region = blocks[:, cm.off:cm.off + cm.nwords]
+        region[:nfull] = _encode_rows(full, pick, rpb)
+        if len(tail):
+            region[nfull] = _encode_rows(tail[None, :], pick, rpb)[0]
+    meta = PackedMeta(1, rpb, nb, n, tuple(np.dtype(c.dtype).name
+                                           for c in cols), tuple(metas), 0, 0)
+    pages = blocks.view(np.uint8).reshape(nb, 8192)
+    back, n_back = decode_pages_numpy(pages, meta)
+    if n_back != n or not all(np.array_equal(a.view(np.uint32),
+                                             np.asarray(b).view(np.uint32))
+                              for a, b in zip(back, cols)):
+        raise AssertionError(f"hand-packed {rpb}-row blocks do not decode "
+                             f"to their columns")
+    return pages, meta
 
 
 def _write_random_file(path, nbytes, seed, piece=64 << 20):
@@ -835,6 +1018,58 @@ def _pushdown_path(torch, dev, tmp, seed, n_pages, read_gbs, h2d_gbs):
 
 
 RING_THRESHOLDS = (-500, 0, 250, 900)   # one query per member of [9c]
+
+
+def _group_strategy_times(torch, dev, ring, schema, pred):
+    """B3 at the GROUP BY batch under each strategy and thread count its
+    plan can take (the two main-path queries, one group and the kernel's
+    cap), each held against the plain version first, then timed as the
+    bare launch queued back to back.  Returns printable lines."""
+    from nvme_strom_tpu_torch import _build
+    from nvme_strom_tpu_torch.api import StromError
+    from nvme_strom_tpu_torch.ops import groupby_cuda
+    from nvme_strom_tpu_torch.ops.filter import FilterPred
+    from nvme_strom_tpu_torch.ops.groupby import GroupKey, make_groupby_fn
+    i32, f32 = np.dtype(np.int32), np.dtype(np.float32)
+    cap = groupby_cuda.MAX_GROUPS
+    optin = _build.smem_optin(0)
+    lines = []
+    for name, key, G, agg, dt, p in (
+            ("i32 G=64 c1 % 64 where c0 > 100", GroupKey(1, 64), 64, [0, 2],
+             i32, pred),
+            ("f32 G=8 abs(c1) % 8", GroupKey(1, 8, absolute=True), 8, [4, 5],
+             f32, None),
+            ("f32 G=1", GroupKey(1, 1), 1, [4, 5], f32, None),
+            (f"i32 G={cap} c1 % {cap} where c0 > 100", GroupKey(1, cap), cap,
+             [0, 2], i32, pred)):
+        want = make_groupby_fn(schema, key, G, agg_cols=agg,
+                               predicate=p)(ring[0])
+        m1, m2 = _group_mags(torch, ring[0], schema, key, G, agg, p)
+        chosen = groupby_cuda._spec(schema, key, G, agg, dt,
+                                    p or FilterPred(), 0, smem_optin=optin)
+        cells = []
+        for strategy in groupby_cuda.STRATEGIES:
+            for threads in groupby_cuda.THREAD_CHOICES:
+                try:
+                    spec = groupby_cuda._spec(
+                        schema, key, G, agg, dt, p or FilterPred(), 0,
+                        smem_optin=optin, strategy=strategy, threads=threads)
+                except StromError:
+                    continue          # does not fit the card
+                buf = groupby_cuda.new_outputs(G, len(agg), dt, dev)
+                groupby_cuda.launch(ring[0], spec, dt, buf)
+                got = groupby_cuda.unpack_outputs(buf, G, len(agg), dt)
+                _same_groups(torch, f"[8] B3 {name} as {strategy}/{threads}",
+                             got, want, m1, m2)
+                for b in ring:
+                    groupby_cuda.launch(b, spec, dt, buf)
+                ms = _time_ms(torch, lambda i: groupby_cuda.launch(
+                    ring[i % len(ring)], spec, dt, buf), 64, queued=True)
+                mark = "*" if (spec.copies, spec.threads) == (
+                    chosen.copies, chosen.threads) else ""
+                cells.append(f"{strategy}/{threads}{mark} {ms:.4f}")
+        lines.append(f"{name}: " + ", ".join(cells) + " ms")
+    return lines
 
 
 def _filter_times(torch, dev, batches, th):
@@ -1284,8 +1519,8 @@ def main() -> int:
     from nvme_strom_tpu_torch.ops.filter import FilterPred
     from nvme_strom_tpu_torch.ops.groupby import GroupKey, make_groupby_fn
     from nvme_strom_tpu_torch.scan.executor import TableScanner
-    from nvme_strom_tpu_torch.scan.heap import (PAGE_SIZE, HeapSchema,
-                                                build_heap_file)
+    from nvme_strom_tpu_torch.scan.heap import (HEADER_WORDS, PAGE_SIZE,
+                                                HeapSchema, build_heap_file)
     from nvme_strom_tpu_torch.stats import stats
     from nvme_strom_tpu_torch.tools.common import (drop_page_cache,
                                                    first_mismatch)
@@ -1469,7 +1704,9 @@ def main() -> int:
             w, r = _same_groups(torch, f"[8] B3 {name}", got, want, m1, m2)
             worst_g, share_g = max(worst_g, w), max(share_g, r)
             gspec = groupby_cuda._spec(gb_schema, key, G, agg, dt,
-                                       pred or FilterPred(), 0)
+                                       pred or FilterPred(), 0,
+                                       smem_optin=_build.smem_optin(0))
+            gplan = _group_strategy(gb_schema, key, G, agg, pred)
             buf = groupby_cuda.new_outputs(G, len(agg), dt, dev)
             for b in gb_ring:
                 groupby_cuda.launch(b, gspec, dt, buf)
@@ -1486,7 +1723,12 @@ def main() -> int:
                             + 5 * len(agg))
             g_bound_ms = max(g_bytes / HBM_BYTES_PER_S,
                              ops / F32_OPS_PER_S) * 1e3
-            gb_times.append((name, g_ms, g_plain_ms, g_bound_ms, g_bytes))
+            gb_times.append((name, g_ms, g_plain_ms, g_bound_ms, g_bytes,
+                             gplan, _groupby_bytes(gb_schema, key, agg, pred,
+                                                   1)))
+
+        strategy_rows = _group_strategy_times(torch, dev, gb_ring, gb_schema,
+                                              gb_pred)
 
         # B2 over the packed table's first batch (its header page leads):
         # the kernel against the plain version, then timed
@@ -1531,14 +1773,40 @@ def main() -> int:
                   f"(bound {bound_ms:.4f} ms by {nbytes} bytes = "
                   f"{bound_ms / ms:.1%}); wrapper call {wrap_ms:.4f} ms; "
                   f"plain {plain_ms:.4f} ms")
-        for name, g_ms, g_plain_ms, g_bound_ms, g_bytes in gb_times:
+        for name, g_ms, g_plain_ms, g_bound_ms, g_bytes, gplan, g_page \
+                in gb_times:
             print(f"    B3 groupby_pages {name}: {g_ms:.4f} ms (bound "
                   f"{g_bound_ms:.4f} ms by {g_bytes} bytes = "
                   f"{g_bound_ms / g_ms:.1%}); plain {g_plain_ms:.4f} ms")
+            print(f"       plan: {gplan.strategy}, {gplan.threads} threads, "
+                  f"{gplan.copies} accumulator copies of {gplan.acc_words} "
+                  f"words, {gplan.stages} stages, window {gplan.window}, "
+                  f"{gplan.smem} bytes of shared memory; bulk copies "
+                  f"{[(src, n) for src, n, _ in gplan.segments]}: "
+                  f"{gplan.stage_bytes} bytes staged a page against "
+                  f"{g_page} counted")
         print(f"    B2 decode_filter_pages ({meta.rows_per_block} rows a "
               f"block): {d_ms:.4f} ms (bound {d_bound_ms:.4f} ms by "
               f"{d_bytes} bytes = {d_bound_ms / d_ms:.1%}); plain "
               f"{d_plain_ms:.4f} ms")
+        geo = []
+        for cm in meta.cols:
+            if cm.codec in ("bitpack", "dict"):
+                g = decode_cuda.column_geometry(cm)
+                geo.append(f"{cm.codec} {g['bits']} bits in 2^{g['lg_nw']} "
+                           f"words")
+            else:
+                geo.append(cm.codec + (f" {cm.rmax} runs" if cm.rmax else ""))
+        print(f"       plan: {'; '.join(geo)}; one bulk copy of "
+              f"{dspec.span_bytes} bytes a page against "
+              f"{d_bytes / SCAN_BATCH_PAGES:.1f} counted (a data page "
+              f"{4 * (HEADER_WORDS + sum(cm.nwords for cm in meta.cols))}), "
+              f"{dspec.stages} stages, rows in chunks of "
+              f"{decode_cuda.CHUNK_ROWS}")
+        print("    B3 by strategy at the GROUP BY batch (each against the "
+              "plain version first; * = the plan's choice):")
+        for line in strategy_rows:
+            print(f"       {line}")
         print(f"    pinned h2d {h2d:.3f} GB/s")
 
         # -- the ring: B4 against plain, then its main paths ------------

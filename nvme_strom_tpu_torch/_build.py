@@ -24,7 +24,7 @@ from typing import Callable, Dict, Iterable, Optional
 from .api import StromError
 
 __all__ = ["NVCC_FLAGS", "sources", "build_all", "load", "launcher",
-           "grid_cap"]
+           "grid_cap", "smem_optin"]
 
 _PKG = Path(__file__).resolve().parent
 _SRC = _PKG / "csrc"
@@ -124,6 +124,22 @@ def launcher(name: str, symbol: str, argtypes) -> Callable[..., None]:
                              + lib.strom_cuda_error_string(err).decode())
 
     return call
+
+
+@functools.lru_cache(maxsize=None)
+def smem_optin(device_index: int) -> int:
+    """The most shared memory, in bytes, one block may opt into on the
+    card (232,448 on an H100), read from the CUDA runtime."""
+    lib = load("filter")
+    fn = lib.strom_smem_optin
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    nbytes = ctypes.c_int(0)
+    err = fn(device_index, ctypes.byref(nbytes))
+    if err or nbytes.value <= 0:
+        raise StromError(_errno.EIO, "shared-memory limit query failed: "
+                         + lib.strom_cuda_error_string(err).decode())
+    return nbytes.value
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,6 +1,6 @@
 // Shared device helpers of the scan kernels (filter.cu, groupby.cu,
-// decode.cu): column kinds, predicate terms, warp sums and the launch
-// error message.
+// decode.cu): column kinds, predicate terms, warp sums, the launch error
+// message and the card's shared-memory limit.
 //
 // A predicate term compares one column value with a 32-bit constant in the
 // term's compare kind, the type jnp promotion gives the pair (see
@@ -75,4 +75,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Each source builds into a library of its own, so each holds one copy.
 extern "C" const char* strom_cuda_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The most shared memory one block of `device` may opt into, in *bytes
+// (read by _build.smem_optin); returns the cudaError_t.
+extern "C" int strom_smem_optin(int device, int* bytes) {
+    return static_cast<int>(cudaDeviceGetAttribute(
+        bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
 }

@@ -1,7 +1,7 @@
 // Hopper bulk-copy helpers of the redesigned kernels (filter.cu,
-// permute.cu): the Tensor Memory Accelerator's 1D bulk copies between
-// global and shared memory, and the shared-memory mbarriers that report a
-// load's completion.
+// permute.cu, groupby.cu, decode.cu): the Tensor Memory Accelerator's 1D
+// bulk copies between global and shared memory, and the shared-memory
+// mbarriers that report a load's completion.
 //
 // A bulk copy takes 16-byte-aligned addresses and a size that is a
 // multiple of 16 bytes.  A load (global -> shared) completes on an
