@@ -7,8 +7,9 @@ full size and holds every CUDA kernel of those
 paths against its plain PyTorch version:
 
 1. environment: the card's name and power limit (``nvidia-smi``);
-2. build: every ``nvme_strom_tpu_torch/csrc/*.cu`` with ``nvcc`` (sm_90a),
-   all sources at once;
+2. build: every ``nvme_strom_tpu_torch/csrc/*.cu`` with ``nvcc`` (sm_90a)
+   and the native I/O engine (``csrc/strom_engine.cc``) with ``g++``, all
+   sources at once;
 3. kernel vs plain on the card, over seeded random pages:
    a. the page filter (B1) for several schemas and predicates, and the
       jnp-promotion cases (float values against an int32 column); batches
@@ -30,9 +31,15 @@ paths against its plain PyTorch version:
    ``1e-5 * sum(|x|) + 1e-6`` (sums of squares ``1e-5 * sum(x^2) + 1e-6``)
    because atomics add in a varying order;
 4. load: a file of ``--load-gib`` GiB (>= 1) through ``ssd2gpu_test``'s
-   path into one CUDA tensor, checked against the file in 64 MiB pieces;
+   path into one CUDA tensor on the native engine (io_uring, with the
+   staging buffers as fixed buffers; where the kernel refuses
+   ``io_uring_setup``, its errno and the native threadpool), then again on
+   the python pool (``io_backend=python``); both checked against the file
+   in 64 MiB pieces;
 5. scan: a heap table of ``--scan-pages`` pages (>= 131072, 1 GiB) through
-   ``TableScanner.scan_filter`` with B1, checked against numpy truth;
+   ``TableScanner.scan_filter`` with B1 on the native engine, checked
+   against numpy truth, beside the read-only pass and the python pool's
+   numbers;
 6. GROUP BY: a cold 1 GiB six-column heap table through ``Query.run()``
    (two queries), checked against numpy truth with the IEEE cases;
 7. pushdown: a cold 1 GiB four-column heap table, encoded with
@@ -63,7 +70,16 @@ paths against its plain PyTorch version:
    d. B4 timed at the redistribution's and the ring scan's block shapes
       beside ``dst.copy_(src)`` and its plain version;
    with two or more cards, 9a and 9b again with the members on distinct
-   cards; with one, that leg is reported as not run.
+   cards; with one, that leg is reported as not run;
+10. write: a seeded 1 GiB CUDA tensor through pinned staging buffers
+    (fixed buffers of the session) and ``Session.memcpy_ram2ssd`` (O_DIRECT,
+    native engine) to a fresh file, ``sync()``, then loaded back by [4]'s
+    path and compared on the card; again at 1 GiB + 4 KiB + 17 bytes (the
+    misaligned tail on the buffered leg); beside a raw O_DIRECT write;
+11. trace: [4]'s load and [5]'s scan again with ``trace_policy=all``; the
+    Chrome trace dumped under ``chiprun_out/``, checked with
+    ``validate_chrome_trace``, its summary and the time of each span class
+    printed, with the scan's GB/s with the trace off and on.
 
 Every main path sets the kernels' launch counts to 0 just before it runs
 and reads them just after; each kernel of a path must have launched once
@@ -1313,8 +1329,13 @@ def _multihost_path(torch, members, tmp, seed, label, nbytes=1 << 30):
     ring over *members*: hosts 1, 2 and 4, hosts 4 with the gather, then
     the same bytes as a 4-member RAID-0 stripe (512 KiB chunks) with the
     gather.  Every shard and replica byte-identical to the file; B4
-    launches as designed.  Returns the B4 launches."""
+    launches as designed.  The read phase and the redistribution and
+    gather times are the flight recorder's ``shard_load`` and
+    ``ici_permute`` spans (trace_policy sampled at rate 0: the phase spans
+    without per-task events).  Returns the B4 launches."""
+    from nvme_strom_tpu_torch.config import config
     from nvme_strom_tpu_torch.engine import open_source
+    from nvme_strom_tpu_torch.trace import recorder
     from nvme_strom_tpu_torch.ops import permute_cuda
     from nvme_strom_tpu_torch.parallel import (load_pages_multihost,
                                                make_scan_mesh)
@@ -1337,14 +1358,38 @@ def _multihost_path(torch, members, tmp, seed, label, nbytes=1 << 30):
         src = open_source(path) if kind == "plain" else \
             open_source(paths, stripe_chunk_size=512 << 10)
         stats.reset()
+        saved = config.snapshot()
+        config.set("trace_policy", "sampled")
+        config.set("trace_sample_rate", 0.0)
+        recorder.configure()
+        recorder.clear()
         permute_cuda.launches = 0
         torch.cuda.reset_peak_memory_stats(members[0])
         t0 = time.monotonic()
-        with src:
-            out = load_pages_multihost(src, mesh, hosts=hosts, gather=gather)
-        wall = time.monotonic() - t0
-        launches = permute_cuda.launches
+        try:
+            with src:
+                out = load_pages_multihost(src, mesh, hosts=hosts,
+                                           gather=gather)
+            wall = time.monotonic() - t0
+            launches = permute_cuda.launches
+            evs = recorder.snapshot_events()
+        finally:
+            config.restore(saved)
+            recorder.configure()
+            recorder.clear()
         c = stats.snapshot()
+        loads = [e for e in evs if e[2] == "shard_load"]
+        permutes = [e for e in evs if e[2] == "ici_permute"]
+        if len(loads) != hosts or len(permutes) != 1 + gather:
+            raise AssertionError(f"{label} hosts={hosts}: {len(loads)} "
+                                 f"shard_load and {len(permutes)} "
+                                 f"ici_permute spans")
+        read_s = (max(e[0] + e[1] for e in loads)
+                  - min(e[0] for e in loads)) / 1e9
+        redis_ms, gather_ms = (
+            sum(e[1] for e in permutes
+                if bool((e[8] or {}).get("gather")) == g) / 1e6
+            for g in (False, True))
         steps = (n - 1) * (3 if gather else 2)
         if launches != n * steps:
             raise AssertionError(f"{label} hosts={hosts} gather={gather}: "
@@ -1355,14 +1400,12 @@ def _multihost_path(torch, members, tmp, seed, label, nbytes=1 << 30):
         if bad is not None:
             raise AssertionError(f"{label} {kind} hosts={hosts} gather="
                                  f"{gather}: bytes differ at {bad}")
-        read_s = c["clk_shard_load"] / 1e9
         peak = torch.cuda.max_memory_allocated(members[0]) / (1 << 30)
         print(f"[9b] {label} {kind}, hosts={hosts}"
-              f"{', gather' if gather else ''}: read {read_s:.3f} s = "
-              f"{nbytes / read_s / 1e9:.3f} GB/s aggregate; redistribution "
-              f"{c['clk_ici_redistribute'] / 1e6:.2f} ms"
-              + (f", gather {c['clk_ici_gather'] / 1e6:.2f} ms" if gather
-                 else "")
+              f"{', gather' if gather else ''}: read (shard_load spans) "
+              f"{read_s:.3f} s = {nbytes / read_s / 1e9:.3f} GB/s "
+              f"aggregate; redistribution (ici_permute) {redis_ms:.2f} ms"
+              + (f", gather {gather_ms:.2f} ms" if gather else "")
               + f"; whole call {wall:.3f} s; B4 {launches} launches, "
               f"bytes_ici {c['bytes_ici']}; peak {peak:.2f} GiB on "
               f"{members[0]}; {'every replica' if gather else 'every shard'}"
@@ -1497,6 +1540,314 @@ def _cross_card_leg(torch, tmp, seed):
     _permute_times(torch, cards[0], cards[1], "[9x]")
 
 
+def _load_phase(torch, dev, path, nbytes):
+    """Phase 4: *path* through run_load on the session's default engine,
+    which must be io_uring with no fallback where the kernel allows
+    io_uring_setup (else the errno and the native threadpool), then on the
+    python pool; each landing byte-identical.  Returns the default
+    engine's GB/s."""
+    from nvme_strom_tpu_torch import _native
+    from nvme_strom_tpu_torch.stats import stats
+    from nvme_strom_tpu_torch.tools.common import (drop_page_cache,
+                                                   first_mismatch)
+    from nvme_strom_tpu_torch.tools.ssd2gpu_test import run_load
+    refused = _native.uring_probe()
+    rows = []
+    for backend in (None, "python"):
+        drop_page_cache(path)
+        fb0 = stats.snapshot().get("nr_backend_fallback", 0)
+        out = run_load(path, device=dev, backend=backend)
+        fallbacks = stats.snapshot().get("nr_backend_fallback", 0) - fb0
+        bad = first_mismatch(out["tensor"], path, out["nbytes"])
+        if bad is not None:
+            raise AssertionError(f"load ({out['backend']}): landed bytes "
+                                 f"differ from the file at offset {bad[0]}")
+        rows.append((out, fallbacks))
+        del out["tensor"]
+    (nat, nat_fb), (py, _) = rows
+    if not refused and (nat["backend"] != "io_uring" or nat_fb):
+        raise AssertionError(f"load: io_uring_setup works here, but the "
+                             f"session ran {nat['backend']} after "
+                             f"{nat_fb} fallback(s)")
+    if refused and nat["backend"] != "threadpool":
+        raise AssertionError(f"load: io_uring refused (errno {refused}) "
+                             f"and the session ran {nat['backend']}, not "
+                             f"the native threadpool")
+    if py["backend"] != "python":
+        raise AssertionError(f"load: io_backend=python ran {py['backend']}")
+    gbs = [o["nbytes"] / o["seconds"] / 1e9 for o, _ in rows]
+    c = nat["counters"]
+    why = (f"io_uring_setup refused with errno {refused} "
+           f"({os.strerror(refused)}): on the native threadpool rung, "
+           if refused else "")
+    print(f"[4] load: {nat['nbytes']} bytes, {why}backend "
+          f"{nat['backend']}: {nat['seconds']:.3f} s = {gbs[0]:.3f} GB/s; "
+          f"staging buffers fixed {nat['fixed']} of 6; nr_backend_fallback "
+          f"{nat_fb}; requests {c.get('nr_submit_dma', 0)} "
+          f"({c.get('nr_debug4', 0)} on fixed buffers, "
+          f"{c.get('nr_enter_dma', 0)} io_uring_enter calls), nr_ssd2dev "
+          f"{c.get('nr_ssd2dev', 0)}, h2d ring depth reached "
+          f"{nat['depth']} | python pool: {py['seconds']:.3f} s = "
+          f"{gbs[1]:.3f} GB/s; both byte-identical")
+    return gbs[0]
+
+
+def _scan_pass(torch, dev, heap_path, th, backend=None, read_pass=True):
+    """A read-only pass (unless not *read_pass*) and one B1 scan of
+    *heap_path* on the engine *backend* (default: the session's), each
+    from a cold page cache.  Returns (read-only s or None, scan s, result,
+    batches, h2d depth)."""
+    from nvme_strom_tpu_torch.engine import Session
+    from nvme_strom_tpu_torch.ops import filter_cuda
+    from nvme_strom_tpu_torch.scan.executor import TableScanner
+    from nvme_strom_tpu_torch.tools.common import drop_page_cache
+    read_s = None
+    if read_pass:
+        drop_page_cache(heap_path)
+        with Session(io_backend=backend) as sess, \
+                TableScanner(heap_path, session=sess) as sc:
+            t0 = time.monotonic()
+            sum(len(b.pages) for b in sc.batches())
+            read_s = time.monotonic() - t0
+    drop_page_cache(heap_path)
+    with Session(io_backend=backend) as sess, \
+            TableScanner(heap_path, session=sess) as sc:
+        t0 = time.monotonic()
+        res = sc.scan_filter(
+            lambda p: filter_cuda.scan_filter_step_cuda(p, th), device=dev)
+        scan_s = time.monotonic() - t0
+        return read_s, scan_s, res, sc.last_batches, sc.last_h2d_depth
+
+
+def _raw_write(path, nbytes, block=4 << 20):
+    """Sequential O_DIRECT pwrite of *nbytes* to a fresh *path* at queue
+    depth 1, then fsync, with no framework: the disk's own write ceiling,
+    in GB/s."""
+    import mmap
+    buf = mmap.mmap(-1, block)
+    buf[:] = np.random.default_rng(1).bytes(block)
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC | os.O_DIRECT,
+                 0o644)
+    try:
+        os.ftruncate(fd, nbytes)
+        t0 = time.monotonic()
+        for off in range(0, nbytes, block):
+            os.pwritev(fd, [memoryview(buf)[:min(block, nbytes - off)]], off)
+        os.fsync(fd)
+        dt = time.monotonic() - t0
+    finally:
+        os.close(fd)
+        buf.close()
+    os.unlink(path)
+    return nbytes / dt / 1e9
+
+
+def _staged_write(torch, sess, sink, src, piece=16 << 20, chunk=1 << 20,
+                  n_buffers=3):
+    """Write the bytes of CUDA tensor *src* to *sink*: each *piece* goes
+    D2H into one of *n_buffers* pinned staging buffers of *sess* (its
+    fixed buffers), then ``memcpy_ram2ssd`` in *chunk* units; a buffer is
+    refilled once its write task is reaped.  Ends with ``sink.sync()``.
+    Returns (seconds, staging buffers that are fixed)."""
+    dev = src.device
+    bufs = [sess.alloc_dma_buffer(piece) for _ in range(n_buffers)]
+    hosts = [torch.frombuffer(b.view(), dtype=torch.uint8) for _, b in bufs]
+    stream = torch.cuda.Stream(device=dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    inflight = {}
+    nbytes = src.numel()
+    t0 = time.monotonic()
+    try:
+        for k, off in enumerate(range(0, nbytes, piece)):
+            i = k % n_buffers
+            if i in inflight:
+                sess.memcpy_wait(inflight.pop(i))
+            n = min(piece, nbytes - off)
+            with torch.cuda.stream(stream):
+                hosts[i][:n].copy_(src[off:off + n], non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(stream)
+            ev.synchronize()
+            ids = list(range(off // chunk, off // chunk + -(-n // chunk)))
+            inflight[i] = sess.memcpy_ram2ssd(sink, bufs[i][0], ids,
+                                              chunk).dma_task_id
+        for tid in inflight.values():
+            sess.memcpy_wait(tid)
+        sink.sync()
+        dt = time.monotonic() - t0
+        fixed = sum(sess.is_fixed(b) for _, b in bufs)
+    finally:
+        hosts.clear()
+        for handle, buf in bufs:
+            sess.unmap_buffer(handle)
+            buf.close()
+    return dt, fixed
+
+
+def _write_path(torch, dev, tmp, seed):
+    """Phase 10: a seeded 1 GiB CUDA tensor written through the session's
+    staging buffers and memcpy_ram2ssd, then loaded back by [4]'s path and
+    compared on the card; again at 1 GiB + 4 KiB + 17 bytes (the tail
+    rides the buffered leg and comes back through load_file_to_device)."""
+    from nvme_strom_tpu_torch.engine import Session, open_source
+    from nvme_strom_tpu_torch.hbm.staging import load_file_to_device
+    from nvme_strom_tpu_torch.tools.common import drop_page_cache
+    from nvme_strom_tpu_torch.tools.ssd2gpu_test import run_load
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 9)
+    base = 1 << 30
+    src = torch.randint(0, 256, (base + 4096 + 17,), dtype=torch.uint8,
+                        device=dev, generator=gen)
+    parts = []
+    for nbytes in (base, base + 4096 + 17):
+        path = os.path.join(tmp, f"write.{nbytes}.bin")
+        with open(path, "wb") as f:
+            f.truncate(nbytes)
+        with Session(device=dev) as sess, \
+                open_source(path, writable=True) as sink:
+            secs, fixed = _staged_write(torch, sess, sink, src[:nbytes])
+            backend = sess.backend_name
+        drop_page_cache(path)
+        if nbytes % (1 << 20) == 0:
+            back = run_load(path, device=dev)["tensor"]
+        else:
+            with open_source(path) as rsrc:
+                back = load_file_to_device(rsrc, device=dev)
+        if back.numel() != nbytes or not torch.equal(back, src[:nbytes]):
+            raise AssertionError(f"write: {nbytes} bytes written and read "
+                                 f"back differ from the tensor")
+        del back
+        os.unlink(path)
+        parts.append((nbytes, secs, fixed, backend))
+    raw = _raw_write(os.path.join(tmp, "raw_write.bin"), base)
+    (n0, s0, f0, b0), (n1, s1, _, _) = parts
+    print(f"[10] write: {n0} bytes from the card, backend {b0}, staging "
+          f"buffers fixed {f0} of 3: {s0:.3f} s = {n0 / s0 / 1e9:.3f} GB/s "
+          f"(sync included) against a raw O_DIRECT write of "
+          f"{raw:.3f} GB/s; read back by [4]'s path: byte-identical; "
+          f"{n1} bytes (tail of 4 KiB + 17 on the buffered leg): "
+          f"{s1:.3f} s, read back byte-identical")
+
+
+def _merged(spans):
+    """The union of the *spans* intervals, as sorted disjoint [a, b]."""
+    merged = []
+    for a, b in sorted((e[0], e[0] + e[1]) for e in spans):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return merged
+
+
+def _span_table(evs):
+    """Rows ``(name, spans, summed ms, wall ms, instants)`` of a list of
+    recorder events, most wall time first: the wall time is the union of
+    the class's spans (per-extent and concurrent spans overlap)."""
+    rows = {}
+    for e in evs:
+        rows.setdefault(e[2], []).append(e)
+    out = []
+    for name, es in rows.items():
+        spans = [e for e in es if e[1] is not None]
+        out.append((name, len(spans), sum(e[1] for e in spans) / 1e6,
+                    sum(b - a for a, b in _merged(spans)) / 1e6,
+                    len(es) - len(spans)))
+    return sorted(out, key=lambda r: -r[3])
+
+
+def _covered_ns(spans, cover):
+    """Nanoseconds of the *spans* intervals that some *cover* interval
+    overlaps."""
+    merged = _merged(cover)
+    total = 0
+    for e in spans:
+        a, b = e[0], e[0] + e[1]
+        for m0, m1 in merged:
+            if m1 <= a:
+                continue
+            if m0 >= b:
+                break
+            total += min(b, m1) - max(a, m0)
+    return total
+
+
+def _trace_phase(torch, dev, load_path, heap_path, th, truth, out_dir):
+    """Phase 11: [4]'s load and [5]'s scan again with trace_policy=all;
+    the dump validated and summarised, the time of each span class, and
+    the scan's GB/s with the trace off and on."""
+    from nvme_strom_tpu_torch.config import config
+    from nvme_strom_tpu_torch.trace import (chrome_trace_from_events,
+                                            recorder,
+                                            summarize_chrome_trace,
+                                            validate_chrome_trace)
+    from nvme_strom_tpu_torch.tools.common import first_mismatch
+    from nvme_strom_tpu_torch.tools.ssd2gpu_test import run_load
+    size = os.path.getsize(heap_path)
+    _, off_s, res, _, _ = _scan_pass(torch, dev, heap_path, th,
+                                     read_pass=False)
+    saved = config.snapshot()
+    config.set("trace_policy", "all")
+    recorder.configure()
+    recorder.clear()
+    try:
+        out = run_load(load_path, device=dev)
+        if first_mismatch(out["tensor"], load_path, out["nbytes"]):
+            raise AssertionError("traced load: bytes differ from the file")
+        load_gbs = out["nbytes"] / out["seconds"] / 1e9
+        del out
+        load_evs = recorder.snapshot_events()
+        recorder.clear()
+        _, on_s, res_on, _, _ = _scan_pass(torch, dev, heap_path, th,
+                                           read_pass=False)
+        scan_evs = recorder.snapshot_events()
+        dropped = recorder.dropped_events()
+    finally:
+        config.restore(saved)
+        recorder.configure()
+        recorder.clear()
+    for r in (res, res_on):
+        if (int(r["count"]), int(r["sum"])) != truth:
+            raise AssertionError(f"traced scan: {int(r['count'])} / "
+                                 f"{int(r['sum'])}, numpy truth {truth}")
+    evs = sorted(load_evs + scan_evs, key=lambda e: e[0])
+    doc = chrome_trace_from_events(evs, reason="chip_smoke [11]",
+                                   dropped=dropped)
+    errs = validate_chrome_trace(doc)
+    if errs:
+        raise AssertionError(f"trace: {len(errs)} schema errors: {errs[:3]}")
+    os.makedirs(out_dir, exist_ok=True)
+    dump = os.path.join(out_dir, "chip_smoke_trace.json")
+    with open(dump, "w") as f:
+        json.dump(doc, f)
+    print(f"[11] trace: {len(doc['traceEvents'])} events dumped to "
+          f"{os.path.relpath(dump)}, valid Chrome trace; traced load "
+          f"{load_gbs:.3f} GB/s; scan {size / off_s / 1e9:.3f} GB/s with "
+          f"the trace off, {size / on_s / 1e9:.3f} GB/s with it on (same "
+          f"count and sum)")
+    for line in summarize_chrome_trace(doc).splitlines():
+        print(f"     {line}")
+    for tag, phase in (("load", load_evs), ("scan", scan_evs)):
+        t0 = min(e[0] for e in phase)
+        t1 = max(e[0] + (e[1] or 0) for e in phase)
+        print(f"     {tag}: window {(t1 - t0) / 1e6:.2f} ms; by span class "
+              f"(spans, summed ms, wall ms, instants):")
+        for name, n, ms, wall, ni in _span_table(phase):
+            print(f"       {name:<15} {n:6d} {ms:10.2f} {wall:9.2f} {ni:6d}")
+        land = [e for e in phase if e[2] == "landing"]
+        waits = [e for e in phase if e[2] == "wait"]
+        nvme = [e for e in phase if e[2] == "nvme"]
+        if land:
+            # one landing span per extent: the retire windows themselves
+            retire = [e for e in phase if e[2] == "staging_retire"]
+            busy = sum(e[1] for e in retire)
+            print(f"       staging_retire windows {busy / 1e6:.2f} ms, of "
+                  f"which {_covered_ns(retire, nvme) / 1e6:.2f} ms with a "
+                  f"device read in flight and "
+                  f"{_covered_ns(retire, waits) / 1e6:.2f} ms inside a "
+                  f"wait span")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--load-gib", type=float, default=1.0)
@@ -1542,7 +1893,9 @@ def main() -> int:
     t0 = time.monotonic()
     logs = _build.build_all()
     build_s = time.monotonic() - t0
-    print(f"[2] build: {sorted(logs) or 'cached'} in {build_s:.2f} s")
+    print(f"[2] build: {sorted(logs) or 'cached'} in {build_s:.2f} s; the "
+          f"engine (g++) in "
+          f"{_build.build_times.get(_build.ENGINE, 0.0):.2f} s")
     for name, out in logs.items():
         for line in out.splitlines():
             if any(k in line for k in ("entry function", "registers",
@@ -1584,25 +1937,16 @@ def main() -> int:
         load_path = os.path.join(tmp, "load.bin")
         load_bytes = int(args.load_gib * (1 << 30))
         _write_random_file(load_path, load_bytes, args.seed)
-        drop_page_cache(load_path)
-        out = run_load(load_path, device=dev)
-        load_gbs = out["nbytes"] / out["seconds"] / 1e9
-        bad = first_mismatch(out["tensor"], load_path, out["nbytes"])
-        if bad is not None:
-            raise AssertionError(f"load: landed bytes differ from the file "
-                                 f"at offset {bad[0]}")
-        print(f"[4] load: {out['nbytes']} bytes in {out['seconds']:.3f} s "
-              f"= {load_gbs:.3f} GB/s, byte-identical; nr_ssd2dev "
-              f"{out['counters'].get('nr_ssd2dev', 0)}, requests "
-              f"{out['counters'].get('nr_submit_dma', 0)}, h2d ring depth "
-              f"reached {out['depth']}; kernel launches "
-              f"{filter_cuda.launches + groupby_cuda.launches + decode_cuda.launches}"
-              f" (none on this path)")
-        del out
+        _load_phase(torch, dev, load_path, load_bytes)
+        launches = filter_cuda.launches + groupby_cuda.launches \
+            + decode_cuda.launches
+        if launches:
+            raise AssertionError(f"load: {launches} kernel launches on a "
+                                 f"path that has none")
         drop_page_cache(load_path)
         print(f"    yardstick: raw O_DIRECT read of the same file "
-              f"{measure_raw(load_path, load_bytes):.3f} GB/s")
-        os.unlink(load_path)
+              f"{measure_raw(load_path, load_bytes):.3f} GB/s; kernel "
+              f"launches 0 (none on this path)")
 
         # -- main path: scan -------------------------------------------
         schema = HeapSchema(n_cols=2, visibility=True)
@@ -1630,8 +1974,19 @@ def main() -> int:
                     .view(np.int32)) for c in (c0, c1))))
         del c0, c1, vis, sel, rsel
         table_bytes = os.path.getsize(heap_path)
+        # the python pool's read-only pass and scan first, outside the
+        # counted run, for the numbers beside the native engine's
+        py_read_s, py_scan_s, py_res, _, _ = _scan_pass(
+            torch, dev, heap_path, th, backend="python")
+        if int(py_res["count"]) != want_count or \
+                int(py_res["sum"]) != want_sum:
+            raise AssertionError(f"scan on the python pool: got count "
+                                 f"{int(py_res['count'])} sum "
+                                 f"{int(py_res['sum'])}, numpy truth "
+                                 f"{want_count} / {want_sum}")
         # read-only pass (SSD -> pinned pool, no device work), then the
-        # counted scan, each from a cold page cache
+        # counted scan, each from a cold page cache, on the default engine
+        drop_page_cache(heap_path)
         with TableScanner(heap_path) as sc:
             t0 = time.monotonic()
             n_read = sum(len(b.pages) for b in sc.batches())
@@ -1654,6 +2009,7 @@ def main() -> int:
             scan_s = time.monotonic() - t0
             n_batches = sc.last_batches
             depth = sc.last_h2d_depth
+            scan_backend = sc.session.backend_name
         main_launches = filter_cuda.launches
         if int(res["count"]) != want_count or int(res["sum"]) != want_sum:
             raise AssertionError(f"scan: got count {int(res['count'])} sum "
@@ -1662,14 +2018,18 @@ def main() -> int:
         if main_launches != n_batches or n_batches == 0:
             raise AssertionError(f"scan: {main_launches} kernel launches "
                                  f"for {n_batches} batches")
+        scan_gbs = table_bytes / scan_s / 1e9
         print(f"[5] scan: {table_bytes} bytes ({args.scan_pages} pages, "
-              f"table built in {heap_build_s:.1f} s) in {scan_s:.3f} s = "
-              f"{table_bytes / scan_s / 1e9:.3f} GB/s; count {want_count} "
-              f"and sum {want_sum} match numpy; {main_launches} launches = "
-              f"{n_batches} batches; h2d depth reached {depth}")
+              f"table built in {heap_build_s:.1f} s), backend "
+              f"{scan_backend}: {scan_s:.3f} s = {scan_gbs:.3f} GB/s; count "
+              f"{want_count} and sum {want_sum} match numpy; {main_launches}"
+              f" launches = {n_batches} batches; h2d depth reached {depth}")
         print(f"    yardstick: read-only pass of the scanner (no device) "
               f"{read_gbs:.3f} GB/s; scanner set-up, not in the scan's "
-              f"time: {setup_s * 1e3:.1f} ms")
+              f"time: {setup_s * 1e3:.1f} ms | python pool: read-only "
+              f"{table_bytes / py_read_s / 1e9:.3f} GB/s, scan "
+              f"{table_bytes / py_scan_s / 1e9:.3f} GB/s (same count and "
+              f"sum)")
         filter_ring = _first_batch(torch, dev, heap_path)
         h2d = measure_h2d(dev)
 
@@ -1825,13 +2185,21 @@ def main() -> int:
         ring_launches = _multihost_path(torch, [dev] * 4, tmp, args.seed,
                                         "4 members on one card")
         ring_launches += _ring_scan_path(torch, dev, heap_path, ring_truth)
-        os.unlink(heap_path)
         ring_rows = _permute_times(torch, dev)
         if torch.cuda.device_count() >= 2:
             _cross_card_leg(torch, tmp, args.seed)
         else:
             print("[9x] cross-card leg: not run: one card visible "
                   "(not passed, not failed)")
+
+        # -- the write path, then the traced load and scan ---------------
+        _write_path(torch, dev, tmp, args.seed)
+        _trace_phase(torch, dev, load_path, heap_path, th,
+                     (want_count, want_sum),
+                     os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  "chiprun_out"))
+        os.unlink(heap_path)
+        os.unlink(load_path)
         print(f"    total {time.monotonic() - t_start:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -8,7 +8,11 @@ imports ``torch`` and ``numpy`` and nothing of the JAX package.
 Entry points run on ``cuda:0`` unless the caller passes ``device="cpu"``;
 with no CUDA device they raise ``StromError(ENODEV)``.
 
-* :mod:`.engine` — file check, sources, pinned buffers, async read tasks.
+* :mod:`.engine` — file check, sources, pinned buffers, async read and
+  write tasks, executed by :mod:`._native` (the io_uring engine, built
+  with ``g++`` at first use) or a Python thread pool.
+* :mod:`.trace` — the flight recorder: per-task spans, Chrome-trace dumps
+  (``tools/strom_trace.py``), the Prometheus rendering of :mod:`.stats`.
 * :mod:`.hbm` — device registry, bounded fences, the staging pipeline.
 * :mod:`.scan` — heap page format, DMA pool, table scanner.
 * :mod:`.ops` — the kernels (page filter, GROUP BY, packed decode, ring
@@ -19,10 +23,12 @@ with no CUDA device they raise ``StromError(ENODEV)``.
 
 from .api import BufferInfo, FileInfo, FsKind, MemCopyResult, StromError
 from .config import config
-from .engine import DmaBuffer, PlainSource, Session, Source, check_file, \
-    open_source
+from .engine import DmaBuffer, PlainSource, SegmentedSource, Session, \
+    Source, StripedSource, check_file, open_source
 from .stats import stats
+from .trace import recorder
 
 __all__ = ["BufferInfo", "DmaBuffer", "FileInfo", "FsKind", "MemCopyResult",
-           "PlainSource", "Session", "Source", "StromError", "check_file",
-           "config", "open_source", "stats"]
+           "PlainSource", "SegmentedSource", "Session", "Source",
+           "StripedSource", "StromError", "check_file", "config",
+           "open_source", "recorder", "stats"]

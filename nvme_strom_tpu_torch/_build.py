@@ -1,11 +1,16 @@
-"""Build the package's CUDA kernels with ``nvcc`` at first use.
+"""Build the package's native code at first use.
 
 Each ``csrc/<name>.cu`` (with the shared ``csrc/*.cuh`` headers) compiles
-on its own into a shared library with a plain C interface
-(``-gencode arch=compute_90a,code=sm_90a``), loaded with ``ctypes``.  Outputs go to ``_build/`` beside this file, named by a hash of
-the source and the flags, so an edited source rebuilds and an unchanged one
-loads at once.  Builds of several sources run in parallel, one ``nvcc``
-each.  A failed build raises: nothing falls back to a plain version.
+on its own with ``nvcc`` into a shared library with a plain C interface
+(``-gencode arch=compute_90a,code=sm_90a``), loaded with ``ctypes``.  The
+native I/O engine, ``csrc/strom_engine.cc`` with its C ABI header
+``csrc/strom_tpu.h``, compiles with ``g++`` (the flags of the JAX
+package's engine build: ``-O2 -std=c++17 -fPIC -pthread -shared``).
+Outputs go to ``_build/`` beside this file, named by a hash of the
+source and the flags, so an edited source rebuilds and an unchanged one
+loads at once.  Builds of several sources run in parallel, one compiler
+process each.  A failed build raises: nothing falls back to a plain
+version or to another engine.
 """
 
 from __future__ import annotations
@@ -18,13 +23,15 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Optional
 
 from .api import StromError
 
-__all__ = ["NVCC_FLAGS", "sources", "build_all", "load", "launcher",
-           "grid_cap", "smem_optin"]
+__all__ = ["NVCC_FLAGS", "GXX_FLAGS", "ENGINE", "sources", "build_all",
+           "build_times", "engine_library", "load", "launcher", "grid_cap",
+           "smem_optin"]
 
 _PKG = Path(__file__).resolve().parent
 _SRC = _PKG / "csrc"
@@ -33,8 +40,16 @@ _OUT = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: the native I/O engine: its name in :func:`build_all`'s logs and
+#: :data:`build_times`
+ENGINE = "strom_engine"
+GXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-pthread", "-shared")
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+#: seconds from the start of the last :func:`build_all` to each of its
+#: compiler processes' end, by source name
+build_times: Dict[str, float] = {}
 
 
 def sources() -> list:
@@ -50,7 +65,23 @@ def _nvcc() -> str:
     raise StromError(_errno.ENOENT, "nvcc not found (PATH or $CUDA_HOME/bin)")
 
 
+def _gxx() -> str:
+    cand = shutil.which("g++")
+    if cand is None:
+        raise StromError(_errno.ENOENT, "g++ not found on PATH")
+    return cand
+
+
+def _engine_target() -> Path:
+    src = (_SRC / f"{ENGINE}.cc").read_bytes() \
+        + (_SRC / "strom_tpu.h").read_bytes()
+    digest = hashlib.sha256(src + " ".join(GXX_FLAGS).encode()).hexdigest()
+    return _OUT / f"lib{ENGINE}-{digest[:16]}.so"
+
+
 def _target(name: str) -> Path:
+    if name == ENGINE:
+        return _engine_target()
     src = (_SRC / f"{name}.cu").read_bytes()
     # the shared headers are part of every source
     for hdr in sorted(_SRC.glob("*.cuh")):
@@ -59,33 +90,56 @@ def _target(name: str) -> Path:
     return _OUT / f"lib{name}-{digest[:16]}.so"
 
 
+def _command(name: str, out: Path) -> list:
+    if name == ENGINE:
+        return [_gxx(), *GXX_FLAGS, "-o", str(out),
+                str(_SRC / f"{ENGINE}.cc")]
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(_SRC / f"{name}.cu")]
+
+
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Compile every named source that has no up-to-date library, all
-    ``nvcc`` processes started together.  Returns ``{name: compiler
-    output}`` for the sources built by this call."""
-    names = list(sources() if names is None else names)
+    compiler processes started together.  *names* are kernel sources and
+    :data:`ENGINE`; the default is every kernel and the engine.  Returns
+    ``{name: compiler output}`` for the sources built by this call, and
+    sets :data:`build_times`."""
+    names = list([*sources(), ENGINE] if names is None else names)
     _OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.monotonic()
     for name in names:
         target = _target(name)
         if target.exists():
             continue
         tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        procs[name] = (subprocess.Popen(_command(name, tmp),
+                                        stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target)
     logs, failed = {}, []
-    for name, (proc, tmp, target) in procs.items():
+    build_times.clear()
+    # the engine's g++ ends first: waiting on it first times it alone
+    for name, (proc, tmp, target) in sorted(
+            procs.items(), key=lambda kv: kv[0] != ENGINE):
         out, _ = proc.communicate()
+        build_times[name] = time.monotonic() - t0
         logs[name] = out
         if proc.returncode != 0:
-            failed.append(f"{name}.cu (rc {proc.returncode}):\n{out}")
+            failed.append(f"{name} (rc {proc.returncode}):\n{out}")
             continue
         os.replace(tmp, target)
     if failed:
-        raise StromError(_errno.EIO, "nvcc failed: " + "\n".join(failed))
+        raise StromError(_errno.EIO, "build failed: " + "\n".join(failed))
     return logs
+
+
+def engine_library() -> str:
+    """Path of the native engine's library, built first if needed."""
+    with _lock:
+        target = _engine_target()
+        if not target.exists():
+            build_all([ENGINE])
+        return str(target)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -7,6 +7,7 @@ at run time with :meth:`Config.set`; there is no file or environment tier.
 
 from __future__ import annotations
 
+import errno as _errno
 import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
@@ -15,7 +16,9 @@ __all__ = ["ConfigError", "Config", "config", "parse_size"]
 
 
 class ConfigError(ValueError):
-    pass
+    """A refused value: EINVAL, as the engine's own refusals."""
+
+    errno = _errno.EINVAL
 
 
 _SUFFIX = {"k": 1 << 10, "m": 1 << 20, "g": 1 << 30, "t": 1 << 40}
@@ -57,6 +60,35 @@ def _ici_permute(val: str) -> None:
         raise ConfigError(f"ici_permute must be auto|cuda|plain, got {val!r}")
 
 
+def _io_backend(val: str) -> None:
+    if val not in ("auto", "io_uring", "threadpool", "python"):
+        raise ConfigError(f"io_backend must be auto|io_uring|threadpool|"
+                          f"python, got {val!r}")
+
+
+def _engine_backend(val: str) -> None:
+    if val == "passthru":
+        raise ConfigError("engine_backend=passthru: the NVMe passthrough "
+                          "rung is not part of this package")
+    if val not in ("auto", "uring", "threadpool"):
+        raise ConfigError(f"engine_backend must be auto|uring|threadpool, "
+                          f"got {val!r}")
+
+
+def _trace_policy(val: str) -> None:
+    if val not in ("off", "sampled", "all"):
+        raise ConfigError(f"trace_policy must be off|sampled|all, "
+                          f"got {val!r}")
+
+
+def _coalesce_limit(val: int, cfg: "Config") -> None:
+    # 0 = coalescing off; otherwise the merge window must cover at least
+    # one dma_max_size request or planning could emit nothing mergeable
+    if val and val < cfg.get("dma_max_size"):
+        raise ConfigError(f"coalesce_limit {val} below dma_max_size "
+                          f"{cfg.get('dma_max_size')} (set 0 to disable)")
+
+
 @dataclass(frozen=True)
 class _Var:
     default: Any
@@ -64,6 +96,8 @@ class _Var:
     minval: Optional[float] = None
     maxval: Optional[float] = None
     check: Optional[Callable[[Any], None]] = None
+    #: validation against the other knobs' current values
+    cross: Optional[Callable[[Any, "Config"], None]] = None
 
     def parse(self, name: str, raw: Any) -> Any:
         if self.kind is bool:
@@ -117,6 +151,44 @@ _VARS: Dict[str, _Var] = {
     # ring permute transport: auto (from the members' device type) |
     # cuda (the hand-written kernel) | plain (PyTorch copies)
     "ici_permute": _Var("auto", str, check=_ici_permute),
+    # -- the I/O engine ------------------------------------------------
+    # executor of planned requests: auto (the native engine's io_uring,
+    # then its threadpool) | io_uring | threadpool | python (the thread
+    # pool of blocking preads in engine.py)
+    "io_backend": _Var("auto", str, check=_io_backend),
+    # rung of the native engine's ladder when io_backend is auto:
+    # auto (io_uring, then threadpool) | uring | threadpool
+    "engine_backend": _Var("auto", str, check=_engine_backend),
+    # step down the ladder (io_uring -> native threadpool -> python pool)
+    # when an engine cannot be created or a native submit fails; off
+    # raises instead
+    "io_fallback": _Var(True, bool),
+    # io_uring submission queue depth / outstanding requests
+    "queue_depth": _Var(32, int, 1, 4096),
+    # engine lanes (queue pairs), member % lanes; 0 = one lane, scaled
+    # out to one a stripe member (at most 16) at the first striped submit
+    "engine_rings": _Var(0, int, 0, 16),
+    # per-lane in-flight window after that scale-out; 0 = queue_depth
+    "member_queue_depth": _Var(0, int, 0, 4096),
+    # chunks planned and submitted per slice of a multi-chunk read
+    "submit_window": _Var(16, int, 1, 256),
+    # largest coalesced native read: file-contiguous requests of one member
+    # merge beyond dma_max_size up to this; 0 = no coalescing
+    "coalesce_limit": _Var(8 << 20, int, 0, 256 << 20,
+                           cross=_coalesce_limit),
+    # adapt the coalesced cap between dma_max_size and coalesce_limit from
+    # observed per-request service latency; off pins it at coalesce_limit
+    "chunk_adaptive": _Var(True, bool),
+    # -- the flight recorder -------------------------------------------
+    # per-task span tracing: off (one attribute test a site) | sampled
+    # (1 task in round(1 / trace_sample_rate)) | all; read when a Session
+    # is built (trace.recorder.configure())
+    "trace_policy": _Var("off", str, check=_trace_policy),
+    "trace_sample_rate": _Var(0.01, float, 0.0, 1.0),
+    # events a thread's ring holds; the oldest are overwritten
+    "trace_ring_events": _Var(8192, int, 256, 1 << 20),
+    # directory of trace dumps; empty = the temporary directory
+    "trace_dir": _Var("", str),
 }
 
 
@@ -139,6 +211,8 @@ class Config:
         if var is None:
             raise ConfigError(f"unknown config var {name}")
         val = var.parse(name, raw)
+        if var.cross is not None:
+            var.cross(val, self)
         with self._lock:
             self._values[name] = val
 

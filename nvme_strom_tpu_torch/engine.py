@@ -1,27 +1,37 @@
 """Host data-path engine: file check, sources, pinned buffers, task table.
 
-A deliberately reduced copy of the JAX package's engine: the reference's
-kernel-module commands (`kmod/nvme_strom.c`) as an in-process engine that
-reads with ``O_DIRECT`` ``os.preadv`` on a thread pool (the JAX engine's
-``io_backend=python`` lane):
+A reduced copy of the JAX package's engine: the reference's kernel-module
+commands (`kmod/nvme_strom.c`) as an in-process engine.
 
 * ``check_file`` — O_DIRECT probe, fs class, logical block size, request
   cap (reference ``ioctl_check_file``, :188-583);
-* ``PlainSource`` — one regular file, direct and buffered fds;
-* ``StripedSource`` — a read-only RAID-0 set of member files
-  (:mod:`.stripe`), and the host-ownership planner of the multi-host
-  sharded loader (``plan_shard_ownership``);
+* sources — ``PlainSource`` (one file), ``SegmentedSource`` (fixed-size
+  segment files, a PostgreSQL relation's shape) and ``StripedSource`` (a
+  RAID-0 member set, :mod:`.stripe`), each readable and, opened with
+  ``writable=True``, writable; the host-ownership planner of the
+  multi-host loader (``plan_shard_ownership``);
 * ``DmaBuffer`` — page-aligned anonymous mmap (hugepages when the length
-  allows), optionally mlock'd, and registered with the CUDA runtime
+  allows), optionally mlock'd, registered with the CUDA runtime
   (``cudaHostRegister``) so host→device copies from it run asynchronously;
+* the request planner — merges of file- and destination-contiguous reads
+  up to ``dma_max_size`` (reference :1473-1505), then, for the native
+  engine, coalescing beyond that cap up to ``coalesce_limit`` under a
+  per-member :class:`AdaptiveChunkSizer`;
 * ``Session`` — buffer handle table, one task per memcpy command, first
   error latched and retained until a wait reaps it (reference design memo
-  :612-626).
+  :612-626).  Planned requests execute on the native engine
+  (:mod:`._native`: io_uring, else its pread thread pool), submitted in
+  ``submit_window`` slices and one lane a stripe member, landing straight
+  into pinned buffers registered as io_uring fixed buffers; or, with
+  ``io_backend=python`` or a source whose read leg is overridden, on a
+  Python pool of blocking ``preadv``s.  The write leg (``memcpy_ram2ssd``)
+  mirrors the read path.
 
-Mirrors, writable stripes, segmented sources, the fault ladder, hedging,
-residency tiers, integrity, autotune, NVMe passthrough, the native
-io_uring engine and page-cache (mincore) arbitration are not part of this
-copy: every chunk is read direct, in the caller's order.
+Not part of this copy: mirrors and the mirror-coherent write ladder,
+page-cache (mincore) arbitration, the fault ladder (retries beyond the
+engine's own, hedging, the member-health machine, the watchdog), checksum
+verify, residency tiers, autotune, NVMe passthrough and NUMA lane pinning.
+Every chunk is read direct, in the caller's order.
 """
 
 from __future__ import annotations
@@ -40,10 +50,12 @@ from .api import BufferInfo, FileInfo, FsKind, MemCopyResult, StromError
 from .config import config
 from .log import pr_warn
 from .stats import stats
+from .trace import recorder as _trace
 
-__all__ = ["check_file", "Source", "PlainSource", "StripedSource",
-           "open_source", "reorder_chunks", "plan_shard_ownership",
-           "DmaBuffer", "Session", "Request", "plan_requests"]
+__all__ = ["check_file", "Source", "PlainSource", "SegmentedSource",
+           "StripedSource", "open_source", "reorder_chunks",
+           "read_chunk_ids", "plan_shard_ownership", "DmaBuffer", "Session",
+           "Request", "plan_requests", "AdaptiveChunkSizer"]
 
 PAGE_SIZE = mmap.PAGESIZE
 _libc = ctypes.CDLL(None, use_errno=True)
@@ -124,10 +136,14 @@ class Extent:
 
 
 class Source:
-    """A logical byte stream resolvable to physical extents."""
+    """A logical byte stream resolvable to physical extents.
+
+    Read-only by default; opened with ``writable=True`` it also carries the
+    RAM→SSD write legs."""
 
     size: int
     block_size: int
+    writable: bool = False
 
     def extents(self, offset: int, length: int) -> List[Extent]:
         raise NotImplementedError
@@ -136,18 +152,32 @@ class Source:
         """O_DIRECT fds, one per member (-1 where O_DIRECT is refused)."""
         raise NotImplementedError
 
-    def read_buffered(self, offset: int, dest: memoryview) -> None:
-        """Page-cache copy path (reference memcpy_pgcache_to_ubuffer,
-        kmod/nvme_strom.c:1344-1401)."""
+    def member_buffered_fds(self) -> List[int]:
+        """Buffered (page-cache) fds, one per member."""
         raise NotImplementedError
+
+    def read_buffered(self, offset: int, dest: memoryview) -> None:
+        """Page-cache copy of a logical range (reference
+        memcpy_pgcache_to_ubuffer, kmod/nvme_strom.c:1344-1401)."""
+        for e in self.extents(offset, len(dest)):
+            rel = e.logical_off - offset
+            self.read_member_buffered(e.member, e.file_off,
+                                      dest[rel:rel + e.length])
 
     def read_member_buffered(self, member: int, file_off: int,
                              dest: memoryview) -> None:
-        raise NotImplementedError
+        """Buffered read addressed by (member, member offset): misaligned
+        pieces O_DIRECT cannot express."""
+        n = os.preadv(self.member_buffered_fds()[member], [dest], file_off)
+        if n != len(dest):
+            raise StromError(_errno.EIO,
+                             f"short buffered read {n} != {len(dest)}")
 
     def read_member_direct(self, member: int, file_off: int,
                            dest: memoryview) -> None:
-        """O_DIRECT read of one planned request."""
+        """O_DIRECT read of one planned request (the python pool's leg;
+        test fakes override it, which keeps their reads off the native
+        engine)."""
         fd = self.member_fds()[member]
         if fd < 0:
             raise StromError(_errno.EINVAL, "member has no O_DIRECT fd")
@@ -159,6 +189,46 @@ class Source:
                                  f"short direct read at {file_off + done}")
             done += n
 
+    # -- write legs (RAM→SSD; need writable=True) ---------------------------
+    def _check_writable(self) -> None:
+        if not self.writable:
+            raise StromError(_errno.EBADF, "source opened read-only; "
+                                           "open_source(..., writable=True)")
+
+    def write_member_direct(self, member: int, file_off: int,
+                            src: memoryview) -> None:
+        """O_DIRECT write of one planned request (the python pool's leg)."""
+        self._check_writable()
+        fd = self.member_fds()[member]
+        if fd < 0:
+            raise StromError(_errno.EINVAL, "member has no O_DIRECT fd")
+        done, length = 0, len(src)
+        while done < length:
+            n = os.pwritev(fd, [src[done:length]], file_off + done)
+            if n <= 0:
+                raise StromError(_errno.EIO,
+                                 f"short direct write at {file_off + done}")
+            done += n
+
+    def write_member_buffered(self, member: int, file_off: int,
+                              src: memoryview) -> None:
+        """Buffered write: misaligned pieces O_DIRECT cannot express."""
+        self._check_writable()
+        fd = self.member_buffered_fds()[member]
+        done, length = 0, len(src)
+        while done < length:       # partial buffered writes are legal
+            n = os.pwritev(fd, [src[done:length]], file_off + done)
+            if n <= 0:
+                raise StromError(_errno.EIO,
+                                 f"short buffered write at {file_off + done}")
+            done += n
+
+    def sync(self) -> None:
+        """fsync every member: durability of the buffered write legs (and
+        of the file's metadata after direct writes)."""
+        for fd in self.member_buffered_fds():
+            os.fsync(fd)
+
     def close(self) -> None:
         pass
 
@@ -169,18 +239,37 @@ class Source:
         self.close()
 
 
+class _FileMember:
+    """One underlying file: a direct and a buffered fd."""
+
+    def __init__(self, path: str, writable: bool = False):
+        self.path = path
+        self.size = os.stat(path).st_size
+        self.writable = writable
+        mode = os.O_RDWR if writable else os.O_RDONLY
+        try:
+            self.fd_direct = os.open(path, mode | os.O_DIRECT)
+        except OSError:
+            self.fd_direct = -1
+        self.fd_buffered = os.open(path, mode)
+
+    def close(self) -> None:
+        for fd in (self.fd_direct, self.fd_buffered):
+            if fd >= 0:
+                os.close(fd)
+        self.fd_direct = self.fd_buffered = -1
+
+
 class PlainSource(Source):
     """A single regular file."""
 
-    def __init__(self, path: str, block_size: int = 512):
+    def __init__(self, path: str, block_size: int = 512,
+                 writable: bool = False):
+        self._m = _FileMember(path, writable)
         self.path = path
-        self.size = os.stat(path).st_size
+        self.size = self._m.size
         self.block_size = block_size
-        try:
-            self._fd_direct = os.open(path, os.O_RDONLY | os.O_DIRECT)
-        except OSError:
-            self._fd_direct = -1
-        self._fd_buffered = os.open(path, os.O_RDONLY)
+        self.writable = writable
 
     def extents(self, offset: int, length: int) -> List[Extent]:
         if offset < 0 or offset + length > self.size:
@@ -190,53 +279,73 @@ class PlainSource(Source):
         return [Extent(0, offset, length, offset)]
 
     def member_fds(self) -> List[int]:
-        return [self._fd_direct]
+        return [self._m.fd_direct]
+
+    def member_buffered_fds(self) -> List[int]:
+        return [self._m.fd_buffered]
 
     def read_buffered(self, offset: int, dest: memoryview) -> None:
-        n = os.preadv(self._fd_buffered, [dest], offset)
-        if n != len(dest):
-            raise StromError(_errno.EIO,
-                             f"short buffered read {n} != {len(dest)}")
-
-    def read_member_buffered(self, member: int, file_off: int,
-                             dest: memoryview) -> None:
-        self.read_buffered(file_off, dest)
+        self.read_member_buffered(0, offset, dest)
 
     def close(self) -> None:
-        for fd in (self._fd_direct, self._fd_buffered):
-            if fd >= 0:
-                os.close(fd)
-        self._fd_direct = self._fd_buffered = -1
+        self._m.close()
 
 
-class _FileMember:
-    """One member file of a striped source: a direct and a buffered fd."""
+class SegmentedSource(Source):
+    """A PostgreSQL-style segmented relation: one logical stream split
+    across fixed-size segment files (reference per-segment fd table,
+    pgsql/nvme_strom.c:124-130, 692-714).  Every segment but the last is
+    exactly ``segment_size`` bytes."""
 
-    def __init__(self, path: str):
-        self.path = path
-        self.size = os.stat(path).st_size
-        try:
-            self.fd_direct = os.open(path, os.O_RDONLY | os.O_DIRECT)
-        except OSError:
-            self.fd_direct = -1
-        self.fd_buffered = os.open(path, os.O_RDONLY)
+    def __init__(self, paths: Sequence[str], segment_size: int,
+                 block_size: int = 512, writable: bool = False):
+        if segment_size <= 0:
+            raise StromError(_errno.EINVAL, "segment_size must be positive")
+        self.members = [_FileMember(p, writable) for p in paths]
+        for m in self.members[:-1]:
+            if m.size != segment_size:
+                self.close()
+                raise StromError(_errno.EINVAL,
+                                 f"non-final segment {m.path} has size "
+                                 f"{m.size} != {segment_size}")
+        self.segment_size = segment_size
+        self.size = sum(m.size for m in self.members)
+        self.block_size = block_size
+        self.writable = writable
+
+    def extents(self, offset: int, length: int) -> List[Extent]:
+        if offset < 0 or offset + length > self.size:
+            raise StromError(_errno.EINVAL,
+                             "range outside segmented relation")
+        out: List[Extent] = []
+        pos, rem = offset, length
+        while rem > 0:
+            seg, soff = divmod(pos, self.segment_size)
+            take = min(self.segment_size - soff, rem)
+            out.append(Extent(seg, soff, take, pos))
+            pos += take
+            rem -= take
+        return out
+
+    def member_fds(self) -> List[int]:
+        return [m.fd_direct for m in self.members]
+
+    def member_buffered_fds(self) -> List[int]:
+        return [m.fd_buffered for m in self.members]
 
     def close(self) -> None:
-        for fd in (self.fd_direct, self.fd_buffered):
-            if fd >= 0:
-                os.close(fd)
-        self.fd_direct = self.fd_buffered = -1
+        for m in self.members:
+            m.close()
 
 
 class StripedSource(Source):
-    """A read-only RAID-0 member set resolved with
-    :class:`..stripe.StripeMap` (BASELINE's md0 configuration as plain
-    member files)."""
+    """A RAID-0 member set resolved with :class:`..stripe.StripeMap`
+    (BASELINE's md0 configuration as plain member files)."""
 
     def __init__(self, paths: Sequence[str], stripe_chunk_size: int,
-                 block_size: int = 512):
+                 block_size: int = 512, writable: bool = False):
         from .stripe import StripeMap
-        self.members = [_FileMember(p) for p in paths]
+        self.members = [_FileMember(p, writable) for p in paths]
         try:
             self.map = StripeMap([m.size for m in self.members],
                                  stripe_chunk_size)
@@ -246,6 +355,7 @@ class StripedSource(Source):
         self.size = self.map.total_size
         self.block_size = block_size
         self.stripe_chunk_size = stripe_chunk_size
+        self.writable = writable
 
     def extents(self, offset: int, length: int) -> List[Extent]:
         try:
@@ -258,17 +368,8 @@ class StripedSource(Source):
     def member_fds(self) -> List[int]:
         return [m.fd_direct for m in self.members]
 
-    def read_buffered(self, offset: int, dest: memoryview) -> None:
-        for e in self.extents(offset, len(dest)):
-            rel = e.logical_off - offset
-            self.read_member_buffered(e.member, e.file_off,
-                                      dest[rel:rel + e.length])
-
-    def read_member_buffered(self, member: int, file_off: int,
-                             dest: memoryview) -> None:
-        n = os.preadv(self.members[member].fd_buffered, [dest], file_off)
-        if n != len(dest):
-            raise StromError(_errno.EIO, "short buffered read")
+    def member_buffered_fds(self) -> List[int]:
+        return [m.fd_buffered for m in self.members]
 
     def close(self) -> None:
         for m in self.members:
@@ -276,16 +377,26 @@ class StripedSource(Source):
 
 
 def open_source(spec: Union[str, Sequence[str]], *,
-                stripe_chunk_size: Optional[int] = None) -> Source:
-    """Open a plain file (a path), aligned to its device's block size, or
-    a striped member set (a list of paths and ``stripe_chunk_size``)."""
+                stripe_chunk_size: Optional[int] = None,
+                segment_size: Optional[int] = None,
+                block_size: Optional[int] = None,
+                writable: bool = False) -> Source:
+    """Open a plain file (a path), aligned to its device's block size, a
+    striped member set (a list of paths and ``stripe_chunk_size``) or a
+    segmented relation (a list of paths and ``segment_size``)."""
     if isinstance(spec, str):
         info = check_file(spec)
-        return PlainSource(spec, info.logical_block_size)
-    if not stripe_chunk_size:
-        raise StromError(_errno.EINVAL,
-                         "a multi-path source needs stripe_chunk_size")
-    return StripedSource(list(spec), stripe_chunk_size)
+        return PlainSource(spec, block_size or info.logical_block_size,
+                           writable)
+    paths = list(spec)
+    if stripe_chunk_size:
+        return StripedSource(paths, stripe_chunk_size, block_size or 512,
+                             writable)
+    if segment_size:
+        return SegmentedSource(paths, segment_size, block_size or 512,
+                               writable)
+    raise StromError(_errno.EINVAL, "a multi-path source needs "
+                                    "stripe_chunk_size or segment_size")
 
 
 def reorder_chunks(raw: "np.ndarray", chunk_size: int,
@@ -305,6 +416,21 @@ def reorder_chunks(raw: "np.ndarray", chunk_size: int,
     ordered = np.empty_like(blocks)
     ordered[[pos[c] for c in got]] = blocks
     return ordered.reshape(raw.shape)
+
+
+def read_chunk_ids(sess: "Session", source: Source,
+                   chunk_ids: Sequence[int], chunk_size: int,
+                   buf_handle: int, buf_view: memoryview) -> "np.ndarray":
+    """One synchronous read of *chunk_ids* through a mapped pinned buffer,
+    returned in CALLER order: the submit/wait/reorder protocol every
+    point read (a lookup, a checkpoint restore) shares."""
+    import numpy as np
+    ids = [int(c) for c in chunk_ids]
+    res = sess.memcpy_ssd2ram(source, buf_handle, ids, chunk_size)
+    sess.memcpy_wait(res.dma_task_id)
+    return reorder_chunks(
+        np.frombuffer(buf_view[:len(ids) * chunk_size], np.uint8),
+        chunk_size, res.chunk_ids, ids)
 
 
 def plan_shard_ownership(source: Source, chunk_ids: Sequence[int],
@@ -352,8 +478,10 @@ class DmaBuffer:
     Anonymous mmap, MAP_HUGETLB tried first, mlock'd when ``pin`` (config
     ``pin_memory``), prefaulted.  :meth:`pin_cuda` registers the range with
     the CUDA runtime so ``copy_(..., non_blocking=True)`` from it is a true
-    asynchronous DMA; the unregistration runs as a close callback BEFORE the
-    munmap, so a registration can never outlive the mapping."""
+    asynchronous DMA.  :meth:`close` tears down in a fixed order: the close
+    callbacks (a session's io_uring fixed-buffer unregistration), then the
+    CUDA unregistration, then the munmap — no registration outlives the
+    mapping."""
 
     def __init__(self, length: int, *, pin: Optional[bool] = None):
         if length <= 0:
@@ -400,7 +528,6 @@ class DmaBuffer:
                                  f"cudaHostRegister of {self.length} bytes "
                                  f"failed with cudaError {err}")
             self.cuda_registered = True
-            self._close_cbs.insert(0, self._unpin_cuda)
 
     def _unpin_cuda(self) -> None:
         import torch
@@ -409,13 +536,23 @@ class DmaBuffer:
         self.cuda_registered = False
 
     def on_close(self, cb) -> bool:
-        """Run *cb* when this buffer closes, before the munmap.  False when
-        the buffer is already closed: the caller cleans up itself."""
+        """Run *cb* when this buffer closes, before the CUDA unregistration
+        and the munmap.  False when the buffer is already closed: the
+        caller cleans up itself."""
         with self._lock:
             if self._mm is None or self._closing:
                 return False
             self._close_cbs.append(cb)
             return True
+
+    def remove_close_cb(self, cb) -> None:
+        """Detach a callback added by :meth:`on_close` (a closing session
+        whose engine already dropped the registration)."""
+        with self._lock:
+            try:
+                self._close_cbs.remove(cb)
+            except ValueError:
+                pass
 
     def view(self) -> memoryview:
         return memoryview(self._mm)
@@ -431,6 +568,11 @@ class DmaBuffer:
                 cb()
             except Exception as e:  # noqa: BLE001 - teardown must finish
                 pr_warn("dma buffer close callback failed: %s", e)
+        if self.cuda_registered:
+            try:
+                self._unpin_cuda()
+            except Exception as e:  # noqa: BLE001 - teardown must finish
+                pr_warn("cudaHostUnregister failed: %s", e)
         if self.pinned:
             _libc.munlock(ctypes.c_void_p(self.addr),
                           ctypes.c_size_t(self.length))
@@ -454,26 +596,43 @@ class DmaBuffer:
 
 @dataclass(frozen=True)
 class Request:
-    """One merged read request (<= dma_max_size bytes, one member)."""
+    """One merged I/O request (<= dma_max_size bytes, one member; up to
+    coalesce_limit when the second merge pass ran)."""
 
     member: int
     file_off: int
     length: int
     dest_off: int
     buffered: bool = False   # misaligned piece O_DIRECT cannot express
+    # stripe-coalesced read: when non-empty, the file-contiguous span
+    # scatters into these (dest_off, length) segments (dest_off above is
+    # then the first segment's, length the span's total)
+    dest_segs: Tuple[Tuple[int, int], ...] = ()
 
 
 def plan_requests(source: Source, chunk_entries: Sequence[Tuple[int, int]],
                   chunk_size: int, dest_base: int, *,
-                  dma_max_size: Optional[int] = None) -> List[Request]:
-    """Merge chunk reads into requests of at most ``dma_max_size`` bytes.
+                  dma_max_size: Optional[int] = None,
+                  dest_segment_shift: Optional[int] = None,
+                  coalesce_limit: Union[int, Dict[int, int], None] = None
+                  ) -> List[Request]:
+    """Merge chunk reads into requests.
 
     *chunk_entries* is ``[(chunk_id, dest_slot), ...]``; chunk ``cid``
     covers logical bytes ``[cid*chunk_size, ...+chunk_size)`` (clamped to
     the source size) and lands at ``dest_base + dest_slot*chunk_size``.
-    Requests merge when file- and destination-contiguous on one member
-    (reference merge condition, kmod/nvme_strom.c:1473-1505); pieces not
-    aligned to the block size are planned buffered."""
+    Requests merge when file- and destination-contiguous on one member, up
+    to ``dma_max_size``, and never across a destination segment boundary
+    when ``dest_segment_shift`` is given (reference merge condition,
+    kmod/nvme_strom.c:1473-1505); pieces not aligned to the block size are
+    planned buffered.
+
+    ``coalesce_limit`` runs a second merge pass beyond the dma_max cap:
+    file-contiguous neighbours within one member merge up to that many
+    bytes, into vectored requests (:attr:`Request.dest_segs`) when the
+    stripe interleave scatters their destinations.  A ``{member: limit}``
+    dict gives each member its own cap; members missing from it do not
+    coalesce."""
     cap = dma_max_size or config.get("dma_max_size")
     bs = max(source.block_size, 512)
     pieces: List[Request] = []
@@ -490,6 +649,10 @@ def plan_requests(source: Source, chunk_entries: Sequence[Tuple[int, int]],
             off = 0
             while off < e.length:
                 take = min(cap, e.length - off)
+                if dest_segment_shift is not None:
+                    seg_end = (((dest + rel + off) >> dest_segment_shift)
+                               + 1) << dest_segment_shift
+                    take = min(take, seg_end - (dest + rel + off))
                 pieces.append(Request(e.member, e.file_off + off, take,
                                       dest + rel + off, buffered=not aligned))
                 off += take
@@ -500,12 +663,97 @@ def plan_requests(source: Source, chunk_entries: Sequence[Tuple[int, int]],
             if (p.member == r.member and not p.buffered and not r.buffered
                     and p.file_off + p.length == r.file_off
                     and p.dest_off + p.length == r.dest_off
-                    and p.length + r.length <= cap):
+                    and p.length + r.length <= cap
+                    and (dest_segment_shift is None
+                         or (p.dest_off >> dest_segment_shift)
+                         == ((r.dest_off + r.length - 1)
+                             >> dest_segment_shift))):
                 out[-1] = Request(p.member, p.file_off, p.length + r.length,
                                   p.dest_off)
                 continue
         out.append(r)
+    if coalesce_limit:
+        if isinstance(coalesce_limit, dict):
+            if any(v > cap for v in coalesce_limit.values()):
+                out = _coalesce_requests(out, coalesce_limit,
+                                         dest_segment_shift)
+        elif coalesce_limit > cap:
+            out = _coalesce_requests(out, coalesce_limit, dest_segment_shift)
     return out
+
+
+def _coalesce_requests(reqs: List[Request], limit: Union[int, Dict[int, int]],
+                       dest_segment_shift: Optional[int]) -> List[Request]:
+    """Second merge pass (the reference's request-merge window beyond the
+    per-command cap, kmod/nvme_strom.c:1473-1505): direct requests that
+    are file-contiguous within one member merge up to *limit* bytes even
+    when the stripe interleave scatters their destinations, as a vectored
+    request in :attr:`Request.dest_segs`.  Requests read into disjoint
+    destinations, so pulling a later one forward never reorders observable
+    writes.  A buffered piece breaks its member's run."""
+    caps = limit if isinstance(limit, dict) else None
+    out: List[Request] = []
+    last: dict = {}  # member -> index in out of its last direct request
+    for r in reqs:
+        idx = last.get(r.member)
+        if idx is not None and not r.buffered:
+            lim = caps.get(r.member, 0) if caps is not None else limit
+            p = out[idx]
+            if (p.file_off + p.length == r.file_off
+                    and p.length + r.length <= lim):
+                segs = p.dest_segs or ((p.dest_off, p.length),)
+                d, ln = segs[-1]
+                if d + ln == r.dest_off and (
+                        dest_segment_shift is None
+                        or (d >> dest_segment_shift)
+                        == ((r.dest_off + r.length - 1)
+                            >> dest_segment_shift)):
+                    segs = segs[:-1] + ((d, ln + r.length),)
+                else:
+                    segs = segs + ((r.dest_off, r.length),)
+                out[idx] = Request(p.member, p.file_off,
+                                   p.length + r.length, p.dest_off,
+                                   dest_segs=segs if len(segs) > 1 else ())
+                continue
+        out.append(r)
+        if r.buffered:
+            last.pop(r.member, None)
+        else:
+            last[r.member] = len(out) - 1
+    return out
+
+
+class AdaptiveChunkSizer:
+    """Adaptive coalesced-request cap: starts at ``limit``, halves toward
+    ``floor`` whenever a request's observed service time blows the latency
+    budget (an oversized request monopolises its ring and starves the
+    submission window), and doubles back after ``decay_after`` in-budget
+    completions in a row."""
+
+    #: per-request service-time budget
+    LAT_BUDGET_NS = 100_000_000
+
+    def __init__(self, floor: int, limit: int, decay_after: int = 4):
+        self.floor = max(int(floor), 1)
+        self.limit = max(int(limit), self.floor)
+        self.decay_after = decay_after
+        self._eff = self.limit
+        self._streak = 0
+
+    @property
+    def effective(self) -> int:
+        return self._eff
+
+    def observe(self, service_ns: int) -> None:
+        if service_ns > self.LAT_BUDGET_NS:
+            self._streak = 0
+            if self._eff > self.floor:
+                self._eff = max(self._eff >> 1, self.floor)
+        else:
+            self._streak += 1
+            if self._streak >= self.decay_after and self._eff < self.limit:
+                self._eff = min(self._eff << 1, self.limit)
+                self._streak = 0
 
 
 # ---------------------------------------------------------------------------
@@ -513,17 +761,24 @@ def plan_requests(source: Source, chunk_entries: Sequence[Tuple[int, int]],
 # ---------------------------------------------------------------------------
 
 class _Task:
-    __slots__ = ("task_id", "pending", "done", "errno_", "errmsg", "result",
-                 "buf_handle")
+    __slots__ = ("task_id", "pending", "frozen", "done", "errno_", "errmsg",
+                 "result", "buf_handle", "t_submit", "trace_id")
 
     def __init__(self, task_id: int):
         self.task_id = task_id
         self.pending = 1       # creator's reference, dropped after submit
+        self.frozen = False    # submission loop done: no new references
         self.done = False
         self.errno_ = 0
         self.errmsg = ""
         self.result: Optional[MemCopyResult] = None
         self.buf_handle: Optional[int] = None
+        self.t_submit = time.monotonic_ns()
+        self.trace_id = 0      # nonzero when the flight recorder traces it
+
+
+#: the engine ladder, top rung first
+_RUNGS = ("io_uring", "threadpool", "python")
 
 
 class Session:
@@ -531,11 +786,18 @@ class Session:
 
     ``device`` is where loaded bytes go next: with a CUDA device every
     buffer :meth:`alloc_dma_buffer` hands out is registered with the CUDA
-    runtime.  Failed tasks are retained until a wait reaps them, and force-
-    reaped at :meth:`close` (reference ``strom_proc_release``,
-    kmod/nvme_strom.c:2138-2166)."""
+    runtime.  ``io_backend`` (default: config) picks the top rung of the
+    engine ladder — ``io_uring``, then the native ``threadpool``, then the
+    ``python`` pool; ``auto`` starts where config ``engine_backend`` says.
+    Each step down is logged with its errno, counted in
+    ``nr_backend_fallback`` and named by :attr:`backend_name`; with
+    ``io_fallback`` off the first refusal raises.  A failed build of the
+    engine always raises.  Failed tasks are retained until a wait reaps
+    them, and force-reaped at :meth:`close` (reference
+    ``strom_proc_release``, kmod/nvme_strom.c:2138-2166)."""
 
-    def __init__(self, *, max_workers: Optional[int] = None, device=None):
+    def __init__(self, *, max_workers: Optional[int] = None, device=None,
+                 io_backend: Optional[str] = None):
         self.device = device
         self._buffers: Dict[int, Tuple[memoryview, BufferInfo]] = {}
         self._buf_lock = threading.Condition(threading.Lock())
@@ -544,20 +806,95 @@ class Session:
         self._task_cv = threading.Condition(threading.Lock())
         self._next_task = 1
         self._closed = False
-        self._pool = ThreadPoolExecutor(max_workers=max_workers or 32,
-                                        thread_name_prefix="strom-io")
+        # trace_policy is read here, once: event sites then cost one
+        # `_trace.active` test when tracing is off
+        _trace.configure()
+        self._pool = ThreadPoolExecutor(
+            max_workers=max_workers or min(int(config.get("queue_depth")),
+                                           32),
+            thread_name_prefix="strom-io")
+        self._abandon_native = False
+        self._members_used: set = set()
+        # io_uring fixed-buffer registrations: id(backing) -> (slot or -1,
+        # backing, close callback)
+        self._fixed_regs: Dict[int, tuple] = {}
+        self._fixed_lock = threading.Lock()
+        # one adaptive sizer a stripe member (single files: member 0)
+        self._chunk_sizers: Dict[int, AdaptiveChunkSizer] = {}
+        # lane scale-out: one-shot at the first striped submit; engines
+        # swapped out stay alive until close so in-flight waits complete
+        # against the engine that accepted them
+        self._lane_lock = threading.Lock()
+        self._lanes_sized = False
+        self._old_engines: List[object] = []
+        #: errno io_uring_setup refused with when the ladder stepped past
+        #: io_uring (0: not refused)
+        self.uring_errno = 0
+        self._native = self._open_engine(io_backend
+                                         or config.get("io_backend"))
+        self.backend_name = (self._native.backend_name if self._native
+                             else "python")
+        stats.set_backend(self.backend_name)
+        if _trace.active and self._native is not None:
+            # the engine's per-lane rings measure each request's device
+            # window; _await_native drains them into the recorder
+            self._native.trace_enable(True)
+
+    # -- the engine ladder --------------------------------------------------
+    def _open_engine(self, want: str):
+        """The native engine on the highest rung that comes up, or None
+        for the python pool."""
+        if want not in ("auto", *_RUNGS):
+            raise StromError(_errno.EINVAL, f"io_backend {want!r} is not one "
+                                            f"of auto|{'|'.join(_RUNGS)}")
+        if want == "python":
+            return None
+        top = want if want in ("io_uring", "threadpool") else \
+            {"auto": "io_uring", "uring": "io_uring",
+             "threadpool": "threadpool"}[config.get("engine_backend")]
+        from . import _native
+        _native._load()        # a failed build raises, whatever the rung
+        fallback = bool(config.get("io_fallback"))
+        rungs = _RUNGS[_RUNGS.index(top):]
+        for rung, below in zip(rungs, rungs[1:]):
+            try:
+                return _native.NativeEngine(
+                    rung, int(config.get("queue_depth")),
+                    rings=max(int(config.get("engine_rings")), 1))
+            except StromError as e:
+                err = e.errno
+                if rung == "io_uring":
+                    err = _native.uring_probe() or e.errno
+                    self.uring_errno = err
+                if not fallback:
+                    raise StromError(err, f"{rung} engine refused "
+                                          f"({os.strerror(err)}) and "
+                                          f"io_fallback is off") from None
+                stats.add("nr_backend_fallback")
+                pr_warn("%s engine refused (errno %d: %s); falling back to "
+                        "the %s backend", rung, err, os.strerror(err), below)
+        return None
 
     # -- buffers -----------------------------------------------------------
     def alloc_dma_buffer(self, length: int) -> Tuple[int, DmaBuffer]:
-        """ALLOC_DMA_BUFFER: a new pinned buffer, mapped; returns
-        ``(handle, buffer)``."""
+        """ALLOC_DMA_BUFFER: a new pinned buffer, mapped (and registered
+        with the native engine as a fixed buffer); returns ``(handle,
+        buffer)``."""
         buf = DmaBuffer(length)
         if self.device is not None and str(self.device).startswith("cuda"):
             buf.pin_cuda()
-        return self.map_buffer(buf.view(), kind="pinned_host"), buf
+        return self.map_buffer(buf.view(), kind="pinned_host",
+                               backing=buf), buf
 
-    def map_buffer(self, view: memoryview, *, kind: str = "user") -> int:
+    def map_buffer(self, view: memoryview, *, kind: str = "user",
+                   backing: object = None) -> int:
+        """Map *view* for memcpy commands.  A ``pinned_host`` view backed
+        by a :class:`DmaBuffer` is registered with the native engine as an
+        io_uring fixed buffer, once per buffer."""
         view = view.cast("B")
+        if (kind == "pinned_host" and self._native is not None
+                and isinstance(backing, DmaBuffer)):
+            self._register_fixed(backing)
         with self._buf_lock:
             handle = self._next_handle
             self._next_handle += 1
@@ -566,6 +903,36 @@ class Session:
                 n_pages=(len(view) + PAGE_SIZE - 1) // PAGE_SIZE,
                 owner_uid=os.getuid(), refcount=0, kind=kind))
         return handle
+
+    def _register_fixed(self, backing: DmaBuffer) -> None:
+        """Register *backing* as an io_uring fixed buffer, once per buffer
+        per session (reference ``_register_fixed``, the PRP-pool analog).
+        The buffer's own close releases it first, before its CUDA
+        unregistration and munmap.  A refusal (threadpool backend, kernel,
+        RLIMIT_MEMLOCK) is kept as slot -1: requests into the buffer take
+        the plain opcode."""
+        key = id(backing)
+        with self._fixed_lock:
+            if key in self._fixed_regs:
+                return
+            slot = self._native.buf_register(backing.addr, backing.length)
+            cb = lambda: self._unregister_fixed(key)  # noqa: E731
+            self._fixed_regs[key] = (-1 if slot is None else slot,
+                                     backing, cb)
+        if not backing.on_close(cb):
+            self._unregister_fixed(key)
+
+    def _unregister_fixed(self, key: int) -> None:
+        with self._fixed_lock:
+            entry = self._fixed_regs.pop(key, None)
+            if entry and entry[0] >= 0 and self._native is not None:
+                self._native.buf_unregister(entry[0])
+
+    def is_fixed(self, backing: DmaBuffer) -> bool:
+        """True when *backing* rides io_uring fixed-buffer reads."""
+        with self._fixed_lock:
+            entry = self._fixed_regs.get(id(backing))
+            return entry is not None and entry[0] >= 0
 
     def _get_buffer(self, handle: int, need: int) -> memoryview:
         with self._buf_lock:
@@ -611,6 +978,11 @@ class Session:
                                      f"buffer {handle} busy")
                 self._buf_lock.wait(remaining)
 
+    def list_buffers(self) -> List[int]:
+        """Handles of the mapped buffers (LIST_GPU_MEMORY analog)."""
+        with self._buf_lock:
+            return sorted(self._buffers)
+
     def info_buffer(self, handle: int) -> BufferInfo:
         with self._buf_lock:
             try:
@@ -620,42 +992,49 @@ class Session:
                                  f"no mapped buffer {handle}") from None
 
     # -- tasks -------------------------------------------------------------
+    def _create_task(self) -> _Task:
+        with self._task_cv:
+            task = _Task(self._next_task)
+            self._next_task += 1
+            self._tasks[task.task_id] = task
+        if _trace.active:
+            task.trace_id = _trace.task_begin(task.task_id)
+        return task
+
+    def _task_get(self, task: _Task) -> None:
+        with self._task_cv:
+            if task.frozen:
+                raise StromError(_errno.EINVAL, "reference taken on a "
+                                                "frozen task")
+            task.pending += 1
+
     def _task_put(self, task: _Task, err: Optional[StromError] = None) -> None:
+        latched = None
         with self._task_cv:
             if err is not None and task.errno_ == 0:
                 task.errno_, task.errmsg = err.errno, str(err)   # first wins
+                latched = err
             task.pending -= 1
             finished = task.pending == 0
             if finished:
                 task.done = True
                 self._task_cv.notify_all()
+        if latched is not None:
+            if _trace.active and task.trace_id:
+                _trace.instant("task_failed", tid=task.trace_id,
+                               args={"errno": latched.errno,
+                                     "error": str(latched)[:160]})
+            pr_warn("dma task %d latched error: %s", task.task_id, latched)
         if finished:
             stats.add("nr_ssd2dev")
             if task.buf_handle is not None:
                 self._put_buffer(task.buf_handle)
 
-    def _do_request(self, task: _Task, source: Source, r: Request,
-                    dest: memoryview) -> None:
-        err = None
-        try:
-            if not task.errno_:       # a failed task cancels the rest
-                piece = dest[r.dest_off:r.dest_off + r.length]
-                if r.buffered or source.member_fds()[r.member] < 0:
-                    source.read_member_buffered(r.member, r.file_off, piece)
-                else:
-                    source.read_member_direct(r.member, r.file_off, piece)
-        except StromError as e:
-            err = e
-        except OSError as e:
-            err = StromError(e.errno or _errno.EIO, str(e))
-        except Exception as e:  # noqa: BLE001 - must latch, never go DONE
-            err = StromError(_errno.EIO, f"{type(e).__name__}: {e}")
-        self._task_put(task, err)
-
     def memcpy_wait(self, task_id: int,
                     timeout: Optional[float] = None) -> MemCopyResult:
         """MEMCPY_WAIT: block until the task completes, then reap it.
         Raises the latched first error of a failed task."""
+        t0 = time.monotonic_ns()
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._task_cv:
             while True:
@@ -672,17 +1051,59 @@ class Session:
                     raise StromError(_errno.ETIMEDOUT,
                                      f"dma task {task_id} timeout")
                 self._task_cv.wait(remain)
+        if _trace.active and task.trace_id:
+            _trace.span("wait", t0, time.monotonic_ns(), tid=task.trace_id,
+                        args=({"errno": task.errno_} if task.errno_
+                              else None))
         if task.errno_:
+            if _trace.active:
+                # the flight-recorder moment: what the engine did just
+                # before this task latched
+                _trace.dump_on_failure(f"task {task_id} errno {task.errno_}")
             raise StromError(task.errno_, task.errmsg or "async DMA failed")
         return task.result
 
+    def pending_tasks(self) -> List[int]:
+        """Ids of the tasks still in the table: running, or failed and not
+        reaped yet."""
+        with self._task_cv:
+            return sorted(self._tasks)
+
+    def _abort_submit(self, task: _Task, buf_handle: int) -> None:
+        """A submit raised midway: latch ECANCELED, wait out what was
+        already submitted (reference :1781-1784), drop the buffer ref."""
+        self._task_put(task, StromError(_errno.ECANCELED, "submit aborted"))
+        try:
+            self.memcpy_wait(task.task_id, timeout=30.0)
+        except StromError:
+            pass
+        self._put_buffer(buf_handle)
+
+    def _finish_submit(self, task: _Task, result: MemCopyResult,
+                       buf_handle: int) -> MemCopyResult:
+        task.result = result
+        with self._task_cv:
+            task.frozen = True
+        task.buf_handle = buf_handle
+        self._task_put(task)      # creator ref; completion drops the buffer
+        return result
+
+    # -- reads -------------------------------------------------------------
     def memcpy_ssd2ram(self, source: Source, buf_handle: int,
                        chunk_ids: Sequence[int], chunk_size: int, *,
                        dest_offset: int = 0) -> MemCopyResult:
         """MEMCPY_SSD2RAM: plan and submit asynchronously; chunk *i* lands
         at ``dest_offset + i*chunk_size`` of the mapped buffer.  A chunk at
         or beyond EOF is EINVAL; a single-chunk task needs only the
-        chunk's true length, which may be a partial file tail."""
+        chunk's true length, which may be a partial file tail.
+
+        The chunk list is planned and submitted in slices
+        (:func:`_window_chunks`), so the first slice's I/O is in flight
+        while later slices are planned.  On the native engine each slice
+        is one batch (coalesced up to the member's adaptive cap, one lane
+        a member), awaited in a pool thread; misaligned pieces are read
+        buffered, synchronously, before the call returns."""
+        t0 = time.monotonic_ns()
         if self._closed:
             raise StromError(_errno.EBADF, "session closed")
         if chunk_size <= 0 or (chunk_size & (chunk_size - 1)):
@@ -698,38 +1119,475 @@ class Session:
             if tail > 0:
                 need = dest_offset + tail
         dest = self._get_buffer(buf_handle, need)
-        with self._task_cv:
-            task = _Task(self._next_task)
-            self._next_task += 1
-            self._tasks[task.task_id] = task
+        task = self._create_task()
+        if _trace.active and task.trace_id:
+            _trace.instant("submit", tid=task.trace_id, ts_ns=t0,
+                           length=n * chunk_size,
+                           args={"task": task.task_id, "chunks": n})
         try:
             for cid in chunk_ids:
                 if cid * chunk_size >= source.size:
                     raise StromError(_errno.EINVAL, f"chunk {cid} beyond EOF")
-            reqs = plan_requests(source, [(c, i) for i, c in
-                                          enumerate(chunk_ids)],
-                                 chunk_size, dest_offset)
-            for r in reqs:
-                with self._task_cv:
-                    task.pending += 1
+            use_native = (self._native is not None
+                          and type(source).read_member_direct
+                          is Source.read_member_direct)
+            if use_native:
+                self._ensure_member_lanes(source)
+            # coalescing beyond dma_max is the native queue's lever; the
+            # pool path keeps per-extent planning
+            climit = int(config.get("coalesce_limit")) if use_native else 0
+            if climit and config.get("chunk_adaptive"):
+                dma_max = int(config.get("dma_max_size"))
+                nmem = len(getattr(source, "members", ())) or 1
+                climit = ({m: self._adaptive_cap(dma_max, climit, m)
+                           for m in range(nmem)} if nmem > 1
+                          else self._adaptive_cap(dma_max, climit))
+            window = _window_chunks(chunk_size)
+            entries = [(cid, i) for i, cid in enumerate(chunk_ids)]
+            fds = source.member_fds() if use_native else None
+            native_failed = False
+            for w in range(0, len(entries), window):
+                tp0 = time.monotonic_ns()
+                reqs = plan_requests(source, entries[w:w + window],
+                                     chunk_size, dest_offset,
+                                     coalesce_limit=climit or None)
+                if _trace.active and task.trace_id:
+                    _trace.span("plan", tp0, time.monotonic_ns(),
+                                tid=task.trace_id,
+                                args={"window": w // window,
+                                      "requests": len(reqs)})
+                if not use_native or native_failed:
+                    self._submit_pool_requests(task, source, reqs, dest)
+                    continue
+                native_reqs, native_members, native_rs = [], [], []
+                for r in reqs:
+                    if r.buffered or fds[r.member] < 0:
+                        # misaligned pieces: a synchronous buffered copy,
+                        # like the reference's in-ioctl page-cache memcpy
+                        tb = time.monotonic_ns()
+                        source.read_member_buffered(
+                            r.member, r.file_off,
+                            dest[r.dest_off:r.dest_off + r.length])
+                        stats.member_add(r.member, r.length,
+                                         time.monotonic_ns() - tb)
+                        stats.add("total_dma_length", r.length)
+                        continue
+                    # a vectored (stripe-coalesced) request splits back
+                    # into its segments: the lane's deep queue holds them
+                    foff = r.file_off
+                    for dseg, lseg in (r.dest_segs or
+                                       ((r.dest_off, r.length),)):
+                        native_reqs.append((fds[r.member], foff, lseg, dseg))
+                        native_members.append(r.member)
+                        foff += lseg
+                    native_rs.append(r)
+                if not native_reqs:
+                    continue
+                try:
+                    self._submit_native(task, dest, native_reqs,
+                                        native_members)
+                except StromError as e:
+                    # a failed native submit degrades to the python pool
+                    # for this batch and the rest of the task
+                    if not config.get("io_fallback"):
+                        raise
+                    stats.add("nr_backend_fallback")
+                    pr_warn("native submit failed (%s); the batch falls "
+                            "back to the python pool", e)
+                    native_failed = True
+                    self._submit_pool_requests(task, source, native_rs, dest)
+        except BaseException:
+            self._abort_submit(task, buf_handle)
+            raise
+        return self._finish_submit(task, MemCopyResult(
+            dma_task_id=task.task_id, nr_chunks=n, nr_ssd2dev=n,
+            nr_ram2dev=0, chunk_ids=chunk_ids), buf_handle)
+
+    def _submit_native(self, task: _Task, buf: memoryview,
+                       native_reqs: List[Tuple[int, int, int, int]],
+                       members: List[int], write_ctx=None) -> None:
+        """One batch to the native engine; a pool thread awaits it."""
+        self._members_used.update(members)
+        addr = ctypes.addressof(ctypes.c_char.from_buffer(buf))
+        # capture the engine: a concurrent lane scale-out may swap
+        # self._native, and the wait must run against the one that
+        # accepted the batch
+        nat = self._native
+        nid = nat.submit(addr, native_reqs, write=write_ctx is not None,
+                         members=members)
+        if _trace.active and task.trace_id:
+            _trace.instant("native_submit", tid=task.trace_id,
+                           length=sum(q[2] for q in native_reqs),
+                           args={"requests": len(native_reqs), "batch": nid})
+        self._task_get(task)
+        try:
+            self._pool.submit(self._await_native, task, nat, nid, write_ctx)
+        except BaseException as e:
+            self._task_put(task, StromError(_errno.ESHUTDOWN, str(e)))
+            raise
+
+    def _submit_pool_requests(self, task: _Task, source: Source,
+                              reqs: Sequence[Request],
+                              dest: memoryview) -> None:
+        """Queue planned requests on the python pool (the instrumented
+        executor of ``io_backend=python``, of sources that override the
+        direct-read leg, and of a failed native submit)."""
+        for r in reqs:
+            self._task_get(task)
+            cur = stats.gauge_add("cur_dma_count", 1)
+            stats.gauge_max("max_dma_count", cur)
+            stats.add("nr_submit_dma")
+            stats.add("total_dma_length", r.length)
+            try:
+                self._pool.submit(self._do_request, task, source, r, dest)
+            except BaseException as e:
+                stats.gauge_add("cur_dma_count", -1)
+                self._task_put(task, StromError(_errno.ESHUTDOWN, str(e)))
+                raise
+
+    def _do_request(self, task: _Task, source: Source, r: Request,
+                    dest: memoryview) -> None:
+        err = None
+        t0 = time.monotonic_ns()
+        try:
+            if not task.errno_:       # a failed task cancels the rest
+                if r.buffered or source.member_fds()[r.member] < 0:
+                    source.read_member_buffered(
+                        r.member, r.file_off,
+                        dest[r.dest_off:r.dest_off + r.length])
+                else:
+                    off = r.file_off
+                    for dseg, lseg in (r.dest_segs or
+                                       ((r.dest_off, r.length),)):
+                        source.read_member_direct(r.member, off,
+                                                  dest[dseg:dseg + lseg])
+                        off += lseg
+        except StromError as e:
+            err = e
+        except OSError as e:
+            err = StromError(e.errno or _errno.EIO, str(e))
+        except Exception as e:  # noqa: BLE001 - must latch, never go DONE
+            err = StromError(_errno.EIO, f"{type(e).__name__}: {e}")
+        elapsed = time.monotonic_ns() - t0
+        stats.member_add(r.member, r.length, elapsed)
+        if _trace.active and task.trace_id:
+            eargs = {}
+            if r.buffered:
+                eargs["buffered"] = True
+            if err is not None:
+                eargs["errno"] = err.errno
+            _trace.span("extent", t0, t0 + elapsed, tid=task.trace_id,
+                        member=r.member, offset=r.file_off, length=r.length,
+                        args=eargs or None)
+        if not r.buffered:
+            stats.observe_latency(elapsed)
+            szr = self._chunk_sizers.get(r.member)
+            if szr is not None:
+                szr.observe(elapsed)
+        stats.gauge_add("cur_dma_count", -1)
+        self._task_put(task, err)
+
+    def _await_native(self, task: _Task, eng, native_id: int,
+                      write_ctx: Optional[tuple] = None) -> None:
+        """Pool thread: wait for one native batch (outside the GIL, in
+        500 ms slices so a closing session can abandon it), then drain the
+        engine's trace ring.  A failed write batch is redriven request by
+        request on the python write leg."""
+        err: Optional[StromError] = None
+        while True:
+            try:
+                eng.wait(native_id, 500)
+                break
+            except StromError as e:
+                if e.errno == _errno.ETIMEDOUT:
+                    if self._abandon_native:
+                        err = StromError(_errno.ETIMEDOUT, "native I/O "
+                                         "abandoned at session close")
+                        break
+                    continue
+                err = e
+                break
+        if _trace.active:
+            self._drain_native_trace(eng)
+        if write_ctx is not None and err is not None \
+                and not self._abandon_native and not task.errno_:
+            sink, w_reqs, w_src = write_ctx
+            stats.add("nr_backend_fallback")
+            pr_warn("native write batch failed (%s); redriving %d "
+                    "request(s) on the python write leg", err, len(w_reqs))
+            err = None
+            for r in w_reqs:
+                err = self._write_request(task, sink, r, w_src)
+                if err is not None:
+                    break
+        self._task_put(task, err)
+
+    def _drain_native_trace(self, eng=None) -> int:
+        """Drain an engine's per-lane event ring into the recorder: each
+        request's measured device window, on the clock of the Python
+        spans."""
+        eng = eng if eng is not None else self._native
+        if eng is None:
+            return 0
+        evs = eng.trace_drain()
+        for ev in evs:
+            _trace.native_event(ev["submit_ns"], ev["complete_ns"],
+                                member=ev["member"], lane=ev["lane"],
+                                offset=ev["file_off"], length=ev["len"],
+                                result=ev["result"])
+        return len(evs)
+
+    def _adaptive_cap(self, floor: int, limit: int, member: int = 0) -> int:
+        """The effective coalescing cap of *member*'s sizer (made lazily,
+        remade when the bounds change)."""
+        szr = self._chunk_sizers.get(member)
+        if szr is None or szr.floor != floor or szr.limit != limit:
+            szr = self._chunk_sizers[member] = AdaptiveChunkSizer(floor,
+                                                                  limit)
+        return szr.effective
+
+    # -- lanes -------------------------------------------------------------
+    def _ensure_member_lanes(self, source: Source) -> None:
+        """One-shot at the first striped submit: rebuild the native engine
+        with one queue pair a stripe member (member i → lane i % nlanes,
+        :func:`..stripe.lane_of`), so a slow member queues behind itself,
+        never behind siblings (the per-NVMe-device hardware-queue analog,
+        kmod/nvme_strom.c:1201-1223).  An explicit config
+        ``engine_rings`` keeps the operator's lane count."""
+        if self._native is None or self._lanes_sized:
+            return
+        nmem = len(getattr(source, "members", ()) or ())
+        if nmem <= 1:
+            return
+        with self._lane_lock:
+            if self._lanes_sized or self._native is None:
+                return
+            self._lanes_sized = True
+            want = min(nmem, 16)
+            if int(config.get("engine_rings")) == 0 \
+                    and self._native.nlanes() < want:
+                self._scale_out_lanes(want, nmem)
+
+    def _scale_out_lanes(self, nlanes: int, nmem: int) -> None:
+        """Swap in a fresh native engine with *nlanes* queue pairs: fixed
+        buffers re-registered on it under the fixed lock, the old engine's
+        counters folded and the old engine kept until close (in-flight
+        batches hold it and drain there).  The caller holds the lane
+        lock."""
+        from . import _native
+        depth = int(config.get("member_queue_depth")) \
+            or int(config.get("queue_depth"))
+        try:
+            eng = _native.NativeEngine(self.backend_name, depth,
+                                       rings=nlanes)
+        except StromError as e:
+            pr_warn("lane scale-out to %d lanes failed (%s); keeping the "
+                    "single-lane engine", nlanes, e)
+            return
+        self._fold_native_stats()
+        with self._fixed_lock:
+            for key, (_slot, backing, cb) in list(self._fixed_regs.items()):
+                nslot = eng.buf_register(backing.addr, backing.length)
+                self._fixed_regs[key] = (-1 if nslot is None else nslot,
+                                         backing, cb)
+            old, self._native = self._native, eng
+        self._old_engines.append(old)
+        if _trace.active:
+            eng.trace_enable(True)
+
+    # -- writes ------------------------------------------------------------
+    def memcpy_ram2ssd(self, sink: Source, buf_handle: int,
+                       chunk_ids: Sequence[int], chunk_size: int, *,
+                       src_offset: int = 0) -> MemCopyResult:
+        """MEMCPY_RAM2SSD: buffer slot *i* (``src_offset + i*chunk_size``)
+        is written to sink chunk ``chunk_ids[i]`` (a chunk at the sink's
+        end may be partial; the sink has its final size).  Planning is the
+        read side's (same extents, same <= dma_max requests, buffered legs
+        for misaligned pieces).  Aligned legs run on the native engine
+        (IORING_OP_WRITE) when there is one; misaligned pieces ride the
+        python pool's buffered write.  Durability of buffered legs needs
+        ``sink.sync()`` after the wait."""
+        if self._closed:
+            raise StromError(_errno.EBADF, "session closed")
+        if chunk_size <= 0 or (chunk_size & (chunk_size - 1)):
+            raise StromError(_errno.EINVAL,
+                             f"chunk_size {chunk_size} must be pow2")
+        sink._check_writable()
+        chunk_ids = list(chunk_ids)
+        n = len(chunk_ids)
+        if n == 0:
+            raise StromError(_errno.EINVAL, "no chunks")
+        src = self._get_buffer(buf_handle, src_offset + n * chunk_size)
+        task = self._create_task()
+        try:
+            reqs = plan_requests(sink, [(cid, i) for i, cid in
+                                        enumerate(chunk_ids)],
+                                 chunk_size, src_offset)
+            use_native = (self._native is not None
+                          and type(sink).write_member_direct
+                          is Source.write_member_direct)
+            pool_reqs = list(reqs) if not use_native else []
+            if use_native:
+                self._ensure_member_lanes(sink)
+                fds = sink.member_fds()
+                native_reqs, native_members, native_rs = [], [], []
+                for r in reqs:
+                    if r.buffered or fds[r.member] < 0:
+                        pool_reqs.append(r)
+                        continue
+                    native_rs.append(r)
+                    native_reqs.append((fds[r.member], r.file_off, r.length,
+                                        r.dest_off))
+                    native_members.append(r.member)
+                if native_reqs:
+                    try:
+                        self._submit_native(task, src, native_reqs,
+                                            native_members,
+                                            write_ctx=(sink, native_rs, src))
+                    except StromError as e:
+                        if not config.get("io_fallback"):
+                            raise
+                        stats.add("nr_backend_fallback")
+                        pr_warn("native write submit failed (%s); the batch "
+                                "falls back to the python pool", e)
+                        pool_reqs.extend(native_rs)
+            for r in pool_reqs:
+                self._task_get(task)
+                cur = stats.gauge_add("cur_dma_count", 1)
+                stats.gauge_max("max_dma_count", cur)
                 stats.add("nr_submit_dma")
                 stats.add("total_dma_length", r.length)
-                self._pool.submit(self._do_request, task, source, r, dest)
+                stats.add("nr_write_dma")
+                stats.add("total_write_length", r.length)
+                try:
+                    self._pool.submit(self._do_write_request, task, sink, r,
+                                      src)
+                except BaseException as e:
+                    stats.gauge_add("cur_dma_count", -1)
+                    self._task_put(task, StromError(_errno.ESHUTDOWN, str(e)))
+                    raise
         except BaseException:
-            self._task_put(task, StromError(_errno.ECANCELED,
-                                            "submit aborted"))
-            try:      # wait out what was already submitted
-                self.memcpy_wait(task.task_id, timeout=30.0)
-            except StromError:
-                pass
-            self._put_buffer(buf_handle)
+            self._abort_submit(task, buf_handle)
             raise
-        task.result = MemCopyResult(dma_task_id=task.task_id, nr_chunks=n,
-                                    nr_ssd2dev=n, nr_ram2dev=0,
-                                    chunk_ids=chunk_ids)
-        task.buf_handle = buf_handle
-        self._task_put(task)      # creator ref; completion drops the buffer
-        return task.result
+        return self._finish_submit(task, MemCopyResult(
+            dma_task_id=task.task_id, nr_chunks=n, nr_ssd2dev=n,
+            nr_ram2dev=0, chunk_ids=chunk_ids), buf_handle)
+
+    def _do_write_request(self, task: _Task, sink: Source, r: Request,
+                          src: memoryview) -> None:
+        err = None if task.errno_ else self._write_request(task, sink, r,
+                                                           src)
+        stats.gauge_add("cur_dma_count", -1)
+        self._task_put(task, err)
+
+    def _write_request(self, task: _Task, sink: Source, r: Request,
+                       src: memoryview) -> Optional[StromError]:
+        """One write request on the python leg; returns the error to
+        latch, or None."""
+        err: Optional[StromError] = None
+        t0 = time.monotonic_ns()
+        try:
+            self._write_leg(sink, r, r.member,
+                            src[r.dest_off:r.dest_off + r.length])
+        except StromError as e:
+            err = e
+        except OSError as e:
+            err = StromError(e.errno or _errno.EIO, str(e))
+        except Exception as e:  # noqa: BLE001 - must latch, never go DONE
+            err = StromError(_errno.EIO, f"unexpected write failure: {e!r}")
+        if _trace.active and task.trace_id:
+            eargs: dict = {"write": True}
+            if r.buffered:
+                eargs["buffered"] = True
+            if err is not None:
+                eargs["errno"] = err.errno
+            _trace.span("extent", t0, time.monotonic_ns(), tid=task.trace_id,
+                        member=r.member, offset=r.file_off, length=r.length,
+                        args=eargs)
+        return err
+
+    def _write_leg(self, sink: Source, r: Request, member: int,
+                   piece: memoryview) -> None:
+        """One write leg (reference ``_write_leg`` without the retry and
+        the member-health machine): latencies feed the member's adaptive
+        sizer, so write-only traffic shapes the next native plan too."""
+        t0 = time.monotonic_ns()
+        try:
+            if r.buffered:
+                sink.write_member_buffered(member, r.file_off, piece)
+            else:
+                sink.write_member_direct(member, r.file_off, piece)
+        finally:
+            elapsed = time.monotonic_ns() - t0
+            stats.member_add(member, r.length, elapsed)
+        if not r.buffered:
+            stats.observe_latency(elapsed)
+            climit = int(config.get("coalesce_limit"))
+            if config.get("chunk_adaptive") and climit:
+                self._adaptive_cap(int(config.get("dma_max_size")), climit,
+                                   member)
+            szr = self._chunk_sizers.get(member)
+            if szr is not None:
+                szr.observe(elapsed)
+
+    # -- stats + lifecycle -------------------------------------------------
+    def _fold_native_stats(self, eng=None) -> dict:
+        """Fold a native engine's counter deltas into :data:`stats`;
+        returns the raw delta.  Called from :meth:`stat_info`, lane
+        scale-out and :meth:`close`, so no session takes its I/O
+        accounting to the grave."""
+        eng = eng if eng is not None else self._native
+        d = eng.stats_delta()
+        # nr/clk_ssd2dev and the waits are counted per Python task
+        # already; continuations, full-queue stalls and fixed-buffer
+        # requests ride the reference's spare debug counters
+        stats.merge_native({
+            "nr_submit_dma": d.get("nr_submit_dma", 0),
+            "clk_submit_dma": d.get("clk_submit_dma", 0),
+            "total_dma_length": d.get("total_dma_length", 0),
+            "nr_write_dma": d.get("nr_write_dma", 0),
+            "total_write_length": d.get("total_write_length", 0),
+            "nr_enter_dma": d.get("nr_enter_dma", 0),
+            "nr_debug1": d.get("nr_resubmit", 0),
+            "nr_debug2": d.get("nr_sq_full", 0),
+            "nr_debug4": d.get("nr_fixed_dma", 0),
+            "occ_integral_ns": d.get("occ_integral_ns", 0),
+            "occ_busy_ns": d.get("occ_busy_ns", 0),
+        })
+        used = sorted(self._members_used)
+        for m, (nreq, nbytes, ns) in eng.member_stats_delta(used).items():
+            stats.member_add(m, nbytes, ns, n=nreq)
+        # latency histograms; their mean service time feeds the adaptive
+        # sizers (native requests never pass through _do_request)
+        hd = eng.lat_hist_delta()
+        if any(hd):
+            stats.merge_native_hist(hd)
+            fed = False
+            for m, h in eng.member_lat_hist_delta(used).items():
+                stats.merge_member_hist(m, h)
+                szr = self._chunk_sizers.get(m)
+                if szr is not None:
+                    szr.observe(_hist_mean(h))
+                    fed = True
+            if not fed:
+                for szr in self._chunk_sizers.values():
+                    szr.observe(_hist_mean(hd))
+        for m, (dint, dbusy) in eng.member_occ_delta(used).items():
+            stats.member_occ_add(m, dint, dbusy)
+        return d
+
+    def stat_info(self) -> Dict[str, int]:
+        """STAT_INFO: the counters, with the live engine's deltas folded
+        in and its in-flight gauges combined."""
+        if self._native is None:
+            return stats.snapshot()
+        d = self._fold_native_stats()
+        snap = stats.snapshot()
+        snap["cur_dma_count"] = snap.get("cur_dma_count", 0) \
+            + d.get("cur_dma_count", 0)
+        snap["max_dma_count"] = max(snap.get("max_dma_count", 0),
+                                    d.get("max_dma_count", 0))
+        return snap
 
     def close(self, timeout: float = 30.0) -> List[int]:
         """Wait out running tasks and reap retained failures; returns the
@@ -746,7 +1604,24 @@ class Session:
                 self._task_cv.wait(remain)
             reaped = [tid for tid, t in self._tasks.items() if t.errno_]
             self._tasks.clear()
+        self._abandon_native = True   # bound the pool's shutdown
         self._pool.shutdown(wait=True)
+        # detach close hooks from buffers that outlive the session: the
+        # engine's destroy below frees every kernel-side fixed slot
+        with self._fixed_lock:
+            regs, self._fixed_regs = list(self._fixed_regs.values()), {}
+        for _slot, backing, cb in regs:
+            backing.remove_close_cb(cb)
+        with self._lane_lock:
+            engines = [e for e in (self._native,) if e is not None] \
+                + self._old_engines
+            self._old_engines = []
+        for eng in engines:
+            eng.reap(timeout_ms=int(timeout * 1000))
+            if _trace.active:
+                self._drain_native_trace(eng)
+            self._fold_native_stats(eng)
+            eng.close()
         return reaped
 
     def __enter__(self):
@@ -754,3 +1629,21 @@ class Session:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def _window_chunks(chunk_size: int) -> int:
+    """Chunks in one submission slice of a read: ``submit_window`` chunks
+    of at least 1 MiB each, the reference's design point (16 x 1 MiB).
+    Smaller chunks fill the slice up to ``submit_window`` MiB: at 8 KiB
+    pages a 16-chunk slice is a 128 KiB native batch, and the per-batch
+    submit and await cost halved the page-grained reads of the multi-host
+    loader and the ring scan (ROADMAP Queue C)."""
+    window = max(int(config.get("submit_window")), 1)
+    return max(window, (window << 20) // max(chunk_size, 1))
+
+
+def _hist_mean(h: Sequence[int]) -> int:
+    """Mean of a log2-ns histogram, each bucket at 1.5 x 2^b."""
+    total = sum(h)
+    return sum(((1 << b) + ((1 << b) >> 1)) * c
+               for b, c in enumerate(h)) // max(total, 1)

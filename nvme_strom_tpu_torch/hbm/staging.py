@@ -25,6 +25,7 @@ never aliased.
 from __future__ import annotations
 
 import errno as _errno
+import time
 from typing import List, Optional, Sequence
 
 import torch
@@ -34,6 +35,7 @@ from ..config import config
 from ..engine import Session, Source
 from ..log import pr_warn
 from ..stats import stats
+from ..trace import recorder as _tr
 from .backend import default_device, resolve_device
 from .registry import HbmRegistry, LandingBuffer, registry as global_registry
 
@@ -136,6 +138,32 @@ def plan_landing(hbm, chunk_ids: Sequence[int], chunk_size: int,
     if dest_offset != 0 or total != hbm.nbytes:
         return "staged", "alignment"
     return "direct", None
+
+
+def _trace_landing(source: Source, chunk_ids: Sequence[int], chunk_size: int,
+                   nbytes: int, path: str, t0: int, t1: int,
+                   trid: int) -> None:
+    """One ``landing`` span per member extent of the command's chunks, so
+    the member tracks of a trace show the route of every extent."""
+    left = nbytes
+    for cid in chunk_ids:
+        length = min(chunk_size, left)
+        left -= length
+        if length <= 0:
+            break
+        try:
+            extents = source.extents(cid * chunk_size, length)
+        except (StromError, NotImplementedError):
+            extents = None
+        if not extents:
+            _tr.span("landing", t0, t1, tid=trid, member=0,
+                     offset=cid * chunk_size, length=length,
+                     args={"path": path})
+            continue
+        for e in extents:
+            _tr.span("landing", t0, t1, tid=trid, member=e.member,
+                     offset=e.file_off, length=e.length,
+                     args={"path": path})
 
 
 class StagingPipeline:
@@ -259,24 +287,38 @@ class StagingPipeline:
             out_ids[pos:pos + len(batch)] = res.chunk_ids
             nr_ssd += res.nr_ssd2dev
             nr_ram += res.nr_ram2dev
+            t0 = time.monotonic_ns()
             host = self._host[bufidx][:nbytes]
             part = dest_bytes[start:start + nbytes]
             if not cuda:
                 part.copy_(host)
-                return
-            if not host.is_pinned():
-                raise StromError(_errno.EFAULT, "staging slot is not pinned: "
-                                                "the copy would run "
-                                                "synchronously")
-            with torch.cuda.stream(stream):
-                part.copy_(host, non_blocking=True)
-                ev = torch.cuda.Event()
-                ev.record(stream)
-            self._barriers[bufidx] = ev
-            depth = sum(b is not None for b in self._barriers)
-            if depth > self.depth_reached:
-                self.depth_reached = depth
-                stats.gauge_max("h2d_depth_reached", depth)
+            else:
+                if not host.is_pinned():
+                    raise StromError(_errno.EFAULT, "staging slot is not "
+                                                    "pinned: the copy would "
+                                                    "run synchronously")
+                with torch.cuda.stream(stream):
+                    part.copy_(host, non_blocking=True)
+                    ev = torch.cuda.Event()
+                    ev.record(stream)
+                self._barriers[bufidx] = ev
+                depth = sum(b is not None for b in self._barriers)
+                if depth > self.depth_reached:
+                    self.depth_reached = depth
+                    stats.gauge_max("h2d_depth_reached", depth)
+            if _tr.active:
+                trid = _tr.traced_id(task_id)
+                if trid:
+                    now = time.monotonic_ns()
+                    _tr.span("staging_retire", t0, now, tid=trid,
+                             length=nbytes,
+                             args={"batch_chunks": len(batch),
+                                   "buffer": bufidx,
+                                   "ssd2dev": res.nr_ssd2dev,
+                                   "ram2dev": res.nr_ram2dev})
+                    _trace_landing(source, res.chunk_ids, chunk_size,
+                                   nbytes, "staged", t0, now, trid)
+                _tr.task_end(task_id)
 
         start, pos = dest_offset, 0
         try:
@@ -342,12 +384,15 @@ class StagingPipeline:
             out_ids: List[int] = []
             nr_ssd = nr_ram = 0
             first_err: Optional[StromError] = None
+            t0 = time.monotonic_ns()
+            waited = []
             for tid in tasks:
                 try:
                     res = self.session.memcpy_wait(tid)
                 except StromError as e:
                     first_err = first_err or e
                     continue
+                waited.append((tid, res))
                 out_ids.extend(res.chunk_ids)
                 nr_ssd += res.nr_ssd2dev
                 nr_ram += res.nr_ram2dev
@@ -356,6 +401,17 @@ class StagingPipeline:
                 raise first_err
             hbm.adopt(landing.adopt_tensor(device_dtype), landing)
             adopted = True
+            if _tr.active:
+                now = time.monotonic_ns()
+                left = landing.nbytes
+                for tid, res in waited:
+                    rlen = min(left, len(res.chunk_ids) * chunk_size)
+                    left -= rlen
+                    trid = _tr.traced_id(tid)
+                    if trid:
+                        _trace_landing(source, res.chunk_ids, chunk_size,
+                                       rlen, "direct", t0, now, trid)
+                    _tr.task_end(tid)
             return MemCopyResult(dma_task_id=0, nr_chunks=n,
                                  nr_ssd2dev=nr_ssd, nr_ram2dev=nr_ram,
                                  chunk_ids=out_ids, landing="direct")

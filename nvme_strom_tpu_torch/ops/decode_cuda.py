@@ -30,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import errno as _errno
 import functools
+import time
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
@@ -37,6 +38,7 @@ import torch
 
 from .. import _build
 from ..api import StromError
+from ..trace import recorder as _trace
 from ..scan.colpack import ColCodec, PackedMeta
 from ..scan.heap import HEADER_WORDS, PAGE_SIZE
 from .decode import make_decode_filter_fn
@@ -190,6 +192,7 @@ def launch(pages_u8: torch.Tensor, spec: _Spec, count: torch.Tensor,
     """Launch the kernel on the current stream over a validated CUDA batch
     (outputs zeroed by the caller); the one place ``launches`` moves."""
     global launches
+    t0 = time.monotonic_ns() if _trace.active else 0
     n_pages = pages_u8.shape[0]
     dev = pages_u8.device
     index = dev.index or 0
@@ -201,6 +204,9 @@ def launch(pages_u8: torch.Tensor, spec: _Spec, count: torch.Tensor,
             count.data_ptr(), isums.data_ptr(), fsums.data_ptr(), nc, grid,
             torch.cuda.current_stream(dev).cuda_stream)
     launches += 1
+    if t0:       # host time of the launch, not device time
+        _trace.span("b2_decode", t0, time.monotonic_ns(),
+                    args={"pages": n_pages})
 
 
 def decode_filter_pages_cuda(pages_u8: torch.Tensor, threshold,

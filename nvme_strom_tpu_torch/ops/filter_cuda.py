@@ -31,6 +31,7 @@ from __future__ import annotations
 import ctypes
 import errno as _errno
 import functools
+import time
 from typing import Callable, Union
 
 import numpy as np
@@ -38,6 +39,7 @@ import torch
 
 from .. import _build
 from ..api import StromError
+from ..trace import recorder as _trace
 from ..scan.heap import PAGE_SIZE, HeapSchema
 from .filter import (DEFAULT_SCHEMA, MAX_TERMS, STEP_PRED, FilterPred,
                      make_filter_fn)
@@ -208,6 +210,7 @@ def launch(pages_u8: torch.Tensor, spec: _Spec, out: torch.Tensor) -> None:
     it adds its results to *out* (:func:`new_outputs`).  The one place
     ``launches`` moves."""
     global launches
+    t0 = time.monotonic_ns() if _trace.active else 0
     n_pages = pages_u8.shape[0]
     dev = pages_u8.device
     index = dev.index or 0
@@ -222,6 +225,9 @@ def launch(pages_u8: torch.Tensor, spec: _Spec, out: torch.Tensor) -> None:
             base + 4, base + 4 * (1 + n_isums), nc, grid,
             torch.cuda.current_stream(dev).cuda_stream)
     launches += 1
+    if t0:       # host time of the launch, not device time
+        _trace.span("b1_filter", t0, time.monotonic_ns(),
+                    args={"pages": n_pages})
 
 
 def filter_pages_cuda(pages_u8: torch.Tensor, threshold, schema: HeapSchema,

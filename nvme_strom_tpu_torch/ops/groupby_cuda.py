@@ -40,6 +40,7 @@ import ctypes
 import dataclasses
 import errno as _errno
 import functools
+import time
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -47,6 +48,7 @@ import torch
 
 from .. import _build
 from ..api import StromError
+from ..trace import recorder as _trace
 from ..scan.heap import HeapSchema
 from .filter import MAX_TERMS, FilterPred
 from .filter_cuda import _KIND, MAX_COLS, _Terms, check_pages, \
@@ -312,6 +314,7 @@ def launch(pages_u8: torch.Tensor, spec: _Spec, agg_dt: np.dtype,
     it adds into *buf* (:func:`new_outputs`).  The one place ``launches``
     moves."""
     global launches
+    t0 = time.monotonic_ns() if _trace.active else 0
     n_pages = pages_u8.shape[0]
     dev = pages_u8.device
     index = dev.index or 0
@@ -324,6 +327,9 @@ def launch(pages_u8: torch.Tensor, spec: _Spec, agg_dt: np.dtype,
             buf.data_ptr(), grid, smem,
             torch.cuda.current_stream(dev).cuda_stream)
     launches += 1
+    if t0:       # host time of the launch, not device time
+        _trace.span("b3_groupby", t0, time.monotonic_ns(),
+                    args={"pages": n_pages})
 
 
 def unpack_outputs(buf: torch.Tensor, n_groups: int, n_agg: int,

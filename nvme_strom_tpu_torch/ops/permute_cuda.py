@@ -50,12 +50,14 @@ from __future__ import annotations
 
 import ctypes
 import errno as _errno
+import time
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from .. import _build
 from ..api import StromError
+from ..trace import recorder as _trace
 from ..hbm.staging import bounded_fence
 from .permute import check_blocks
 
@@ -154,6 +156,7 @@ def launch(src: torch.Tensor, dst: torch.Tensor,
     when that is another card.  Returns the number of CTAs (the signals
     sent); the one place ``launches`` moves."""
     global launches
+    t0 = time.monotonic_ns() if _trace.active else 0
     dev = src.device.index
     peer = dst.device != src.device
     plan = plan_send(src.data_ptr(), dst.data_ptr(),
@@ -163,6 +166,9 @@ def launch(src: torch.Tensor, dst: torch.Tensor,
           plan.body, plan.tail, int(peer), recv_count.data_ptr(), plan.grid,
           _stream(src.device))
     launches += 1
+    if t0:       # host time of the launch, not device time
+        _trace.span("b4_permute", t0, time.monotonic_ns(),
+                    args={"bytes": src.numel() * src.element_size()})
     return plan.grid
 
 

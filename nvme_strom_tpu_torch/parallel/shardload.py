@@ -31,8 +31,10 @@ from ..engine import Session, Source, plan_shard_ownership, reorder_chunks
 from ..hbm.staging import bounded_fence
 from ..scan.heap import PAGE_SIZE
 from ..stats import stats
+from ..trace import recorder as _trace
 from .mesh import RingMesh
-from .ring import ring_all_gather, ring_finish, ring_permute_step
+from .ring import (permute_backend, ring_all_gather, ring_finish,
+                   ring_permute_step)
 
 __all__ = ["load_pages_multihost", "shard_ownership"]
 
@@ -46,12 +48,14 @@ def shard_ownership(source: Source, n_hosts: int,
     return plan_shard_ownership(source, range(n_chunks), chunk_size, n_hosts)
 
 
-def _read_host_shard(ids: List[int], source: Source,
+def _read_host_shard(host: int, ids: List[int], source: Source,
                      session: Optional[Session]) -> np.ndarray:
     """One host's local read of its chunk list through its own engine
-    session; an owned ``(len(ids), PAGE_SIZE)`` array in caller order."""
+    session; an owned ``(len(ids), PAGE_SIZE)`` array in caller order.
+    Traced as a ``shard_load`` span."""
     if not ids:
         return np.empty((0, PAGE_SIZE), np.uint8)
+    ts = time.monotonic_ns()
     own = session is None
     sess = session or Session()
     try:
@@ -71,6 +75,10 @@ def _read_host_shard(ids: List[int], source: Source,
             sess.close()
     stats.add("nr_shard_load")
     stats.add("bytes_shard_load", len(ids) * PAGE_SIZE)
+    if _trace.active:
+        _trace.span("shard_load", ts, time.monotonic_ns(),
+                    length=len(ids) * PAGE_SIZE,
+                    args={"host": host, "chunks": len(ids)})
     return rows
 
 
@@ -130,9 +138,9 @@ def load_pages_multihost(source: Source, mesh: RingMesh, *,
     Returns the per-member ``(n_pages / N, PAGE_SIZE)`` shards,
     byte-identical to :func:`.stream.load_pages_sharded` of the same
     source, or with ``gather=True`` one full ``(n_pages, PAGE_SIZE)``
-    replica per member.  Times of the phases go to ``stats``:
-    ``clk_shard_load`` (the reads), ``clk_ici_redistribute`` and
-    ``clk_ici_gather``, in ns."""
+    replica per member.  With the flight recorder on, each host's read is
+    a ``shard_load`` span, and the redistribution and the gather are each
+    an ``ici_permute`` span (``gather`` in its args for the second)."""
     if source.size % PAGE_SIZE:
         raise StromError(_errno.EINVAL, f"source size {source.size} not "
                                         f"page-aligned")
@@ -151,7 +159,6 @@ def load_pages_multihost(source: Source, mesh: RingMesh, *,
     owned = shard_ownership(source, hosts)
 
     # -- phase 1: per-host local reads, one engine session each --------
-    t0 = time.monotonic_ns()
     host_rows: List[Optional[np.ndarray]] = [None] * hosts
     errors: List[BaseException] = []
 
@@ -159,7 +166,7 @@ def load_pages_multihost(source: Source, mesh: RingMesh, *,
         src = source_factory(h) if source_factory else source
         try:
             host_rows[h] = _read_host_shard(
-                owned[h], src,
+                h, owned[h], src,
                 session if (session is not None and hosts == 1) else None)
         except BaseException as e:  # noqa: BLE001 - re-raised below
             errors.append(e)
@@ -179,7 +186,6 @@ def load_pages_multihost(source: Source, mesh: RingMesh, *,
             t.join()
     if errors:
         raise errors[0]
-    stats.add("clk_shard_load", time.monotonic_ns() - t0)
 
     # -- each host's rows onto its group of members, padded ------------
     per_dev = []      # ring position -> (pages, ids)
@@ -205,19 +211,29 @@ def load_pages_multihost(source: Source, mesh: RingMesh, *,
 
     # -- phase 2: on-device redistribution -----------------------------
     _fence(mesh, "shard-land")
-    t0 = time.monotonic_ns()
+    transport = permute_backend(backend, device=mesh.device_type)
+    ts = time.monotonic_ns()
     out = _redistribute(data, idx, mesh, rows_per_dev, backend)
     del data, idx
     _fence(mesh, "ici-permute")
-    stats.add("clk_ici_redistribute", time.monotonic_ns() - t0)
+    moved = (n_dev - 1) * n_dev * rows_max * (PAGE_SIZE + 4)
     stats.add("nr_ici_permute", n_dev - 1)
-    stats.add("bytes_ici", (n_dev - 1) * n_dev * rows_max * (PAGE_SIZE + 4))
+    stats.add("bytes_ici", moved)
+    if _trace.active:
+        _trace.span("ici_permute", ts, time.monotonic_ns(), length=moved,
+                    args={"steps": n_dev - 1, "ring": n_dev,
+                          "backend": transport, "hosts": hosts})
     if not gather:
         return out
-    t0 = time.monotonic_ns()
+    ts = time.monotonic_ns()
     gathered = ring_all_gather(out, mesh, backend=backend)
     _fence(mesh, "ici-gather")
-    stats.add("clk_ici_gather", time.monotonic_ns() - t0)
+    moved = (n_dev - 1) * n_dev * rows_per_dev * PAGE_SIZE
     stats.add("nr_ici_permute", n_dev - 1)
-    stats.add("bytes_ici", (n_dev - 1) * n_dev * rows_per_dev * PAGE_SIZE)
+    stats.add("bytes_ici", moved)
+    if _trace.active:
+        _trace.span("ici_permute", ts, time.monotonic_ns(), length=moved,
+                    args={"steps": n_dev - 1, "ring": n_dev,
+                          "backend": transport, "hosts": hosts,
+                          "gather": True})
     return gathered

@@ -27,6 +27,7 @@ from ..hbm.staging import bounded_fence
 from ..scan.executor import _to_numpy, fold_results
 from ..scan.heap import PAGE_SIZE
 from ..stats import stats
+from ..trace import recorder as _trace
 from .mesh import RingMesh
 
 __all__ = ["load_pages_sharded", "ShardedBatchStream",
@@ -170,7 +171,13 @@ class ShardedBatchStream:
         shards: List[Optional[torch.Tensor]] = [None] * len(tasks)
 
         def land(k: int, done) -> None:
-            stats.shard_wait(k, time.monotonic_ns() - tasks[k][1])
+            # the batch waits on its slowest shard: one log2-ns histogram
+            # a shard, and a flight-recorder span
+            t1 = time.monotonic_ns()
+            stats.shard_wait(k, t1 - tasks[k][1])
+            if _trace.active:
+                _trace.span("shard_wait", tasks[k][1], t1,
+                            args={"shard": k})
             shards[k] = self._place(k, slot, done)
 
         remaining = list(range(len(tasks)))

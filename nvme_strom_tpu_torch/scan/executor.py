@@ -170,8 +170,11 @@ class TableScanner:
             chunk = self.pool.alloc(owner=owner)
             handle = None
             try:
+                # the pool's buffer backs the chunk: the session registers
+                # it as an io_uring fixed buffer once
                 handle = self.session.map_buffer(chunk.view,
-                                                 kind="pinned_host")
+                                                 kind="pinned_host",
+                                                 backing=self.pool.buffer)
                 if first < self.n_chunks:
                     res = self.session.memcpy_ssd2ram(
                         self.source, handle, [first], self.chunk_size)

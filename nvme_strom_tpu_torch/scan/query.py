@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import errno as _errno
 import os
+import time
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence, Union
 
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from ..api import StromError
+from ..trace import recorder as _trace
 from ..ops.filter import FilterPred
 from ..ops.groupby import GroupKey, _check_agg_cols, combine_groupby
 from ..stats import stats
@@ -313,7 +315,20 @@ class Query:
         the fused decode kernel expands them there, so the link carries
         packed bytes.  ``host``: packed bytes leave the disk, expand to
         heap pages on the host, and the heap filter consumes them.
-        Integer sums are byte-identical to the heap scan on both legs."""
+        Integer sums are byte-identical to the heap scan on both legs.
+        The whole leg is one ``pushdown_decode`` span."""
+        t0 = time.monotonic_ns()
+        try:
+            return self._run_pushdown_leg(dec, meta, dev)
+        finally:
+            if _trace.active:
+                _trace.span("pushdown_decode", t0, time.monotonic_ns(),
+                            length=meta.packed_bytes,
+                            args={"mode": dec.mode,
+                                  "wire_bytes": dec.wire_bytes,
+                                  "logical_bytes": dec.logical_bytes})
+
+    def _run_pushdown_leg(self, dec, meta, dev: torch.device) -> dict:
         from ..engine import open_source
         from .executor import TableScanner, _to_numpy, fold_results
         pred = self._predicate()

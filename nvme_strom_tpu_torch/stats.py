@@ -4,8 +4,15 @@ A plain dictionary of integers under one lock, with the names the JAX
 package's registry uses for the same events:
 
 * ``nr_ssd2dev`` — memcpy tasks that completed (one per engine command);
-* ``nr_submit_dma`` / ``total_dma_length`` — direct read requests issued
-  and their bytes;
+* ``nr_submit_dma`` / ``total_dma_length`` — read requests issued and
+  their bytes (the native engine's own counts fold in through
+  :meth:`Stats.merge_native` when a session's ``stat_info`` or ``close``
+  runs), ``nr_enter_dma`` its ``io_uring_enter`` calls, ``nr_debug1`` /
+  ``nr_debug2`` / ``nr_debug4`` its continuations, full-queue stalls and
+  requests that rode a fixed buffer (the reference's spare debug pairs);
+* ``nr_write_dma`` / ``total_write_length`` — write requests and bytes;
+* ``nr_backend_fallback`` — steps down the engine ladder (io_uring →
+  native threadpool → python pool) and native submits that failed over;
 * ``nr_kernel_dispatch`` — filter calls the scan pipeline made;
 * ``h2d_depth_reached`` — gauge: deepest H2D pipeline any load or scan
   reached;
@@ -13,20 +20,27 @@ package's registry uses for the same events:
   multi-host sharded loader and their bytes;
 * ``nr_ici_permute`` / ``bytes_ici`` — ring steps of the on-device shard
   redistribution and all-gather, and the bytes they moved;
-* ``clk_shard_load`` / ``clk_ici_redistribute`` / ``clk_ici_gather`` —
-  wall ns of the multi-host loader's read phase, redistribution and
-  gather (the port's stand-in for the JAX package's trace spans);
 * ``nr_shard_wait`` / ``clk_shard_wait`` — per-shard submit→completion
   waits of the sharded batch stream, with one log2-ns histogram per shard
   (:meth:`Stats.shard_snapshot`).
+
+Beside the counters: the resolved engine backend (:meth:`Stats.backend`),
+a log2-ns request-latency histogram (``LAT_HIST_BUCKETS`` buckets, fed by
+the python pool and the native engine's deltas), and per-member request,
+latency and queue-occupancy accounting (:meth:`Stats.member_snapshot`).
+The phases' wall times are flight-recorder spans (:mod:`.trace`), not
+counters.
 """
 
 from __future__ import annotations
 
+import os
 import threading
-from typing import Dict, List
+import time
+from typing import Dict, List, Optional, Sequence
 
-__all__ = ["Stats", "stats", "hist_percentiles"]
+__all__ = ["Stats", "stats", "hist_percentiles", "bytes_touched_ratio",
+           "LAT_HIST_BUCKETS"]
 
 LAT_HIST_BUCKETS = 64
 
@@ -50,11 +64,39 @@ def hist_percentiles(hist, qs=(0.50, 0.95, 0.99)):
     return out
 
 
+def bytes_touched_ratio(counters: dict) -> Optional[float]:
+    """Bytes touched per byte delivered: ``(payload + staging copies +
+    verify re-reads + hedge duplicates) / payload``; None until any payload
+    was delivered."""
+    delivered = counters.get("total_dma_length", 0)
+    if delivered <= 0:
+        return None
+    touched = (delivered + counters.get("bytes_staging_copy", 0)
+               + counters.get("bytes_verify_reread", 0)
+               + counters.get("bytes_hedge_dup", 0))
+    return touched / delivered
+
+
+def _bucket(ns: int) -> int:
+    return min(max(int(ns), 1).bit_length() - 1, LAT_HIST_BUCKETS - 1)
+
+
+#: gauges: combined at snapshot time, never summed from an engine's deltas
+_GAUGES = ("cur_dma_count", "max_dma_count")
+
+
 class Stats:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._c: Dict[str, int] = {}
         self._shard_hist: Dict[int, List[int]] = {}
+        self._hist = [0] * LAT_HIST_BUCKETS
+        # member -> [nreq, bytes, ns]; latency histograms; [integral, busy]
+        self._members: Dict[int, List[int]] = {}
+        self._member_hist: Dict[int, List[int]] = {}
+        self._member_occ: Dict[int, List[int]] = {}
+        self._occ_last_ns = 0
+        self._backend = ""
 
     def add(self, name: str, delta: int = 1) -> None:
         with self._lock:
@@ -65,11 +107,105 @@ class Stats:
             if value > self._c.get(name, 0):
                 self._c[name] = value
 
+    def gauge_add(self, name: str, delta: int) -> int:
+        """Move a gauge; ``cur_dma_count`` also integrates its occupancy
+        (``occ_integral_ns`` / ``occ_busy_ns``: the mean in-flight depth
+        while busy is their ratio)."""
+        with self._lock:
+            if name == "cur_dma_count":
+                now = time.monotonic_ns()
+                cur = self._c.get(name, 0)
+                if self._occ_last_ns and cur > 0:
+                    dt = now - self._occ_last_ns
+                    self._c["occ_integral_ns"] = \
+                        self._c.get("occ_integral_ns", 0) + cur * dt
+                    self._c["occ_busy_ns"] = \
+                        self._c.get("occ_busy_ns", 0) + dt
+                self._occ_last_ns = now
+            self._c[name] = self._c.get(name, 0) + delta
+            return self._c[name]
+
+    def set_backend(self, name: str) -> None:
+        """Record the engine rung the newest session landed on
+        (``io_uring`` | ``threadpool`` | ``python``)."""
+        with self._lock:
+            self._backend = str(name)
+
+    def backend(self) -> str:
+        with self._lock:
+            return self._backend
+
+    def merge_native(self, native_counters: Dict[str, int]) -> None:
+        """Fold a native engine's monotonic counter delta; its gauges are
+        left out (callers combine them at snapshot time)."""
+        with self._lock:
+            for k, v in native_counters.items():
+                if k not in _GAUGES:
+                    self._c[k] = self._c.get(k, 0) + v
+
+    def observe_latency(self, ns: int, n: int = 1) -> None:
+        """*n* request completions of service time *ns* into the log2
+        latency histogram."""
+        with self._lock:
+            self._hist[_bucket(ns)] += n
+
+    def merge_native_hist(self, deltas: Sequence[int]) -> None:
+        with self._lock:
+            for i, v in enumerate(deltas[:LAT_HIST_BUCKETS]):
+                self._hist[i] += v
+
+    def lat_hist_snapshot(self) -> List[int]:
+        with self._lock:
+            return list(self._hist)
+
+    def member_add(self, member: int, nbytes: int, ns: int,
+                   n: int = 1) -> None:
+        """Account requests against a stripe member (the reference's
+        per-disk ``part_stat_add``)."""
+        with self._lock:
+            m = self._members.setdefault(member, [0, 0, 0])
+            m[0] += n
+            m[1] += nbytes
+            m[2] += ns
+
+    def merge_member_hist(self, member: int, deltas: Sequence[int]) -> None:
+        with self._lock:
+            h = self._member_hist.setdefault(member, [0] * LAT_HIST_BUCKETS)
+            for i, v in enumerate(deltas[:LAT_HIST_BUCKETS]):
+                h[i] += v
+
+    def member_occ_add(self, member: int, integral_ns: int,
+                       busy_ns: int) -> None:
+        with self._lock:
+            o = self._member_occ.setdefault(member, [0, 0])
+            o[0] += integral_ns
+            o[1] += busy_ns
+
+    def member_snapshot(self) -> Dict[int, dict]:
+        """``{member: {"nreq", "bytes", "clk_ns"[, "p50_ns", "p95_ns",
+        "occ_integral_ns", "occ_busy_ns"]}}``."""
+        with self._lock:
+            out = {k: {"nreq": v[0], "bytes": v[1], "clk_ns": v[2]}
+                   for k, v in sorted(self._members.items())}
+            hists = {k: list(h) for k, h in self._member_hist.items()}
+            occ = {k: list(o) for k, o in self._member_occ.items()}
+        for k, h in hists.items():
+            d = out.setdefault(k, {"nreq": 0, "bytes": 0, "clk_ns": 0})
+            p50, p95, _ = hist_percentiles(h)
+            if p50 is not None:
+                d["p50_ns"] = p50
+            if p95 is not None:
+                d["p95_ns"] = p95
+        for k, o in occ.items():
+            d = out.setdefault(k, {"nreq": 0, "bytes": 0, "clk_ns": 0})
+            d["occ_integral_ns"], d["occ_busy_ns"] = o
+        return out
+
     def shard_wait(self, shard: int, ns: int) -> None:
         """Account one shard's submit→completion wait: the ``nr_/
         clk_shard_wait`` pair and the shard's own log2-ns histogram, so a
         straggling shard is not smeared into the aggregate."""
-        b = min(max(int(ns), 1).bit_length() - 1, LAT_HIST_BUCKETS - 1)
+        b = _bucket(ns)
         with self._lock:
             self._c["nr_shard_wait"] = self._c.get("nr_shard_wait", 0) + 1
             self._c["clk_shard_wait"] = self._c.get("clk_shard_wait", 0) + ns
@@ -97,10 +233,25 @@ class Stats:
         with self._lock:
             return dict(self._c)
 
+    def export_payload(self) -> dict:
+        """One snapshot in the shape of the JAX package's per-process
+        stats export (what :func:`..trace.render_prometheus` reads)."""
+        return {"timestamp_ns": time.monotonic_ns(), "pid": os.getpid(),
+                "version": 1, "counters": self.snapshot(),
+                "backend": self.backend(),
+                "members": self.member_snapshot(),
+                "lat_hist": self.lat_hist_snapshot(),
+                "shards": self.shard_snapshot()}
+
     def reset(self) -> None:
         with self._lock:
             self._c.clear()
             self._shard_hist.clear()
+            self._hist = [0] * LAT_HIST_BUCKETS
+            self._members.clear()
+            self._member_hist.clear()
+            self._member_occ.clear()
+            self._occ_last_ns = 0
 
 
 #: process-wide counters

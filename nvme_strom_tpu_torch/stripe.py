@@ -8,8 +8,8 @@ ownership the multi-host sharded loader plans against.  When members
 differ in size the address space is a sequence of zones, each striping
 over the members that still have capacity at that depth.
 
-Left out: mirrored (``paired``) sets and the member→lane map of the
-native engine's queue pairs.
+With them, the member→lane map of the native engine's queue pairs
+(``lane_of`` / ``lane_members``).  Left out: mirrored (``paired``) sets.
 """
 
 from __future__ import annotations
@@ -17,10 +17,27 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
-__all__ = ["StripeZone", "StripeMap", "StripeExtent", "host_of",
-           "host_members"]
+__all__ = ["StripeZone", "StripeMap", "StripeExtent", "lane_of",
+           "lane_members", "host_of", "host_members"]
 
 SECTOR = 512
+
+
+def lane_of(member: int, nlanes: int) -> int:
+    """Engine queue pair (lane) serving *member*: ``member % nlanes``, the
+    native engine's own map (``csrc/strom_engine.cc``), one lane a member
+    when there are at least as many lanes as members (the per-NVMe-device
+    hardware-queue analog, ``kmod/nvme_strom.c:1201-1223``)."""
+    return member % max(nlanes, 1)
+
+
+def lane_members(lane: int, n_members: int, nlanes: int) -> List[int]:
+    """Members served by *lane* (the inverse of :func:`lane_of`); empty
+    for a lane beyond the lane count."""
+    nlanes = max(nlanes, 1)
+    if lane < 0 or lane >= nlanes:
+        return []
+    return list(range(lane, n_members, nlanes))
 
 
 def host_of(member: int, n_hosts: int) -> int:

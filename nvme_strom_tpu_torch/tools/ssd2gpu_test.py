@@ -3,11 +3,13 @@
 Mirror of the reference's `utils/ssd2gpu_test.c`: one device destination
 registered once, segment-pipelined transfers through pinned staging
 buffers, and an optional byte-exact check against the file (`-c`,
-`:342-372`).  Reports GB/s (10^9 bytes per second), the read requests
-issued, and the host→device copy ceiling measured with CUDA events.
+`:342-372`).  Reports GB/s (10^9 bytes per second), the engine backend
+that ran (``--backend`` picks the top rung of the ladder: auto, io_uring,
+threadpool or python), the read requests issued, and the host→device copy
+ceiling measured with CUDA events.
 
 Usage: ssd2gpu_test [-c] [-n SEGS] [-s SEG_SZ] [-d DEV] [--chunk SZ]
-                    [--loops N] [--no-drop-cache] FILE
+                    [--backend B] [--loops N] [--no-drop-cache] FILE
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import mmap
 import os
 import sys
 import time
+from typing import Optional
 
 import torch
 
@@ -24,7 +27,6 @@ from ..api import StromError
 from ..engine import Session, check_file, open_source
 from ..hbm import StagingPipeline, registry
 from ..hbm.staging import resolve_device
-from ..stats import stats
 from .common import (drop_page_cache, first_mismatch, memdump_on_corruption,
                      parse_size)
 
@@ -70,18 +72,24 @@ def measure_h2d(dev: torch.device, nbytes: int = 64 << 20,
 
 def run_load(path: str, *, device=None, segments: int = 6,
              segment_size: int = 16 << 20, chunk: int = 1 << 20,
-             loops: int = 1, drop_cache: bool = True) -> dict:
+             loops: int = 1, drop_cache: bool = True,
+             backend: Optional[str] = None) -> dict:
     """Load the whole chunks of *path* into one preallocated tensor on
-    *device* (default ``cuda:0``) through the staging pipeline.
+    *device* (default ``cuda:0``) through the staging pipeline, on the
+    engine *backend* (default config ``io_backend``).
 
     Returns ``{"tensor", "nbytes", "seconds" (best loop), "result" (last
     MemCopyResult), "depth" (deepest H2D ring), "counters" (stats delta of
-    the timed loops)}``."""
+    the timed loops, the engine's own counts folded in), "backend" (the
+    rung that ran), "fixed" (staging buffers that became io_uring fixed
+    buffers), "uring_errno" (why io_uring was refused, 0 if it was not)}``.
+    """
     dev = resolve_device(device)
     info = check_file(path)
     if not info.supported:
         raise StromError(22, f"{path}: not supported for direct load")
-    with open_source(path) as src, Session(device=dev) as sess:
+    with open_source(path) as src, \
+            Session(device=dev, io_backend=backend) as sess:
         n_chunks = src.size // chunk
         if n_chunks == 0:
             raise StromError(22, f"{path}: smaller than one chunk")
@@ -95,7 +103,8 @@ def run_load(path: str, *, device=None, segments: int = 6,
                 warm = min(segment_size // chunk, n_chunks)
                 pipe.memcpy_ssd2dev(src, handle, list(range(warm)), chunk)
                 pipe.drain()
-                before = stats.snapshot()
+                fixed = sum(sess.is_fixed(buf) for _, buf in pipe._bufs)
+                before = sess.stat_info()
                 best = None
                 for _ in range(loops):
                     if drop_cache:
@@ -108,13 +117,15 @@ def run_load(path: str, *, device=None, segments: int = 6,
                         torch.cuda.synchronize(dev)
                     dt = time.monotonic() - t0
                     best = dt if best is None else min(best, dt)
-                after = stats.snapshot()
+                after = sess.stat_info()
                 depth = pipe.depth_reached
             tensor = registry.get(handle).tensor
         finally:
             registry.unmap(handle)
+        backend_name, uring_errno = sess.backend_name, sess.uring_errno
     return {"tensor": tensor, "nbytes": nbytes, "seconds": best,
-            "result": res, "depth": depth,
+            "result": res, "depth": depth, "backend": backend_name,
+            "fixed": fixed, "uring_errno": uring_errno,
             "counters": {k: v - before.get(k, 0) for k, v in after.items()}}
 
 
@@ -135,6 +146,10 @@ def main(argv=None) -> int:
     ap.add_argument("--no-drop-cache", action="store_true")
     ap.add_argument("--loops", type=int, default=1,
                     help="repeat the transfer and report the best loop")
+    ap.add_argument("--backend", default=None,
+                    choices=("auto", "io_uring", "threadpool", "python"),
+                    help="top rung of the engine ladder (default: config "
+                         "io_backend)")
     args = ap.parse_args(argv)
     if args.loops < 1:
         ap.error("--loops must be >= 1")
@@ -143,9 +158,12 @@ def main(argv=None) -> int:
     dev = resolve_device(device)
     out = run_load(args.file, device=dev, segments=args.segments,
                    segment_size=args.segment_size, chunk=args.chunk,
-                   loops=args.loops, drop_cache=not args.no_drop_cache)
+                   loops=args.loops, drop_cache=not args.no_drop_cache,
+                   backend=args.backend)
     nbytes, secs, c = out["nbytes"], out["seconds"], out["counters"]
-    print(f"file: {args.file} ({nbytes / (1 << 20):.1f} MB)  device: {dev}")
+    print(f"file: {args.file} ({nbytes / (1 << 20):.1f} MB)  device: {dev}  "
+          f"engine: {out['backend']} ({out['fixed']} of {args.segments} "
+          f"staging buffers fixed)")
     print(f"transferred: {nbytes / 1e9:.3f} GB in {secs:.3f}s  => "
           f"{nbytes / secs / 1e9:.3f} GB/s")
     nsub = max(c.get("nr_submit_dma", 0), 1)

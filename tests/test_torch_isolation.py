@@ -37,7 +37,8 @@ _SCRIPT = textwrap.dedent("""
                 "ops.decode_cuda", "scan.colpack", "scan.planner",
                 "scan.query", "stripe", "ops.permute", "ops.permute_cuda",
                 "parallel", "parallel.mesh", "parallel.ring",
-                "parallel.stream", "parallel.shardload"):
+                "parallel.stream", "parallel.shardload", "_native", "trace",
+                "tools.strom_trace", "testing", "testing.trace_gate"):
         assert pkg.__name__ + "." + mod in names, mod
     import chip_smoke  # noqa: F401
     leaked = [m for m in sys.modules
@@ -152,3 +153,33 @@ def test_non_cpu_tensor_never_reaches_a_plain_version(case):
         assert "callable" in str(e.value)
     assert (groupby_cuda.launches, decode_cuda.launches,
             permute_cuda.launches) == before
+
+
+#: what names the JAX package's native build: its library, its directory,
+#: its Makefile (and the make that runs it)
+_JAX_BUILD = re.compile(r"nvme_strom_tpu[/.]_native|libstrom_tpu\.so|"
+                        r"csrc/Makefile|make\s+-C|[\"']\.\./csrc|"
+                        r"parents?\[\d\]\s*/\s*[\"']csrc")
+
+#: the port's native sources, its build file and chip_smoke.py
+_NATIVE_FILES = sorted(
+    [str(p.relative_to(ROOT)) for p in (PORT / "csrc").iterdir()]
+    + PY_FILES)
+
+
+@pytest.mark.parametrize("rel", _NATIVE_FILES)
+def test_no_port_file_names_the_jax_packages_native_build(rel):
+    """The port builds its own engine from its own csrc/: no file names
+    the root csrc/ or the JAX package's _native build."""
+    assert not _JAX_BUILD.search((ROOT / rel).read_text()), rel
+
+
+def test_engine_builds_from_the_ports_own_sources():
+    from nvme_strom_tpu_torch import _build
+    assert _build._SRC == PORT / "csrc"
+    assert _build._OUT == PORT / "_build"
+    cmd = _build._command(_build.ENGINE, _build._OUT / "x.so")
+    assert cmd[-1] == str(PORT / "csrc" / "strom_engine.cc")
+    assert tuple(cmd[1:6]) == _build.GXX_FLAGS == \
+        ("-O2", "-std=c++17", "-fPIC", "-pthread", "-shared")
+    assert str(_build._engine_target()).startswith(str(PORT / "_build"))

@@ -98,7 +98,11 @@ def test_multihost_gather_is_the_file(page_file):
 def test_multihost_striped_gather_and_counters(striped_pages):
     """As tests/test_shardload.py's striped case: four hosts over a
     4-member stripe, gathered, equal the file; one read per host; the
-    ring counters move."""
+    ring counters move, and the phases are the reference's flight-recorder
+    spans: one ``shard_load`` a host, an ``ici_permute`` for the
+    redistribution and one for the gather."""
+    from nvme_strom_tpu_torch.config import config
+    from nvme_strom_tpu_torch.trace import recorder
     paths, data = striped_pages
     before = stats.snapshot()
     opened = []
@@ -107,10 +111,21 @@ def test_multihost_striped_gather_and_counters(striped_pages):
         opened.append(h)
         return StripedSource(paths, PAGE_SIZE)
 
-    with StripedSource(paths, PAGE_SIZE) as src:
-        out = load_pages_multihost(src, make_scan_mesh(["cpu"] * 8),
-                                   hosts=4, gather=True,
-                                   source_factory=factory)
+    saved = config.get("trace_policy")
+    config.set("trace_policy", "all")
+    recorder.configure()
+    recorder.clear()
+    try:
+        with StripedSource(paths, PAGE_SIZE) as src:
+            out = load_pages_multihost(src, make_scan_mesh(["cpu"] * 8),
+                                       hosts=4, gather=True,
+                                       source_factory=factory)
+        spans = [e for e in recorder.snapshot_events()
+                 if e[2] in ("shard_load", "ici_permute")]
+    finally:
+        config.set("trace_policy", saved)
+        recorder.configure()
+        recorder.clear()
     assert sorted(opened) == [0, 1, 2, 3]
     for replica in out:
         assert replica.numpy().tobytes() == data
@@ -120,8 +135,15 @@ def test_multihost_striped_gather_and_counters(striped_pages):
         == N_PAGES * PAGE_SIZE
     assert after["nr_ici_permute"] > before.get("nr_ici_permute", 0)
     assert after["bytes_ici"] > before.get("bytes_ici", 0)
-    for clk in ("clk_shard_load", "clk_ici_redistribute", "clk_ici_gather"):
-        assert after[clk] > before.get(clk, 0)
+    loads = [e for e in spans if e[2] == "shard_load"]
+    assert sorted(e[8]["host"] for e in loads) == [0, 1, 2, 3]
+    assert sum(e[7] for e in loads) == N_PAGES * PAGE_SIZE
+    permutes = [e for e in spans if e[2] == "ici_permute"]
+    assert [bool((e[8] or {}).get("gather")) for e in permutes] == \
+        [False, True]
+    assert all(e[1] > 0 for e in loads + permutes)
+    assert sum(e[7] for e in permutes) == \
+        after["bytes_ici"] - before.get("bytes_ici", 0)
 
 
 @pytest.mark.parametrize("case", ["unaligned", "indivisible", "hosts"])
