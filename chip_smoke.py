@@ -2,9 +2,10 @@
 """Chip smoke test of nvme_strom_tpu_torch on one CUDA card.
 
 Drives the port's main paths — load, scan, GROUP BY, the packed-sidecar
-(pushdown) aggregate, the multi-host sharded load and the ring scan — at
-full size and holds every CUDA kernel of those
-paths against its plain PyTorch version:
+(pushdown) aggregate, the multi-host sharded load, the ring scan, the write
+path and the data tier (loader, checkpoints, a training loop) — at full
+size and holds every CUDA kernel of those paths against its plain PyTorch
+version:
 
 1. environment: the card's name and power limit (``nvidia-smi``);
 2. build: every ``nvme_strom_tpu_torch/csrc/*.cu`` with ``nvcc`` (sm_90a)
@@ -79,7 +80,24 @@ paths against its plain PyTorch version:
 11. trace: [4]'s load and [5]'s scan again with ``trace_policy=all``; the
     Chrome trace dumped under ``chiprun_out/``, checked with
     ``validate_chrome_trace``, its summary and the time of each span class
-    printed, with the scan's GB/s with the trace off and on.
+    printed, with the scan's GB/s with the trace off and on;
+12. the data tier (no kernel of B1-B4 runs there):
+    a. a 1 GiB file of CIFAR-10-shaped records (3073 B at stride 4096,
+       seeded) through ``DeviceLoader(batch_records=1024, shuffle=seed)``:
+       ``epoch()`` and ``epochs(2)`` at prefetch 2 and 4, every batch
+       equal on the card to the file's records in the reference's chunk
+       order; GB/s and records/s beside a raw O_DIRECT read;
+    b. a GPT-2 medium ``state_dict`` (355M float32 values seeded on the
+       card, plus int64, int8 and 91-float leaves) saved buffered and
+       ``direct=True`` (byte-identical files), restored plain, with
+       ``verify=True`` and with ``like=``, every leaf ``torch.equal``;
+       beside a raw O_DIRECT write and read, the verify's cost, and which
+       crc32c ran at what GB/s;
+    c. ``tests/test_train_loop.py`` on the port: a logistic regression
+       trained three epochs from a shuffled loader on a ring of 4 x the
+       card, saved ``direct=True``, restored replicated, and resumed one
+       seeded epoch from both copies: bit-identical, under
+       ``torch.use_deterministic_algorithms``.
 
 Every main path sets the kernels' launch counts to 0 just before it runs
 and reads them just after; each kernel of a path must have launched once
@@ -104,6 +122,10 @@ import tempfile
 import time
 
 import numpy as np
+
+# cuBLAS picks a reduction order per workspace; pinned before CUDA starts,
+# phase 12's deterministic train loop compares bits, not cuBLAS's choice
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 NVLINK_BYTES_PER_S = 450e9         # H100 SXM NVLink, one direction
@@ -1848,6 +1870,308 @@ def _trace_phase(torch, dev, load_path, heap_path, th, truth, out_dir):
                   f"wait span")
 
 
+# -- phase 12: the data tier -------------------------------------------------
+
+#: GPT-2 medium (the Hugging Face ``gpt2-medium`` config: n_layer 24, n_embd
+#: 1024, n_positions 1024, vocab_size 50257)
+GPT2_MEDIUM = {"n_layer": 24, "n_embd": 1024, "n_positions": 1024,
+               "vocab": 50257}
+CIFAR_RECORD = 3 * 32 * 32 + 1     # a CIFAR-10 image and its label byte
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _gpt2_shapes(n_layer, n_embd, n_positions, vocab):
+    """(name, shape) of every parameter of GPT2LMHeadModel's state_dict
+    (the tied lm_head is the embedding)."""
+    e = n_embd
+    yield "transformer.wte.weight", (vocab, e)
+    yield "transformer.wpe.weight", (n_positions, e)
+    for i in range(n_layer):
+        p = f"transformer.h.{i}."
+        yield p + "ln_1.weight", (e,)
+        yield p + "ln_1.bias", (e,)
+        yield p + "attn.c_attn.weight", (e, 3 * e)
+        yield p + "attn.c_attn.bias", (3 * e,)
+        yield p + "attn.c_proj.weight", (e, e)
+        yield p + "attn.c_proj.bias", (e,)
+        yield p + "ln_2.weight", (e,)
+        yield p + "ln_2.bias", (e,)
+        yield p + "mlp.c_fc.weight", (e, 4 * e)
+        yield p + "mlp.c_fc.bias", (4 * e,)
+        yield p + "mlp.c_proj.weight", (4 * e, e)
+        yield p + "mlp.c_proj.bias", (e,)
+    yield "transformer.ln_f.weight", (e,)
+    yield "transformer.ln_f.bias", (e,)
+
+
+def _chunk_order(n_chunks, rpc, seed, epoch):
+    """Record ids of one shuffled epoch, as the JAX package's loader orders
+    them: chunk ids permuted by ``np.random.default_rng(seed + epoch)``,
+    each chunk's records in file order."""
+    ids = np.arange(n_chunks, dtype=np.int64)
+    np.random.default_rng(seed + epoch).shuffle(ids)
+    return (ids[:, None] * rpc + np.arange(rpc)).reshape(-1)
+
+
+def _loader_leg(torch, dev, tmp, seed, n_records=262144, batch=1024):
+    """[12a]: a CIFAR-10-shaped record file through DeviceLoader: one
+    epoch() and epochs(2) at prefetch 2 and 4, every batch held on the
+    device against the file's records in the reference's chunk order."""
+    from nvme_strom_tpu_torch.data import DeviceLoader, write_records
+    from nvme_strom_tpu_torch.tools.common import drop_page_cache
+    from nvme_strom_tpu_torch.tools.ssd2gpu_test import measure_raw
+    rng = np.random.default_rng(seed + 12)
+    samples = rng.integers(0, 256, (n_records, CIFAR_RECORD), dtype=np.uint8)
+    samples[:, -1] %= 10
+    path = os.path.join(tmp, "cifar.rec")
+    ds = write_records(path, samples)
+    file_bytes = ds.count * ds.stride
+    drop_page_cache(path)
+    raw = measure_raw(path, file_bytes)
+    truth = torch.from_numpy(samples).to(dev)
+    del samples
+    rows = []
+    for prefetch in (2, 4):
+        with DeviceLoader(ds, batch_records=batch, shuffle=seed, device=dev,
+                          prefetch=prefetch) as dl:
+            # untimed warm-up (the engine's threads, the check's kernels):
+            # a few batches of an epoch numbered apart, abandoned
+            warm = torch.from_numpy(_chunk_order(dl.n_chunks, dl.rpc, seed,
+                                                 99)).to(dev)
+            for b, x in zip(range(8), dl.epoch(99)):
+                if not torch.equal(x, truth[warm[b * batch:
+                                                 (b + 1) * batch]]):
+                    raise AssertionError("[12a] warm-up batch differs")
+            for n_ep in (1, 2):
+                e0 = 0 if n_ep == 1 else 1    # epoch() took epoch 0
+                order = torch.from_numpy(np.concatenate([
+                    _chunk_order(dl.n_chunks, dl.rpc, seed, e0 + k)
+                    for k in range(n_ep)])).to(dev)
+                bad = torch.zeros((), dtype=torch.int64, device=dev)
+                drop_page_cache(path)
+                _sync(torch, dev)
+                t0 = time.monotonic()
+                it = dl.epoch() if n_ep == 1 else dl.epochs(2)
+                n_b = 0
+                for b, x in enumerate(it):
+                    bad += (x != truth[order[b * batch:(b + 1) * batch]]) \
+                        .any()
+                    n_b += 1
+                _sync(torch, dev)
+                dt = time.monotonic() - t0
+                if n_b != n_ep * dl.batches_per_epoch or int(bad):
+                    raise AssertionError(
+                        f"[12a] loader prefetch {prefetch}, {n_ep} "
+                        f"epoch(s): {n_b} batches, {int(bad)} differ from "
+                        f"the file's records in the reference's order")
+                rows.append((prefetch, n_ep, n_ep * file_bytes / dt / 1e9,
+                             n_b * batch / dt))
+        geo = (dl.chunk_size, dl.chunks_per_batch, dl.batches_per_epoch)
+    del truth
+    os.unlink(path)
+    os.unlink(path + ".meta.json")
+    legs = "; ".join(f"prefetch {p} {'epoch()' if n == 1 else 'epochs(2)'}"
+                     f" {g:.3f} GB/s = {r:.0f} records/s"
+                     for p, n, g, r in rows)
+    print(f"[12a] loader: {n_records} records of {CIFAR_RECORD} B at "
+          f"stride {ds.stride} ({file_bytes} B), batches of {batch} "
+          f"({geo[1]} chunks of {geo[0]} B, {geo[2]} a epoch), shuffled: "
+          f"{legs}; every batch equal to the file's records in the "
+          f"reference's chunk order | raw O_DIRECT read {raw:.3f} GB/s")
+    return rows, raw
+
+
+def _checkpoint_leg(torch, dev, tmp, seed, shapes=None):
+    """[12b]: a GPT-2 medium state_dict (seeded on the card) saved buffered
+    and direct, restored plain, with verify and with like=, every leaf
+    torch.equal on the card; beside a raw O_DIRECT write and read."""
+    from collections import OrderedDict
+
+    from nvme_strom_tpu_torch.data import restore_checkpoint, save_checkpoint
+    from nvme_strom_tpu_torch.scan.heap import crc32c, crc32c_impl
+    from nvme_strom_tpu_torch.tools.common import drop_page_cache
+    from nvme_strom_tpu_torch.tools.ssd2gpu_test import measure_raw
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 13)
+    sd = OrderedDict()
+    for name, shape in (shapes or _gpt2_shapes(**GPT2_MEDIUM)):
+        sd[name] = torch.randn(shape, generator=gen, device=dev) * 0.02
+    n_params = sum(t.numel() for t in sd.values())
+    sd["step"] = torch.tensor(1234, dtype=torch.int64, device=dev)
+    sd["int8_leaf"] = torch.randint(-128, 128, (33, 7), dtype=torch.int8,
+                                    generator=gen, device=dev)
+    sd["odd"] = torch.randn(91, generator=gen, device=dev)
+    nbytes = sum(t.numel() * t.element_size() for t in sd.values())
+
+    def same(out, how):
+        bad = [k for k, t in sd.items()
+               if not torch.equal(out[k if how == "like" else f"[{k!r}]"], t)]
+        if bad or len(out) != len(sd):
+            raise AssertionError(f"[12b] restore ({how}): {len(bad)} leaves "
+                                 f"differ, first {bad[:1]}")
+
+    paths, save_s = {}, {}
+    for direct in (False, True):
+        paths[direct] = os.path.join(tmp, f"gpt2.{int(direct)}.strom")
+        _sync(torch, dev)
+        t0 = time.monotonic()
+        save_checkpoint(paths[direct], sd, direct=direct)
+        save_s[direct] = time.monotonic() - t0
+    file_bytes = os.path.getsize(paths[True])
+    with open(paths[False], "rb") as a, open(paths[True], "rb") as b:
+        while True:
+            x = a.read(64 << 20)
+            if x != b.read(64 << 20):
+                raise AssertionError("[12b] the buffered and the direct save "
+                                     "wrote different files")
+            if not x:
+                break
+    # plain and verify in turns (plain, verify, verify, plain), the best
+    # of each: the verify's cost is their difference inside one call
+    rest = {}
+    for how in ("plain", "verify", "verify", "plain", "like"):
+        drop_page_cache(paths[True])
+        _sync(torch, dev)
+        t0 = time.monotonic()
+        if how == "like":
+            out = restore_checkpoint(paths[True], like=sd, device=dev)
+        else:
+            out = restore_checkpoint(paths[True], device=dev,
+                                     verify=how == "verify")
+        _sync(torch, dev)
+        dt = time.monotonic() - t0
+        rest[how] = min(rest.get(how, dt), dt)
+        same(out, how)
+        del out
+    drop_page_cache(paths[True])
+    raw_read = measure_raw(paths[True], file_bytes)
+    for p in paths.values():
+        os.unlink(p)
+    raw_write = _raw_write(os.path.join(tmp, "raw_ckpt.bin"),
+                           -(-file_bytes // (4 << 20)) * (4 << 20))
+    blob = np.random.default_rng(seed).integers(0, 256, 256 << 20,
+                                                dtype=np.uint8)
+    crc32c(blob[:4096])          # the library is built outside the time
+    t0 = time.monotonic()
+    crc32c(blob)
+    crc_gbs = blob.size / (time.monotonic() - t0) / 1e9
+    gbs = {k: nbytes / v / 1e9 for k, v in {**save_s, **rest}.items()}
+    print(f"[12b] checkpoint: GPT-2 medium state_dict, {n_params} float32 "
+          f"parameters + int64 step, int8 and 91-float leaves = {nbytes} "
+          f"B in {len(sd)} leaves ({file_bytes} B file): save buffered "
+          f"{gbs[False]:.3f} GB/s, direct {gbs[True]:.3f} GB/s (raw "
+          f"O_DIRECT write {raw_write:.3f}), files byte-identical; restore "
+          f"{gbs['plain']:.3f} GB/s (raw O_DIRECT read {raw_read:.3f}), "
+          f"verify=True {gbs['verify']:.3f} GB/s (cost "
+          f"{(rest['verify'] - rest['plain']) * 1e3:.1f} ms; best of two "
+          f"each, in turns), like= "
+          f"{gbs['like']:.3f} GB/s; every leaf torch.equal; crc32c "
+          f"{crc32c_impl()} {crc_gbs:.3f} GB/s")
+    return gbs, raw_write, raw_read, crc_gbs
+
+
+def _train_loop(torch, devices, tmp, *, n=1024, d=31, batch=128, epochs=3,
+                lr=0.5):
+    """[12c] and its CPU counterpart: tests/test_train_loop.py on the port.
+    Records of 31 features and a label -> a shuffled DeviceLoader over a
+    ring of *devices* -> a logistic-regression step whose per-member
+    gradients are summed (the JAX test's partitioned psum) -> a direct
+    save -> a replicated restore -> one more seeded epoch from the saved
+    and the restored weights.  Returns (per-epoch losses, final weights
+    as numpy, whether the restore matched, whether the resumes are
+    bit-identical)."""
+    from nvme_strom_tpu_torch.data import (DeviceLoader, restore_checkpoint,
+                                           save_checkpoint, write_records)
+    from nvme_strom_tpu_torch.parallel import RingSharding, make_scan_mesh
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    w_true = rng.standard_normal(d).astype(np.float32)
+    y = (x @ w_true > 0).astype(np.float32)
+    ds = write_records(os.path.join(tmp, "train.rec"),
+                       np.concatenate([x, y[:, None]], axis=1))
+    mesh = make_scan_mesh(devices)
+    dev0 = mesh.devices[0]
+
+    def step(w, shards):
+        grads, losses = [], []
+        for s in shards:
+            wi = w.detach().to(s.device).requires_grad_(True)
+            xb, yb = s[:, :d], s[:, d]
+            p = torch.sigmoid(xb @ wi)
+            loss = -(yb * torch.log(p + 1e-7)
+                     + (1 - yb) * torch.log(1 - p + 1e-7)).sum() / batch
+            loss.backward()
+            grads.append(wi.grad.to(dev0))
+            losses.append(loss.detach().to(dev0))
+        return (w - lr * torch.stack(grads).sum(0)).detach(), \
+            torch.stack(losses).sum()
+
+    w = torch.zeros(d, dtype=torch.float32, device=dev0)
+    losses = []
+    with DeviceLoader(ds, batch_records=batch, shuffle=42, mesh=mesh) as dl:
+        for epoch in range(epochs):
+            for shards in dl.epoch(epoch):
+                w, loss = step(w, shards)
+            losses.append(float(loss))
+    ck = os.path.join(tmp, "state.strom")
+    save_checkpoint(ck, {"w": w, "epoch": np.int32(epochs)}, direct=True)
+    out = restore_checkpoint(ck, device=dev0, shardings={
+        "['w']": RingSharding(mesh, axis=None)})
+    restored = int(out["['epoch']"]) == epochs and all(
+        torch.equal(r, w.to(r.device)) for r in out["['w']"].shards)
+    resumed = []
+    for w0 in (w, out["['w']"].shards[-1].to(dev0)):
+        with DeviceLoader(ds, batch_records=batch, shuffle=42,
+                          mesh=mesh) as dl:
+            for shards in dl.epoch(7):
+                w0, _ = step(w0, shards)
+        resumed.append(w0)
+    return losses, w.cpu().numpy(), restored, \
+        torch.equal(resumed[0], resumed[1])
+
+
+def _train_leg(torch, dev, tmp):
+    """[12c]: the train loop on a ring of 4 x the card, deterministic."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.monotonic()
+        losses, w, restored, resumed = _train_loop(torch, [dev] * 4, tmp)
+        dt = time.monotonic() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if not (losses[-1] < losses[0] and restored and resumed):
+        raise AssertionError(f"[12c] train loop: losses {losses}, restore "
+                             f"equal {restored}, resume bit-identical "
+                             f"{resumed}")
+    print(f"[12c] train loop: 1024 records on a ring of 4 x {dev}, 3 "
+          f"epochs, losses {[round(v, 6) for v in losses]}; direct save, "
+          f"replicated restore equal on every member; one more seeded epoch "
+          f"from the saved and the restored weights bit-identical "
+          f"(torch.equal); {dt:.2f} s")
+    return losses
+
+
+def _data_phase(torch, dev, tmp, seed):
+    """Phase 12: [12a] loader, [12b] checkpoint, [12c] train loop; no
+    kernel of B1-B4 runs on these paths."""
+    from nvme_strom_tpu_torch.ops import (decode_cuda, filter_cuda,
+                                          groupby_cuda, permute_cuda)
+    mods = (filter_cuda, groupby_cuda, decode_cuda, permute_cuda)
+    for m in mods:
+        m.launches = 0
+    _loader_leg(torch, dev, tmp, seed)
+    _checkpoint_leg(torch, dev, tmp, seed)
+    _train_leg(torch, dev, tmp)
+    launches = sum(m.launches for m in mods)
+    if launches:
+        raise AssertionError(f"[12] {launches} kernel launches on paths "
+                             f"that have none")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--load-gib", type=float, default=1.0)
@@ -2200,6 +2524,9 @@ def main() -> int:
                                   "chiprun_out"))
         os.unlink(heap_path)
         os.unlink(load_path)
+
+        # -- the data tier: loader, checkpoint, train loop ---------------
+        _data_phase(torch, dev, tmp, args.seed)
         print(f"    total {time.monotonic() - t_start:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

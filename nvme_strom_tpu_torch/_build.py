@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` (with the shared ``csrc/*.cuh`` headers) compiles
 on its own with ``nvcc`` into a shared library with a plain C interface
 (``-gencode arch=compute_90a,code=sm_90a``), loaded with ``ctypes``.  The
 native I/O engine, ``csrc/strom_engine.cc`` with its C ABI header
-``csrc/strom_tpu.h``, compiles with ``g++`` (the flags of the JAX
-package's engine build: ``-O2 -std=c++17 -fPIC -pthread -shared``).
+``csrc/strom_tpu.h``, and the host crc32c, ``csrc/strom_crc32c.cc``,
+compile with ``g++`` (the flags of the JAX package's engine build:
+``-O2 -std=c++17 -fPIC -pthread -shared``).
 Outputs go to ``_build/`` beside this file, named by a hash of the
 source and the flags, so an edited source rebuilds and an unchanged one
 loads at once.  Builds of several sources run in parallel, one compiler
@@ -29,9 +30,9 @@ from typing import Callable, Dict, Iterable, Optional
 
 from .api import StromError
 
-__all__ = ["NVCC_FLAGS", "GXX_FLAGS", "ENGINE", "sources", "build_all",
-           "build_times", "engine_library", "load", "launcher", "grid_cap",
-           "smem_optin"]
+__all__ = ["NVCC_FLAGS", "GXX_FLAGS", "ENGINE", "CRC32C", "HOST_SOURCES",
+           "sources", "build_all", "build_times", "engine_library",
+           "host_library", "load", "launcher", "grid_cap", "smem_optin"]
 
 _PKG = Path(__file__).resolve().parent
 _SRC = _PKG / "csrc"
@@ -43,6 +44,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: the native I/O engine: its name in :func:`build_all`'s logs and
 #: :data:`build_times`
 ENGINE = "strom_engine"
+#: the host crc32c (SSE4.2 or slicing-by-8), for checkpoint checksums
+CRC32C = "strom_crc32c"
+#: the ``csrc/<name>.cc`` sources ``g++`` builds
+HOST_SOURCES = (ENGINE, CRC32C)
 GXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-pthread", "-shared")
 
 _lock = threading.Lock()
@@ -72,16 +77,21 @@ def _gxx() -> str:
     return cand
 
 
-def _engine_target() -> Path:
-    src = (_SRC / f"{ENGINE}.cc").read_bytes() \
-        + (_SRC / "strom_tpu.h").read_bytes()
+def _host_target(name: str) -> Path:
+    src = (_SRC / f"{name}.cc").read_bytes()
+    if name == ENGINE:
+        src += (_SRC / "strom_tpu.h").read_bytes()
     digest = hashlib.sha256(src + " ".join(GXX_FLAGS).encode()).hexdigest()
-    return _OUT / f"lib{ENGINE}-{digest[:16]}.so"
+    return _OUT / f"lib{name}-{digest[:16]}.so"
+
+
+def _engine_target() -> Path:
+    return _host_target(ENGINE)
 
 
 def _target(name: str) -> Path:
-    if name == ENGINE:
-        return _engine_target()
+    if name in HOST_SOURCES:
+        return _host_target(name)
     src = (_SRC / f"{name}.cu").read_bytes()
     # the shared headers are part of every source
     for hdr in sorted(_SRC.glob("*.cuh")):
@@ -91,19 +101,19 @@ def _target(name: str) -> Path:
 
 
 def _command(name: str, out: Path) -> list:
-    if name == ENGINE:
+    if name in HOST_SOURCES:
         return [_gxx(), *GXX_FLAGS, "-o", str(out),
-                str(_SRC / f"{ENGINE}.cc")]
+                str(_SRC / f"{name}.cc")]
     return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(_SRC / f"{name}.cu")]
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Compile every named source that has no up-to-date library, all
     compiler processes started together.  *names* are kernel sources and
-    :data:`ENGINE`; the default is every kernel and the engine.  Returns
-    ``{name: compiler output}`` for the sources built by this call, and
-    sets :data:`build_times`."""
-    names = list([*sources(), ENGINE] if names is None else names)
+    :data:`HOST_SOURCES`; the default is every kernel and host source.
+    Returns ``{name: compiler output}`` for the sources built by this
+    call, and sets :data:`build_times`."""
+    names = list([*sources(), *HOST_SOURCES] if names is None else names)
     _OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.monotonic()
@@ -118,9 +128,9 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
                        tmp, target)
     logs, failed = {}, []
     build_times.clear()
-    # the engine's g++ ends first: waiting on it first times it alone
+    # the g++ builds end first: waiting on them first times them alone
     for name, (proc, tmp, target) in sorted(
-            procs.items(), key=lambda kv: kv[0] != ENGINE):
+            procs.items(), key=lambda kv: kv[0] not in HOST_SOURCES):
         out, _ = proc.communicate()
         build_times[name] = time.monotonic() - t0
         logs[name] = out
@@ -133,13 +143,19 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     return logs
 
 
+def host_library(name: str) -> str:
+    """Path of the library of ``csrc/<name>.cc`` (one of
+    :data:`HOST_SOURCES`), built first if needed."""
+    with _lock:
+        target = _host_target(name)
+        if not target.exists():
+            build_all([name])
+        return str(target)
+
+
 def engine_library() -> str:
     """Path of the native engine's library, built first if needed."""
-    with _lock:
-        target = _engine_target()
-        if not target.exists():
-            build_all([ENGINE])
-        return str(target)
+    return host_library(ENGINE)
 
 
 def load(name: str) -> ctypes.CDLL:

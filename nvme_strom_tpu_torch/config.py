@@ -124,6 +124,9 @@ _VARS: Dict[str, _Var] = {
     "async_depth": _Var(8, int, 1, 1024),
     # ceiling of the adaptive H2D pipeline depth of a scan
     "h2d_depth_max": _Var(4, int, 1, 64),
+    # staged spans a streamed checkpoint restore lands between two fences
+    # (one CUDA event covers this many in-place copies)
+    "scan_dispatch_batch": _Var(4, int, 1, 64),
     # pinned host staging buffers of the SSD->device pipeline
     "staging_buffers": _Var(3, int, 2, 16),
     # seconds a device fence may block before the backend is declared

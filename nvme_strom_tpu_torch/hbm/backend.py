@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import errno as _errno
 import threading
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
 
@@ -67,6 +67,9 @@ class BackendMonitor:
         self._lock = threading.Lock()
         self._lost: Optional[str] = None
         self._registries: List[object] = []
+        # test hook (:class:`..testing.fake.backend_fault`): runs inside
+        # the bounded wait, so an injected wedge is cut off like a real one
+        self._fault: Optional[Callable[[str], None]] = None
 
     def lost(self) -> Optional[str]:
         with self._lock:
@@ -112,16 +115,21 @@ class BackendMonitor:
         self.check()
         if timeout_s is None:
             timeout_s = float(config.get("backend_fence_timeout"))
+        fault = self._fault
         try:
-            if event.query():
+            if fault is None and event.query():
                 return event
             if timeout_s <= 0:
+                if fault is not None:
+                    fault(what)
                 event.synchronize()
                 return event
             err: List[BaseException] = []
 
             def _wait() -> None:
                 try:
+                    if fault is not None:
+                        fault(what)
                     event.synchronize()
                 except BaseException as e:  # noqa: BLE001 - forwarded
                     err.append(e)
@@ -147,6 +155,9 @@ class BackendMonitor:
             self.mark_lost(f"{what}: {e}")
             raise StromError(_errno.ENODEV, f"device backend lost during "
                                             f"{what}: {e}") from e
+
+    def _set_fault(self, hook: Optional[Callable[[str], None]]) -> None:
+        self._fault = hook
 
 
 #: process-global monitor; the global HbmRegistry registers with it

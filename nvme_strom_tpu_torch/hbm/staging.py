@@ -20,6 +20,13 @@ non_blocking=True)`` into the preallocated destination tensor.  Offsets are
 package's int32 element ceiling and its EOVERFLOW do not exist here).  On
 the CPU the copy is synchronous and owns its bytes, so the reused slot is
 never aliased.
+
+The data tier (loader, checkpoint restore) moves bytes with two smaller
+helpers: :func:`safe_device_put`, an H2D of a pinned host view into a new
+tensor, and :func:`_write_slices`, in-place copies into a preallocated
+one.  Both run on a copy stream the caller owns and return a fence (a
+CUDA event; :data:`LANDED` for the CPU's synchronous copies) that guards
+the reuse of the host buffer.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import errno as _errno
 import time
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..api import MemCopyResult, StromError
@@ -41,7 +49,8 @@ from .registry import HbmRegistry, LandingBuffer, registry as global_registry
 
 __all__ = ["StagingPipeline", "load_file_to_device", "AdaptiveH2DDepth",
            "plan_landing", "H2DRateMeter", "h2d_meter", "bounded_fence",
-           "default_device", "resolve_device"]
+           "default_device", "resolve_device", "LANDED", "safe_device_put",
+           "device_empty", "hand_off"]
 
 
 class AdaptiveH2DDepth:
@@ -107,6 +116,109 @@ def bounded_fence(event, what: str = "h2d"):
     ``backend_fence_timeout``; a miss latches loss and raises ENODEV)."""
     from .backend import monitor
     return monitor.fence(event, what=what)
+
+
+class _Landed:
+    """Fence of a copy that was complete when its call returned (the
+    CPU's): ready at once, and waited through :func:`bounded_fence` all
+    the same, so a backend fault hook sees every fence."""
+
+    def query(self) -> bool:
+        return True
+
+    def synchronize(self) -> None:
+        pass
+
+
+LANDED = _Landed()
+
+
+def _host_bytes(host: np.ndarray) -> torch.Tensor:
+    """A flat uint8 CPU tensor over the bytes of the numpy array *host*,
+    without a copy where it is contiguous."""
+    return torch.from_numpy(
+        np.ascontiguousarray(host).reshape(-1).view(np.uint8))
+
+
+def device_empty(nbytes: int, device: torch.device,
+                 stream: Optional["torch.cuda.Stream"] = None
+                 ) -> torch.Tensor:
+    """A new uint8 tensor of *nbytes* on *device*, allocated on *stream*
+    (a CUDA copy stream; the caching allocator then reuses its block only
+    behind that stream's work)."""
+    if device.type != "cuda" or stream is None:
+        return torch.empty(nbytes, dtype=torch.uint8, device=device)
+    with torch.cuda.stream(stream):
+        return torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+
+def hand_off(t: torch.Tensor, fence, stream) -> torch.Tensor:
+    """Make *t*, written on copy *stream* up to *fence*, safe to use on
+    the caller's current stream: that stream waits on the fence (on the
+    device, not the host), and the allocator learns that the tensor is
+    used there (``record_stream``) when *stream* allocated it."""
+    if t.device.type == "cuda":
+        cur = torch.cuda.current_stream(t.device)
+        if stream is not None and cur != stream:
+            cur.wait_event(fence)
+            t.record_stream(cur)
+    return t
+
+
+def safe_device_put(host: np.ndarray, device, *, stream=None):
+    """H2D of the bytes of numpy array *host* (typically a view of a
+    pinned staging buffer) into a new uint8 tensor on *device*; returns
+    ``(tensor, fence)``.  The JAX package's ``safe_device_put``.
+
+    On the CPU the result is a clone: ``torch.from_numpy`` of a pinned
+    ring buffer aliases it, and the next refill would rewrite a batch or
+    leaf already handed out.  On a CUDA device the copy runs on *stream*
+    (default: the current stream), which also allocates the result; the
+    fence is a CUDA event recorded after the copy, and the caller's
+    current stream waits on it before the tensor is returned
+    (:func:`hand_off`)."""
+    src = _host_bytes(host)
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return src.to(dev, copy=True), LANDED
+    stream = stream or torch.cuda.current_stream(dev)
+    out = device_empty(src.numel(), dev, stream)
+    with torch.cuda.stream(stream):
+        out.copy_(src, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(stream)
+    return hand_off(out, ev, stream), ev
+
+
+def _write_slices(dest: torch.Tensor, starts: Sequence[int], chunks,
+                  *, stream=None):
+    """Land host byte *chunks* in place into the uint8 tensor *dest*, each
+    at its byte offset in *starts* (``dest[o:o+n].copy_(src,
+    non_blocking=True)``; offsets are 64-bit, no element ceiling).  Every
+    copy runs on *stream* on a CUDA *dest*; returns one fence recorded
+    after the last (the JAX package coalesced K ``dynamic_update_slice``
+    calls into one dispatch; here K copies share one event)."""
+    cuda = dest.device.type == "cuda"
+    if cuda:
+        stream = stream or torch.cuda.current_stream(dest.device)
+    for start, chunk in zip(starts, chunks):
+        src = _host_bytes(chunk)
+        part = dest[start:start + src.numel()]
+        if part.numel() != src.numel():
+            raise StromError(_errno.ERANGE, f"slice of {src.numel()} bytes "
+                                            f"at {start} overruns the "
+                                            f"destination ({dest.numel()})")
+        if not cuda:
+            part.copy_(src)
+            continue
+        with torch.cuda.stream(stream):
+            part.copy_(src, non_blocking=True)
+    if not cuda:
+        return LANDED
+    with torch.cuda.stream(stream):
+        ev = torch.cuda.Event()
+        ev.record(stream)
+    return ev
 
 
 def _itemsize(dtype: torch.dtype) -> int:

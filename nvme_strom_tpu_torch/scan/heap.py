@@ -18,10 +18,19 @@ bitmap (bit i set = row i holds a value).
 Page packing is vectorised over pages, so tables of a gigabyte and more
 build in seconds; the page checksum runs slicing-by-4 crc32c across all
 pages at once where no C implementation is installed.
+
+:func:`crc32c` / :func:`crc32c_update` checksum a whole buffer (a
+checkpoint leaf): the ``google_crc32c`` wheel where it is installed, else
+the port's own C implementation (``csrc/strom_crc32c.cc``: the SSE4.2
+instruction, or slicing-by-8), built by ``g++`` at first use and called
+through ctypes.  The byte-at-a-time loop the JAX package falls back to
+stays here as :func:`crc32c_update_py`, the plain version the C one is
+tested against.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import Optional, Sequence
@@ -31,7 +40,8 @@ import numpy as np
 __all__ = ["PAGE_SIZE", "HEAP_MAGIC", "HEADER_BYTES", "HEADER_WORDS",
            "CHECKSUM_WORD", "HeapSchema", "build_pages", "build_heap_file",
            "page_checksums", "crc32c_rows", "pages_from_bytes",
-           "read_column"]
+           "read_column", "crc32c", "crc32c_update", "crc32c_impl",
+           "crc32c_update_native", "crc32c_update_py"]
 
 PAGE_SIZE = 8192                  # BLCKSZ, matching the reference
 HEADER_BYTES = 64
@@ -88,6 +98,78 @@ def page_checksums(pages: np.ndarray) -> np.ndarray:
         return crc32c_rows(pages)
     return np.fromiter((value(p.tobytes()) for p in pages),
                        dtype=np.uint32, count=pages.shape[0])
+
+
+def _u8(data) -> np.ndarray:
+    """*data* (bytes-like or a numpy array) as a contiguous uint8 array,
+    without a copy where it already is one."""
+    if isinstance(data, np.ndarray):
+        return np.ascontiguousarray(data).reshape(-1).view(np.uint8)
+    return np.frombuffer(data, dtype=np.uint8)
+
+
+def crc32c_update_py(crc: int, data) -> int:
+    """crc32c of *data* continued from *crc*, a byte at a time: the JAX
+    package's fallback loop (a few MB/s), kept as the plain version."""
+    t = _crc_tables()[0]
+    c = crc ^ 0xFFFFFFFF
+    for b in _u8(data).tobytes():
+        c = (c >> 8) ^ int(t[(c ^ b) & 0xFF])
+    return c ^ 0xFFFFFFFF
+
+
+@lru_cache(maxsize=1)
+def _native_crc():
+    from .._build import CRC32C, host_library
+    lib = ctypes.CDLL(host_library(CRC32C))
+    fn = lib.strom_crc32c_extend
+    fn.argtypes = [ctypes.c_uint32, ctypes.c_void_p, ctypes.c_size_t,
+                   ctypes.c_int]
+    fn.restype = ctypes.c_uint32
+    lib.strom_crc32c_hw.argtypes = []
+    lib.strom_crc32c_hw.restype = ctypes.c_int
+    return lib
+
+
+def crc32c_update_native(crc: int, data, *, hw: bool = True) -> int:
+    """crc32c of *data* continued from *crc* in the port's C library
+    (``hw=False`` forces the slicing-by-8 tables)."""
+    arr = _u8(data)
+    return int(_native_crc().strom_crc32c_extend(
+        crc, arr.ctypes.data, arr.size, 1 if hw else 0))
+
+
+@lru_cache(maxsize=1)
+def crc32c_impl() -> str:
+    """The implementation :func:`crc32c` runs: ``google_crc32c``, else
+    ``native sse4.2`` or ``native slicing-by-8``."""
+    try:
+        import google_crc32c
+        # the wheel's pure-Python build is slower than the C library
+        if google_crc32c.implementation == "c":
+            return "google_crc32c"
+    except ImportError:
+        pass
+    return ("native sse4.2" if _native_crc().strom_crc32c_hw()
+            else "native slicing-by-8")
+
+
+def crc32c_update(crc: int, data) -> int:
+    """Incremental form: ``crc32c(a + b) == crc32c_update(crc32c(a), b)``,
+    for streamed checks over spans that never assemble on the host."""
+    arr = _u8(data)
+    if crc32c_impl() == "google_crc32c":
+        import google_crc32c
+        ro = arr.view()
+        ro.flags.writeable = False
+        return int(google_crc32c.extend(crc, ro))
+    return crc32c_update_native(crc, arr)
+
+
+def crc32c(data) -> int:
+    """crc32c of a whole buffer, the JAX package's ``scan.heap.crc32c``:
+    the same polynomial, so a checksum verifies whichever computed it."""
+    return crc32c_update(0, data)
 
 
 # -- schema and layout --------------------------------------------------------

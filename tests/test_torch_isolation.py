@@ -38,7 +38,9 @@ _SCRIPT = textwrap.dedent("""
                 "scan.query", "stripe", "ops.permute", "ops.permute_cuda",
                 "parallel", "parallel.mesh", "parallel.ring",
                 "parallel.stream", "parallel.shardload", "_native", "trace",
-                "tools.strom_trace", "testing", "testing.trace_gate"):
+                "tools.strom_trace", "testing", "testing.trace_gate",
+                "testing.fake", "data", "data.records", "data.loader",
+                "data.checkpoint", "data.dtypes", "tools.strom_ckpt"):
         assert pkg.__name__ + "." + mod in names, mod
     import chip_smoke  # noqa: F401
     leaked = [m for m in sys.modules
