@@ -3,9 +3,9 @@
 
 Drives the port's main paths — load, scan, GROUP BY, the packed-sidecar
 (pushdown) aggregate, the multi-host sharded load, the ring scan, the write
-path and the data tier (loader, checkpoints, a training loop) — at full
-size and holds every CUDA kernel of those paths against its plain PyTorch
-version:
+path, the data tier (loader, checkpoints, a training loop) and the query
+engine's torch route and terminals — at full size and holds every CUDA
+kernel of those paths against its plain PyTorch version:
 
 1. environment: the card's name and power limit (``nvidia-smi``);
 2. build: every ``nvme_strom_tpu_torch/csrc/*.cu`` with ``nvcc`` (sm_90a)
@@ -97,7 +97,24 @@ version:
        trained three epochs from a shuffled loader on a ring of 4 x the
        card, saved ``direct=True``, restored replicated, and resumed one
        seeded epoch from both copies: bit-identical, under
-       ``torch.use_deterministic_algorithms``.
+       ``torch.use_deterministic_algorithms``;
+13. the query engine's torch route (PyTorch ops on the card, planned for
+    what the kernels refuse) and its terminals:
+    a. on [6]'s table: ``group_by`` at G=4096 (above B3's cap) and a
+       callable ``where`` plan torch, G=64 still plans cuda (B3), and
+       ``kernel="cuda"`` at G=4096 is EINVAL;
+    b. a 1 GiB table of TPC-H ``lineitem``'s numeric columns (dbgen's
+       value ranges, 26.3M rows; int64, float64 and nullable float32
+       columns): an aggregate, ``group_by_cols`` over 50,000 suppliers
+       and over (supplier, line number) pairs past ``max_groups`` (the
+       sorted spill), ``top_k``, ``order_by``, ``quantiles``,
+       ``count_distinct``, ``select`` with NULL masks, ``select(limit=)``
+       (reads within the scan's ring) and ``fetch``;
+    each query from a cold page cache, its route, reason, wall time, GB/s
+    of table and bytes read printed, every result against numpy truth
+    (integers, positions, orders and keys exact; float32 sums within
+    ``1e-4 * sum(|x|) + 1e-6``, float64 within ``1e-12`` of it), and no
+    kernel launched on the torch route.
 
 Every main path sets the kernels' launch counts to 0 just before it runs
 and reads them just after; each kernel of a path must have launched once
@@ -855,18 +872,15 @@ def _check_group_result(name, res, G, counts, per, is_float):
                                      f"(nan {nan} +inf {pinf} -inf {ninf})")
 
 
-def _groupby_path(torch, dev, tmp, seed, n_pages):
-    """Phase 6: GROUP BY over a cold 1 GiB heap table through Query.run().
-    Returns (B3 launches, first batch ring, timing spec inputs)."""
-    from nvme_strom_tpu_torch.ops import groupby_cuda
-    from nvme_strom_tpu_torch.ops.filter import FilterPred
-    from nvme_strom_tpu_torch.ops.groupby import GroupKey
-    from nvme_strom_tpu_torch.scan.heap import HeapSchema, build_heap_file
-    from nvme_strom_tpu_torch.scan.query import Query
-    from nvme_strom_tpu_torch.stats import stats
-    from nvme_strom_tpu_torch.tools.common import drop_page_cache
-    schema = HeapSchema(6, True, ("int32", "int32", "int32", "uint32",
-                                  "float32", "float32"))
+def _group_schema():
+    from nvme_strom_tpu_torch.scan.heap import HeapSchema
+    return HeapSchema(6, True, ("int32", "int32", "int32", "uint32",
+                                "float32", "float32"))
+
+
+def _group_columns(schema, seed, n_pages):
+    """The seeded columns of [6]'s GROUP BY table (rebuilt by [13a]):
+    ``(columns, visibility, abs(c1) % 8)``."""
     rng = np.random.default_rng(seed + 3)
     n = schema.tuples_per_page * n_pages
     c0 = rng.integers(-1000, 1000, n, dtype=np.int32)
@@ -888,6 +902,22 @@ def _groupby_path(torch, dev, tmp, seed, n_pages):
                          (c5, 7, [-np.inf] * 2)):
         rows = np.flatnonzero((g8 == g) & (vis != 0))
         col[rng.choice(rows, len(vals), replace=False)] = vals
+    return (c0, c1, c2, c3, c4, c5), vis, g8
+
+
+def _groupby_path(torch, dev, tmp, seed, n_pages):
+    """Phase 6: GROUP BY over a cold 1 GiB heap table through Query.run().
+    Returns (B3 launches, first batch ring, timing spec inputs, the table's
+    path: [13a] reads it again)."""
+    from nvme_strom_tpu_torch.ops import groupby_cuda
+    from nvme_strom_tpu_torch.ops.filter import FilterPred
+    from nvme_strom_tpu_torch.ops.groupby import GroupKey
+    from nvme_strom_tpu_torch.scan.heap import build_heap_file
+    from nvme_strom_tpu_torch.scan.query import Query
+    from nvme_strom_tpu_torch.stats import stats
+    from nvme_strom_tpu_torch.tools.common import drop_page_cache
+    schema = _group_schema()
+    (c0, c1, c2, c3, c4, c5), vis, g8 = _group_columns(schema, seed, n_pages)
     path = os.path.join(tmp, "group.heap")
     t0 = time.monotonic()
     build_heap_file(path, [c0, c1, c2, c3, c4, c5], schema, visibility=vis)
@@ -933,8 +963,7 @@ def _groupby_path(torch, dev, tmp, seed, n_pages):
     print(f"    table: {n_pages} pages, {schema.tuples_per_page} tuples a "
           f"page, built in {build_s:.1f} s")
     ring = _first_batch(torch, dev, path)
-    os.unlink(path)
-    return launches, ring, schema, q1_pred
+    return launches, ring, schema, q1_pred, path
 
 
 def _pushdown_path(torch, dev, tmp, seed, n_pages, read_gbs, h2d_gbs):
@@ -2172,6 +2201,348 @@ def _data_phase(torch, dev, tmp, seed):
                              f"that have none")
 
 
+LINEITEM_DTYPES = ("int64", "int32", "int32", "int32", "int32", "float64",
+                   "float32", "float32")
+LINEITEM_NAMES = ("l_orderkey", "l_partkey", "l_suppkey", "l_linenumber",
+                  "l_quantity", "l_extendedprice", "l_discount", "l_tax")
+
+
+def _timed_query(torch, dev, q, path, table_bytes, label, expect):
+    """Plan *q*, check it planned the *expect* route, then run it from a
+    cold page cache with every kernel count at 0: prints the route, the
+    reason, the wall time, GB/s of table and the bytes read.  Returns
+    ``(result, plan, seconds, bytes read)``."""
+    from nvme_strom_tpu_torch.ops import decode_cuda, filter_cuda, \
+        groupby_cuda
+    from nvme_strom_tpu_torch.stats import stats
+    from nvme_strom_tpu_torch.tools.common import drop_page_cache
+    plan = q.explain(device=dev)
+    if plan.kernel != expect:
+        raise AssertionError(f"{label}: planned {plan.kernel}, not "
+                             f"{expect}: {plan.reason}")
+    mods = (filter_cuda, groupby_cuda, decode_cuda)
+    drop_page_cache(path)
+    for m in mods:
+        m.launches = 0
+    stats.reset()
+    t0 = time.monotonic()
+    res = q.run(device=dev)
+    run_s = time.monotonic() - t0
+    read = stats.snapshot().get("total_dma_length", 0)
+    launches = sum(m.launches for m in mods)
+    if expect == "torch" and launches:
+        raise AssertionError(f"{label}: {launches} kernel launches on the "
+                             f"torch route")
+    print(f"{label}: {plan.kernel} route, {run_s:.3f} s = "
+          f"{table_bytes / run_s / 1e9:.3f} GB/s of table, {read} bytes "
+          f"read")
+    print(f"      reason: {plan.reason}")
+    return res, plan, run_s, read
+
+
+def _route_phase(torch, dev, path, seed, n_pages):
+    """Phase 13a: the planned route on [6]'s GROUP BY table — G=4096 and a
+    callable predicate plan torch (PyTorch ops on the card), G=64 still
+    plans cuda (B3), and kernel='cuda' on G=4096 is EINVAL; each result
+    against numpy truth."""
+    import errno
+    from nvme_strom_tpu_torch.api import StromError
+    from nvme_strom_tpu_torch.ops import groupby_cuda
+    from nvme_strom_tpu_torch.ops.groupby import GroupKey
+    from nvme_strom_tpu_torch.scan.query import Query
+    schema = _group_schema()
+    (c0, c1, c2, c3, _c4, _c5), vis, _g8 = _group_columns(schema, seed,
+                                                          n_pages)
+    table_bytes = os.path.getsize(path)
+    G = 4096
+    big = Query(path, schema).group_by(GroupKey(1, mod=G), G,
+                                       agg_cols=[0, 2])
+    res, plan, _s, _r = _timed_query(
+        torch, dev, big, path, table_bytes,
+        "[13a] group_by c1 % 4096 agg [0, 2]", "torch")
+    if f"G={G}" not in plan.reason or \
+            str(groupby_cuda.MAX_GROUPS) not in plan.reason:
+        raise AssertionError(f"[13a] G={G}: the reason names no refusal: "
+                             f"{plan.reason}")
+    counts, per = _group_truth((c1.astype(np.int64) % G).astype(np.int16),
+                               vis != 0, G, [c0, c2])
+    _check_group_result("[13a] G=4096", res, G, counts, per, False)
+    small = Query(path, schema).group_by(GroupKey(1, mod=64), 64,
+                                         agg_cols=[0, 2]).explain(device=dev)
+    if small.kernel != "cuda" or "B3" not in small.reason:
+        raise AssertionError(f"[13a] G=64 planned {small}")
+    try:
+        Query(path, schema).group_by(GroupKey(1, mod=G), G,
+                                     agg_cols=[0, 2]).run(device=dev,
+                                                          kernel="cuda")
+    except StromError as e:
+        if e.errno != errno.EINVAL:
+            raise
+        refused = str(e)
+    else:
+        raise AssertionError("[13a] kernel='cuda' ran a G=4096 GROUP BY")
+    q = Query(path, schema).where(lambda c: (c[0] > 100) & (c[2] % 2 == 0)) \
+        .aggregate([0, 3])
+    res, plan, _s, _r = _timed_query(
+        torch, dev, q, path, table_bytes,
+        "[13a] where callable(c0 > 100 & c2 even) aggregate [0, 3]", "torch")
+    if "callable" not in plan.reason:
+        raise AssertionError(f"[13a] callable: {plan.reason}")
+    sel = (vis != 0) & (c0 > 100) & (c2 % 2 == 0)
+    want = [int(c[sel].astype(np.int64).sum() & 0xFFFFFFFF) for c in (c0, c3)]
+    got = [int(np.asarray(s).view(np.uint32)) for s in res["sums"]]
+    if int(res["count"]) != int(sel.sum()) or got != want:
+        raise AssertionError(f"[13a] callable aggregate: count "
+                             f"{int(res['count'])} sums {got}, numpy "
+                             f"{int(sel.sum())} {want}")
+    print(f"[13a] {int(counts.sum())} rows in {G} groups and the callable "
+          f"aggregate's {int(sel.sum())} rows match numpy; G=64 plans "
+          f"{small.kernel} ({small.reason.split(':')[1].strip()[:22]}...); "
+          f"kernel='cuda' at G={G}: EINVAL ({refused[:80]}...)")
+
+
+def _lineitem_columns(seed, n):
+    """The numeric columns of TPC-H ``lineitem`` at *n* rows with dbgen's
+    value ranges: orders of 1-7 lines under dbgen's sparse order keys,
+    l_partkey 1..1,000,000 and l_suppkey 1..50,000 (SF 5), l_quantity
+    1..50, l_extendedprice = quantity x dbgen's p_retailprice of the part,
+    l_discount 0.00..0.10, l_tax 0.00..0.08; 10% NULLs in l_discount and
+    l_tax (TPC-H has none: they exercise the nullable layout)."""
+    rng = np.random.default_rng(seed + 13)
+    lines = rng.integers(1, 8, n // 3 + 8)
+    order = np.repeat(np.arange(len(lines), dtype=np.int64), lines)[:n]
+    starts = np.cumsum(lines) - lines
+    o1 = order + 1
+    orderkey = ((o1 >> 3) << 5) | (o1 & 7)
+    linenumber = (np.arange(n) - starts[order] + 1).astype(np.int32)
+    partkey = rng.integers(1, 1_000_001, n, dtype=np.int32)
+    suppkey = rng.integers(1, 50_001, n, dtype=np.int32)
+    quantity = rng.integers(1, 51, n, dtype=np.int32)
+    cents = 90000 + (partkey // 10) % 20001 + 100 * (partkey % 1000)
+    price = (quantity.astype(np.int64) * cents) / 100.0
+    discount = (rng.integers(0, 11, n) / 100).astype(np.float32)
+    tax = (rng.integers(0, 9, n) / 100).astype(np.float32)
+    nulls = {6: rng.random(n) < 0.1, 7: rng.random(n) < 0.1}
+    return [orderkey, partkey, suppkey, linenumber, quantity, price,
+            discount, tax], nulls
+
+
+def _f_close(got, want_x, rel):
+    """A float sum against the float64 sum of *want_x*: within
+    ``rel * sum(|x|) + 1e-6``."""
+    x = np.asarray(want_x, np.float64)
+    return abs(float(got) - x.sum()) <= rel * np.abs(x).sum() + 1e-6
+
+
+def _lineitem_phase(torch, dev, tmp, seed, n_pages):
+    """Phase 13b: every terminal of the torch route over a 1 GiB
+    lineitem-shaped table (int64, float64 and nullable float32 columns),
+    each result against numpy truth."""
+    from nvme_strom_tpu_torch.config import config
+    from nvme_strom_tpu_torch.ops.filter import FilterPred
+    from nvme_strom_tpu_torch.scan.heap import HeapSchema, build_heap_file
+    from nvme_strom_tpu_torch.scan.query import Query
+    from nvme_strom_tpu_torch.stats import stats
+    from nvme_strom_tpu_torch.tools.common import drop_page_cache
+    schema = HeapSchema(8, False, LINEITEM_DTYPES,
+                        nullable=(False,) * 6 + (True, True))
+    n = schema.tuples_per_page * n_pages
+    t0 = time.monotonic()
+    cols, nulls = _lineitem_columns(seed, n)
+    (okey, pkey, skey, lnum, qty, price, disc, tax) = cols
+    path = os.path.join(tmp, "lineitem.heap")
+    build_heap_file(path, cols, schema, nulls=nulls)
+    table_bytes = os.path.getsize(path)
+    names = ", ".join(f"{a} {b}"
+                      for a, b in zip(LINEITEM_NAMES, LINEITEM_DTYPES))
+    print(f"[13b] lineitem: {n} rows ({schema.tuples_per_page} a page, "
+          f"{n_pages} pages, {table_bytes} bytes; {names}; 10% NULLs in "
+          f"l_discount and l_tax), made and written in "
+          f"{time.monotonic() - t0:.1f} s")
+    rows = []
+
+    def run(q, label):
+        res, _plan, run_s, read = _timed_query(
+            torch, dev, q, path, table_bytes, f"[13b] {label}", "torch")
+        rows.append((label, run_s, read))
+        return res
+
+    def fail(label, what):
+        raise AssertionError(f"[13b] {label}: {what}")
+
+    # 1. Q6-shaped aggregate: int64 and float64 sums, nncounts
+    label = "aggregate where l_quantity < 24"
+    res = run(Query(path, schema).where(FilterPred(((4, "lt", 24),)))
+              .aggregate(), label)
+    sel = qty < 24
+    if int(res["count"]) != int(sel.sum()):
+        fail(label, f"count {int(res['count'])} vs {int(sel.sum())}")
+    if int(res["sums"][0]) != int(okey[sel].sum()):
+        fail(label, "l_orderkey int64 sum")
+    for c in (1, 2, 3, 4):
+        if int(np.asarray(res["sums"][c]).view(np.uint32)) != \
+                int(cols[c][sel].astype(np.int64).sum() & 0xFFFFFFFF):
+            fail(label, f"{LINEITEM_NAMES[c]} sum")
+    if not _f_close(res["sums"][5], price[sel], 1e-12):
+        fail(label, f"l_extendedprice {float(res['sums'][5])} vs "
+                    f"{price[sel].sum()}")
+    for c in (6, 7):
+        m = sel & ~nulls[c]
+        if not _f_close(res["sums"][c], cols[c][m], TRUTH_REL) or \
+                int(res["nncounts"][c]) != int(m.sum()):
+            fail(label, f"{LINEITEM_NAMES[c]} sum or non-NULL count")
+    if [int(x) for x in res["nncounts"][:6]] != [int(sel.sum())] * 6:
+        fail(label, "non-NULL counts of the non-null columns")
+
+    # 2. value-keyed GROUP BY over ~50k suppliers (float64 aggregate)
+    label = "group_by_cols(l_suppkey) agg [l_extendedprice]"
+    res = run(Query(path, schema).group_by_cols(2, agg_cols=[5]), label)
+    cnt = np.bincount(skey, minlength=50_001)
+    keys = np.flatnonzero(cnt)
+    sums = np.bincount(skey, weights=price, minlength=50_001)
+    mn = np.full(50_001, np.inf)
+    mx = np.full(50_001, -np.inf)
+    np.minimum.at(mn, skey, price)
+    np.maximum.at(mx, skey, price)
+    if not np.array_equal(res["key_cols"][0], keys.astype(np.int32)) or \
+            not np.array_equal(res["count"], cnt[keys]):
+        fail(label, "keys or counts")
+    if (np.abs(res["sums"][0] - sums[keys]) > 1e-12 * sums[keys]).any():
+        fail(label, "float64 sums beyond 1e-12")
+    if not (np.array_equal(res["mins"][0], mn[keys])
+            and np.array_equal(res["maxs"][0], mx[keys])):
+        fail(label, "mins or maxs")
+    print(f"      {len(keys)} groups match numpy")
+
+    # 3. the pair past max_groups: the sorted spill
+    label = "group_by_cols([l_suppkey, l_linenumber]) agg [l_quantity]"
+    res = run(Query(path, schema).group_by_cols([2, 3], agg_cols=[4]),
+              label)
+    pk = skey.astype(np.int64) * 8 + lnum
+    cnt = np.bincount(pk, minlength=50_001 * 8)
+    keys = np.flatnonzero(cnt)
+    sums = np.bincount(pk, weights=qty, minlength=50_001 * 8)
+    mn = np.full(50_001 * 8, 1 << 30, np.int64)
+    mx = np.zeros(50_001 * 8, np.int64)
+    np.minimum.at(mn, pk, qty)
+    np.maximum.at(mx, pk, qty)
+    if len(res["groups"]) <= 65536:
+        fail(label, f"{len(res['groups'])} groups: the one-pass path "
+                    f"would have refused more than max_groups")
+    if not (np.array_equal(res["key_cols"][0], (keys // 8).astype(np.int32))
+            and np.array_equal(res["key_cols"][1],
+                               (keys % 8).astype(np.int32))
+            and np.array_equal(res["count"], cnt[keys])
+            and np.array_equal(res["sums"][0], sums[keys].astype(np.int32))
+            and np.array_equal(res["mins"][0], mn[keys])
+            and np.array_equal(res["maxs"][0], mx[keys])):
+        fail(label, "keys, counts, sums, mins or maxs")
+    print(f"      {len(keys)} pairs (> max_groups 65536: the sorted spill) "
+          f"match numpy")
+
+    # 4. top_k: ties go to the earlier row
+    label = "top_k(l_partkey, 100)"
+    res = run(Query(path, schema).top_k(1, 100), label)
+    kth = np.partition(pkey, n - 100)[n - 100]
+    cand = np.flatnonzero(pkey >= kth)
+    best = cand[np.lexsort((cand, -pkey[cand].astype(np.int64)))][:100]
+    if not (np.array_equal(res["values"], pkey[best])
+            and np.array_equal(res["positions"], best)):
+        fail(label, "values or positions")
+
+    # 5. order_by two columns under a 2% predicate
+    label = "order_by([l_partkey, l_suppkey]) where l_quantity == 1"
+    res = run(Query(path, schema).where(FilterPred(((4, "eq", 1),)))
+              .order_by([1, 2]), label)
+    idx = np.flatnonzero(qty == 1)
+    best = idx[np.lexsort((skey[idx], pkey[idx]))]
+    if not (np.array_equal(res["values"], pkey[best])
+            and np.array_equal(res["positions"], best)):
+        fail(label, "values or positions")
+    print(f"      {len(idx)} rows in order")
+
+    # 6. quantiles and count_distinct over every row
+    label = "quantiles(l_partkey, [0.01, 0.5, 0.99])"
+    qs = [0.01, 0.5, 0.99]
+    res = run(Query(path, schema).quantiles(1, qs), label)
+    ranks = [min(n - 1, max(0, int(np.ceil(q * n)) - 1)) for q in qs]
+    want = np.partition(pkey, ranks)[ranks]
+    if not np.array_equal(res["quantiles"], want) or int(res["n"]) != n:
+        fail(label, f"{res['quantiles']} vs {want}")
+    label = "count_distinct(l_partkey)"
+    res = run(Query(path, schema).count_distinct(1), label)
+    want = int((np.bincount(pkey) > 0).sum())
+    if int(res["distinct"]) != want:
+        fail(label, f"{int(res['distinct'])} vs {want}")
+
+    # 7. select with NULL masks
+    label = "select([l_orderkey, l_discount]) where l_quantity == 50"
+    res = run(Query(path, schema).where(FilterPred(((4, "eq", 50),)))
+              .select([0, 6]), label)
+    idx = np.flatnonzero(qty == 50)
+    if not (np.array_equal(res["positions"], idx)
+            and np.array_equal(res["col0"], okey[idx])
+            and np.array_equal(res["null6"], nulls[6][idx])
+            and np.array_equal(res["col6"],
+                               np.where(nulls[6][idx], 0, disc[idx]))
+            and int(res["count"]) == len(idx)):
+        fail(label, "rows, values or NULL masks")
+    print(f"      {len(idx)} rows, {int(res['null6'].sum())} NULL "
+          f"l_discount")
+
+    # 8. select(limit=): the scan stops reading within its ring
+    label = "select(limit=1000)"
+    res = run(Query(path, schema).select(limit=1000), label)
+    ring = int(config.get("chunk_size")) * (
+        int(config.get("async_depth")) + int(config.get("h2d_depth_max"))
+        + 1)
+    read = rows[-1][2]
+    if not 0 < read <= ring < table_bytes:
+        fail(label, f"read {read} bytes; the ring holds {ring}")
+    first = np.arange(1000)
+    if not (np.array_equal(res["positions"], first)
+            and all(np.array_equal(res[f"col{c}"],
+                                   np.where(nulls[c][first], 0,
+                                            cols[c][first])
+                                   if c in nulls else cols[c][first])
+                    for c in range(8))
+            and all(np.array_equal(res[f"null{c}"], nulls[c][first])
+                    for c in nulls)):
+        fail(label, "rows")
+    print(f"      read {read} bytes = {read / table_bytes:.2%} of the "
+          f"table (the ring holds {ring})")
+
+    # 9. fetch of seeded positions
+    label = "fetch(10,000 positions)"
+    pos = np.random.default_rng(seed + 14).integers(0, n, 10_000)
+    drop_page_cache(path)
+    stats.reset()
+    t0 = time.monotonic()
+    res = Query(path, schema).fetch(pos, device=dev)
+    fetch_s = time.monotonic() - t0
+    read = stats.snapshot().get("total_dma_length", 0)
+    rows.append((label, fetch_s, read))
+    pages = len(np.unique(pos // schema.tuples_per_page))
+    if not (res["valid"].all()
+            and all(np.array_equal(res[f"col{c}"],
+                                   np.where(nulls[c][pos], 0, cols[c][pos])
+                                   if c in nulls else cols[c][pos])
+                    for c in range(8))
+            and all(np.array_equal(res[f"null{c}"], nulls[c][pos])
+                    for c in nulls)):
+        fail(label, "rows")
+    print(f"[13b] {label}: no plan (a point lookup), {fetch_s:.3f} s = "
+          f"{len(pos) / fetch_s:.0f} rows/s, {read} bytes read "
+          f"({pages} pages of {n_pages})")
+    os.unlink(path)
+    full = [r for r in rows if r[0] not in ("select(limit=1000)",
+                                            "fetch(10,000 positions)")]
+    print(f"[13b] every result matches numpy; full-scan terminals "
+          f"{min(table_bytes / r[1] for r in full) / 1e9:.3f}-"
+          f"{max(table_bytes / r[1] for r in full) / 1e9:.3f} GB/s of "
+          f"table")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--load-gib", type=float, default=1.0)
@@ -2358,7 +2729,7 @@ def main() -> int:
         h2d = measure_h2d(dev)
 
         # -- main paths: GROUP BY, then the packed-sidecar aggregate -----
-        gb_launches, gb_ring, gb_schema, gb_pred = _groupby_path(
+        gb_launches, gb_ring, gb_schema, gb_pred, gb_path = _groupby_path(
             torch, dev, tmp, args.seed, args.scan_pages)
         dec_launches, dec_ring, meta, dec_pred = _pushdown_path(
             torch, dev, tmp, args.seed, args.scan_pages, read_gbs, h2d)
@@ -2527,6 +2898,13 @@ def main() -> int:
 
         # -- the data tier: loader, checkpoint, train loop ---------------
         _data_phase(torch, dev, tmp, args.seed)
+
+        # -- the query engine's torch route and terminals ----------------
+        t13 = time.monotonic()
+        _route_phase(torch, dev, gb_path, args.seed, args.scan_pages)
+        os.unlink(gb_path)
+        _lineitem_phase(torch, dev, tmp, args.seed, args.scan_pages)
+        print(f"    [13] took {time.monotonic() - t13:.1f} s")
         print(f"    total {time.monotonic() - t_start:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

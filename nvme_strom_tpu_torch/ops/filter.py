@@ -40,8 +40,9 @@ from ..api import StromError
 from ..scan.heap import PAGE_SIZE, HeapSchema
 
 __all__ = ["DEFAULT_SCHEMA", "FilterPred", "Cols", "page_words",
-           "decode_pages", "make_filter_fn", "scan_filter_step",
-           "term_value", "compare_view"]
+           "decode_pages", "select_rows", "global_row_positions",
+           "make_filter_fn", "scan_filter_step", "term_value",
+           "compare_view"]
 
 #: default demo schema: two int32 data columns + visibility
 DEFAULT_SCHEMA = HeapSchema(n_cols=2, visibility=True)
@@ -65,12 +66,14 @@ def term_value(dt: np.dtype, value):
     ``kind`` is "i" (int32 compare), "u" (uint32) or "f" (float32, the
     column converted to float32), and ``value`` the comparison value as a
     numpy scalar of that type — the promotion ``jnp`` applies.  An 8-byte
-    column gives "w": the value cast to the column's dtype."""
+    column compares at full width, as ``jnp`` does under x64: "w" (the
+    value in the column's dtype) where an int meets an int64 column or any
+    number a float64 one, "d" (both sides in float64) where a float meets
+    an int64 column."""
     if isinstance(value, np.ndarray) and value.ndim == 0:
         value = value[()]
     if dt.itemsize == 8:
-        # wide columns (plain version only) compare in their own dtype
-        return "w", np.asarray(value).astype(dt)[()]
+        return _wide_term(dt, value)
     if isinstance(value, (bool, np.bool_)):
         value = int(value)
     if isinstance(value, np.floating):
@@ -107,18 +110,37 @@ def term_value(dt: np.dtype, value):
                                     f"or numpy int or float")
 
 
+def _wide_term(dt: np.dtype, value):
+    """:func:`term_value` for an int64 or float64 column (plain version
+    only)."""
+    if isinstance(value, (bool, np.bool_)):
+        value = int(value)
+    if not isinstance(value, (int, float, np.integer, np.floating)):
+        raise StromError(_errno.EINVAL, f"comparison value {value!r}: a "
+                                        f"Python or numpy int or float")
+    if dt.kind == "f" or isinstance(value, (float, np.floating)):
+        return ("w" if dt.kind == "f" else "d"), np.float64(value)
+    if not -(1 << 63) <= int(value) < (1 << 63):
+        raise StromError(_errno.EINVAL, f"comparison value {value} outside "
+                                        f"the int64 range (jnp raises "
+                                        f"OverflowError)")
+    return "w", np.int64(value)
+
+
 def compare_view(col: torch.Tensor, kind: str) -> torch.Tensor:
     """A decoded column (int32, uint32 as int64, float32) in the type a
     term of *kind* compares in."""
     if kind == "f":
         return col.to(torch.float32)
+    if kind == "d":
+        return col.to(torch.float64)
     if kind == "i" and col.dtype == torch.int64:
         return col.to(torch.int32)          # uint32 bits, read signed
     return col
 
 
 def _scalar(value, kind: str, device) -> torch.Tensor:
-    if kind == "w":
+    if kind in ("w", "d"):
         return torch.from_numpy(np.asarray(value)).to(device)
     if kind == "f":
         return torch.tensor(float(value), dtype=torch.float32, device=device)
@@ -231,6 +253,30 @@ def decode_pages(pages_u8: torch.Tensor,
     return Cols(cols, nulls), valid
 
 
+def select_rows(predicate: Union[FilterPred, Callable, None], cols,
+                valid: torch.Tensor, schema: HeapSchema,
+                threshold=0) -> torch.Tensor:
+    """*valid* narrowed by *predicate*: a :class:`FilterPred`, a callable
+    ``predicate(cols, threshold) -> bool``, or None (every valid row)."""
+    if predicate is None:
+        return valid
+    if isinstance(predicate, FilterPred):
+        return predicate.mask(cols, valid, schema, threshold)
+    return valid & predicate(cols, threshold)
+
+
+def global_row_positions(pages_u8: torch.Tensor,
+                         schema: HeapSchema) -> torch.Tensor:
+    """(B, T) int64 global row numbers from the page headers (word 1 is
+    the page id): ``page_id * T + slot``, independent of where a page
+    sits in its batch, so streamed results name rows exactly.  int64 —
+    the JAX package's dtype under x64 (int32 without it)."""
+    page_ids = page_words(pages_u8)[:, 1].to(torch.int64)
+    t = schema.tuples_per_page
+    return page_ids[:, None] * t + torch.arange(
+        t, dtype=torch.int64, device=pages_u8.device)[None, :]
+
+
 def _masked_sum(col: torch.Tensor, mask: torch.Tensor,
                 dt: np.dtype) -> torch.Tensor:
     picked = torch.where(mask, col, torch.zeros((), dtype=col.dtype,
@@ -254,10 +300,7 @@ def make_filter_fn(schema: HeapSchema,
 
     def run(pages_u8: torch.Tensor, threshold=0) -> dict:
         cols, valid = decode_pages(pages_u8, schema)
-        if isinstance(predicate, FilterPred):
-            sel = predicate.mask(cols, valid, schema, threshold)
-        else:
-            sel = valid & predicate(cols, threshold)
+        sel = select_rows(predicate, cols, valid, schema, threshold)
 
         def colmask(c):
             n = cols.nulls.get(c)

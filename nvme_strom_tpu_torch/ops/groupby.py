@@ -7,11 +7,20 @@ count and, per aggregated column, sum, sum of squares, min and max, in one
 pass over a page batch.
 
 Result: ``count (G,)`` int32; ``sums``, ``sumsqs``, ``mins``, ``maxs`` of
-shape ``(V, G)`` for ``V`` aggregated columns of one 4-byte dtype.
+shape ``(V, G)`` for ``V`` aggregated columns of one dtype; ``nncounts
+(V, G)``, the per-column non-NULL counts, when an aggregated column is
+nullable.
 
-* int32 sums wrap mod 2^32; ``sumsqs`` are always float32 (this version
-  adds the float32 terms in float64 and rounds once, the reference any
-  float32 accumulation order is held to).
+* int32 sums wrap mod 2^32; ``sumsqs`` of 4-byte columns are float32
+  (this version adds the float32 terms in float64 and rounds once, the
+  reference any float32 accumulation order is held to).
+* int64 and float64 columns (this version only; the CUDA kernel takes
+  4-byte columns) accumulate in 64 bits with float64 ``sumsqs``, as the
+  JAX package does under ``jax_enable_x64``; the port serves them
+  without any switch.
+* A nullable column's NULL rows add nothing to its sums, sums of squares,
+  mins and maxs, and are left out of its ``nncounts``; ``count`` stays
+  the row count (SQL ``COUNT(*)``).
 * uint32 sums, mins and maxs come back as ``torch.uint32`` bit patterns
   (torch has no uint32 arithmetic; view them as int32 to compute).
 * float32 sums and sums of squares follow IEEE per group: a NaN in the
@@ -21,10 +30,9 @@ shape ``(V, G)`` for ``V`` aggregated columns of one 4-byte dtype.
   the largest value (+inf for floats), max the smallest.
 
 The group key is a :class:`GroupKey` descriptor, the form the CUDA kernel
-takes, or a callable ``key(cols, threshold) -> (B, T)`` integer ids (CPU
-tensors only).  Ids outside ``[0, G)`` fall into no group.  The 64-bit
-accumulators the JAX package takes under ``jax_enable_x64`` are not
-ported.
+takes, or a callable ``key(cols, threshold) -> (B, T)`` integer ids in
+torch ops (this version only).  Ids outside ``[0, G)`` fall into no
+group.
 """
 
 from __future__ import annotations
@@ -38,13 +46,15 @@ import torch
 
 from ..api import StromError
 from ..scan.heap import HeapSchema
-from .filter import FilterPred, decode_pages
+from .filter import FilterPred, decode_pages, select_rows
 
 __all__ = ["GroupKey", "acc_dtypes", "make_groupby_fn", "combine_groupby"]
 
 _I32 = np.dtype(np.int32)
 _U32 = np.dtype(np.uint32)
 _F32 = np.dtype(np.float32)
+_I64 = np.dtype(np.int64)
+_F64 = np.dtype(np.float64)
 _INT_MIN = -(1 << 31)
 
 
@@ -95,16 +105,18 @@ def acc_dtypes(agg_dt: np.dtype):
     """The accumulation convention: ``(sum dtype, sumsq dtype, lo, hi)``
     where ``lo`` is the dtype's lowest value (the MAX sentinel) and ``hi``
     its highest (the MIN sentinel).  Sums stay in the column dtype (int32
-    sums wrap), sums of squares are float32."""
+    sums wrap), sums of squares are float32 for 4-byte columns and float64
+    for 8-byte ones."""
+    sq = _F64 if agg_dt.itemsize == 8 else _F32
     if agg_dt.kind == "f":
-        return agg_dt, _F32, agg_dt.type(-np.inf), agg_dt.type(np.inf)
+        return agg_dt, sq, agg_dt.type(-np.inf), agg_dt.type(np.inf)
     info = np.iinfo(agg_dt)
-    return agg_dt, _F32, agg_dt.type(info.min), agg_dt.type(info.max)
+    return agg_dt, sq, agg_dt.type(info.min), agg_dt.type(info.max)
 
 
 def _check_agg_cols(schema: HeapSchema, agg_cols):
-    """Resolve aggregation columns: one shared dtype, int32, uint32 or
-    float32.  Returns (indices, dtype)."""
+    """Resolve aggregation columns: one shared dtype, int32, uint32,
+    float32, int64 or float64.  Returns (indices, dtype)."""
     cols_idx = list(agg_cols) if agg_cols is not None else \
         list(range(schema.n_cols))
     if not cols_idx:
@@ -122,11 +134,10 @@ def _check_agg_cols(schema: HeapSchema, agg_cols):
                                         f"{sorted(str(d) for d in dts)}; "
                                         f"split into one groupby per dtype")
     dt = dts.pop()
-    if dt not in (_I32, _U32, _F32):
-        raise StromError(_errno.EINVAL, f"groupby aggregates int32, uint32 "
-                                        f"or float32 columns (got {dt}; the "
-                                        f"64-bit accumulators are not "
-                                        f"ported)")
+    if dt not in (_I32, _U32, _F32, _I64, _F64):
+        raise StromError(_errno.EINVAL, f"groupby aggregates int32, uint32, "
+                                        f"float32, int64 or float64 columns "
+                                        f"(got {dt})")
     return cols_idx, dt
 
 
@@ -168,58 +179,66 @@ def make_groupby_fn(schema: HeapSchema,
     elif not callable(key):
         raise StromError(_errno.EINVAL, "key must be a GroupKey or a callable")
     _acc, _sq, lo, hi = acc_dtypes(agg_dt)
+    wide = agg_dt.itemsize == 8
+    sq_t = torch.float64 if wide else torch.float32
+    nullable = [schema.col_nullable(ci) for ci in cols_idx]
+    any_null = any(nullable)
 
     def run(pages_u8: torch.Tensor, threshold=0) -> dict:
         cols, valid = decode_pages(pages_u8, schema)
         ids = key.ids(cols, schema) if isinstance(key, GroupKey) \
             else key(cols, threshold).to(torch.int64)
         sel = valid & (ids >= 0) & (ids < G)
-        if isinstance(predicate, FilterPred):
-            sel = predicate.mask(cols, sel, schema, threshold)
-        elif predicate is not None:
-            sel = sel & predicate(cols, threshold)
-        k = ids[sel]
+        sel = select_rows(predicate, cols, sel, schema, threshold)
         dev = pages_u8.device
-        out = {"count": torch.bincount(k, minlength=G)[:G]
+        out = {"count": torch.bincount(ids[sel], minlength=G)[:G]
                .to(torch.int32)}
         z64 = torch.zeros(G, dtype=torch.float64, device=dev)
 
-        def f32_sum(idx, v):
-            # float32 terms added in float64 and rounded once: the
-            # reference every float32 accumulation order is held to
-            return z64.index_add(0, idx, v.double()).to(torch.float32)
+        def f_sum(idx, v, dtype):
+            # float terms added in float64 and rounded once: the
+            # reference every float accumulation order is held to
+            return z64.index_add(0, idx, v.double()).to(dtype)
 
-        sums, sqs, mins, maxs = [], [], [], []
-        for ci in cols_idx:
-            x = cols[ci][sel]
+        sums, sqs, mins, maxs, nns = [], [], [], [], []
+        for ci, nul in zip(cols_idx, nullable):
+            m = sel & ~cols.nulls[ci] if nul else sel
+            k = ids[m]
+            x = cols[ci][m]
+            if any_null:
+                nns.append(torch.bincount(k, minlength=G)[:G]
+                           .to(torch.int32))
             if agg_dt.kind == "f":
                 isn, pin, nin = x.isnan(), x == float("inf"), \
                     x == float("-inf")
                 fin = ~(isn | pin | nin)
-                s = f32_sum(k[fin], x[fin])
-                s2 = f32_sum(k[fin], x[fin] * x[fin])
-                cnt = [torch.bincount(k[m], minlength=G)[:G]
-                       for m in (isn, pin, nin)]
+                s = f_sum(k[fin], x[fin], x.dtype)
+                s2 = f_sum(k[fin], x[fin] * x[fin], sq_t)
+                cnt = [torch.bincount(k[c], minlength=G)[:G]
+                       for c in (isn, pin, nin)]
                 s, s2 = ieee_sums(s, s2, *cnt)
                 ok = ~isn
-                mn = torch.full((G,), float(hi), device=dev).scatter_reduce(
+                mn = torch.full((G,), float(hi), dtype=x.dtype,
+                                device=dev).scatter_reduce(
                     0, k[ok], x[ok], "amin")
-                mx = torch.full((G,), float(lo), device=dev).scatter_reduce(
+                mx = torch.full((G,), float(lo), dtype=x.dtype,
+                                device=dev).scatter_reduce(
                     0, k[ok], x[ok], "amax")
-                nan = torch.tensor(float("nan"), device=dev)
+                nan = torch.tensor(float("nan"), dtype=x.dtype, device=dev)
                 mn = torch.where(cnt[0] > 0, nan, mn)
                 mx = torch.where(cnt[0] > 0, nan, mx)
             else:
                 x64 = x.to(torch.int64)       # uint32 decodes as int64
-                s = _wrap_i32(torch.zeros(G, dtype=torch.int64, device=dev)
-                              .index_add(0, k, x64))
-                xf = x64.to(torch.float32)
-                s2 = f32_sum(k, xf * xf)
+                s = torch.zeros(G, dtype=torch.int64,
+                                device=dev).index_add(0, k, x64)
+                xf = x64.to(sq_t)
+                s2 = f_sum(k, xf * xf, sq_t)
                 mn = torch.full((G,), int(hi), dtype=torch.int64,
                                 device=dev).scatter_reduce(0, k, x64, "amin")
                 mx = torch.full((G,), int(lo), dtype=torch.int64,
                                 device=dev).scatter_reduce(0, k, x64, "amax")
-                mn, mx = _wrap_i32(mn), _wrap_i32(mx)
+                if not wide:
+                    s, mn, mx = _wrap_i32(s), _wrap_i32(mn), _wrap_i32(mx)
                 if agg_dt == _U32:
                     s, mn, mx = (t.view(torch.uint32) for t in (s, mn, mx))
             sums.append(s)
@@ -228,6 +247,8 @@ def make_groupby_fn(schema: HeapSchema,
             maxs.append(mx)
         out.update(sums=torch.stack(sums), sumsqs=torch.stack(sqs),
                    mins=torch.stack(mins), maxs=torch.stack(maxs))
+        if any_null:
+            out["nncounts"] = torch.stack(nns)
         return out
 
     return run
@@ -248,11 +269,14 @@ def _meet(a: torch.Tensor, b: torch.Tensor, fn) -> torch.Tensor:
 def combine_groupby(acc: dict, out: dict) -> dict:
     """Batch-fold combiner for grouped results (pass as
     ``TableScanner.scan_filter(..., combine=combine_groupby)``):
-    counts, sums and sumsqs add, mins and maxs meet."""
+    counts, sums, sumsqs and non-NULL counts add, mins and maxs meet."""
     sums = _as_i32(acc["sums"]) + _as_i32(out["sums"])
     if acc["sums"].dtype == torch.uint32:
         sums = sums.view(torch.uint32)
-    return {"count": acc["count"] + out["count"], "sums": sums,
-            "sumsqs": acc["sumsqs"] + out["sumsqs"],
-            "mins": _meet(acc["mins"], out["mins"], torch.minimum),
-            "maxs": _meet(acc["maxs"], out["maxs"], torch.maximum)}
+    folded = {"count": acc["count"] + out["count"], "sums": sums,
+              "sumsqs": acc["sumsqs"] + out["sumsqs"],
+              "mins": _meet(acc["mins"], out["mins"], torch.minimum),
+              "maxs": _meet(acc["maxs"], out["maxs"], torch.maximum)}
+    if "nncounts" in acc:
+        folded["nncounts"] = acc["nncounts"] + out["nncounts"]
+    return folded

@@ -31,8 +31,15 @@ from ..stats import stats
 from .heap import PAGE_SIZE, HeapSchema
 from .pool import DmaBufferPool, DmaChunk, ResourceOwner
 
-__all__ = ["LocalCursor", "Batch", "TableScanner", "fold_results",
-           "cursor_chunk_count"]
+__all__ = ["LocalCursor", "Batch", "TableScanner", "ScanLimitReached",
+           "fold_results", "cursor_chunk_count"]
+
+
+class ScanLimitReached(Exception):
+    """Raised by a :meth:`TableScanner.scan_filter` consumer that has what
+    it needs (``select(limit=)``'s rows): the scan issues no further read,
+    waits out the reads and copies in flight, and returns what it folded
+    so far."""
 
 
 def cursor_chunk_count(size: int, chunk_size: int) -> int:
@@ -258,7 +265,13 @@ class TableScanner:
         recycled only once its copy's event has completed, and the fence on
         batch *k* waits until the pipeline is ``depth`` batches deep.  On
         the CPU each batch is cloned off its pool chunk before the filter
-        sees it — the chunk is refilled while results may still be held."""
+        sees it — the chunk is refilled while results may still be held.
+
+        ``filter_fn`` may raise :class:`ScanLimitReached` to end the scan
+        early: no further read is issued, the batches already copied are
+        dropped after their events complete, the reads in flight are
+        waited out, and every chunk is back in the pool before the scan's
+        resource owner exits; the results folded so far return."""
         from ..hbm.staging import (AdaptiveH2DDepth, bounded_fence,
                                    h2d_meter, resolve_device)
         dev = resolve_device(device)
@@ -322,6 +335,8 @@ class TableScanner:
                         retire_oldest()
                 while inflight:
                     retire_oldest()
+            except ScanLimitReached:
+                pass    # the drain below runs before the owner exits
             finally:
                 # consumer-held batches: fence + recycle before the ring
                 # drain, so no chunk returns while a copy still reads it

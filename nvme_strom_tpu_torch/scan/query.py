@@ -1,29 +1,38 @@
 """Declarative query layer over one heap table: plan → stream → fold.
 
-A reduced port of the JAX package's ``scan/query.py``: one :class:`Query`
-builder over one heap table file, with a conjunctive ``where``, one
-terminal operator (``aggregate`` or ``group_by``), ``explain`` and
-``run``.  ``run`` streams the table through the scan pipeline
-(:class:`.executor.TableScanner`) and folds each batch through a kernel:
+A port of the JAX package's ``scan/query.py``: one fluent :class:`Query`
+over one heap table file, with a conjunctive ``where``, one terminal
+operator, ``explain``, ``run`` and the point lookup ``fetch``.
+Terminals: ``aggregate``, ``group_by`` (a key descriptor or function),
+``group_by_cols`` (value-keyed, keys discovered by a first scan, a sorted
+spill past ``max_groups``), ``select``, ``top_k``, ``order_by``,
+``quantiles`` and ``count_distinct``.  ``run`` streams the table through
+the scan pipeline (:class:`.executor.TableScanner`) and folds or gathers
+each batch on one of two routes, chosen at plan time (``kernel=``):
 
-* ``aggregate`` — the heap filter (B1, ``csrc/filter.cu``), or, where a
-  fresh packed sidecar (``<table>.cpk``, :mod:`.colpack`) can serve the
-  query, the pushdown decision (:mod:`.planner`): ``chip`` streams the
-  packed pages to the device and decodes them there (B2,
-  ``csrc/decode.cu``); ``host`` decodes them on the host into heap pages
-  for B1;
-* ``group_by`` — the GROUP BY kernel (B3, ``csrc/groupby.cu``).
+* ``cuda`` — the hand-written kernels: ``aggregate`` through the heap
+  filter (B1, ``csrc/filter.cu``), ``group_by`` through the GROUP BY
+  kernel (B3, ``csrc/groupby.cu``), and the packed sidecar's ``chip``
+  pushdown leg through the decode-filter (B2, ``csrc/decode.cu``);
+* ``torch`` — PyTorch ops on the query's device, card or CPU: the plain
+  versions of those kernels, and the gather the row and order terminals
+  ride on.  It is the port's counterpart of the JAX package's XLA route.
 
-On a CUDA device every batch goes through the CUDA kernels: predicates are
-:class:`~..ops.filter.FilterPred` and keys :class:`~..ops.groupby.GroupKey`
-descriptors, and a query the kernels cannot take is refused (EINVAL), never
-run another way.  The plain PyTorch versions run for ``device="cpu"``,
-where callables ``predicate(cols) -> bool`` and ``key(cols) -> ids`` work
-too.
+``auto`` picks ``cuda`` whenever the kernels take the query (their
+``kernel_refusal`` is empty) and ``torch`` for what they refuse, and the
+plan's reason names the refusal.  ``kernel="cuda"`` on a refused query is
+an invalid plan (EINVAL at ``run``); a kernel wrapper never hands a CUDA
+tensor to a plain version.  On the CPU every query runs ``torch``.
 
-Left out against the JAX package: value-keyed ``group_by_cols``, nullable
-and wide schemas, worker processes, meshes, index paths, select / top_k /
-order_by / join / star terminals, the SQL facade and the VFS access path.
+Predicates are :class:`~..ops.filter.FilterPred` descriptors (the form the
+kernels take) or callables ``predicate(cols) -> bool``; a term on a
+nullable column never matches a NULL row.  Row positions are int64.
+
+Left out against the JAX package: joins, star joins and expression
+aggregates, the index access paths (``where_eq``/``where_range``/
+``where_in`` and the sidecar shortcut of key discovery), worker
+processes, meshes and ``analyze=``, the VFS access path, strings and the
+SQL facade.
 """
 
 from __future__ import annotations
@@ -39,22 +48,122 @@ import torch
 
 from ..api import StromError
 from ..trace import recorder as _trace
-from ..ops.filter import FilterPred
-from ..ops.groupby import GroupKey, _check_agg_cols, combine_groupby
+from ..ops.filter import FilterPred, decode_pages, global_row_positions, \
+    select_rows
+from ..ops.groupby import GroupKey, _check_agg_cols, acc_dtypes, \
+    combine_groupby
 from ..stats import stats
 from .heap import PAGE_SIZE, HeapSchema
 
 __all__ = ["Query", "QueryPlan"]
 
-_KERNELS = ("auto", "cuda", "plain")
+_KERNELS = ("auto", "cuda", "torch")
+_ROW_OPS = ("select", "top_k", "order_by", "quantiles", "count_distinct")
+_SORTABLE = (np.dtype(np.int32), np.dtype(np.uint32), np.dtype(np.float32))
+
+
+class _GroupSpill(Exception):
+    """Key discovery passed ``max_groups`` on a shape the sorted spill
+    serves (1-2 key columns): ``run`` reroutes instead of failing."""
+
+    def __init__(self, seen: int):
+        self.seen = seen
+        super().__init__(f"group key discovery passed {seen} distinct")
+
+
+class _SortedGroupAcc:
+    """Running sorted-aggregation state of the GROUP BY spill: a sorted
+    packed-key array plus per-key count/sums/sumsqs/mins/maxs, merged
+    batch by batch — footprint O(distinct keys).  Accumulator dtypes
+    follow :func:`..ops.groupby.acc_dtypes`, so int sums wrap at the
+    width the one-pass GROUP BY wraps at."""
+
+    def __init__(self, n_vals: int, acc_np, sq_np, lo, hi, cap: int):
+        self.V, self.cap = n_vals, cap
+        self.acc_np, self.sq_np, self.lo, self.hi = acc_np, sq_np, lo, hi
+        self.keys: Optional[np.ndarray] = None
+        self.count = self.sums = self.sumsqs = None
+        self.mins = self.maxs = None
+
+    def _batch_partial(self, kv: np.ndarray, vals: np.ndarray):
+        """Sort one batch's (keys, (V, n) values) and segment-reduce."""
+        order = np.argsort(kv, kind="stable")
+        kv, vals = kv[order], vals[:, order]
+        uk, starts = np.unique(kv, return_index=True)
+        count = np.diff(np.append(starts, len(kv))).astype(np.int64)
+        sums = np.add.reduceat(vals.astype(self.acc_np), starts, axis=1)
+        fv = vals.astype(np.float64)
+        sumsqs = np.add.reduceat(fv * fv, starts, axis=1).astype(self.sq_np)
+        mins = np.minimum.reduceat(vals, starts, axis=1)
+        maxs = np.maximum.reduceat(vals, starts, axis=1)
+        return uk, count, sums, sumsqs, mins, maxs
+
+    def add_batch(self, kv: np.ndarray, vals: np.ndarray) -> None:
+        if len(kv):
+            self.merge_state(dict(zip(
+                ("keys", "count", "sums", "sumsqs", "mins", "maxs"),
+                self._batch_partial(kv, vals))))
+
+    def merge_state(self, st: dict) -> None:
+        """Merge another sorted partial into this one."""
+        uk = st["keys"]
+        if self.keys is None:
+            self.keys = uk
+            self.count, self.sums = st["count"], st["sums"]
+            self.sumsqs = st["sumsqs"]
+            self.mins, self.maxs = st["mins"], st["maxs"]
+            return
+        merged = np.union1d(self.keys, uk)
+        if len(merged) > self.cap:
+            raise StromError(_errno.ENOMEM, f"group_by_cols: {len(merged)} "
+                                            f"distinct keys exceed even the "
+                                            f"sorted-aggregation cap "
+                                            f"{self.cap} (unbounded key set)")
+        # both key sets are sorted and unique, so each merged slot is hit
+        # at most once from either side: plain fancy-index updates give
+        # the JAX package's ufunc.at results
+        io = np.searchsorted(merged, self.keys)
+        i_n = np.searchsorted(merged, uk)
+        g = len(merged)
+        count = np.zeros(g, np.int64)
+        count[io] = self.count
+        count[i_n] += st["count"]
+        sums = np.zeros((self.V, g), self.acc_np)
+        sumsqs = np.zeros((self.V, g), self.sq_np)
+        mins = np.full((self.V, g), self.hi)
+        maxs = np.full((self.V, g), self.lo)
+        sums[:, io] = self.sums
+        sumsqs[:, io] = self.sumsqs
+        mins[:, io] = self.mins
+        maxs[:, io] = self.maxs
+        sums[:, i_n] += st["sums"]
+        sumsqs[:, i_n] += st["sumsqs"]
+        mins[:, i_n] = np.minimum(mins[:, i_n], st["mins"])
+        maxs[:, i_n] = np.maximum(maxs[:, i_n], st["maxs"])
+        self.keys, self.count = merged, count
+        self.sums, self.sumsqs = sums, sumsqs
+        self.mins, self.maxs = mins, maxs
+
+    def state(self) -> dict:
+        """The folded state; an empty scan is a zero-group result."""
+        if self.keys is None:
+            z = np.zeros(0, np.int64)
+            return {"keys": z, "count": z,
+                    "sums": np.zeros((self.V, 0), self.acc_np),
+                    "sumsqs": np.zeros((self.V, 0), self.sq_np),
+                    "mins": np.zeros((self.V, 0)),
+                    "maxs": np.zeros((self.V, 0))}
+        return {"keys": self.keys, "count": self.count,
+                "sums": self.sums, "sumsqs": self.sumsqs,
+                "mins": self.mins, "maxs": self.maxs}
 
 
 @dataclass(frozen=True)
 class QueryPlan:
     """What ``run()`` will do, decided before any I/O (EXPLAIN)."""
 
-    operator: str          # aggregate | group_by
-    kernel: str            # cuda | plain | invalid
+    operator: str          # aggregate | group_by | select | top_k | ...
+    kernel: str            # cuda | torch | invalid
     device: str
     n_pages: int
     reason: str
@@ -62,9 +171,25 @@ class QueryPlan:
 
     def __str__(self) -> str:
         pd = f", pushdown {self.pushdown}" if self.pushdown else ""
-        return (f"{self.operator} scan  [{self.kernel} kernel on "
+        return (f"{self.operator} scan  [{self.kernel} route on "
                 f"{self.device}{pd}]\n  pages: {self.n_pages}\n"
                 f"  {self.reason}")
+
+
+def _host(t: torch.Tensor, dt: np.dtype) -> np.ndarray:
+    """A decoded column (uint32 as int64) back on the host in *dt*."""
+    a = t.cpu().numpy()
+    return a if a.dtype == dt else a.astype(dt)
+
+
+def _hv(user: Optional[Callable]) -> Callable:
+    """HAVING of a value-keyed GROUP BY: empty groups drop, then *user*."""
+    def hv(res):
+        m = np.asarray(res["count"]) > 0
+        if user is not None:
+            m = m & np.asarray(user(res)).astype(bool)
+        return m
+    return hv
 
 
 class Query:
@@ -76,6 +201,8 @@ class Query:
     >>> print(q.explain())
     >>> out = q.run()
     """
+
+    _SPILL_HARD_MAX = 1 << 24   # the sorted spill's own bound (ENOMEM)
 
     def __init__(self, source, schema: HeapSchema):
         if isinstance(source, os.PathLike):
@@ -91,12 +218,21 @@ class Query:
         self._terminal_set = False
         self._agg_cols: Optional[Sequence[int]] = None
         self._group: Optional[tuple] = None
+        self._group_cols: Optional[tuple] = None
+        self._gk_decode: Optional[Callable] = None
+        self._select: Optional[tuple] = None
+        self._topk: Optional[tuple] = None
+        self._order: Optional[tuple] = None
+        self._quantiles: Optional[List[float]] = None
 
     # -- builders -----------------------------------------------------------
     def where(self, predicate: Union[FilterPred, Callable]) -> "Query":
         """Row filter: a :class:`FilterPred` whose terms carry their values,
-        or ``predicate(cols) -> (B, T) bool`` (CPU only).  Chained filters
-        form a conjunction; FilterPred terms concatenate (at most 8)."""
+        or ``predicate(cols) -> (B, T) bool`` in torch ops (the ``torch``
+        route).  Chained filters form a conjunction; FilterPred terms
+        concatenate (at most 8).  A term on a nullable column never
+        selects a NULL row (SQL: NULL compares unknown); a callable sees
+        the NULL masks as ``cols.nulls``."""
         if isinstance(predicate, FilterPred):
             if any(v is None for _c, _o, v in predicate.terms):
                 raise StromError(_errno.EINVAL, "a Query predicate carries "
@@ -114,12 +250,17 @@ class Query:
             raise StromError(_errno.EINVAL, "one terminal operator per query "
                                             "(it is one scan node)")
 
+    def _terminal(self, op: str) -> None:
+        self._require_no_terminal()
+        self._op = op
+        self._terminal_set = True
+
     def aggregate(self, cols: Optional[Sequence[int]] = None) -> "Query":
         """Terminal: selected-row count + per-column masked sums (of *cols*,
-        in that order; all columns when None)."""
-        self._require_no_terminal()
-        self._op = "aggregate"
-        self._terminal_set = True
+        in that order; all columns when None).  Nullable columns skip
+        their NULL rows and add ``nncounts``, their non-NULL counts; int64
+        and float64 columns sum in 64 bits."""
+        self._terminal("aggregate")
         self._agg_cols = None if cols is None else [int(c) for c in cols]
         return self
 
@@ -127,31 +268,167 @@ class Query:
                  agg_cols: Optional[Sequence[int]] = None,
                  having: Optional[Callable] = None) -> "Query":
         """Terminal: per-group count/sum/min/max/avg/var/stddev.  *key* is
-        a :class:`GroupKey` or ``key(cols) -> (B, T)`` ids (CPU only); ids
-        outside ``[0, n_groups)`` fall into no group.
+        a :class:`GroupKey` or ``key(cols) -> (B, T)`` ids (the ``torch``
+        route); ids outside ``[0, n_groups)`` fall into no group.
 
         ``having(groups) -> (G,) bool`` filters groups after aggregation
         (SQL HAVING) on the finished numpy result; surviving groups are
         compressed out, their ids in ``"groups"``."""
-        self._require_no_terminal()
-        self._op = "group_by"
-        self._terminal_set = True
+        self._terminal("group_by")
         self._group = (key, int(n_groups), agg_cols, having)
         return self
 
+    def group_by_cols(self, key_cols, *,
+                      agg_cols: Optional[Sequence[int]] = None,
+                      having: Optional[Callable] = None,
+                      max_groups: int = 1 << 16) -> "Query":
+        """Terminal: SQL ``GROUP BY col[, col2, ...]`` over column VALUES.
+        Two passes: one projection scan discovers the sorted distinct key
+        set, then the GROUP BY runs on the ``torch`` route with
+        ``searchsorted`` key ids over it.  (The JAX package first tries a
+        fresh index sidecar at zero table I/O; sidecars are not ported.)
+
+        Result: :meth:`group_by`'s plus ``key_cols``, one array per key
+        column aligned with the surviving groups.  Groups that select no
+        row are dropped; *having* then filters.  One to four non-null
+        4-byte integer key columns.  Past *max_groups* distinct keys, 1-2
+        key columns take the sorted spill (sort, then segment-reduce on
+        the host, footprint O(distinct keys)); 3-4 fail with ENOMEM."""
+        self._require_no_terminal()
+        cols_ = [int(c) for c in (key_cols if isinstance(
+            key_cols, (tuple, list)) else [key_cols])]
+        if not 1 <= len(cols_) <= 4:
+            raise StromError(_errno.EINVAL, "group_by_cols takes 1-4 key "
+                                            "columns")
+        for c in cols_:
+            if not 0 <= c < self.schema.n_cols:
+                raise StromError(_errno.EINVAL, f"group_by_cols column {c} "
+                                                f"out of range")
+            dt = self.schema.col_dtype(c)
+            if dt.kind not in "iu" or dt.itemsize != 4:
+                raise StromError(_errno.EINVAL, "group_by_cols keys must be "
+                                                "4-byte integer columns")
+            if self.schema.col_nullable(c):
+                raise StromError(_errno.EINVAL, f"group_by_cols: c{c} is "
+                                                f"nullable (NULL group keys "
+                                                f"are outside this subset)")
+        if max_groups < 1:
+            raise StromError(_errno.EINVAL, "max_groups must be >= 1")
+        self._terminal("group_by")
+        self._group = (None, 0, agg_cols, None)   # keys come at run()
+        self._group_cols = (cols_, agg_cols, having, int(max_groups))
+        return self
+
+    def select(self, cols: Optional[Sequence[int]] = None, *,
+               limit: Optional[int] = None, offset: int = 0) -> "Query":
+        """Terminal: the selected rows themselves — ``{"col<c>": values,
+        "null<c>": NULL masks (nullable columns), "positions", "count"}``
+        in physical arrival order.  ``cols=None`` projects every column;
+        ``limit`` stops the scan's reads once ``offset + limit`` rows are
+        gathered."""
+        if limit is not None and limit < 0:
+            raise StromError(_errno.EINVAL, "select limit must be >= 0")
+        if offset < 0:
+            raise StromError(_errno.EINVAL, "select offset must be >= 0")
+        self._terminal("select")
+        self._select = (None if cols is None else [int(c) for c in cols],
+                        limit, int(offset))
+        return self
+
+    def top_k(self, col: int, k: int, *, largest: bool = True) -> "Query":
+        """Terminal: the *k* best values of *col* and their global row
+        positions (``{"values", "positions"}``; fewer rows pad with the
+        dtype's worst value at position -1)."""
+        self._require_no_terminal()
+        if 0 <= int(col) < self.schema.n_cols:
+            if self.schema.col_nullable(int(col)):
+                raise StromError(_errno.EINVAL, f"top_k over the nullable "
+                                                f"c{col} is outside this "
+                                                f"subset (no NULL ordering)")
+            if self.schema.col_dtype(int(col)).itemsize != 4:
+                raise StromError(_errno.EINVAL, f"top_k supports 4-byte "
+                                                f"columns (c{col} is 8-byte)")
+        self._terminal("top_k")
+        self._topk = (int(col), int(k), bool(largest))
+        return self
+
+    def order_by(self, col, *, descending: bool = False,
+                 limit: Optional[int] = None, offset: int = 0) -> "Query":
+        """Terminal: the ordering of the selected rows — ``{"values"`` (the
+        first column), ``"positions"}``.  *col* may be a sequence (ORDER
+        BY c_a, c_b, ...): later columns break ties of earlier ones, then
+        arrival order; ``descending`` applies to the whole ordering;
+        ``limit``/``offset`` slice it.  The rows gather to the host and
+        sort there, as the JAX package's one-device path does."""
+        if limit is not None and limit < 0:
+            raise StromError(_errno.EINVAL, "order_by limit must be >= 0")
+        if offset < 0:
+            raise StromError(_errno.EINVAL, "order_by offset must be >= 0")
+        cols = [int(col)] if isinstance(col, (int, np.integer)) \
+            else [int(c) for c in col]
+        if not cols:
+            raise StromError(_errno.EINVAL, "order_by needs at least one "
+                                            "column")
+        self._terminal("order_by")
+        self._order = (cols, bool(descending), limit, int(offset))
+        return self
+
+    def quantiles(self, col: int, qs: Sequence[float]) -> "Query":
+        """Terminal: exact nearest-rank quantiles of *col* over the
+        selected rows (``{"quantiles", "n"}``; NaN when none)."""
+        qs = [float(q) for q in qs]
+        if not qs:
+            raise StromError(_errno.EINVAL, "quantiles needs at least one q")
+        for q in qs:
+            if not 0.0 <= q <= 1.0:
+                raise StromError(_errno.EINVAL, f"quantile {q} outside "
+                                                f"[0, 1]")
+        self._terminal("quantiles")
+        self._order = ([int(col)], False, None, 0)
+        self._quantiles = qs
+        return self
+
+    def count_distinct(self, col: int) -> "Query":
+        """Terminal: exact COUNT(DISTINCT col) of the selected rows
+        (``{"distinct"}``; each float NaN counts as its own value)."""
+        self._terminal("count_distinct")
+        self._order = ([int(col)], False, None, 0)
+        return self
+
     # -- planning -----------------------------------------------------------
+    def _null_guard(self, pred: FilterPred):
+        """SQL comparison semantics on nullable columns: NULL cmp x is
+        never true.  The FilterPred, or ``(cols, th) -> mask`` that also
+        drops the NULL rows of every nullable column a term reads (their
+        stored word is 0, which a bare ``col == 0`` would select)."""
+        nn = sorted({c for c, _o, _v in pred.terms
+                     if c < self.schema.n_cols
+                     and self.schema.col_nullable(c)})
+        if not nn:
+            return pred
+        schema = self.schema
+
+        def guarded(cols, threshold):
+            sel = pred.mask(cols, torch.ones(cols[0].shape, dtype=torch.bool,
+                                             device=cols[0].device),
+                            schema, threshold)
+            for c in nn:
+                sel = sel & ~cols.nulls[c]
+            return sel
+        return guarded
+
     def _predicate(self):
-        """The conjunction: a FilterPred, or a callable ``(cols, th)`` when
-        a callable joined it."""
-        pred = FilterPred(self._terms)
+        """The conjunction: a FilterPred, or a callable ``(cols, th)``
+        when a callable joined it or a term needs its NULL guard."""
+        pred = self._null_guard(FilterPred(self._terms))
         if not self._callables:
             return pred
         schema, calls = self.schema, list(self._callables)
 
-        def conj(cols, _threshold):
-            sel = pred.mask(cols, torch.ones(cols[0].shape, dtype=torch.bool,
-                                             device=cols[0].device),
-                            schema, 0)
+        def conj(cols, threshold):
+            sel = select_rows(pred, cols, torch.ones(
+                cols[0].shape, dtype=torch.bool, device=cols[0].device),
+                schema, threshold)
             for fn in calls:
                 sel = sel & fn(cols)
             return sel
@@ -159,46 +436,76 @@ class Query:
 
     def _key(self):
         key = self._group[0]
-        if isinstance(key, GroupKey):
-            return key
+        if isinstance(key, GroupKey) or self._group_cols is not None:
+            return key          # a value-keyed key is (cols, th) already
         return lambda cols, _threshold: key(cols)
+
+    def _check_sortable_col(self, col: int, opname: str) -> np.dtype:
+        if not 0 <= col < self.schema.n_cols:
+            raise StromError(_errno.EINVAL, f"{opname} column {col} out of "
+                                            f"range")
+        dt = self.schema.col_dtype(col)
+        if dt not in _SORTABLE:
+            raise StromError(_errno.EINVAL, f"{opname} supports int32/uint32"
+                                            f"/float32 columns (got {dt})")
+        if self.schema.col_nullable(col):
+            raise StromError(_errno.EINVAL, f"{opname} over the nullable "
+                                            f"c{col} is outside this subset "
+                                            f"(no NULL ordering)")
+        return dt
 
     def _invalid(self) -> str:
         """Why the query cannot run at all ('' = it can)."""
         s = self.schema
-        if s.has_wide or any(s.nullable or ()):
-            return ("wide/nullable page layouts are not served by the "
-                    "port's Query (4-byte non-null columns only)")
         if s.n_cols == 0:
             return "a schema without columns"
         try:
             FilterPred(self._terms).values(s, 0)
             if self._op == "group_by":
-                key, g, agg, _hv = self._group
+                key, g, agg, _having = self._group
                 _check_agg_cols(s, agg)
-                if isinstance(key, GroupKey):
-                    key.check(s)
-                elif not callable(key):
-                    return "the key is a GroupKey or a callable"
-                if g < 1:
-                    return f"n_groups {g}: at least 1"
+                if self._group_cols is None:
+                    if isinstance(key, GroupKey):
+                        key.check(s)
+                    elif not callable(key):
+                        return "the key is a GroupKey or a callable"
+                    if g < 1:
+                        return f"n_groups {g}: at least 1"
+            elif self._op in ("order_by", "quantiles", "count_distinct"):
+                for c in self._order[0]:
+                    self._check_sortable_col(c, self._op)
         except StromError as e:
             return str(e)
+        bad = []
         if self._op == "aggregate" and self._agg_cols is not None:
             bad = [c for c in self._agg_cols if not 0 <= c < s.n_cols]
-            if bad:
-                return (f"aggregate column {bad[0]} out of range (schema "
-                        f"has {s.n_cols})")
+        elif self._op == "select":
+            bad = [c for c in (self._select[0] or [])
+                   if not 0 <= c < s.n_cols]
+        elif self._op == "top_k" and not 0 <= self._topk[0] < s.n_cols:
+            bad = [self._topk[0]]
+        if bad:
+            return (f"{self._op} column {bad[0]} out of range (schema has "
+                    f"{s.n_cols})")
         return ""
 
-    def _cuda_refusal(self) -> str:
+    def _cuda_refusal(self, probe=None) -> str:
         """Why the CUDA kernels cannot run this query ('' = they can)."""
-        from ..ops import filter_cuda, groupby_cuda
+        from ..ops import decode_cuda, filter_cuda, groupby_cuda
+        if self._op in _ROW_OPS:
+            return (f"{self._op} is a row/order terminal: no CUDA kernel "
+                    f"computes it")
+        if self._group_cols is not None:
+            return ("value-keyed GROUP BY: the discovered key table is not "
+                    "a GroupKey the B3 kernel takes")
+        pred = FilterPred(self._terms) if not self._callables \
+            else self._predicate()
         if self._op == "group_by":
-            key, g, _agg, _hv = self._group
-            return groupby_cuda.kernel_refusal(self.schema, key, g,
-                                               self._predicate())
-        return filter_cuda.kernel_refusal(self.schema, self._predicate())
+            key, g, _agg, _having = self._group
+            return groupby_cuda.kernel_refusal(self.schema, key, g, pred)
+        if probe is not None and probe[0].mode == "chip":
+            return decode_cuda.kernel_refusal(probe[1], pred)
+        return filter_cuda.kernel_refusal(self.schema, pred)
 
     def _pushdown_need_cols(self):
         """Columns the packed scan must expand: the aggregate projection
@@ -210,8 +517,9 @@ class Query:
 
     def _pushdown_probe(self):
         """``(PushdownDecision, PackedMeta)`` when a fresh packed sidecar
-        can serve this aggregate, else None."""
-        if self._op != "aggregate":
+        can serve this aggregate (4-byte non-null layout), else None."""
+        if self._op != "aggregate" or self.schema.has_wide \
+                or any(self.schema.nullable or ()):
             return None
         from .colpack import probe_packed
         meta = probe_packed(self.source)
@@ -219,6 +527,33 @@ class Query:
             return None
         from .planner import decide_pushdown
         return decide_pushdown(meta, self._pushdown_need_cols()), meta
+
+    def _cuda_reason(self) -> str:
+        if self._op == "group_by":
+            return (f"GROUP BY into {self._group[1]} groups: B3 "
+                    f"groupby_pages (csrc/groupby.cu, shared-memory group "
+                    f"accumulators)")
+        return ("aggregate: B1 filter_pages (csrc/filter.cu, fused decode + "
+                "predicate + masked sums)")
+
+    def _torch_reason(self) -> str:
+        if self._group_cols is not None:
+            return ("value-keyed GROUP BY: the distinct keys discovered by "
+                    "one projection scan (the index-sidecar shortcut is not "
+                    "ported), then searchsorted key ids; past max_groups a "
+                    "sorted spill; empty groups dropped")
+        if self._op == "group_by":
+            return (f"GROUP BY into {self._group[1]} groups: decode + "
+                    f"bincount/index_add/scatter_reduce")
+        if self._op == "aggregate":
+            return "aggregate: decode + predicate + masked sums"
+        if self._op == "select":
+            return ("row materialization: decode + mask-compress gather, "
+                    "rows return to the host in arrival order")
+        if self._op == "top_k":
+            return "top_k: per-batch stable-sort selection, folded"
+        return (f"{self._op}: decode + gather, then the host sort of the "
+                f"JAX package's one-device path")
 
     def explain(self, *, device=None, kernel: str = "auto") -> QueryPlan:
         """The plan ``run(device=..., kernel=...)`` would execute."""
@@ -228,69 +563,82 @@ class Query:
                                             f"{_KERNELS}")
         dev = resolve_device(device)
         n_pages = os.path.getsize(self.source) // PAGE_SIZE
-        why = self._invalid()
         cuda = dev.type == "cuda"
-        if not why and cuda and kernel == "plain":
-            why = "the plain versions run only for CPU tensors"
-        if not why and not cuda and kernel == "cuda":
+        why = self._invalid()
+        if not why and kernel == "cuda" and not cuda:
             why = "the CUDA kernels need a CUDA device"
-        if not why and cuda:
-            why = self._cuda_refusal()
-            if why:
-                why += "; run on device='cpu' for the plain version"
+        probe = None if why else self._pushdown_probe()
+        refusal = self._cuda_refusal(probe) if cuda and not why else ""
+        if kernel == "cuda" and refusal:
+            why = (f"kernel='cuda': {refusal}; kernel='auto' or 'torch' "
+                   f"runs it in PyTorch ops")
         if why:
             return QueryPlan(self._op, "invalid", str(dev), n_pages, why)
-        face = "cuda" if cuda else "plain"
-        if self._op == "group_by":
-            g = self._group[1]
-            reason = (f"GROUP BY into {g} groups: B3 groupby_pages "
-                      f"(csrc/groupby.cu, shared-memory group "
-                      f"accumulators)" if cuda else
-                      f"GROUP BY into {g} groups: plain PyTorch version")
+        if cuda and kernel != "torch" and not refusal:
+            face, reason = "cuda", self._cuda_reason()
         else:
-            reason = ("aggregate: B1 filter_pages (csrc/filter.cu, fused "
-                      "decode + predicate + masked sums)" if cuda else
-                      "aggregate: plain PyTorch filter")
+            face = "torch"
+            reason = f"{self._torch_reason()}; PyTorch ops on {dev}"
+            if refusal:
+                reason += f" (the CUDA kernels refuse it: {refusal})"
+            elif cuda:
+                reason += " (kernel='torch')"
         pd = ""
-        probe = self._pushdown_probe()
         if probe is not None:
             dec, _meta = probe
             pd = dec.mode
             reason += "; " + dec.explain()
             if pd == "chip":
                 reason += ("; the packed pages decode in B2 "
-                           "decode_filter_pages (csrc/decode.cu)" if cuda
-                           else "; the packed pages decode in the plain "
-                                "version")
+                           "decode_filter_pages (csrc/decode.cu)"
+                           if face == "cuda" else
+                           "; the packed pages decode in PyTorch ops")
         return QueryPlan(self._op, face, str(dev), n_pages, reason, pd)
 
     # -- execution ----------------------------------------------------------
     def _project(self, out: dict) -> dict:
-        if self._agg_cols is None:
+        if self._agg_cols is None or not out:
             return out
-        return {"count": out["count"],
-                "sums": [out["sums"][c] for c in self._agg_cols]}
+        res = {"count": out["count"],
+               "sums": [out["sums"][c] for c in self._agg_cols]}
+        if "nncounts" in out:
+            res["nncounts"] = [out["nncounts"][c] for c in self._agg_cols]
+        return res
 
-    def _build_fn(self):
-        """Returns ``(fn(pages) -> dict, combine or None)`` over heap
-        pages."""
+    def _build_fn(self, face: str):
+        """``(fn(pages) -> dict, combine or None)`` over heap pages, on the
+        planned route."""
         pred = self._predicate()
+        if self._op == "top_k":
+            from ..ops.topk import make_topk_fn
+            col, k, largest = self._topk
+            run = make_topk_fn(self.schema, col, k, largest=largest,
+                               predicate=pred)
+            return run, run.combine
         if self._op == "group_by":
-            from ..ops.groupby_cuda import groupby_pages_cuda
-            _key, g, agg, _hv = self._group
+            _key, g, agg, _having = self._group
             key = self._key()
-            return (lambda pages: groupby_pages_cuda(
-                pages, 0, self.schema, key, g, agg_cols=agg,
-                predicate=pred)), combine_groupby
-        from ..ops.filter_cuda import filter_pages_cuda
-        return (lambda pages: self._project(
-            filter_pages_cuda(pages, 0, self.schema, pred))), None
+            if face == "cuda":
+                from ..ops.groupby_cuda import groupby_pages_cuda
+                return (lambda pages: groupby_pages_cuda(
+                    pages, 0, self.schema, key, g, agg_cols=agg,
+                    predicate=pred)), combine_groupby
+            from ..ops.groupby import make_groupby_fn
+            return make_groupby_fn(self.schema, key, g, agg_cols=agg,
+                                   predicate=pred), combine_groupby
+        if face == "cuda":
+            from ..ops.filter_cuda import filter_pages_cuda
+            return (lambda pages: self._project(
+                filter_pages_cuda(pages, 0, self.schema, pred))), None
+        from ..ops.filter import make_filter_fn
+        run = make_filter_fn(self.schema, pred)
+        return (lambda pages: self._project(run(pages))), None
 
     def run(self, *, device=None, kernel: str = "auto") -> dict:
         """Execute the planned scan and return numpy results.  *device*
-        defaults to ``cuda:0`` (ENODEV without a card; ``"cpu"`` for the
-        plain versions); *kernel* is ``"auto"``, ``"cuda"`` or
-        ``"plain"`` and must fit the device."""
+        defaults to ``cuda:0`` (ENODEV without a card; ``"cpu"`` runs the
+        ``torch`` route on the host); *kernel* is ``"auto"``, ``"cuda"`` or
+        ``"torch"`` (see the module docstring)."""
         from ..hbm.staging import resolve_device
         from .executor import TableScanner
         dev = resolve_device(device)
@@ -298,28 +646,40 @@ class Query:
         if plan.kernel == "invalid":
             raise StromError(_errno.EINVAL, f"query not executable: "
                                             f"{plan.reason}")
+        if self._group_cols is not None:
+            try:
+                self._install_group_keys(self._discover_group_keys(dev), dev)
+            except _GroupSpill:
+                return self._run_groupby_sorted(dev)
+        if self._op == "select":
+            return self._run_select(dev)
+        if self._op == "order_by":
+            return self._run_order_by(dev)
+        if self._op in ("quantiles", "count_distinct"):
+            return self._run_column(dev)
         if plan.pushdown in ("chip", "host"):
             # re-probe: the sidecar may have been retired since EXPLAIN
             probe = self._pushdown_probe()
             if probe is not None and probe[0].mode in ("chip", "host"):
-                return self._run_pushdown(probe[0], probe[1], dev)
-        fn, combine = self._build_fn()
+                return self._run_pushdown(probe[0], probe[1], dev,
+                                          plan.kernel)
+        fn, combine = self._build_fn(plan.kernel)
         with TableScanner(self.source, self.schema) as sc:
             out = sc.scan_filter(fn, device=dev, combine=combine)
         return self._finalize(out)
 
-    def _run_pushdown(self, dec, meta, dev: torch.device) -> dict:
+    def _run_pushdown(self, dec, meta, dev: torch.device, face: str) -> dict:
         """Aggregate over the packed sidecar instead of the heap table.
 
         ``chip``: the ``.cpk`` pages stream to the device unexpanded and
-        the fused decode kernel expands them there, so the link carries
-        packed bytes.  ``host``: packed bytes leave the disk, expand to
-        heap pages on the host, and the heap filter consumes them.
-        Integer sums are byte-identical to the heap scan on both legs.
-        The whole leg is one ``pushdown_decode`` span."""
+        the decode-filter expands them there (B2 on the ``cuda`` route),
+        so the link carries packed bytes.  ``host``: packed bytes leave
+        the disk, expand to heap pages on the host, and the heap filter
+        consumes them.  Integer sums are byte-identical to the heap scan on
+        both legs.  The whole leg is one ``pushdown_decode`` span."""
         t0 = time.monotonic_ns()
         try:
-            return self._run_pushdown_leg(dec, meta, dev)
+            return self._run_pushdown_leg(dec, meta, dev, face)
         finally:
             if _trace.active:
                 _trace.span("pushdown_decode", t0, time.monotonic_ns(),
@@ -328,27 +688,42 @@ class Query:
                                   "wire_bytes": dec.wire_bytes,
                                   "logical_bytes": dec.logical_bytes})
 
-    def _run_pushdown_leg(self, dec, meta, dev: torch.device) -> dict:
+    def _run_pushdown_leg(self, dec, meta, dev: torch.device,
+                          face: str) -> dict:
         from ..engine import open_source
         from .executor import TableScanner, _to_numpy, fold_results
         pred = self._predicate()
         saved = max(meta.logical_bytes / max(meta.packed_bytes, 1) - 1.0,
                     0.0)
         if dec.mode == "chip":
-            from ..ops.decode_cuda import decode_filter_pages_cuda
             need = self._pushdown_need_cols()
+            if face == "cuda":
+                from ..ops.decode_cuda import decode_filter_pages_cuda
+
+                def decode(pages):
+                    return decode_filter_pages_cuda(pages, 0, meta, pred,
+                                                    need_cols=need)
+            else:
+                from ..ops.decode import make_decode_filter_fn
+                decode = make_decode_filter_fn(meta, pred, need_cols=need)
 
             def fn(pages):
                 stats.add("nr_pushdown_decode_chip")
                 stats.add("bytes_wire_saved",
                           int(pages.shape[0] * PAGE_SIZE * saved))
-                return decode_filter_pages_cuda(pages, 0, meta, pred,
-                                                need_cols=need)
+                return decode(pages)
 
             with TableScanner(meta.path) as sc:
                 out = sc.scan_filter(fn, device=dev)
-            return self._finalize(self._project(out) if out else out)
-        from ..ops.filter_cuda import filter_pages_cuda
+            return self._finalize(self._project(out))
+        if face == "cuda":
+            from ..ops.filter_cuda import filter_pages_cuda
+
+            def heap_filter(pages):
+                return filter_pages_cuda(pages, 0, self.schema, pred)
+        else:
+            from ..ops.filter import make_filter_fn
+            heap_filter = make_filter_fn(self.schema, pred)
         from .colpack import decode_pages_numpy
         from .heap import build_pages
         acc = None
@@ -368,31 +743,46 @@ class Query:
                     continue
                 pages = torch.from_numpy(
                     build_pages(cols, self.schema, checksum=False)).to(dev)
-                acc = fold_results(
-                    acc, self._project(filter_pages_cuda(
-                        pages, 0, self.schema, pred)))
+                acc = fold_results(acc, self._project(heap_filter(pages)))
         return self._finalize({} if acc is None else _to_numpy(acc))
 
     def _finalize(self, out: dict) -> dict:
-        """Post-aggregation decoration for group_by: ``avgs`` (sum/count),
-        ``vars``/``stds`` (population variance via E[x²]−E[x]², NaN for
-        empty groups) and HAVING, applied after the cross-batch fold."""
+        """Post-aggregation decoration: for group_by ``avgs`` (sum over
+        the non-NULL count), ``vars``/``stds`` (population variance via
+        E[x²]−E[x]², NaN for empty groups), all-NULL groups' sums/mins/maxs
+        as NaN, HAVING, and ``key_cols`` of a value-keyed GROUP BY; for
+        top_k the values back in the column's dtype."""
+        if self._op == "top_k" and out:
+            dt = self.schema.col_dtype(self._topk[0])
+            return {"values": np.asarray(out["values"]).astype(dt),
+                    "positions": np.asarray(out["positions"])}
         if self._op != "group_by" or not out:
             return out
         having = self._group[3]
         count = np.asarray(out["count"])
         sums = np.asarray(out["sums"])
+        nn = np.asarray(out["nncounts"]) if "nncounts" in out else None
+        base = nn if nn is not None else count
         with np.errstate(divide="ignore", invalid="ignore"):
-            denom = np.maximum(count, 1)
-            avgs = np.where(count > 0, sums / denom, np.nan)
+            denom = np.maximum(base, 1)
+            avgs = np.where(base > 0, sums / denom, np.nan)
         res = {"count": count, "sums": sums,
                "mins": np.asarray(out["mins"]),
                "maxs": np.asarray(out["maxs"]), "avgs": avgs}
+        if nn is not None:
+            res["nncounts"] = nn
+            if (nn == 0).any():
+                # all-NULL groups: SQL's NULL MIN/MAX/SUM, not the
+                # accumulators' identities
+                void = nn == 0
+                for k in ("sums", "mins", "maxs"):
+                    res[k] = np.where(void, np.nan,
+                                      res[k].astype(np.float64))
         sumsqs = np.asarray(out["sumsqs"], dtype=np.float64)
         with np.errstate(divide="ignore", invalid="ignore"):
             # clamp: E[x^2]-E[x]^2 can dip epsilon-negative in floats
             vars_ = np.maximum(
-                np.where(count > 0, sumsqs / denom - np.square(avgs),
+                np.where(base > 0, sumsqs / denom - np.square(avgs),
                          np.nan), 0.0)
         res["sumsqs"] = sumsqs
         res["vars"] = vars_
@@ -407,4 +797,353 @@ class Query:
         res = {k: (v[mask] if v.ndim == 1 else v[..., mask])
                for k, v in res.items()}
         res["groups"] = np.flatnonzero(mask).astype(np.int32)
+        if self._gk_decode is not None:
+            res["key_cols"] = self._gk_decode(res["groups"])
         return res
+
+    # -- the gather the row terminals ride on -------------------------------
+    def _make_gather_fn(self, cols: Sequence[int],
+                        want_positions: bool = True):
+        """Per-batch gather of projected columns (and global positions)
+        with the query predicate folded in: ``(gather, fields, dtypes)``.
+        ``gather(pages)`` compresses the selected rows on the pages' device
+        and returns numpy arrays per field plus ``"n"``, the row count:
+        ``f<i>`` is ``cols[i]``, ``n<i>`` its NULL mask (nullable columns),
+        ``pos`` the positions (last)."""
+        pred = self._predicate()
+        schema = self.schema
+        cols = list(cols)
+        fields = [f"f{i}" for i in range(len(cols))]
+        dtypes = [schema.col_dtype(c) for c in cols]
+        nulls = [i for i, c in enumerate(cols) if schema.col_nullable(c)]
+        fields += [f"n{i}" for i in nulls]
+        dtypes += [np.dtype(bool)] * len(nulls)
+        if want_positions:
+            fields.append("pos")
+            dtypes.append(np.dtype(np.int64))
+
+        def gather(pages: torch.Tensor) -> dict:
+            dcols, valid = decode_pages(pages, schema)
+            m = select_rows(pred, dcols, valid, schema).reshape(-1)
+            out = {"n": int(m.sum())}
+            for i, c in enumerate(cols):
+                out[f"f{i}"] = _host(dcols[c].reshape(-1)[m], dtypes[i])
+            for i in nulls:
+                out[f"n{i}"] = dcols.nulls[cols[i]].reshape(-1)[m] \
+                    .cpu().numpy()
+            if want_positions:
+                out["pos"] = global_row_positions(pages, schema) \
+                    .reshape(-1)[m].cpu().numpy()
+            return out
+
+        return gather, fields, dtypes
+
+    def _collect_rows(self, gather, fields: Sequence[str], dtypes, dev, *,
+                      limit: Optional[int] = None,
+                      offset: int = 0) -> List[np.ndarray]:
+        """Stream the scan through *gather*, keep the selected rows on the
+        host (one concatenation at the end), stop issuing reads once
+        ``offset + limit`` rows are in, and slice.  One array a field."""
+        from .executor import ScanLimitReached
+        stop = None if limit is None else offset + limit
+        chunks = []
+        gathered = 0
+
+        def collect(pages):
+            nonlocal gathered
+            out = gather(pages)
+            chunks.append([out[f] for f in fields])
+            gathered += out["n"]
+            if stop is not None and gathered >= stop:
+                raise ScanLimitReached
+            return {}   # nothing to fold
+
+        self._stream_collect(collect, dev)
+        if chunks:
+            arrs = [np.concatenate([c[i] for c in chunks])
+                    for i in range(len(fields))]
+        else:
+            arrs = [np.zeros(0, dt) for dt in dtypes]
+        return [a[offset:stop] for a in arrs]
+
+    def _stream_collect(self, collect, dev) -> None:
+        from .executor import TableScanner
+        with TableScanner(self.source, self.schema) as sc:
+            sc.scan_filter(collect, device=dev)
+
+    def _run_select(self, dev) -> dict:
+        cols, limit, offset = self._select
+        if cols is None:
+            cols = list(range(self.schema.n_cols))
+        gather, fields, dtypes = self._make_gather_fn(cols)
+        named = dict(zip(fields, self._collect_rows(
+            gather, fields, dtypes, dev, limit=limit, offset=offset)))
+        out = {f"col{c}": named[f"f{i}"] for i, c in enumerate(cols)}
+        for i, c in enumerate(cols):
+            if f"n{i}" in named:    # True = NULL
+                out[f"null{c}"] = named[f"n{i}"]
+        out["positions"] = named["pos"]
+        out["count"] = np.int64(len(out["positions"]))
+        return out
+
+    def _run_order_by(self, dev) -> dict:
+        cols, descending, limit, offset = self._order
+        end = None if limit is None else offset + limit
+        gather, fields, dtypes = self._make_gather_fn(cols)
+        arrs = self._collect_rows(gather, fields, dtypes, dev)
+        keys, poss = arrs[:-1], arrs[-1]
+        vals = keys[0]
+        if len(vals) == 0:
+            return {"values": vals, "positions": poss}
+
+        def sort_key(k):
+            if not descending:
+                return k
+            return -k if k.dtype.kind == "f" else ~k
+        # np.lexsort: the LAST key is primary and the sort is stable, so
+        # reversed keys give ORDER BY cols[0], cols[1], ..., then arrival
+        order = np.lexsort(tuple(sort_key(k)
+                                 for k in reversed(keys)))[offset:end]
+        return {"values": vals[order], "positions": poss[order]}
+
+    @staticmethod
+    def _nearest_ranks(qs, n: int):
+        """Nearest-rank indices into a sorted order of *n* elements."""
+        return [min(n - 1, max(0, int(np.ceil(q * n)) - 1)) for q in qs]
+
+    def _run_column(self, dev) -> dict:
+        """quantiles / count_distinct over the gathered column."""
+        gather, fields, dtypes = self._make_gather_fn(
+            self._order[0], want_positions=False)
+        (vals,) = self._collect_rows(gather, fields, dtypes, dev)
+        if self._op == "count_distinct":
+            # equal_nan=False: each NaN is its own value (IEEE !=)
+            return {"distinct": np.int32(len(
+                np.unique(vals, equal_nan=False)))}
+        qs, n = self._quantiles, len(vals)
+        if n == 0:
+            return {"quantiles": np.full(len(qs), np.nan, np.float64),
+                    "n": np.int64(0)}
+        return {"quantiles": np.sort(vals)[self._nearest_ranks(qs, n)],
+                "n": np.int64(n)}
+
+    def fetch(self, positions, cols: Optional[Sequence[int]] = None, *,
+              device=None, max_batch_pages: int = 4096) -> dict:
+        """Point lookup by global row position: only the pages holding
+        *positions* are read (``engine.read_chunk_ids``, 8 KiB chunks the
+        engine merges into larger requests), decoded on *device*, and the
+        rows gathered in caller order.
+
+        Returns ``{"col<c>": values, "null<c>": NULL masks (nullable
+        columns), "valid": mask}``; ``valid`` is False for a slot past its
+        page's tuple count or invisible.  Duplicates and any order are
+        fine; a position outside the table is ERANGE.  Not a terminal: it
+        works on any Query (e.g. ``top_k`` positions back to full rows)."""
+        from ..engine import Session, open_source, read_chunk_ids
+        from ..hbm.staging import resolve_device
+        if cols is None:
+            cols = list(range(self.schema.n_cols))
+        for c in cols:
+            if not 0 <= c < self.schema.n_cols:
+                raise StromError(_errno.EINVAL, f"fetch column {c} out of "
+                                                f"range")
+        dev = resolve_device(device)
+        pos = np.asarray(positions, np.int64).reshape(-1)
+        t = self.schema.tuples_per_page
+        with open_source(self.source) as src:
+            n_pages = src.size // PAGE_SIZE
+            if len(pos) and (pos.min() < 0 or pos.max() >= n_pages * t):
+                raise StromError(_errno.ERANGE, f"position outside the "
+                                                f"table ({n_pages * t} "
+                                                f"rows)")
+            if not len(pos):
+                out = {f"col{c}": np.zeros(0, self.schema.col_dtype(c))
+                       for c in cols}
+                out["valid"] = np.zeros(0, bool)
+                return out
+            uniq = np.unique(pos // t)          # pages to touch, sorted
+            parts = []
+            with Session() as sess:
+                for b0 in range(0, len(uniq), max_batch_pages):
+                    ids = uniq[b0:b0 + max_batch_pages]
+                    handle, buf = sess.alloc_dma_buffer(len(ids) * PAGE_SIZE)
+                    try:
+                        raw = read_chunk_ids(sess, src, ids, PAGE_SIZE,
+                                             handle, buf.view())
+                        parts.append(np.array(raw).reshape(-1, PAGE_SIZE))
+                    finally:
+                        sess.unmap_buffer(handle)
+                        buf.close()
+        pages = torch.from_numpy(np.concatenate(parts)).to(dev)
+        page_idx = torch.from_numpy(np.searchsorted(uniq, pos // t)).to(dev)
+        slot = torch.from_numpy(pos % t).to(dev)
+        dcols, valid = decode_pages(pages, self.schema)
+        out = {}
+        for c in cols:
+            out[f"col{c}"] = _host(dcols[c][page_idx, slot],
+                                   self.schema.col_dtype(c))
+            if c in dcols.nulls:     # True = NULL
+                out[f"null{c}"] = dcols.nulls[c][page_idx, slot].cpu() \
+                    .numpy()
+        out["valid"] = valid[page_idx, slot].cpu().numpy()
+        return out
+
+    # -- value-keyed GROUP BY -----------------------------------------------
+    def _discover_group_keys(self, dev) -> np.ndarray:
+        """Pass 1 of :meth:`group_by_cols`: the sorted distinct key set of
+        the selected rows (the column's values for one key, packed uint64
+        pairs for two, lex-sorted (g, N) int64 rows for 3-4), by one
+        projection scan.  Past ``max_groups`` raises :class:`_GroupSpill`
+        for 1-2 key columns, ENOMEM for more."""
+        from .index import pack_pair
+        cols_, _agg, _having, max_groups = self._group_cols
+        dts = [self.schema.col_dtype(c) for c in cols_]
+        gather, _f, _d = self._make_gather_fn(cols_, want_positions=False)
+        nk = len(cols_)
+        if nk <= 2:
+            merged = np.zeros(0, np.uint64 if nk == 2 else dts[0])
+        else:
+            merged = np.zeros((0, nk), np.int64)
+
+        def collect(pages):
+            nonlocal merged
+            out = gather(pages)
+            vs = [out[f"f{i}"] for i in range(nk)]
+            if nk == 1:
+                merged = np.union1d(merged, np.unique(vs[0]))
+            elif nk == 2:
+                merged = np.union1d(merged, np.unique(
+                    pack_pair(vs[0], vs[1], dts[0], dts[1])))
+            else:
+                u = np.unique(np.stack([v.astype(np.int64) for v in vs], 1),
+                              axis=0)
+                merged = np.unique(np.concatenate([merged, u]), axis=0)
+            if len(merged) > max_groups:
+                if nk <= 2:
+                    raise _GroupSpill(len(merged))
+                raise StromError(_errno.ENOMEM, f"group_by_cols: more than "
+                                                f"{max_groups} distinct keys "
+                                                f"(raise max_groups, or use "
+                                                f"group_by with a key "
+                                                f"function)")
+            return {}
+
+        self._stream_collect(collect, dev)
+        return merged
+
+    def _install_group_keys(self, discovered: np.ndarray, dev) -> None:
+        """Pass 2's key: ``searchsorted`` ids over the discovered keys (on
+        *dev*), the group count, the empty-group-dropping HAVING, and the
+        decoder of ``key_cols``, all into ``self._group``."""
+        from .index import unpack_first, unpack_second
+        cols_, agg, user_having, _mg = self._group_cols
+        dts = [self.schema.col_dtype(c) for c in cols_]
+
+        def on_dev(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(
+                a.astype(np.int64))).to(dev)
+
+        def rank(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+            return torch.searchsorted(u, v.to(torch.int64).contiguous()) \
+                .clamp_(0, max(u.shape[0] - 1, 0))
+
+        if len(cols_) == 1:
+            keys = discovered.astype(dts[0])
+            g = len(keys)
+            kt = on_dev(keys)
+
+            def key_fn(cols, _threshold):
+                v = cols[cols_[0]]
+                if g == 0:           # empty table: one dropped bucket
+                    return torch.zeros(v.shape, dtype=torch.int64,
+                                       device=v.device)
+                return rank(kt, v)
+
+            n_groups = max(g, 1)
+            self._gk_decode = lambda gids: [keys[gids]]
+        else:
+            if len(cols_) == 2:
+                g = len(discovered)
+                krows = [unpack_first(discovered, dts[0]),
+                         unpack_second(discovered, dts[1])]
+            else:
+                g = len(discovered)
+                krows = [discovered[:, j].astype(dts[j])
+                         for j in range(len(cols_))]
+            uniqs = [np.unique(k) for k in krows]
+            dims = [max(len(u), 1) for u in uniqs]
+            if int(np.prod(dims, dtype=np.float64)) > (1 << 22):
+                raise StromError(_errno.ENOMEM, "group_by_cols: dense rank "
+                                                "table over 4M entries; use "
+                                                "group_by with a key "
+                                                "function")
+            # mixed-radix table: rank tuple -> group id; absent tuples
+            # (and masked rows) land in the sentinel bucket g, which the
+            # count > 0 HAVING drops
+            table = np.full(int(np.prod(dims)), g, np.int64)
+            if g:
+                flat = np.zeros(g, np.int64)
+                for j in range(len(cols_)):
+                    flat = flat * dims[j] + np.searchsorted(uniqs[j],
+                                                            krows[j])
+                table[flat] = np.arange(g)
+            uts, tt = [on_dev(u) for u in uniqs], on_dev(table)
+
+            def key_fn(cols, _threshold):
+                if g == 0:
+                    return torch.zeros(cols[cols_[0]].shape,
+                                       dtype=torch.int64,
+                                       device=cols[cols_[0]].device)
+                flat = None
+                for j, cj in enumerate(cols_):
+                    r = rank(uts[j], cols[cj])
+                    flat = r if flat is None else flat * dims[j] + r
+                return tt[flat]
+
+            n_groups = g + 1
+            self._gk_decode = lambda gids: [k[gids] for k in krows]
+        self._group = (key_fn, n_groups, agg, _hv(user_having))
+
+    def _run_groupby_sorted(self, dev) -> dict:
+        """GROUP BY past ``max_groups``: each batch's selected rows sort
+        by packed key and ``reduceat`` into per-key partials on the host,
+        merged into a running sorted state (O(distinct keys)).  Same
+        result contract as the one-pass GROUP BY, ``key_cols`` included."""
+        from .index import pack_pair, unpack_first, unpack_second
+        cols_, agg, user_having, _mg = self._group_cols
+        agg_idx, agg_dt = _check_agg_cols(self.schema, agg)
+        for c in agg_idx:
+            if self.schema.col_nullable(c):
+                raise StromError(_errno.EINVAL, f"group_by_cols: c{c} is "
+                                                f"nullable and the key set "
+                                                f"exceeded max_groups — "
+                                                f"high-cardinality GROUP BY "
+                                                f"over nullable aggregates "
+                                                f"is outside this subset")
+        acc_np, sq_np, lo, hi = acc_dtypes(agg_dt)
+        dts = [self.schema.col_dtype(c) for c in cols_]
+        acc = _SortedGroupAcc(len(agg_idx), acc_np, sq_np, lo, hi,
+                              self._SPILL_HARD_MAX)
+        gather, _f, _d = self._make_gather_fn(list(cols_) + list(agg_idx),
+                                              want_positions=False)
+        nk = len(cols_)
+
+        def collect(pages):
+            out = gather(pages)
+            ks = [out[f"f{i}"] for i in range(nk)]
+            vals = np.stack([out[f"f{nk + j}"] for j in range(len(agg_idx))])
+            acc.add_batch(ks[0] if nk == 1 else
+                          pack_pair(ks[0], ks[1], dts[0], dts[1]), vals)
+            return {}
+
+        self._stream_collect(collect, dev)
+        st = acc.state()
+        keys = st.pop("keys")
+        self._group = (None, len(keys), agg, _hv(user_having))
+        if nk == 1:
+            kd = keys.astype(dts[0])
+            self._gk_decode = lambda gids: [kd[gids]]
+        else:
+            k0, k1 = unpack_first(keys, dts[0]), unpack_second(keys, dts[1])
+            self._gk_decode = lambda gids: [k0[gids], k1[gids]]
+        return self._finalize(st)

@@ -40,7 +40,8 @@ _SCRIPT = textwrap.dedent("""
                 "parallel.stream", "parallel.shardload", "_native", "trace",
                 "tools.strom_trace", "testing", "testing.trace_gate",
                 "testing.fake", "data", "data.records", "data.loader",
-                "data.checkpoint", "data.dtypes", "tools.strom_ckpt"):
+                "data.checkpoint", "data.dtypes", "tools.strom_ckpt",
+                "ops.topk", "scan.index", "scan.executor"):
         assert pkg.__name__ + "." + mod in names, mod
     import chip_smoke  # noqa: F401
     leaked = [m for m in sys.modules
@@ -75,7 +76,11 @@ _SCRIPT = textwrap.dedent("""
         make_ring_multi_query_scan()
     except StromError as e:
         codes.append(e.errno)
-    assert codes == [errno.ENODEV] * 4, codes
+    try:
+        Query(path, HeapSchema(n_cols=2)).fetch([0])
+    except StromError as e:
+        codes.append(e.errno)
+    assert codes == [errno.ENODEV] * 5, codes
     print("ISOLATED", len(names))
 """)
 

@@ -236,7 +236,7 @@ def test_explain_routing_and_refusals(configs, table):
     plan = Query(path, SCHEMA).group_by(GroupKey(1, 8), 8, agg_cols=[0]) \
         .explain(device="cpu")
     assert (plan.kernel, plan.operator, plan.pushdown) == \
-        ("plain", "group_by", "")
+        ("torch", "group_by", "")
     plan = Query(path, SCHEMA).aggregate([0]).explain(device="cpu",
                                                       kernel="cuda")
     assert plan.kernel == "invalid" and "CUDA" in plan.reason
