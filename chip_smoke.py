@@ -3,9 +3,10 @@
 
 Drives the port's main paths — load, scan, GROUP BY, the packed-sidecar
 (pushdown) aggregate, the multi-host sharded load, the ring scan, the write
-path, the data tier (loader, checkpoints, a training loop) and the query
-engine's torch route and terminals — at full size and holds every CUDA
-kernel of those paths against its plain PyTorch version:
+path, the data tier (loader, checkpoints, a training loop), the query
+engine's torch route and terminals, and its joins, star joins and
+expression aggregates — at full size and holds every CUDA kernel of those
+paths against its plain PyTorch version:
 
 1. environment: the card's name and power limit (``nvidia-smi``);
 2. build: every ``nvme_strom_tpu_torch/csrc/*.cu`` with ``nvcc`` (sm_90a)
@@ -114,7 +115,28 @@ kernel of those paths against its plain PyTorch version:
     of table and bytes read printed, every result against numpy truth
     (integers, positions, orders and keys exact; float32 sums within
     ``1e-4 * sum(|x|) + 1e-6``, float64 within ``1e-12`` of it), and no
-    kernel launched on the torch route.
+    kernel launched on the torch route;
+14. joins, star joins and expression aggregates on the torch route, over
+    [13b]'s lineitem and TPC-H ``part`` (1,000,000 rows, keys shuffled on
+    disk, dbgen's ``p_retailprice``), ``promo`` (its part keys whose
+    ``p_type`` begins with PROMO, a seeded sixth) and ``supplier``
+    (50,000 rows) at SF 5, seeded:
+    a. ``join_table(l_partkey, promo)`` inner, left, semi and anti
+       (broadcast): Q14's promo revenue share;
+    b. the left row face under ``l_quantity <= 2`` (~1.05M rows), and the
+       inner one with ``limit=1000`` (reads within the scan's ring);
+    c. the local Grace join (``join_broadcast_max`` 512 KiB,
+       ``join_build_host_max`` 1 MiB: ``partitioned(n >= 2)``, the build
+       streamed by hash-predicate scans): inner, anti and (b)'s left rows,
+       equal to (a) and (b);
+    d. ``star_join`` over part (inner), supplier (inner) and promo (left)
+       with three expressions (one over the float64 ``l_extendedprice``),
+       and its row face;
+    e. ``aggregate_exprs`` of three expressions, then three EINVAL
+       refusals (a nullable operand, ``kernel="cuda"`` on a join, a star
+       dimension above ``join_broadcast_max``);
+    each as in [13], with the join strategy and GB/s of fact table a scan
+    pass.
 
 Every main path sets the kernels' launch counts to 0 just before it runs
 and reads them just after; each kernel of a path must have launched once
@@ -2207,11 +2229,11 @@ LINEITEM_NAMES = ("l_orderkey", "l_partkey", "l_suppkey", "l_linenumber",
                   "l_quantity", "l_extendedprice", "l_discount", "l_tax")
 
 
-def _timed_query(torch, dev, q, path, table_bytes, label, expect):
+def _timed_query(torch, dev, q, path, table_bytes, label, expect, drop=()):
     """Plan *q*, check it planned the *expect* route, then run it from a
-    cold page cache with every kernel count at 0: prints the route, the
-    reason, the wall time, GB/s of table and the bytes read.  Returns
-    ``(result, plan, seconds, bytes read)``."""
+    cold page cache (of *path* and the files in *drop*) with every kernel
+    count at 0: prints the route, the reason, the wall time, GB/s of table
+    and the bytes read.  Returns ``(result, plan, seconds, bytes read)``."""
     from nvme_strom_tpu_torch.ops import decode_cuda, filter_cuda, \
         groupby_cuda
     from nvme_strom_tpu_torch.stats import stats
@@ -2221,7 +2243,8 @@ def _timed_query(torch, dev, q, path, table_bytes, label, expect):
         raise AssertionError(f"{label}: planned {plan.kernel}, not "
                              f"{expect}: {plan.reason}")
     mods = (filter_cuda, groupby_cuda, decode_cuda)
-    drop_page_cache(path)
+    for p in (path, *drop):
+        drop_page_cache(p)
     for m in mods:
         m.launches = 0
     stats.reset()
@@ -2534,13 +2557,317 @@ def _lineitem_phase(torch, dev, tmp, seed, n_pages):
     print(f"[13b] {label}: no plan (a point lookup), {fetch_s:.3f} s = "
           f"{len(pos) / fetch_s:.0f} rows/s, {read} bytes read "
           f"({pages} pages of {n_pages})")
-    os.unlink(path)
     full = [r for r in rows if r[0] not in ("select(limit=1000)",
                                             "fetch(10,000 positions)")]
     print(f"[13b] every result matches numpy; full-scan terminals "
           f"{min(table_bytes / r[1] for r in full) / 1e9:.3f}-"
           f"{max(table_bytes / r[1] for r in full) / 1e9:.3f} GB/s of "
           f"table")
+    return path, schema, cols, nulls
+
+
+PART_ROWS, SUPP_ROWS = 1_000_000, 50_000     # TPC-H SF 5
+
+
+def _join_tables(tmp, seed):
+    """[14]'s dimension tables at TPC-H SF 5, seeded, written as heap
+    files: ``part`` (p_partkey shuffled on disk, dbgen's p_retailprice,
+    p_size 1..50), ``promo`` (the part keys whose p_type begins with
+    PROMO: dbgen draws the first of six syllables uniformly) and
+    ``supplier`` (s_suppkey shuffled, s_nationkey 0..24, s_acctbal
+    -999.99..9999.99).  Returns ``{name: (path, schema)}`` and the lookup
+    arrays by key: price, is_promo, acctbal."""
+    from nvme_strom_tpu_torch.scan.heap import HeapSchema, build_heap_file
+    rng = np.random.default_rng(seed + 15)
+    pk = rng.permutation(np.arange(1, PART_ROWS + 1, dtype=np.int32))
+    price = ((90000 + (pk // 10) % 20001 + 100 * (pk % 1000)) / 100.0) \
+        .astype(np.float32)
+    size = rng.integers(1, 51, PART_ROWS, dtype=np.int32)
+    promo = rng.integers(0, 6, PART_ROWS) == 5
+    sk = rng.permutation(np.arange(1, SUPP_ROWS + 1, dtype=np.int32))
+    nation = rng.integers(0, 25, SUPP_ROWS, dtype=np.int32)
+    acct = (rng.integers(-99999, 1_000_000, SUPP_ROWS) / 100.0) \
+        .astype(np.float32)
+    tables = {}
+    for name, cols, dts in (
+            ("part", [pk, price, size], ("int32", "float32", "int32")),
+            ("promo", [pk[promo], price[promo]], ("int32", "float32")),
+            ("supplier", [sk, nation, acct], ("int32", "int32", "float32"))):
+        schema = HeapSchema(len(cols), False, dts)
+        t = schema.tuples_per_page
+        pad = (-len(cols[0])) % t
+        if pad:
+            # whole pages: pad rows with keys no lineitem row carries
+            cols = [np.concatenate([c, np.zeros(pad, c.dtype)])
+                    for c in cols]
+            cols[0][-pad:] = -np.arange(1, pad + 1, dtype=np.int32)
+        path = os.path.join(tmp, f"{name}.heap")
+        build_heap_file(path, cols, schema)
+        tables[name] = (path, schema)
+    price_by = np.zeros(PART_ROWS + 1, np.float32)
+    price_by[pk] = price
+    promo_by = np.zeros(PART_ROWS + 1, bool)
+    promo_by[pk[promo]] = True
+    acct_by = np.zeros(SUPP_ROWS + 1, np.float32)
+    acct_by[sk] = acct
+    return tables, price_by, promo_by, acct_by
+
+
+def _join_phase(torch, dev, tmp, seed, path, schema, cols, nulls):
+    """Phase 14: joins, star joins and expression aggregates on the torch
+    route over [13b]'s lineitem and TPC-H part / promo / supplier at SF 5,
+    every result against numpy truth."""
+    import errno
+    from nvme_strom_tpu_torch.api import StromError
+    from nvme_strom_tpu_torch.config import config
+    from nvme_strom_tpu_torch.ops.filter import FilterPred
+    from nvme_strom_tpu_torch.scan.query import Query
+    t0 = time.monotonic()
+    (okey, pkey, skey, lnum, qty, price, disc, tax) = cols
+    n = len(okey)
+    tables, price_by, promo_by, acct_by = _join_tables(tmp, seed)
+    (part, ps), (promo, ms), (supp, ss) = (tables[k] for k in (
+        "part", "promo", "supplier"))
+    dims = [part, promo, supp]
+    table_bytes = os.path.getsize(path)
+    print(f"[14] dimensions (TPC-H SF 5): part {PART_ROWS} rows, promo "
+          f"{int(promo_by.sum())} rows, supplier {SUPP_ROWS} rows "
+          f"({sum(os.path.getsize(p) for p in dims)} bytes), made and "
+          f"written in {time.monotonic() - t0:.1f} s")
+    # stored values: a NULL cell holds 0, and join sums add it as stored
+    stored = [np.where(nulls[c], 0, x) if c in nulls else x
+              for c, x in enumerate(cols)]
+    hit = promo_by[pkey]
+    pay = np.where(hit, price_by[pkey], np.float32(0))
+    rows = []
+
+    def run(q, label, passes=1):
+        res, plan, run_s, read = _timed_query(
+            torch, dev, q, path, table_bytes, f"[14] {label}", "torch",
+            drop=dims)
+        if "no CUDA kernel" not in plan.reason:
+            fail(label, f"the reason names no refusal: {plan.reason}")
+        js = f"join strategy {plan.join_strategy}; " \
+            if plan.join_strategy else ""
+        print(f"      {js}{table_bytes * passes / run_s / 1e9:.3f} GB/s of "
+              f"fact table a scan pass ({passes} pass"
+              f"{'es' if passes > 1 else ''})")
+        rows.append((label, run_s, read, passes))
+        return res, plan
+
+    def fail(label, what):
+        raise AssertionError(f"[14] {label}: {what}")
+
+    def check_sums(label, res, emit, count_key="matched"):
+        if int(res[count_key]) != int(emit.sum()):
+            fail(label, f"{count_key} {int(res[count_key])} vs "
+                        f"{int(emit.sum())}")
+        if int(res["sums"][0]) != int(okey[emit].sum()):
+            fail(label, "l_orderkey int64 sum")
+        for c in (1, 2, 3, 4):
+            if int(np.asarray(res["sums"][c]).view(np.uint32)) != \
+                    int(cols[c][emit].astype(np.int64).sum() & 0xFFFFFFFF):
+                fail(label, f"{LINEITEM_NAMES[c]} int32 sum")
+        if not _f_close(res["sums"][5], price[emit], 1e-12):
+            fail(label, "l_extendedprice float64 sum")
+        for c in (6, 7):
+            if not _f_close(res["sums"][c], stored[c][emit], TRUTH_REL):
+                fail(label, f"{LINEITEM_NAMES[c]} float32 sum")
+
+    def check_join(label, res, how, sel):
+        emit = {"inner": sel & hit, "semi": sel & hit,
+                "anti": sel & ~hit, "left": sel}[how]
+        check_sums(label, res, emit)
+        keys = {"inner": {"payload_sum"}, "left": {"payload_sum",
+                                                   "null_count"}}
+        if set(res) != {"matched", "sums"} | keys.get(how, set()):
+            fail(label, f"result keys {sorted(res)}")
+        if "payload_sum" in res and not _f_close(
+                res["payload_sum"], pay[sel & hit], TRUTH_REL):
+            fail(label, f"payload_sum {float(res['payload_sum'])}")
+        if how == "left" and int(res["null_count"]) != int((sel & ~hit)
+                                                           .sum()):
+            fail(label, "null_count")
+
+    def check_rows(label, res, how, sel, ordered=True):
+        emit = {"inner": sel & hit, "left": sel}[how]
+        idx = np.flatnonzero(emit)
+        got = res["positions"]
+        order = slice(None) if ordered else np.argsort(got)
+        if not np.array_equal(got[order], idx) or \
+                int(res["count"]) != len(idx):
+            fail(label, f"positions ({int(res['count'])} rows, numpy "
+                        f"{len(idx)})")
+        if not (np.array_equal(res["keys"][order], pkey[idx])
+                and np.array_equal(res["payload"][order], pay[idx])):
+            fail(label, "keys or payloads")
+        if how == "left" and not np.array_equal(res["matched"][order],
+                                                hit[idx]):
+            fail(label, "matched")
+
+    everything = np.ones(n, bool)
+    low = qty <= 2
+
+    # a. broadcast aggregate faces: Q14's promo share
+    agg = {}
+    for how in ("inner", "left", "semi", "anti"):
+        label = f"join_table(l_partkey, promo) how={how}"
+        agg[how], plan = run(Query(path, schema).join_table(
+            1, promo, ms, 0, 1, how=how), label)
+        if plan.join_strategy != "broadcast":
+            fail(label, f"planned {plan.join_strategy}")
+        check_join(label, agg[how], how, everything)
+    share = float(agg["inner"]["sums"][5]) / float(price.sum())
+    print(f"      promo revenue share (Q14 without the date and discount "
+          f"terms) {share:.4%}; numpy "
+          f"{price[hit].sum() / price.sum():.4%}")
+
+    # b. broadcast row faces
+    label = "where l_quantity <= 2, join_table(promo, left, materialize)"
+    left_rows, _plan = run(Query(path, schema).where(
+        FilterPred(((4, "le", 2),))).join_table(
+            1, promo, ms, 0, 1, how="left", materialize=True), label)
+    check_rows(label, left_rows, "left", low)
+    print(f"      {int(left_rows['count'])} rows, "
+          f"{int(left_rows['matched'].sum())} with a promo partner")
+    label = "where l_quantity <= 2, join_table(promo, inner, limit=1000)"
+    res, _plan = run(Query(path, schema).where(
+        FilterPred(((4, "le", 2),))).join_table(
+            1, promo, ms, 0, 1, materialize=True, limit=1000), label)
+    ring = int(config.get("chunk_size")) * (
+        int(config.get("async_depth")) + int(config.get("h2d_depth_max"))
+        + 1)
+    # DMA reads: the promo table, under one chunk, is read buffered
+    read = rows[-1][2]
+    if not 0 < read <= ring < table_bytes:
+        fail(label, f"read {read} bytes of lineitem; the ring holds {ring}")
+    idx = np.flatnonzero(low & hit)[:1000]
+    if not (np.array_equal(res["positions"], idx)
+            and np.array_equal(res["payload"], pay[idx])):
+        fail(label, "rows")
+    print(f"      read {read} bytes of lineitem = {read / table_bytes:.2%} "
+          f"(the ring holds {ring}), and the promo table")
+
+    # c. the local Grace join, the build streamed by hash-predicate scans
+    snap = config.snapshot()
+    config.set("join_broadcast_max", 512 << 10)
+    config.set("join_build_host_max", 1 << 20)
+    try:
+        plan = Query(path, schema).join_table(1, promo, ms, 0, 1) \
+            .explain(device=dev)
+        n_parts = int(plan.join_strategy[len("partitioned("):-1]) \
+            if plan.join_strategy.startswith("partitioned(") else 0
+        if n_parts < 2 or "hash-predicate" not in plan.reason:
+            fail("Grace plan", f"{plan.join_strategy}: {plan.reason}")
+        for how in ("inner", "anti"):
+            label = f"Grace join_table(promo) how={how}"
+            res, _plan = run(Query(path, schema).join_table(
+                1, promo, ms, 0, 1, how=how), label, n_parts)
+            check_join(label, res, how, everything)
+            for k in res:
+                pairs = zip(res[k], agg[how][k]) if k == "sums" \
+                    else [(res[k], agg[how][k])]
+                if not all(_f_close(a, [b], TRUTH_REL)
+                           if np.asarray(a).dtype.kind == "f"
+                           else np.array_equal(a, b) for a, b in pairs):
+                    fail(label, f"{k} differs from the broadcast join's")
+        label = "Grace where l_quantity <= 2, join_table(promo, left, " \
+                "materialize)"
+        res, _plan = run(Query(path, schema).where(
+            FilterPred(((4, "le", 2),))).join_table(
+                1, promo, ms, 0, 1, how="left", materialize=True), label,
+            n_parts)
+        check_rows(label, res, "left", low, ordered=False)
+    finally:
+        config.restore(snap)
+
+    # d. a star join over part, supplier and promo
+    star = [dict(probe_col=1, table=part, schema=ps, key_col=0,
+                 value_col=1, how="inner"),
+            dict(probe_col=2, table=supp, schema=ss, key_col=0,
+                 value_col=2, how="inner"),
+            dict(probe_col=1, table=promo, schema=ms, key_col=0,
+                 value_col=1, how="left")]
+    exprs = [("bin", "*", ("col", 4), ("col", 3)),
+             ("bin", "+", ("col", 4), ("lit", 0.5)),
+             ("bin", "/", ("col", 5), ("col", 4))]
+    label = "star_join(part, supplier, promo left) + 3 exprs"
+    res, _plan = run(Query(path, schema).star_join(star, exprs=exprs),
+                     label)
+    check_sums(label, res, everything, "count")
+    if [int(x) for x in res["nncounts"]] != \
+            [n] * 6 + [int((~nulls[6]).sum()), int((~nulls[7]).sum())]:
+        fail(label, "nncounts")
+    if [int(x) for x in res["null_counts"]] != [0, 0, int((~hit).sum())]:
+        fail(label, f"null_counts {res['null_counts']}")
+    for i, want in enumerate((price_by[pkey], acct_by[skey], pay)):
+        if not _f_close(res["pay_sums"][i], want, TRUTH_REL):
+            fail(label, f"pay_sums[{i}]")
+    e0 = (qty * lnum).astype(np.int64).sum() & 0xFFFFFFFF
+    if int(np.asarray(res["esums"][0]).view(np.uint32)) != int(e0) or \
+            not _f_close(res["esums"][1], qty + np.float32(0.5),
+                         TRUTH_REL) \
+            or np.asarray(res["esums"][2]).dtype != np.float64 or \
+            not _f_close(res["esums"][2], price / qty, 1e-12):
+        fail(label, f"esums {res['esums']}")
+    label = "where l_quantity <= 2, star_join rows [l_orderkey, l_quantity]"
+    res, _plan = run(Query(path, schema).where(FilterPred(((4, "le", 2),)))
+                     .star_join(star, materialize=True, fact_cols=[0, 4]),
+                     label)
+    idx = np.flatnonzero(low)
+    want = {"c0": okey[idx], "c4": qty[idx], "pay0": price_by[pkey[idx]],
+            "m0": np.ones(len(idx), bool), "pay1": acct_by[skey[idx]],
+            "m1": np.ones(len(idx), bool), "pay2": pay[idx], "m2": hit[idx],
+            "positions": idx}
+    if set(res) != set(want) | {"count"} or any(
+            not np.array_equal(res[k], v) for k, v in want.items()):
+        fail(label, "rows")
+
+    # e. expression aggregates, then three refusals
+    exprs = [("bin", "-", ("bin", "*", ("col", 4), ("lit", 100)),
+              ("col", 3)),
+             ("bin", "/", ("neg", ("col", 4)), ("lit", 2.0)),
+             ("bin", "*", ("col", 5), ("lit", 2))]
+    label = "aggregate_exprs(3)"
+    res, _plan = run(Query(path, schema).aggregate_exprs(exprs), label)
+    e0 = (qty * 100 - lnum).astype(np.int64).sum() & 0xFFFFFFFF
+    if int(res["count"]) != n or \
+            int(np.asarray(res["esums"][0]).view(np.uint32)) != int(e0) or \
+            not _f_close(res["esums"][1], -qty / np.float32(2.0),
+                         TRUTH_REL) or \
+            not _f_close(res["esums"][2], price * 2.0, 1e-12):
+        fail(label, f"{res}")
+    refusals = []
+    for what, make in (
+            ("an expression over the nullable l_discount",
+             lambda: Query(path, schema).aggregate_exprs(
+                 [("bin", "*", ("col", 6), ("lit", 2.0))])),
+            ("kernel='cuda' on a join",
+             lambda: Query(path, schema).join_table(
+                 1, promo, ms, 0, 1).run(device=dev, kernel="cuda")),
+            ("a star dimension above join_broadcast_max",
+             lambda: Query(path, schema).star_join(star[:1]))):
+        snap = config.snapshot()
+        config.set("join_broadcast_max", 512 << 10)
+        try:
+            make()
+        except StromError as e:
+            if e.errno != errno.EINVAL:
+                raise
+            refusals.append(f"{what}: EINVAL ({str(e)[:60]}...)")
+        else:
+            fail("refusals", f"{what} was not refused")
+        finally:
+            config.restore(snap)
+    for line in refusals:
+        print(f"[14] {line}")
+    gbs = [table_bytes * r[3] / r[1] / 1e9 for r in rows
+           if "limit" not in r[0]]
+    print(f"[14] every result matches numpy; no kernel launched; full-scan "
+          f"queries {min(gbs):.3f}-{max(gbs):.3f} GB/s of fact table a "
+          f"scan pass")
+    for p in dims:
+        os.unlink(p)
 
 
 def main() -> int:
@@ -2903,8 +3230,16 @@ def main() -> int:
         t13 = time.monotonic()
         _route_phase(torch, dev, gb_path, args.seed, args.scan_pages)
         os.unlink(gb_path)
-        _lineitem_phase(torch, dev, tmp, args.seed, args.scan_pages)
+        lineitem = _lineitem_phase(torch, dev, tmp, args.seed,
+                                   args.scan_pages)
         print(f"    [13] took {time.monotonic() - t13:.1f} s")
+
+        # -- joins, star joins and expression aggregates -----------------
+        t14 = time.monotonic()
+        _join_phase(torch, dev, tmp, args.seed, *lineitem)
+        os.unlink(lineitem[0])
+        del lineitem
+        print(f"    [14] took {time.monotonic() - t14:.1f} s")
         print(f"    total {time.monotonic() - t_start:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

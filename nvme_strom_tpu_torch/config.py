@@ -151,6 +151,13 @@ _VARS: Dict[str, _Var] = {
     # host count the multi-host sharded loader plans ownership for
     # (member % shard_hosts); 0 = one host unless a call passes hosts
     "shard_hosts": _Var(0, int, 0, 4096),
+    # largest on-disk join build table loaded whole (one projection scan)
+    # when partitioning it; above it the build streams in one
+    # hash-predicate scan a partition (host RAM bounded to a partition)
+    "join_build_host_max": _Var(256 << 20, int, 1 << 12),
+    # largest build side (keys + values bytes) a join broadcasts; above it
+    # the planner switches to the partitioned (Grace) hash join
+    "join_broadcast_max": _Var(64 << 20, int, 1 << 10),
     # ring permute transport: auto (from the members' device type) |
     # cuda (the hand-written kernel) | plain (PyTorch copies)
     "ici_permute": _Var("auto", str, check=_ici_permute),

@@ -41,7 +41,8 @@ __all__ = ["PAGE_SIZE", "HEAP_MAGIC", "HEADER_BYTES", "HEADER_WORDS",
            "CHECKSUM_WORD", "HeapSchema", "build_pages", "build_heap_file",
            "page_checksums", "crc32c_rows", "pages_from_bytes",
            "read_column", "crc32c", "crc32c_update", "crc32c_impl",
-           "crc32c_update_native", "crc32c_update_py"]
+           "crc32c_update_native", "crc32c_update_py",
+           "validate_heap_header"]
 
 PAGE_SIZE = 8192                  # BLCKSZ, matching the reference
 HEADER_BYTES = 64
@@ -398,6 +399,34 @@ def build_heap_file(path: str, columns: Sequence[np.ndarray],
         f.write(memoryview(pages).cast("B"))
     return len(pages)
 
+
+def validate_heap_header(path: str, schema: HeapSchema) -> None:
+    """One 64-byte read checks the first page header against *schema*:
+    magic, column count (word 3), visibility mode (word 4) and the wide
+    and nullable bitmasks (words 5 and 6), so a wrong column count or a
+    file that is not a heap fails clearly instead of decoding garbled
+    columns.  Raises OSError (unreadable) or ValueError (mismatch)."""
+    with open(path, "rb") as f:
+        head = f.read(HEADER_BYTES)
+    if len(head) < HEADER_BYTES:
+        raise ValueError(f"{path}: not a heap file (short header)")
+    w = np.frombuffer(head, np.int32)
+    if int(w[0]) != HEAP_MAGIC:
+        raise ValueError(f"{path}: bad heap magic "
+                         f"0x{int(w[0]) & 0xffffffff:08x}")
+    if int(w[3]) != schema.n_cols:
+        raise ValueError(f"{path}: file pages carry {int(w[3])} columns, "
+                         f"schema says {schema.n_cols}")
+    vm = 1 if schema.visibility else 0
+    if int(w[4]) != vm:
+        raise ValueError(f"{path}: file visibility_mode {int(w[4])} != "
+                         f"schema's {vm}")
+    if int(w[5]) != schema.wide_mask:
+        raise ValueError(f"{path}: file wide-column mask 0x{int(w[5]):x}"
+                         f" != schema's 0x{schema.wide_mask:x}")
+    if int(w[6]) != schema.null_mask:
+        raise ValueError(f"{path}: file nullable mask 0x{int(w[6]):x} "
+                         f"!= schema's 0x{schema.null_mask:x}")
 
 
 def pages_from_bytes(raw) -> np.ndarray:

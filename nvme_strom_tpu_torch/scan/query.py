@@ -3,10 +3,15 @@
 A port of the JAX package's ``scan/query.py``: one fluent :class:`Query`
 over one heap table file, with a conjunctive ``where``, one terminal
 operator, ``explain``, ``run`` and the point lookup ``fetch``.
-Terminals: ``aggregate``, ``group_by`` (a key descriptor or function),
-``group_by_cols`` (value-keyed, keys discovered by a first scan, a sorted
-spill past ``max_groups``), ``select``, ``top_k``, ``order_by``,
-``quantiles`` and ``count_distinct``.  ``run`` streams the table through
+Terminals: ``aggregate``, ``aggregate_exprs`` (sums of expression
+trees), ``group_by`` (a key descriptor or function), ``group_by_cols``
+(value-keyed, keys discovered by a first scan, a sorted spill past
+``max_groups``), ``select``, ``top_k``, ``order_by``, ``quantiles``,
+``count_distinct``, ``join`` / ``join_table`` (a dimension table from host
+arrays or a heap file: broadcast, or local Grace passes above
+``join_broadcast_max``; inner, left, semi and anti; an aggregate or a row
+face) and ``star_join`` (several dimensions probed in one pass).  ``run``
+streams the table through
 the scan pipeline (:class:`.executor.TableScanner`) and folds or gathers
 each batch on one of two routes, chosen at plan time (``kernel=``):
 
@@ -15,8 +20,10 @@ each batch on one of two routes, chosen at plan time (``kernel=``):
   kernel (B3, ``csrc/groupby.cu``), and the packed sidecar's ``chip``
   pushdown leg through the decode-filter (B2, ``csrc/decode.cu``);
 * ``torch`` — PyTorch ops on the query's device, card or CPU: the plain
-  versions of those kernels, and the gather the row and order terminals
-  ride on.  It is the port's counterpart of the JAX package's XLA route.
+  versions of those kernels, the gather the row and order terminals ride
+  on, and the joins' sorted probes (``ops/join.py``).  It is the port's
+  counterpart of the JAX package's XLA route; no kernel computes a join,
+  a star join or an expression aggregate.
 
 ``auto`` picks ``cuda`` whenever the kernels take the query (their
 ``kernel_refusal`` is empty) and ``torch`` for what they refuse, and the
@@ -28,11 +35,12 @@ Predicates are :class:`~..ops.filter.FilterPred` descriptors (the form the
 kernels take) or callables ``predicate(cols) -> bool``; a term on a
 nullable column never matches a NULL row.  Row positions are int64.
 
-Left out against the JAX package: joins, star joins and expression
-aggregates, the index access paths (``where_eq``/``where_range``/
-``where_in`` and the sidecar shortcut of key discovery), worker
-processes, meshes and ``analyze=``, the VFS access path, strings and the
-SQL facade.
+Left out against the JAX package: the index access paths
+(``where_eq``/``where_range``/``where_in``, index-served joins and the
+sidecar shortcut of key discovery), worker processes (star joins under
+``workers=`` among them), meshes (the mesh partitioned join among them)
+and ``analyze=``, the VFS access path, strings and the SQL facade (its
+``JOIN`` syntax among them).
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from ..ops.filter import FilterPred, decode_pages, global_row_positions, \
     select_rows
 from ..ops.groupby import GroupKey, _check_agg_cols, acc_dtypes, \
     combine_groupby
+from ..ops.join import _VALUE_DTS
 from ..stats import stats
 from .heap import PAGE_SIZE, HeapSchema
 
@@ -60,6 +69,7 @@ __all__ = ["Query", "QueryPlan"]
 _KERNELS = ("auto", "cuda", "torch")
 _ROW_OPS = ("select", "top_k", "order_by", "quantiles", "count_distinct")
 _SORTABLE = (np.dtype(np.int32), np.dtype(np.uint32), np.dtype(np.float32))
+_I32 = np.dtype(np.int32)
 
 
 class _GroupSpill(Exception):
@@ -162,12 +172,13 @@ class _SortedGroupAcc:
 class QueryPlan:
     """What ``run()`` will do, decided before any I/O (EXPLAIN)."""
 
-    operator: str          # aggregate | group_by | select | top_k | ...
+    operator: str          # aggregate | group_by | select | join | ...
     kernel: str            # cuda | torch | invalid
     device: str
     n_pages: int
     reason: str
     pushdown: str = ""     # "" | chip | host | raw (packed-sidecar scan)
+    join_strategy: Optional[str] = None   # broadcast | partitioned(N)
 
     def __str__(self) -> str:
         pd = f", pushdown {self.pushdown}" if self.pushdown else ""
@@ -180,6 +191,18 @@ def _host(t: torch.Tensor, dt: np.dtype) -> np.ndarray:
     """A decoded column (uint32 as int64) back on the host in *dt*."""
     a = t.cpu().numpy()
     return a if a.dtype == dt else a.astype(dt)
+
+
+def _check_build_table(path: str, schema: HeapSchema, what: str) -> None:
+    """The build table's first page header against *schema*: a missing
+    file, a file that is not a heap or a column count that disagrees fails
+    here, with the cause's errno (EINVAL for a mismatch)."""
+    from .heap import validate_heap_header
+    try:
+        validate_heap_header(path, schema)
+    except (OSError, ValueError) as e:
+        raise StromError(getattr(e, "errno", None) or _errno.EINVAL,
+                         f"{what} build table: {e}") from e
 
 
 def _hv(user: Optional[Callable]) -> Callable:
@@ -224,6 +247,14 @@ class Query:
         self._topk: Optional[tuple] = None
         self._order: Optional[tuple] = None
         self._quantiles: Optional[List[float]] = None
+        # (probe_col, build keys, build values, materialize, limit, offset)
+        self._join: Optional[tuple] = None
+        self._join_how = "inner"
+        # on-disk build side: (table, schema, key_col, value_col)
+        self._join_src: Optional[tuple] = None
+        self._agg_exprs: Optional[list] = None
+        self._star: Optional[dict] = None
+        self._star_resolved: Optional[list] = None
 
     # -- builders -----------------------------------------------------------
     def where(self, predicate: Union[FilterPred, Callable]) -> "Query":
@@ -395,6 +426,211 @@ class Query:
         self._order = ([int(col)], False, None, 0)
         return self
 
+    def join(self, probe_col: int, build_keys, build_values, *,
+             materialize: bool = False, limit: Optional[int] = None,
+             offset: int = 0, how: str = "inner") -> "Query":
+        """Terminal: join against a dimension table in host arrays
+        (unique int32 keys, int32/uint32/float32 values).
+
+        *how*: ``"inner"`` (rows with a partner), ``"left"`` (every
+        selected row; unpartnered rows carry payload 0 and a False
+        ``matched``), ``"semi"`` (EXISTS: partnered rows, no payload) or
+        ``"anti"`` (NOT EXISTS).  Every strategy serves every face.
+
+        The aggregate face folds ``matched``, ``sums`` (every fact column),
+        ``payload_sum`` (inner/left) and ``null_count`` (left).
+        ``materialize=True`` returns the rows: ``{"positions", "keys",
+        "count"}`` plus ``payload`` (inner/left) and ``matched`` (left),
+        ``limit``/``offset`` slicing them as :meth:`select` does (the
+        early stop included)."""
+        from ..ops.join import check_join_how
+        self._require_no_terminal()
+        try:
+            check_join_how(how)
+        except ValueError as e:
+            raise StromError(_errno.EINVAL, str(e)) from None
+        if 0 <= int(probe_col) < self.schema.n_cols \
+                and self.schema.col_nullable(int(probe_col)):
+            raise StromError(_errno.EINVAL, f"join probe column c{probe_col} "
+                                            f"is nullable (NULL keys never "
+                                            f"match; outside this subset)")
+        if limit is not None and limit < 0:
+            raise StromError(_errno.EINVAL, "join limit must be >= 0")
+        if offset < 0:
+            raise StromError(_errno.EINVAL, "join offset must be >= 0")
+        if not materialize and (limit is not None or offset):
+            # row slicing means something for rows only
+            raise StromError(_errno.EINVAL, "join limit/offset require "
+                                            "materialize=True")
+        self._terminal("join")
+        self._join = (int(probe_col), build_keys, build_values,
+                      bool(materialize), limit, int(offset))
+        self._join_how = how
+        return self
+
+    def join_table(self, probe_col: int, build_table, build_schema:
+                   HeapSchema, key_col: int, value_col: int, *,
+                   materialize: bool = False, limit: Optional[int] = None,
+                   offset: int = 0, how: str = "inner") -> "Query":
+        """Terminal: :meth:`join` whose build side is a heap table on disk.
+        A build that broadcasts (its keys and values fit ``config
+        join_broadcast_max``) loads with one projection scan and runs as
+        :meth:`join`.  A larger one runs as local Grace passes, one hash
+        partition of the build resident a pass, and is never held whole
+        on the host above ``config join_build_host_max``: each pass loads
+        its partition by a hash-predicate scan of the build table."""
+        if isinstance(build_table, os.PathLike):
+            build_table = str(build_table)
+        # validated before the terminal is claimed: a refused call leaves
+        # the query reusable
+        for c in (key_col, value_col):
+            if not 0 <= int(c) < build_schema.n_cols:
+                raise StromError(_errno.EINVAL, f"join_table column {c} out "
+                                                f"of range")
+        if build_schema.col_dtype(int(key_col)) != _I32:
+            raise StromError(_errno.EINVAL, "join_table key column must be "
+                                            "int32")
+        if build_schema.col_dtype(int(value_col)) not in _VALUE_DTS:
+            raise StromError(_errno.EINVAL, "join_table value column must "
+                                            "be int32/uint32/float32")
+        _check_build_table(build_table, build_schema, "join_table")
+        self.join(probe_col, None, None, materialize=materialize,
+                  limit=limit, offset=offset, how=how)
+        self._join_src = (build_table, build_schema, int(key_col),
+                          int(value_col))
+        return self
+
+    def aggregate_exprs(self, exprs) -> "Query":
+        """Terminal: the selected-row count and masked sums of expression
+        trees over fact columns, SQL's ``SUM(c1 * c2)`` (the grammar and
+        types of :mod:`.sql`): ``{"count", "esums": [one scalar per
+        expression]}``.  Expressions over nullable columns are refused (a
+        NULL operand would make the row's value NULL)."""
+        self._require_no_terminal()
+        exprs = list(exprs)
+        if not exprs:
+            raise StromError(_errno.EINVAL, "aggregate_exprs needs >= 1 "
+                                            "expression")
+        self._check_exprs(exprs)
+        self._terminal("aggregate")
+        self._agg_exprs = exprs
+        return self
+
+    def _check_exprs(self, exprs) -> None:
+        from .sql import _expr_info
+        for e in exprs:
+            _dt, cs = _expr_info(e, self.schema)
+            for c in sorted(cs):
+                if self.schema.col_nullable(c):
+                    raise StromError(_errno.EINVAL, f"SQL: expression "
+                                                    f"aggregates over the "
+                                                    f"nullable c{c} are "
+                                                    f"outside this subset "
+                                                    f"(NULL propagation)")
+
+    def star_join(self, joins, *, materialize: bool = False,
+                  fact_cols: Optional[Sequence[int]] = None,
+                  exprs: Optional[Sequence] = None,
+                  limit: Optional[int] = None, offset: int = 0) -> "Query":
+        """Terminal: probe several dimension tables in one scan pass.
+
+        *joins*: one dict a dimension — ``{"probe_col": fact column (a
+        non-nullable int32), "table": heap path, "schema": HeapSchema,
+        "key_col": its int32 unique-key column, "value_col": payload column
+        or None (semi/anti take none), "how": inner|left|semi|anti}``.
+        Every dimension must fit ``config join_broadcast_max`` (EINVAL
+        otherwise): each loads once and is probed as a sorted broadcast
+        table.
+
+        Aggregate face: ``count``, ``sums`` (every fact column),
+        ``nncounts``, ``pay_sums`` (per dimension, over emitted partnered
+        rows), ``null_counts`` (per dimension, emitted unpartnered rows)
+        and ``esums`` for *exprs* (the :meth:`aggregate_exprs` grammar).
+        ``materialize=True`` returns the rows: the *fact_cols* (``c<c>``),
+        per dimension its payload (``pay<i>``) and partner mask (``m<i>``),
+        ``positions`` and ``count``, sliced by ``limit``/``offset``."""
+        from ..config import config
+        from ..ops.join import check_join_how
+        self._require_no_terminal()
+        joins = [dict(j) for j in joins]
+        if not joins:
+            raise StromError(_errno.EINVAL, "star_join needs >= 1 dimension")
+        cap = int(config.get("join_broadcast_max"))
+        for j in joins:
+            try:
+                check_join_how(j.get("how", "inner"))
+            except ValueError as e:
+                raise StromError(_errno.EINVAL, str(e)) from None
+            j.setdefault("how", "inner")
+            pc = int(j["probe_col"])
+            if not 0 <= pc < self.schema.n_cols:
+                raise StromError(_errno.EINVAL, f"star_join probe column "
+                                                f"{pc} out of range")
+            if self.schema.col_dtype(pc) != _I32 \
+                    or self.schema.col_nullable(pc):
+                raise StromError(_errno.EINVAL, "star_join probe columns "
+                                                "must be non-nullable int32")
+            j["probe_col"] = pc
+            bs = j["schema"]
+            if isinstance(j["table"], os.PathLike):
+                j["table"] = str(j["table"])
+            kc, vc = int(j["key_col"]), j.get("value_col")
+            if not 0 <= kc < bs.n_cols:
+                raise StromError(_errno.EINVAL, f"star_join key column {kc} "
+                                                f"out of range")
+            if bs.col_dtype(kc) != _I32:
+                raise StromError(_errno.EINVAL, "star_join key columns must "
+                                                "be int32")
+            j["key_col"] = kc
+            if vc is not None:
+                vc = int(vc)
+                if not 0 <= vc < bs.n_cols:
+                    raise StromError(_errno.EINVAL, f"star_join value column "
+                                                    f"{vc} out of range")
+                if bs.col_dtype(vc) not in _VALUE_DTS:
+                    raise StromError(_errno.EINVAL, "star_join value columns "
+                                                    "must be int32/uint32/"
+                                                    "float32")
+                if j["how"] in ("semi", "anti"):
+                    raise StromError(_errno.EINVAL, f"star_join: {j['how']} "
+                                                    f"dimensions expose no "
+                                                    f"payload (EXISTS "
+                                                    f"semantics)")
+            j["value_col"] = vc
+            _check_build_table(j["table"], bs, "star_join")
+            rows = (os.path.getsize(j["table"]) // PAGE_SIZE) \
+                * bs.tuples_per_page
+            if rows * 8 > cap:
+                raise StromError(_errno.EINVAL, f"star_join: dimension "
+                                                f"{j['table']} (~{rows} rows)"
+                                                f" is above "
+                                                f"join_broadcast_max — join "
+                                                f"it singly (the partitioned "
+                                                f"path)")
+        exprs = list(exprs or [])
+        self._check_exprs(exprs)
+        if materialize:
+            if limit is not None and limit < 0:
+                raise StromError(_errno.EINVAL, "star_join limit must be "
+                                                ">= 0")
+            if offset < 0:
+                raise StromError(_errno.EINVAL, "star_join offset must be "
+                                                ">= 0")
+            fact_cols = [int(c) for c in (fact_cols or [])]
+            for c in fact_cols:
+                if not 0 <= c < self.schema.n_cols:
+                    raise StromError(_errno.EINVAL, f"star_join fact column "
+                                                    f"{c} out of range")
+        elif limit is not None or offset:
+            raise StromError(_errno.EINVAL, "star_join limit/offset require "
+                                            "materialize=True")
+        self._terminal("star")
+        self._star = {"joins": joins, "materialize": bool(materialize),
+                      "fact_cols": list(fact_cols or []), "exprs": exprs,
+                      "limit": limit, "offset": int(offset)}
+        self._star_resolved = None
+        return self
+
     # -- planning -----------------------------------------------------------
     def _null_guard(self, pred: FilterPred):
         """SQL comparison semantics on nullable columns: NULL cmp x is
@@ -476,6 +712,16 @@ class Query:
                     self._check_sortable_col(c, self._op)
         except StromError as e:
             return str(e)
+        if self._op == "join":
+            pc = self._join[0]
+            if not 0 <= pc < s.n_cols:
+                return (f"join probe column {pc} out of range (schema has "
+                        f"{s.n_cols})")
+            if s.col_dtype(pc) != _I32:
+                return f"join probe column c{pc} must be int32"
+            if self._join_src is None and len(np.unique(
+                    self._join[1])) != len(self._join[1]):
+                return "join build_keys must be unique (a dimension key)"
         bad = []
         if self._op == "aggregate" and self._agg_cols is not None:
             bad = [c for c in self._agg_cols if not 0 <= c < s.n_cols]
@@ -492,6 +738,14 @@ class Query:
     def _cuda_refusal(self, probe=None) -> str:
         """Why the CUDA kernels cannot run this query ('' = they can)."""
         from ..ops import decode_cuda, filter_cuda, groupby_cuda
+        if self._op == "join":
+            return ("a join (searchsorted probes of a sorted build): no CUDA "
+                    "kernel computes it")
+        if self._op == "star":
+            return ("a star join (searchsorted probes of each dimension): no "
+                    "CUDA kernel computes it")
+        if self._agg_exprs is not None:
+            return "expression aggregates: no CUDA kernel computes them"
         if self._op in _ROW_OPS:
             return (f"{self._op} is a row/order terminal: no CUDA kernel "
                     f"computes it")
@@ -518,8 +772,8 @@ class Query:
     def _pushdown_probe(self):
         """``(PushdownDecision, PackedMeta)`` when a fresh packed sidecar
         can serve this aggregate (4-byte non-null layout), else None."""
-        if self._op != "aggregate" or self.schema.has_wide \
-                or any(self.schema.nullable or ()):
+        if self._op != "aggregate" or self._agg_exprs is not None \
+                or self.schema.has_wide or any(self.schema.nullable or ()):
             return None
         from .colpack import probe_packed
         meta = probe_packed(self.source)
@@ -537,6 +791,21 @@ class Query:
                 "predicate + masked sums)")
 
     def _torch_reason(self) -> str:
+        if self._op == "star":
+            n = len(self._star["joins"])
+            face = "row materialization" if self._star["materialize"] \
+                else "additive aggregate"
+            return (f"star join: {n} broadcast dimension"
+                    f"{'s' if n != 1 else ''} probed per batch (sorted "
+                    f"searchsorted probes), {face} face")
+        if self._op == "join":
+            face = "row materialization" if self._join[3] \
+                else "additive aggregate"
+            return (f"join: the sorted build probed by searchsorted per "
+                    f"batch, {face} face")
+        if self._agg_exprs is not None:
+            return (f"{len(self._agg_exprs)} expression aggregate(s): "
+                    f"elementwise + masked sums")
         if self._group_cols is not None:
             return ("value-keyed GROUP BY: the distinct keys discovered by "
                     "one projection scan (the index-sidecar shortcut is not "
@@ -572,8 +841,10 @@ class Query:
         if kernel == "cuda" and refusal:
             why = (f"kernel='cuda': {refusal}; kernel='auto' or 'torch' "
                    f"runs it in PyTorch ops")
+        js = self._join_strategy() if self._op == "join" else None
         if why:
-            return QueryPlan(self._op, "invalid", str(dev), n_pages, why)
+            return QueryPlan(self._op, "invalid", str(dev), n_pages, why,
+                             join_strategy=js and js[0])
         if cuda and kernel != "torch" and not refusal:
             face, reason = "cuda", self._cuda_reason()
         else:
@@ -593,7 +864,53 @@ class Query:
                            "decode_filter_pages (csrc/decode.cu)"
                            if face == "cuda" else
                            "; the packed pages decode in PyTorch ops")
-        return QueryPlan(self._op, face, str(dev), n_pages, reason, pd)
+        if js is not None:
+            reason += (f"; join type {self._join_how}; "
+                       f"{self._strategy_text(js)}")
+        return QueryPlan(self._op, face, str(dev), n_pages, reason, pd,
+                         js and js[0])
+
+    def _join_strategy(self) -> Optional[tuple]:
+        """``(label, n_parts)`` of a join: ``("broadcast", 1)`` while the
+        build side's keys and values fit ``config join_broadcast_max``,
+        else ``("partitioned(N)", N)`` with the partition count that keeps
+        the resident build within it."""
+        from ..config import config
+        if self._join_src is not None:
+            # an on-disk build: 8 bytes a row (two 4-byte columns)
+            bt, bs, _kc, _vc = self._join_src
+            nbytes = (os.path.getsize(bt) // PAGE_SIZE) \
+                * bs.tuples_per_page * 8
+        else:
+            nbytes = np.asarray(self._join[1]).nbytes \
+                + np.asarray(self._join[2]).nbytes
+        cap = int(config.get("join_broadcast_max"))
+        if nbytes <= cap:
+            return "broadcast", 1
+        n = max(2, -(-nbytes // cap))
+        return f"partitioned({n})", n
+
+    def _strategy_text(self, js: tuple) -> str:
+        label, n = js
+        if n == 1:
+            return f"join strategy {label}: the build side on the device " \
+                   f"whole"
+        text = (f"join strategy {label}: build side above "
+                f"join_broadcast_max: {n} hash partitions probed as "
+                f"sequential passes (Grace join), resident build bounded to "
+                f"the cap")
+        if self._join_src is not None:
+            from ..config import config
+            text += "; build side STREAMED from the on-disk table: "
+            if os.path.getsize(self._join_src[0]) \
+                    <= int(config.get("join_build_host_max")):
+                text += ("one projection scan, split by hash on the host "
+                         "(the table is within join_build_host_max)")
+            else:
+                text += (f"one hash-predicate scan a partition, {n} in all "
+                         f"(host RAM bounded to a partition: the table is "
+                         f"above join_build_host_max)")
+        return text
 
     # -- execution ----------------------------------------------------------
     def _project(self, out: dict) -> dict:
@@ -609,6 +926,19 @@ class Query:
         """``(fn(pages) -> dict, combine or None)`` over heap pages, on the
         planned route."""
         pred = self._predicate()
+        if self._op == "join":
+            from ..ops.join import make_join_fn
+            probe_col, bk, bv = self._join[:3]
+            return make_join_fn(self.schema, probe_col, bk, bv,
+                                predicate=pred, how=self._join_how), None
+        if self._op == "star":
+            from ..ops.join import make_star_fn
+            fns, dts = self._expr_parts(self._star["exprs"])
+            return make_star_fn(self.schema, self._star_resolved,
+                                predicate=pred, expr_fns=fns,
+                                expr_dtypes=dts), None
+        if self._agg_exprs is not None:
+            return self._make_expr_fn(pred), None
         if self._op == "top_k":
             from ..ops.topk import make_topk_fn
             col, k, largest = self._topk
@@ -651,6 +981,20 @@ class Query:
                 self._install_group_keys(self._discover_group_keys(dev), dev)
             except _GroupSpill:
                 return self._run_groupby_sorted(dev)
+        if self._op == "join":
+            n_parts = self._join_strategy()[1]
+            if n_parts > 1:
+                return self._run_join_partitioned(dev, n_parts)
+            if self._join_src is not None:
+                # a broadcast-sized build on disk: one projection scan,
+                # then the host-array join
+                self._resolve_join_build(dev)
+            if self._join[3]:
+                return self._run_join_rows(dev)
+        if self._op == "star":
+            self._resolve_star_builds(dev)
+            if self._star["materialize"]:
+                return self._run_star_rows(dev)
         if self._op == "select":
             return self._run_select(dev)
         if self._op == "order_by":
@@ -1147,3 +1491,239 @@ class Query:
             k0, k1 = unpack_first(keys, dts[0]), unpack_second(keys, dts[1])
             self._gk_decode = lambda gids: [k0[gids], k1[gids]]
         return self._finalize(st)
+
+    # -- expression aggregates and joins ------------------------------------
+    def _expr_parts(self, exprs):
+        """``(fns, dtypes)``: each tree's evaluator over decoded columns and
+        its result dtype (the dtype its sum accumulates in)."""
+        from .sql import _eval_expr, _expr_info
+        fns, dts = [], []
+        for e in exprs:
+            fns.append(lambda cols, e=e: _eval_expr(e, cols))
+            dts.append(_expr_info(e, self.schema)[0])
+        return fns, dts
+
+    def _make_expr_fn(self, pred):
+        """The expression-aggregate step: ``{"count", "esums"}`` a batch."""
+        from ..ops.filter import _masked_sum
+        fns, dts = self._expr_parts(self._agg_exprs)
+        schema = self.schema
+
+        def run(pages: torch.Tensor) -> dict:
+            cols, valid = decode_pages(pages, schema)
+            sel = select_rows(pred, cols, valid, schema)
+            return {"count": sel.sum(dtype=torch.int32),
+                    "esums": [_masked_sum(f(cols), sel, dt)
+                              for f, dt in zip(fns, dts)]}
+        return run
+
+    def _resolve_join_build(self, dev) -> None:
+        """Load a broadcast-sized build table (one projection scan) into
+        the host arrays :meth:`join` takes."""
+        bt, bs, kc, vc = self._join_src
+        out = Query(bt, bs).select([kc, vc]).run(device=dev)
+        pc, _bk, _bv, mat, lim, off = self._join
+        self._join = (pc, np.asarray(out[f"col{kc}"], np.int32),
+                      np.asarray(out[f"col{vc}"], bs.col_dtype(vc)),
+                      mat, lim, off)
+        self._join_src = None
+
+    def _resolve_star_builds(self, dev) -> None:
+        """Load every dimension (one projection scan each) and sort it on
+        the host; the join functions move it to the device once."""
+        from ..ops.join import _sorted_build
+        if self._star_resolved is not None:
+            return
+        resolved = []
+        for j in self._star["joins"]:
+            bs, kc, vc = j["schema"], j["key_col"], j["value_col"]
+            cols = [kc] if vc is None or vc == kc else [kc, vc]
+            out = Query(j["table"], bs).select(cols).run(device=dev)
+            bk = np.asarray(out[f"col{kc}"], np.int32)
+            bv = None if vc is None else np.asarray(out[f"col{vc}"],
+                                                    bs.col_dtype(vc))
+            try:
+                keys, vals = _sorted_build(bk, bk if bv is None else bv,
+                                           self.schema, j["probe_col"])
+            except ValueError as e:
+                raise StromError(_errno.EINVAL, f"star_join {j['table']}: "
+                                                f"{e}") from None
+            resolved.append((j["probe_col"], keys,
+                             None if bv is None else vals, j["how"]))
+        self._star_resolved = resolved
+
+    @staticmethod
+    def _rows_gather(run, fields: Sequence[str], dtypes):
+        """A :meth:`_collect_rows` gather over a join row step: its
+        per-row outputs compressed by ``hit`` on the pages' device, then
+        moved to the host."""
+        def gather(pages: torch.Tensor) -> dict:
+            out = run(pages)
+            m = out["hit"]
+            res = {f: _host(out[f][m], dt) for f, dt in zip(fields, dtypes)}
+            res["n"] = len(res[fields[0]])
+            return res
+        return gather
+
+    def _join_value_dtype(self) -> np.dtype:
+        from ..ops.join import _value_dtype
+        if self._join_src is not None:
+            _bt, bs, _kc, vc = self._join_src
+            return bs.col_dtype(vc)
+        return _value_dtype(self._join[2])
+
+    def _join_row_fields(self, how: str):
+        """The row step's outputs the row face keeps under *how*: a face
+        that exposes no payload (semi/anti) or no partner mask (all but
+        left) never moves them to the host."""
+        fields = ["positions", "key"]
+        dtypes = [np.dtype(np.int64), _I32]
+        if how in ("inner", "left"):
+            fields.append("payload")
+            dtypes.append(self._join_value_dtype())
+        if how == "left":
+            fields.append("partner")
+            dtypes.append(np.dtype(bool))
+        return fields, dtypes
+
+    @staticmethod
+    def _join_rows_result(how: str, poss, keyv, payl=None,
+                          partner=None) -> dict:
+        """The row face's result, one contract for every strategy."""
+        out = {"positions": poss, "keys": keyv,
+               "count": np.int64(len(poss))}
+        if how in ("inner", "left"):
+            out["payload"] = payl
+        if how == "left":
+            out["matched"] = np.asarray(partner).astype(bool)
+        return out
+
+    def _run_join_rows(self, dev) -> dict:
+        """SELECT with a broadcast JOIN: each batch probes the build and
+        its emitted rows come back to the host in arrival order."""
+        from ..ops.join import make_join_rows_fn
+        probe_col, bk, bv, _mat, limit, offset = self._join
+        how = self._join_how
+        run = make_join_rows_fn(self.schema, probe_col, bk, bv,
+                                predicate=self._predicate(), how=how)
+        fields, dtypes = self._join_row_fields(how)
+        arrs = self._collect_rows(self._rows_gather(run, fields, dtypes),
+                                  fields, dtypes, dev, limit=limit,
+                                  offset=offset)
+        return self._join_rows_result(how, *arrs)
+
+    def _run_star_rows(self, dev) -> dict:
+        """The star join's row face: the requested fact columns, each
+        dimension's payload and partner mask, and positions."""
+        from ..ops.join import make_star_rows_fn
+        st = self._star
+        run = make_star_rows_fn(self.schema, self._star_resolved,
+                                predicate=self._predicate(),
+                                fact_cols=st["fact_cols"])
+        fields = [f"c{c}" for c in st["fact_cols"]]
+        dtypes = [self.schema.col_dtype(c) for c in st["fact_cols"]]
+        for i, (_pc, _k, vals, _how) in enumerate(self._star_resolved):
+            if vals is not None:
+                fields.append(f"pay{i}")
+                dtypes.append(vals.dtype)
+            fields.append(f"m{i}")
+            dtypes.append(np.dtype(bool))
+        fields.append("positions")
+        dtypes.append(np.dtype(np.int64))
+        arrs = self._collect_rows(self._rows_gather(run, fields, dtypes),
+                                  fields, dtypes, dev, limit=st["limit"],
+                                  offset=st["offset"])
+        out = dict(zip(fields, arrs))
+        out["count"] = np.int64(len(out["positions"]))
+        return out
+
+    def _run_join_partitioned(self, dev, n_parts: int) -> dict:
+        """The local Grace join, for a build side above
+        ``join_broadcast_max``: one scan of the fact table a hash
+        partition of the build, that partition alone on the device.
+        Results add across partitions because every build key lives in
+        exactly one; the left and anti faces restrict each pass to the
+        probe rows whose key the pass owns, so an unpartnered row is
+        emitted once.  Rows come in partition order, then arrival order
+        (unspecified, as SQL without ORDER BY; equal to the broadcast
+        result as a set).  (The JAX package's mesh form, all_to_all over
+        ``parallel/pjoin.py``, waits for the port's meshes.)"""
+        from ..ops.join import (hash_split_build, make_join_fn,
+                                make_join_rows_fn)
+        from .executor import TableScanner, fold_results
+        probe_col, bk, bv, materialize, limit, offset = self._join
+        how = self._join_how
+        pred = self._predicate()
+        own_needed = how in ("left", "anti")
+        if self._join_src is not None:
+            # one partition a pass from the table on disk: a limit that
+            # stops early never reads the build rows of the skipped ones
+            parts = self._streamed_build_partitions(n_parts, dev)
+        else:
+            parts = hash_split_build(bk, bv, n_parts)
+        if materialize:
+            stop = None if limit is None else offset + limit
+            fields, dtypes = self._join_row_fields(how)
+            got_all = [[] for _ in fields]
+            gathered = 0
+            for p, (pk, pv) in enumerate(parts):
+                remaining = None if stop is None else stop - gathered
+                if remaining is not None and remaining <= 0:
+                    break
+                run = make_join_rows_fn(
+                    self.schema, probe_col, pk, pv, predicate=pred, how=how,
+                    owner_part=(n_parts, p) if own_needed else None)
+                got = self._collect_rows(self._rows_gather(run, fields,
+                                                           dtypes),
+                                         fields, dtypes, dev,
+                                         limit=remaining)
+                gathered += len(got[0])
+                for acc, a in zip(got_all, got):
+                    acc.append(a)
+            if got_all[0]:
+                arrs = [np.concatenate(a)[offset:stop] for a in got_all]
+            else:       # limit=0: no partition scanned
+                arrs = [np.zeros(0, dt) for dt in dtypes]
+            return self._join_rows_result(how, *arrs)
+        acc = None
+        for p, (pk, pv) in enumerate(parts):
+            run = make_join_fn(
+                self.schema, probe_col, pk, pv, predicate=pred, how=how,
+                owner_part=(n_parts, p) if own_needed else None)
+            with TableScanner(self.source, self.schema) as sc:
+                acc = fold_results(acc, sc.scan_filter(run, device=dev))
+        # numpy per leaf: the sums list keeps each column's acc dtype
+        return acc or {}
+
+    def _streamed_build_partitions(self, n_parts: int, dev):
+        """Yield the Grace passes' ``(keys, values)`` partitions of the
+        on-disk build.  Within ``join_build_host_max`` the table loads by
+        one projection scan and splits on the host; above it each
+        partition loads by its own hash-predicate scan, host RAM bounded
+        to a partition, with the table's size and mtime checked between
+        passes: a build table changed mid-query fails with EIO instead of
+        counting keys that moved partitions twice."""
+        from ..config import config
+        from ..ops.join import hash_split_build, key_hash32
+        bt, bs, kc, vc = self._join_src
+        if os.path.getsize(bt) <= int(config.get("join_build_host_max")):
+            out = Query(bt, bs).select([kc, vc]).run(device=dev)
+            yield from hash_split_build(
+                np.asarray(out[f"col{kc}"], np.int32),
+                np.asarray(out[f"col{vc}"], bs.col_dtype(vc)), n_parts)
+            return
+
+        def stamp():
+            st = os.stat(bt)
+            return int(st.st_size), int(st.st_mtime_ns)
+
+        s0 = stamp()
+        for p in range(n_parts):
+            part = Query(bt, bs) \
+                .where(lambda cols, p=p: key_hash32(cols[kc]) % n_parts == p) \
+                .select([kc, vc]).run(device=dev)
+            if stamp() != s0:
+                raise StromError(_errno.EIO, f"build table {bt} changed "
+                                             f"between partition passes")
+            yield (np.asarray(part[f"col{kc}"], np.int32),
+                   np.asarray(part[f"col{vc}"], bs.col_dtype(vc)))

@@ -41,7 +41,8 @@ _SCRIPT = textwrap.dedent("""
                 "tools.strom_trace", "testing", "testing.trace_gate",
                 "testing.fake", "data", "data.records", "data.loader",
                 "data.checkpoint", "data.dtypes", "tools.strom_ckpt",
-                "ops.topk", "scan.index", "scan.executor"):
+                "ops.topk", "scan.index", "scan.executor", "ops.join",
+                "scan.sql"):
         assert pkg.__name__ + "." + mod in names, mod
     import chip_smoke  # noqa: F401
     leaked = [m for m in sys.modules
