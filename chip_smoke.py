@@ -4,8 +4,8 @@
 Drives the port's main paths — load, scan, GROUP BY, the packed-sidecar
 (pushdown) aggregate, the multi-host sharded load, the ring scan, the write
 path, the data tier (loader, checkpoints, a training loop), the query
-engine's torch route and terminals, and its joins, star joins and
-expression aggregates — at full size and holds every CUDA kernel of those
+engine's torch route and terminals, its joins, star joins and expression
+aggregates, and its index access paths — at full size and holds every CUDA kernel of those
 paths against its plain PyTorch version:
 
 1. environment: the card's name and power limit (``nvidia-smi``);
@@ -136,7 +136,35 @@ paths against its plain PyTorch version:
        refusals (a nullable operand, ``kernel="cuda"`` on a join, a star
        dimension above ``join_broadcast_max``);
     each as in [13], with the join strategy and GB/s of fact table a scan
-    pass.
+    pass;
+15. the index access paths over TPC-H ``partsupp`` at SF 40 (32,000,000
+    rows as dbgen writes them, in ps_partkey order; dbgen's ps_suppkey
+    over 400,000 suppliers; four 4-byte columns, ~492 MiB), seeded:
+    a. ``build_index`` on ps_suppkey and on (ps_partkey, ps_suppkey), on
+       the card: seconds and bytes, keys and positions equal to numpy's
+       stable argsort; EINVAL for a float column in a composite, a triple,
+       a nullable and an 8-byte key (a one-page lineitem-shaped table);
+    b. each query on its index face and on its seqscan face (the sidecars
+       renamed aside: the plan is direct, the route cuda where B1/B3 take
+       it): where_eq on one supplier (80 scattered rows), on the primary
+       key pair and on ps_partkey alone (the composite's leftmost
+       prefix), where_in over 1,000 suppliers, where_range over 400
+       suppliers with an aggregate (B1), two GROUP BYs (B3), a promo join
+       (both faces), top_k / quantiles / count_distinct, and an index
+       condition with a rechecked residual; the faces equal each other and
+       numpy, the index face launches no kernel, the seqscan faces of the
+       B1 and B3 queries once a batch; the Session a fetch opens beside a
+       point lookup's time;
+    c. the terminals the sidecars serve alone (order_by ascending and
+       descending, top_k, quantiles, count_distinct, WHERE ps_partkey = p
+       ORDER BY ps_suppkey) with 0 table bytes read, the composite
+       order_by with the pages of its head only, and group_by_cols over
+       400,000 suppliers whose key discovery reads 0 table bytes, beside
+       the same query without the sidecar;
+    d. the table's mtime moved: every plan direct, ``open_index`` ESTALE,
+       the results unchanged;
+    each from a cold page cache with its access path, route, reason, wall
+    time, table bytes, sidecar bytes, pages and kernel launches.
 
 Every main path sets the kernels' launch counts to 0 just before it runs
 and reads them just after; each kernel of a path must have launched once
@@ -2870,6 +2898,525 @@ def _join_phase(torch, dev, tmp, seed, path, schema, cols, nulls):
         os.unlink(p)
 
 
+PS_PARTS, PS_SUPPS = 8_000_000, 400_000     # TPC-H partsupp at SF 40
+PARTSUPP_NAMES = ("ps_partkey", "ps_suppkey", "ps_availqty",
+                  "ps_supplycost")
+
+
+def _partsupp_columns(seed):
+    """TPC-H ``partsupp`` at SF 40 as dbgen writes it: ps_partkey
+    ascending, each part's four suppliers in dbgen's order, ``ps_suppkey =
+    (ps_partkey + i * (S/4 + (ps_partkey - 1)/S)) mod S + 1`` (spec 4.2.3),
+    ps_availqty 1..9,999 and ps_supplycost 1.00..1,000.00 (float32),
+    seeded."""
+    rng = np.random.default_rng(seed + 16)
+    p = np.repeat(np.arange(1, PS_PARTS + 1, dtype=np.int64), 4)
+    i = np.tile(np.arange(4, dtype=np.int64), PS_PARTS)
+    s = PS_SUPPS
+    supp = (p + i * (s // 4 + (p - 1) // s)) % s + 1
+    qty = rng.integers(1, 10_000, len(p), dtype=np.int32)
+    cost = (rng.integers(100, 100_001, len(p)) / 100.0).astype(np.float32)
+    return [p.astype(np.int32), supp.astype(np.int32), qty, cost]
+
+
+def _leaves(res):
+    out = {}
+    for k, v in res.items():
+        if isinstance(v, list):
+            for j, x in enumerate(v):
+                out[f"{k}[{j}]"] = np.asarray(x)
+        else:
+            out[k] = np.asarray(v)
+    return out
+
+
+def _index_phase(torch, dev, tmp, seed):
+    """Phase 15: the index access paths over TPC-H partsupp at SF 40 —
+    both sidecars built and held against numpy, each query on its index
+    face and its seqscan face (sidecars renamed aside), the terminals the
+    sidecars serve alone, and the stale sidecars after the table's mtime
+    moves; every result against numpy truth.  Returns the B1 and B3
+    launches of its seqscan faces."""
+    import errno
+    from nvme_strom_tpu_torch.api import StromError
+    from nvme_strom_tpu_torch.config import config
+    from nvme_strom_tpu_torch.engine import Session
+    from nvme_strom_tpu_torch.ops import decode_cuda, filter_cuda, \
+        groupby_cuda
+    from nvme_strom_tpu_torch.ops.filter import FilterPred
+    from nvme_strom_tpu_torch.ops.groupby import GroupKey
+    from nvme_strom_tpu_torch.scan.executor import cursor_chunk_count
+    from nvme_strom_tpu_torch.scan.heap import PAGE_SIZE, HeapSchema, \
+        build_heap_file
+    from nvme_strom_tpu_torch.scan.index import build_index, open_index, \
+        pack_pair
+    from nvme_strom_tpu_torch.scan.query import Query
+    from nvme_strom_tpu_torch.stats import stats
+    from nvme_strom_tpu_torch.tools.common import drop_page_cache
+    i32 = np.dtype(np.int32)
+    t0 = time.monotonic()
+    schema = HeapSchema(4, False, ("int32", "int32", "int32", "float32"))
+    cols = _partsupp_columns(seed)
+    pkey, skey, qty, cost = cols
+    n = len(pkey)
+    path = os.path.join(tmp, "partsupp.heap")
+    build_heap_file(path, cols, schema)
+    table_bytes = os.path.getsize(path)
+    t = schema.tuples_per_page
+    n_pages = table_bytes // PAGE_SIZE
+    n_batches = cursor_chunk_count(table_bytes, int(config.get("chunk_size")))
+    per_supp = np.bincount(skey, minlength=PS_SUPPS + 1)[1:]
+    print(f"[15] partsupp (TPC-H SF 40): {n} rows ({t} a page, {n_pages} "
+          f"pages, {table_bytes} bytes; {', '.join(PARTSUPP_NAMES)}), "
+          f"{PS_PARTS} parts x 4 suppliers of {PS_SUPPS} ({per_supp.min()}-"
+          f"{per_supp.max()} rows a supplier), made and written in "
+          f"{time.monotonic() - t0:.1f} s; {n_batches} scan batches")
+    mods = (filter_cuda, groupby_cuda, decode_cuda)
+    launched = {filter_cuda: 0, groupby_cuda: 0}
+    # a CPU rehearsal plans torch everywhere and launches nothing
+    on_card = dev.type == "cuda"
+
+    def fail(label, what):
+        raise AssertionError(f"[15] {label}: {what}")
+
+    # -- a. build both sidecars -------------------------------------------
+    sidecars = {}
+    for name, col in (("ps_suppkey", 1), ("(ps_partkey, ps_suppkey)",
+                                          (0, 1))):
+        drop_page_cache(path)
+        for m in mods:
+            m.launches = 0
+        stats.reset()
+        t0 = time.monotonic()
+        ip = build_index(path, schema, col, device=dev)
+        build_s = time.monotonic() - t0
+        read = stats.snapshot().get("total_dma_length", 0)
+        if any(m.launches for m in mods):
+            fail(f"build {name}", "a kernel launched")
+        sidecars[col] = ip
+        print(f"[15a] build_index {name}: {build_s:.3f} s, sidecar "
+              f"{os.path.getsize(ip)} bytes ({os.path.getsize(ip) / table_bytes:.2f}"
+              f" x the table), {read} table bytes read")
+    t0 = time.monotonic()
+    order1 = np.argsort(skey, kind="stable")
+    idx1 = open_index(sidecars[1], table_path=path)
+    if not (np.array_equal(idx1.keys, skey[order1])
+            and np.array_equal(idx1.positions, order1)):
+        fail("build ps_suppkey", "keys/positions differ from numpy's stable "
+                                 "argsort")
+    packed = pack_pair(pkey, skey, i32, i32)
+    order2 = np.argsort(packed, kind="stable")
+    idx2 = open_index(sidecars[(0, 1)], table_path=path)
+    if not (np.array_equal(idx2.keys, packed[order2])
+            and np.array_equal(idx2.positions, order2)
+            and idx2.col == (0, 1)):
+        fail("build composite", "keys/positions differ from numpy's stable "
+                                "argsort")
+    del idx1, idx2, packed
+    print(f"      both sidecars equal numpy's stable argsort exactly "
+          f"(checked in {time.monotonic() - t0:.1f} s)")
+    lschema = HeapSchema(8, False, LINEITEM_DTYPES,
+                         nullable=(False,) * 6 + (True, True))
+    lpath = os.path.join(tmp, "lineitem_small.heap")
+    lcols, lnulls = _lineitem_columns(seed, lschema.tuples_per_page)
+    build_heap_file(lpath, lcols, lschema, nulls=lnulls)
+    for label, p_, s_, col in (
+            ("a composite with ps_supplycost (float32)", path, schema,
+             (0, 3)),
+            ("a composite of three columns", path, schema, (0, 1, 2)),
+            ("the nullable l_discount", lpath, lschema, 6),
+            ("the 8-byte l_orderkey", lpath, lschema, 0)):
+        try:
+            build_index(p_, s_, col, device=dev)
+        except StromError as e:
+            if e.errno != errno.EINVAL:
+                raise
+            print(f"[15a] build_index over {label}: EINVAL "
+                  f"({str(e)[:60]}...)")
+            continue
+        fail(f"build {label}", "not refused")
+    os.unlink(lpath)
+
+    # -- b. each query on its index face and its seqscan face -------------
+    rng = np.random.default_rng(seed + 17)
+    s1 = int(rng.integers(1, PS_SUPPS + 1))
+    p2 = int(rng.integers(1, PS_PARTS + 1))
+    r2 = int(rng.integers(0, 4)) + 4 * (p2 - 1)
+    s2 = int(skey[r2])
+    members = rng.choice(PS_SUPPS, 1000, replace=False) + 1
+    lo = int(rng.integers(1, PS_SUPPS - 400 + 2))
+    hi = lo + 399
+    p6 = int(rng.integers(1, PS_PARTS + 1))
+    promo = rng.integers(0, 6, PS_PARTS) == 5
+    pk_promo = np.flatnonzero(promo).astype(np.int32) + 1
+    price_by = ((90000 + (np.arange(PS_PARTS + 1) // 10) % 20001
+                 + 100 * (np.arange(PS_PARTS + 1) % 1000)) / 100.0) \
+        .astype(np.float32)
+    promo_vals = price_by[pk_promo]
+    m1 = skey == s1
+    m2 = np.zeros(n, bool)
+    m2[r2] = True
+    m3 = np.isin(skey, members)
+    m4 = (skey >= lo) & (skey <= hi)
+    m6 = pkey == p6
+    hit = np.zeros(PS_PARTS + 1, bool)
+    hit[pk_promo] = True
+    hit = hit[pkey]
+    m9 = m1 & (qty < 5000)
+    own = sidecars[1]
+    comp = sidecars[(0, 1)]
+
+    def agg_truth(m):
+        return {"count": np.int32(m.sum()),
+                "sums": [np.int64(pkey[m].astype(np.int64).sum()),
+                         np.int64(skey[m].astype(np.int64).sum()),
+                         np.int64(qty[m].astype(np.int64).sum()),
+                         cost[m]]}
+
+    def rows_truth(m):
+        r = np.flatnonzero(m)
+        return {**{f"col{c}": cols[c][r] for c in range(4)},
+                "positions": r, "count": np.int64(len(r))}
+
+    def group_truth(m, agg):
+        g = qty[m] % 64
+        x = cols[agg][m]
+        return {"count": np.bincount(g, minlength=64),
+                "x": [x[g == k] for k in range(64)]}
+
+    def group_mags(m, agg):
+        """Per group sum(|x|) and sum(x^2), and the magnitudes of the
+        averages, variances and deviations derived from them."""
+        g = qty[m] % 64
+        x = cols[agg][m].astype(np.float64)
+        cnt = np.maximum(np.bincount(g, minlength=64), 1)
+        a = np.bincount(g, weights=np.abs(x), minlength=64)
+        q2 = np.bincount(g, weights=x * x, minlength=64)
+        return {"sums": a[None], "sumsqs": q2[None], "avgs": (a / cnt)[None],
+                "vars": (q2 / cnt)[None], "stds": np.sqrt(q2 / cnt)[None]}
+
+    def topk_truth(m, k):
+        r = np.flatnonzero(m)
+        o = np.argsort(-cost[r].astype(np.float64), kind="stable")[:k]
+        return {"values": cost[r][o], "positions": r[o]}
+
+    def quant_truth(m, qs):
+        v = np.sort(cost[m])
+        return {"quantiles": v[Query._nearest_ranks(qs, len(v))],
+                "n": np.int64(len(v))}
+
+    def join_truth(m):
+        e = m & hit
+        return {"matched": np.int32(e.sum()),
+                "sums": agg_truth(e)["sums"],
+                "payload_sum": price_by[pkey[e]]}
+
+    def join_rows_truth(m):
+        r = np.flatnonzero(m & hit)
+        return {"positions": r, "keys": pkey[r],
+                "payload": price_by[pkey[r]], "count": np.int64(len(r))}
+
+    def check_truth(label, res, want):
+        """Integer leaves exact (int sums mod 2^32), float leaves within
+        TRUTH_REL * sum(|x|) + 1e-6 of the float64 sum of their rows."""
+        if "x" in want:      # a GROUP BY: count, sums, mins, maxs
+            if not np.array_equal(res["count"], want["count"]):
+                fail(label, "group counts")
+            for k, red in (("sums", np.sum), ("mins", np.min),
+                           ("maxs", np.max)):
+                for g, x in enumerate(want["x"]):
+                    got = res[k][0][g]
+                    if not len(x):
+                        continue
+                    if x.dtype.kind == "f" and k == "sums":
+                        if not _f_close(got, x, TRUTH_REL):
+                            fail(label, f"group {g} float sum")
+                    elif k == "sums":
+                        if int(np.asarray(got).astype(np.int64)) & \
+                                0xFFFFFFFF != int(x.astype(np.int64)
+                                                  .sum()) & 0xFFFFFFFF:
+                            fail(label, f"group {g} int sum")
+                    elif got != red(x):
+                        fail(label, f"group {g} {k}")
+            return
+        got = _leaves(res)
+        for k, w in _leaves(want).items():
+            if k not in got:
+                fail(label, f"no {k} in {sorted(got)}")
+            g = got[k]
+            if w.dtype.kind == "f" and g.ndim == 0 and w.ndim == 1:
+                if not _f_close(g, w, TRUTH_REL):
+                    fail(label, f"{k} {float(g)} vs {w.astype(np.float64).sum()}")
+            elif w.dtype.kind in "iu" and w.ndim == 0:
+                if int(g.astype(np.int64)) & 0xFFFFFFFF != \
+                        int(w) & 0xFFFFFFFF:
+                    fail(label, f"{k} {int(g)} vs {int(w)}")
+            elif not (g.shape == w.shape and np.array_equal(
+                    g.astype(np.float64), w.astype(np.float64))):
+                fail(label, f"{k} differs ({g.shape} vs {w.shape})")
+
+    def faces_agree(label, a, b, mags):
+        """The index face against the seqscan face: the same keys, dtypes
+        and shapes, integer leaves equal, float leaves within TRUTH_REL *
+        sum(|x|) + 1e-6."""
+        la, lb = _leaves(a), _leaves(b)
+        if sorted(la) != sorted(lb):
+            fail(label, f"faces' keys {sorted(la)} vs {sorted(lb)}")
+        for k in la:
+            x, y = la[k], lb[k]
+            if x.dtype != y.dtype or x.shape != y.shape:
+                fail(label, f"{k}: {x.dtype}{x.shape} vs {y.dtype}{y.shape}")
+            if x.dtype.kind == "f":
+                m = np.asarray(mags.get(k.split("[")[0], 0.0))
+                if not np.all((np.abs(x.astype(np.float64) - y) <= TRUTH_REL
+                               * m + 1e-6) | (np.isnan(x) & np.isnan(y))):
+                    fail(label, f"faces differ in {k}")
+            elif not np.array_equal(x, y):
+                fail(label, f"faces differ in {k}")
+
+    aside = {p: p + ".aside" for p in sidecars.values()}
+
+    def run(q, label, face, sidecar=None, route=None):
+        plan = q.explain(device=dev)
+        want = "index" if face == "index" else "direct"
+        if plan.access_path != want:
+            fail(label, f"{face} face planned {plan.access_path}: "
+                        f"{plan.reason}")
+        if route is not None and on_card and plan.kernel != route:
+            fail(label, f"{face} face planned {plan.kernel}, not {route}")
+        for p in [path] + [p for p in (*sidecars.values(), *aside.values())
+                           if os.path.exists(p)]:
+            drop_page_cache(p)
+        for m in mods:
+            m.launches = 0
+        stats.reset()
+        t0 = time.monotonic()
+        res = q.run(device=dev)
+        run_s = time.monotonic() - t0
+        read = stats.snapshot().get("total_dma_length", 0)
+        lc = {m.__name__.rsplit(".", 1)[-1]: m.launches for m in mods}
+        for m in launched:
+            launched[m] += m.launches
+        return res, plan, run_s, read, lc
+
+    queries = [
+        # (label, make, sidecar read by the index face, seqscan route,
+        #  the seqscan face's kernel, truth, float magnitudes)
+        ("1. where_eq(ps_suppkey, s).select()",
+         lambda q: q.where_eq(1, s1).select(), own, "torch", None,
+         rows_truth(m1), {}),
+        ("2. where_eq((ps_partkey, ps_suppkey), (p, s)).select()",
+         lambda q: q.where_eq((0, 1), (p2, s2)).select(), comp, "torch",
+         None, rows_truth(m2), {}),
+        ("3. where_in(ps_suppkey, 1,000 suppliers).aggregate()",
+         lambda q: q.where_in(1, members).aggregate(), own, "torch", None,
+         agg_truth(m3), {"sums": np.abs(cost[m3]).sum()}),
+        ("4. where_range(ps_suppkey, lo, lo + 399).aggregate()",
+         lambda q: q.where_range(1, lo, hi).aggregate(), own, "cuda",
+         filter_cuda, agg_truth(m4), {"sums": np.abs(cost[m4]).sum()}),
+        ("5a. where_range(...).group_by(availqty % 64, agg availqty)",
+         lambda q: q.where_range(1, lo, hi).group_by(
+             GroupKey(2, mod=64), 64, agg_cols=[2]), own, "cuda",
+         groupby_cuda, group_truth(m4, 2), group_mags(m4, 2)),
+        ("5b. where_range(...).group_by(availqty % 64, agg supplycost)",
+         lambda q: q.where_range(1, lo, hi).group_by(
+             GroupKey(2, mod=64), 64, agg_cols=[3]), own, "cuda",
+         groupby_cuda, group_truth(m4, 3), group_mags(m4, 3)),
+        ("6. where_eq(ps_partkey, p).aggregate() (leftmost prefix)",
+         lambda q: q.where_eq(0, p6).aggregate(), comp, "cuda",
+         filter_cuda, agg_truth(m6), {"sums": np.abs(cost[m6]).sum()}),
+        ("7a. where_eq(ps_suppkey, s).top_k(supplycost, 5)",
+         lambda q: q.where_eq(1, s1).top_k(3, 5), own, "torch", None,
+         topk_truth(m1, 5), {}),
+        ("7b. where_eq(ps_suppkey, s).quantiles(supplycost, .5, .99)",
+         lambda q: q.where_eq(1, s1).quantiles(3, [0.5, 0.99]), own,
+         "torch", None, quant_truth(m1, [0.5, 0.99]), {}),
+        ("7c. where_eq(ps_suppkey, s).count_distinct(ps_partkey)",
+         lambda q: q.where_eq(1, s1).count_distinct(0), own, "torch",
+         None, {"distinct": np.int32(len(np.unique(pkey[m1])))}, {}),
+        ("8a. where_range(...).join(ps_partkey, promo) aggregate",
+         lambda q: q.where_range(1, lo, hi).join(0, pk_promo, promo_vals),
+         own, "torch", None, join_truth(m4),
+         {"sums": np.abs(cost[m4 & hit]).sum(),
+          "payload_sum": price_by[pkey[m4 & hit]].sum()}),
+        ("8b. where_range(...).join(ps_partkey, promo) rows",
+         lambda q: q.where_range(1, lo, hi).join(
+             0, pk_promo, promo_vals, materialize=True), own, "torch",
+         None, join_rows_truth(m4), {}),
+        ("9. where_eq(ps_suppkey, s).where(availqty < 5000).select()",
+         lambda q: q.where_eq(1, s1).where(
+             FilterPred(((2, "lt", 5000),))).select(), own, "torch", None,
+         rows_truth(m9), {}),
+    ]
+    # the fetch opens a Session a call unless one is passed: its cost
+    # beside a point lookup's, measured before the index runners share one
+    opened = []
+    for _ in range(5):
+        t0 = time.monotonic()
+        Session().close()
+        opened.append(time.monotonic() - t0)
+    fetch_ms = []
+    for shared in (False, True):
+        drop_page_cache(path)
+        sess = Session() if shared else None
+        t0 = time.monotonic()
+        Query(path, schema).fetch(np.flatnonzero(m1), device=dev,
+                                  session=sess)
+        fetch_ms.append((time.monotonic() - t0) * 1e3)
+        if sess is not None:
+            sess.close()
+    print(f"[15b] Session() open + close {np.median(opened) * 1e3:.2f} ms "
+          f"(median of 5); fetch of query 1's {int(m1.sum())} positions "
+          f"from a cold cache {fetch_ms[0]:.2f} ms with its own session, "
+          f"{fetch_ms[1]:.2f} ms through an open one (the index runners "
+          f"open one a run)")
+    results = {}
+    for face in ("index", "seqscan"):
+        if face == "seqscan":
+            for p, a in aside.items():
+                os.rename(p, a)
+        for label, make, sc, route, kmod, truth, mags in queries:
+            res, plan, run_s, read, lc = run(
+                make(Query(path, schema)), label, face,
+                route=None if face == "index" else route)
+            if face == "index":
+                if any(lc.values()):
+                    fail(label, f"the index face launched {lc}")
+            elif kmod is not None and on_card:
+                name = kmod.__name__.rsplit(".", 1)[-1]
+                if lc[name] != n_batches or sum(lc.values()) != n_batches:
+                    fail(label, f"seqscan launches {lc}, {n_batches} "
+                                f"batches")
+            elif any(lc.values()):
+                fail(label, f"the torch route launched {lc}")
+            check_truth(f"{label} ({face})", res, truth)
+            results.setdefault(label, {})[face] = res
+            if face == "seqscan":
+                # the engine's count of a scan pass (a tail under one
+                # chunk is read buffered, outside it)
+                scan_bytes = read
+            sbytes = os.path.getsize(sc) if face == "index" else 0
+            print(f"[15b] {label} — {face} face: {plan.access_path} path, "
+                  f"{plan.kernel} route, {run_s:.3f} s, {read} table "
+                  f"bytes ({read // PAGE_SIZE} pages of {n_pages}), "
+                  f"{sbytes} sidecar bytes, launches {lc}")
+            print(f"      reason: {plan.reason}")
+        if face == "seqscan":
+            for p, a in aside.items():
+                os.rename(a, p)
+    for label, make, sc, route, kmod, truth, mags in queries:
+        faces_agree(label, results[label]["index"],
+                    results[label]["seqscan"], mags)
+    print(f"[15b] the index face equals the seqscan face and numpy on "
+          f"every query; the index face launched no kernel; the seqscan "
+          f"faces of 4 and 6 launched B1, of 5a and 5b B3, once a batch")
+
+    # -- c. terminals the sidecars serve alone -----------------------------
+    desc1 = np.argsort(-skey.astype(np.int64), kind="stable")
+    r6 = np.flatnonzero(m6)
+    r6 = r6[np.argsort(skey[r6], kind="stable")]
+    srt = skey[order1]
+    terminals = [
+        ("order_by(ps_suppkey, limit=1000)",
+         lambda q: q.order_by(1, limit=1000), own, 0,
+         {"values": skey[order1[:1000]], "positions": order1[:1000]}),
+        ("order_by(ps_suppkey, descending, limit=1000)",
+         lambda q: q.order_by(1, descending=True, limit=1000), own, 0,
+         {"values": skey[desc1[:1000]], "positions": desc1[:1000]}),
+        ("top_k(ps_suppkey, 10)", lambda q: q.top_k(1, 10), own, 0,
+         {"values": skey[desc1[:10]], "positions": desc1[:10]}),
+        ("quantiles(ps_suppkey, .5, .99)",
+         lambda q: q.quantiles(1, [0.5, 0.99]), own, 0,
+         {"quantiles": srt[Query._nearest_ranks([0.5, 0.99], n)],
+          "n": np.int64(n)}),
+        ("count_distinct(ps_suppkey)", lambda q: q.count_distinct(1), own,
+         0, {"distinct": np.int32(PS_SUPPS)}),
+        ("where_eq(ps_partkey, p).order_by(ps_suppkey)",
+         lambda q: q.where_eq(0, p6).order_by(1), comp, 0,
+         {"values": skey[r6], "positions": r6}),
+        ("order_by([ps_partkey, ps_suppkey], limit=1000)",
+         lambda q: q.order_by([0, 1], limit=1000), comp,
+         len(np.unique(order2[:1000] // t)),
+         {"values": pkey[order2[:1000]], "positions": order2[:1000]}),
+    ]
+    c_results = []
+    for label, make, sc, pages, truth in terminals:
+        res, plan, run_s, read, lc = run(make(Query(path, schema)), label,
+                                         "index")
+        check_truth(label, res, truth)
+        if read != pages * PAGE_SIZE or any(lc.values()):
+            fail(label, f"read {read} table bytes (want {pages} pages), "
+                        f"launches {lc}")
+        c_results.append(res)
+        print(f"[15c] {label}: index path, {run_s:.3f} s, {read} table "
+              f"bytes ({pages} pages), {os.path.getsize(sc)} sidecar "
+              f"bytes, launches {lc}")
+        print(f"      reason: {plan.reason}")
+    gbc = []
+    for with_sidecar in (True, False):
+        if not with_sidecar:
+            os.rename(own, aside[own])
+        q = Query(path, schema).group_by_cols([1], agg_cols=[2],
+                                              max_groups=500_000)
+        res, plan, run_s, read, lc = run(q, "group_by_cols", "seqscan",
+                                         route="torch")
+        if not with_sidecar:
+            os.rename(aside[own], own)
+        if not (np.array_equal(res["key_cols"][0],
+                               np.arange(1, PS_SUPPS + 1, dtype=np.int32))
+                and np.array_equal(res["count"], per_supp)
+                and np.array_equal(res["sums"][0].astype(np.int64),
+                                   np.bincount(skey, weights=qty)[1:]
+                                   .astype(np.int64))):
+            fail("group_by_cols", "groups differ from numpy")
+        gbc.append((res, run_s, read))
+    (res_s, s_s, read_s), (res_d, s_d, read_d) = gbc
+    faces_agree("group_by_cols", res_s, res_d, {})
+    if not (read_s == scan_bytes and read_d == 2 * scan_bytes):
+        fail("group_by_cols", f"read {read_s} with the sidecar, {read_d} "
+                              f"without; a scan pass reads {scan_bytes}")
+    print(f"[15c] group_by_cols([ps_suppkey], agg availqty, max_groups "
+          f"500,000): {PS_SUPPS} groups equal numpy; with the sidecar "
+          f"{s_s:.3f} s, {read_s} table bytes (discovery 0 bytes, "
+          f"{os.path.getsize(own)} sidecar bytes); without it {s_d:.3f} "
+          f"s, {read_d} table bytes (the discovery scan + the GROUP BY "
+          f"scan)")
+
+    # -- d. a moved mtime makes both sidecars stale -------------------------
+    st = os.stat(path)
+    os.utime(path, ns=(st.st_atime_ns, st.st_mtime_ns + 1_000_000_000))
+    for label, make, *_rest in queries + terminals:
+        ap = make(Query(path, schema)).explain(device=dev).access_path
+        if ap != "direct":
+            fail(f"stale {label}", f"planned {ap}")
+    for ip in sidecars.values():
+        try:
+            open_index(ip, table_path=path)
+        except StromError as e:
+            if e.errno != errno.ESTALE:
+                raise
+            continue
+        fail("stale", f"open_index({ip}) did not raise ESTALE")
+    for (label, make, *_r), want in ((queries[0], results[queries[0][0]]
+                                      ["index"]),
+                                     (queries[3], results[queries[3][0]]
+                                      ["index"]),
+                                     (terminals[0], c_results[0])):
+        res, plan, run_s, read, lc = run(make(Query(path, schema)),
+                                         f"stale {label}", "seqscan")
+        faces_agree(f"stale {label}", res, want,
+                    {"sums": np.abs(cost[m4]).sum()})
+        print(f"[15d] stale: {label}: {plan.access_path} path, "
+              f"{plan.kernel} route, {run_s:.3f} s, {read} table bytes, "
+              f"launches {lc}; the result unchanged")
+    print(f"[15d] after os.utime every plan of [15b] and [15c] is direct "
+          f"and open_index(..., table_path=) raises ESTALE for both "
+          f"sidecars")
+    for p in (path, *sidecars.values()):
+        os.unlink(p)
+    return launched[filter_cuda], launched[groupby_cuda]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--load-gib", type=float, default=1.0)
@@ -3240,6 +3787,13 @@ def main() -> int:
         os.unlink(lineitem[0])
         del lineitem
         print(f"    [14] took {time.monotonic() - t14:.1f} s")
+
+        # -- the index access paths ----------------------------------------
+        t15 = time.monotonic()
+        idx_b1, idx_b3 = _index_phase(torch, dev, tmp, args.seed)
+        main_launches += idx_b1
+        gb_launches += idx_b3
+        print(f"    [15] took {time.monotonic() - t15:.1f} s")
         print(f"    total {time.monotonic() - t_start:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -41,7 +41,7 @@ from ..scan.heap import PAGE_SIZE, HeapSchema
 
 __all__ = ["DEFAULT_SCHEMA", "FilterPred", "Cols", "page_words",
            "decode_pages", "select_rows", "global_row_positions",
-           "make_filter_fn", "scan_filter_step", "term_value",
+           "make_filter_fn", "make_filter_fold", "scan_filter_step", "term_value",
            "compare_view"]
 
 #: default demo schema: two int32 data columns + visibility
@@ -296,10 +296,22 @@ def make_filter_fn(schema: HeapSchema,
     column's sum skips its NULL rows, and ``nncounts`` — per-column
     non-NULL selected counts — appears when the schema has nullable
     columns)."""
-    any_null = any(schema.col_nullable(c) for c in range(schema.n_cols))
+    fold = make_filter_fold(schema, predicate)
 
     def run(pages_u8: torch.Tensor, threshold=0) -> dict:
-        cols, valid = decode_pages(pages_u8, schema)
+        return fold(*decode_pages(pages_u8, schema), threshold)
+
+    return run
+
+
+def make_filter_fold(schema: HeapSchema,
+                     predicate: Union[FilterPred, Callable, None]) -> Callable:
+    """The step of :func:`make_filter_fn` on decoded columns: ``fold(cols,
+    valid, threshold=0) -> {"count", "sums"[, "nncounts"]}``, any shape
+    (the index access path folds fetched rows with it)."""
+    any_null = any(schema.col_nullable(c) for c in range(schema.n_cols))
+
+    def fold(cols, valid: torch.Tensor, threshold=0) -> dict:
         sel = select_rows(predicate, cols, valid, schema, threshold)
 
         def colmask(c):
@@ -314,7 +326,7 @@ def make_filter_fn(schema: HeapSchema,
                                for c in range(schema.n_cols)]
         return out
 
-    return run
+    return fold
 
 
 #: the flagship predicate: col0 > threshold

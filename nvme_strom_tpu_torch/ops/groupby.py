@@ -48,7 +48,8 @@ from ..api import StromError
 from ..scan.heap import HeapSchema
 from .filter import FilterPred, decode_pages, select_rows
 
-__all__ = ["GroupKey", "acc_dtypes", "make_groupby_fn", "combine_groupby"]
+__all__ = ["GroupKey", "acc_dtypes", "make_groupby_fn", "make_groupby_fold",
+           "combine_groupby"]
 
 _I32 = np.dtype(np.int32)
 _U32 = np.dtype(np.uint32)
@@ -170,6 +171,23 @@ def make_groupby_fn(schema: HeapSchema,
     of the module's contract.  ``predicate`` is a :class:`FilterPred` or
     ``predicate(cols, threshold) -> bool``; ``threshold`` feeds a term
     whose value is None, and the callables."""
+    fold = make_groupby_fold(schema, key, n_groups, agg_cols=agg_cols,
+                             predicate=predicate)
+
+    def run(pages_u8: torch.Tensor, threshold=0) -> dict:
+        return fold(*decode_pages(pages_u8, schema), threshold)
+
+    return run
+
+
+def make_groupby_fold(schema: HeapSchema,
+                      key: Union[GroupKey, Callable], n_groups: int, *,
+                      agg_cols: Optional[Sequence[int]] = None,
+                      predicate: Union[FilterPred, Callable, None] = None
+                      ) -> Callable:
+    """The step of :func:`make_groupby_fn` on decoded columns:
+    ``fold(cols, valid, threshold=0) -> dict``, any shape (the index
+    access path folds fetched rows with it)."""
     cols_idx, agg_dt = _check_agg_cols(schema, agg_cols)
     G = int(n_groups)
     if G < 1:
@@ -184,13 +202,12 @@ def make_groupby_fn(schema: HeapSchema,
     nullable = [schema.col_nullable(ci) for ci in cols_idx]
     any_null = any(nullable)
 
-    def run(pages_u8: torch.Tensor, threshold=0) -> dict:
-        cols, valid = decode_pages(pages_u8, schema)
+    def fold(cols, valid: torch.Tensor, threshold=0) -> dict:
         ids = key.ids(cols, schema) if isinstance(key, GroupKey) \
             else key(cols, threshold).to(torch.int64)
         sel = valid & (ids >= 0) & (ids < G)
         sel = select_rows(predicate, cols, sel, schema, threshold)
-        dev = pages_u8.device
+        dev = valid.device
         out = {"count": torch.bincount(ids[sel], minlength=G)[:G]
                .to(torch.int32)}
         z64 = torch.zeros(G, dtype=torch.float64, device=dev)
@@ -251,7 +268,7 @@ def make_groupby_fn(schema: HeapSchema,
             out["nncounts"] = torch.stack(nns)
         return out
 
-    return run
+    return fold
 
 
 def _as_i32(t: torch.Tensor) -> torch.Tensor:

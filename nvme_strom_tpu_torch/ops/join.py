@@ -165,16 +165,17 @@ def _select(schema, predicate, pages_u8, threshold):
 
 
 def _join_step(schema, probe_col, build, predicate, how, owner_part,
-               pages_u8, threshold):
-    """The probe of one batch: ``(cols, probe, hit, pay, emit)``."""
-    cols, sel = _select(schema, predicate, pages_u8, threshold)
+               cols, valid, threshold):
+    """The probe of one batch of decoded columns: ``(probe, hit, pay,
+    emit)``."""
+    sel = select_rows(predicate, cols, valid, schema, threshold)
     probe = cols[probe_col]
     own = _owner_mask(probe, owner_part)
     if own is not None:
         sel = sel & own
-    keys, vals = build.on(pages_u8.device)
+    keys, vals = build.on(valid.device)
     hit, pay = _probe(keys, vals, probe, sel)
-    return cols, probe, hit, pay, _emit_mask(how, sel, hit)
+    return probe, hit, pay, _emit_mask(how, sel, hit)
 
 
 def make_join_fn(schema: HeapSchema, probe_col: int,
@@ -192,16 +193,18 @@ def make_join_fn(schema: HeapSchema, probe_col: int,
     EVERY fact column, ``run.sum_cols``, each in its acc dtype);
     inner/left add ``payload_sum`` (matched build values, in their acc
     dtype), left adds ``null_count`` (emitted rows without a partner).
-    ``owner_part``: see :func:`_owner_mask` (Grace passes only)."""
+    ``owner_part``: see :func:`_owner_mask` (Grace passes only).
+    ``run.fold(cols, valid, threshold=0)`` is the same step on decoded
+    columns of any shape (the index access path's fetched rows)."""
     check_join_how(how)
     build = _Build(*_sorted_build(build_keys, build_values, schema,
                                   probe_col))
     sum_cols = list(range(schema.n_cols))
 
-    def run(pages_u8: torch.Tensor, threshold=0) -> dict:
-        cols, _key, hit, pay, emit = _join_step(
-            schema, probe_col, build, predicate, how, owner_part, pages_u8,
-            threshold)
+    def fold(cols, valid: torch.Tensor, threshold=0) -> dict:
+        _key, hit, pay, emit = _join_step(
+            schema, probe_col, build, predicate, how, owner_part, cols,
+            valid, threshold)
         out = {"matched": emit.sum(dtype=torch.int32),
                "sums": [_masked_sum(cols[c], emit, schema.col_dtype(c))
                         for c in sum_cols]}
@@ -211,6 +214,10 @@ def make_join_fn(schema: HeapSchema, probe_col: int,
             out["null_count"] = (emit & ~hit).sum(dtype=torch.int32)
         return out
 
+    def run(pages_u8: torch.Tensor, threshold=0) -> dict:
+        return fold(*decode_pages(pages_u8, schema), threshold)
+
+    run.fold = fold
     run.sum_cols = sum_cols
     return run
 
@@ -223,22 +230,29 @@ def make_join_rows_fn(schema: HeapSchema, probe_col: int,
     ``hit`` (the emit mask), ``partner`` (has a build partner; differs
     from ``hit`` only for left), the probed ``key``, the matched build
     ``payload`` (0 where unpartnered; uint32 as int64) and the rows'
-    global ``positions`` (int64)."""
+    global ``positions`` (int64).  ``run.fold(cols, valid, positions,
+    threshold=0)`` is the same step on decoded columns and their
+    positions."""
     check_join_how(how)
     build = _Build(*_sorted_build(build_keys, build_values, schema,
                                   probe_col))
 
-    def run(pages_u8: torch.Tensor, threshold=0) -> dict:
-        _cols, probe, hit, pay, emit = _join_step(
-            schema, probe_col, build, predicate, how, owner_part, pages_u8,
-            threshold)
+    def fold(cols, valid: torch.Tensor, positions: torch.Tensor,
+             threshold=0) -> dict:
+        probe, hit, pay, emit = _join_step(
+            schema, probe_col, build, predicate, how, owner_part, cols,
+            valid, threshold)
         return {"hit": emit.reshape(-1),
                 "partner": hit.reshape(-1),
                 "key": probe.reshape(-1),
                 "payload": torch.where(hit, pay, _zero(pay)).reshape(-1),
-                "positions": global_row_positions(
-                    pages_u8, schema).reshape(-1)}
+                "positions": positions.reshape(-1)}
 
+    def run(pages_u8: torch.Tensor, threshold=0) -> dict:
+        return fold(*decode_pages(pages_u8, schema),
+                    global_row_positions(pages_u8, schema), threshold)
+
+    run.fold = fold
     return run
 
 

@@ -35,17 +35,33 @@ Predicates are :class:`~..ops.filter.FilterPred` descriptors (the form the
 kernels take) or callables ``predicate(cols) -> bool``; a term on a
 nullable column never matches a NULL row.  Row positions are int64.
 
-Left out against the JAX package: the index access paths
-(``where_eq``/``where_range``/``where_in``, index-served joins and the
-sidecar shortcut of key discovery), worker processes (star joins under
-``workers=`` among them), meshes (the mesh partitioned join among them)
-and ``analyze=``, the VFS access path, strings and the SQL facade (its
-``JOIN`` syntax among them).
+The structured filters ``where_eq`` (a column, or a column pair),
+``where_in`` and ``where_range`` are filters the planner can see.  Their
+seqscan predicate is ``FilterPred`` terms (``where_in``'s is a callable,
+so it runs ``torch``); with a fresh sorted sidecar of :mod:`.index` for
+the column (or a composite one led by it) the plan's ``access_path`` is
+``index``: positions come from the sidecar and only their pages are read
+(:meth:`Query.fetch`), then ``select``, ``aggregate``, ``group_by``,
+``top_k``, ``quantiles``, ``count_distinct`` and ``join`` fold the
+fetched rows in PyTorch ops on the query's device — no kernel runs on
+that path.  A later ``where`` becomes a residual that the index path
+rechecks on the fetched rows.  Unfiltered ``order_by``, ``top_k``,
+``quantiles`` and ``count_distinct`` over an integer column with a fresh
+sidecar read the sidecar alone (``WHERE c0 = v ORDER BY c1`` one span of a
+``(c0, c1)`` sidecar), and ``group_by_cols`` takes its distinct keys from
+one.  A missing, stale or corrupt sidecar means the scan (``direct``).
+
+Left out against the JAX package: worker processes (star joins under
+``workers=`` among them), meshes (the mesh partitioned join and the mesh
+index build among them) and ``analyze=``, the VFS access path, strings and
+the SQL facade (its ``JOIN`` syntax among them).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import errno as _errno
+import math
 import os
 import time
 from dataclasses import dataclass
@@ -179,12 +195,13 @@ class QueryPlan:
     reason: str
     pushdown: str = ""     # "" | chip | host | raw (packed-sidecar scan)
     join_strategy: Optional[str] = None   # broadcast | partitioned(N)
+    access_path: str = "direct"           # direct | index (a sidecar)
 
     def __str__(self) -> str:
         pd = f", pushdown {self.pushdown}" if self.pushdown else ""
-        return (f"{self.operator} scan  [{self.kernel} route on "
-                f"{self.device}{pd}]\n  pages: {self.n_pages}\n"
-                f"  {self.reason}")
+        return (f"{self.operator} scan  [{self.access_path} path, "
+                f"{self.kernel} route on {self.device}{pd}]\n"
+                f"  pages: {self.n_pages}\n  {self.reason}")
 
 
 def _host(t: torch.Tensor, dt: np.dtype) -> np.ndarray:
@@ -255,6 +272,14 @@ class Query:
         self._agg_exprs: Optional[list] = None
         self._star: Optional[dict] = None
         self._star_resolved: Optional[list] = None
+        self._eq: Optional[tuple] = None     # structured equality (col, v)
+        self._range: Optional[tuple] = None  # structured range (col, lo, hi)
+        self._in: Optional[tuple] = None     # structured IN (col, members)
+        # the where() filters after a structured one: the index path's
+        # recheck of the rows it resolves
+        self._residual_terms: tuple = ()
+        self._residual_calls: List[Callable] = []
+        self._prefix_cands: Optional[List[str]] = None
 
     # -- builders -----------------------------------------------------------
     def where(self, predicate: Union[FilterPred, Callable]) -> "Query":
@@ -263,17 +288,191 @@ class Query:
         route).  Chained filters form a conjunction; FilterPred terms
         concatenate (at most 8).  A term on a nullable column never
         selects a NULL row (SQL: NULL compares unknown); a callable sees
-        the NULL masks as ``cols.nulls``."""
+        the NULL masks as ``cols.nulls``.
+
+        After a structured filter (:meth:`where_eq`, :meth:`where_range`,
+        :meth:`where_in`) the predicate is also a residual: the scan
+        applies the conjunction and the index path rechecks the rows the
+        sidecar resolves against it (SQL's Index Cond + Filter), so adding
+        a predicate never demotes an index scan to a seqscan."""
+        structured = self._index_col() is not None
         if isinstance(predicate, FilterPred):
             if any(v is None for _c, _o, v in predicate.terms):
                 raise StromError(_errno.EINVAL, "a Query predicate carries "
                                                 "its values (no None terms)")
             self._terms = FilterPred(self._terms + predicate.terms).terms
+            if structured:
+                self._residual_terms += predicate.terms
         elif callable(predicate):
             self._callables.append(predicate)
+            if structured:
+                self._residual_calls.append(predicate)
         else:
             raise StromError(_errno.EINVAL, "where() takes a FilterPred or "
                                             "a callable")
+        return self
+
+    def _set_structured(self, *, terms=(), calls=(), eq=None, rng=None,
+                        members=None) -> None:
+        """Install exactly one structured filter as the WHOLE filter: its
+        seqscan predicate (*terms*, *calls*) replaces every earlier
+        ``where``, the other structured filters clear, and no residual of
+        an earlier filter survives into the new one's recheck."""
+        self._terms = FilterPred(tuple(terms)).terms
+        self._callables = list(calls)
+        self._eq, self._range, self._in = eq, rng, members
+        self._residual_terms = ()
+        self._residual_calls = []
+
+    def _never(self, col: int) -> tuple:
+        """Terms no row passes (``c >= 1 and c <= 0``; NaN fails both),
+        NULL-guarded like any term on *col*."""
+        dt = self.schema.col_dtype(col)
+        return ((col, "ge", dt.type(1)), (col, "le", dt.type(0)))
+
+    def _check_filter_col(self, col, what: str) -> int:
+        if not isinstance(col, (int, np.integer)) \
+                or not 0 <= col < self.schema.n_cols:
+            raise StromError(_errno.EINVAL, f"{what} column {col} out of "
+                                            f"range")
+        return int(col)
+
+    @staticmethod
+    def _representable(dt: np.dtype, value):
+        """The literal as an exact numpy scalar of *dt*, or None when no
+        such value exists (non-integral or out of range against an integer
+        column: a cast would wrap and change which rows match).  Float
+        columns always cast, so ``0.1`` against float32 is the stored
+        ``float32(0.1)`` on both access paths."""
+        if dt.kind in "iu":
+            f = float(value)
+            if not np.isfinite(f) or f != int(f):
+                return None
+            i = int(value)
+            info = np.iinfo(dt)
+            if not info.min <= i <= info.max:
+                return None
+            return dt.type(i)
+        return dt.type(float(value))
+
+    def where_eq(self, col, value) -> "Query":
+        """Structured equality filter ``col == value``, visible to the
+        planner: with a fresh sorted sidecar of *col* (:func:`.index.
+        build_index`) or a composite one led by *col*, the query runs as an
+        index scan reading only the matching pages; without one it
+        seqscans with the ``FilterPred`` term (the kernels serve it where
+        they take the query).  The literal is normalised to the column
+        dtype first (:meth:`_representable`); one that has no exact
+        representative matches no row on either path.
+
+        *col* may be a pair ``(c0, c1)`` with *value* a pair ``(v0, v1)``
+        (SQL's ``c0 = v0 AND c1 = v1``), one probe of a ``(c0, c1)``
+        sidecar."""
+        if isinstance(col, (tuple, list)):
+            if len(col) != 2 or not isinstance(value, (tuple, list)) \
+                    or len(value) != 2:
+                raise StromError(_errno.EINVAL, "composite where_eq takes a "
+                                                "column PAIR and a value PAIR")
+            c0, c1 = (self._check_filter_col(c, "where_eq") for c in col)
+            v0 = self._representable(self.schema.col_dtype(c0), value[0])
+            v1 = self._representable(self.schema.col_dtype(c1), value[1])
+            if v0 is None or v1 is None:
+                self._set_structured(terms=self._never(c0),
+                                     eq=((c0, c1), None))
+            else:
+                self._set_structured(terms=((c0, "eq", v0), (c1, "eq", v1)),
+                                     eq=((c0, c1), (v0, v1)))
+            return self
+        col = self._check_filter_col(col, "where_eq")
+        v = self._representable(self.schema.col_dtype(col), value)
+        if v is None:
+            self._set_structured(terms=self._never(col), eq=(col, None))
+        else:
+            self._set_structured(terms=((col, "eq", v),), eq=(col, v))
+        return self
+
+    def where_in(self, col: int, values) -> "Query":
+        """Structured membership filter ``col IN values``, visible to the
+        planner like :meth:`where_eq` (the sidecar resolves every member).
+        Members with no exact representative in the column dtype, and NaN
+        members, match no row and drop out; no member left matches no row.
+        The seqscan predicate is a callable (``torch.isin``): no kernel
+        takes a list of values."""
+        col = self._check_filter_col(col, "where_in")
+        dt = self.schema.col_dtype(col)
+        reps = [self._representable(dt, v) for v in values]
+        members = np.unique(np.array([r for r in reps if r is not None],
+                                     dt))
+        if dt.kind == "f":
+            members = members[~np.isnan(members)]
+        if len(members) == 0:
+            self._set_structured(terms=self._never(col),
+                                 members=(col, members))
+            return self
+        # the decoded form of the column: uint32 decodes as int64
+        dec = members.astype(np.int64) if dt == np.dtype(np.uint32) \
+            else members
+        nullable = self.schema.col_nullable(col)
+        on_dev = {}
+
+        def isin(cols):
+            v = cols[col]
+            m = on_dev.get(v.device)
+            if m is None:
+                m = on_dev[v.device] = torch.from_numpy(dec).to(v.device)
+            sel = torch.isin(v, m)
+            return sel & ~cols.nulls[col] if nullable else sel
+
+        self._set_structured(calls=[isin], members=(col, members))
+        return self
+
+    def where_range(self, col: int, lo=None, hi=None) -> "Query":
+        """Structured range filter ``lo <= col <= hi`` (either bound None
+        for open-ended), visible to the planner like :meth:`where_eq`.
+        Bounds are normalised so the sidecar's searchsorted and the
+        seqscan's terms agree: cast to the column dtype on a float column;
+        on an integer column a fractional bound tightens (7.5 means ">= 8"
+        or "<= 7") and a bound outside the dtype clamps to open, or to "no
+        row" where nothing can pass it.  NaN rows never match."""
+        col = self._check_filter_col(col, "where_range")
+        if lo is None and hi is None:
+            raise StromError(_errno.EINVAL, "where_range needs at least one "
+                                            "bound")
+        dt = self.schema.col_dtype(col)
+        never = False
+        if dt.kind == "f":
+            nlo = None if lo is None else dt.type(float(lo))
+            nhi = None if hi is None else dt.type(float(hi))
+        else:
+            info = np.iinfo(dt)
+            nlo = nhi = None
+            if lo is not None:
+                if float(lo) > info.max:
+                    never = True           # nothing can be >= lo
+                else:
+                    ilo = int(math.ceil(float(lo)))
+                    if ilo > info.min:
+                        nlo = dt.type(min(ilo, info.max))
+            if hi is not None and not never:
+                if float(hi) < info.min:
+                    never = True           # nothing can be <= hi
+                else:
+                    ihi = int(math.floor(float(hi)))
+                    if ihi < info.max:
+                        nhi = dt.type(max(ihi, info.min))
+        if never:
+            # an empty range encodes "never": lo > hi on both paths
+            nlo, nhi = dt.type(1), dt.type(0)
+        terms = []
+        if nlo is not None:
+            terms.append((col, "ge", nlo))
+        if nhi is not None:
+            terms.append((col, "le", nhi))
+        if not terms:
+            # both bounds clamped open: every non-NULL row (the term keeps
+            # the NULL guard)
+            terms.append((col, "ge", dt.type(np.iinfo(dt).min)))
+        self._set_structured(terms=terms, rng=(col, nlo, nhi))
         return self
 
     def _require_no_terminal(self) -> None:
@@ -314,10 +513,10 @@ class Query:
                       having: Optional[Callable] = None,
                       max_groups: int = 1 << 16) -> "Query":
         """Terminal: SQL ``GROUP BY col[, col2, ...]`` over column VALUES.
-        Two passes: one projection scan discovers the sorted distinct key
-        set, then the GROUP BY runs on the ``torch`` route with
-        ``searchsorted`` key ids over it.  (The JAX package first tries a
-        fresh index sidecar at zero table I/O; sidecars are not ported.)
+        Two passes: the sorted distinct key set is discovered first (from
+        a fresh sidecar of :mod:`.index` on exactly the key columns with no
+        table I/O, else by one projection scan), then the GROUP BY runs on
+        the ``torch`` route with ``searchsorted`` key ids over it.
 
         Result: :meth:`group_by`'s plus ``key_cols``, one array per key
         column aligned with the surviving groups.  Groups that select no
@@ -653,13 +852,17 @@ class Query:
             return sel
         return guarded
 
-    def _predicate(self):
-        """The conjunction: a FilterPred, or a callable ``(cols, th)``
+    def _predicate(self, terms: Optional[tuple] = None,
+                   calls: Optional[list] = None):
+        """The conjunction of *terms* and *calls* (the query's whole
+        filter by default): a FilterPred, or a callable ``(cols, th)``
         when a callable joined it or a term needs its NULL guard."""
-        pred = self._null_guard(FilterPred(self._terms))
-        if not self._callables:
+        terms = self._terms if terms is None else terms
+        calls = list(self._callables if calls is None else calls)
+        pred = self._null_guard(FilterPred(terms))
+        if not calls:
             return pred
-        schema, calls = self.schema, list(self._callables)
+        schema = self.schema
 
         def conj(cols, threshold):
             sel = select_rows(pred, cols, torch.ones(
@@ -807,10 +1010,10 @@ class Query:
             return (f"{len(self._agg_exprs)} expression aggregate(s): "
                     f"elementwise + masked sums")
         if self._group_cols is not None:
-            return ("value-keyed GROUP BY: the distinct keys discovered by "
-                    "one projection scan (the index-sidecar shortcut is not "
-                    "ported), then searchsorted key ids; past max_groups a "
-                    "sorted spill; empty groups dropped")
+            return ("value-keyed GROUP BY: the distinct keys discovered "
+                    "first (a fresh sidecar's keys at zero table I/O, else "
+                    "one projection scan), then searchsorted key ids; past "
+                    "max_groups a sorted spill; empty groups dropped")
         if self._op == "group_by":
             return (f"GROUP BY into {self._group[1]} groups: decode + "
                     f"bincount/index_add/scatter_reduce")
@@ -836,7 +1039,10 @@ class Query:
         why = self._invalid()
         if not why and kernel == "cuda" and not cuda:
             why = "the CUDA kernels need a CUDA device"
-        probe = None if why else self._pushdown_probe()
+        # the index branches plan only a query that is otherwise valid; a
+        # sidecar-served plan reads no packed sidecar
+        index_why = None if why else self._index_plan()
+        probe = None if why or index_why else self._pushdown_probe()
         refusal = self._cuda_refusal(probe) if cuda and not why else ""
         if kernel == "cuda" and refusal:
             why = (f"kernel='cuda': {refusal}; kernel='auto' or 'torch' "
@@ -867,8 +1073,195 @@ class Query:
         if js is not None:
             reason += (f"; join type {self._join_how}; "
                        f"{self._strategy_text(js)}")
+        if index_why:
+            return QueryPlan(self._op, face, str(dev), n_pages,
+                             f"{index_why}; the scan's route without the "
+                             f"sidecar: {reason}", pd, js and js[0],
+                             access_path="index")
         return QueryPlan(self._op, face, str(dev), n_pages, reason, pd,
                          js and js[0])
+
+    # -- the index access paths ---------------------------------------------
+    def _index_col(self):
+        """The column (or pair) a structured filter targets, or None."""
+        for f in (self._eq, self._range, self._in):
+            if f is not None:
+                return f[0]
+        return None
+
+    def _has_residual(self) -> bool:
+        return bool(self._residual_terms or self._residual_calls)
+
+    def _order_key(self):
+        """(order columns, sidecar key) of the ordered terminal: the one
+        derivation explain() and run() share."""
+        ocols = [self._topk[0]] if self._op == "top_k" else self._order[0]
+        okey = ocols[0] if len(ocols) == 1 else tuple(ocols[:2])
+        return ocols, okey
+
+    def _eq_order_combo_path(self) -> Optional[str]:
+        """The composite sidecar path serving ``WHERE c0 = v ORDER BY c1``
+        (a single-column structured equality, no residual, and an
+        ``order_by`` of one other integer column), or None.  A residual
+        disqualifies it: the span is read off the sidecar unchecked."""
+        if (self._op != "order_by" or self._eq is None
+                or self._has_residual()
+                or isinstance(self._eq[0], (tuple, list))):
+            return None
+        oc = self._order[0]
+        if len(oc) != 1:
+            return None
+        ce, c1 = int(self._eq[0]), int(oc[0])
+        if ce == c1:
+            return None
+        for c in (ce, c1):
+            if not 0 <= c < self.schema.n_cols \
+                    or self.schema.col_dtype(c).kind not in "iu":
+                return None
+        from .index import index_path_for
+        return index_path_for(self.source, (ce, c1))
+
+    def _order_index_path(self) -> Optional[str]:
+        """The sidecar path that can serve an unfiltered ordered terminal
+        by itself — ``order_by`` (the index order is the answer),
+        ``top_k`` (its head or tail), ``quantiles`` (nearest-rank reads),
+        ``count_distinct`` (adjacent differences) — over one integer
+        column, or the pair of a composite sidecar for ``order_by``.
+        Float sidecars leave NaN keys out, so they cannot stand for the
+        column's full row set."""
+        if (self._op not in ("order_by", "quantiles", "count_distinct",
+                             "top_k")
+                or self._terms or self._callables):
+            return None
+        cols, _okey = self._order_key()
+        want = (1, 2) if self._op == "order_by" else (1,)
+        if len(cols) not in want:
+            return None
+        for c in cols:
+            if not 0 <= c < self.schema.n_cols \
+                    or self.schema.col_dtype(c).kind not in "iu":
+                return None
+        from .index import index_path_for
+        return index_path_for(self.source,
+                              cols[0] if len(cols) == 1 else tuple(cols))
+
+    def _index_path_candidates(self) -> List[str]:
+        """Sidecars that could serve the structured filter, preferred
+        first: the filter column's own, then (single-column filters) any
+        composite whose FIRST column is the filter column — SQL's
+        leftmost-prefix rule.  The directory glob runs once a Query."""
+        col = self._index_col()
+        if col is None:
+            return []
+        from .index import index_path_for
+        out = [index_path_for(self.source, col)]
+        if not isinstance(col, (tuple, list)):
+            if self._prefix_cands is None:
+                import glob
+                import re
+                # the table path escaped (metacharacters stay literal),
+                # and only the exact .idx<c0>_<c1> shape: never .tmp
+                # litter or lookalikes
+                pat = glob.escape(self.source) + f".idx{int(col)}_*"
+                rx = re.compile(re.escape(self.source)
+                                + rf"\.idx{int(col)}_\d+$")
+                self._prefix_cands = sorted(p for p in glob.glob(pat)
+                                            if rx.fullmatch(p))
+            out += self._prefix_cands
+        return out
+
+    def _index_fresh_for_eq(self) -> bool:
+        """Header-only probe of the candidates (no key load: EXPLAIN stays
+        cheap), each validated against its header's column field."""
+        from .index import probe_index
+        col = self._index_col()
+        return any(probe_index(p, self.source, expect_col=col)
+                   for p in self._index_path_candidates())
+
+    def _index_for_eq(self):
+        """A fresh sidecar serving the structured filter, or None (a
+        missing, stale or corrupt one means the scan).  The header is
+        authoritative, not the filename: a sidecar built for other
+        columns under this name never serves the filter."""
+        from .index import open_index
+        col = self._index_col()
+        want = tuple(col) if isinstance(col, (tuple, list)) else col
+        for ipath in self._index_path_candidates():
+            try:
+                idx = open_index(ipath, table_path=self.source)
+            except Exception:       # corrupt sidecars too
+                continue
+            if idx.col == want or (idx.composite
+                                   and not isinstance(want, tuple)
+                                   and idx.col[0] == want):
+                return idx
+        return None
+
+    def _index_runs(self) -> bool:
+        """Whether the structured-filter index runners serve this query:
+        expression aggregates never ride the index (they have no fold on
+        fetched rows), and a partitioned-sized on-disk join build keeps
+        join_table's bounded host memory through the scan's Grace
+        passes."""
+        if self._op not in ("select", "aggregate", "top_k", "quantiles",
+                            "count_distinct", "group_by", "join"):
+            return False
+        if self._agg_exprs is not None:
+            return False
+        return not (self._op == "join" and self._join_src is not None
+                    and self._join_strategy()[1] > 1)
+
+    def _index_plan(self) -> str:
+        """The index reason of EXPLAIN, or '' when no sidecar serves the
+        query: the composite span of ``WHERE c0 = v ORDER BY c1``, an
+        ordered terminal read off the sidecar, or the structured filter's
+        index scan."""
+        from .index import probe_index
+        comb = self._eq_order_combo_path()
+        if comb is not None and self._eq[1] is not None:
+            ce, oc = int(self._eq[0]), int(self._order[0][0])
+            if probe_index(comb, self.source, expect_col=(ce, oc)):
+                return (f"fresh composite index on col({ce}, {oc}): WHERE "
+                        f"col{ce} = ... ORDER BY col{oc} is ONE "
+                        f"pinned-prefix span of the sidecar (keys within "
+                        f"the prefix are already in col{oc} order) — no "
+                        f"sort, no table I/O")
+        oip = self._order_index_path()
+        if oip is not None:
+            ocols, okey = self._order_key()
+            # exact header match, no prefix: these terminals read the
+            # keys as values
+            if probe_index(oip, self.source, expect_col=okey,
+                           allow_prefix=False):
+                what = {
+                    "order_by": "the sorted order IS the index order — "
+                                "positions read from the sidecar, no "
+                                "sort, and LIMIT reads only the head",
+                    "quantiles": "nearest-rank reads of the sorted "
+                                 "sidecar keys — no table I/O at all",
+                    "count_distinct": "adjacent-diff over the sorted "
+                                      "sidecar keys — no table I/O at all",
+                    "top_k": "the k best keys are the sidecar's "
+                             "head/tail — no scan, no table I/O",
+                }[self._op]
+                return f"fresh index on col{ocols}: {what}"
+        if not self._index_runs() or not self._index_fresh_for_eq():
+            return ""
+        if self._eq is not None:
+            c, v = self._eq
+            cond = f"equality col{c} == {v!r}"
+        elif self._in is not None:
+            c, members = self._in
+            cond = f"membership col{c} IN ({len(members)} values)"
+        else:
+            c, lo, hi = self._range
+            cond = f"range {lo!r} <= col{c} <= {hi!r}"
+        recheck = ("" if not self._has_residual() else
+                   " + residual filter RECHECKED on index-resolved rows "
+                   "(Index Cond + Filter)")
+        return (f"fresh index on col{c}: {cond} resolves positions from "
+                f"the sidecar and reads only matching pages{recheck}; the "
+                f"fetched rows fold in PyTorch ops, no kernel")
 
     def _join_strategy(self) -> Optional[tuple]:
         """``(label, n_parts)`` of a join: ``("broadcast", 1)`` while the
@@ -981,6 +1374,11 @@ class Query:
                 self._install_group_keys(self._discover_group_keys(dev), dev)
             except _GroupSpill:
                 return self._run_groupby_sorted(dev)
+        if plan.access_path == "index":
+            out = self._run_index(dev)
+            if out is not None:
+                return out
+            plan = self._replan_scan(plan)
         if self._op == "join":
             n_parts = self._join_strategy()[1]
             if n_parts > 1:
@@ -1011,6 +1409,64 @@ class Query:
         with TableScanner(self.source, self.schema) as sc:
             out = sc.scan_filter(fn, device=dev, combine=combine)
         return self._finalize(out)
+
+    @staticmethod
+    def _replan_scan(plan: QueryPlan) -> QueryPlan:
+        """The sidecar EXPLAIN promised went away (or went stale or
+        corrupt) before run(): the scan, on the plan's route."""
+        return dataclasses.replace(
+            plan, access_path="direct",
+            reason=plan.reason + "; the sidecar went away before run(): "
+                                 "direct scan")
+
+    def _open_exact(self, path: Optional[str], key):
+        """The fresh sidecar at *path* whose header names exactly *key*,
+        or None."""
+        from .index import open_index
+        if path is None:
+            return None
+        try:
+            idx = open_index(path, table_path=self.source)
+        except Exception:       # raced away, stale or corrupt
+            return None
+        return idx if idx.col == key else None
+
+    def _run_index(self, dev) -> Optional[dict]:
+        """run()'s index dispatch; None when the sidecar went away between
+        EXPLAIN and now (the caller scans instead)."""
+        from ..engine import Session
+        if self._op == "order_by" and self._eq is not None:
+            comb = self._eq_order_combo_path()
+            idx = None if comb is None else self._open_exact(
+                comb, (int(self._eq[0]), int(self._order[0][0])))
+            return None if idx is None else self._run_order_by_prefix(idx)
+        if self._op in ("order_by", "quantiles", "count_distinct",
+                        "top_k") and self._index_col() is None:
+            idx = self._open_exact(self._order_index_path(),
+                                   self._order_key()[1])
+            if idx is None:
+                return None
+            return {"order_by": self._run_order_by_indexed,
+                    "quantiles": self._run_quantiles_sidecar,
+                    "top_k": self._run_topk_sidecar,
+                    "count_distinct": self._run_count_distinct_sidecar,
+                    }[self._op](idx, dev)
+        # one runner an op: an op without one here falls to the (always
+        # correct) scan, never to another op's result shape
+        runner = {"select": self._run_select_indexed,
+                  "top_k": self._run_topk_indexed,
+                  "quantiles": self._run_column_indexed,
+                  "count_distinct": self._run_column_indexed,
+                  "aggregate": self._run_aggregate_indexed,
+                  "group_by": self._run_groupby_indexed,
+                  "join": self._run_join_indexed,
+                  }.get(self._op) if self._index_runs() else None
+        idx = None if runner is None else self._index_for_eq()
+        if idx is None:
+            return None
+        # one engine session for every fetch of the run
+        with Session() as sess:
+            return runner(idx, dev, sess)
 
     def _run_pushdown(self, dec, meta, dev: torch.device, face: str) -> dict:
         """Aggregate over the packed sidecar instead of the heap table.
@@ -1260,6 +1716,10 @@ class Query:
         gather, fields, dtypes = self._make_gather_fn(
             self._order[0], want_positions=False)
         (vals,) = self._collect_rows(gather, fields, dtypes, dev)
+        return self._column_result(vals)
+
+    def _column_result(self, vals: np.ndarray) -> dict:
+        """quantiles / count_distinct of the selected column values."""
         if self._op == "count_distinct":
             # equal_nan=False: each NaN is its own value (IEEE !=)
             return {"distinct": np.int32(len(
@@ -1272,18 +1732,19 @@ class Query:
                 "n": np.int64(n)}
 
     def fetch(self, positions, cols: Optional[Sequence[int]] = None, *,
-              device=None, max_batch_pages: int = 4096) -> dict:
+              device=None, session=None, max_batch_pages: int = 4096) -> dict:
         """Point lookup by global row position: only the pages holding
         *positions* are read (``engine.read_chunk_ids``, 8 KiB chunks the
         engine merges into larger requests), decoded on *device*, and the
-        rows gathered in caller order.
+        rows gathered in caller order.  *session* is an open
+        :class:`..engine.Session` to read through (one is opened and
+        closed for the call otherwise).
 
         Returns ``{"col<c>": values, "null<c>": NULL masks (nullable
         columns), "valid": mask}``; ``valid`` is False for a slot past its
         page's tuple count or invisible.  Duplicates and any order are
         fine; a position outside the table is ERANGE.  Not a terminal: it
         works on any Query (e.g. ``top_k`` positions back to full rows)."""
-        from ..engine import Session, open_source, read_chunk_ids
         from ..hbm.staging import resolve_device
         if cols is None:
             cols = list(range(self.schema.n_cols))
@@ -1293,21 +1754,44 @@ class Query:
                                                 f"range")
         dev = resolve_device(device)
         pos = np.asarray(positions, np.int64).reshape(-1)
+        dcols, valid = self._fetch_rows(pos, cols, dev, session,
+                                        max_batch_pages)
+        if not len(pos):
+            out = {f"col{c}": np.zeros(0, self.schema.col_dtype(c))
+                   for c in cols}
+            out["valid"] = np.zeros(0, bool)
+            return out
+        out = {}
+        for c in cols:
+            out[f"col{c}"] = _host(dcols[c].reshape(-1),
+                                   self.schema.col_dtype(c))
+            if c in dcols.nulls:     # True = NULL
+                out[f"null{c}"] = dcols.nulls[c].reshape(-1).cpu().numpy()
+        out["valid"] = valid.reshape(-1).cpu().numpy()
+        return out
+
+    def _fetch_rows(self, pos: np.ndarray, cols: Optional[Sequence[int]],
+                    dev, session=None, max_batch_pages: int = 4096):
+        """The rows at *pos* (int64, any order) decoded on *dev*:
+        ``(Cols, valid)`` with (1, n) tensors in the decoded form the scan
+        steps take (uint32 as int64), ``None`` for a column not in *cols*
+        (None = all), and the NULL masks of the fetched nullable columns.
+        Only the pages holding *pos* are read."""
+        from ..engine import Session, open_source, read_chunk_ids
+        from ..ops.filter import Cols
         t = self.schema.tuples_per_page
+        want = range(self.schema.n_cols) if cols is None else set(cols)
         with open_source(self.source) as src:
             n_pages = src.size // PAGE_SIZE
             if len(pos) and (pos.min() < 0 or pos.max() >= n_pages * t):
                 raise StromError(_errno.ERANGE, f"position outside the "
                                                 f"table ({n_pages * t} "
                                                 f"rows)")
-            if not len(pos):
-                out = {f"col{c}": np.zeros(0, self.schema.col_dtype(c))
-                       for c in cols}
-                out["valid"] = np.zeros(0, bool)
-                return out
             uniq = np.unique(pos // t)          # pages to touch, sorted
             parts = []
-            with Session() as sess:
+            sess = session if session is not None or not len(uniq) \
+                else Session()
+            try:
                 for b0 in range(0, len(uniq), max_batch_pages):
                     ids = uniq[b0:b0 + max_batch_pages]
                     handle, buf = sess.alloc_dma_buffer(len(ids) * PAGE_SIZE)
@@ -1318,30 +1802,337 @@ class Query:
                     finally:
                         sess.unmap_buffer(handle)
                         buf.close()
-        pages = torch.from_numpy(np.concatenate(parts)).to(dev)
+            finally:
+                if sess is not session:
+                    sess.close()
+        # no position: one blank page gives the decoded columns' dtypes
+        pages = torch.from_numpy(np.concatenate(parts) if parts else
+                                 np.zeros((1, PAGE_SIZE), np.uint8)).to(dev)
         page_idx = torch.from_numpy(np.searchsorted(uniq, pos // t)).to(dev)
         slot = torch.from_numpy(pos % t).to(dev)
         dcols, valid = decode_pages(pages, self.schema)
-        out = {}
-        for c in cols:
-            out[f"col{c}"] = _host(dcols[c][page_idx, slot],
-                                   self.schema.col_dtype(c))
-            if c in dcols.nulls:     # True = NULL
-                out[f"null{c}"] = dcols.nulls[c][page_idx, slot].cpu() \
-                    .numpy()
-        out["valid"] = valid[page_idx, slot].cpu().numpy()
-        return out
+        out = Cols([dcols[c][page_idx, slot].reshape(1, -1)
+                    if c in want else None
+                    for c in range(self.schema.n_cols)],
+                   nulls={c: m[page_idx, slot].reshape(1, -1)
+                          for c, m in dcols.nulls.items() if c in want})
+        return out, valid[page_idx, slot].reshape(1, -1)
+
+    # -- the index runners: fetched rows folded in PyTorch ops ---------------
+    def _index_positions_cond(self, idx) -> np.ndarray:
+        """The positions the structured filter (the index condition)
+        resolves from the sidecar, in index order."""
+        prefix = idx.composite and not isinstance(self._index_col(),
+                                                  (tuple, list))
+        if self._eq is not None:
+            v = self._eq[1]
+            if v is None:        # the literal can match no row
+                return np.zeros(0, np.int64)
+            if prefix:           # c0 alone over a (c0, c1) sidecar
+                return idx.prefix_range(v, v)
+            return idx.lookup([v])
+        if self._in is not None:
+            if prefix:
+                parts = [idx.prefix_range(m, m) for m in self._in[1]]
+                return np.concatenate(parts) if parts \
+                    else np.zeros(0, np.int64)
+            return idx.lookup(self._in[1])
+        _c, lo, hi = self._range
+        if prefix:
+            return idx.prefix_range(lo, hi)
+        return idx.range(lo, hi)
+
+    def _index_positions(self, idx, dev, session) -> np.ndarray:
+        """The index condition's positions, rechecked against the residual
+        ``where`` filters (Index Cond + Filter) in batches of 65,536 fetched
+        rows, so host and device memory stay bounded to a batch; an
+        invisible row never comes back."""
+        pos = np.asarray(self._index_positions_cond(idx), np.int64)
+        if not self._has_residual() or not len(pos):
+            return pos
+        pred = self._predicate(self._residual_terms, self._residual_calls)
+        keep = []
+        batch = 1 << 16
+        for b0 in range(0, len(pos), batch):
+            pb = pos[b0:b0 + batch]
+            cols, valid = self._fetch_rows(pb, None, dev, session)
+            m = select_rows(pred, cols, valid, self.schema)
+            keep.append(pb[m.reshape(-1).cpu().numpy()])
+        return np.concatenate(keep)
+
+    def _run_select_indexed(self, idx, dev, session) -> dict:
+        """Index scan ``select``: the sidecar's positions, then only their
+        pages, fetched in batches that stop once ``offset + limit`` valid
+        rows are in.  :meth:`_run_select`'s result; rows in index order
+        (ascending key, physical order within equal keys)."""
+        cols, limit, offset = self._select
+        if cols is None:
+            cols = list(range(self.schema.n_cols))
+        pos = self._index_positions(idx, dev, session)
+        end = None if limit is None else offset + limit
+        step = max(1, len(pos)) if end is None else max(end, 1024)
+        dts = {c: self.schema.col_dtype(c) for c in cols}
+        nullable = [c for c in dts if self.schema.col_nullable(c)]
+        got = {**{f"col{c}": [] for c in dts},
+               **{f"null{c}": [] for c in nullable}, "positions": []}
+        n_valid = 0
+        for b0 in range(0, len(pos), step):
+            pb = pos[b0:b0 + step]
+            dcols, valid = self._fetch_rows(pb, cols, dev, session)
+            keep = valid.reshape(-1)
+            for c, dt in dts.items():
+                got[f"col{c}"].append(_host(dcols[c].reshape(-1)[keep], dt))
+            for c in nullable:
+                got[f"null{c}"].append(
+                    dcols.nulls[c].reshape(-1)[keep].cpu().numpy())
+            k = keep.cpu().numpy()
+            got["positions"].append(pb[k])
+            n_valid += int(k.sum())
+            if end is not None and n_valid >= end:
+                break
+        blank = {**{f"col{c}": np.zeros(0, dt) for c, dt in dts.items()},
+                 **{f"null{c}": np.zeros(0, bool) for c in nullable},
+                 "positions": np.zeros(0, np.int64)}
+        res = {k: np.concatenate(v)[offset:end] if v else blank[k]
+               for k, v in got.items()}
+        res["count"] = np.int64(len(res["positions"]))
+        return res
+
+    def _run_aggregate_indexed(self, idx, dev, session) -> dict:
+        """COUNT/SUM over the index's rows: only their pages are read, and
+        the plain filter step folds them, so the sums keep the scan's
+        accumulation dtypes (int32 wrapping, ``nncounts``)."""
+        from ..ops.filter import make_filter_fold
+        from .executor import _to_numpy
+        pos = self._index_positions(idx, dev, session)
+        cols, valid = self._fetch_rows(pos, None, dev, session)
+        out = make_filter_fold(self.schema, None)(cols, valid)
+        return self._finalize(self._project(_to_numpy(out)))
+
+    def _run_groupby_indexed(self, idx, dev, session) -> dict:
+        """GROUP BY over the index's rows: the key (a GroupKey, a callable,
+        or a value-keyed GROUP BY's ids) and the plain GROUP BY step on
+        the fetched rows — NULL-aware, in :func:`..ops.groupby.acc_dtypes`
+        — then :meth:`_finalize`."""
+        from ..ops.groupby import make_groupby_fold
+        from .executor import _to_numpy
+        _key, g, agg, _having = self._group
+        pos = self._index_positions(idx, dev, session)
+        cols, valid = self._fetch_rows(pos, None, dev, session)
+        out = make_groupby_fold(self.schema, self._key(), g,
+                                agg_cols=agg)(cols, valid)
+        return self._finalize(_to_numpy(out))
+
+    def _run_topk_indexed(self, idx, dev, session) -> dict:
+        """top_k over the index's rows through ``ops.topk.rank_topk``, the
+        scan's ranking; candidates in ascending position, so ties go to
+        the lowest position as on the scan."""
+        from ..ops.topk import rank_topk
+        from .executor import _to_numpy
+        col, k, largest = self._topk
+        pos = np.sort(self._index_positions(idx, dev, session))
+        cols, valid = self._fetch_rows(pos, [col], dev, session)
+        keep = valid.reshape(-1)
+        vals, poss = rank_topk(cols[col].reshape(-1)[keep],
+                               torch.from_numpy(pos).to(dev)[keep], k,
+                               self.schema.col_dtype(col), largest)
+        return self._finalize(_to_numpy({"values": vals,
+                                         "positions": poss}))
+
+    def _run_column_indexed(self, idx, dev, session) -> dict:
+        """quantiles / count_distinct over the index's rows (p99 WHERE key
+        = X): the scan's math on the fetched column."""
+        col = self._order[0][0]
+        pos = self._index_positions(idx, dev, session)
+        cols, valid = self._fetch_rows(pos, [col], dev, session)
+        return self._column_result(_host(
+            cols[col].reshape(-1)[valid.reshape(-1)],
+            self.schema.col_dtype(col)))
+
+    def _run_join_indexed(self, idx, dev, session) -> dict:
+        """Join over the index's rows: only their fact pages are read, and
+        the join steps of ``ops/join.py`` (its sorted build, searchsorted
+        probe and ``_emit_mask``) fold them.  The row face fetches the
+        probe column alone, 65,536 positions a batch, and stops once
+        ``offset + limit`` rows are emitted."""
+        from ..ops.join import make_join_fn, make_join_rows_fn
+        from .executor import _to_numpy
+        if self._join_src is not None:
+            # only a broadcast-sized build on disk reaches this runner
+            self._resolve_join_build(dev)
+        probe_col, bk, bv, materialize, limit, offset = self._join
+        how = self._join_how
+        pos_all = np.sort(self._index_positions(idx, dev, session))
+        if not materialize:
+            cols, valid = self._fetch_rows(pos_all, None, dev, session)
+            run = make_join_fn(self.schema, probe_col, bk, bv, how=how)
+            return _to_numpy(run.fold(cols, valid))
+        run = make_join_rows_fn(self.schema, probe_col, bk, bv, how=how)
+        fields, dtypes = self._join_row_fields(how)
+        end = None if limit is None else offset + limit
+        parts, got = [], 0
+        batch = 1 << 16
+        for b0 in range(0, len(pos_all), batch):
+            pb = pos_all[b0:b0 + batch]
+            cols, valid = self._fetch_rows(pb, [probe_col], dev, session)
+            out = run.fold(cols, valid, torch.from_numpy(pb).to(dev))
+            m = out["hit"]
+            parts.append([_host(out[f][m], dt)
+                          for f, dt in zip(fields, dtypes)])
+            got += len(parts[-1][0])
+            if end is not None and got >= end:
+                break
+        arrs = [np.concatenate([p[i] for p in parts])[offset:end] if parts
+                else np.zeros(0, dt) for i, dt in enumerate(dtypes)]
+        return self._join_rows_result(how, *arrs)
+
+    # -- terminals served by the sidecar alone --------------------------------
+    @staticmethod
+    def _sidecar_descending_perm(ka: np.ndarray, lo_i: int,
+                                 hi_i: int) -> np.ndarray:
+        """[lo_i, hi_i) of the STABLE descending permutation of an
+        ascending key array: key groups reverse, rows within an equal-key
+        group keep ascending (physical) order, as the scan's stable sort
+        of the negated keys does (a plain reversal would flip them)."""
+        n = len(ka)
+        starts = np.flatnonzero(
+            np.concatenate(([True], ka[1:] != ka[:-1])))
+        group_ends = np.append(starts[1:], n)
+        if hi_i <= 4096:
+            # a small head: walk the key groups from the tail and stop
+            # once offset + limit rows are in
+            parts = []
+            got = 0
+            for gi in range(len(starts) - 1, -1, -1):
+                parts.append(np.arange(starts[gi], group_ends[gi]))
+                got += group_ends[gi] - starts[gi]
+                if got >= hi_i:
+                    break
+            return np.concatenate(parts)[lo_i:hi_i] if parts \
+                else np.zeros(0, np.int64)
+        g = np.cumsum(np.concatenate(
+            ([0], (ka[1:] != ka[:-1]).astype(np.int64))))
+        return np.argsort(-g, kind="stable")[lo_i:hi_i]
+
+    def _run_topk_sidecar(self, idx, dev) -> dict:
+        """Unfiltered top_k over an indexed integer column: the k best
+        keys are the sidecar's head (smallest) or stable-descending tail
+        (largest), ranked by the scan's ``rank_topk`` for the padding."""
+        from ..ops.topk import rank_topk
+        from .executor import _to_numpy
+        col, k, largest = self._topk
+        dt = self.schema.col_dtype(col)
+        take = min(k, len(idx.keys))
+        if largest:
+            perm = self._sidecar_descending_perm(idx.keys, 0, take)
+            vals, pos = idx.keys[perm], idx.positions[perm]
+        else:
+            vals, pos = idx.keys[:take], idx.positions[:take]
+        # copies (the sidecar's arrays are read-only) in the decoded form
+        # rank_topk takes: uint32 as int64
+        v = torch.from_numpy(np.array(
+            vals, np.int64 if dt == np.dtype(np.uint32) else dt))
+        p = torch.from_numpy(np.array(pos, np.int64))
+        vals_t, pos_t = rank_topk(v.to(dev), p.to(dev), k, dt, largest)
+        return self._finalize(_to_numpy({"values": vals_t,
+                                         "positions": pos_t}))
+
+    def _run_quantiles_sidecar(self, idx, _dev) -> dict:
+        """Unfiltered exact quantiles with no table I/O: nearest-rank
+        reads of the sorted keys (integer columns only)."""
+        qs, n = self._quantiles, len(idx.keys)
+        if n == 0:
+            return {"quantiles": np.full(len(qs), np.nan, np.float64),
+                    "n": np.int64(0)}
+        return {"quantiles": np.ascontiguousarray(
+                    idx.keys[self._nearest_ranks(qs, n)]),
+                "n": np.int64(n)}
+
+    def _run_count_distinct_sidecar(self, idx, _dev) -> dict:
+        """Unfiltered COUNT(DISTINCT) with no table I/O: adjacent
+        differences of the sorted keys."""
+        k = idx.keys
+        d = 0 if len(k) == 0 else int((k[1:] != k[:-1]).sum()) + 1
+        return {"distinct": np.int32(d)}
+
+    def _run_order_by_prefix(self, idx) -> dict:
+        """``WHERE c0 = v ORDER BY c1`` from a ``(c0, c1)`` sidecar: the
+        matching rows are one contiguous span already in c1 order (the
+        packed keys' low word) — no sort, no table I/O."""
+        from .index import unpack_second
+        _ce, v = self._eq
+        _cols, descending, limit, offset = self._order
+        a, b = idx.prefix_span(v) if v is not None else (0, 0)
+        span_keys, span_pos = idx.keys[a:b], idx.positions[a:b]
+        n = b - a
+        end = n if limit is None else min(n, offset + limit)
+        lo_i, hi_i = min(offset, n), min(end, n)
+        if descending:
+            vals1 = unpack_second(span_keys, idx.key_dtypes[1])
+            perm = self._sidecar_descending_perm(vals1, lo_i, hi_i)
+            pos, vals = span_pos[perm], vals1[perm]
+        else:
+            # LIMIT touches only the head: slice before unpacking
+            pos = span_pos[lo_i:hi_i]
+            vals = unpack_second(span_keys[lo_i:hi_i], idx.key_dtypes[1])
+        return {"values": np.ascontiguousarray(vals),
+                "positions": np.ascontiguousarray(pos, np.int64)}
+
+    def _run_order_by_indexed(self, idx, dev) -> dict:
+        """ORDER BY from a fresh sidecar: the index order is the answer,
+        and a LIMIT reads only the sidecar's head (for a composite
+        sidecar, and the pages of the head's rows for the first column's
+        values).  :meth:`_run_order_by`'s result; equal keys in physical
+        order, as the scan's stable sort."""
+        cols, descending, limit, offset = self._order
+        n = len(idx.positions)
+        end = n if limit is None else min(n, offset + limit)
+        lo_i, hi_i = min(offset, n), min(end, n)
+        if descending:
+            perm = self._sidecar_descending_perm(idx.keys, lo_i, hi_i)
+            pos, keys = idx.positions[perm], idx.keys[perm]
+        else:
+            pos, keys = idx.positions[lo_i:hi_i], idx.keys[lo_i:hi_i]
+        pos = np.ascontiguousarray(pos, np.int64)
+        if not idx.composite:
+            return {"values": np.ascontiguousarray(keys), "positions": pos}
+        out = self.fetch(pos, cols=[cols[0]], device=dev)
+        keep = out["valid"]
+        return {"values": out[f"col{cols[0]}"][keep],
+                "positions": pos[keep]}
 
     # -- value-keyed GROUP BY -----------------------------------------------
     def _discover_group_keys(self, dev) -> np.ndarray:
-        """Pass 1 of :meth:`group_by_cols`: the sorted distinct key set of
-        the selected rows (the column's values for one key, packed uint64
-        pairs for two, lex-sorted (g, N) int64 rows for 3-4), by one
-        projection scan.  Past ``max_groups`` raises :class:`_GroupSpill`
-        for 1-2 key columns, ENOMEM for more."""
-        from .index import pack_pair
+        """Pass 1 of :meth:`group_by_cols`: the sorted distinct key set
+        (the column's values for one key, packed uint64 pairs for two,
+        lex-sorted (g, N) int64 rows for 3-4).  For 1-2 key columns with a
+        fresh sidecar on exactly those columns, the sidecar's unique keys,
+        with no table I/O (keys of rows the filter drops make groups that
+        select no row, which the HAVING drops); else one projection scan
+        of the selected rows.  Past ``max_groups`` raises
+        :class:`_GroupSpill` for 1-2 key columns, ENOMEM for more."""
+        from .index import index_path_for, open_index, pack_pair, \
+            probe_index
         cols_, _agg, _having, max_groups = self._group_cols
         dts = [self.schema.col_dtype(c) for c in cols_]
+        if len(cols_) <= 2:
+            want = cols_[0] if len(cols_) == 1 else tuple(cols_)
+            ip = index_path_for(self.source, want)
+            discovered = None
+            try:
+                if probe_index(ip, self.source, expect_col=want,
+                               allow_prefix=False):
+                    keys = open_index(ip, table_path=self.source).keys
+                    # sorted already: the uniques are the first of each run
+                    discovered = keys[np.concatenate(
+                        ([True], keys[1:] != keys[:-1]))] if len(keys) \
+                        else keys
+            except Exception:   # raced away: the scan below
+                discovered = None
+            if discovered is not None:
+                if len(discovered) > max_groups:
+                    raise _GroupSpill(len(discovered))
+                return discovered
         gather, _f, _d = self._make_gather_fn(cols_, want_positions=False)
         nk = len(cols_)
         if nk <= 2:

@@ -30,8 +30,8 @@ from nvme_strom_tpu_torch.ops import groupby_cuda
 from nvme_strom_tpu_torch.ops.filter import FilterPred
 from nvme_strom_tpu_torch.ops.groupby import GroupKey
 from nvme_strom_tpu_torch.scan.heap import HeapSchema, build_heap_file
-from nvme_strom_tpu_torch.scan.index import pack_pair, unpack_first, \
-    unpack_second
+from nvme_strom_tpu_torch.scan.index import build_index, pack_pair, \
+    unpack_first, unpack_second
 from nvme_strom_tpu_torch.scan.query import Query
 from nvme_strom_tpu_torch.stats import stats
 
@@ -457,14 +457,40 @@ _GBC_CASES = {
 }
 
 
+@pytest.mark.parametrize("sidecar", [False, True])
 @pytest.mark.parametrize("case", sorted(_GBC_CASES))
-def test_group_by_cols_matches_jax(queries, table, case):
+def test_group_by_cols_matches_jax(queries, table, case, sidecar,
+                                   monkeypatch):
+    """Key discovery by a projection scan, and (``sidecar``) from a fresh
+    index sidecar on exactly the 1-2 key columns with no table I/O: the
+    discovery may not scan, and both packages read the port's sidecar."""
+    import os
     key_cols, agg, pname, having, mg = _GBC_CASES[case]
-    q, jq = queries(pname)
-    got = q.group_by_cols(key_cols, agg_cols=agg, having=having,
-                          max_groups=mg).run(device="cpu")
-    want = jq.group_by_cols(key_cols, agg_cols=agg, having=having,
-                            max_groups=mg).run()
+    ipath = None
+    if sidecar and len(key_cols) <= 2:
+        ipath = build_index(queries.path, SCHEMA, key_cols[0] if len(
+            key_cols) == 1 else tuple(key_cols), device="cpu")
+        discover = Query._discover_group_keys
+
+        def no_scan(*_a):
+            raise AssertionError("key discovery scanned the table")
+
+        def spy(self, dev):
+            self._stream_collect = no_scan
+            try:
+                return discover(self, dev)
+            finally:
+                del self._stream_collect
+        monkeypatch.setattr(Query, "_discover_group_keys", spy)
+    try:
+        q, jq = queries(pname)
+        got = q.group_by_cols(key_cols, agg_cols=agg, having=having,
+                              max_groups=mg).run(device="cpu")
+        want = jq.group_by_cols(key_cols, agg_cols=agg, having=having,
+                                max_groups=mg).run()
+    finally:
+        if ipath is not None:
+            os.unlink(ipath)
     _same_groups(got, want, SCHEMA.col_dtype(agg[0]))
     # the distinct selected keys, in key order, against numpy
     path, c, vis = table
