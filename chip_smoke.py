@@ -3417,6 +3417,323 @@ def _index_phase(torch, dev, tmp, seed):
     return launched[filter_cuda], launched[groupby_cuda]
 
 
+def _scan_table(path, seed, n_pages):
+    """[5]'s heap table: c0 in [-1000, 1000), c1 full-range int32, a
+    quarter of the rows invisible, seeded.  Returns ``(schema, c0, c1,
+    vis)``."""
+    from nvme_strom_tpu_torch.scan.heap import HeapSchema, build_heap_file
+    schema = HeapSchema(n_cols=2, visibility=True)
+    rng = np.random.default_rng(seed + 1)
+    n_rows = schema.tuples_per_page * n_pages
+    c0 = rng.integers(-1000, 1000, n_rows, dtype=np.int32)
+    c1 = rng.integers(-(1 << 31), (1 << 31) - 1, n_rows, dtype=np.int32)
+    vis = (rng.random(n_rows) > 0.25).astype(np.int32)
+    build_heap_file(path, [c0, c1], schema, visibility=vis)
+    return schema, c0, c1, vis
+
+
+def _int32_sum(x):
+    """The int32 wrap of a sum, as the kernels and numpy's int32 sum."""
+    return int(np.uint32(x.astype(np.int64).sum() & 0xFFFFFFFF)
+               .view(np.int32))
+
+
+def _total_order_key(v):
+    """XLA's total order of float32 as int64 keys: -NaN < -inf < ... <
+    -0.0 < +0.0 < ... < +inf < +NaN."""
+    b = v.view(np.int32).astype(np.int64)
+    return np.where(b < 0, b ^ 0x7FFFFFFF, b)
+
+
+def _topk_truth(vals, sel, k, largest):
+    """``lax.top_k``'s answer over one scan of *vals* (every slot of the
+    table's pages in page order): rows outside *sel* rank as the worst
+    sentinel at position -1, ties go to the earlier slot, fewer than *k*
+    slots pad with the sentinel at -1."""
+    worst = np.float32(-np.inf if largest else np.inf)
+    v = np.where(sel, vals, worst).astype(np.float32)
+    pos = np.where(sel, np.arange(len(vals)), -1)
+    key = _total_order_key(v)
+    key = key if largest else ~key
+    idx = np.argsort(-key, kind="stable")[:k]
+    pad = k - len(idx)
+    return (np.concatenate([v[idx], np.full(pad, worst, np.float32)]),
+            np.concatenate([pos[idx], np.full(pad, -1)]))
+
+
+class _FreeMemory:
+    """Sample the card's free memory (``torch.cuda.mem_get_info``) every
+    50 ms on a thread; :meth:`stop` returns the free memory at the start
+    less the least seen: what other processes on the card took."""
+
+    def __init__(self, torch, dev):
+        import threading
+        self._torch, self._dev = torch, dev
+        self.start = self.least = torch.cuda.mem_get_info(dev)[0]
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _loop(self):
+        while not self._done.wait(0.05):
+            self.least = min(self.least,
+                             self._torch.cuda.mem_get_info(self._dev)[0])
+
+    def stop(self) -> int:
+        self._done.set()
+        self._thread.join()
+        return self.start - self.least
+
+
+def _parallel_phase(torch, dev, tmp, seed, heap=None):
+    """Phase 16: worker processes, the mesh scan face, run(analyze=True)
+    and the float top_k order, over [5]'s 1 GiB heap table (*heap* is
+    ``(path, schema, th, want_count, want_sum)``; None builds it in
+    *tmp*).  Every result against numpy truth or the one-process run.
+    Returns the B1 and B3 launches of its main paths."""
+    import errno
+    from nvme_strom_tpu_torch.api import StromError
+    from nvme_strom_tpu_torch.config import config
+    from nvme_strom_tpu_torch.ops import decode_cuda, filter_cuda, \
+        groupby_cuda
+    from nvme_strom_tpu_torch.ops.filter import FilterPred
+    from nvme_strom_tpu_torch.ops.groupby import GroupKey
+    from nvme_strom_tpu_torch.parallel.mesh import make_scan_mesh
+    from nvme_strom_tpu_torch.scan.executor import cursor_chunk_count
+    from nvme_strom_tpu_torch.scan.heap import PAGE_SIZE, HeapSchema, \
+        build_heap_file
+    from nvme_strom_tpu_torch.scan.query import Query
+    from nvme_strom_tpu_torch.stats import stats
+    from nvme_strom_tpu_torch.tools.common import drop_page_cache
+    if heap is None:
+        path = os.path.join(tmp, "table.heap")
+        schema, c0, c1, vis = _scan_table(path, seed, 131072)
+        th = 100
+        sel = (vis != 0) & (c0 > th)
+        heap = (path, schema, th, int(sel.sum()), _int32_sum(c1[sel]))
+        del c0, c1, vis, sel
+    path, schema, th, want_count, want_sum = heap
+    table_bytes = os.path.getsize(path)
+    n_pages = table_bytes // PAGE_SIZE
+    n_batches = cursor_chunk_count(table_bytes, int(config.get("chunk_size")))
+    on_card = dev.type == "cuda"
+    mods = (filter_cuda, groupby_cuda, decode_cuda)
+    launched = {filter_cuda: 0, groupby_cuda: 0}
+
+    def fail(label, what):
+        raise AssertionError(f"[16] {label}: {what}")
+
+    def run(q, label, **kw):
+        """*q* from a cold page cache with every count at 0: ``(result,
+        seconds, {module: launches})``."""
+        drop_page_cache(path)
+        for m in mods:
+            m.launches = 0
+        stats.reset()
+        t0 = time.monotonic()
+        res = q.run(device=dev, **kw)
+        run_s = time.monotonic() - t0
+        got = {m: m.launches for m in mods}
+        if got[decode_cuda]:
+            fail(label, f"{got[decode_cuda]} B2 launches")
+        return res, run_s, got
+
+    def check_agg(label, res):
+        if int(res["count"]) != want_count or \
+                int(res["sums"][0]) != want_sum:
+            fail(label, f"count {int(res['count'])} sum "
+                        f"{int(res['sums'][0])}, numpy truth {want_count} "
+                        f"/ {want_sum}")
+
+    def same(label, got, want, approx=("sumsqs", "vars", "stds")):
+        """*got* equal to *want* key by key: exact, or within TRUTH_REL
+        of the magnitude for the float32 sums of squares (another fold
+        order) and what derives from them."""
+        if sorted(k for k in got if not k.startswith("_")) != sorted(want):
+            fail(label, f"keys {sorted(got)} against {sorted(want)}")
+        for k, w in want.items():
+            for g1, w1 in zip(*(x if isinstance(x, list) else [x]
+                                for x in (got[k], w))):
+                g1, w1 = np.asarray(g1), np.asarray(w1)
+                if g1.shape != w1.shape or g1.dtype != w1.dtype:
+                    fail(label, f"{k}: {g1.dtype}{g1.shape} against "
+                                f"{w1.dtype}{w1.shape}")
+                if k in approx:
+                    tol = TRUTH_REL * np.abs(w1) + 1e-6
+                    if not (np.abs(g1 - w1) <= tol).all():
+                        fail(label, f"{k} beyond {TRUTH_REL} relative")
+                elif not np.array_equal(g1, w1, equal_nan=True):
+                    fail(label, f"{k} differs")
+
+    agg = lambda **kw: Query(path, schema, **kw) \
+        .where_range(0, th + 1, None).aggregate(cols=[1])
+    plan = agg().explain(device=dev)
+    if plan.kernel != ("cuda" if on_card else "torch"):
+        fail("aggregate", f"planned {plan.kernel}: {plan.reason}")
+    print(f"[16] worker processes, the mesh face, analyze and the float "
+          f"top_k order over [5]'s table ({table_bytes} bytes, {n_batches}"
+          f" scan batches) on {dev}")
+
+    # -- a. the one-process aggregate, analyzed ---------------------------
+    res, serial_s, got = run(agg(), "serial aggregate", analyze=True)
+    check_agg("serial aggregate", res)
+    a = res["_analyze"]
+    if a["bytes_direct"] != table_bytes:
+        fail("analyze", f"bytes_direct {a['bytes_direct']}, table "
+                        f"{table_bytes}")
+    if a["waits"] <= 0:
+        fail("analyze", f"waits {a['waits']}")
+    if on_card and not (a["kernel_dispatches"] == got[filter_cuda]
+                        == n_batches):
+        fail("analyze", f"kernel_dispatches {a['kernel_dispatches']}, B1 "
+                        f"launches {got[filter_cuda]}, batches {n_batches}")
+    launched[filter_cuda] += got[filter_cuda]
+    print(f"[16a] serial aggregate (B1): {serial_s:.3f} s = "
+          f"{table_bytes / serial_s / 1e9:.3f} GB/s of table; count and "
+          f"int32 sum match numpy; analyze {json.dumps(a)}; B1 launches "
+          f"{got[filter_cuda]}")
+
+    # -- b. the aggregate at workers=2 and 4 ------------------------------
+    pool_bytes = int(config.get("chunk_size")) * (
+        int(config.get("async_depth")) + int(config.get("h2d_depth_max"))
+        + 1)
+    for nw in (2, 4):
+        label = f"workers={nw} aggregate"
+        plan = agg(workers=nw).explain(device=dev)
+        if plan.workers != nw or "cost divisor" not in plan.reason:
+            fail(label, f"plan {plan}")
+        sampler = _FreeMemory(torch, dev) if on_card else None
+        try:
+            res, s, got = run(agg(), label, workers=nw)
+        finally:
+            hbm = sampler.stop() if sampler else None
+        check_agg(label, res)
+        info = res["_workers"]
+        wl = [x["filter_pages"] for x in info["launches"]]
+        if on_card and (got[filter_cuda] or sum(wl) != n_batches
+                        or min(wl) == 0):
+            fail(label, f"B1 launches: leader {got[filter_cuda]}, workers "
+                        f"{wl}, {n_batches} batches")
+        launched[filter_cuda] += sum(wl)
+        print(f"[16b] {label}: {s:.3f} s = {table_bytes / s / 1e9:.3f} GB/s"
+              f" of table (serial {table_bytes / serial_s / 1e9:.3f}); "
+              f"per-worker scan_s {info['scan_s']}, B1 launches in the "
+              f"workers {wl}; count and sum match numpy")
+        print(f"      device memory the workers took at most (free memory "
+              f"before less its least while they ran): "
+              + ("not measured" if hbm is None else
+                 f"{hbm / (1 << 20):.0f} MiB = {hbm / nw / (1 << 20):.0f} "
+                 f"MiB a worker")
+              + f"; pinned host memory a worker: {pool_bytes >> 20} MiB "
+                f"(its scan ring)")
+
+    # -- c. the other terminals at workers=2, against one process ---------
+    rng_q = lambda: Query(path, schema).where_range(0, th + 1, None)
+    for label, mk in (
+            ("group_by_cols(c0)", lambda: rng_q().group_by_cols(
+                0, agg_cols=[1])),
+            ("top_k(c1, 100)", lambda: Query(path, schema).top_k(1, 100)),
+            ("select(limit=1000, offset=500)", lambda: rng_q().select(
+                [0, 1], limit=1000, offset=500)),
+            ("group_by_cols spill", lambda: rng_q().group_by_cols(
+                0, agg_cols=[1], max_groups=256))):
+        want, s1, _ = run(mk(), label)
+        res, s2, _ = run(mk(), label, workers=2)
+        same(f"workers=2 {label}", res, want)
+        print(f"[16c] {label}: one process {s1:.3f} s, workers=2 {s2:.3f} s"
+              f" (scan_s {res['_workers']['scan_s']}); equal")
+
+    # -- d. the mesh: B1 and B3 on each of 4 members on the card ----------
+    mesh = make_scan_mesh([dev] * 4)
+    bp = 4 * 2047            # 16 whole batches, then a 64-page tail
+    n_mesh = n_pages // bp
+    n_tail = -(-(n_pages - n_mesh * bp) // ((8 << 20) // PAGE_SIZE))
+    plan = agg().explain(mesh=mesh)
+    if plan.mode != "mesh" or plan.kernel != ("cuda" if on_card
+                                              else "torch"):
+        fail("mesh aggregate", f"plan {plan}")
+    res, s, got = run(agg(), "mesh aggregate", mesh=mesh, batch_pages=bp)
+    check_agg("mesh aggregate", res)
+    if on_card and got[filter_cuda] != 4 * n_mesh + n_tail:
+        fail("mesh aggregate", f"{got[filter_cuda]} B1 launches for "
+                               f"{n_mesh} batches of 4 shards + {n_tail}")
+    launched[filter_cuda] += got[filter_cuda]
+    print(f"[16d] mesh of 4 x {dev} aggregate (batch_pages {bp}, a "
+          f"{n_pages - n_mesh * bp}-page tail): {s:.3f} s = "
+          f"{table_bytes / s / 1e9:.3f} GB/s; B1 launches "
+          f"{got[filter_cuda]} = 4 x {n_mesh} + {n_tail}; matches numpy")
+    gq = lambda: rng_q().group_by(GroupKey(0, 64), 64, agg_cols=[1])
+    want, s1, got1 = run(gq(), "local group_by")
+    res, s2, got = run(gq(), "mesh group_by", mesh=mesh, batch_pages=bp)
+    same("mesh group_by", res, want)
+    if on_card and (got1[groupby_cuda] != n_batches
+                    or got[groupby_cuda] != 4 * n_mesh + n_tail):
+        fail("mesh group_by", f"B3 launches local {got1[groupby_cuda]}, "
+                              f"mesh {got[groupby_cuda]}")
+    launched[groupby_cuda] += got1[groupby_cuda] + got[groupby_cuda]
+    print(f"[16d] group_by(c0 % 64): local {s1:.3f} s, mesh {s2:.3f} s; "
+          f"B3 launches {got1[groupby_cuda]} and {got[groupby_cuda]}; "
+          f"equal")
+
+    # -- e. refusals ------------------------------------------------------
+    for label, call, word in (
+            ("a callable where under workers", lambda: Query(path, schema)
+             .where(lambda c: c[0] > 0).aggregate([1])
+             .run(device=dev, workers=2), "opaque"),
+            ("order_by over a mesh", lambda: Query(path, schema)
+             .order_by(0).run(mesh=mesh), "A6.2")):
+        try:
+            call()
+        except StromError as e:
+            if e.errno != errno.EINVAL or word not in str(e):
+                fail(label, f"errno {e.errno}: {e}")
+        else:
+            fail(label, "ran")
+    print("[16e] a callable where under workers and order_by over a mesh: "
+          "EINVAL")
+
+    # -- f. top_k's float order on the card -------------------------------
+    fs = HeapSchema(n_cols=2, dtypes=("int32", "float32"))
+    t = fs.tuples_per_page
+    rng = np.random.default_rng(seed + 16)
+    special = np.array([np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf],
+                       np.float32)
+    n_checked = 0
+    for n_rows, ks in ((4096 * t, (1000, 3000)), (3 * t - 7, (3 * t + 5,))):
+        k0 = rng.integers(-5, 5, n_rows).astype(np.int32)
+        f1 = (rng.standard_normal(n_rows) * 10).astype(np.float32)
+        pick = rng.random(n_rows) < 0.5
+        f1[pick] = rng.choice(special, int(pick.sum()))
+        fpath = os.path.join(tmp, "floats.heap")
+        build_heap_file(fpath, [k0, f1], fs)
+        slots = -(-n_rows // t) * t
+        k0p = np.concatenate([k0, np.zeros(slots - n_rows, np.int32)])
+        f1p = np.concatenate([f1, np.zeros(slots - n_rows, np.float32)])
+        real = np.arange(slots) < n_rows
+        for pred, mask in ((None, real), (FilterPred(((0, "gt", 0),)),
+                                          real & (k0p > 0))):
+            for k in ks:
+                for largest in (True, False):
+                    q = Query(fpath, fs)
+                    if pred is not None:
+                        q = q.where(pred)
+                    got = q.top_k(1, k, largest=largest).run(device=dev)
+                    wv, wp = _topk_truth(f1p, mask, k, largest)
+                    if not (np.array_equal(got["values"].view(np.uint32),
+                                           wv.view(np.uint32))
+                            and np.array_equal(got["positions"], wp)):
+                        fail("float top_k", f"{n_rows} rows, k {k}, "
+                                            f"largest {largest}, "
+                                            f"filtered {pred is not None}")
+                    n_checked += 1
+        os.unlink(fpath)
+    print(f"[16f] top_k over float32 with NaN, -NaN, +-0.0 and +-inf (half "
+          f"the rows): {n_checked} queries (largest and smallest, with and "
+          f"without a predicate, k past the rows) return the positions "
+          f"and bits of XLA's total order")
+    return launched[filter_cuda], launched[groupby_cuda]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--load-gib", type=float, default=1.0)
@@ -3439,8 +3756,7 @@ def main() -> int:
     from nvme_strom_tpu_torch.ops.filter import FilterPred
     from nvme_strom_tpu_torch.ops.groupby import GroupKey, make_groupby_fn
     from nvme_strom_tpu_torch.scan.executor import TableScanner
-    from nvme_strom_tpu_torch.scan.heap import (HEADER_WORDS, PAGE_SIZE,
-                                                HeapSchema, build_heap_file)
+    from nvme_strom_tpu_torch.scan.heap import HEADER_WORDS, PAGE_SIZE
     from nvme_strom_tpu_torch.stats import stats
     from nvme_strom_tpu_torch.tools.common import (drop_page_cache,
                                                    first_mismatch)
@@ -3518,22 +3834,16 @@ def main() -> int:
               f"launches 0 (none on this path)")
 
         # -- main path: scan -------------------------------------------
-        schema = HeapSchema(n_cols=2, visibility=True)
-        rng = np.random.default_rng(args.seed + 1)
-        n_rows = schema.tuples_per_page * args.scan_pages
-        c0 = rng.integers(-1000, 1000, n_rows, dtype=np.int32)
-        c1 = rng.integers(-(1 << 31), (1 << 31) - 1, n_rows, dtype=np.int32)
-        vis = (rng.random(n_rows) > 0.25).astype(np.int32)
         heap_path = os.path.join(tmp, "table.heap")
         t0 = time.monotonic()
-        build_heap_file(heap_path, [c0, c1], schema, visibility=vis)
+        schema, c0, c1, vis = _scan_table(heap_path, args.seed,
+                                          args.scan_pages)
         heap_build_s = time.monotonic() - t0
         drop_page_cache(heap_path)
         th = 100
         sel = (vis != 0) & (c0 > th)
         want_count = int(sel.sum())
-        want_sum = int(np.uint32(c1[sel].astype(np.int64).sum()
-                                 & 0xFFFFFFFF).view(np.int32))
+        want_sum = _int32_sum(c1[sel])
         # numpy truth of phase [9c]'s ring scan over this same table
         ring_truth = []
         for rth in RING_THRESHOLDS:
@@ -3767,7 +4077,6 @@ def main() -> int:
                      (want_count, want_sum),
                      os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                   "chiprun_out"))
-        os.unlink(heap_path)
         os.unlink(load_path)
 
         # -- the data tier: loader, checkpoint, train loop ---------------
@@ -3794,6 +4103,16 @@ def main() -> int:
         main_launches += idx_b1
         gb_launches += idx_b3
         print(f"    [15] took {time.monotonic() - t15:.1f} s")
+
+        # -- worker processes, the mesh face, analyze ----------------------
+        t16 = time.monotonic()
+        par_b1, par_b3 = _parallel_phase(
+            torch, dev, tmp, args.seed,
+            (heap_path, schema, th, want_count, want_sum))
+        main_launches += par_b1
+        gb_launches += par_b3
+        os.unlink(heap_path)
+        print(f"    [16] took {time.monotonic() - t16:.1f} s")
         print(f"    total {time.monotonic() - t_start:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

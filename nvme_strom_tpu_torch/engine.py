@@ -1051,6 +1051,10 @@ class Session:
                     raise StromError(_errno.ETIMEDOUT,
                                      f"dma task {task_id} timeout")
                 self._task_cv.wait(remain)
+        # the reference's MEMCPY_WAIT ioctl count and clock (a reaped task,
+        # failed or not)
+        stats.add("nr_ioctl_memcpy_wait")
+        stats.add("clk_ioctl_memcpy_wait", time.monotonic_ns() - t0)
         if _trace.active and task.trace_id:
             _trace.span("wait", t0, time.monotonic_ns(), tid=task.trace_id,
                         args=({"errno": task.errno_} if task.errno_

@@ -5,7 +5,8 @@ A port of the JAX package's ``ops/topk.py``: a per-batch selection plus a
 fold that merges batch winners, so the scan streams any table while the
 device holds only ``k`` candidates.  The selection is a stable descending
 sort of the ranking key, which keeps ``jax.lax.top_k``'s rules: ties go to
-the lower index (the earlier row), NaN ranks above every number.
+the lower index (the earlier row), and floats rank in XLA's total order
+(:func:`float_order_key`): −NaN < −inf < … < −0.0 < +0.0 < … < +inf < +NaN.
 
 Row identity travels with the values: ``positions`` are global row numbers
 (``page_id * tuples_per_page + slot``, :func:`.filter.global_row_positions`),
@@ -25,8 +26,8 @@ from ..scan.heap import HeapSchema
 from .filter import FilterPred, decode_pages, global_row_positions, \
     select_rows
 
-__all__ = ["worst_sentinel", "topk_key", "rank_topk", "make_topk_fn",
-           "combine_topk"]
+__all__ = ["worst_sentinel", "float_order_key", "topk_key", "rank_topk",
+           "make_topk_fn", "combine_topk"]
 
 
 def worst_sentinel(dt: np.dtype, largest: bool) -> np.ndarray:
@@ -37,18 +38,32 @@ def worst_sentinel(dt: np.dtype, largest: bool) -> np.ndarray:
     return np.array(info.min if largest else info.max, dt)
 
 
+_BITS = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+
+def float_order_key(v: torch.Tensor) -> torch.Tensor:
+    """The integer key that orders floats as XLA's total order does:
+    the bits as a signed integer, with every bit but the sign flipped
+    where the sign is set.  −NaN < −inf < … < −0.0 < +0.0 < … < +inf <
+    +NaN, NaN payloads in bit order."""
+    bits = v.contiguous().view(_BITS[v.dtype])
+    mask = torch.iinfo(bits.dtype).max
+    return torch.where(bits < 0, bits ^ mask, bits)
+
+
 def topk_key(v: torch.Tensor, dt: np.dtype, largest: bool) -> torch.Tensor:
-    """Order-reversing key for smallest-k that cannot overflow: unary
-    minus for floats (NaN stays maximal), bitwise NOT for integers (a
-    uint32 column decodes to int64, where ``~v`` reverses it too)."""
-    if largest:
-        return v
-    return -v if dt.kind == "f" else ~v
+    """The key whose *k* largest entries are the answer: floats by
+    :func:`float_order_key` (negated as ``~key`` for smallest-k, which is
+    ``-v`` under XLA's order: −NaN first, +NaN last, −0.0 before +0.0);
+    integers as they are, or ``~v`` for smallest-k, which cannot overflow
+    (a uint32 column decodes to int64, where ``~v`` reverses it too)."""
+    key = float_order_key(v) if dt.kind == "f" else v
+    return key if largest else ~key
 
 
 def _first_k(key: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the *k* largest keys, ties to the lower index, NaN
-    first: ``lax.top_k``'s selection."""
+    """Indices of the *k* largest keys, ties to the lower index:
+    ``lax.top_k``'s selection."""
     return torch.sort(key, descending=True, stable=True).indices[:k]
 
 

@@ -1,7 +1,17 @@
-"""Pushdown planning: where a packed (``.cpk``) scan expands its rows.
+"""Scan planning: the cost model, and where a packed (``.cpk``) scan
+expands its rows.
 
-Ported from the JAX package's ``scan/planner.py`` (``transport_rates``,
-``PushdownDecision``, ``decide_pushdown``).  The rule: when the
+Ported from the JAX package's ``scan/planner.py`` (``ScanCost``,
+``cost_direct_scan``, ``cost_vfs_scan``, ``transport_rates``,
+``PushdownDecision``, ``decide_pushdown``).
+
+The cost model is the pgsql extension's (`pgsql/nvme_strom.c:451-520`): a
+per-page cost reduced to ``SEQ_PAGE_COST`` on the direct path, a
+per-tuple CPU cost, and worker processes dividing both by PostgreSQL's
+parallel divisor, the disk component by at most 4 (`:491-517`), so I/O
+cost does not shrink linearly with workers.
+
+The pushdown rule: when the
 host→device link is slower than the SSD, packed bytes must cross the link
 packed and expand on the device (``chip``); when the SSD is the slower
 leg, packed bytes leave the disk and expand on the host (``host``), which
@@ -20,8 +30,55 @@ from typing import Optional, Sequence, Tuple
 
 from ..config import config
 
-__all__ = ["H2D_GBPS_DEFAULT", "SSD_GBPS_DEFAULT", "transport_rates",
+__all__ = ["ScanCost", "cost_direct_scan", "cost_vfs_scan",
+           "H2D_GBPS_DEFAULT", "SSD_GBPS_DEFAULT", "transport_rates",
            "PushdownDecision", "decide_pushdown"]
+
+# conventional-path cost per 8 KiB page (PostgreSQL's seq_page_cost = 1.0)
+VFS_PAGE_COST = 1.0
+# the direct path's share of it: the reference's default ``seq_page_cost``
+# (¼ of the conventional cost, :1614-1625)
+SEQ_PAGE_COST = 0.25
+CPU_TUPLE_COST = 0.01
+_MAX_PARALLEL_DISK_DIVISOR = 4.0   # the reference caps at 4 (:491-517)
+
+
+@dataclass(frozen=True)
+class ScanCost:
+    startup: float
+    total: float
+    pages: int
+    workers: int
+
+
+def _parallel_divisor(workers: int) -> float:
+    """PostgreSQL's parallel divisor, the leader's share included."""
+    d = float(max(workers, 1))
+    if workers >= 1:
+        d += 0.3 * min(workers, 4) / 4
+    return d
+
+
+def _scan_cost(n_pages: int, n_tuples: int, page_cost: float,
+               workers: int) -> ScanCost:
+    disk = n_pages * page_cost / min(_parallel_divisor(workers),
+                                     _MAX_PARALLEL_DISK_DIVISOR)
+    cpu = n_tuples * CPU_TUPLE_COST / _parallel_divisor(workers)
+    return ScanCost(startup=0.0, total=disk + cpu, pages=n_pages,
+                    workers=workers)
+
+
+def cost_direct_scan(n_pages: int, n_tuples: int, *,
+                     workers: int = 0) -> ScanCost:
+    """``cost_nvmestrom_scan`` (:451-520): the reduced per-page cost."""
+    return _scan_cost(n_pages, n_tuples, SEQ_PAGE_COST * VFS_PAGE_COST,
+                      workers)
+
+
+def cost_vfs_scan(n_pages: int, n_tuples: int, *,
+                  workers: int = 0) -> ScanCost:
+    """The buffered scan's cost, at the conventional per-page cost."""
+    return _scan_cost(n_pages, n_tuples, VFS_PAGE_COST, workers)
 
 # measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700 W power
 # limit: pinned host->device copies ("pinned h2d") and the scanner's

@@ -51,10 +51,32 @@ sidecar read the sidecar alone (``WHERE c0 = v ORDER BY c1`` one span of a
 ``(c0, c1)`` sidecar), and ``group_by_cols`` takes its distinct keys from
 one.  A missing, stale or corrupt sidecar means the scan (``direct``).
 
-Left out against the JAX package: worker processes (star joins under
-``workers=`` among them), meshes (the mesh partitioned join and the mesh
-index build among them) and ``analyze=``, the VFS access path, strings and
-the SQL facade (its ``JOIN`` syntax among them).
+Three ways to run a scan besides the one-process scan:
+
+* ``workers=N`` (``Query(..., workers=N)`` or ``run(workers=N)``): N worker
+  processes, started with ``spawn``, claim chunks from one shared cursor
+  (:mod:`.parallel`, the Gather analog), each with its own session, and the
+  leader folds their numpy partials.  ``aggregate`` (expression aggregates
+  too), ``group_by_cols`` (its sorted spill too), ``top_k``, ``select`` and
+  the star join's aggregate face travel; a worker runs the route the
+  leader's plan chose, B1/B3 on the card included.  A callable ``where``,
+  a ``group_by`` key without ``group_by_cols``, joins, the star row face and
+  the other terminals are refused (EINVAL).  ``select`` and ``top_k`` come
+  back in the serial scan's order.
+* ``mesh=`` (a :class:`..parallel.mesh.RingMesh`): batches stream sharded
+  over the ring (:func:`..parallel.stream.distributed_scan_filter`), the
+  plan's step runs on each member's shard and the results fold with the
+  operator's combine; the pages past the last whole batch scan on the
+  first member.  The sort terminals (``order_by``, ``quantiles``,
+  ``count_distinct``) and the partitioned join plan ``invalid`` under a mesh
+  (their mesh forms wait for ROADMAP A6.2); the join and star row faces run
+  on the first member.
+* ``analyze=True``: the result gains ``"_analyze"``, the run's wall time and
+  engine counters (EXPLAIN ANALYZE).
+
+Left out against the JAX package: the mesh sort and partitioned join and
+the mesh index build, the VFS access path, strings and the SQL facade (its
+``JOIN`` syntax and its ``workers=`` among them).
 """
 
 from __future__ import annotations
@@ -196,12 +218,19 @@ class QueryPlan:
     pushdown: str = ""     # "" | chip | host | raw (packed-sidecar scan)
     join_strategy: Optional[str] = None   # broadcast | partitioned(N)
     access_path: str = "direct"           # direct | index (a sidecar)
+    mode: str = "local"    # local | mesh
+    workers: int = 0       # worker processes (0 = one process)
+    cost_direct: float = 0.0
+    cost_vfs: float = 0.0
 
     def __str__(self) -> str:
         pd = f", pushdown {self.pushdown}" if self.pushdown else ""
+        par = f", workers={self.workers}" if self.workers else ""
         return (f"{self.operator} scan  [{self.access_path} path, "
-                f"{self.kernel} route on {self.device}{pd}]\n"
-                f"  pages: {self.n_pages}\n  {self.reason}")
+                f"{self.kernel} route on {self.device}{pd}, {self.mode}"
+                f"{par}]\n  pages: {self.n_pages}  cost: direct="
+                f"{self.cost_direct:.0f} vfs={self.cost_vfs:.0f}\n"
+                f"  {self.reason}")
 
 
 def _host(t: torch.Tensor, dt: np.dtype) -> np.ndarray:
@@ -232,6 +261,35 @@ def _hv(user: Optional[Callable]) -> Callable:
     return hv
 
 
+def _to_torch(x):
+    """A numpy partial as CPU tensors (uint32 as ``torch.uint32``), the
+    form the batch folds take."""
+    if isinstance(x, dict):
+        return {k: _to_torch(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_torch(v) for v in x)
+    a = np.array(x)
+    if a.dtype == np.uint32:
+        return torch.from_numpy(a.view(np.int32)).view(torch.uint32)
+    return torch.from_numpy(a)
+
+
+def _merge_topk(accs: List[dict], dt: np.dtype, largest: bool,
+                k: int) -> dict:
+    """The best *k* of several top-k candidate sets, ties to the lower
+    position (a pad's -1 after every row), which is the order one
+    process's scan gives them."""
+    from ..ops.topk import topk_key
+    vals = torch.cat([a["values"] for a in accs])
+    pos = torch.cat([a["positions"] for a in accs])
+    by_pos = torch.sort(torch.where(pos < 0, torch.iinfo(pos.dtype).max,
+                                    pos), stable=True).indices
+    best = torch.sort(topk_key(vals[by_pos], dt, largest), descending=True,
+                      stable=True).indices[:k]
+    idx = by_pos[best]
+    return {"values": vals[idx], "positions": pos[idx]}
+
+
 class Query:
     """Fluent scan builder over one heap table file.
 
@@ -243,17 +301,21 @@ class Query:
     """
 
     _SPILL_HARD_MAX = 1 << 24   # the sorted spill's own bound (ENOMEM)
+    _WORKER_OPS = ("aggregate", "group_by", "top_k", "select", "star")
 
-    def __init__(self, source, schema: HeapSchema):
+    def __init__(self, source, schema: HeapSchema, *, workers: int = 0):
         if isinstance(source, os.PathLike):
             source = str(source)
         if not isinstance(source, str):
             raise StromError(_errno.EINVAL, "Query takes one heap table "
-                                            "file path")
+                                            "file path (striped sets are "
+                                            "not ported)")
         self.source = source
         self.schema = schema
+        self._workers = int(workers)   # >= 2: worker processes
         self._terms: tuple = ()
         self._callables: List[Callable] = []
+        self._opaque = False           # a where() callable: cannot ship
         self._op = "aggregate"
         self._terminal_set = False
         self._agg_cols: Optional[Sequence[int]] = None
@@ -280,6 +342,11 @@ class Query:
         self._residual_terms: tuple = ()
         self._residual_calls: List[Callable] = []
         self._prefix_cands: Optional[List[str]] = None
+        # state of one run(): the caller's session, a worker's shared
+        # cursor, and the deepest H2D pipeline its scans reached
+        self._session = None
+        self._cursor = None
+        self._h2d_depth = 0
 
     # -- builders -----------------------------------------------------------
     def where(self, predicate: Union[FilterPred, Callable]) -> "Query":
@@ -305,6 +372,7 @@ class Query:
                 self._residual_terms += predicate.terms
         elif callable(predicate):
             self._callables.append(predicate)
+            self._opaque = True
             if structured:
                 self._residual_calls.append(predicate)
         else:
@@ -320,6 +388,7 @@ class Query:
         an earlier filter survives into the new one's recheck."""
         self._terms = FilterPred(tuple(terms)).terms
         self._callables = list(calls)
+        self._opaque = False
         self._eq, self._range, self._in = eq, rng, members
         self._residual_terms = ()
         self._residual_calls = []
@@ -1027,22 +1096,55 @@ class Query:
         return (f"{self._op}: decode + gather, then the host sort of the "
                 f"JAX package's one-device path")
 
-    def explain(self, *, device=None, kernel: str = "auto") -> QueryPlan:
-        """The plan ``run(device=..., kernel=...)`` would execute."""
+    def _mesh_refusal(self) -> str:
+        """Why the query cannot run over a mesh ('' = it can)."""
+        if self._op in ("order_by", "quantiles", "count_distinct"):
+            return (f"{self._op} over a mesh: the distributed sample sort "
+                    f"is not ported (ROADMAP A6.2); run it without mesh=")
+        if self._op == "join" and self._join_strategy()[1] > 1:
+            return ("a partitioned join over a mesh: the all_to_all row "
+                    "exchange is not ported (ROADMAP A6.2); run it without "
+                    "mesh= (local Grace passes)")
+        return ""
+
+    def explain(self, *, device=None, kernel: str = "auto",
+                mesh=None) -> QueryPlan:
+        """The plan ``run(device=..., kernel=..., mesh=...)`` would
+        execute.  Under a mesh the query runs on the members' device and
+        always scans (no sidecar, no packed pushdown); with the Query's
+        ``workers=`` the workers scan too."""
         from ..hbm.staging import resolve_device
+        dev = mesh.devices[0] if mesh is not None else resolve_device(device)
+        return self._plan(dev, kernel, mesh, self._workers)
+
+    def _plan(self, dev: torch.device, kernel: str, mesh,
+              workers: int) -> QueryPlan:
+        from .planner import _parallel_divisor, cost_direct_scan, \
+            cost_vfs_scan
         if kernel not in _KERNELS:
             raise StromError(_errno.EINVAL, f"kernel {kernel!r} not one of "
                                             f"{_KERNELS}")
-        dev = resolve_device(device)
+        mode = "local" if mesh is None else "mesh"
+        nw = workers if workers >= 2 and mesh is None else 0
         n_pages = os.path.getsize(self.source) // PAGE_SIZE
+        n_tuples = n_pages * self.schema.tuples_per_page
+        costs = dict(mode=mode, workers=nw,
+                     cost_direct=cost_direct_scan(n_pages, n_tuples,
+                                                  workers=nw).total,
+                     cost_vfs=cost_vfs_scan(n_pages, n_tuples,
+                                            workers=nw).total)
         cuda = dev.type == "cuda"
         why = self._invalid()
+        if not why and mesh is not None:
+            why = self._mesh_refusal()
         if not why and kernel == "cuda" and not cuda:
             why = "the CUDA kernels need a CUDA device"
-        # the index branches plan only a query that is otherwise valid; a
-        # sidecar-served plan reads no packed sidecar
-        index_why = None if why else self._index_plan()
-        probe = None if why or index_why else self._pushdown_probe()
+        # the index branches plan only a query that is otherwise valid and
+        # local; a sidecar-served plan reads no packed sidecar
+        scan_only = mode == "mesh" or nw
+        index_why = None if why or scan_only else self._index_plan()
+        probe = None if why or index_why or scan_only \
+            else self._pushdown_probe()
         refusal = self._cuda_refusal(probe) if cuda and not why else ""
         if kernel == "cuda" and refusal:
             why = (f"kernel='cuda': {refusal}; kernel='auto' or 'torch' "
@@ -1050,7 +1152,7 @@ class Query:
         js = self._join_strategy() if self._op == "join" else None
         if why:
             return QueryPlan(self._op, "invalid", str(dev), n_pages, why,
-                             join_strategy=js and js[0])
+                             join_strategy=js and js[0], **costs)
         if cuda and kernel != "torch" and not refusal:
             face, reason = "cuda", self._cuda_reason()
         else:
@@ -1073,13 +1175,29 @@ class Query:
         if js is not None:
             reason += (f"; join type {self._join_how}; "
                        f"{self._strategy_text(js)}")
+        if mesh is not None:
+            reason += f"; mesh of {mesh.size} members on {dev}: " + (
+                "the row face runs on the first member"
+                if (self._op == "join" and self._join[3])
+                or (self._op == "star" and self._star["materialize"]) else
+                ("each member gathers its shard's selected rows"
+                 if self._op == "select" else
+                 "the step runs on each member's shard and the results "
+                 "fold with the operator's combine")
+                + "; the pages past the last whole batch scan on the "
+                  "first member")
+        if nw:
+            reason += (f"; parallel: {nw} worker processes claim chunks "
+                       f"from ONE shared cursor (per-worker sessions, "
+                       f"partials fold on the leader; cost divisor "
+                       f"{_parallel_divisor(nw):.1f})")
         if index_why:
             return QueryPlan(self._op, face, str(dev), n_pages,
                              f"{index_why}; the scan's route without the "
                              f"sidecar: {reason}", pd, js and js[0],
-                             access_path="index")
+                             access_path="index", **costs)
         return QueryPlan(self._op, face, str(dev), n_pages, reason, pd,
-                         js and js[0])
+                         js and js[0], **costs)
 
     # -- the index access paths ---------------------------------------------
     def _index_col(self):
@@ -1357,15 +1475,82 @@ class Query:
         run = make_filter_fn(self.schema, pred)
         return (lambda pages: self._project(run(pages))), None
 
-    def run(self, *, device=None, kernel: str = "auto") -> dict:
+    def run(self, *, device=None, kernel: str = "auto", mesh=None,
+            batch_pages: Optional[int] = None, session=None,
+            analyze: bool = False, workers: Optional[int] = None) -> dict:
         """Execute the planned scan and return numpy results.  *device*
         defaults to ``cuda:0`` (ENODEV without a card; ``"cpu"`` runs the
         ``torch`` route on the host); *kernel* is ``"auto"``, ``"cuda"`` or
-        ``"torch"`` (see the module docstring)."""
+        ``"torch"`` (see the module docstring).
+
+        *mesh* streams the scan sharded over a ring, on its members'
+        device (*device* is not used); *batch_pages* pages make a batch,
+        rounded down to a multiple of the ring size (default 128 pages a
+        member).  ``workers=N`` runs N worker processes (default: the
+        Query's ``workers``).  *session* is an open
+        :class:`..engine.Session` the leader's scans read through.
+
+        ``analyze=True`` adds ``"_analyze"``: the run's ``elapsed_s``,
+        ``bytes_direct`` (bytes the engine read), ``requests`` and
+        ``avg_dma_bytes``, ``waits`` (tasks reaped by ``memcpy_wait``),
+        ``submit_syscalls``, ``kernel_dispatches`` (batch steps the scans
+        ran), ``h2d_depth_reached`` (this run's deepest H2D pipeline, 0
+        when no scan ran) and ``scan_GBps``.  Workers' counters fold into
+        the leader's."""
+        if analyze:
+            return self._run_analyze(session, device=device, kernel=kernel,
+                                     mesh=mesh, batch_pages=batch_pages,
+                                     workers=workers)
         from ..hbm.staging import resolve_device
-        from .executor import TableScanner
-        dev = resolve_device(device)
-        plan = self.explain(device=dev, kernel=kernel)
+        nw = self._workers if workers is None else int(workers)
+        dev = mesh.devices[0] if mesh is not None else resolve_device(device)
+        self._session, self._h2d_depth = session, 0
+        try:
+            if nw >= 2 and mesh is None:
+                return self._run_workers(nw, dev, kernel)
+            return self._run_local(dev, kernel, mesh, batch_pages)
+        finally:
+            self._session = None
+
+    def _run_analyze(self, session, **kw) -> dict:
+        """``run(analyze=True)``: the counters before and after the run,
+        a caller's session's native counters folded in at both ends (a
+        live session keeps them until ``stat_info`` or ``close``)."""
+        def fold():
+            if session is not None and \
+                    getattr(session, "_native", None) is not None:
+                session._fold_native_stats()
+
+        fold()
+        before = stats.snapshot()
+        t0 = time.monotonic()
+        out = self.run(session=session, **kw)
+        dt = time.monotonic() - t0
+        fold()
+        after = stats.snapshot()
+        d = {k: after.get(k, 0) - before.get(k, 0)
+             for k in ("total_dma_length", "nr_submit_dma",
+                       "nr_ioctl_memcpy_wait", "nr_enter_dma",
+                       "nr_kernel_dispatch")}
+        nbytes = int(d["total_dma_length"])
+        out["_analyze"] = {
+            "elapsed_s": round(dt, 6),
+            "bytes_direct": nbytes,
+            "requests": int(d["nr_submit_dma"]),
+            "avg_dma_bytes": nbytes // max(int(d["nr_submit_dma"]), 1),
+            "waits": int(d["nr_ioctl_memcpy_wait"]),
+            "submit_syscalls": int(d["nr_enter_dma"]),
+            "kernel_dispatches": int(d["nr_kernel_dispatch"]),
+            "h2d_depth_reached": int(self._h2d_depth),
+            "scan_GBps": round(nbytes / dt / (1 << 30), 3) if dt > 0
+            else None,
+        }
+        return out
+
+    def _run_local(self, dev: torch.device, kernel: str, mesh,
+                   batch_pages: Optional[int]) -> dict:
+        """One process: the index, pushdown and scan paths, or a mesh."""
+        plan = self._plan(dev, kernel, mesh, 0)
         if plan.kernel == "invalid":
             raise StromError(_errno.EINVAL, f"query not executable: "
                                             f"{plan.reason}")
@@ -1393,6 +1578,8 @@ class Query:
             self._resolve_star_builds(dev)
             if self._star["materialize"]:
                 return self._run_star_rows(dev)
+        if mesh is not None:
+            return self._run_mesh(plan, mesh, batch_pages)
         if self._op == "select":
             return self._run_select(dev)
         if self._op == "order_by":
@@ -1406,9 +1593,92 @@ class Query:
                 return self._run_pushdown(probe[0], probe[1], dev,
                                           plan.kernel)
         fn, combine = self._build_fn(plan.kernel)
-        with TableScanner(self.source, self.schema) as sc:
+        return self._finalize(self._scan(fn, dev, combine))
+
+    def _scan(self, fn: Callable, dev: torch.device,
+              combine: Optional[Callable] = None,
+              path: Optional[str] = None) -> dict:
+        """Fold *fn* over a scan of the table (or of *path*, a packed
+        sidecar) on *dev*, through the run's session, on a worker's shared
+        cursor when the scan is the table's; notes the H2D depth reached."""
+        from .executor import TableScanner
+        own = path is None
+        with TableScanner(self.source if own else path,
+                          self.schema if own else None,
+                          session=self._session,
+                          cursor=self._cursor if own else None) as sc:
             out = sc.scan_filter(fn, device=dev, combine=combine)
-        return self._finalize(out)
+            self._h2d_depth = max(self._h2d_depth, sc.last_h2d_depth)
+        return out
+
+    def _run_mesh(self, plan: QueryPlan, mesh, batch_pages) -> dict:
+        """A scan terminal over a ring: whole batches stream sharded over
+        the members (``distributed_scan_filter``) and the plan's step runs
+        on each member's shard (B1/B3 where the plan names ``cuda``), the
+        results folded in member order with the operator's combine, so
+        ties resolve to the lower position as on one device.  The pages
+        past the last whole batch are read buffered and scanned on the
+        first member.  ``select`` gathers each shard's rows in page
+        order and stops gathering once ``offset + limit`` are in."""
+        from ..engine import open_source
+        from ..parallel.stream import distributed_scan_filter
+        from .executor import _to_numpy, fold_results
+        dev, n = mesh.devices[0], mesh.size
+        chunks = None
+        if self._op == "select":
+            cols, limit, offset = self._select
+            cols = list(range(self.schema.n_cols)) if cols is None else cols
+            gather, fields, dtypes = self._make_gather_fn(cols)
+            stop = None if limit is None else offset + limit
+            chunks, got = [], 0
+
+            def fn(pages):
+                nonlocal got
+                if stop is None or got < stop:
+                    out = gather(pages)
+                    chunks.append([out[f] for f in fields])
+                    got += out["n"]
+                return {}
+            combine = None
+        else:
+            fn, combine = self._build_fn(plan.kernel)
+        acc = None
+
+        def take(pages):
+            """Fold one shard's (or the tail's) step in scan order."""
+            nonlocal acc
+            acc = fold_results(acc, fn(pages), combine)
+            stats.add("nr_kernel_dispatch")
+
+        def step(shards):
+            for shard in shards:
+                take(shard)
+            return {}
+
+        with open_source(self.source) as src:
+            n_pages = src.size // PAGE_SIZE
+            bp = int(batch_pages or (1 << 20) // PAGE_SIZE * n)
+            # a multiple of the ring size, at least a page a member, and no
+            # larger than the table; the remainder is the tail below
+            bp = min(max(bp // n * n, n), n_pages // n * n)
+            covered = 0
+            if bp >= n:
+                distributed_scan_filter(src, mesh, step, batch_pages=bp,
+                                        session=self._session)
+                covered = n_pages // bp * bp
+            tail = (8 << 20) // PAGE_SIZE
+            for p0 in range(covered, n_pages, tail):
+                npg = min(tail, n_pages - p0)
+                raw = bytearray(npg * PAGE_SIZE)
+                src.read_buffered(p0 * PAGE_SIZE, memoryview(raw))
+                take(torch.frombuffer(raw, dtype=torch.uint8)
+                     .reshape(npg, PAGE_SIZE).to(dev))
+        if chunks is not None:
+            arrs = [np.concatenate([c[i] for c in chunks]) if chunks
+                    else np.zeros(0, dt) for i, dt in enumerate(dtypes)]
+            return self._select_result(cols, fields,
+                                       [a[offset:stop] for a in arrs])
+        return self._finalize({} if not acc else _to_numpy(acc))
 
     @staticmethod
     def _replan_scan(plan: QueryPlan) -> QueryPlan:
@@ -1464,7 +1734,10 @@ class Query:
         idx = None if runner is None else self._index_for_eq()
         if idx is None:
             return None
-        # one engine session for every fetch of the run
+        # one engine session for every fetch of the run: the caller's, or
+        # one opened for it
+        if self._session is not None:
+            return runner(idx, dev, self._session)
         with Session() as sess:
             return runner(idx, dev, sess)
 
@@ -1491,7 +1764,7 @@ class Query:
     def _run_pushdown_leg(self, dec, meta, dev: torch.device,
                           face: str) -> dict:
         from ..engine import open_source
-        from .executor import TableScanner, _to_numpy, fold_results
+        from .executor import _to_numpy, fold_results
         pred = self._predicate()
         saved = max(meta.logical_bytes / max(meta.packed_bytes, 1) - 1.0,
                     0.0)
@@ -1513,9 +1786,8 @@ class Query:
                           int(pages.shape[0] * PAGE_SIZE * saved))
                 return decode(pages)
 
-            with TableScanner(meta.path) as sc:
-                out = sc.scan_filter(fn, device=dev)
-            return self._finalize(self._project(out))
+            return self._finalize(self._project(
+                self._scan(fn, dev, path=meta.path)))
         if face == "cuda":
             from ..ops.filter_cuda import filter_pages_cuda
 
@@ -1667,17 +1939,22 @@ class Query:
         return [a[offset:stop] for a in arrs]
 
     def _stream_collect(self, collect, dev) -> None:
-        from .executor import TableScanner
-        with TableScanner(self.source, self.schema) as sc:
-            sc.scan_filter(collect, device=dev)
+        self._scan(collect, dev)
 
     def _run_select(self, dev) -> dict:
         cols, limit, offset = self._select
         if cols is None:
             cols = list(range(self.schema.n_cols))
         gather, fields, dtypes = self._make_gather_fn(cols)
-        named = dict(zip(fields, self._collect_rows(
-            gather, fields, dtypes, dev, limit=limit, offset=offset)))
+        return self._select_result(cols, fields, self._collect_rows(
+            gather, fields, dtypes, dev, limit=limit, offset=offset))
+
+    @staticmethod
+    def _select_result(cols: Sequence[int], fields: Sequence[str],
+                       arrs: Sequence[np.ndarray]) -> dict:
+        """``select``'s result from the gathered arrays of
+        :meth:`_make_gather_fn`'s *fields*."""
+        named = dict(zip(fields, arrs))
         out = {f"col{c}": named[f"f{i}"] for i, c in enumerate(cols)}
         for i, c in enumerate(cols):
             if f"n{i}" in named:    # True = NULL
@@ -2101,6 +2378,214 @@ class Query:
         return {"values": out[f"col{cols[0]}"][keep],
                 "positions": pos[keep]}
 
+    # -- worker processes (the Gather analog) --------------------------------
+    def _run_workers(self, n_workers: int, dev: torch.device,
+                     kernel: str) -> dict:
+        """Leader side of the parallel scan: the serial path's plan and
+        what cannot ship are refused before any process starts; GROUP BY
+        keys are discovered once (every worker shares one key space) and
+        star dimensions loaded once; then :func:`.parallel.run_query_workers`,
+        the workers' counters folded into this process's, and the partials
+        folded as the serial scan folds its batches.  ``_workers`` gives
+        ``n``, each worker's ``scan_s`` and its kernel ``launches``."""
+        from .parallel import run_query_workers
+        plan = self._plan(dev, kernel, None, n_workers)
+        if plan.kernel == "invalid":
+            raise StromError(_errno.EINVAL, f"query not executable: "
+                                            f"{plan.reason}")
+        if self._op == "join":
+            raise StromError(_errno.EINVAL, "workers: JOIN is not "
+                                            "worker-servable yet (run it "
+                                            "without workers=)")
+        if self._opaque:
+            raise StromError(_errno.EINVAL, "workers: an opaque where() "
+                                            "lambda cannot ship to worker "
+                                            "processes — use where_eq/"
+                                            "where_range/where_in or a "
+                                            "FilterPred (its terms travel)")
+        discovered, spill = None, None
+        if self._op == "group_by":
+            if self._group_cols is None:
+                raise StromError(_errno.EINVAL, "workers: group_by needs "
+                                                "group_by_cols (key-function "
+                                                "closures cannot ship)")
+            try:
+                discovered = self._discover_group_keys(dev)
+                self._install_group_keys(discovered, dev)
+            except _GroupSpill:
+                # the workers sort-aggregate, the leader merges
+                spill = self._sorted_group_acc()
+        elif self._op == "star":
+            if self._star["materialize"]:
+                raise StromError(_errno.EINVAL, "workers: the star row face "
+                                                "is not worker-servable "
+                                                "(aggregate face only)")
+            self._resolve_star_builds(dev)
+        elif self._op not in self._WORKER_OPS:
+            raise StromError(_errno.EINVAL, f"workers: terminal {self._op!r}"
+                                            f" is not worker-servable "
+                                            f"({'/'.join(self._WORKER_OPS)})")
+        partials = run_query_workers(self._worker_spec(
+            dev, plan.kernel, discovered, spill is not None), n_workers)
+        for p in partials:
+            stats.merge_native(p.pop("stats"))
+        self._h2d_depth = max(p.pop("h2d_depth") for p in partials)
+        info = {"n": n_workers,
+                "scan_s": [round(p.pop("scan_s"), 6) for p in partials],
+                "launches": [p.pop("launches") for p in partials]}
+        out = self._fold_partials(partials, dev, spill)
+        if out:
+            out["_workers"] = info
+        return out
+
+    def _fold_partials(self, partials: List[dict], dev,
+                       spill: Optional[_SortedGroupAcc]) -> dict:
+        """The workers' partials as the serial run's result.  Rows and
+        top-k candidates take the serial scan's order: a worker claims its
+        chunks in ascending order, so its rows arrive by position, and
+        every chunk holding one of the first ``offset + limit`` rows of the
+        table is gathered by some worker."""
+        from ..ops.groupby import combine_groupby
+        from .executor import _to_numpy, fold_results
+        if spill is not None:
+            for p in partials:
+                spill.merge_state(p["sorted"])
+            return self._sorted_group_result(spill)
+        if self._op == "select":
+            cols, limit, offset = self._select
+            if cols is None:
+                cols = list(range(self.schema.n_cols))
+            _g, fields, _dts = self._make_gather_fn(cols)
+            arrs = [np.concatenate([p["rows"][i] for p in partials])
+                    for i in range(len(fields))]
+            order = np.argsort(arrs[-1], kind="stable")   # positions
+            stop = None if limit is None else offset + limit
+            return self._select_result(cols, fields, [a[order][offset:stop]
+                                                      for a in arrs])
+        accs = [_to_torch(p["acc"]) for p in partials if p["acc"]]
+        if not accs:
+            # an empty table: no worker claimed a chunk.  The step over one
+            # blank page (no tuples) gives the zero-row result
+            fn, _c = self._build_fn("torch")
+            return self._finalize(_to_numpy(fn(torch.zeros(
+                (1, PAGE_SIZE), dtype=torch.uint8, device=dev))))
+        if self._op == "top_k":
+            col, k, largest = self._topk
+            folded = _merge_topk(accs, self.schema.col_dtype(col), largest, k)
+        else:
+            combine = combine_groupby if self._op == "group_by" else None
+            folded = None
+            for a in accs:
+                folded = fold_results(folded, a, combine)
+        return self._finalize(_to_numpy(folded))
+
+    def _worker_spec(self, dev, kernel: str, discovered, spill: bool) -> dict:
+        """What a worker rebuilds the query from (picklable): the table,
+        the filter's FilterPred terms and its ``where_in`` members, the
+        terminal, the leader's route, device and config, and the resolved
+        GROUP BY keys or star dimensions."""
+        from ..config import config
+        spec = {"source": self.source, "schema": self.schema,
+                "config": config.snapshot(),
+                "chunk_size": int(config.get("chunk_size")),
+                "device": str(dev), "kernel": kernel,
+                "terms": self._terms, "in": self._in,
+                "op": "group_sorted" if spill else self._op,
+                "agg_cols": self._agg_cols, "agg_exprs": self._agg_exprs,
+                "select": self._select, "topk": self._topk}
+        if self._op == "star":
+            spec["star"] = self._star
+            spec["star_resolved"] = self._star_resolved
+        if self._op == "group_by":
+            cols_, agg, _having, max_groups = self._group_cols
+            spec["group"] = (list(cols_), agg, max_groups)
+            spec["discovered"] = discovered
+        return spec
+
+    @classmethod
+    def _from_worker_spec(cls, spec: dict) -> "Query":
+        """The leader's query, rebuilt inside a worker (the inverse of
+        :meth:`_worker_spec`)."""
+        from ..hbm.staging import resolve_device
+        q = cls(spec["source"], spec["schema"])
+        if spec["in"] is not None:
+            q.where_in(*spec["in"])       # its torch.isin callable
+        q._terms = spec["terms"]
+        op = spec["op"]
+        if op == "aggregate":
+            if spec["agg_exprs"] is not None:
+                q.aggregate_exprs(spec["agg_exprs"])
+            else:
+                q.aggregate(spec["agg_cols"])
+        elif op == "star":
+            q._terminal("star")
+            q._star, q._star_resolved = spec["star"], spec["star_resolved"]
+        elif op == "top_k":
+            col, k, largest = spec["topk"]
+            q.top_k(col, k, largest=largest)
+        elif op == "select":
+            # the offset applies on the leader: a worker gathers up to
+            # offset + limit rows
+            cols, limit, offset = spec["select"]
+            q.select(cols, limit=None if limit is None else offset + limit)
+        elif op in ("group_by", "group_sorted"):
+            cols_, agg, max_groups = spec["group"]
+            q.group_by_cols(cols_, agg_cols=agg, max_groups=max_groups)
+            if op == "group_by":
+                q._install_group_keys(spec["discovered"],
+                                      resolve_device(spec["device"]))
+        else:
+            raise StromError(_errno.EINVAL, f"worker spec op {op!r}")
+        return q
+
+    def _run_worker_partial(self, spec: dict, cursor,
+                            ready: Callable[[], object] = lambda: None
+                            ) -> dict:
+        """Worker side: bring the device up, call *ready* (the workers'
+        start barrier), scan the chunks claimed from the shared *cursor*
+        with this process's own session and return the numpy partial,
+        with the worker's ``scan_s`` (wall time from the barrier, net of
+        process start and CUDA set-up), its kernel ``launches``, the
+        deepest H2D pipeline it reached and its counter deltas."""
+        from ..hbm.staging import resolve_device
+        from ..ops import filter_cuda, groupby_cuda
+        dev = resolve_device(spec["device"])
+        if dev.type == "cuda":
+            torch.zeros(1, device=dev)
+            torch.cuda.synchronize(dev)
+        ready()
+        before = stats.snapshot()
+        l1, l3 = filter_cuda.launches, groupby_cuda.launches
+        t0 = time.monotonic()
+        self._cursor = cursor
+        try:
+            out = self._worker_partial_inner(spec, dev)
+        finally:
+            self._cursor = None
+        out["scan_s"] = time.monotonic() - t0
+        out["launches"] = {"filter_pages": filter_cuda.launches - l1,
+                           "groupby_pages": groupby_cuda.launches - l3}
+        out["h2d_depth"] = self._h2d_depth
+        after = stats.snapshot()
+        out["stats"] = {k: v - before.get(k, 0) for k, v in after.items()
+                        if k != "h2d_depth_reached"}
+        return out
+
+    def _worker_partial_inner(self, spec: dict, dev) -> dict:
+        if spec["op"] == "group_sorted":
+            acc = self._sorted_group_acc()
+            self._sorted_group_scan(acc, dev)
+            return {"sorted": acc.state()}
+        if self._op == "select":
+            cols, stop, _offset = self._select
+            if cols is None:
+                cols = list(range(self.schema.n_cols))
+            gather, fields, dtypes = self._make_gather_fn(cols)
+            return {"rows": self._collect_rows(gather, fields, dtypes, dev,
+                                               limit=stop)}
+        fn, combine = self._build_fn(spec["kernel"])
+        return {"acc": self._scan(fn, dev, combine)}
+
     # -- value-keyed GROUP BY -----------------------------------------------
     def _discover_group_keys(self, dev) -> np.ndarray:
         """Pass 1 of :meth:`group_by_cols`: the sorted distinct key set
@@ -2179,7 +2664,10 @@ class Query:
                 a.astype(np.int64))).to(dev)
 
         def rank(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-            return torch.searchsorted(u, v.to(torch.int64).contiguous()) \
+            # the table follows the batch: a mesh's members may sit on
+            # other cards than *dev*
+            return torch.searchsorted(u.to(v.device),
+                                      v.to(torch.int64).contiguous()) \
                 .clamp_(0, max(u.shape[0] - 1, 0))
 
         if len(cols_) == 1:
@@ -2233,19 +2721,16 @@ class Query:
                 for j, cj in enumerate(cols_):
                     r = rank(uts[j], cols[cj])
                     flat = r if flat is None else flat * dims[j] + r
-                return tt[flat]
+                return tt.to(flat.device)[flat]
 
             n_groups = g + 1
             self._gk_decode = lambda gids: [k[gids] for k in krows]
         self._group = (key_fn, n_groups, agg, _hv(user_having))
 
-    def _run_groupby_sorted(self, dev) -> dict:
-        """GROUP BY past ``max_groups``: each batch's selected rows sort
-        by packed key and ``reduceat`` into per-key partials on the host,
-        merged into a running sorted state (O(distinct keys)).  Same
-        result contract as the one-pass GROUP BY, ``key_cols`` included."""
-        from .index import pack_pair, unpack_first, unpack_second
-        cols_, agg, user_having, _mg = self._group_cols
+    def _sorted_group_acc(self) -> _SortedGroupAcc:
+        """The sorted spill's empty accumulator; EINVAL when an aggregated
+        column is nullable."""
+        cols_, agg, _having, _mg = self._group_cols
         agg_idx, agg_dt = _check_agg_cols(self.schema, agg)
         for c in agg_idx:
             if self.schema.col_nullable(c):
@@ -2256,9 +2741,16 @@ class Query:
                                                 f"over nullable aggregates "
                                                 f"is outside this subset")
         acc_np, sq_np, lo, hi = acc_dtypes(agg_dt)
+        return _SortedGroupAcc(len(agg_idx), acc_np, sq_np, lo, hi,
+                               self._SPILL_HARD_MAX)
+
+    def _sorted_group_scan(self, acc: _SortedGroupAcc, dev) -> None:
+        """Stream the scan into *acc*: each batch's selected rows sort by
+        packed key and ``reduceat`` into per-key partials on the host."""
+        from .index import pack_pair
+        cols_, agg, _having, _mg = self._group_cols
+        agg_idx, _dt = _check_agg_cols(self.schema, agg)
         dts = [self.schema.col_dtype(c) for c in cols_]
-        acc = _SortedGroupAcc(len(agg_idx), acc_np, sq_np, lo, hi,
-                              self._SPILL_HARD_MAX)
         gather, _f, _d = self._make_gather_fn(list(cols_) + list(agg_idx),
                                               want_positions=False)
         nk = len(cols_)
@@ -2272,16 +2764,32 @@ class Query:
             return {}
 
         self._stream_collect(collect, dev)
+
+    def _sorted_group_result(self, acc: _SortedGroupAcc) -> dict:
+        """The folded spill as the one-pass GROUP BY's result, ``key_cols``
+        included."""
+        from .index import unpack_first, unpack_second
+        cols_, agg, user_having, _mg = self._group_cols
+        dts = [self.schema.col_dtype(c) for c in cols_]
         st = acc.state()
         keys = st.pop("keys")
         self._group = (None, len(keys), agg, _hv(user_having))
-        if nk == 1:
+        if len(cols_) == 1:
             kd = keys.astype(dts[0])
             self._gk_decode = lambda gids: [kd[gids]]
         else:
             k0, k1 = unpack_first(keys, dts[0]), unpack_second(keys, dts[1])
             self._gk_decode = lambda gids: [k0[gids], k1[gids]]
         return self._finalize(st)
+
+    def _run_groupby_sorted(self, dev) -> dict:
+        """GROUP BY past ``max_groups``: each batch's selected rows sort
+        by packed key and ``reduceat`` into per-key partials on the host,
+        merged into a running sorted state (O(distinct keys)).  Same
+        result contract as the one-pass GROUP BY, ``key_cols`` included."""
+        acc = self._sorted_group_acc()
+        self._sorted_group_scan(acc, dev)
+        return self._sorted_group_result(acc)
 
     # -- expression aggregates and joins ------------------------------------
     def _expr_parts(self, exprs):
@@ -2441,7 +2949,7 @@ class Query:
         ``parallel/pjoin.py``, waits for the port's meshes.)"""
         from ..ops.join import (hash_split_build, make_join_fn,
                                 make_join_rows_fn)
-        from .executor import TableScanner, fold_results
+        from .executor import fold_results
         probe_col, bk, bv, materialize, limit, offset = self._join
         how = self._join_how
         pred = self._predicate()
@@ -2481,8 +2989,7 @@ class Query:
             run = make_join_fn(
                 self.schema, probe_col, pk, pv, predicate=pred, how=how,
                 owner_part=(n_parts, p) if own_needed else None)
-            with TableScanner(self.source, self.schema) as sc:
-                acc = fold_results(acc, sc.scan_filter(run, device=dev))
+            acc = fold_results(acc, self._scan(run, dev))
         # numpy per leaf: the sums list keeps each column's acc dtype
         return acc or {}
 

@@ -10,6 +10,8 @@ package's registry uses for the same events:
   runs), ``nr_enter_dma`` its ``io_uring_enter`` calls, ``nr_debug1`` /
   ``nr_debug2`` / ``nr_debug4`` its continuations, full-queue stalls and
   requests that rode a fixed buffer (the reference's spare debug pairs);
+* ``nr_ioctl_memcpy_wait`` / ``clk_ioctl_memcpy_wait`` — tasks reaped by
+  ``Session.memcpy_wait`` and the time spent waiting for them;
 * ``nr_write_dma`` / ``total_write_length`` — write requests and bytes;
 * ``nr_backend_fallback`` — steps down the engine ladder (io_uring →
   native threadpool → python pool) and native submits that failed over;

@@ -465,6 +465,41 @@ def test_topk_index_tie_break_and_sentinel_match_kernel(tmp_path):
     assert 10 in few["positions"]
 
 
+@pytest.mark.parametrize("largest", [True, False],
+                         ids=["largest", "smallest"])
+@pytest.mark.parametrize("k", [9, 700])
+def test_topk_index_face_ranks_special_floats_as_jax(tmp_path, largest, k):
+    """The index face's top_k over a float32 column of NaN, -NaN, +-0.0,
+    +-inf and normals ranks in XLA's total order, as the JAX package's
+    index face and the port's own seqscan face do (k=700 passes the rows
+    the filter keeps, so pads follow)."""
+    schema, js = _schemas(n_cols=2, visibility=False,
+                          dtypes=("int32", "float32"))
+    n = schema.tuples_per_page * 3
+    rng = np.random.default_rng(31)
+    c0 = rng.integers(0, 20, n).astype(np.int32)
+    special = np.array([np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf],
+                       np.float32)
+    c1 = (rng.standard_normal(n) * 10).astype(np.float32)
+    pick = rng.random(n) < 0.6
+    c1[pick] = rng.choice(special, int(pick.sum()))
+    assert (c1.view(np.uint32) == 0xFFC00000).any()      # a -NaN row
+    path = str(tmp_path / "f.heap")
+    build_heap_file(path, [c0, c1], schema)
+
+    def make(q):
+        return q.where_range(0, 3, 9).top_k(1, k, largest=largest)
+    seq = make(Query(path, schema)).run(device=CPU)
+    build_index(path, schema, 0, device=CPU)
+    plan, out, jplan, jout = _both(path, schema, js, make)
+    assert plan.access_path == jplan.access_path == "index"
+    assert out["values"].dtype == jout["values"].dtype == np.float32
+    _eq(out["values"].view(np.uint32), jout["values"].view(np.uint32))
+    _eq(out["positions"], jout["positions"])
+    _eq(out["values"].view(np.uint32), seq["values"].view(np.uint32))
+    _eq(out["positions"], seq["positions"])
+
+
 def test_nan_filter_keys_excluded_on_both_paths(tmp_path):
     schema, js = _schemas(n_cols=2, visibility=False,
                           dtypes=("float32", "int32"))

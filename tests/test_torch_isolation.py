@@ -42,7 +42,7 @@ _SCRIPT = textwrap.dedent("""
                 "testing.fake", "data", "data.records", "data.loader",
                 "data.checkpoint", "data.dtypes", "tools.strom_ckpt",
                 "ops.topk", "scan.index", "scan.executor", "ops.join",
-                "scan.sql"):
+                "scan.sql", "scan.parallel"):
         assert pkg.__name__ + "." + mod in names, mod
     import chip_smoke  # noqa: F401
     leaked = [m for m in sys.modules
@@ -81,7 +81,11 @@ _SCRIPT = textwrap.dedent("""
         Query(path, HeapSchema(n_cols=2)).fetch([0])
     except StromError as e:
         codes.append(e.errno)
-    assert codes == [errno.ENODEV] * 5, codes
+    try:    # before any worker process starts
+        Query(path, HeapSchema(n_cols=2)).aggregate([0]).run(workers=2)
+    except StromError as e:
+        codes.append(e.errno)
+    assert codes == [errno.ENODEV] * 6, codes
     print("ISOLATED", len(names))
 """)
 

@@ -91,12 +91,14 @@ class _Queries:
     """``queries(pred) -> (port Query, JAX Query)`` over one table, with
     the named predicate of :data:`PREDS` applied to both."""
 
-    def __init__(self, path):
+    def __init__(self, path, schemas=(SCHEMA, JS)):
         self.path = path
+        self.schemas = schemas
 
     def __call__(self, pred_name: str):
         p, jp, _np = PREDS[pred_name]
-        q, jq = Query(self.path, SCHEMA), JQuery(self.path, JS)
+        q, jq = Query(self.path, self.schemas[0]), \
+            JQuery(self.path, self.schemas[1])
         if p is not None:
             q, jq = q.where(p), jq.where(jp)
         return q, jq
@@ -105,6 +107,36 @@ class _Queries:
 @pytest.fixture()
 def queries(configs, table):
     return _Queries(table[0])
+
+
+SPECIAL_KW = dict(n_cols=2, visibility=True, dtypes=("int32", "float32"))
+SPECIAL_PAGES = 20
+SPECIAL_FLOATS = np.array([np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf],
+                          np.float32)
+
+
+@pytest.fixture(scope="module")
+def special_table(tmp_path_factory):
+    """20 pages (three scan batches): c0 13 values, c1 float32 of which
+    60% are NaN, -NaN (bits 0xFFC00000), +0.0, -0.0, +inf or -inf."""
+    schema = HeapSchema(**SPECIAL_KW)
+    rng = np.random.default_rng(29)
+    n = schema.tuples_per_page * SPECIAL_PAGES - 3
+    c0 = rng.integers(-6, 7, n).astype(np.int32)
+    c1 = (rng.standard_normal(n) * 10).astype(np.float32)
+    pick = rng.random(n) < 0.6
+    c1[pick] = rng.choice(SPECIAL_FLOATS, int(pick.sum()))
+    assert (c1.view(np.uint32) == 0xFFC00000).any()
+    vis = (rng.random(n) > 0.2).astype(np.int32)
+    path = str(tmp_path_factory.mktemp("special") / "f.heap")
+    build_heap_file(path, [c0, c1], schema, visibility=vis)
+    return path
+
+
+@pytest.fixture()
+def special(configs, special_table):
+    return _Queries(special_table, (HeapSchema(**SPECIAL_KW),
+                                    JSchema(**SPECIAL_KW)))
 
 
 def _eq(a, b):
@@ -299,6 +331,8 @@ def test_fetch_refuses_positions_outside_the_table(queries):
 
 # -- top_k, order_by, quantiles, count_distinct -------------------------------
 
+_SLOTS = HeapSchema(**SPECIAL_KW).tuples_per_page * SPECIAL_PAGES
+#: (column, k, largest, predicate[, "special": the special_table])
 _TOPK_CASES = {
     "i32 ties largest": (0, 50, True, "all"),
     "i32 ties smallest where": (0, 40, False, "c0>2"),
@@ -308,17 +342,81 @@ _TOPK_CASES = {
     "f32 smallest": (3, 5, False, "all"),
     "k past the rows (pads)": (1, 10, True, "none"),
     "k = 0": (4, 0, True, "all"),
+    "f32 NaN/-0/inf largest": (1, 40, True, "all", "special"),
+    "f32 NaN/-0/inf smallest": (1, 40, False, "all", "special"),
+    "f32 NaN/-0/inf largest to +-0": (1, _SLOTS // 2, True, "all",
+                                      "special"),
+    "f32 NaN/-0/inf smallest to +-0": (1, _SLOTS // 2, False, "c0>2",
+                                       "special"),
+    "f32 NaN/-0/inf largest, -NaN below filtered rows":
+        (1, _SLOTS + 5, True, "c0>2", "special"),
+    "f32 NaN/-0/inf smallest, +NaN below filtered rows":
+        (1, _SLOTS + 5, False, "c0>2", "special"),
 }
 
 
+def _bits_eq(a, b):
+    """Equal dtypes and values, floats bit for bit (NaN signs, -0.0)."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype.kind == "f" and a.dtype == b.dtype:
+        a, b = a.view(f"u{a.itemsize}"), b.view(f"u{b.itemsize}")
+    _eq(a, b)
+
+
 @pytest.mark.parametrize("case", sorted(_TOPK_CASES))
-def test_top_k_matches_jax(queries, case):
-    col, k, largest, pname = _TOPK_CASES[case]
-    q, jq = queries(pname)
+def test_top_k_matches_jax(queries, special, case):
+    col, k, largest, pname, *on = _TOPK_CASES[case]
+    q, jq = (special if on else queries)(pname)
     got = q.top_k(col, k, largest=largest).run(device="cpu")
     want = jq.top_k(col, k, largest=largest).run()
-    _eq(got["values"], want["values"])
+    _bits_eq(got["values"], want["values"])
     _eq(got["positions"], want["positions"])
+
+
+@pytest.mark.parametrize("k", [3, 50, 300])
+@pytest.mark.parametrize("largest", [True, False],
+                         ids=["largest", "smallest"])
+@pytest.mark.parametrize("dt", ["float32", "float64"])
+def test_rank_and_combine_topk_total_order_match_jax(dt, largest, k):
+    """``ops.topk``'s selection and batch fold over float32 and float64
+    candidates of NaN, -NaN, +-0.0, +-inf and normals, against the JAX
+    package's (``lax.top_k``, under x64 for float64): values bit for bit
+    and positions (a Query's top_k takes 4-byte columns only)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from nvme_strom_tpu.ops.topk import combine_topk as jcombine
+    from nvme_strom_tpu.ops.topk import rank_topk as jrank
+    from nvme_strom_tpu.ops.topk import topk_key as jkey
+    from nvme_strom_tpu_torch.ops.topk import combine_topk, rank_topk
+    rng = np.random.default_rng(k)
+    d = np.dtype(dt)
+    v = (rng.standard_normal(257) * 10).astype(d)
+    pick = rng.random(257) < 0.7
+    v[pick] = rng.choice(SPECIAL_FLOATS.astype(d), int(pick.sum()))
+    assert np.signbit(v[np.isnan(v)]).any()
+    pos = np.arange(257, dtype=np.int64)
+    tv, tp = torch.from_numpy(v), torch.from_numpy(pos)
+    with jax.enable_x64(True):
+        jv, jp = jnp.asarray(v), jnp.asarray(pos)
+        halves = []
+        for sl in (slice(0, 130), slice(130, None)):
+            got = rank_topk(tv[sl], tp[sl], k, d, largest)
+            want = jrank(jv[sl], jp[sl], k, d, largest)
+            _bits_eq(got[0].numpy(), np.asarray(want[0]))
+            _eq(got[1].numpy(), np.asarray(want[1]))
+            halves.append((got, want))
+        (g0, w0), (g1, w1) = halves
+        got = combine_topk({"values": g0[0], "positions": g0[1]},
+                           {"values": g1[0], "positions": g1[1]}, dt=d,
+                           largest=largest)
+        want = jcombine({"values": w0[0], "positions": w0[1]},
+                        {"values": w1[0], "positions": w1[1]},
+                        largest=largest,
+                        key_of=lambda x: jkey(x, d, largest))
+        _bits_eq(got["values"].numpy(), np.asarray(want["values"]))
+        _eq(got["positions"].numpy(), np.asarray(want["positions"]))
 
 
 _ORDER_CASES = {
