@@ -5,7 +5,9 @@ Drives the port's main paths — load, scan, GROUP BY, the packed-sidecar
 (pushdown) aggregate, the multi-host sharded load, the ring scan, the write
 path, the data tier (loader, checkpoints, a training loop), the query
 engine's torch route and terminals, its joins, star joins and expression
-aggregates, and its index access paths — at full size and holds every CUDA kernel of those
+aggregates, its index access paths, worker processes and meshes, and the
+planner's direct and vfs access paths over one file, a stripe set and a
+segmented relation — at full size and holds every CUDA kernel of those
 paths against its plain PyTorch version:
 
 1. environment: the card's name and power limit (``nvidia-smi``);
@@ -164,7 +166,32 @@ paths against its plain PyTorch version:
     d. the table's mtime moved: every plan direct, ``open_index`` ESTALE,
        the results unchanged;
     each from a cold page cache with its access path, route, reason, wall
-    time, table bytes, sidecar bytes, pages and kernel launches.
+    time, table bytes, sidecar bytes, pages and kernel launches;
+16. worker processes, the mesh face and ``run(analyze=True)`` over [5]'s
+    table: the aggregate in one process and at ``workers=2`` and 4 (B1 in
+    each worker), four terminals at ``workers=2`` against one process,
+    the aggregate (B1) and a GROUP BY (B3) over a ring of 4 x the card,
+    two refusals, and ``top_k`` over float32 NaN, -NaN, +-0.0 and +-inf
+    against XLA's total order;
+17. the planner's access path over [5]'s table (phases 4-16 plan direct
+    with ``debug_no_threshold``; this one reads the threshold):
+    a. MemTotal, ``buffer_size`` and ``direct_scan_threshold()``; the plan
+       with the flag off (vfs below the threshold), on (direct) and with
+       ``enabled`` off (vfs); the aggregate (B1) on its direct face cold
+       and on its vfs face cold and warm, with ``bytes_direct`` and B1
+       launches (one a 16 MiB chunk direct, one a 1024-page batch vfs);
+    b. the table as a 4-member stripe set (512 KiB chunks) and as 4
+       segments of 256 MiB opened as a live Source: on the direct and the
+       vfs face the aggregate (B1), ``group_by(c0 % 64)`` (B3),
+       ``group_by_cols``, ``top_k``, ``select(limit, offset)`` and a
+       broadcast ``join_table``, each equal to the single-file direct run;
+       then the aggregate's GB/s on each face in turns (single, stripe,
+       segments, segments, stripe, single), with the direct requests;
+       the aggregate over the stripe set on a ring of 4 x the card;
+       ``workers=2`` over the list EINVAL;
+    c. ``check_file`` of the table and of each stripe member (the host's
+       backing verdict, printed, not judged), then the plan and the run
+       under ``require_nvme_backing``, which must agree with the gate.
 
 Every main path sets the kernels' launch counts to 0 just before it runs
 and reads them just after; each kernel of a path must have launched once
@@ -3461,6 +3488,30 @@ def _topk_truth(vals, sel, k, largest):
             np.concatenate([pos[idx], np.full(pad, -1)]))
 
 
+def _same_result(fail, label, got, want,
+                 approx=("sumsqs", "vars", "stds")):
+    """*got* equal to *want* key by key (keys starting with ``_`` aside):
+    exact, or within TRUTH_REL of the magnitude for the float32 sums of
+    squares (another fold order) and what derives from them; a
+    difference calls ``fail(label, what)``."""
+    keys = sorted(k for k in want if not k.startswith("_"))
+    if sorted(k for k in got if not k.startswith("_")) != keys:
+        fail(label, f"keys {sorted(got)} against {keys}")
+    for k in keys:
+        for g1, w1 in zip(*(x if isinstance(x, list) else [x]
+                            for x in (got[k], want[k]))):
+            g1, w1 = np.asarray(g1), np.asarray(w1)
+            if g1.shape != w1.shape or g1.dtype != w1.dtype:
+                fail(label, f"{k}: {g1.dtype}{g1.shape} against "
+                            f"{w1.dtype}{w1.shape}")
+            if k in approx:
+                tol = TRUTH_REL * np.abs(w1) + 1e-6
+                if not (np.abs(g1 - w1) <= tol).all():
+                    fail(label, f"{k} beyond {TRUTH_REL} relative")
+            elif not np.array_equal(g1, w1, equal_nan=True):
+                fail(label, f"{k} differs")
+
+
 class _FreeMemory:
     """Sample the card's free memory (``torch.cuda.mem_get_info``) every
     50 ms on a thread; :meth:`stop` returns the free memory at the start
@@ -3545,26 +3596,6 @@ def _parallel_phase(torch, dev, tmp, seed, heap=None):
                         f"{int(res['sums'][0])}, numpy truth {want_count} "
                         f"/ {want_sum}")
 
-    def same(label, got, want, approx=("sumsqs", "vars", "stds")):
-        """*got* equal to *want* key by key: exact, or within TRUTH_REL
-        of the magnitude for the float32 sums of squares (another fold
-        order) and what derives from them."""
-        if sorted(k for k in got if not k.startswith("_")) != sorted(want):
-            fail(label, f"keys {sorted(got)} against {sorted(want)}")
-        for k, w in want.items():
-            for g1, w1 in zip(*(x if isinstance(x, list) else [x]
-                                for x in (got[k], w))):
-                g1, w1 = np.asarray(g1), np.asarray(w1)
-                if g1.shape != w1.shape or g1.dtype != w1.dtype:
-                    fail(label, f"{k}: {g1.dtype}{g1.shape} against "
-                                f"{w1.dtype}{w1.shape}")
-                if k in approx:
-                    tol = TRUTH_REL * np.abs(w1) + 1e-6
-                    if not (np.abs(g1 - w1) <= tol).all():
-                        fail(label, f"{k} beyond {TRUTH_REL} relative")
-                elif not np.array_equal(g1, w1, equal_nan=True):
-                    fail(label, f"{k} differs")
-
     agg = lambda **kw: Query(path, schema, **kw) \
         .where_range(0, th + 1, None).aggregate(cols=[1])
     plan = agg().explain(device=dev)
@@ -3639,7 +3670,7 @@ def _parallel_phase(torch, dev, tmp, seed, heap=None):
                 0, agg_cols=[1], max_groups=256))):
         want, s1, _ = run(mk(), label)
         res, s2, _ = run(mk(), label, workers=2)
-        same(f"workers=2 {label}", res, want)
+        _same_result(fail, f"workers=2 {label}", res, want)
         print(f"[16c] {label}: one process {s1:.3f} s, workers=2 {s2:.3f} s"
               f" (scan_s {res['_workers']['scan_s']}); equal")
 
@@ -3665,7 +3696,7 @@ def _parallel_phase(torch, dev, tmp, seed, heap=None):
     gq = lambda: rng_q().group_by(GroupKey(0, 64), 64, agg_cols=[1])
     want, s1, got1 = run(gq(), "local group_by")
     res, s2, got = run(gq(), "mesh group_by", mesh=mesh, batch_pages=bp)
-    same("mesh group_by", res, want)
+    _same_result(fail, "mesh group_by", res, want)
     if on_card and (got1[groupby_cuda] != n_batches
                     or got[groupby_cuda] != 4 * n_mesh + n_tail):
         fail("mesh group_by", f"B3 launches local {got1[groupby_cuda]}, "
@@ -3731,6 +3762,329 @@ def _parallel_phase(torch, dev, tmp, seed, heap=None):
           f"the rows): {n_checked} queries (largest and smallest, with and "
           f"without a predicate, k past the rows) return the positions "
           f"and bits of XLA's total order")
+    return launched[filter_cuda], launched[groupby_cuda]
+
+
+def _split_segments(path, paths, seg, piece=64 << 20):
+    """Cut *path* into segment files of *seg* bytes (the last one shorter),
+    a PostgreSQL relation's 1 GiB segments at another size."""
+    with open(path, "rb") as f:
+        for p in paths:
+            with open(p, "wb") as out:
+                left = seg
+                while left:
+                    buf = f.read(min(piece, left))
+                    if not buf:
+                        break
+                    out.write(buf)
+                    left -= len(buf)
+
+
+def _access_phase(torch, dev, tmp, seed, heap=None):
+    """Phase 17: the planner's access path over [5]'s 1 GiB heap table
+    (*heap* is ``(path, schema, th, want_count, want_sum)``; None builds
+    it in *tmp*): the direct-scan threshold and the three plans of [17a]
+    with the aggregate (B1) on its direct face and on its vfs face cold
+    and warm; the table as a 4-member stripe set (512 KiB) and as 4
+    segments of 256 MiB (a live Source) on both faces under six queries,
+    each equal to the single-file run, a mesh over the stripe set and
+    ``workers=2`` over the list refused ([17b]); the host's backing
+    verdict and ``require_nvme_backing``'s plan ([17c]).  Returns the B1
+    and B3 launches of its runs."""
+    import errno
+    from nvme_strom_tpu_torch.api import StromError
+    from nvme_strom_tpu_torch.config import config
+    from nvme_strom_tpu_torch.engine import check_file, open_source
+    from nvme_strom_tpu_torch.ops import decode_cuda, filter_cuda, \
+        groupby_cuda
+    from nvme_strom_tpu_torch.ops.groupby import GroupKey
+    from nvme_strom_tpu_torch.parallel.mesh import make_scan_mesh
+    from nvme_strom_tpu_torch.scan import planner
+    from nvme_strom_tpu_torch.scan.heap import PAGE_SIZE, HeapSchema, \
+        build_heap_file
+    from nvme_strom_tpu_torch.scan.query import Query
+    from nvme_strom_tpu_torch.stats import stats
+    from nvme_strom_tpu_torch.tools.common import drop_page_cache
+    t_phase = time.monotonic()
+    if heap is None:
+        path = os.path.join(tmp, "table.heap")
+        schema, c0, c1, vis = _scan_table(path, seed, 131072)
+        th = 100
+        sel = (vis != 0) & (c0 > th)
+        heap = (path, schema, th, int(sel.sum()), _int32_sum(c1[sel]))
+        del c0, c1, vis, sel
+    path, schema, th, want_count, want_sum = heap
+    table_bytes = os.path.getsize(path)
+    on_card = dev.type == "cuda"
+    mods = (filter_cuda, groupby_cuda, decode_cuda)
+    launched = {filter_cuda: 0, groupby_cuda: 0}
+    snap = config.snapshot()
+
+    def fail(label, what):
+        raise AssertionError(f"[17] {label}: {what}")
+
+    def run(q, label, files, cold=True, **kw):
+        """*q* (from a cold page cache of *files* unless *cold* is False)
+        with every count at 0: ``(result, seconds, {module: launches})``;
+        the B1/B3 launches add to the phase's."""
+        if cold:
+            for f in files:
+                drop_page_cache(f)
+        for m in mods:
+            m.launches = 0
+        stats.reset()
+        t0 = time.monotonic()
+        res = q.run(device=dev, **kw)
+        s = time.monotonic() - t0
+        got = {m: m.launches for m in mods}
+        if got[decode_cuda]:
+            fail(label, f"{got[decode_cuda]} B2 launches")
+        launched[filter_cuda] += got[filter_cuda]
+        launched[groupby_cuda] += got[groupby_cuda]
+        return res, s, got
+
+    def check_agg(label, res):
+        if int(res["count"]) != want_count or \
+                int(res["sums"][0]) != want_sum:
+            fail(label, f"count {int(res['count'])} sum "
+                        f"{int(res['sums'][0])}, numpy truth {want_count} "
+                        f"/ {want_sum}")
+
+    def knobs(**kv):
+        config.restore(snap)
+        for k, v in kv.items():
+            config.set(k, v)
+        planner.capability_cache.invalidate()
+
+    agg = lambda src, **kw: Query(src, schema, **kw) \
+        .where_range(0, th + 1, None).aggregate(cols=[1])
+    n_batches = -(-table_bytes // int(config.get("chunk_size")))
+    n_vfs = -(-table_bytes // (8 << 20))
+    stripes = [os.path.join(tmp, f"stripe{i}.heap") for i in range(4)]
+    seg = table_bytes // 4
+    segs = [os.path.join(tmp, f"seg{i}.heap") for i in range(4)]
+    dim = os.path.join(tmp, "dim17.heap")
+    try:
+        # -- a. the threshold and the three plans -------------------------
+        ram = planner._mem_total_bytes()
+        knobs(debug_no_threshold=False)
+        thr = planner.direct_scan_threshold()
+        print(f"[17] the planner's access path over [5]'s table "
+              f"({table_bytes} bytes) on {dev}")
+        print(f"[17a] MemTotal {ram} bytes, buffer_size "
+              f"{config.get('buffer_size')}, direct_scan_threshold() "
+              f"{thr} bytes; the table is {table_bytes} bytes: "
+              + ("below it, so it plans vfs" if table_bytes < thr else
+                 "at or above it, so it plans direct"))
+        plans = {}
+        for label, kv in (("debug_no_threshold off", dict(
+                debug_no_threshold=False)),
+                ("debug_no_threshold on", dict(debug_no_threshold=True)),
+                ("enabled off", dict(debug_no_threshold=True,
+                                     enabled=False))):
+            knobs(**kv)
+            p = agg(path).explain(device=dev)
+            want = "vfs" if label == "enabled off" or (
+                label.endswith("off") and table_bytes < thr) else "direct"
+            if p.access_path != want:
+                fail("plan", f"{label}: {p.access_path}, not {want}: "
+                             f"{p.reason}")
+            if p.kernel != ("cuda" if on_card else "torch"):
+                fail("plan", f"{label}: route {p.kernel}")
+            plans[label] = p
+            print(f"      {label}: {p.access_path} path, {p.kernel} route; "
+                  f"{p.reason.split(';')[0]}")
+        vfs_knobs = dict(debug_no_threshold=False) if table_bytes < thr \
+            else dict(enabled=False)
+        # one untimed direct run first: the timed runs find the engine,
+        # the pinned ring and the kernels up, as a long-running user would
+        knobs(debug_no_threshold=True)
+        check_agg("[17a] warm-up", run(agg(path), "warm-up", [path])[0])
+        rows = {}
+        for label, kv, cold in (("direct, cold", dict(
+                debug_no_threshold=True), True),
+                ("vfs, cold", vfs_knobs, True),
+                ("vfs, warm", vfs_knobs, False)):
+            knobs(**kv)
+            res, s, got = run(agg(path), label, [path], cold=cold,
+                              analyze=True)
+            check_agg(f"[17a] {label}", res)
+            a = res["_analyze"]
+            direct = label.startswith("direct")
+            if a["bytes_direct"] != (table_bytes if direct else 0):
+                fail(label, f"bytes_direct {a['bytes_direct']}")
+            want_b1 = n_batches if direct else n_vfs
+            if on_card and got[filter_cuda] != want_b1:
+                fail(label, f"{got[filter_cuda]} B1 launches, not "
+                            f"{want_b1}")
+            rows[label] = table_bytes / s / 1e9
+            print(f"[17a] aggregate (B1), {label}: {s:.3f} s = "
+                  f"{rows[label]:.3f} GB/s; bytes_direct "
+                  f"{a['bytes_direct']}; B1 launches {got[filter_cuda]}; "
+                  f"count and sum match numpy")
+        print(f"      the threshold's premise (a warm page cache beats the "
+              f"direct path): warm vfs {rows['vfs, warm']:.3f} GB/s "
+              f"against cold direct {rows['direct, cold']:.3f} GB/s: "
+              + ("holds" if rows["vfs, warm"] >= rows["direct, cold"]
+                 else "misses"))
+
+        # -- b. a stripe set and a segmented relation ----------------------
+        t0 = time.monotonic()
+        _write_striped(path, stripes, 512 << 10)
+        _split_segments(path, segs, seg)
+        dim_s = HeapSchema(n_cols=2, visibility=False)
+        dk = np.arange(0, 500, dtype=np.int32)
+        build_heap_file(dim, [dk, dk * 7], dim_s)
+        print(f"[17b] the table as 4 stripe members of 512 KiB chunks and "
+              f"as 4 segments of {seg} bytes, written in "
+              f"{time.monotonic() - t0:.1f} s")
+        rq = lambda src, **kw: Query(src, schema, **kw) \
+            .where_range(0, th + 1, None)
+        queries = {
+            "aggregate (B1)": lambda s, **kw: agg(s, **kw),
+            "group_by(c0 % 64) (B3)": lambda s, **kw: rq(s, **kw).group_by(
+                GroupKey(0, 64), 64, agg_cols=[1]),
+            "group_by_cols(c0)": lambda s, **kw: rq(s, **kw).group_by_cols(
+                0, agg_cols=[1]),
+            "top_k(c1, 100)": lambda s, **kw: Query(s, schema, **kw)
+            .top_k(1, 100),
+            "select(limit=1000, offset=500)": lambda s, **kw: rq(
+                s, **kw).select([0, 1], limit=1000, offset=500),
+            "join_table(c0, dim)": lambda s, **kw: Query(s, schema, **kw)
+            .join_table(0, dim, dim_s, 0, 1),
+        }
+        single = {}
+        rates = {}
+        segsrc = open_source(segs, segment_size=seg)
+        try:
+            sources = (("single file", path, {}, [path]),
+                       ("stripe set", stripes,
+                        dict(stripe_chunk_size=512 << 10), stripes),
+                       ("segmented Source", segsrc, {}, segs))
+            for face in ("direct", "vfs"):
+                knobs(**(dict(debug_no_threshold=True) if face == "direct"
+                         else vfs_knobs))
+                for sname, src, kw, files in sources:
+                    cells = []
+                    for qname, mk in queries.items():
+                        q = mk(src, **kw)
+                        p = q.explain(device=dev)
+                        if p.access_path != face:
+                            fail(f"{sname} {qname}", f"planned "
+                                 f"{p.access_path} on the {face} face")
+                        res, s, got = run(q, f"{sname} {qname}", files,
+                                          analyze=True)
+                        a = res.pop("_analyze")
+                        if (a["bytes_direct"] > 0) != (face == "direct"):
+                            fail(f"{sname} {qname}", f"bytes_direct "
+                                 f"{a['bytes_direct']} on {face}")
+                        if qname.startswith("aggregate"):
+                            check_agg(f"{sname} {face}", res)
+                            if on_card and not got[filter_cuda]:
+                                fail(f"{sname} {face}", "B1 not launched")
+                        if qname.startswith("group_by(") and on_card \
+                                and not got[groupby_cuda]:
+                            fail(f"{sname} {face}", "B3 not launched")
+                        if sname == "single file" and face == "direct":
+                            single[qname] = res
+                        else:
+                            _same_result(fail, f"[17b] {sname} {face} "
+                                               f"{qname}", res, single[qname])
+                        cells.append(f"{qname} {s:.3f} s")
+                    print(f"[17b] {sname}, {face} face: "
+                          + "; ".join(cells))
+            print("      every result equals the single-file direct run "
+                  "(integers and positions exact, float32 sums of squares "
+                  f"within {TRUTH_REL} relative)")
+            # the rates, in turns (single, stripe, segments, segments,
+            # stripe, single) from a cold cache, a face at a time
+            for face in ("direct", "vfs"):
+                knobs(**(dict(debug_no_threshold=True) if face == "direct"
+                         else vfs_knobs))
+                for sname, src, kw, files in sources + sources[::-1]:
+                    res, s, _got = run(agg(src, **kw), f"{sname} turn",
+                                       files, analyze=True)
+                    check_agg(f"{sname} {face} turn", res)
+                    a = res["_analyze"]
+                    rates.setdefault((sname, face), []).append(
+                        (table_bytes / s / 1e9, a["requests"],
+                         a["avg_dma_bytes"]))
+                cells = []
+                for sname, _src, _kw, _files in sources:
+                    r = rates[(sname, face)]
+                    mean = sum(x[0] for x in r) / len(r)
+                    share = mean / (sum(x[0] for x in rates[(
+                        "single file", face)]) / 2)
+                    cells.append(
+                        f"{sname} {r[0][0]:.3f} / {r[1][0]:.3f} GB/s "
+                        f"({share:.1%} of the single file's mean"
+                        + (f"; {r[0][1]} requests of {r[0][2]} bytes"
+                           if face == "direct" else "") + ")")
+                print(f"[17b] aggregate (B1) in turns, {face} face: "
+                      + "; ".join(cells))
+        finally:
+            segsrc.close()
+        # the mesh over the stripe set
+        knobs(debug_no_threshold=True)
+        mesh = make_scan_mesh([dev] * 4)
+        bp = 4 * 2047
+        n_pages = table_bytes // PAGE_SIZE
+        n_mesh = n_pages // bp
+        n_tail = -(-(n_pages - n_mesh * bp) // ((8 << 20) // PAGE_SIZE))
+        res, s, got = run(agg(stripes, stripe_chunk_size=512 << 10),
+                          "mesh over the stripe set", stripes, mesh=mesh,
+                          batch_pages=bp)
+        check_agg("mesh over the stripe set", res)
+        if on_card and got[filter_cuda] != 4 * n_mesh + n_tail:
+            fail("mesh over the stripe set", f"{got[filter_cuda]} B1 "
+                 f"launches for {n_mesh} batches of 4 + {n_tail}")
+        print(f"[17b] aggregate over the stripe set on a mesh of 4 x {dev}:"
+              f" {s:.3f} s = {table_bytes / s / 1e9:.3f} GB/s; B1 launches "
+              f"{got[filter_cuda]}; matches numpy")
+        try:
+            Query(stripes, schema, stripe_chunk_size=512 << 10,
+                  workers=2).aggregate([1]).run(device=dev)
+        except StromError as e:
+            if e.errno != errno.EINVAL:
+                fail("workers=2 over the list", f"errno {e.errno}: {e}")
+        else:
+            fail("workers=2 over the list", "ran")
+        print("[17b] workers=2 over the stripe list: EINVAL before any "
+              "process starts")
+
+        # -- c. the host's backing verdict ---------------------------------
+        for f in [path] + stripes:
+            i = check_file(f)
+            print(f"[17c] check_file {os.path.basename(f)}: fs_kind "
+                  f"{i.fs_kind.name}, backing_kind {i.backing_kind!r}, "
+                  f"backing_supported {i.backing_supported}, backing_reason"
+                  f" {i.backing_reason!r}, numa_node_id {i.numa_node_id}, "
+                  f"support_dma64 {i.support_dma64}, n_members "
+                  f"{i.n_members}, dma_max_size {i.dma_max_size}")
+        knobs(debug_no_threshold=True, require_nvme_backing=True)
+        p = agg(path).explain(device=dev)
+        gate = planner.should_use_direct_scan(path)
+        if (p.access_path == "direct") != gate:
+            fail("require_nvme_backing", f"plan {p.access_path}, gate "
+                                         f"{gate}")
+        res, s, got = run(agg(path), "require_nvme_backing", [path],
+                          analyze=True)
+        check_agg("require_nvme_backing", res)
+        bd = res["_analyze"]["bytes_direct"]
+        if (bd > 0) != (p.access_path == "direct"):
+            fail("require_nvme_backing", f"bytes_direct {bd} on "
+                                         f"{p.access_path}")
+        print(f"[17c] require_nvme_backing on: {p.access_path} path "
+              f"({p.reason.split(';')[0]}); the gate agrees; bytes_direct "
+              f"{bd}; {s:.3f} s")
+    finally:
+        config.restore(snap)
+        planner.capability_cache.invalidate()
+        for f in stripes + segs + [dim]:
+            if os.path.exists(f):
+                os.unlink(f)
+    print(f"    [17] took {time.monotonic() - t_phase:.1f} s; B1 launches "
+          f"{launched[filter_cuda]}, B3 {launched[groupby_cuda]}")
     return launched[filter_cuda], launched[groupby_cuda]
 
 
@@ -3814,6 +4168,17 @@ def main() -> int:
         worst_d = _decode_cases(torch, dev, args.seed, tmp)
         print(f"[3c] B2 vs plain: all cases agree (max |float err| "
               f"{worst_d:.3g})")
+
+        # phases [4]-[16] measure the direct path, as before the planner
+        # chose between direct and vfs: every table of theirs is far below
+        # the direct-scan threshold of a host with this much memory
+        from nvme_strom_tpu_torch.config import config
+        from nvme_strom_tpu_torch.scan.planner import direct_scan_threshold
+        config.set("debug_no_threshold", True)
+        print(f"    phases [4]-[16] plan the direct path "
+              f"(debug_no_threshold on); direct_scan_threshold() here is "
+              f"{direct_scan_threshold()} bytes, a 1 GiB table would plan "
+              f"vfs without it")
 
         # -- main path: load -------------------------------------------
         filter_cuda.launches = groupby_cuda.launches = 0
@@ -4111,8 +4476,15 @@ def main() -> int:
             (heap_path, schema, th, want_count, want_sum))
         main_launches += par_b1
         gb_launches += par_b3
-        os.unlink(heap_path)
         print(f"    [16] took {time.monotonic() - t16:.1f} s")
+
+        # -- the planner's access path and multi-file tables ---------------
+        acc_b1, acc_b3 = _access_phase(
+            torch, dev, tmp, args.seed,
+            (heap_path, schema, th, want_count, want_sum))
+        main_launches += acc_b1
+        gb_launches += acc_b3
+        os.unlink(heap_path)
         print(f"    total {time.monotonic() - t_start:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

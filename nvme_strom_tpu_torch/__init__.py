@@ -10,11 +10,15 @@ with no CUDA device they raise ``StromError(ENODEV)``.
 
 * :mod:`.engine` — file check, sources, pinned buffers, async read and
   write tasks, executed by :mod:`._native` (the io_uring engine, built
-  with ``g++`` at first use) or a Python thread pool.
+  with ``g++`` at first use) or a Python thread pool;
+  :mod:`.eligibility`, the backing device's verdict from sysfs (NVMe,
+  md-RAID-0 of NVMe, NUMA node, DMA64) that ``check_file`` reports.
 * :mod:`.trace` — the flight recorder: per-task spans, Chrome-trace dumps
   (``tools/strom_trace.py``), the Prometheus rendering of :mod:`.stats`.
 * :mod:`.hbm` — device registry, bounded fences, the staging pipeline.
-* :mod:`.scan` — heap page format, DMA pool, table scanner.
+* :mod:`.scan` — heap page format, DMA pool, table scanner, the planner
+  (direct-scan threshold, capability cache, cost model) and the query
+  layer over a path, a stripe set or an open Source.
 * :mod:`.ops` — the kernels (page filter, GROUP BY, packed decode, ring
   permute): plain PyTorch versions and the CUDA kernels.
 * :mod:`.parallel` — the ring of members: sharded and multi-host loading,
@@ -23,12 +27,13 @@ with no CUDA device they raise ``StromError(ENODEV)``.
 
 from .api import BufferInfo, FileInfo, FsKind, MemCopyResult, StromError
 from .config import config
+from .eligibility import BackingInfo, probe_backing
 from .engine import DmaBuffer, PlainSource, SegmentedSource, Session, \
     Source, StripedSource, check_file, open_source
 from .stats import stats
 from .trace import recorder
 
-__all__ = ["BufferInfo", "DmaBuffer", "FileInfo", "FsKind", "MemCopyResult",
-           "PlainSource", "SegmentedSource", "Session", "Source",
+__all__ = ["BackingInfo", "BufferInfo", "DmaBuffer", "FileInfo", "FsKind",
+           "MemCopyResult", "PlainSource", "SegmentedSource", "Session", "Source",
            "StripedSource", "StromError", "check_file", "config",
-           "open_source", "recorder", "stats"]
+           "open_source", "probe_backing", "recorder", "stats"]

@@ -41,12 +41,30 @@ class FileInfo:
     path: str
     file_size: int
     fs_kind: FsKind
-    logical_block_size: int
-    dma_max_size: int
+    logical_block_size: int      # the backing's sector size (:274-295)
+    dma_max_size: int            # merged-request cap, clamped (:297-314)
+    numa_node_id: int = -1       # (:316-328); -1 unknown or spans nodes
+    support_dma64: bool = False  # from the device chain (:330-336)
+    n_members: int = 1           # RAID-0 member count (1 = plain file)
+    stripe_chunk_size: int = 0   # RAID-0 chunk in bytes (0 = plain)
+    backing_kind: str = ""       # "nvme" | "md-raid0" | "md" (failed
+                                 # RAID-0 validation) | "other" | "none"
+    backing_supported: bool = False  # raw NVMe or RAID-0 of NVMe verified
+    backing_reason: str = ""     # why not, for tools and the planner
+    policy_rejected: bool = False    # strict eligibility said no (policy,
+                                     # apart from the fs_kind fact)
 
     @property
     def supported(self) -> bool:
-        return self.fs_kind != FsKind.UNSUPPORTED
+        return self.fs_kind != FsKind.UNSUPPORTED and not self.policy_rejected
+
+    @property
+    def strict_eligible(self) -> bool:
+        """The strict-eligibility predicate: a verified NVMe backing with
+        64-bit DMA (the reference's hard gate, kmod/nvme_strom.c:229-438
+        and pgsql/nvme_strom.c:313-318).  ``check_file``'s
+        ``policy_rejected`` and the planner's gate both derive from it."""
+        return self.backing_supported and self.support_dma64
 
 
 @dataclass(frozen=True)

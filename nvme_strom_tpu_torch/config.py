@@ -81,6 +81,13 @@ def _trace_policy(val: str) -> None:
                           f"got {val!r}")
 
 
+def _buffer_multiple(val: int, cfg: "Config") -> None:
+    chunk = cfg.get("chunk_size")
+    if chunk and val % chunk:
+        raise ConfigError(f"buffer_size {val} must be a multiple of "
+                          f"chunk_size {chunk}")
+
+
 def _coalesce_limit(val: int, cfg: "Config") -> None:
     # 0 = coalescing off; otherwise the merge window must cover at least
     # one dma_max_size request or planning could emit nothing mergeable
@@ -118,6 +125,21 @@ class _Var:
 
 
 _VARS: Dict[str, _Var] = {
+    # -- the planner (the pgsql extension's GUCs, :1561-1635) -----------
+    # the direct-load scan path on/off (off: every scan reads buffered)
+    "enabled": _Var(True, bool),
+    # the staging pool the direct-scan threshold counts as
+    # shared_buffers: (RAM - buffer_size) * 2/3 + buffer_size
+    "buffer_size": _Var(1 << 30, int, 1 << 20, cross=_buffer_multiple),
+    # the direct path's cost a page, a fraction of the buffered path's
+    "seq_page_cost": _Var(0.25, float, 0.0),
+    # plan the direct path whatever the table's size (a test hook)
+    "debug_no_threshold": _Var(False, bool),
+    # strict eligibility: CHECK_FILE reports UNSUPPORTED, and the planner
+    # never plans direct, unless the file sits on raw NVMe or
+    # md-RAID-0 of NVMe with 64-bit DMA (the reference's hard
+    # requirement, kmod/nvme_strom.c:229-438)
+    "require_nvme_backing": _Var(False, bool),
     # scan chunk size and staging batch (default 16MB)
     "chunk_size": _Var(16 << 20, int, 1 << 16, 1 << 30, _pow2),
     # in-flight DMA tasks per scan ring

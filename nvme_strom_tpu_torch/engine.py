@@ -3,8 +3,9 @@
 A reduced copy of the JAX package's engine: the reference's kernel-module
 commands (`kmod/nvme_strom.c`) as an in-process engine.
 
-* ``check_file`` — O_DIRECT probe, fs class, logical block size, request
-  cap (reference ``ioctl_check_file``, :188-583);
+* ``check_file`` — O_DIRECT probe, fs class, the backing device's
+  verdict (:mod:`.eligibility`), logical block size, NUMA node, DMA64,
+  request cap (reference ``ioctl_check_file``, :188-583);
 * sources — ``PlainSource`` (one file), ``SegmentedSource`` (fixed-size
   segment files, a PostgreSQL relation's shape) and ``StripedSource`` (a
   RAID-0 member set, :mod:`.stripe`), each readable and, opened with
@@ -48,6 +49,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from .api import BufferInfo, FileInfo, FsKind, MemCopyResult, StromError
 from .config import config
+from .eligibility import probe_backing
 from .log import pr_warn
 from .stats import stats
 from .trace import recorder as _trace
@@ -84,41 +86,59 @@ def _probe_odirect(path: str) -> bool:
     return True
 
 
-def _logical_block_size(path: str) -> int:
-    """The backing block device's logical block size from sysfs (a
-    partition reads its parent's queue); 512 when it cannot be found."""
-    st = os.stat(path)
-    base = f"/sys/dev/block/{os.major(st.st_dev)}:{os.minor(st.st_dev)}"
-    for q in (f"{base}/queue/logical_block_size",
-              f"{base}/../queue/logical_block_size"):
-        try:
-            with open(q) as f:
-                return int(f.read().strip())
-        except (OSError, ValueError):
-            continue
-    return 512
+def fs_class(path: str) -> FsKind:
+    """The class of *path*'s filesystem for the direct-load path: ext4 or
+    xfs when it honours O_DIRECT there, another filesystem that honours
+    it, else UNSUPPORTED.  A fact of the filesystem, whatever the file's
+    size (the size rule is :func:`check_file`'s)."""
+    kind = {_EXT4_SUPER_MAGIC: FsKind.EXT4, _XFS_SUPER_MAGIC: FsKind.XFS} \
+        .get(_fs_magic(path), FsKind.OTHER_DIRECT)
+    return kind if _probe_odirect(path) else FsKind.UNSUPPORTED
 
 
-def check_file(path: str, *, dma_max_size: Optional[int] = None) -> FileInfo:
-    """CHECK_FILE: classify *path* for the direct-load path.  A file
-    smaller than one page is UNSUPPORTED (inline-data risk, reference
-    kmod/nvme_strom.c:503-518)."""
+def check_file(path: str, *, dma_max_size: Optional[int] = None,
+               strict: Optional[bool] = None,
+               sysfs_root: str = "/sys") -> FileInfo:
+    """CHECK_FILE: classify *path* for the direct-load path (reference
+    kmod/nvme_strom.c:188-583): read permission, the filesystem's class
+    (ext4, xfs, or another that honours O_DIRECT), a file of at least one
+    page (inline-data risk, :503-518), then the backing walk of
+    :mod:`.eligibility` over *sysfs_root*: NVMe or md-RAID-0 of NVMe,
+    NUMA node, DMA64, the device's request cap (which clamps
+    ``dma_max_size``).
+
+    The engine drives any O_DIRECT file, so the backing verdict is always
+    reported (``backing_supported``, ``backing_reason``) and only gates
+    under strict eligibility (*strict*, default config
+    ``require_nvme_backing``): an unverified backing, or one without
+    64-bit DMA, then sets ``policy_rejected`` and the file is not
+    ``supported``.  ``fs_kind`` stays the fact, so a cached probe and a
+    live policy compose."""
     st = os.stat(path)
     if not os.access(path, os.R_OK):
         raise StromError(_errno.EACCES, f"no read permission: {path}")
-    direct = _probe_odirect(path)
-    magic = _fs_magic(path)
-    if magic == _EXT4_SUPER_MAGIC:
-        kind = FsKind.EXT4
-    elif magic == _XFS_SUPER_MAGIC:
-        kind = FsKind.XFS
-    else:
-        kind = FsKind.OTHER_DIRECT
-    if not direct or st.st_size < PAGE_SIZE:
+    kind = fs_class(path)
+    backing = probe_backing(path, sysfs_root=sysfs_root)
+    if strict is None:
+        strict = config.get("require_nvme_backing")
+    policy_rejected = bool(strict and not (backing.supported
+                                           and backing.support_dma64))
+    if st.st_size < PAGE_SIZE:
         kind = FsKind.UNSUPPORTED
+    cap = dma_max_size or config.get("dma_max_size")
+    if backing.dma_max_size:
+        cap = min(cap, backing.dma_max_size)
     return FileInfo(path=path, file_size=st.st_size, fs_kind=kind,
-                    logical_block_size=_logical_block_size(path),
-                    dma_max_size=dma_max_size or config.get("dma_max_size"))
+                    logical_block_size=backing.logical_block_size or 512,
+                    dma_max_size=cap,
+                    numa_node_id=backing.numa_node_id,
+                    support_dma64=backing.support_dma64,
+                    n_members=max(1, len(backing.members)),
+                    stripe_chunk_size=backing.stripe_chunk_size,
+                    backing_kind=backing.kind,
+                    backing_supported=backing.supported,
+                    backing_reason=backing.reason,
+                    policy_rejected=policy_rejected)
 
 
 # ---------------------------------------------------------------------------

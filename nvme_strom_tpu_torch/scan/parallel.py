@@ -23,6 +23,7 @@ dies with the worker that made it.
 
 from __future__ import annotations
 
+import errno as _errno
 import multiprocessing as mp
 import os
 import queue as _queue
@@ -30,6 +31,8 @@ import struct
 import time
 from multiprocessing import shared_memory
 from typing import List, Optional, Tuple
+
+from ..api import StromError
 
 __all__ = ["SharedCursor", "run_query_workers", "parallel_scan"]
 
@@ -125,6 +128,9 @@ def run_query_workers(spec: dict, n_workers: int, *,
     from .executor import cursor_chunk_count
     if n_workers < 2:
         raise ValueError("run_query_workers needs >= 2 workers")
+    if not isinstance(spec["source"], str):
+        raise StromError(_errno.EINVAL, "workers: a parallel scan takes one "
+                                        "table file path")
     size = os.path.getsize(spec["source"])
     total = cursor_chunk_count(size, spec["chunk_size"])
     ctx = mp.get_context("spawn")

@@ -1,15 +1,24 @@
-"""Scan planning: the cost model, and where a packed (``.cpk``) scan
-expands its rows.
+"""Scan planning: the access path, the cost model, and where a packed
+(``.cpk``) scan expands its rows.
 
-Ported from the JAX package's ``scan/planner.py`` (``ScanCost``,
-``cost_direct_scan``, ``cost_vfs_scan``, ``transport_rates``,
-``PushdownDecision``, ``decide_pushdown``).
+Ported from the JAX package's ``scan/planner.py``.  The pgsql extension's
+planner integration (`pgsql/nvme_strom.c:217-633`):
 
-The cost model is the pgsql extension's (`pgsql/nvme_strom.c:451-520`): a
-per-page cost reduced to ``SEQ_PAGE_COST`` on the direct path, a
-per-tuple CPU cost, and worker processes dividing both by PostgreSQL's
-parallel divisor, the disk component by at most 4 (`:491-517`), so I/O
-cost does not shrink linearly with workers.
+* **capability cache** — CHECK_FILE's directory-scoped facts (can this
+  filesystem load direct, the backing's verdict, NUMA node, DMA64, the
+  request cap) cached per directory with a TTL, a one-entry MRU and
+  ``invalidate()`` (the reference's per-tablespace cache and syscache
+  callback, `:217-348`).  A file's size is read fresh on every probe.
+* **size threshold** — the direct path pays off only for a table the host
+  page cache cannot hold: ``(RAM − buffer_size)·⅔ + buffer_size``
+  (`:1544-1559`, ``shared_buffers`` there), RAM from ``/proc/meminfo``;
+  config ``debug_no_threshold`` plans direct whatever the size, and
+  ``enabled`` off never does.
+* **cost model** — a per-page cost reduced by config ``seq_page_cost``
+  (¼ of the conventional cost by default, `:1614-1625`), a per-tuple CPU
+  cost, and worker processes dividing both by PostgreSQL's parallel
+  divisor, the disk component by at most 4 (`:491-517`), so I/O cost does
+  not shrink linearly with workers.
 
 The pushdown rule: when the
 host→device link is slower than the SSD, packed bytes must cross the link
@@ -25,22 +34,128 @@ The rates come from, in order: config ``pushdown_h2d_gbps`` /
 
 from __future__ import annotations
 
+import dataclasses
+import os
+import threading
+import time
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
+from ..api import FileInfo, FsKind
 from ..config import config
+from ..engine import PAGE_SIZE, check_file, fs_class
 
-__all__ = ["ScanCost", "cost_direct_scan", "cost_vfs_scan",
-           "H2D_GBPS_DEFAULT", "SSD_GBPS_DEFAULT", "transport_rates",
-           "PushdownDecision", "decide_pushdown"]
+__all__ = ["CapabilityCache", "capability_cache", "direct_scan_threshold",
+           "should_use_direct_scan", "ScanCost", "cost_direct_scan",
+           "cost_vfs_scan", "H2D_GBPS_DEFAULT", "SSD_GBPS_DEFAULT",
+           "transport_rates", "PushdownDecision", "decide_pushdown"]
 
 # conventional-path cost per 8 KiB page (PostgreSQL's seq_page_cost = 1.0)
 VFS_PAGE_COST = 1.0
-# the direct path's share of it: the reference's default ``seq_page_cost``
-# (¼ of the conventional cost, :1614-1625)
-SEQ_PAGE_COST = 0.25
 CPU_TUPLE_COST = 0.01
 _MAX_PARALLEL_DISK_DIVISOR = 4.0   # the reference caps at 4 (:491-517)
+
+
+class CapabilityCache:
+    """Directory-level capability cache (a TTL and explicit invalidation).
+
+    It caches only facts of the directory's filesystem and device; the
+    file's size is stat'ed on every probe and the size rule (a file under
+    a page is not direct-load capable) applied to it there, so one file's
+    size, or its verdict, is never given for another of the same
+    directory."""
+
+    def __init__(self, ttl_s: float = 60.0):
+        self._lock = threading.Lock()
+        self._cache: Dict[str, Tuple[FileInfo, float]] = {}
+        self._mru: Optional[Tuple[str, FileInfo, float]] = None  # (:233)
+        self.ttl_s = ttl_s
+
+    @staticmethod
+    def _fresh(path: str, cap: FileInfo) -> FileInfo:
+        size = os.stat(path).st_size
+        kind = cap.fs_kind if size >= PAGE_SIZE else FsKind.UNSUPPORTED
+        # replace(): a field added to FileInfo flows through unchanged
+        return dataclasses.replace(cap, path=path, file_size=size,
+                                   fs_kind=kind)
+
+    def probe(self, path: str) -> FileInfo:
+        d = os.path.dirname(os.path.abspath(path)) or "/"
+        now = time.monotonic()
+        with self._lock:
+            if self._mru is not None and self._mru[0] == d \
+                    and now - self._mru[2] < self.ttl_s:
+                return self._fresh(path, self._mru[1])
+            hit = self._cache.get(d)
+            if hit is not None and now - hit[1] < self.ttl_s:
+                self._mru = (d, hit[0], hit[1])
+                return self._fresh(path, hit[0])
+        # the facts only (strict=False): should_use_direct_scan applies the
+        # policy live, so require_nvme_backing takes effect at once
+        cap = check_file(path, strict=False)
+        if cap.file_size < PAGE_SIZE:
+            # the directory's entry holds its filesystem's class, not this
+            # file's size verdict (_fresh applies that to each file)
+            cap = dataclasses.replace(cap, fs_kind=fs_class(path))
+        with self._lock:
+            self._cache[d] = (cap, now)
+            self._mru = (d, cap, now)
+        return self._fresh(path, cap)
+
+    def invalidate(self, directory: Optional[str] = None) -> None:
+        """The syscache callback's counterpart (`:340-348`): forget one
+        directory, or all."""
+        with self._lock:
+            if directory is None:
+                self._cache.clear()
+            else:
+                self._cache.pop(os.path.abspath(directory), None)
+            self._mru = None
+
+
+capability_cache = CapabilityCache()
+
+
+def _mem_total_bytes() -> int:
+    """Physical RAM, which the reference's threshold counts (`:1544-1559`);
+    8 GiB when ``/proc/meminfo`` cannot be read."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemTotal:"):
+                    return int(line.split()[1]) << 10
+    except OSError:
+        pass
+    return 8 << 30
+
+
+def direct_scan_threshold() -> int:
+    """Table size at or above which the direct path is planned:
+    ``(RAM − buffer_size)·⅔ + buffer_size`` (`:1544-1559`)."""
+    ram = _mem_total_bytes()
+    shared = config.get("buffer_size")
+    return int((max(ram - shared, 0) * 2) // 3 + shared)
+
+
+def should_use_direct_scan(path: str, *,
+                           table_size: Optional[int] = None) -> bool:
+    """The add-path gate (``nvmestrom_add_scan_path``, `:555-596`):
+    ``enabled``, a direct-load capable file (CHECK_FILE through the
+    capability cache), the strict-eligibility policy when
+    ``require_nvme_backing`` is set (read live, not cached), then
+    ``debug_no_threshold`` or the size threshold.  *table_size* is the
+    whole table's (a multi-file set's), *path* the file probed."""
+    if not config.get("enabled"):
+        return False
+    info = capability_cache.probe(path)
+    if not info.supported:
+        return False
+    if config.get("require_nvme_backing") and not info.strict_eligible:
+        return False
+    size = table_size if table_size is not None else info.file_size
+    if config.get("debug_no_threshold"):
+        return True
+    return size >= direct_scan_threshold()
 
 
 @dataclass(frozen=True)
@@ -70,8 +185,10 @@ def _scan_cost(n_pages: int, n_tuples: int, page_cost: float,
 
 def cost_direct_scan(n_pages: int, n_tuples: int, *,
                      workers: int = 0) -> ScanCost:
-    """``cost_nvmestrom_scan`` (:451-520): the reduced per-page cost."""
-    return _scan_cost(n_pages, n_tuples, SEQ_PAGE_COST * VFS_PAGE_COST,
+    """``cost_nvmestrom_scan`` (:451-520): the per-page cost reduced by
+    config ``seq_page_cost``."""
+    return _scan_cost(n_pages, n_tuples,
+                      float(config.get("seq_page_cost")) * VFS_PAGE_COST,
                       workers)
 
 

@@ -1,8 +1,22 @@
 """Declarative query layer over one heap table: plan → stream → fold.
 
 A port of the JAX package's ``scan/query.py``: one fluent :class:`Query`
-over one heap table file, with a conjunctive ``where``, one terminal
-operator, ``explain``, ``run`` and the point lookup ``fetch``.
+over one heap table, with a conjunctive ``where``, one terminal operator,
+``explain``, ``run`` and the point lookup ``fetch``.  The table is a file
+path (or ``PathLike``), a list of paths (a RAID-0 stripe set at the
+query's ``stripe_chunk_size``) or an open :class:`..engine.Source` (a
+segmented relation, say), which the query never closes.
+
+The plan's ``access_path`` is ``direct``, ``vfs`` or ``index``.  The scan
+goes direct (the engine's O_DIRECT reads through the pinned ring,
+:class:`.executor.TableScanner`) when the planner's gate says so
+(:func:`.planner.should_use_direct_scan`: config ``enabled``, a
+direct-load capable file by CHECK_FILE, ``require_nvme_backing``'s
+strict eligibility, then a table at or above the direct-scan threshold
+``(RAM − buffer_size)·⅔ + buffer_size`` or ``debug_no_threshold``); else
+it reads ``vfs``, through the page cache in 1024-page batches, each
+copied to the query's device and folded by the same step, kernels
+included.  Sidecar and packed-sidecar plans need a table path.
 Terminals: ``aggregate``, ``aggregate_exprs`` (sums of expression
 trees), ``group_by`` (a key descriptor or function), ``group_by_cols``
 (value-keyed, keys discovered by a first scan, a sorted spill past
@@ -49,14 +63,16 @@ rechecks on the fetched rows.  Unfiltered ``order_by``, ``top_k``,
 ``quantiles`` and ``count_distinct`` over an integer column with a fresh
 sidecar read the sidecar alone (``WHERE c0 = v ORDER BY c1`` one span of a
 ``(c0, c1)`` sidecar), and ``group_by_cols`` takes its distinct keys from
-one.  A missing, stale or corrupt sidecar means the scan (``direct``).
+one.  A missing, stale or corrupt sidecar means the scan, on the access
+path the gate chooses.
 
 Three ways to run a scan besides the one-process scan:
 
-* ``workers=N`` (``Query(..., workers=N)`` or ``run(workers=N)``): N worker
-  processes, started with ``spawn``, claim chunks from one shared cursor
-  (:mod:`.parallel`, the Gather analog), each with its own session, and the
-  leader folds their numpy partials.  ``aggregate`` (expression aggregates
+* ``workers=N`` (``Query(..., workers=N)`` or ``run(workers=N)``, over a
+  table path only): N worker processes, started with ``spawn``, claim
+  chunks from one shared cursor (:mod:`.parallel`, the Gather analog) and
+  read them direct, each with its own session, and the leader folds their
+  numpy partials.  ``aggregate`` (expression aggregates
   too), ``group_by_cols`` (its sorted spill too), ``top_k``, ``select`` and
   the star join's aggregate face travel; a worker runs the route the
   leader's plan chose, B1/B3 on the card included.  A callable ``where``,
@@ -75,12 +91,14 @@ Three ways to run a scan besides the one-process scan:
   engine counters (EXPLAIN ANALYZE).
 
 Left out against the JAX package: the mesh sort and partitioned join and
-the mesh index build, the VFS access path, strings and the SQL facade (its
-``JOIN`` syntax and its ``workers=`` among them).
+the mesh index build, strings and the SQL facade (its ``JOIN`` syntax and
+its ``workers=`` among them), and the residency tiers' hit ratios in the
+plan.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import errno as _errno
 import math
@@ -107,6 +125,8 @@ __all__ = ["Query", "QueryPlan"]
 _KERNELS = ("auto", "cuda", "torch")
 _ROW_OPS = ("select", "top_k", "order_by", "quantiles", "count_distinct")
 _SORTABLE = (np.dtype(np.int32), np.dtype(np.uint32), np.dtype(np.float32))
+# threads that read one batch of the buffered scan (_buffered_batches)
+_VFS_READERS = 4
 _I32 = np.dtype(np.int32)
 
 
@@ -217,7 +237,7 @@ class QueryPlan:
     reason: str
     pushdown: str = ""     # "" | chip | host | raw (packed-sidecar scan)
     join_strategy: Optional[str] = None   # broadcast | partitioned(N)
-    access_path: str = "direct"           # direct | index (a sidecar)
+    access_path: str = "direct"           # direct | vfs | index
     mode: str = "local"    # local | mesh
     workers: int = 0       # worker processes (0 = one process)
     cost_direct: float = 0.0
@@ -274,6 +294,65 @@ def _to_torch(x):
     return torch.from_numpy(a)
 
 
+def _buffered_batches(src, first_page: int, dev: torch.device):
+    """The pages of *src* from *first_page* on, read through the page
+    cache (``Source.read_buffered``) in batches of 1024 pages (8 MiB, the
+    reference's grid), each yielded as a ``(n, PAGE_SIZE)`` tensor on
+    *dev*.
+
+    :data:`_VFS_READERS` threads read each batch in page-aligned pieces,
+    and the next batch is read while the current one is folded.  On a
+    CUDA device the scan stages through two pinned host buffers, taken
+    once for the scan, and copies each batch to a fresh device tensor
+    without blocking; a buffer is refilled only after its copy is done.
+    Elsewhere each batch is a fresh host tensor."""
+    from concurrent.futures import ThreadPoolExecutor
+    batch = (8 << 20) // PAGE_SIZE
+    n_pages = src.size // PAGE_SIZE
+    spans = [(p0, min(batch, n_pages - p0))
+             for p0 in range(first_page, n_pages, batch)]
+    if not spans:
+        return
+    cuda = dev.type == "cuda"
+    if cuda:
+        staging = [torch.empty(batch * PAGE_SIZE, dtype=torch.uint8,
+                               pin_memory=True) for _ in range(2)]
+        copied = [None, None]
+    with ThreadPoolExecutor(_VFS_READERS) as pool:
+        def fill(i):
+            """Start reading batch *i*: its host tensor and the reads."""
+            p0, n = spans[i]
+            if cuda:
+                if copied[i % 2] is not None:
+                    copied[i % 2].synchronize()
+                host = staging[i % 2][:n * PAGE_SIZE]
+            else:
+                host = torch.empty(n * PAGE_SIZE, dtype=torch.uint8)
+            view = memoryview(host.numpy())
+            step = -(-n // _VFS_READERS)
+            return host, [pool.submit(src.read_buffered, (p0 + a) * PAGE_SIZE,
+                                      view[a * PAGE_SIZE:
+                                           min(a + step, n) * PAGE_SIZE])
+                          for a in range(0, n, step)]
+
+        nxt = fill(0)
+        for i, (_, n) in enumerate(spans):
+            host, reads = nxt
+            if i + 1 < len(spans):
+                nxt = fill(i + 1)
+            for r in reads:
+                r.result()
+            if not cuda:
+                yield host.view(n, PAGE_SIZE).to(dev)
+                continue
+            pages = torch.empty((n, PAGE_SIZE), dtype=torch.uint8,
+                                device=dev)
+            pages.view(-1).copy_(host, non_blocking=True)
+            copied[i % 2] = torch.cuda.Event()
+            copied[i % 2].record(torch.cuda.current_stream(dev))
+            yield pages
+
+
 def _merge_topk(accs: List[dict], dt: np.dtype, largest: bool,
                 k: int) -> dict:
     """The best *k* of several top-k candidate sets, ties to the lower
@@ -303,15 +382,19 @@ class Query:
     _SPILL_HARD_MAX = 1 << 24   # the sorted spill's own bound (ENOMEM)
     _WORKER_OPS = ("aggregate", "group_by", "top_k", "select", "star")
 
-    def __init__(self, source, schema: HeapSchema, *, workers: int = 0):
+    def __init__(self, source, schema: HeapSchema, *,
+                 stripe_chunk_size: int = 512 << 10, workers: int = 0):
         if isinstance(source, os.PathLike):
             source = str(source)
-        if not isinstance(source, str):
-            raise StromError(_errno.EINVAL, "Query takes one heap table "
-                                            "file path (striped sets are "
-                                            "not ported)")
+        elif isinstance(source, (list, tuple)):
+            source = [str(p) for p in source]
+        elif not isinstance(source, str) and not hasattr(source, "size"):
+            raise StromError(_errno.EINVAL, "Query takes a heap table path, "
+                                            "a list of paths (a stripe set) "
+                                            "or an open Source")
         self.source = source
         self.schema = schema
+        self._stripe_chunk = stripe_chunk_size
         self._workers = int(workers)   # >= 2: worker processes
         self._terms: tuple = ()
         self._callables: List[Callable] = []
@@ -347,6 +430,7 @@ class Query:
         self._session = None
         self._cursor = None
         self._h2d_depth = 0
+        self._vfs = False              # the run's scans read buffered
 
     # -- builders -----------------------------------------------------------
     def where(self, predicate: Union[FilterPred, Callable]) -> "Query":
@@ -1045,6 +1129,7 @@ class Query:
         """``(PushdownDecision, PackedMeta)`` when a fresh packed sidecar
         can serve this aggregate (4-byte non-null layout), else None."""
         if self._op != "aggregate" or self._agg_exprs is not None \
+                or not isinstance(self.source, str) \
                 or self.schema.has_wide or any(self.schema.nullable or ()):
             return None
         from .colpack import probe_packed
@@ -1112,10 +1197,63 @@ class Query:
         """The plan ``run(device=..., kernel=..., mesh=...)`` would
         execute.  Under a mesh the query runs on the members' device and
         always scans (no sidecar, no packed pushdown); with the Query's
-        ``workers=`` the workers scan too."""
+        ``workers=`` the workers scan too, direct through their shared
+        cursor, as the reference's workers do."""
         from ..hbm.staging import resolve_device
         dev = mesh.devices[0] if mesh is not None else resolve_device(device)
         return self._plan(dev, kernel, mesh, self._workers)
+
+    # -- the source and its access path -------------------------------------
+    def _source_facts(self):
+        """``(file the planner probes, table bytes)``: the table file; a
+        stripe set's first member and the set's bytes; a live Source's
+        ``path``, or for a multi-file one its first member's (None when
+        it has neither), and its size."""
+        if isinstance(self.source, str):
+            return self.source, os.path.getsize(self.source)
+        if isinstance(self.source, list):
+            return self.source[0], sum(os.path.getsize(p)
+                                       for p in self.source)
+        members = getattr(self.source, "members", None)
+        probe = members[0].path if members \
+            else getattr(self.source, "path", None)
+        return probe, self.source.size
+
+    @contextlib.contextmanager
+    def _open_owned(self):
+        """The table as an open Source: a live Source as the caller gave
+        it (never closed here), else one opened for the block and closed
+        after it — a list as a RAID-0 stripe set at the query's
+        ``stripe_chunk_size``."""
+        from ..engine import open_source
+        if hasattr(self.source, "size"):
+            yield self.source
+            return
+        src = open_source(self.source, stripe_chunk_size=self._stripe_chunk) \
+            if isinstance(self.source, list) else open_source(self.source)
+        try:
+            yield src
+        finally:
+            src.close()
+
+    def _scan_access(self):
+        """``(access path, reason)`` of a scan by the planner's gate
+        (:func:`.planner.should_use_direct_scan`): ``direct`` for a table
+        at or above the direct-scan threshold on a direct-load capable
+        file (or any such table under ``debug_no_threshold``), else
+        ``vfs``, the page cache; a source with no file to probe is
+        ``vfs``.  The reasons are the reference's."""
+        from .planner import capability_cache, should_use_direct_scan
+        path, size = self._source_facts()
+        if path is not None and should_use_direct_scan(path,
+                                                       table_size=size):
+            return "direct", ("table above the direct-scan threshold and "
+                              "backing eligible")
+        info = capability_cache.probe(path) if path else None
+        if info is not None and not info.supported:
+            return "vfs", "source not direct-load capable (CHECK_FILE)"
+        return "vfs", ("table below the direct-scan threshold (page cache "
+                       "wins for small tables)")
 
     def _plan(self, dev: torch.device, kernel: str, mesh,
               workers: int) -> QueryPlan:
@@ -1126,7 +1264,8 @@ class Query:
                                             f"{_KERNELS}")
         mode = "local" if mesh is None else "mesh"
         nw = workers if workers >= 2 and mesh is None else 0
-        n_pages = os.path.getsize(self.source) // PAGE_SIZE
+        n_pages = self._source_facts()[1] // PAGE_SIZE
+        access, access_why = self._scan_access()
         n_tuples = n_pages * self.schema.tuples_per_page
         costs = dict(mode=mode, workers=nw,
                      cost_direct=cost_direct_scan(n_pages, n_tuples,
@@ -1151,8 +1290,10 @@ class Query:
                    f"runs it in PyTorch ops")
         js = self._join_strategy() if self._op == "join" else None
         if why:
-            return QueryPlan(self._op, "invalid", str(dev), n_pages, why,
-                             join_strategy=js and js[0], **costs)
+            return QueryPlan(self._op, "invalid", str(dev), n_pages,
+                             f"{access_why}; {why}",
+                             join_strategy=js and js[0],
+                             access_path=access, **costs)
         if cuda and kernel != "torch" and not refusal:
             face, reason = "cuda", self._cuda_reason()
         else:
@@ -1196,8 +1337,9 @@ class Query:
                              f"{index_why}; the scan's route without the "
                              f"sidecar: {reason}", pd, js and js[0],
                              access_path="index", **costs)
-        return QueryPlan(self._op, face, str(dev), n_pages, reason, pd,
-                         js and js[0], **costs)
+        return QueryPlan(self._op, face, str(dev), n_pages,
+                         f"{access_why}; {reason}", pd, js and js[0],
+                         access_path=access, **costs)
 
     # -- the index access paths ---------------------------------------------
     def _index_col(self):
@@ -1224,7 +1366,8 @@ class Query:
         disqualifies it: the span is read off the sidecar unchecked."""
         if (self._op != "order_by" or self._eq is None
                 or self._has_residual()
-                or isinstance(self._eq[0], (tuple, list))):
+                or isinstance(self._eq[0], (tuple, list))
+                or not isinstance(self.source, str)):
             return None
         oc = self._order[0]
         if len(oc) != 1:
@@ -1249,7 +1392,8 @@ class Query:
         column's full row set."""
         if (self._op not in ("order_by", "quantiles", "count_distinct",
                              "top_k")
-                or self._terms or self._callables):
+                or self._terms or self._callables
+                or not isinstance(self.source, str)):
             return None
         cols, _okey = self._order_key()
         want = (1, 2) if self._op == "order_by" else (1,)
@@ -1269,7 +1413,7 @@ class Query:
         composite whose FIRST column is the filter column — SQL's
         leftmost-prefix rule.  The directory glob runs once a Query."""
         col = self._index_col()
-        if col is None:
+        if col is None or not isinstance(self.source, str):
             return []
         from .index import index_path_for
         out = [index_path_for(self.source, col)]
@@ -1510,7 +1654,7 @@ class Query:
                 return self._run_workers(nw, dev, kernel)
             return self._run_local(dev, kernel, mesh, batch_pages)
         finally:
-            self._session = None
+            self._session, self._vfs = None, False
 
     def _run_analyze(self, session, **kw) -> dict:
         """``run(analyze=True)``: the counters before and after the run,
@@ -1554,6 +1698,10 @@ class Query:
         if plan.kernel == "invalid":
             raise StromError(_errno.EINVAL, f"query not executable: "
                                             f"{plan.reason}")
+        # the scans of this run (key discovery included) read the table on
+        # the planned path; an index plan's scans take the gate's
+        self._vfs = (plan.access_path if plan.access_path != "index"
+                     else self._scan_access()[0]) == "vfs"
         if self._group_cols is not None:
             try:
                 self._install_group_keys(self._discover_group_keys(dev), dev)
@@ -1599,17 +1747,43 @@ class Query:
               combine: Optional[Callable] = None,
               path: Optional[str] = None) -> dict:
         """Fold *fn* over a scan of the table (or of *path*, a packed
-        sidecar) on *dev*, through the run's session, on a worker's shared
-        cursor when the scan is the table's; notes the H2D depth reached."""
+        sidecar) on *dev*: through the page cache when the run planned
+        ``vfs`` (:meth:`_vfs_scan`), else the direct scan through the
+        run's session, on a worker's shared cursor when the scan is the
+        table's; notes the H2D depth reached."""
         from .executor import TableScanner
-        own = path is None
-        with TableScanner(self.source if own else path,
-                          self.schema if own else None,
-                          session=self._session,
-                          cursor=self._cursor if own else None) as sc:
+        if path is not None:
+            with TableScanner(path, session=self._session) as sc:
+                out = sc.scan_filter(fn, device=dev, combine=combine)
+                self._h2d_depth = max(self._h2d_depth, sc.last_h2d_depth)
+            return out
+        if self._vfs and self._cursor is None:
+            return self._vfs_scan(fn, dev, combine)
+        with self._open_owned() as src, \
+                TableScanner(src, self.schema, session=self._session,
+                             cursor=self._cursor) as sc:
             out = sc.scan_filter(fn, device=dev, combine=combine)
             self._h2d_depth = max(self._h2d_depth, sc.last_h2d_depth)
         return out
+
+    def _vfs_scan(self, fn: Callable, dev: torch.device,
+                  combine: Optional[Callable] = None) -> dict:
+        """The buffered scan (the ``vfs`` access path): the table's
+        :func:`_buffered_batches` (the reference's grid, so folds, ties and
+        row order match its ``vfs`` face), each folded with *fn* and
+        *combine* — the same step, kernels included, as the direct path.
+        The engine reads nothing, so ``bytes_direct`` stays 0.  *fn* may
+        raise :class:`.executor.ScanLimitReached` to stop the scan."""
+        from .executor import ScanLimitReached, _to_numpy, fold_results
+        acc = None
+        with self._open_owned() as src:
+            try:
+                for pages in _buffered_batches(src, 0, dev):
+                    acc = fold_results(acc, fn(pages), combine)
+                    stats.add("nr_kernel_dispatch")
+            except ScanLimitReached:
+                pass
+        return {} if acc is None else _to_numpy(acc)
 
     def _run_mesh(self, plan: QueryPlan, mesh, batch_pages) -> dict:
         """A scan terminal over a ring: whole batches stream sharded over
@@ -1620,7 +1794,6 @@ class Query:
         past the last whole batch are read buffered and scanned on the
         first member.  ``select`` gathers each shard's rows in page
         order and stops gathering once ``offset + limit`` are in."""
-        from ..engine import open_source
         from ..parallel.stream import distributed_scan_filter
         from .executor import _to_numpy, fold_results
         dev, n = mesh.devices[0], mesh.size
@@ -1655,7 +1828,7 @@ class Query:
                 take(shard)
             return {}
 
-        with open_source(self.source) as src:
+        with self._open_owned() as src:
             n_pages = src.size // PAGE_SIZE
             bp = int(batch_pages or (1 << 20) // PAGE_SIZE * n)
             # a multiple of the ring size, at least a page a member, and no
@@ -1666,13 +1839,8 @@ class Query:
                 distributed_scan_filter(src, mesh, step, batch_pages=bp,
                                         session=self._session)
                 covered = n_pages // bp * bp
-            tail = (8 << 20) // PAGE_SIZE
-            for p0 in range(covered, n_pages, tail):
-                npg = min(tail, n_pages - p0)
-                raw = bytearray(npg * PAGE_SIZE)
-                src.read_buffered(p0 * PAGE_SIZE, memoryview(raw))
-                take(torch.frombuffer(raw, dtype=torch.uint8)
-                     .reshape(npg, PAGE_SIZE).to(dev))
+            for pages in _buffered_batches(src, covered, dev):
+                take(pages)
         if chunks is not None:
             arrs = [np.concatenate([c[i] for c in chunks]) if chunks
                     else np.zeros(0, dt) for i, dt in enumerate(dtypes)]
@@ -1680,14 +1848,16 @@ class Query:
                                        [a[offset:stop] for a in arrs])
         return self._finalize({} if not acc else _to_numpy(acc))
 
-    @staticmethod
-    def _replan_scan(plan: QueryPlan) -> QueryPlan:
+    def _replan_scan(self, plan: QueryPlan) -> QueryPlan:
         """The sidecar EXPLAIN promised went away (or went stale or
-        corrupt) before run(): the scan, on the plan's route."""
+        corrupt) before run(): the scan on the plan's route, its access
+        path chosen afresh by the gate (a large table stays on the direct
+        path, a small one reads through the page cache)."""
+        access, why = self._scan_access()
         return dataclasses.replace(
-            plan, access_path="direct",
-            reason=plan.reason + "; the sidecar went away before run(): "
-                                 "direct scan")
+            plan, access_path=access,
+            reason=plan.reason + f"; the sidecar went away before run(): "
+                                 f"{access} scan ({why})")
 
     def _open_exact(self, path: Optional[str], key):
         """The fresh sidecar at *path* whose header names exactly *key*,
@@ -2054,11 +2224,11 @@ class Query:
         steps take (uint32 as int64), ``None`` for a column not in *cols*
         (None = all), and the NULL masks of the fetched nullable columns.
         Only the pages holding *pos* are read."""
-        from ..engine import Session, open_source, read_chunk_ids
+        from ..engine import Session, read_chunk_ids
         from ..ops.filter import Cols
         t = self.schema.tuples_per_page
         want = range(self.schema.n_cols) if cols is None else set(cols)
-        with open_source(self.source) as src:
+        with self._open_owned() as src:
             n_pages = src.size // PAGE_SIZE
             if len(pos) and (pos.min() < 0 or pos.max() >= n_pages * t):
                 raise StromError(_errno.ERANGE, f"position outside the "
@@ -2389,6 +2559,11 @@ class Query:
         folded as the serial scan folds its batches.  ``_workers`` gives
         ``n``, each worker's ``scan_s`` and its kernel ``launches``."""
         from .parallel import run_query_workers
+        if not isinstance(self.source, str):
+            raise StromError(_errno.EINVAL, "workers: a parallel scan takes "
+                                            "one table file path (a stripe "
+                                            "set or an open Source scans in "
+                                            "one process or over a mesh)")
         plan = self._plan(dev, kernel, None, n_workers)
         if plan.kernel == "invalid":
             raise StromError(_errno.EINVAL, f"query not executable: "
@@ -2600,7 +2775,7 @@ class Query:
             probe_index
         cols_, _agg, _having, max_groups = self._group_cols
         dts = [self.schema.col_dtype(c) for c in cols_]
-        if len(cols_) <= 2:
+        if len(cols_) <= 2 and isinstance(self.source, str):
             want = cols_[0] if len(cols_) == 1 else tuple(cols_)
             ip = index_path_for(self.source, want)
             discovered = None

@@ -43,6 +43,7 @@ def configs():
     snap, jsnap = config.snapshot(), jconfig.snapshot()
     config.set("chunk_size", 1 << 16)
     jconfig.set("chunk_size", 1 << 16)
+    config.set("debug_no_threshold", True)
     jconfig.set("debug_no_threshold", True)
     yield
     config.restore(snap)

@@ -38,11 +38,12 @@ SCHEMA, JS = HeapSchema(**KW), JSchema(**KW)
 
 @pytest.fixture(autouse=True)
 def configs():
-    """64 KiB chunks on both sides (many chunks to share), the JAX
-    package on its direct scan, restored after."""
+    """64 KiB chunks on both sides (many chunks to share), both packages
+    on their direct scan, restored after."""
     snap, jsnap = config.snapshot(), jconfig.snapshot()
     config.set("chunk_size", 1 << 16)
     jconfig.set("chunk_size", 1 << 16)
+    config.set("debug_no_threshold", True)
     jconfig.set("debug_no_threshold", True)
     yield
     config.restore(snap)
@@ -400,10 +401,11 @@ def test_workers_star_row_face_and_striped_source_refused(star):
                                       materialize=True) \
             .run(device=CPU, workers=2)
     assert ei.value.errno == errno.EINVAL and "row face" in str(ei.value)
-    # a striped set is no Query source at all in the port
+    # a striped set is a Query source, but never a parallel scan's: it is
+    # refused before any process starts
     with pytest.raises(StromError) as ei:
-        Query([fact, fact], SCHEMA, workers=2)
-    assert ei.value.errno == errno.EINVAL
+        Query([fact, fact], SCHEMA, workers=2).aggregate().run(device=CPU)
+    assert ei.value.errno == errno.EINVAL and "one table file" in str(ei.value)
 
 
 # -- the fan-out itself -------------------------------------------------------

@@ -59,13 +59,14 @@ def _same(got, want, keys=None):
 
 
 class _Configs:
-    """64 KiB chunks on both sides and the JAX package's direct scan, for
+    """64 KiB chunks and the direct scan on both sides, for
     the body of one example (hypothesis runs many in one test call)."""
 
     def __enter__(self):
         self.snap, self.jsnap = config.snapshot(), jconfig.snapshot()
         config.set("chunk_size", 1 << 16)
         jconfig.set("chunk_size", 1 << 16)
+        config.set("debug_no_threshold", True)
         jconfig.set("debug_no_threshold", True)
 
     def __exit__(self, *exc):
