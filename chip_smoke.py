@@ -192,6 +192,20 @@ paths against its plain PyTorch version:
     c. ``check_file`` of the table and of each stripe member (the host's
        backing verdict, printed, not judged), then the plan and the run
        under ``require_nvme_backing``, which must agree with the gate.
+18. string columns and the SQL facade (``debug_no_threshold`` on): a
+    1 GiB TPC-H ``lineitem`` of its 15 four-byte columns in the
+    specification's order (17,694,720 rows, ~SF 2.95; ``l_comment`` left
+    out), its four text columns as dictionary codes with their sidecars;
+    through ``sql_query``, each from a cold page cache against numpy
+    truth: Q6 (B1 once a batch), Q6's revenue, Q1 (its int32 and float32
+    aggregates as two statements: group aggregation columns share one
+    dtype), Q12 without ``orders``, an ORDER BY with projected columns,
+    strings at the edges (an absent string under ``=`` and ``!=``, a
+    string BETWEEN, DISTINCT, MAX), CREATE TABLE AS and a GROUP BY on the
+    result, Q12 at ``workers=2``, and Q1 through ``strom_query_gpu --json``
+    in a subprocess; then Q6, Q1 and Q12 in turns with their ``Query``-API
+    forms (SQL, API, API, SQL, SQL, API), the SQL form's median GB/s
+    against the API's, and the facade's own time (parse and assemble).
 
 Every main path sets the kernels' launch counts to 0 just before it runs
 and reads them just after; each kernel of a path must have launched once
@@ -4088,6 +4102,345 @@ def _access_phase(torch, dev, tmp, seed, heap=None):
     return launched[filter_cuda], launched[groupby_cuda]
 
 
+# TPC-H lineitem's text columns (specification 4.2.2.13 and 4.2.3)
+SHIP_INSTRUCTS = ("DELIVER IN PERSON", "COLLECT COD", "NONE",
+                  "TAKE BACK RETURN")
+SHIP_MODES = ("REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB")
+CURRENTDATE = 9298                 # 1995-06-17, days since 1970-01-01
+Q6_WHERE = ("c10 >= 8766 AND c10 < 9131 AND c6 BETWEEN 0.05 AND 0.07 "
+            "AND c4 < 24")
+Q1_FLOAT = ("SELECT c8, c9, COUNT(*), SUM(c5), AVG(c5), AVG(c6) FROM "
+            "lineitem WHERE c10 <= 10471 GROUP BY c8, c9")
+Q12 = ("SELECT c14, COUNT(*) FROM lineitem WHERE c14 IN ('MAIL', 'SHIP') "
+       "AND c11 < c12 AND c10 < c11 AND c12 >= 8766 AND c12 < 9131 "
+       "GROUP BY c14")
+
+
+def _lineitem15(seed, n):
+    """TPC-H ``lineitem`` in the specification's column order at *n* rows,
+    ``l_comment`` left out: [13b]'s numeric columns as int32/float32
+    without NULLs, the dates from the specification's rules (order date
+    uniform in [1992-01-01, 1998-08-02], ship +1..121 days, commit
+    +30..90, receipt = ship +1..30, as days since 1970-01-01), and the
+    four text columns as uint32 codes of their sorted dictionaries:
+    l_returnflag R or A when the receipt is on or before 1995-06-17, else
+    N; l_linestatus O when shipped after it, else F; l_shipinstruct and
+    l_shipmode uniform over the specification's 4 and 7.  Returns
+    ``(columns, {column: StringDict})``."""
+    from nvme_strom_tpu_torch.scan.strings import StringDict
+    num, _nulls = _lineitem_columns(seed, n)
+    rng = np.random.default_rng(seed + 18)
+    odate = rng.integers(8035, 10441, n, dtype=np.int32)
+    ship = odate + rng.integers(1, 122, n, dtype=np.int32)
+    commit = odate + rng.integers(30, 91, n, dtype=np.int32)
+    receipt = ship + rng.integers(1, 31, n, dtype=np.int32)
+    dicts = {8: StringDict("ARN"), 9: StringDict("FO"),
+             13: StringDict(SHIP_INSTRUCTS), 14: StringDict(SHIP_MODES)}
+
+    def codes(c, names, idx):
+        ranks = np.array([dicts[c].code_of(s) for s in names], np.uint32)
+        return ranks[idx]
+
+    flag = np.where(receipt <= CURRENTDATE, rng.integers(0, 2, n), 2)
+    status = (ship > CURRENTDATE).astype(np.int64)
+    cols = [num[0].astype(np.int32), num[1], num[2], num[3], num[4],
+            num[5].astype(np.float32), num[6], num[7],
+            codes(8, "RAN", flag), codes(9, "FO", status), ship, commit,
+            receipt, codes(13, SHIP_INSTRUCTS, rng.integers(0, 4, n)),
+            codes(14, SHIP_MODES, rng.integers(0, 7, n))]
+    return cols, dicts
+
+
+def _sql_phase(torch, dev, tmp, seed, n_pages=131072):
+    """Phase 18: string columns and the SQL facade over a 1 GiB TPC-H
+    ``lineitem`` of 15 four-byte columns (four of them dictionary-encoded
+    strings): Q6 (B1), Q6's revenue, Q1 (split by aggregate dtype), Q12
+    without ``orders``, an ORDER BY with projected columns, strings at the
+    edges, CREATE TABLE AS, Q12 at ``workers=2`` and Q1 through the
+    ``strom_query`` CLI; each from a cold page cache against numpy truth;
+    then Q6, Q1 and Q12 in turns with their ``Query``-API forms.  Returns
+    the B1 launches of its runs."""
+    from nvme_strom_tpu_torch.config import config
+    from nvme_strom_tpu_torch.ops import decode_cuda, filter_cuda, \
+        groupby_cuda
+    from nvme_strom_tpu_torch.ops.filter import FilterPred
+    from nvme_strom_tpu_torch.scan.heap import HeapSchema, build_heap_file
+    from nvme_strom_tpu_torch.scan.query import Query
+    from nvme_strom_tpu_torch.scan.sql import create_table_as, parse_sql, \
+        sql_query
+    from nvme_strom_tpu_torch.scan.strings import save_dict
+    from nvme_strom_tpu_torch.tools.common import drop_page_cache
+    t_phase = time.monotonic()
+    on_card = dev.type == "cuda"
+    if on_card:
+        # built at [2] in a whole run; run alone, the phase builds here so
+        # that no statement's time holds nvcc
+        from nvme_strom_tpu_torch import _build
+        _build.build_all()
+    config.set("debug_no_threshold", True)
+    print("[18] the SQL facade plans the direct path (debug_no_threshold "
+          "on, as in [4]-[16]); lineitem's l_comment is left out (no LIKE "
+          "in the subset; its dictionary would be near the table's size)")
+    dts = ("int32",) * 5 + ("float32",) * 3 + ("uint32",) * 2 \
+        + ("int32",) * 3 + ("uint32",) * 2
+    schema = HeapSchema(n_cols=15, visibility=False, dtypes=dts)
+    n = schema.tuples_per_page * n_pages
+    path = os.path.join(tmp, "lineitem15.heap")
+    t0 = time.monotonic()
+    cols, dicts = _lineitem15(seed, n)
+    build_heap_file(path, cols, schema)
+    for c, d in dicts.items():
+        save_dict(path, c, d)
+    table_bytes = os.path.getsize(path)
+    print(f"[18] lineitem: {n} rows x 15 columns, {table_bytes} bytes "
+          f"({n_pages} pages of {schema.tuples_per_page} rows, ~SF "
+          f"{n / 6_001_215:.2f}), built with 4 sidecars in "
+          f"{time.monotonic() - t0:.1f} s")
+    mods = (filter_cuda, groupby_cuda, decode_cuda)
+    b1 = [0]
+
+    def fail(label, what):
+        raise AssertionError(f"[18] {label}: {what}")
+
+    def code(c, s):
+        return dicts[c].code_of(s)
+
+    def timed(label, fn):
+        """*fn* from a cold page cache with every count at 0:
+        ``(result, seconds, B1 launches)``."""
+        drop_page_cache(path)
+        for m in mods:
+            m.launches = 0
+        t0 = time.monotonic()
+        res = fn()
+        s = time.monotonic() - t0
+        n1 = filter_cuda.launches
+        if groupby_cuda.launches or decode_cuda.launches:
+            fail(label, "a B3 or B2 launch (value-keyed GROUP BY and the "
+                        "heap scan take neither)")
+        b1[0] += n1
+        return res, s, n1
+
+    def sql(label, stmt, expect, **kw):
+        q, _a = parse_sql(stmt, path, schema,
+                          workers=int(kw.get("workers") or 0))
+        plan = q.explain(device=dev)
+        if on_card and plan.kernel != expect:
+            fail(label, f"planned {plan.kernel}, not {expect}: "
+                        f"{plan.reason}")
+        res, s, n1 = timed(label, lambda: sql_query(
+            stmt, path, schema, device=dev, **kw))
+        if on_card and expect == "torch" and n1:
+            fail(label, f"{n1} B1 launches on the torch route")
+        print(f"[18] {label}: {plan.kernel} route, {s:.3f} s = "
+              f"{table_bytes / s / 1e9:.3f} GB/s of table; B1 launches "
+              f"{n1}")
+        return res, s, n1
+
+    def close(label, got, x):
+        if not _f_close(got, x, TRUTH_REL):
+            fail(label, f"{got} against numpy's "
+                        f"{np.asarray(x, np.float64).sum()}")
+
+    (ok_, pk, sk, ln, qty, price, disc, tax, flag, status, ship, commit,
+     receipt, instr, mode) = cols
+    # 1. Q6 on plain columns: B1 a batch
+    s1 = f"SELECT COUNT(*), SUM(c5), SUM(c6) FROM lineitem WHERE {Q6_WHERE}"
+    q6 = (ship >= 8766) & (ship < 9131) & (disc >= np.float32(0.05)) \
+        & (disc <= np.float32(0.07)) & (qty < 24)
+    r1, s1_s, s1_b1 = sql("1 Q6", s1, "cuda")
+    if r1["count(*)"] != int(q6.sum()):
+        fail("1 Q6", f"count {r1['count(*)']} against {int(q6.sum())}")
+    close("1 Q6 sum(c5)", r1["sum(c5)"], price[q6])
+    close("1 Q6 sum(c6)", r1["sum(c6)"], disc[q6])
+    batches = -(-n_pages // SCAN_BATCH_PAGES)
+    if on_card and s1_b1 != batches:
+        fail("1 Q6", f"{s1_b1} B1 launches for {batches} batches")
+    # 2. Q6's revenue: an expression aggregate (torch)
+    r2, _s, _n = sql("2 Q6 revenue", f"SELECT SUM(c5 * c6) FROM lineitem "
+                                     f"WHERE {Q6_WHERE}", "torch")
+    close("2 Q6 revenue", r2["sum((c5 * c6))"], price[q6] * disc[q6])
+    # 3. Q1: group aggregation columns share one dtype, so its int32 and
+    # float32 aggregates are two statements
+    q1 = ship <= 10471
+    key = flag.astype(np.int64) * 2 + status
+    keys = np.unique(key[q1])
+    r3i, _s, _n = sql("3 Q1 int32 half", "SELECT c8, c9, COUNT(*), SUM(c4), "
+                      "AVG(c4) FROM lineitem WHERE c10 <= 10471 GROUP BY "
+                      "c8, c9", "torch")
+    r3, s3_s, _n = sql("3 Q1 float32 half", Q1_FLOAT, "torch")
+    groups = [a + b for a, b in zip(r3["c8"], r3["c9"])]
+    if groups != ["AF", "NF", "NO", "RF"] or \
+            [a + b for a, b in zip(r3i["c8"], r3i["c9"])] != groups:
+        fail("3 Q1", f"groups {groups}")
+    for i, k in enumerate(keys):
+        m = q1 & (key == k)
+        if r3["count(*)"][i] != int(m.sum()) or \
+                r3i["count(*)"][i] != int(m.sum()) or \
+                r3i["sum(c4)"][i] != int(qty[m].sum()):
+            fail("3 Q1", f"group {groups[i]}: counts or SUM(c4)")
+        if abs(r3i["avg(c4)"][i] - qty[m].mean()) > 1e-9 * qty[m].mean():
+            fail("3 Q1", f"group {groups[i]}: AVG(c4)")
+        close(f"3 Q1 {groups[i]} sum(c5)", r3["sum(c5)"][i], price[m])
+        close(f"3 Q1 {groups[i]} avg(c5)", r3["avg(c5)"][i] * m.sum(),
+              price[m])
+        close(f"3 Q1 {groups[i]} avg(c6)", r3["avg(c6)"][i] * m.sum(),
+              disc[m])
+    # 4. Q12 without orders
+    q12 = np.isin(mode, [code(14, "MAIL"), code(14, "SHIP")]) \
+        & (commit < receipt) & (ship < commit) & (receipt >= 8766) \
+        & (receipt < 9131)
+    r4, s4_s, _n = sql("4 Q12", Q12, "torch")
+    want4 = [int((q12 & (mode == code(14, m))).sum()) for m in ("MAIL",
+                                                                "SHIP")]
+    if list(r4["c14"]) != ["MAIL", "SHIP"] or \
+            [int(x) for x in r4["count(*)"]] != want4:
+        fail("4 Q12", f"{list(r4['c14'])} {list(r4['count(*)'])} against "
+                      f"{want4}")
+    # 5. ORDER BY with projected columns (one a string)
+    r5, _s, _n = sql("5 ORDER BY c0 DESC, c3 and c13 fetched",
+                     "SELECT c0, c3, c13 FROM lineitem WHERE c14 = 'AIR' "
+                     "AND c4 = 50 ORDER BY c0 DESC LIMIT 100", "torch")
+    m5 = (mode == code(14, "AIR")) & (qty == 50)
+    pos = np.asarray(r5["positions"])
+    top = np.sort(ok_[m5])[::-1][:100]
+    if len(pos) != len(top) or not np.array_equal(r5["c0"], top) or \
+            not m5[pos].all() or len(set(pos.tolist())) != len(pos) or \
+            not np.array_equal(ok_[pos], top) or \
+            not np.array_equal(r5["c3"], ln[pos]) or \
+            list(r5["c13"]) != [dicts[13].values[c] for c in instr[pos]]:
+        fail("5 ORDER BY", "rows, order or projected columns differ")
+    # 6. strings at the edges
+    edges = [
+        ("6 = absent", "SELECT COUNT(*) FROM lineitem WHERE c14 = "
+                       "'ZEPPELIN'", "cuda", 0),
+        ("6 != absent", "SELECT COUNT(*) FROM lineitem WHERE c14 != "
+                        "'ZEPPELIN'", "cuda", n),
+        ("6 BETWEEN 'D' AND 'N'", "SELECT COUNT(*) FROM lineitem WHERE c13 "
+                                  "BETWEEN 'D' AND 'N'", "cuda",
+         int((instr == code(13, "DELIVER IN PERSON")).sum()))]
+    for label, stmt, route, want in edges:
+        got = sql(label, stmt, route)[0]["count(*)"]
+        if got != want:
+            fail(label, f"count {got} against {want}")
+    r6, _s, _n = sql("6 DISTINCT c13", "SELECT DISTINCT c13 FROM lineitem",
+                     "torch")
+    if list(r6["c13"]) != sorted(SHIP_INSTRUCTS):
+        fail("6 DISTINCT", f"{list(r6['c13'])}")
+    r6, _s, _n = sql("6 MAX(c14)", "SELECT MAX(c14) FROM lineitem", "torch")
+    if r6["max(c14)"] != "TRUCK":
+        fail("6 MAX", f"{r6['max(c14)']}")
+    # 7. CREATE TABLE AS, then a GROUP BY on the new table
+    dest = os.path.join(tmp, "ctas.heap")
+    (dsch, rows), s7, _n = timed("7 CTAS", lambda: create_table_as(
+        dest, "SELECT c0, c4, c5, c14 FROM lineitem WHERE c4 < 5", path,
+        schema, device=dev))
+    m7 = qty < 5
+    r7 = sql_query("SELECT c3, COUNT(*), SUM(c1) FROM t GROUP BY c3", dest,
+                   dsch, device=dev)
+    if rows != int(m7.sum()) or list(r7["c3"]) != sorted(SHIP_MODES) or \
+            [int(x) for x in r7["count(*)"]] != [
+                int((m7 & (mode == code(14, s))).sum())
+                for s in sorted(SHIP_MODES)] or \
+            [int(x) for x in r7["sum(c1)"]] != [
+                int(qty[m7 & (mode == code(14, s))].sum())
+                for s in sorted(SHIP_MODES)]:
+        fail("7 CTAS", f"{rows} rows, groups {list(r7['c3'])}")
+    print(f"[18] 7 CREATE TABLE AS: {rows} rows x {dsch.n_cols} columns "
+          f"({','.join(str(d) for d in dsch.dtypes)}) in {s7:.3f} s; its "
+          f"GROUP BY c3 gives the 7 modes")
+    os.unlink(dest)
+    # 8. Q12 at workers=2: the trees travel
+    r8, _s, _n = sql("8 Q12 workers=2", Q12, "torch", workers=2)
+    if list(r8["c14"]) != list(r4["c14"]) or \
+            [int(x) for x in r8["count(*)"]] != want4:
+        fail("8 Q12 workers=2", f"{list(r8['count(*)'])} against {want4}")
+    # 9. Q1 through the CLI, one subprocess on the card
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "nvme_strom_tpu_torch.tools.strom_query",
+           path, "--cols", "15", "--dtypes", ",".join(dts), "--sql",
+           Q1_FLOAT, "--json"] + ([] if on_card else ["-d", "cpu"])
+    t0 = time.monotonic()
+    out = subprocess.run(cmd, capture_output=True, text=True, cwd=root,
+                         env=env, timeout=300)
+    cli_s = time.monotonic() - t0
+    if out.returncode:
+        fail("9 CLI", out.stderr[-2000:])
+    doc = json.loads(out.stdout.strip().splitlines()[-1])
+    if doc["c8"] != list(r3["c8"]) or doc["c9"] != list(r3["c9"]) or \
+            doc["count(*)"] != [int(x) for x in r3["count(*)"]] or \
+            any(abs(a - float(b)) > TRUTH_REL * abs(float(b)) + 1e-6
+                for k in ("sum(c5)", "avg(c5)", "avg(c6)")
+                for a, b in zip(doc[k], r3[k])):
+        fail("9 CLI", f"{doc} against {r3}")
+    print(f"[18] 9 Q1 through strom_query_gpu --json: {cli_s:.1f} s in a "
+          f"subprocess, equal to the in-process result")
+
+    # the facade's cost: SQL and the Query-API form in turns (SQL, API,
+    # API, SQL, SQL, API), each from a cold page cache; the SQL form runs
+    # sql_query's three steps, so that its own time (parse and assemble,
+    # on the host) reads apart from the scan's
+    def sql_form(stmt, facade):
+        t0 = time.monotonic()
+        q, assemble = parse_sql(stmt, path, schema)
+        t1 = time.monotonic()
+        res = q.run(device=dev)
+        t2 = time.monotonic()
+        out = assemble(res)
+        facade.append(t1 - t0 + time.monotonic() - t2)
+        return out
+
+    mail, shipc = code(14, "MAIL"), code(14, "SHIP")
+    api = {
+        "Q6": lambda: Query(path, schema).where_range(6, 0.05, 0.07).where(
+            FilterPred(((10, "ge", 8766), (10, "lt", 9131),
+                        (4, "lt", 24)))).aggregate([5, 6]),
+        "Q1": lambda: Query(path, schema).where(FilterPred((
+            (10, "le", 10471),))).group_by_cols([8, 9], agg_cols=[5, 6]),
+        "Q12": lambda: Query(path, schema).where_in(14, [mail, shipc]).where(
+            FilterPred(((12, "ge", 8766), (12, "lt", 9131)))).where(
+            lambda c: (c[11] < c[12]) & (c[10] < c[11])).group_by_cols(
+            [14], agg_cols=[14])}
+    stmts = {"Q6": s1, "Q1": Q1_FLOAT, "Q12": Q12}
+    ratios = {}
+    for name in ("Q6", "Q1", "Q12"):
+        times = {"sql": [], "api": []}
+        launches = {"sql": [], "api": []}
+        facade = []
+        for form in ("sql", "api", "api", "sql", "sql", "api"):
+            fn = (lambda: sql_form(stmts[name], facade)) if form == "sql" \
+                else (lambda: api[name]().run(device=dev))
+            res, s, n1 = timed(f"{name} {form}", fn)
+            times[form].append(s)
+            launches[form].append(n1)
+            if form == "api" and name == "Q6" and \
+                    int(res["count"]) != int(q6.sum()):
+                fail("Q6 api", f"count {int(res['count'])}")
+        if name == "Q6" and on_card and \
+                set(launches["sql"]) | set(launches["api"]) != {batches}:
+            fail("Q6 turns", f"B1 launches {launches}")
+        gb = {f: table_bytes / np.median(t) / 1e9
+              for f, t in times.items()}
+        ratios[name] = gb["sql"] / gb["api"]
+        print(f"[18] turns {name}: SQL {gb['sql']:.3f} GB/s (median of "
+              f"{', '.join(f'{t:.3f}' for t in times['sql'])} s) against "
+              f"the Query API {gb['api']:.3f} GB/s ("
+              f"{', '.join(f'{t:.3f}' for t in times['api'])} s): "
+              f"{ratios[name]:.1%}; the facade's own time (parse + "
+              f"assemble) {', '.join(f'{f * 1e3:.2f}' for f in facade)} "
+              f"ms; B1 launches SQL {launches['sql']} API "
+              f"{launches['api']}")
+    os.unlink(path)
+    for c in dicts:
+        os.unlink(f"{path}.dict{c}")
+    print(f"[18] took {time.monotonic() - t_phase:.1f} s; Q6's SQL/API "
+          f"ratio {ratios['Q6']:.1%}, Q1 {ratios['Q1']:.1%}, Q12 "
+          f"{ratios['Q12']:.1%} (limit: within 5%)")
+    return b1[0]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--load-gib", type=float, default=1.0)
@@ -4485,6 +4838,9 @@ def main() -> int:
         main_launches += acc_b1
         gb_launches += acc_b3
         os.unlink(heap_path)
+
+        # -- string columns and the SQL facade -----------------------------
+        main_launches += _sql_phase(torch, dev, tmp, args.seed)
         print(f"    total {time.monotonic() - t_start:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -17,8 +17,10 @@ with no CUDA device they raise ``StromError(ENODEV)``.
   (``tools/strom_trace.py``), the Prometheus rendering of :mod:`.stats`.
 * :mod:`.hbm` — device registry, bounded fences, the staging pipeline.
 * :mod:`.scan` — heap page format, DMA pool, table scanner, the planner
-  (direct-scan threshold, capability cache, cost model) and the query
-  layer over a path, a stripe set or an open Source.
+  (direct-scan threshold, capability cache, cost model), the query
+  layer over a path, a stripe set or an open Source, dictionary-encoded
+  string columns and the SQL facade (``sql_query``, ``parse_sql``,
+  ``create_table_as``; the ``strom_query_gpu`` CLI).
 * :mod:`.ops` — the kernels (page filter, GROUP BY, packed decode, ring
   permute): plain PyTorch versions and the CUDA kernels.
 * :mod:`.parallel` — the ring of members: sharded and multi-host loading,
@@ -35,5 +37,18 @@ from .trace import recorder
 
 __all__ = ["BackingInfo", "BufferInfo", "DmaBuffer", "FileInfo", "FsKind",
            "MemCopyResult", "PlainSource", "SegmentedSource", "Session", "Source",
-           "StripedSource", "StromError", "check_file", "config",
-           "open_source", "probe_backing", "recorder", "stats"]
+           "StringDict", "StripedSource", "StromError", "check_file", "config",
+           "create_table_as", "dict_path_for", "encode_strings", "load_dict",
+           "open_source", "parse_sql", "probe_backing", "recorder",
+           "save_dict", "sql_query", "stats"]
+
+_SCAN = ("StringDict", "create_table_as", "dict_path_for", "encode_strings",
+         "load_dict", "parse_sql", "save_dict", "sql_query")
+
+
+def __getattr__(name):
+    # the scan layer loads on first use: importing the package stays light
+    if name in _SCAN:
+        from . import scan
+        return getattr(scan, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

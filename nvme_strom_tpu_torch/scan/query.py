@@ -75,9 +75,11 @@ Three ways to run a scan besides the one-process scan:
   numpy partials.  ``aggregate`` (expression aggregates
   too), ``group_by_cols`` (its sorted spill too), ``top_k``, ``select`` and
   the star join's aggregate face travel; a worker runs the route the
-  leader's plan chose, B1/B3 on the card included.  A callable ``where``,
-  a ``group_by`` key without ``group_by_cols``, joins, the star row face and
-  the other terminals are refused (EINVAL).  ``select`` and ``top_k`` come
+  leader's plan chose, B1/B3 on the card included.  FilterPred terms, the
+  structured filters and the SQL facade's predicate trees travel; a
+  callable ``where`` without a tree, a ``group_by`` key without
+  ``group_by_cols``, joins, the star row face and the other terminals are
+  refused (EINVAL).  ``select`` and ``top_k`` come
   back in the serial scan's order.
 * ``mesh=`` (a :class:`..parallel.mesh.RingMesh`): batches stream sharded
   over the ring (:func:`..parallel.stream.distributed_scan_filter`), the
@@ -90,10 +92,12 @@ Three ways to run a scan besides the one-process scan:
 * ``analyze=True``: the result gains ``"_analyze"``, the run's wall time and
   engine counters (EXPLAIN ANALYZE).
 
+The SQL facade (:mod:`.sql`) builds on this class: its plain WHERE leaves
+become FilterPred terms, and the rest a ``where`` callable carrying its
+picklable predicate tree, which worker processes rebuild.
+
 Left out against the JAX package: the mesh sort and partitioned join and
-the mesh index build, strings and the SQL facade (its ``JOIN`` syntax and
-its ``workers=`` among them), and the residency tiers' hit ratios in the
-plan.
+the mesh index build, and the residency tiers' hit ratios in the plan.
 """
 
 from __future__ import annotations
@@ -398,7 +402,8 @@ class Query:
         self._workers = int(workers)   # >= 2: worker processes
         self._terms: tuple = ()
         self._callables: List[Callable] = []
-        self._opaque = False           # a where() callable: cannot ship
+        self._trees: List[tuple] = []  # picklable SQL predicate trees
+        self._opaque = False           # a where() callable without a tree
         self._op = "aggregate"
         self._terminal_set = False
         self._agg_cols: Optional[Sequence[int]] = None
@@ -433,7 +438,8 @@ class Query:
         self._vfs = False              # the run's scans read buffered
 
     # -- builders -----------------------------------------------------------
-    def where(self, predicate: Union[FilterPred, Callable]) -> "Query":
+    def where(self, predicate: Union[FilterPred, Callable], *,
+              _tree=None) -> "Query":
         """Row filter: a :class:`FilterPred` whose terms carry their values,
         or ``predicate(cols) -> (B, T) bool`` in torch ops (the ``torch``
         route).  Chained filters form a conjunction; FilterPred terms
@@ -445,7 +451,11 @@ class Query:
         :meth:`where_in`) the predicate is also a residual: the scan
         applies the conjunction and the index path rechecks the rows the
         sidecar resolves against it (SQL's Index Cond + Filter), so adding
-        a predicate never demotes an index scan to a seqscan."""
+        a predicate never demotes an index scan to a seqscan.
+
+        ``_tree`` (set by the SQL facade) is the callable's picklable
+        condition tree: worker processes rebuild the predicate from it.  A
+        callable without one cannot ship to workers."""
         structured = self._index_col() is not None
         if isinstance(predicate, FilterPred):
             if any(v is None for _c, _o, v in predicate.terms):
@@ -456,7 +466,10 @@ class Query:
                 self._residual_terms += predicate.terms
         elif callable(predicate):
             self._callables.append(predicate)
-            self._opaque = True
+            if _tree is not None:
+                self._trees.append(_tree)
+            else:
+                self._opaque = True
             if structured:
                 self._residual_calls.append(predicate)
         else:
@@ -472,6 +485,7 @@ class Query:
         an earlier filter survives into the new one's recheck."""
         self._terms = FilterPred(tuple(terms)).terms
         self._callables = list(calls)
+        self._trees = []
         self._opaque = False
         self._eq, self._range, self._in = eq, rng, members
         self._residual_terms = ()
@@ -2576,8 +2590,10 @@ class Query:
             raise StromError(_errno.EINVAL, "workers: an opaque where() "
                                             "lambda cannot ship to worker "
                                             "processes — use where_eq/"
-                                            "where_range/where_in or a "
-                                            "FilterPred (its terms travel)")
+                                            "where_range/where_in, a "
+                                            "FilterPred (its terms travel) "
+                                            "or the SQL facade (predicate "
+                                            "trees travel)")
         discovered, spill = None, None
         if self._op == "group_by":
             if self._group_cols is None:
@@ -2656,8 +2672,8 @@ class Query:
 
     def _worker_spec(self, dev, kernel: str, discovered, spill: bool) -> dict:
         """What a worker rebuilds the query from (picklable): the table,
-        the filter's FilterPred terms and its ``where_in`` members, the
-        terminal, the leader's route, device and config, and the resolved
+        the filter's FilterPred terms, its ``where_in`` members and the SQL
+        facade's predicate trees, the terminal, the leader's route, device and config, and the resolved
         GROUP BY keys or star dimensions."""
         from ..config import config
         spec = {"source": self.source, "schema": self.schema,
@@ -2665,6 +2681,7 @@ class Query:
                 "chunk_size": int(config.get("chunk_size")),
                 "device": str(dev), "kernel": kernel,
                 "terms": self._terms, "in": self._in,
+                "trees": list(self._trees),
                 "op": "group_sorted" if spill else self._op,
                 "agg_cols": self._agg_cols, "agg_exprs": self._agg_exprs,
                 "select": self._select, "topk": self._topk}
@@ -2686,6 +2703,10 @@ class Query:
         if spec["in"] is not None:
             q.where_in(*spec["in"])       # its torch.isin callable
         q._terms = spec["terms"]
+        from .sql import _tree_mask
+        for t in spec["trees"]:
+            q.where(lambda cols, t=t, s=q.schema: _tree_mask(t, cols, s),
+                    _tree=t)
         op = spec["op"]
         if op == "aggregate":
             if spec["agg_exprs"] is not None:

@@ -42,7 +42,8 @@ _SCRIPT = textwrap.dedent("""
                 "testing.fake", "data", "data.records", "data.loader",
                 "data.checkpoint", "data.dtypes", "tools.strom_ckpt",
                 "ops.topk", "scan.index", "scan.executor", "ops.join",
-                "scan.sql", "scan.parallel", "eligibility"):
+                "scan.sql", "scan.parallel", "eligibility", "scan.strings",
+                "tools.strom_query"):
         assert pkg.__name__ + "." + mod in names, mod
     import chip_smoke  # noqa: F401
     leaked = [m for m in sys.modules
