@@ -7,8 +7,10 @@ path, the data tier (loader, checkpoints, a training loop), the query
 engine's torch route and terminals, its joins, star joins and expression
 aggregates, its index access paths, worker processes and meshes, and the
 planner's direct and vfs access paths over one file, a stripe set and a
-segmented relation — at full size and holds every CUDA kernel of those
-paths against its plain PyTorch version:
+segmented relation, string columns and the SQL facade, and the engine's
+resilience (mirrors, the fault ladder, page-cache arbitration, 64-bit
+GROUP BY sums) — at full size and holds every CUDA kernel of those paths
+against its plain PyTorch version:
 
 1. environment: the card's name and power limit (``nvidia-smi``);
 2. build: every ``nvme_strom_tpu_torch/csrc/*.cu`` with ``nvcc`` (sm_90a)
@@ -206,6 +208,40 @@ paths against its plain PyTorch version:
     in a subprocess; then Q6, Q1 and Q12 in turns with their ``Query``-API
     forms (SQL, API, API, SQL, SQL, API), the SQL form's median GB/s
     against the API's, and the facade's own time (parse and assemble).
+19. resilience (``debug_no_threshold`` on), the card's name and power
+    limit beside every number:
+    a. [5]'s table written from a CUDA tensor with ``memcpy_ram2ssd`` onto
+       a writable ``mirror='paired'`` set of 4 members (2 pairs, 512 KiB
+       chunks, 2 GiB on disk): every aligned leg on both partners, each
+       pair byte-identical; GB/s beside [10]'s unmirrored write;
+    b. the set through ``ssd2gpu_test``'s multi-file path into one CUDA
+       tensor on the native rung, healthy and with member 0 FAILED
+       (``nr_mirror_read`` > 0 only then), the landed bytes equal to [5]'s
+       file both times;
+    c. the aggregate (B1) and ``group_by(c0 % 64)`` (B3) through
+       ``Query.run()`` over the set, healthy and with member 2 FAILED,
+       each equal to the single-file run, B1 and B3 once a batch;
+    d. 256 MiB through ``FakeStripedNvmeSource`` on the python pools,
+       landed on the card byte-identical: 1% transient EIO healed by
+       retries, a fail-stop then a canary-driven rejoin with every
+       transition legal, a write fail-stop (from the card) whose journal
+       replays before HEALTHY with the pairs identical after, and a 20 ms
+       slow member with ``hedge_policy`` off, fixed and p99 at 8 and at
+       1 request in flight a member (request p99s);
+    e. [4]'s file with ``cache_arbitration`` on (the default) cold
+       (every chunk direct) and warm (write-back chunks where the
+       residency probe sees evictions; every chunk direct, counted in
+       ``nr_arb_blind``, where it cannot), warm with the write-back path
+       forced on (every chunk write-back) and warm with arbitration off,
+       byte-identical each time, four rates;
+    f. [6]'s int32 G=64 query with ``x64`` on: a torch plan, int64 sums
+       equal to numpy int64 truth, float64 sums of squares; then [8]'s
+       torch/B3 time ratio of the float32 G=8 batch, the route
+       ``groupby_kernel_auto`` picks for float32, and [6]'s float32 G=8
+       query through ``Query.run()`` on that route and on the torch route
+       (config ``groupby_cuda_ratio`` 0.5), both equal to numpy truth;
+    g. the chaos harness's ``native_degraded`` scenario on the native
+       rung (never its "native_skipped" exit).
 
 Every main path sets the kernels' launch counts to 0 just before it runs
 and reads them just after; each kernel of a path must have launched once
@@ -1869,6 +1905,7 @@ def _write_path(torch, dev, tmp, seed):
           f"{raw:.3f} GB/s; read back by [4]'s path: byte-identical; "
           f"{n1} bytes (tail of 4 KiB + 17 on the buffered leg): "
           f"{s1:.3f} s, read back byte-identical")
+    return n0 / s0 / 1e9
 
 
 def _merged(spans):
@@ -4441,6 +4478,519 @@ def _sql_phase(torch, dev, tmp, seed, n_pages=131072):
     return b1[0]
 
 
+def _files_equal(a, b, piece=64 << 20):
+    """True when the files at *a* and *b* hold the same bytes."""
+    with open(a, "rb", buffering=0) as fa, open(b, "rb", buffering=0) as fb:
+        while True:
+            x, y = fa.read(piece), fb.read(piece)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def _lat_p99_ms(before, after):
+    """p99 (ms) of the request latencies observed between two snapshots
+    of the latency histogram."""
+    from nvme_strom_tpu_torch.stats import hist_percentiles
+    p99 = hist_percentiles([b - a for a, b in zip(before, after)],
+                           (0.99,))[0]
+    return None if p99 is None else p99 / 1e6
+
+
+def _resilience_phase(torch, dev, tmp, seed, card, heap, load_path, group,
+                      write_gbs, ratio):
+    """Phase 19: mirrors, the fault ladder, page-cache arbitration and the
+    x64 switch on the card (see the module docstring); *heap* is [5]'s
+    table ``(path, schema, th, count, sum)``, *load_path* [4]'s file,
+    *group* [6]'s table ``(path, schema, n_pages)``, *write_gbs* [10]'s
+    unmirrored write rate and *ratio* [8]'s torch/B3 time ratio of the
+    float32 G=8 batch.  Returns the B1 and B3 launches of [19c]."""
+    from nvme_strom_tpu_torch.config import config
+    from nvme_strom_tpu_torch.engine import PlainSource, Session, open_source
+    from nvme_strom_tpu_torch.hbm.staging import load_file_to_device
+    from nvme_strom_tpu_torch.ops import decode_cuda, filter_cuda, \
+        groupby_cuda
+    from nvme_strom_tpu_torch.ops.filter import FilterPred
+    from nvme_strom_tpu_torch.ops.groupby import (GROUPBY_CUDA_RATIO,
+                                                  GroupKey,
+                                                  groupby_kernel_auto)
+    from nvme_strom_tpu_torch.scan.query import Query
+    from nvme_strom_tpu_torch.stats import stats
+    from nvme_strom_tpu_torch.testing.chaos import (
+        assert_pairs_identical, assert_transitions_legal, await_healthy,
+        expected_mirrored_stream, make_mirrored_members)
+    from nvme_strom_tpu_torch.testing.fake import (FakeNvmeSource,
+                                                   FakeStripedNvmeSource,
+                                                   FaultPlan)
+    from nvme_strom_tpu_torch.tools.common import (chunks_mismatch,
+                                                   drop_page_cache)
+    from nvme_strom_tpu_torch.tools.ssd2gpu_test import run_load
+    path, schema, th, want_count, want_sum = heap
+    table_bytes = os.path.getsize(path)
+    stripe = 512 << 10
+    n_batches = -(-table_bytes // int(config.get("chunk_size")))
+    mods = (filter_cuda, groupby_cuda, decode_cuda)
+    on_card = dev.type == "cuda"      # launch checks are card-only
+    snap = config.snapshot()
+    launched = [0, 0]
+    print(f"[19] resilience on {card}")
+
+    def fail(label, what):
+        raise AssertionError(f"[19{label}] {what}")
+
+    def zero():
+        for m in mods:
+            m.launches = 0
+        stats.reset()
+
+    def no_kernels(label):
+        n = sum(m.launches for m in mods)
+        if n:
+            fail(label, f"{n} kernel launches on a path that has none")
+
+    members = [os.path.join(tmp, f"mirror{i}.heap") for i in range(4)]
+    try:
+        # -- a. the mirrored write -------------------------------------
+        for m in members:
+            with open(m, "wb") as f:
+                f.truncate(table_bytes // 2)
+        drop_page_cache(path)
+        with open_source(path) as s:
+            table = load_file_to_device(s, device=dev)
+        zero()
+        with Session(device=dev) as sess, \
+                open_source(members, stripe_chunk_size=stripe,
+                            writable=True, mirror="paired") as sink:
+            secs, _fixed = _staged_write(torch, sess, sink, table)
+            backend = sess.backend_name
+        del table
+        no_kernels("a")
+        mw = stats.snapshot().get("nr_mirror_write", 0)
+        if mw * stripe != table_bytes:
+            fail("a", f"{mw} mirror legs for {table_bytes // stripe} "
+                      f"stripe extents")
+        for k in (0, 2):
+            if not _files_equal(members[k], members[k + 1]):
+                fail("a", f"pair {k}/{k + 1} differs after the write")
+        print(f"[19a] mirrored write of [5]'s table from the card onto 2 "
+              f"pairs ({stripe >> 10} KiB chunks, {2 * table_bytes} bytes "
+              f"on disk), backend {backend}: {secs:.3f} s = "
+              f"{table_bytes / secs / 1e9:.3f} GB/s of table (sync "
+              f"included; {card}) against [10]'s unmirrored "
+              f"{write_gbs:.3f} GB/s; {mw} mirror legs; each pair "
+              f"byte-identical")
+
+        # -- b. the multi-file load, healthy and degraded ---------------
+        rates = {}
+        with PlainSource(path) as want_src:
+            for label in ("healthy", "member 0 FAILED"):
+                zero()
+                with Session(device=dev) as sess:
+                    if sess.backend_name == "python":
+                        fail("b", "no native engine rung came up")
+                    if label != "healthy":
+                        sess._member_health.record_failure(0, fatal=True)
+                    out = run_load(members, device=dev, session=sess,
+                                   stripe_chunk=stripe, mirror="paired",
+                                   segments=6, segment_size=16 << 20,
+                                   chunk=1 << 20)
+                    rung = sess.backend_name
+                no_kernels("b")
+                mir = out["counters"].get("nr_mirror_read", 0)
+                if (mir > 0) != (label != "healthy"):
+                    fail("b", f"{label}: nr_mirror_read {mir}")
+                bad = chunks_mismatch(out["tensor"], want_src,
+                                      out["result"].chunk_ids, 1 << 20)
+                if bad is not None or out["nbytes"] != table_bytes:
+                    fail("b", f"{label}: landed bytes differ from [5]'s "
+                              f"file")
+                del out["tensor"]
+                rates[label] = (table_bytes / out["seconds"] / 1e9, mir,
+                                rung)
+        (h, _m0, rung), (d, mir, _r) = rates.values()
+        print(f"[19b] the set through ssd2gpu_test's multi-file path into "
+              f"one CUDA tensor on the native {rung} rung: healthy "
+              f"{h:.3f} GB/s, member 0 FAILED {d:.3f} GB/s ({card}), "
+              f"{mir} requests read from member 1; landed bytes equal "
+              f"[5]'s file both times")
+
+        # -- c. queries over the set, healthy and degraded --------------
+        config.set("debug_no_threshold", True)
+        config.set("mirror", "paired")
+        rq = lambda src: Query(src, schema, stripe_chunk_size=stripe) \
+            .where_range(0, th + 1, None)
+        qs = {"aggregate (B1)": (lambda src: rq(src).aggregate(cols=[1]),
+                                 filter_cuda),
+              "group_by(c0 % 64) (B3)": (lambda src: rq(src).group_by(
+                  GroupKey(0, 64), 64, agg_cols=[1]), groupby_cuda)}
+        cells = []
+        for qname, (mk, kmod) in qs.items():
+            single = None
+            for label, src, failed in (("single file", path, None),
+                                       ("healthy set", members, None),
+                                       ("member 2 FAILED", members, 2)):
+                files = [src] if isinstance(src, str) else src
+                for f in files:
+                    drop_page_cache(f)
+                zero()
+                with Session(device=dev) as sess:
+                    if failed is not None:
+                        sess._member_health.record_failure(failed,
+                                                           fatal=True)
+                    t0 = time.monotonic()
+                    res = mk(src).run(device=dev, session=sess)
+                    s = time.monotonic() - t0
+                n = kmod.launches
+                mir = stats.snapshot().get("nr_mirror_read", 0)
+                if on_card and n != n_batches:
+                    fail("c", f"{qname} {label}: {n} launches for "
+                              f"{n_batches} batches")
+                if (mir > 0) != (failed is not None):
+                    fail("c", f"{qname} {label}: nr_mirror_read {mir}")
+                if kmod is filter_cuda:
+                    launched[0] += n
+                    if int(res["count"]) != want_count or \
+                            int(res["sums"][0]) != want_sum:
+                        fail("c", f"{qname} {label}: count "
+                                  f"{int(res['count'])} sum "
+                                  f"{int(res['sums'][0])}, numpy "
+                                  f"{want_count} / {want_sum}")
+                else:
+                    launched[1] += n
+                if single is None:
+                    single = res
+                else:
+                    _same_result(fail, f"c {qname} {label}", res, single)
+                cells.append(f"{qname} {label} {s:.3f} s = "
+                             f"{table_bytes / s / 1e9:.3f} GB/s")
+        config.restore(snap)
+        print(f"[19c] over the paired set through Query.run(), each equal "
+              f"to the single-file run, B1 and B3 once a batch "
+              f"({n_batches}), mirror reads only when degraded ({card}):")
+        for c in cells:
+            print(f"      {c}")
+
+        # -- d. injected faults on the python pools, landed on the card --
+        config.set("retry_backoff_ms", 1.0)
+        fd = os.path.join(tmp, "faults19")
+        os.makedirs(fd, exist_ok=True)
+        fpaths = make_mirrored_members(fd, n_pairs=2, size=128 << 20,
+                                       tag="f")
+        fwant = torch.frombuffer(bytearray(expected_mirrored_stream(
+            fpaths, stripe)), dtype=torch.uint8).to(dev)
+        fbytes = fwant.numel()
+
+        def load(plan, label, sess, then=None):
+            """The set under *plan* landed on the card; *then(sess)* runs
+            before the source closes (the canary probes it)."""
+            src = FakeStripedNvmeSource(fpaths, stripe, fault_plan=plan,
+                                        force_cached_fraction=0.0,
+                                        mirror="paired")
+            try:
+                t0 = time.monotonic()
+                got = load_file_to_device(src, chunk_size=1 << 20,
+                                          session=sess, device=dev)
+                s = time.monotonic() - t0
+                if then is not None:
+                    then(sess)
+            finally:
+                src.close()
+            if not torch.equal(got, fwant):
+                fail("d", f"{label}: landed bytes differ")
+            return s
+
+        lines = []
+        zero()
+        with Session(device=dev) as sess:
+            s = load(FaultPlan(fail_rate=0.01, seed=seed + 19), "flaky",
+                     sess)
+        c = stats.snapshot()
+        if not c.get("nr_io_retry"):
+            fail("d", "fail_rate=0.01 ran no retry")
+        lines.append(f"transient EIO at 1%: {c['nr_io_retry']} retries, "
+                     f"{c.get('nr_io_fallback', 0)} buffered fallbacks, "
+                     f"{fbytes / s / 1e9:.3f} GB/s")
+
+        config.restore(snap)
+        for k, v in (("retry_backoff_ms", 1.0), ("io_retries", 1),
+                     ("canary_interval_s", 0.05), ("quarantine_s", 0.2),
+                     ("rejoin_successes", 2), ("rejoin_tokens_s", 1000.0)):
+            config.set(k, v)
+        zero()
+        with Session(device=dev) as sess:
+            # the dead window ends a few reads past the load's own ~513:
+            # the canary's probes bring the member back
+            s = load(FaultPlan(failstop_member=0, failstop_after=8,
+                               rejoin_after=540), "fail-stop", sess,
+                     then=lambda ss: await_healthy(ss, 0,
+                                                   "[19d] fail-stop"))
+            steps = [(f, t) for _m, f, t, _ts
+                     in sess._member_health.transitions(0)]
+            for edge in (("healthy", "failed"), ("failed", "rejoining"),
+                         ("rejoining", "healthy")):
+                if edge not in steps:
+                    fail("d", f"fail-stop: member 0 never took {edge}: "
+                              f"{steps}")
+            assert_transitions_legal(sess, "[19d] fail-stop")
+        c = stats.snapshot()
+        lines.append(f"fail-stop of member 0 then rejoin: "
+                     f"{c.get('nr_mirror_read', 0)} mirror reads, "
+                     f"{c.get('nr_canary_probe', 0)} canary probes, "
+                     f"{' -> '.join(['healthy'] + [t for _f, t in steps])}"
+                     f", {fbytes / s / 1e9:.3f} GB/s")
+
+        config.set("dma_max_size", stripe)
+        zero()
+        wpaths = make_mirrored_members(fd, n_pairs=2, size=128 << 20,
+                                       tag="w")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 191)
+        payload = torch.randint(0, 256, (fbytes,), dtype=torch.uint8,
+                                device=dev, generator=gen)
+        wplan = FaultPlan(write_failstop_member=2, write_failstop_after=3,
+                          write_rejoin_after=67)
+        journaled = [0]
+        with Session(device=dev) as sess, \
+                FakeStripedNvmeSource(wpaths, stripe, fault_plan=wplan,
+                                      force_cached_fraction=0.0,
+                                      mirror="paired", writable=True) as sk:
+            record = sess._journal_skipped
+
+            def counted(sink, member, off, length, trace_id=0):
+                journaled[0] += length
+                record(sink, member, off, length, trace_id)
+
+            sess._journal_skipped = counted
+            s, _f = _staged_write(torch, sess, sk, payload)
+            await_healthy(sess, 2, "[19d] write fail-stop")
+            if sess._resync.pending_bytes(2):
+                fail("d", "HEALTHY with resync bytes pending")
+            assert_transitions_legal(sess, "[19d] write fail-stop")
+            back = load_file_to_device(sk, chunk_size=1 << 20,
+                                       session=sess, device=dev)
+        if not torch.equal(back, payload):
+            fail("d", "write fail-stop: the set reads back another payload")
+        del back, payload
+        assert_pairs_identical(wpaths, "[19d] write fail-stop")
+        c = stats.snapshot()
+        if not c.get("nr_resync_extent"):
+            fail("d", "write fail-stop: nothing replayed")
+        lines.append(f"write fail-stop of member 2 (from the card): "
+                     f"{journaled[0]} bytes journaled, "
+                     f"{c['nr_resync_extent']} extents replayed before "
+                     f"HEALTHY, pairs identical, {fbytes / s / 1e9:.3f} "
+                     f"GB/s")
+
+        # a hedged request's primary runs on its member's pool of legs
+        # and its hedge leg on the requesting thread; 8 requests in
+        # flight a member and 1 a member
+        for depth in (0, 1):
+            p99 = {}
+            for policy in ("off", "fixed", "p99"):
+                config.restore(snap)
+                config.set("hedge_policy", policy)
+                config.set("hedge_ms", 2.0)
+                config.set("member_queue_depth", depth)
+                zero()
+                h0 = stats.lat_hist_snapshot()
+                with Session(device=dev) as sess:
+                    s = load(FaultPlan(slow_member=0, slow_s=0.02),
+                             f"hedge {policy}", sess)
+                c = stats.snapshot()
+                p99[policy] = (_lat_p99_ms(h0, stats.lat_hist_snapshot()),
+                               s, c.get("nr_hedge_issued", 0),
+                               c.get("nr_hedge_won", 0))
+            if p99["off"][2] or not p99["p99"][3] or not p99["fixed"][3]:
+                fail("d", f"hedges off/fixed/p99: {p99}")
+            lines.append(
+                f"member 0 20 ms slow, {depth or 8} request"
+                f"{'s' if depth != 1 else ''} in flight a member, request "
+                f"p99 (hedge_ms 2): " + "; ".join(
+                    f"{pol} {v[0]:.3f} ms ({fbytes / v[1] / 1e9:.3f} GB/s,"
+                    f" {v[3]} of {v[2]} hedges won)"
+                    for pol, v in p99.items()))
+        config.restore(snap)
+        print(f"[19d] 256 MiB paired set through FakeStripedNvmeSource on "
+              f"the python pools, landed on the card byte-identical "
+              f"({card}):")
+        for ln in lines:
+            print(f"      {ln}")
+        del fwant
+        shutil.rmtree(fd, ignore_errors=True)
+
+        # -- e. page-cache arbitration ----------------------------------
+        # on by default; where the residency probe cannot see an eviction
+        # the Session keeps every chunk direct (nr_arb_blind), so the
+        # write-back path is also driven with the verdict forced
+        rows = {}
+        lsize = os.path.getsize(load_path)
+        with PlainSource(load_path) as lsrc:
+            drop_page_cache(load_path)
+            seen = lsrc.cached_fraction(0, lsize)
+            print(f"[19e] the residency probe after dropping [4]'s file "
+                  f"from the page cache: {seen:.3f} of its pages resident")
+            blind_legs = 0
+            for label, arb, warm, forced in (
+                    ("cold, arbitration on", True, False, False),
+                    ("warm, arbitration on", True, True, False),
+                    ("warm, write-back path forced on", True, True, True),
+                    ("warm, arbitration off", False, True, False)):
+                config.set("cache_arbitration", arb)
+                drop_page_cache(load_path)
+                if warm:
+                    with open(load_path, "rb", buffering=0) as f:
+                        while f.read(64 << 20):
+                            pass
+                zero()
+                blind0 = stats.snapshot().get("nr_arb_blind", 0)
+                fsrc = FakeNvmeSource(load_path, force_cached_fraction=1.0) \
+                    if forced else None
+                try:
+                    out = run_load(fsrc or load_path, device=dev,
+                                   drop_cache=False)
+                finally:
+                    if fsrc is not None:
+                        fsrc.close()
+                blind = stats.snapshot().get("nr_arb_blind", 0) - blind0
+                r = out["result"]
+                bad = chunks_mismatch(out["tensor"], lsrc, r.chunk_ids,
+                                      1 << 20)
+                del out["tensor"]
+                if bad is not None:
+                    fail("e", f"{label}: landed bytes differ from [4]'s "
+                              f"file")
+                if forced:
+                    ok = r.nr_ram2dev == r.nr_chunks and not blind
+                elif arb and warm:
+                    # a probe that sees evictions sends the warm chunks
+                    # write-back; a blind one keeps them all direct
+                    ok = (r.nr_ram2dev > 0) != bool(blind)
+                    blind_legs += bool(blind)
+                else:
+                    ok = r.nr_ram2dev == 0
+                if not ok:
+                    fail("e", f"{label}: {r.nr_ram2dev} of {r.nr_chunks} "
+                              f"chunks write-back, {blind} blind tasks")
+                rows[label] = (lsize / out["seconds"] / 1e9, r.nr_ram2dev,
+                               r.nr_chunks, blind)
+        config.restore(snap)
+        print(f"[19e] [4]'s file through ssd2gpu_test's path, bytes "
+              f"identical each time ({card}): " + "; ".join(
+                  f"{k} {g:.3f} GB/s ({wb} of {n} chunks write-back"
+                  + (f", {bl} tasks kept direct by a blind probe"
+                     if bl else "") + ")"
+                  for k, (g, wb, n, bl) in rows.items()))
+        print(f"[19e] the residency probe here "
+              + ("cannot see an eviction: arbitration keeps every chunk "
+                 "direct, and only the forced leg drives the write-back "
+                 "path" if blind_legs else
+                 "sees evictions: arbitration chose write-back for the "
+                 "warm file and direct for the cold one"))
+
+        # -- f. the x64 switch and the float route ----------------------
+        gpath, gschema, n_pages = group
+        (c0, c1, c2, _c3, c4, c5), vis, g8 = _group_columns(
+            gschema, seed, n_pages)
+        config.set("x64", True)
+        config.set("debug_no_threshold", True)
+        q = Query(gpath, gschema).where(FilterPred(((0, "gt", 100),))) \
+            .group_by(GroupKey(1, 64), 64, agg_cols=[0, 2])
+        plan = q.explain(device=dev)
+        if plan.kernel != "torch" or (on_card and "x64" not in plan.reason):
+            fail("f", f"plan {plan}")
+        drop_page_cache(gpath)
+        zero()
+        t0 = time.monotonic()
+        res = q.run(device=dev)
+        s = time.monotonic() - t0
+        if groupby_cuda.launches:
+            fail("f", f"{groupby_cuda.launches} B3 launches on the torch "
+                      f"route")
+        config.restore(snap)
+        sel = (vis != 0) & (c0 > 100)
+        key = c1[sel].astype(np.int64) % 64
+        if res["sums"].dtype != np.int64 or res["sumsqs"].dtype != \
+                np.float64 or res["count"].dtype != np.int64:
+            fail("f", f"dtypes {res['count'].dtype} {res['sums'].dtype} "
+                      f"{res['sumsqs'].dtype}")
+        if not np.array_equal(res["count"], np.bincount(key, minlength=64)):
+            fail("f", "counts differ from numpy")
+        for j, col in enumerate((c0, c2)):
+            v = col[sel].astype(np.int64)
+            sums = np.zeros(64, np.int64)
+            np.add.at(sums, key, v)
+            sq = np.zeros(64, np.float64)
+            np.add.at(sq, key, v.astype(np.float64) ** 2)
+            if not np.array_equal(res["sums"][j], sums):
+                fail("f", f"c{(0, 2)[j]} int64 sums differ from numpy")
+            if not np.allclose(res["sumsqs"][j], sq, rtol=1e-12):
+                fail("f", f"c{(0, 2)[j]} float64 sums of squares differ")
+        wide = int((np.abs(res["sums"]) >= (1 << 31)).sum())
+        route, why = groupby_kernel_auto("f")
+        # the plan's float route both ways: B3 at the card's ratio, the
+        # torch route with the ratio overridden below 1.0; both against
+        # numpy truth
+        sel = vis != 0
+        gs = g8[sel]
+        counts = np.bincount(gs, minlength=8)
+        per = [[col[sel][gs == g] for g in range(8)]
+               for col in (c4, c5)]
+        routes = {}
+        for override in (0.0, 0.5):
+            config.set("debug_no_threshold", True)
+            config.set("groupby_cuda_ratio", override)
+            fq = Query(gpath, gschema).group_by(
+                GroupKey(1, 8, absolute=True), 8, agg_cols=[4, 5])
+            fplan = fq.explain(device=dev)
+            zero()
+            fres = fq.run(device=dev)
+            b3 = groupby_cuda.launches
+            config.restore(snap)
+            want = route if override == 0.0 else "torch"
+            if on_card and (fplan.kernel != want
+                            or (b3 > 0) != (want == "cuda")):
+                fail("f", f"float route at ratio override {override}: plan "
+                          f"{fplan.kernel}, {b3} B3 launches")
+            _check_group_result(f"[19f] float32 G=8 on the {fplan.kernel} "
+                                f"route", fres, 8, counts, per, True)
+            routes[override] = (fplan.kernel, b3)
+        print(f"[19f] x64 on, [6]'s table, int32 G=64 where c0 > 100: plan "
+              f"torch (the reason names the x64 refusal); {s:.3f} s = "
+              f"{os.path.getsize(gpath) / s / 1e9:.3f} GB/s ({card}); "
+              f"int64 sums equal numpy int64 truth ({wide} of 128 beyond "
+              f"int32), float64 sums of squares")
+        print(f"[19f] groupby_kernel_auto: the measured torch/B3 ratio of "
+              f"[8]'s float32 G=8 batch is {ratio:.3f} ({card}); the module "
+              f"holds {GROUPBY_CUDA_RATIO:g}; float32 routes to {route} "
+              f"({why})")
+        print(f"[19f] float32 G=8 through Query.run(): {routes[0.0][0]} "
+              f"route at the module's ratio ({routes[0.0][1]} B3 launches),"
+              f" {routes[0.5][0]} route with config groupby_cuda_ratio 0.5 "
+              f"({routes[0.5][1]} B3 launches); both equal numpy truth")
+
+        # -- g. the chaos harness's native scenario ---------------------
+        from nvme_strom_tpu_torch.testing import chaos
+        zero()
+        t0 = time.monotonic()
+        tally = chaos.run_all(seed, scenarios=(
+            chaos.scenario_native_degraded,), verbose=False, device=dev)
+        rung = stats.backend()
+        if tally != {"native_degraded": 1} or rung == "python":
+            fail("g", f"native_degraded: {tally} on the {rung} rung")
+        print(f"[19g] chaos scenario native_degraded on the native {rung} "
+              f"rung: a FAILED member's extents read through its mirror's "
+              f"fd ({stats.snapshot().get('nr_mirror_read', 0)} requests), "
+              f"the stream byte-identical, every transition legal "
+              f"({time.monotonic() - t0:.3f} s)")
+    finally:
+        config.restore(snap)
+        for m in members:
+            if os.path.exists(m):
+                os.unlink(m)
+    return launched[0], launched[1]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--load-gib", type=float, default=1.0)
@@ -4670,6 +5220,11 @@ def main() -> int:
             g_ms = _time_ms(torch, lambda i: groupby_cuda.launch(
                 gb_ring[i % 8], gspec, dt, buf), 128, queued=True)
             g_plain_ms = _time_ms(torch, lambda i: plain(gb_ring[i % 8]), 8)
+            # the wrapper as the torch route's step is timed: as issued
+            g_wrap_ms = _time_ms(
+                torch, lambda i: groupby_cuda.groupby_pages_cuda(
+                    gb_ring[i % 8], 0, gb_schema, key, G, agg_cols=agg,
+                    predicate=pred), 8)
             tuples = SCAN_BATCH_PAGES * gb_schema.tuples_per_page
             g_bytes = _groupby_bytes(gb_schema, key, agg, pred,
                                      SCAN_BATCH_PAGES) \
@@ -4682,7 +5237,7 @@ def main() -> int:
                              ops / F32_OPS_PER_S) * 1e3
             gb_times.append((name, g_ms, g_plain_ms, g_bound_ms, g_bytes,
                              gplan, _groupby_bytes(gb_schema, key, agg, pred,
-                                                   1)))
+                                                   1), g_wrap_ms))
 
         strategy_rows = _group_strategy_times(torch, dev, gb_ring, gb_schema,
                                               gb_pred)
@@ -4730,11 +5285,12 @@ def main() -> int:
                   f"(bound {bound_ms:.4f} ms by {nbytes} bytes = "
                   f"{bound_ms / ms:.1%}); wrapper call {wrap_ms:.4f} ms; "
                   f"plain {plain_ms:.4f} ms")
-        for name, g_ms, g_plain_ms, g_bound_ms, g_bytes, gplan, g_page \
-                in gb_times:
+        for name, g_ms, g_plain_ms, g_bound_ms, g_bytes, gplan, g_page, \
+                g_wrap_ms in gb_times:
             print(f"    B3 groupby_pages {name}: {g_ms:.4f} ms (bound "
                   f"{g_bound_ms:.4f} ms by {g_bytes} bytes = "
-                  f"{g_bound_ms / g_ms:.1%}); plain {g_plain_ms:.4f} ms")
+                  f"{g_bound_ms / g_ms:.1%}); wrapper call {g_wrap_ms:.4f} "
+                  f"ms; plain {g_plain_ms:.4f} ms")
             print(f"       plan: {gplan.strategy}, {gplan.threads} threads, "
                   f"{gplan.copies} accumulator copies of {gplan.acc_words} "
                   f"words, {gplan.stages} stages, window {gplan.window}, "
@@ -4790,12 +5346,11 @@ def main() -> int:
                   "(not passed, not failed)")
 
         # -- the write path, then the traced load and scan ---------------
-        _write_path(torch, dev, tmp, args.seed)
+        write_gbs = _write_path(torch, dev, tmp, args.seed)
         _trace_phase(torch, dev, load_path, heap_path, th,
                      (want_count, want_sum),
                      os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                   "chiprun_out"))
-        os.unlink(load_path)
 
         # -- the data tier: loader, checkpoint, train loop ---------------
         _data_phase(torch, dev, tmp, args.seed)
@@ -4803,7 +5358,6 @@ def main() -> int:
         # -- the query engine's torch route and terminals ----------------
         t13 = time.monotonic()
         _route_phase(torch, dev, gb_path, args.seed, args.scan_pages)
-        os.unlink(gb_path)
         lineitem = _lineitem_phase(torch, dev, tmp, args.seed,
                                    args.scan_pages)
         print(f"    [13] took {time.monotonic() - t13:.1f} s")
@@ -4837,7 +5391,19 @@ def main() -> int:
             (heap_path, schema, th, want_count, want_sum))
         main_launches += acc_b1
         gb_launches += acc_b3
-        os.unlink(heap_path)
+
+        # -- resilience: mirrors, the fault ladder, arbitration, x64 -------
+        t19 = time.monotonic()
+        res_b1, res_b3 = _resilience_phase(
+            torch, dev, tmp, args.seed, card,
+            (heap_path, schema, th, want_count, want_sum), load_path,
+            (gb_path, gb_schema, args.scan_pages), write_gbs,
+            gb_times[1][2] / gb_times[1][7])
+        main_launches += res_b1
+        gb_launches += res_b3
+        print(f"    [19] took {time.monotonic() - t19:.1f} s")
+        for f in (heap_path, load_path, gb_path):
+            os.unlink(f)
 
         # -- string columns and the SQL facade -----------------------------
         main_launches += _sql_phase(torch, dev, tmp, args.seed)

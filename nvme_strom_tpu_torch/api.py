@@ -9,19 +9,58 @@ command.  Only the fields the load-then-scan path fills are kept.
 from __future__ import annotations
 
 import enum
+import errno as _errno
 from dataclasses import dataclass
 from typing import List, Optional
 
-__all__ = ["StromError", "FsKind", "FileInfo", "BufferInfo",
+__all__ = ["StromError", "ErrorClass", "FsKind", "FileInfo", "BufferInfo",
            "MemCopyResult"]
+
+
+class ErrorClass(enum.Enum):
+    """What the fault ladder does with an error: TRANSIENT retries (then a
+    read degrades to its mirror or the buffered leg), CORRUPTION is
+    re-read then latched EBADMSG, TIMEOUT is the watchdog's latch, and
+    PERSISTENT fails fast with no retry."""
+
+    TRANSIENT = "transient"
+    PERSISTENT = "persistent"
+    CORRUPTION = "corruption"
+    TIMEOUT = "timeout"
+
+
+_TRANSIENT_ERRNOS = frozenset((_errno.EIO, _errno.EAGAIN, _errno.EBUSY,
+                               _errno.EINTR, _errno.ENOMEM))
+_CORRUPTION_ERRNOS = frozenset((_errno.EBADMSG, _errno.EILSEQ))
+
+
+def classify_errno(errno_: int) -> ErrorClass:
+    """The default class of an errno: ETIMEDOUT timeout, EBADMSG/EILSEQ
+    corruption, EIO/EAGAIN/EBUSY/EINTR/ENOMEM transient, every other
+    (ENOSPC, EROFS, EBADF, ...) persistent."""
+    if errno_ == _errno.ETIMEDOUT:
+        return ErrorClass.TIMEOUT
+    if errno_ in _CORRUPTION_ERRNOS:
+        return ErrorClass.CORRUPTION
+    if errno_ in _TRANSIENT_ERRNOS:
+        return ErrorClass.TRANSIENT
+    return ErrorClass.PERSISTENT
 
 
 class StromError(OSError):
     """Engine error carrying an errno-style code (the reference returns
-    ``-errno`` from every ioctl)."""
+    ``-errno`` from every ioctl) and the recovery class the fault ladder
+    reads: :func:`classify_errno` of the errno unless the raiser pins
+    one."""
 
-    def __init__(self, errno_: int, msg: str):
+    def __init__(self, errno_: int, msg: str,
+                 error_class: Optional[ErrorClass] = None):
         super().__init__(errno_, msg)
+        self.error_class = error_class or classify_errno(errno_)
+
+    @property
+    def transient(self) -> bool:
+        return self.error_class is ErrorClass.TRANSIENT
 
 
 class FsKind(enum.IntEnum):
@@ -85,9 +124,12 @@ class BufferInfo:
 class MemCopyResult:
     """Out-fields of MEMCPY_SSD2GPU/RAM (reference kmod/nvme_strom.h:85-117).
 
-    ``chunk_ids[i]`` names the chunk resident at destination slot *i*.  The
-    port reads every chunk by direct I/O, so ``nr_ram2dev`` stays 0 and the
-    order is the caller's."""
+    ``chunk_ids[i]`` names the chunk resident at destination slot *i*: the
+    ``nr_ssd2dev`` chunks read by direct I/O first, then the
+    ``nr_ram2dev`` chunks page-cache arbitration sent through the
+    write-back (buffered) leg, each group in the caller's order.  With
+    arbitration off (config ``cache_arbitration``) every chunk is direct
+    and the order is the caller's."""
 
     dma_task_id: int
     nr_chunks: int

@@ -81,6 +81,16 @@ def _trace_policy(val: str) -> None:
                           f"got {val!r}")
 
 
+def _hedge_policy(val: str) -> None:
+    if val not in ("off", "fixed", "p99"):
+        raise ConfigError(f"hedge_policy must be off|fixed|p99, got {val!r}")
+
+
+def _mirror(val: str) -> None:
+    if val not in ("none", "paired"):
+        raise ConfigError(f"mirror must be none|paired, got {val!r}")
+
+
 def _buffer_multiple(val: int, cfg: "Config") -> None:
     chunk = cfg.get("chunk_size")
     if chunk and val % chunk:
@@ -192,8 +202,9 @@ _VARS: Dict[str, _Var] = {
     # auto (io_uring, then threadpool) | uring | threadpool
     "engine_backend": _Var("auto", str, check=_engine_backend),
     # step down the ladder (io_uring -> native threadpool -> python pool)
-    # when an engine cannot be created or a native submit fails; off
-    # raises instead
+    # when an engine cannot be created or a native submit fails, and
+    # degrade a read to the buffered leg once its retries are spent; off
+    # raises (latches) instead
     "io_fallback": _Var(True, bool),
     # io_uring submission queue depth / outstanding requests
     "queue_depth": _Var(32, int, 1, 4096),
@@ -211,6 +222,61 @@ _VARS: Dict[str, _Var] = {
     # adapt the coalesced cap between dma_max_size and coalesce_limit from
     # observed per-request service latency; off pins it at coalesce_limit
     "chunk_adaptive": _Var(True, bool),
+    # -- page-cache arbitration (kmod/nvme_strom.c:1639-1663) ----------
+    # probe each read's chunks with mincore(2) and send hot, dirty or
+    # cached chunks through the write-back (page-cache copy) leg; a
+    # filesystem whose probe cannot see an eviction keeps every chunk
+    # direct (engine.Session._arbitrate)
+    "cache_arbitration": _Var(True, bool),
+    # cached-page fraction above which a chunk takes the write-back leg
+    "cache_threshold": _Var(0.5, float, 0.0, 1.0),
+    # -- the fault ladder ----------------------------------------------
+    # re-attempts of a direct read or write after a TRANSIENT error
+    # before the read degrades to its mirror or the buffered leg
+    "io_retries": _Var(3, int, 0, 64),
+    # exponential backoff between retries: base, ceiling, jitter fraction
+    "retry_backoff_ms": _Var(5.0, float, 0.0),
+    "retry_backoff_max_ms": _Var(1000.0, float, 0.0),
+    "retry_jitter": _Var(0.5, float, 0.0, 1.0),
+    # per-task deadline: the watchdog latches ETIMEDOUT on a task running
+    # past it and its unstarted requests cancel (0 = no deadline)
+    "task_deadline_s": _Var(60.0, float, 0.0),
+    # consecutive direct failures of one member before it is quarantined,
+    # and the seconds it stays off the direct path
+    "quarantine_after": _Var(8, int, 1, 1 << 20),
+    "quarantine_s": _Var(30.0, float, 0.0),
+    # a member whose p99 passes suspect_ratio x the stripe median p99 is
+    # SUSPECT (still direct, hedge-eligible); it recovers at half
+    "suspect_ratio": _Var(6.0, float, 1.0),
+    # hedged reads on the python member pools: off | fixed (re-issue on
+    # the mirror or the buffered leg after hedge_ms) | p99 (the member's
+    # own p99, hedge_ms the floor); first completion wins
+    "hedge_policy": _Var("off", str, check=_hedge_policy),
+    "hedge_ms": _Var(20.0, float, 0.0, 60000.0),
+    # default mirror map of a striped source: none (RAID-0) | paired
+    # (member 2k+1 replicates member 2k, RAID-10)
+    "mirror": _Var("none", str, check=_mirror),
+    # period of the canary prober of FAILED and REJOINING members
+    # (0 = no canaries)
+    "canary_interval_s": _Var(1.0, float, 0.0),
+    # warmup successes a REJOINING member needs before HEALTHY, and the
+    # token rate of direct reads (and resync replays) it takes meanwhile
+    # (0 = no throttle)
+    "rejoin_successes": _Var(8, int, 1, 1 << 20),
+    "rejoin_tokens_s": _Var(16.0, float, 0.0),
+    # read each retired write leg back at wait time and compare crc32c
+    # (EBADMSG on a mismatch)
+    "write_verify": _Var(False, bool),
+    # -- GROUP BY accumulators -----------------------------------------
+    # 64-bit GROUP BY accumulators: 4-byte int sums widen to 8 bytes and
+    # every sum of squares is float64 (the JAX package's jax_enable_x64);
+    # such a plan takes the torch route
+    "x64": _Var(False, bool),
+    # torch-route / B3 time ratio of a float32 GROUP BY batch that
+    # groupby_kernel_auto routes by: below 1.0 float aggregation takes
+    # the torch route (0 = the card's measured ratio,
+    # ops.groupby.GROUPBY_CUDA_RATIO)
+    "groupby_cuda_ratio": _Var(0.0, float, 0.0),
     # -- the flight recorder -------------------------------------------
     # per-task span tracing: off (one attribute test a site) | sampled
     # (1 task in round(1 / trace_sample_rate)) | all; read when a Session

@@ -8,9 +8,11 @@ commands (`kmod/nvme_strom.c`) as an in-process engine.
   request cap (reference ``ioctl_check_file``, :188-583);
 * sources — ``PlainSource`` (one file), ``SegmentedSource`` (fixed-size
   segment files, a PostgreSQL relation's shape) and ``StripedSource`` (a
-  RAID-0 member set, :mod:`.stripe`), each readable and, opened with
-  ``writable=True``, writable; the host-ownership planner of the
-  multi-host loader (``plan_shard_ownership``);
+  RAID-0 member set, or with ``mirror='paired'`` a RAID-10 one,
+  :mod:`.stripe`), each readable and, opened with ``writable=True``,
+  writable; their page-cache residency probe (one batched ``mincore(2)``
+  a task, with the ``/proc/kpageflags`` dirty check); the host-ownership
+  planner of the multi-host loader (``plan_shard_ownership``);
 * ``DmaBuffer`` — page-aligned anonymous mmap (hugepages when the length
   allows), optionally mlock'd, registered with the CUDA runtime
   (``cudaHostRegister``) so host→device copies from it run asynchronously;
@@ -20,19 +22,27 @@ commands (`kmod/nvme_strom.c`) as an in-process engine.
   per-member :class:`AdaptiveChunkSizer`;
 * ``Session`` — buffer handle table, one task per memcpy command, first
   error latched and retained until a wait reaps it (reference design memo
-  :612-626).  Planned requests execute on the native engine
-  (:mod:`._native`: io_uring, else its pread thread pool), submitted in
-  ``submit_window`` slices and one lane a stripe member, landing straight
-  into pinned buffers registered as io_uring fixed buffers; or, with
-  ``io_backend=python`` or a source whose read leg is overridden, on a
-  Python pool of blocking ``preadv``s.  The write leg (``memcpy_ram2ssd``)
-  mirrors the read path.
+  :612-626).  With config ``cache_arbitration`` (on) a read's hot, dirty
+  or cached chunks take the write-back leg (a page-cache copy, after the
+  direct chunks, reference :1639-1663), except on a filesystem whose
+  residency probe cannot see an eviction.  Planned direct requests execute
+  on the native engine (:mod:`._native`: io_uring, else its pread thread
+  pool), submitted in ``submit_window`` slices and one lane a stripe
+  member, landing straight into pinned buffers registered as io_uring
+  fixed buffers; a member the health machine routes away is read from its
+  mirror's fd and lane.  With ``io_backend=python`` or a source whose
+  read leg is overridden they run on Python pools (one a stripe member)
+  through the fault ladder (:mod:`.fault`): retry with backoff, the
+  mirror, the buffered leg, hedged reads.  A watchdog latches ETIMEDOUT
+  on a task past ``task_deadline_s``; a canary thread probes FAILED and
+  REJOINING members and replays what a rejoiner missed.  The write leg
+  (``memcpy_ram2ssd``) mirrors the read path: retries, PERSISTENT errors
+  (ENOSPC) latched at once, every aligned leg of a paired sink written to
+  both partners (a partner routed away is journaled for resync), and the
+  ``write_verify`` read-back.
 
-Not part of this copy: mirrors and the mirror-coherent write ladder,
-page-cache (mincore) arbitration, the fault ladder (retries beyond the
-engine's own, hedging, the member-health machine, the watchdog), checksum
-verify, residency tiers, autotune, NVMe passthrough and NUMA lane pinning.
-Every chunk is read direct, in the caller's order.
+Not part of this copy: checksum verify, residency tiers, autotune, NVMe
+passthrough and NUMA lane pinning.
 """
 
 from __future__ import annotations
@@ -41,15 +51,20 @@ import ctypes
 import errno as _errno
 import mmap
 import os
+import random
 import threading
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
-from .api import BufferInfo, FileInfo, FsKind, MemCopyResult, StromError
+from .api import (BufferInfo, ErrorClass, FileInfo, FsKind, MemCopyResult,
+                  StromError)
 from .config import config
 from .eligibility import probe_backing
+from .fault import (DirtyExtentJournal, HealthState, MemberHealthMachine,
+                    RetryPolicy)
 from .log import pr_warn
 from .stats import stats
 from .trace import recorder as _trace
@@ -176,6 +191,62 @@ class Source:
         """Buffered (page-cache) fds, one per member."""
         raise NotImplementedError
 
+    def mirror_of(self, member: int) -> Optional[int]:
+        """The member holding a byte-identical replica of *member* at the
+        same offsets, or None when the source has no redundancy (a
+        striped source opened with ``mirror='paired'`` has one)."""
+        return None
+
+    # -- page-cache residency (the arbitration probe) -----------------------
+    def cached_fraction(self, offset: int, length: int) -> float:
+        """Fraction of the range resident in the page cache (the
+        reference's find_lock_page probe, kmod/nvme_strom.c:1639-1645;
+        here mincore(2))."""
+        return 0.0
+
+    def probe_file(self) -> "Optional[_FileMember]":
+        """The file whose mincore(2) answers :meth:`residency`, or None
+        where the verdict is not the kernel's (no file; a forced one)."""
+        return None
+
+    def hint_hot_range(self, offset: int, length: int) -> None:
+        """Declare ``[offset, offset + length)`` hot (being written): a
+        chunk overlapping it takes the write-back leg (the reference's
+        one-dirty-page rule, :1643)."""
+        if length <= 0:
+            return
+        hints = getattr(self, "_hot_hints", None)
+        if hints is None:
+            hints = self._hot_hints = []
+        hints.append((offset, offset + length))
+
+    def clear_hot_hints(self) -> None:
+        self._hot_hints = []
+
+    def hot_fraction(self, offset: int, length: int) -> float:
+        """Fraction of the range under hot hints (a file source adds its
+        measured dirty pages); any value above 0 routes the chunk
+        write-back."""
+        hints = getattr(self, "_hot_hints", None)
+        if not hints or length <= 0:
+            return 0.0
+        covered = 0
+        for h0, h1 in hints:
+            lo, hi = max(offset, h0), min(offset + length, h1)
+            if hi > lo:
+                covered += hi - lo
+        return min(covered / length, 1.0)
+
+    def residency(self, spans: Sequence[Tuple[int, int]]
+                  ) -> List[Tuple[float, float]]:
+        """``(cached_fraction, hot_fraction)`` of each ``(offset, length)``
+        span: the arbitration probe of one task.  This default asks the
+        scalar probes, so a subclass that overrides them (a test fake's
+        forced verdict) decides; a plain file answers with one batched
+        mincore(2)."""
+        return [(self.cached_fraction(o, n), self.hot_fraction(o, n))
+                for o, n in spans]
+
     def read_buffered(self, offset: int, dest: memoryview) -> None:
         """Page-cache copy of a logical range (reference
         memcpy_pgcache_to_ubuffer, kmod/nvme_strom.c:1344-1401)."""
@@ -259,12 +330,20 @@ class Source:
         self.close()
 
 
+# mincore(2) defines bit 0 of each residency byte only: translate through
+# this table before counting so reserved high bits never skew a probe
+_MINCORE_LSB = bytes((i & 1) for i in range(256))
+
+
 class _FileMember:
-    """One underlying file: a direct and a buffered fd."""
+    """One underlying file: a direct and a buffered fd, and a private
+    read mapping for the mincore(2) residency probe."""
 
     def __init__(self, path: str, writable: bool = False):
         self.path = path
-        self.size = os.stat(path).st_size
+        st = os.stat(path)
+        self.size = st.st_size
+        self.st_dev = st.st_dev
         self.writable = writable
         mode = os.O_RDWR if writable else os.O_RDONLY
         try:
@@ -272,8 +351,142 @@ class _FileMember:
         except OSError:
             self.fd_direct = -1
         self.fd_buffered = os.open(path, mode)
+        self._mm: Optional[mmap.mmap] = None
+        self._mm_addr = 0
+        self._mincore_buf = None      # grown on demand, one a member
+        self._mincore_cap = 0
+        self._probe_lock = threading.Lock()
+
+    def _map(self) -> Optional[mmap.mmap]:
+        if self._mm is None and self.size > 0:
+            # a private mapping: its pages stay the page cache's until
+            # written, and ctypes can take its address for mincore(2)
+            self._mm = mmap.mmap(self.fd_buffered, self.size,
+                                 flags=mmap.MAP_PRIVATE,
+                                 prot=mmap.PROT_READ | mmap.PROT_WRITE)
+            self._mm_addr = ctypes.addressof(
+                ctypes.c_char.from_buffer(self._mm))
+        return self._mm
+
+    def _mincore(self, lo: int, end: int) -> Optional[bytes]:
+        """Residency bits (0/1 a page) of ``[lo, end)``, *lo* page-aligned;
+        None when the probe is refused."""
+        if self._map() is None or end <= lo:
+            return None
+        npages = max((end - lo + PAGE_SIZE - 1) // PAGE_SIZE, 1)
+        with self._probe_lock:
+            if npages > self._mincore_cap:
+                self._mincore_cap = max(npages, self._mincore_cap * 2, 256)
+                self._mincore_buf = (ctypes.c_ubyte * self._mincore_cap)()
+            if _libc.mincore(ctypes.c_void_p(self._mm_addr + lo),
+                             ctypes.c_size_t(end - lo),
+                             self._mincore_buf) != 0:
+                return None
+            return ctypes.string_at(self._mincore_buf, npages) \
+                .translate(_MINCORE_LSB)
+
+    def cached_fraction(self, offset: int, length: int) -> float:
+        lo = offset & ~(PAGE_SIZE - 1)
+        bits = self._mincore(lo, min(offset + length, self.size))
+        return bits.count(1) / len(bits) if bits else 0.0
+
+    def probe_sees_eviction(self) -> Optional[bool]:
+        """Whether mincore(2) on this file's filesystem reports a dropped
+        page as gone: the last page is probed and, when resident, the
+        file's last 2 MiB (the largest page-cache folio on x86-64, which
+        is only dropped whole) are unmapped from the probe's own mapping,
+        written back, dropped (fadvise DONTNEED) and the page probed
+        again.  None when the probe is refused."""
+        if self.size <= 0:
+            return None
+        lo = (self.size - 1) & ~(PAGE_SIZE - 1)
+        bits = self._mincore(lo, self.size)
+        if not bits:
+            return None
+        if not bits[0]:
+            return True
+        tail = (self.size - 1) & ~((2 << 20) - 1)
+        # the dirty check read-faults pages into the mapping, and a mapped
+        # or dirty page is not dropped
+        self._mm.madvise(mmap.MADV_DONTNEED, tail, self.size - tail)
+        # SYNC_FILE_RANGE_WAIT_BEFORE | WRITE | WAIT_AFTER, to EOF
+        _libc.sync_file_range(self.fd_buffered, ctypes.c_int64(tail),
+                              ctypes.c_int64(0), 7)
+        os.posix_fadvise(self.fd_buffered, tail, 0, os.POSIX_FADV_DONTNEED)
+        bits = self._mincore(lo, self.size)
+        return None if not bits else not bits[0]
+
+    def cached_spans(self, spans: Sequence[Tuple[int, int]]
+                     ) -> List[Tuple[float, bool]]:
+        """``(cached_fraction, any page resident)`` of each span from ONE
+        mincore(2) over the range enclosing them all."""
+        if not spans:
+            return []
+        lo = min(o for o, _ in spans) & ~(PAGE_SIZE - 1)
+        bits = self._mincore(lo, min(max(o + n for o, n in spans),
+                                     self.size))
+        if bits is None:
+            return [(0.0, False)] * len(spans)
+        out = []
+        for o, n in spans:
+            p0 = ((o & ~(PAGE_SIZE - 1)) - lo) // PAGE_SIZE
+            p1 = (min(o + n, self.size) - lo + PAGE_SIZE - 1) // PAGE_SIZE
+            res = bits[p0:p1].count(1)
+            out.append((res / max(p1 - p0, 1), res > 0))
+        return out
+
+    def dirty_fraction(self, offset: int, length: int) -> float:
+        """Fraction of the range's pages that are dirty in the page cache
+        (the reference's PageDirty, kmod/nvme_strom.c:1643), read through
+        /proc/self/pagemap and /proc/kpageflags for the resident pages
+        only; 0.0 where those files cannot be read (the hint API is then
+        the only dirty signal)."""
+        lo = offset & ~(PAGE_SIZE - 1)
+        bits = self._mincore(lo, min(offset + length, self.size))
+        if not bits or 1 not in bits:
+            return 0.0
+        try:
+            pm = os.open("/proc/self/pagemap", os.O_RDONLY)
+        except OSError:
+            return 0.0
+        try:
+            try:
+                kf = os.open("/proc/kpageflags", os.O_RDONLY)
+            except OSError:
+                return 0.0
+            try:
+                dirty = 0
+                for i, b in enumerate(bits):
+                    if not b:
+                        continue
+                    va = self._mm_addr + lo + i * PAGE_SIZE
+                    # a read fault maps the resident page without
+                    # dirtying it, so pagemap shows its frame
+                    ctypes.c_ubyte.from_address(va).value
+                    ent = os.pread(pm, 8, (va // PAGE_SIZE) * 8)
+                    if len(ent) != 8:
+                        continue
+                    word = int.from_bytes(ent, "little")
+                    pfn = word & ((1 << 55) - 1)
+                    if not word >> 63 or pfn == 0:
+                        continue
+                    flags = os.pread(kf, 8, pfn * 8)
+                    if len(flags) == 8 and \
+                            (int.from_bytes(flags, "little") >> 4) & 1:
+                        dirty += 1      # KPF_DIRTY
+                return dirty / len(bits)
+            finally:
+                os.close(kf)
+        finally:
+            os.close(pm)
 
     def close(self) -> None:
+        if self._mm is not None:
+            try:
+                self._mm.close()
+            except BufferError:
+                pass    # a ctypes view still holds it; it dies with it
+            self._mm = None
         for fd in (self.fd_direct, self.fd_buffered):
             if fd >= 0:
                 os.close(fd)
@@ -303,6 +516,38 @@ class PlainSource(Source):
 
     def member_buffered_fds(self) -> List[int]:
         return [self._m.fd_buffered]
+
+    def cached_fraction(self, offset: int, length: int) -> float:
+        return self._m.cached_fraction(offset, length)
+
+    def probe_file(self) -> "Optional[_FileMember]":
+        if type(self).cached_fraction is not PlainSource.cached_fraction:
+            return None     # a subclass forces the verdict
+        return self._m
+
+    def hot_fraction(self, offset: int, length: int) -> float:
+        # hints, then the measured dirty pages, whichever is louder
+        hinted = super().hot_fraction(offset, length)
+        if hinted >= 1.0:
+            return hinted
+        return max(hinted, self._m.dirty_fraction(offset, length))
+
+    def residency(self, spans: Sequence[Tuple[int, int]]
+                  ) -> List[Tuple[float, float]]:
+        # one batched mincore for the task, unless a subclass overrides a
+        # scalar probe (a test fake's forced verdict owns arbitration)
+        if (type(self).cached_fraction is not PlainSource.cached_fraction
+                or type(self).hot_fraction is not PlainSource.hot_fraction):
+            return super().residency(spans)
+        out = []
+        for (off, ln), (frac, any_res) in zip(spans,
+                                              self._m.cached_spans(spans)):
+            hot = Source.hot_fraction(self, off, ln)
+            if hot < 1.0 and any_res:
+                # a dirty page is resident: probe /proc only there
+                hot = max(hot, self._m.dirty_fraction(off, ln))
+            out.append((frac, hot))
+        return out
 
     def read_buffered(self, offset: int, dest: memoryview) -> None:
         self.read_member_buffered(0, offset, dest)
@@ -353,22 +598,48 @@ class SegmentedSource(Source):
     def member_buffered_fds(self) -> List[int]:
         return [m.fd_buffered for m in self.members]
 
+    def cached_fraction(self, offset: int, length: int) -> float:
+        return _members_cached(self, offset, length)
+
+    def probe_file(self) -> "Optional[_FileMember]":
+        if type(self).cached_fraction is not \
+                SegmentedSource.cached_fraction:
+            return None     # a subclass forces the verdict
+        return self.members[0]
+
     def close(self) -> None:
         for m in self.members:
             m.close()
 
 
+def _members_cached(src: Source, offset: int, length: int) -> float:
+    """Length-weighted cached fraction of a range over its extents."""
+    total, weight = 0.0, 0
+    for e in src.extents(offset, length):
+        total += src.members[e.member].cached_fraction(e.file_off,
+                                                       e.length) * e.length
+        weight += e.length
+    return total / weight if weight else 0.0
+
+
 class StripedSource(Source):
     """A RAID-0 member set resolved with :class:`..stripe.StripeMap`
-    (BASELINE's md0 configuration as plain member files)."""
+    (BASELINE's md0 configuration as plain member files); with
+    ``mirror='paired'`` (default config ``mirror``) member 2k+1 is a
+    replica of member 2k, the RAID-10 shape the fault ladder reads a
+    failed member's extents from.  A writable paired set gets every
+    aligned write on both partners."""
 
     def __init__(self, paths: Sequence[str], stripe_chunk_size: int,
-                 block_size: int = 512, writable: bool = False):
+                 block_size: int = 512, writable: bool = False,
+                 mirror: Optional[str] = None):
         from .stripe import StripeMap
+        if mirror is None:
+            mirror = str(config.get("mirror"))
         self.members = [_FileMember(p, writable) for p in paths]
         try:
             self.map = StripeMap([m.size for m in self.members],
-                                 stripe_chunk_size)
+                                 stripe_chunk_size, mirror=mirror)
         except ValueError as e:
             self.close()
             raise StromError(_errno.EINVAL, str(e)) from None
@@ -376,6 +647,18 @@ class StripedSource(Source):
         self.block_size = block_size
         self.stripe_chunk_size = stripe_chunk_size
         self.writable = writable
+
+    def mirror_of(self, member: int) -> Optional[int]:
+        return self.map.mirror_of(member)
+
+    def cached_fraction(self, offset: int, length: int) -> float:
+        return _members_cached(self, offset, length)
+
+    def probe_file(self) -> "Optional[_FileMember]":
+        if type(self).cached_fraction is not \
+                StripedSource.cached_fraction:
+            return None     # a subclass forces the verdict
+        return self.members[0]
 
     def extents(self, offset: int, length: int) -> List[Extent]:
         try:
@@ -400,10 +683,12 @@ def open_source(spec: Union[str, Sequence[str]], *,
                 stripe_chunk_size: Optional[int] = None,
                 segment_size: Optional[int] = None,
                 block_size: Optional[int] = None,
-                writable: bool = False) -> Source:
+                writable: bool = False,
+                mirror: Optional[str] = None) -> Source:
     """Open a plain file (a path), aligned to its device's block size, a
-    striped member set (a list of paths and ``stripe_chunk_size``) or a
-    segmented relation (a list of paths and ``segment_size``)."""
+    striped member set (a list of paths and ``stripe_chunk_size``; *mirror*
+    ``none`` or ``paired``, default config ``mirror``) or a segmented
+    relation (a list of paths and ``segment_size``)."""
     if isinstance(spec, str):
         info = check_file(spec)
         return PlainSource(spec, block_size or info.logical_block_size,
@@ -411,7 +696,7 @@ def open_source(spec: Union[str, Sequence[str]], *,
     paths = list(spec)
     if stripe_chunk_size:
         return StripedSource(paths, stripe_chunk_size, block_size or 512,
-                             writable)
+                             writable, mirror=mirror)
     if segment_size:
         return SegmentedSource(paths, segment_size, block_size or 512,
                                writable)
@@ -782,19 +1067,29 @@ class AdaptiveChunkSizer:
 
 class _Task:
     __slots__ = ("task_id", "pending", "frozen", "done", "errno_", "errmsg",
-                 "result", "buf_handle", "t_submit", "trace_id")
+                 "result", "buf_handle", "t_submit", "trace_id", "deadline",
+                 "expired", "write_verify")
 
-    def __init__(self, task_id: int):
+    def __init__(self, task_id: int, deadline_s: float = 0.0):
         self.task_id = task_id
         self.pending = 1       # creator's reference, dropped after submit
         self.frozen = False    # submission loop done: no new references
-        self.done = False
+        self.done = False      # a waiter may reap it (all refs dropped,
+        #                        or the watchdog latched ETIMEDOUT)
         self.errno_ = 0
         self.errmsg = ""
         self.result: Optional[MemCopyResult] = None
         self.buf_handle: Optional[int] = None
         self.t_submit = time.monotonic_ns()
         self.trace_id = 0      # nonzero when the flight recorder traces it
+        # watchdog deadline (monotonic seconds, 0 = none); an expired task
+        # is latched ETIMEDOUT and its unstarted requests cancel
+        self.deadline = (time.monotonic() + deadline_s) if deadline_s > 0 \
+            else 0.0
+        self.expired = False
+        # (sink, requests, source view) read back at wait time under
+        # write_verify
+        self.write_verify: Optional[tuple] = None
 
 
 #: the engine ladder, top rung first
@@ -814,7 +1109,12 @@ class Session:
     ``io_fallback`` off the first refusal raises.  A failed build of the
     engine always raises.  Failed tasks are retained until a wait reaps
     them, and force-reaped at :meth:`close` (reference
-    ``strom_proc_release``, kmod/nvme_strom.c:2138-2166)."""
+    ``strom_proc_release``, kmod/nvme_strom.c:2138-2166).
+
+    Each session owns its fault state: a retry policy read from config at
+    open, the members' health machine (``_member_health``), the
+    dirty-extent journal (``_resync``), a watchdog thread and a canary
+    thread; both threads stop at :meth:`close`."""
 
     def __init__(self, *, max_workers: Optional[int] = None, device=None,
                  io_backend: Optional[str] = None):
@@ -850,6 +1150,23 @@ class Session:
         #: errno io_uring_setup refused with when the ladder stepped past
         #: io_uring (0: not refused)
         self.uring_errno = 0
+        # the fault ladder: retry policy, member health, the journal of
+        # extents a degraded member missed (replayed by the canary thread
+        # before the machine lets it back to HEALTHY), per-member python
+        # pools, the canary's striped sources (weak: a probe never keeps
+        # a closed source alive), the watchdog and the canary threads
+        self._retry = RetryPolicy.from_config()
+        self._member_health = MemberHealthMachine()
+        self._retry_rng = random.Random(os.getpid() ^ id(self))
+        self._resync = DirtyExtentJournal()
+        self._member_health.attach_resync(self._resync)
+        self._member_pools: Dict[int, ThreadPoolExecutor] = {}
+        # st_dev -> whether mincore(2) there sees an eviction (_arbitrate)
+        self._probe_sighted: Dict[int, bool] = {}
+        self._canary_sources: "weakref.WeakSet" = weakref.WeakSet()
+        self._canary_buf: Optional[mmap.mmap] = None
+        self._canary_stop = threading.Event()
+        self._watchdog_stop = threading.Event()
         self._native = self._open_engine(io_backend
                                          or config.get("io_backend"))
         self.backend_name = (self._native.backend_name if self._native
@@ -859,6 +1176,13 @@ class Session:
             # the engine's per-lane rings measure each request's device
             # window; _await_native drains them into the recorder
             self._native.trace_enable(True)
+        self._watchdog = threading.Thread(target=self._watchdog_loop,
+                                          daemon=True,
+                                          name="strom-task-watchdog")
+        self._watchdog.start()
+        self._canary = threading.Thread(target=self._canary_loop,
+                                        daemon=True, name="strom-canary")
+        self._canary.start()
 
     # -- the engine ladder --------------------------------------------------
     def _open_engine(self, want: str):
@@ -980,9 +1304,12 @@ class Session:
                 if info.refcount == 0:
                     self._buf_lock.notify_all()
 
-    def unmap_buffer(self, handle: int, *, timeout: float = 30.0) -> None:
+    def unmap_buffer(self, handle: int, *, wait: bool = True,
+                     timeout: float = 30.0) -> None:
         """Unmap, blocking until in-flight DMA into the buffer drains (the
-        reference's revocation callback, kmod/pmemmap.c:149-208)."""
+        reference's revocation callback, kmod/pmemmap.c:149-208); a task
+        the watchdog failed still holds its buffer until its last request
+        returns.  ``wait=False`` raises EBUSY instead of waiting."""
         deadline = time.monotonic() + timeout
         with self._buf_lock:
             while True:
@@ -992,6 +1319,9 @@ class Session:
                 if self._buffers[handle][1].refcount == 0:
                     del self._buffers[handle]
                     return
+                if not wait:
+                    raise StromError(_errno.EBUSY, f"buffer {handle} has "
+                                                   f"in-flight DMA")
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
                     raise StromError(_errno.ETIMEDOUT,
@@ -1013,13 +1343,171 @@ class Session:
 
     # -- tasks -------------------------------------------------------------
     def _create_task(self) -> _Task:
+        deadline_s = float(config.get("task_deadline_s"))
         with self._task_cv:
-            task = _Task(self._next_task)
+            task = _Task(self._next_task, deadline_s)
             self._next_task += 1
             self._tasks[task.task_id] = task
         if _trace.active:
             task.trace_id = _trace.task_begin(task.task_id)
         return task
+
+    # -- the watchdog and the canary ------------------------------------------
+    def _watchdog_loop(self) -> None:
+        """Latch ETIMEDOUT on a task running past its deadline: its
+        waiters wake at once, its unstarted requests cancel, and a pool
+        thread awaiting its native batch lets go (``_await_native``).  The
+        requests in flight still hold the task's buffer, so no pinned
+        buffer is unmapped under a copy."""
+        while not self._watchdog_stop.wait(0.05):
+            now = time.monotonic()
+            expired: List[str] = []
+            with self._task_cv:
+                for task in self._tasks.values():
+                    if task.done or not task.deadline or now <= task.deadline:
+                        continue
+                    task.expired = True
+                    if task.errno_ == 0:
+                        task.errno_ = _errno.ETIMEDOUT
+                        task.errmsg = (
+                            f"dma task {task.task_id} exceeded its "
+                            f"{config.get('task_deadline_s')} s deadline "
+                            f"({task.pending} references outstanding)")
+                        stats.add("nr_task_timeout")
+                        if _trace.active and task.trace_id:
+                            _trace.instant("task_timeout", tid=task.trace_id,
+                                           args={"pending": task.pending})
+                    task.done = True
+                    expired.append(task.errmsg)
+                if expired:
+                    self._task_cv.notify_all()
+            for msg in expired:
+                pr_warn("watchdog: %s", msg)
+
+    def _canary_loop(self) -> None:
+        """Every ``canary_interval_s``: replay what REJOINING members owe
+        the journal, then one small direct read of each FAILED or
+        REJOINING member of every striped source seen (FAILED answering
+        moves to REJOINING; successes warm a rejoiner to HEALTHY)."""
+        while True:
+            interval = float(config.get("canary_interval_s"))
+            if self._canary_stop.wait(interval if interval > 0 else 0.5):
+                return
+            if interval <= 0:
+                continue
+            cands = self._member_health.canary_candidates()
+            if not cands:
+                continue
+            self._resync_replay(cands)
+            for src in list(self._canary_sources):
+                nmem = len(getattr(src, "members", ()))
+                for m in cands:
+                    if m >= nmem or self._canary_stop.is_set():
+                        continue
+                    self._canary_probe(src, m)
+
+    def _canary_probe(self, source: Source, member: int) -> None:
+        """One canary: a direct read of up to a page at member offset 0
+        into a page-aligned scratch."""
+        try:
+            size = getattr(source.members[member], "size", 0)
+            blk = max(int(getattr(source, "block_size", 512)), 512)
+            length = min(PAGE_SIZE, size // blk * blk)
+            if length <= 0:
+                return
+            if self._canary_buf is None:
+                self._canary_buf = mmap.mmap(-1, PAGE_SIZE)
+            source.read_member_direct(
+                member, 0, memoryview(self._canary_buf)[:length])
+        except (StromError, OSError) as e:
+            if getattr(e, "errno", None) == _errno.EBADF:
+                return      # the source closed under the prober
+            self._member_health.record_canary(member, False)
+        except Exception:   # noqa: BLE001 - a probe never kills the thread
+            return
+        else:
+            self._member_health.record_canary(member, True)
+
+    # -- the dirty-extent journal -------------------------------------------
+    def _journal_skipped(self, sink: Source, member: int, file_off: int,
+                         length: int, trace_id: int = 0) -> None:
+        """Journal an extent a degraded member missed (the write landed
+        on its partner only)."""
+        self._resync.record(sink, member, file_off, length)
+        if _trace.active:
+            _trace.instant("resync_skip", tid=trace_id, member=member,
+                           offset=file_off, length=length)
+
+    def _resync_replay(self, members: Sequence[int]) -> None:
+        """Replay the journal onto REJOINING members, mirror → rejoiner,
+        one rejoin token an extent; a failed replay puts the extent back
+        and debits the member that failed."""
+        health, jrn = self._member_health, self._resync
+        for member in members:
+            if member not in jrn.members() or \
+                    health.state(member) is not HealthState.REJOINING:
+                continue
+            for ref in jrn.sink_refs(member):
+                sink = ref()
+                if sink is None:
+                    continue
+                mirror = sink.mirror_of(member)
+                if mirror is None:      # nothing to replay from
+                    jrn.drop_sink(ref)
+                    continue
+                while not self._canary_stop.is_set():
+                    if not health.take_rejoin_token(member):
+                        break           # budget spent: the next tick
+                    ext = jrn.take_extent(ref, member)
+                    if ext is None:
+                        break
+                    if not self._replay_extent(sink, mirror, member, *ext):
+                        break
+
+    def _replay_extent(self, sink: Source, mirror: int, member: int,
+                       file_off: int, length: int) -> bool:
+        """One journaled extent, read from *mirror* and written to
+        *member* through a page-aligned scratch (aligned spans on the
+        direct legs, the rest buffered).  False when replay must pause."""
+        t0 = time.monotonic_ns()
+        sz = (max(length, PAGE_SIZE) + PAGE_SIZE - 1) // PAGE_SIZE * PAGE_SIZE
+        scratch = mmap.mmap(-1, sz)
+        buf = memoryview(scratch)[:length]
+        bs = max(int(getattr(sink, "block_size", 512)), 512)
+        aligned = file_off % bs == 0 and length % bs == 0
+        try:
+            for who, leg in ((mirror, "read"), (member, "write")):
+                try:
+                    if leg == "read":
+                        (sink.read_member_direct if aligned
+                         else sink.read_member_buffered)(mirror, file_off,
+                                                         buf)
+                    else:
+                        (sink.write_member_direct if aligned
+                         else sink.write_member_buffered)(member, file_off,
+                                                          buf)
+                except (StromError, OSError) as e:
+                    if getattr(e, "errno", None) == _errno.EBADF:
+                        return False    # the sink closed under the replay
+                    se = _as_strom(e)
+                    self._member_health.record_failure(
+                        who, fatal=se.error_class is ErrorClass.PERSISTENT)
+                    stats.member_error(who)
+                    self._resync.put_back(sink, member, file_off, length)
+                    return False
+                except Exception:   # noqa: BLE001 - the debt must survive
+                    self._resync.put_back(sink, member, file_off, length)
+                    return False
+        finally:
+            buf.release()
+            scratch.close()
+        stats.add("nr_resync_extent")
+        stats.member_add(member, length, time.monotonic_ns() - t0)
+        if _trace.active:
+            _trace.span("resync", t0, time.monotonic_ns(), member=member,
+                        offset=file_off, length=length,
+                        args={"mirror": mirror})
+        return True
 
     def _task_get(self, task: _Task) -> None:
         with self._task_cv:
@@ -1085,6 +1573,12 @@ class Session:
                 # before this task latched
                 _trace.dump_on_failure(f"task {task_id} errno {task.errno_}")
             raise StromError(task.errno_, task.errmsg or "async DMA failed")
+        if task.write_verify is not None:
+            # write_verify: the retired write legs read back here, off the
+            # submission path; a torn or misdirected write raises EBADMSG
+            wsink, wreqs, wsrc = task.write_verify
+            task.write_verify = None
+            self._verify_writes(wsink, wreqs, wsrc, task)
         return task.result
 
     def pending_tasks(self) -> List[int]:
@@ -1113,20 +1607,76 @@ class Session:
         return result
 
     # -- reads -------------------------------------------------------------
+    def _arbitrate(self, source: Source, chunk_ids: List[int],
+                   spans: List[Tuple[int, int]]
+                   ) -> Tuple[List[int], List[int]]:
+        """Page-cache arbitration of one task (reference :1639-1663):
+        ``(direct chunk ids, write-back chunk ids)``.  A hot or dirty
+        chunk, or one cached above ``cache_threshold``, goes write-back.
+
+        A filesystem whose probe cannot see an eviction (mincore(2) still
+        reports a page resident after fadvise DONTNEED dropped it, as
+        under gVisor) would send every chunk write-back: the first task on
+        a device whose chunks all read fully resident checks that, once a
+        Session, and on a blind device every chunk stays direct
+        (``nr_arb_blind`` counts those tasks)."""
+        if not config.get("cache_arbitration"):
+            return chunk_ids, []
+        fm = source.probe_file()
+        dev = fm.st_dev if fm is not None else None
+        if fm is not None and self._probe_sighted.get(dev) is False:
+            stats.add("nr_arb_blind")
+            return chunk_ids, []
+        res = source.residency(spans)
+        if fm is not None and dev not in self._probe_sighted:
+            if any(cached < 1.0 for cached, _hot in res):
+                self._probe_sighted[dev] = True
+            else:
+                seen = fm.probe_sees_eviction()
+                if seen is not None:
+                    self._probe_sighted[dev] = seen
+                if seen is False:
+                    stats.add("nr_arb_blind")
+                    return chunk_ids, []
+        threshold = float(config.get("cache_threshold"))
+        direct_ids, wb_ids = [], []
+        # a hot or dirty chunk is decisive: the reference scores one dirty
+        # page at threshold + 1 (:1643)
+        for cid, (cached, hot) in zip(chunk_ids, res):
+            if hot > 0.0 or cached > threshold:
+                wb_ids.append(cid)
+            else:
+                direct_ids.append(cid)
+        return direct_ids, wb_ids
+
     def memcpy_ssd2ram(self, source: Source, buf_handle: int,
                        chunk_ids: Sequence[int], chunk_size: int, *,
-                       dest_offset: int = 0) -> MemCopyResult:
-        """MEMCPY_SSD2RAM: plan and submit asynchronously; chunk *i* lands
-        at ``dest_offset + i*chunk_size`` of the mapped buffer.  A chunk at
-        or beyond EOF is EINVAL; a single-chunk task needs only the
-        chunk's true length, which may be a partial file tail.
+                       dest_offset: int = 0,
+                       wb_buffer: Optional[memoryview] = None
+                       ) -> MemCopyResult:
+        """MEMCPY_SSD2RAM: plan and submit asynchronously.  A chunk at or
+        beyond EOF is EINVAL; a single-chunk task needs only the chunk's
+        true length, which may be a partial file tail.
 
-        The chunk list is planned and submitted in slices
+        With config ``cache_arbitration`` one residency probe of the task
+        sends each chunk that is hot or dirty, or cached above
+        ``cache_threshold``, through the write-back leg (reference
+        :1639-1663).  The result's ``chunk_ids`` lists the direct chunks
+        first, then the write-back ones (``nr_ram2dev`` of them), and slot
+        *i* at ``dest_offset + i*chunk_size`` holds ``chunk_ids[i]``.  A
+        write-back chunk is copied from the page cache synchronously,
+        after the direct requests are submitted, into the destination, or
+        tail-packed into *wb_buffer* from its offset 0 when one is given
+        (the SSD2GPU contract, :1647-1663).
+
+        The direct chunks are planned and submitted in slices
         (:func:`_window_chunks`), so the first slice's I/O is in flight
         while later slices are planned.  On the native engine each slice
         is one batch (coalesced up to the member's adaptive cap, one lane
-        a member), awaited in a pool thread; misaligned pieces are read
-        buffered, synchronously, before the call returns."""
+        a member; a member the health machine routes away is read from
+        its mirror's fd and lane), awaited in a pool thread; misaligned
+        pieces are read buffered, synchronously, before the call returns.
+        On the python pools each request walks the fault ladder."""
         t0 = time.monotonic_ns()
         if self._closed:
             raise StromError(_errno.EBADF, "session closed")
@@ -1149,16 +1699,25 @@ class Session:
                            length=n * chunk_size,
                            args={"task": task.task_id, "chunks": n})
         try:
+            spans = []
             for cid in chunk_ids:
-                if cid * chunk_size >= source.size:
+                base = cid * chunk_size
+                if base >= source.size:
                     raise StromError(_errno.EINVAL, f"chunk {cid} beyond EOF")
-            use_native = (self._native is not None
+                spans.append((base, min(chunk_size, source.size - base)))
+            direct_ids, wb_ids = self._arbitrate(source, chunk_ids, spans)
+            if len(getattr(source, "members", ())) > 1:
+                # a striped source becomes a canary target: its FAILED
+                # members are probed, its journal replayed
+                self._canary_sources.add(source)
+            use_native = (self._native is not None and bool(direct_ids)
                           and type(source).read_member_direct
                           is Source.read_member_direct)
             if use_native:
                 self._ensure_member_lanes(source)
             # coalescing beyond dma_max is the native queue's lever; the
-            # pool path keeps per-extent planning
+            # pool path keeps per-extent planning so the ladder sees every
+            # extent
             climit = int(config.get("coalesce_limit")) if use_native else 0
             if climit and config.get("chunk_adaptive"):
                 dma_max = int(config.get("dma_max_size"))
@@ -1167,8 +1726,19 @@ class Session:
                            for m in range(nmem)} if nmem > 1
                           else self._adaptive_cap(dma_max, climit))
             window = _window_chunks(chunk_size)
-            entries = [(cid, i) for i, cid in enumerate(chunk_ids)]
+            entries = [(cid, i) for i, cid in enumerate(direct_ids)]
             fds = source.member_fds() if use_native else None
+            # degraded striping on the native path: a member routed away
+            # (QUARANTINED, FAILED, or a rejoiner still owing resync) reads
+            # through its mirror's fd and lane at direct speed
+            remap: Dict[int, int] = {}
+            if use_native:
+                health = self._member_health
+                for m in range(len(fds)):
+                    if health.routes_away(m):
+                        mir = source.mirror_of(m)
+                        if mir is not None and not health.routes_away(mir):
+                            remap[m] = mir
             native_failed = False
             for w in range(0, len(entries), window):
                 tp0 = time.monotonic_ns()
@@ -1196,13 +1766,22 @@ class Session:
                                          time.monotonic_ns() - tb)
                         stats.add("total_dma_length", r.length)
                         continue
+                    m_eff = remap.get(r.member, r.member)
+                    if m_eff != r.member:
+                        stats.add("nr_mirror_read")
+                        if _trace.active and task.trace_id:
+                            _trace.instant("mirror_read", tid=task.trace_id,
+                                           member=r.member,
+                                           offset=r.file_off,
+                                           length=r.length,
+                                           args={"mirror": m_eff})
                     # a vectored (stripe-coalesced) request splits back
                     # into its segments: the lane's deep queue holds them
                     foff = r.file_off
                     for dseg, lseg in (r.dest_segs or
                                        ((r.dest_off, r.length),)):
-                        native_reqs.append((fds[r.member], foff, lseg, dseg))
-                        native_members.append(r.member)
+                        native_reqs.append((fds[m_eff], foff, lseg, dseg))
+                        native_members.append(m_eff)
                         foff += lseg
                     native_rs.append(r)
                 if not native_reqs:
@@ -1220,12 +1799,29 @@ class Session:
                             "back to the python pool", e)
                     native_failed = True
                     self._submit_pool_requests(task, source, native_rs, dest)
+            # -- write-back copies, after the direct submits so the device
+            #    queue fills first and these copies overlap its I/O --------
+            for i, cid in enumerate(wb_ids):
+                base = cid * chunk_size
+                length = min(chunk_size, source.size - base)
+                slot = len(direct_ids) + i
+                if wb_buffer is not None:
+                    target, off = wb_buffer, slot * chunk_size
+                else:
+                    target, off = dest, dest_offset + slot * chunk_size
+                tw0 = time.monotonic_ns()
+                source.read_buffered(base, target[off:off + length])
+                if _trace.active and task.trace_id:
+                    _trace.span("writeback", tw0, time.monotonic_ns(),
+                                tid=task.trace_id, offset=base,
+                                length=length)
         except BaseException:
             self._abort_submit(task, buf_handle)
             raise
         return self._finish_submit(task, MemCopyResult(
-            dma_task_id=task.task_id, nr_chunks=n, nr_ssd2dev=n,
-            nr_ram2dev=0, chunk_ids=chunk_ids), buf_handle)
+            dma_task_id=task.task_id, nr_chunks=n,
+            nr_ssd2dev=len(direct_ids), nr_ram2dev=len(wb_ids),
+            chunk_ids=list(direct_ids) + wb_ids), buf_handle)
 
     def _submit_native(self, task: _Task, buf: memoryview,
                        native_reqs: List[Tuple[int, int, int, int]],
@@ -1250,20 +1846,46 @@ class Session:
             self._task_put(task, StromError(_errno.ESHUTDOWN, str(e)))
             raise
 
+    def _member_pool(self, member: int, legs: bool = False
+                     ) -> ThreadPoolExecutor:
+        """The python pool of one stripe member: a slow or failing
+        member's requests queue behind each other, never ahead of its
+        siblings' (the python twin of the native per-member lanes).  With
+        *legs*, the member's pool of hedged primaries, which may outlive
+        their request."""
+        key = (member, legs)
+        pool = self._member_pools.get(key)
+        if pool is None:
+            with self._lane_lock:
+                pool = self._member_pools.get(key)
+                if pool is None:
+                    width = int(config.get("member_queue_depth")) \
+                        or int(config.get("queue_depth"))
+                    pool = ThreadPoolExecutor(
+                        max_workers=max(1, min(width, 8)),
+                        thread_name_prefix=f"strom-"
+                                           f"{'leg' if legs else 'io'}"
+                                           f"-m{member}")
+                    self._member_pools[key] = pool
+        return pool
+
     def _submit_pool_requests(self, task: _Task, source: Source,
                               reqs: Sequence[Request],
                               dest: memoryview) -> None:
-        """Queue planned requests on the python pool (the instrumented
-        executor of ``io_backend=python``, of sources that override the
-        direct-read leg, and of a failed native submit)."""
+        """Queue planned requests on the python pools (the executor of
+        ``io_backend=python``, of sources that override the direct-read
+        leg, and of a failed native submit); a striped source's requests
+        go to their member's own pool."""
+        multi = len(getattr(source, "members", ())) > 1
         for r in reqs:
             self._task_get(task)
             cur = stats.gauge_add("cur_dma_count", 1)
             stats.gauge_max("max_dma_count", cur)
             stats.add("nr_submit_dma")
             stats.add("total_dma_length", r.length)
+            pool = self._member_pool(r.member) if multi else self._pool
             try:
-                self._pool.submit(self._do_request, task, source, r, dest)
+                pool.submit(self._do_request, task, source, r, dest)
             except BaseException as e:
                 stats.gauge_add("cur_dma_count", -1)
                 self._task_put(task, StromError(_errno.ESHUTDOWN, str(e)))
@@ -1271,27 +1893,25 @@ class Session:
 
     def _do_request(self, task: _Task, source: Source, r: Request,
                     dest: memoryview) -> None:
+        if task.errno_:
+            # the task already failed (its first error, or the watchdog):
+            # cancel this request, its waiter has been woken
+            stats.add("nr_chunk_cancelled")
+            stats.gauge_add("cur_dma_count", -1)
+            self._task_put(task, None)
+            return
         err = None
         t0 = time.monotonic_ns()
         try:
-            if not task.errno_:       # a failed task cancels the rest
-                if r.buffered or source.member_fds()[r.member] < 0:
-                    source.read_member_buffered(
-                        r.member, r.file_off,
-                        dest[r.dest_off:r.dest_off + r.length])
-                else:
-                    off = r.file_off
-                    for dseg, lseg in (r.dest_segs or
-                                       ((r.dest_off, r.length),)):
-                        source.read_member_direct(r.member, off,
-                                                  dest[dseg:dseg + lseg])
-                        off += lseg
-        except StromError as e:
-            err = e
-        except OSError as e:
-            err = StromError(e.errno or _errno.EIO, str(e))
-        except Exception as e:  # noqa: BLE001 - must latch, never go DONE
-            err = StromError(_errno.EIO, f"{type(e).__name__}: {e}")
+            if r.buffered or source.member_fds()[r.member] < 0:
+                source.read_member_buffered(
+                    r.member, r.file_off,
+                    dest[r.dest_off:r.dest_off + r.length])
+            else:
+                self._read_direct_resilient(task, source, r, dest)
+        except BaseException as e:  # noqa: BLE001 - must latch, never DONE
+            err = _as_strom(e) if isinstance(e, OSError) else \
+                StromError(_errno.EIO, f"{type(e).__name__}: {e}")
         elapsed = time.monotonic_ns() - t0
         stats.member_add(r.member, r.length, elapsed)
         if _trace.active and task.trace_id:
@@ -1305,18 +1925,277 @@ class Session:
                         args=eargs or None)
         if not r.buffered:
             stats.observe_latency(elapsed)
+            if err is None:
+                # the health machine's latency feed: a member's p99 past
+                # suspect_ratio x the stripe median marks it SUSPECT
+                self._member_health.observe_latency(r.member, elapsed)
             szr = self._chunk_sizers.get(r.member)
             if szr is not None:
                 szr.observe(elapsed)
         stats.gauge_add("cur_dma_count", -1)
         self._task_put(task, err)
 
+    def _read_direct_resilient(self, task: _Task, source: Source,
+                               r: Request, dest: memoryview) -> None:
+        """One direct extent through the fault ladder (reference
+        ``_read_direct_resilient``): a member routed away reads from its
+        mirror at direct speed, else buffered; with ``hedge_policy`` on, a
+        plain extent still in flight past the latch races a hedge leg;
+        a TRANSIENT error retries with backoff, then degrades to the
+        mirror, then to the buffered leg (``io_fallback``); a PERSISTENT
+        one fails the member and goes to the mirror at once.  A vectored
+        request is one unit of the ladder."""
+        health = self._member_health
+        mirror = source.mirror_of(r.member)
+        segs = r.dest_segs or ((r.dest_off, r.length),)
+        views = [dest[d:d + ln] for d, ln in segs]
+
+        def _read(member: int, buffered: bool = False) -> None:
+            off = r.file_off
+            for v in views:
+                if buffered:
+                    source.read_member_buffered(member, off, v)
+                else:
+                    source.read_member_direct(member, off, v)
+                off += len(v)
+
+        fallback_ok = bool(config.get("io_fallback"))
+
+        def _try_mirror() -> bool:
+            # degraded striping: the partner at direct speed; its failure
+            # counts against it and falls through to the next rung
+            if mirror is None or not health.allow_direct(mirror):
+                return False
+            tm = time.monotonic_ns()
+            try:
+                _read(mirror)
+            except (StromError, OSError) as e:
+                health.record_failure(
+                    mirror,
+                    fatal=_as_strom(e).error_class is ErrorClass.PERSISTENT)
+                stats.member_error(mirror)
+                return False
+            stats.add("nr_mirror_read")
+            if _trace.active and task.trace_id:
+                _trace.span("mirror_read", tm, time.monotonic_ns(),
+                            tid=task.trace_id, member=r.member,
+                            offset=r.file_off, length=r.length,
+                            args={"mirror": mirror})
+            health.record_success(mirror)
+            health.observe_latency(mirror, time.monotonic_ns() - tm)
+            return True
+
+        def _buffered() -> None:
+            stats.add("nr_io_fallback")
+            if _trace.active and task.trace_id:
+                _trace.instant("fallback_buffered", tid=task.trace_id,
+                               member=r.member, offset=r.file_off,
+                               length=r.length)
+            _read(r.member, buffered=True)
+
+        if (mirror is not None or fallback_ok) \
+                and not health.allow_direct(r.member):
+            # routed away: the mirror first, the buffered leg next
+            if _trace.active and task.trace_id:
+                _trace.instant("route_away", tid=task.trace_id,
+                               member=r.member, offset=r.file_off,
+                               length=r.length)
+            if _try_mirror():
+                return
+            if fallback_ok:
+                _buffered()
+                return
+        if not r.dest_segs and len(getattr(source, "members", ())) > 1:
+            hd = health.hedge_delay_s(r.member)
+            if hd is not None and self._read_hedged(task, source, r,
+                                                    views[0], hd, mirror):
+                return
+        attempt = 0
+        while True:
+            try:
+                _read(r.member)
+                health.record_success(r.member)
+                return
+            except (StromError, OSError) as e:
+                se = _as_strom(e)
+                if not se.transient:
+                    # fail-stop: the mirror keeps the task alive at direct
+                    # speed (byte identity across a member lost mid-task)
+                    health.record_failure(
+                        r.member,
+                        fatal=se.error_class is ErrorClass.PERSISTENT)
+                    stats.member_error(r.member)
+                    if _try_mirror():
+                        return
+                    raise se
+                health.record_failure(r.member)
+                # stop burning attempts once the task failed or expired
+                if attempt < self._retry.attempts and not task.errno_:
+                    stats.add("nr_io_retry")
+                    stats.member_error(r.member, retried=True)
+                    if _trace.active and task.trace_id:
+                        _trace.instant("retry", tid=task.trace_id,
+                                       member=r.member, offset=r.file_off,
+                                       length=r.length,
+                                       args={"attempt": attempt + 1,
+                                             "errno": se.errno})
+                    self._retry.sleep(attempt, self._retry_rng)
+                    attempt += 1
+                    continue
+                stats.member_error(r.member)
+                if task.errno_:
+                    raise se
+                if _try_mirror():
+                    return
+                if fallback_ok:
+                    _buffered()
+                    return
+                raise se
+
+    def _read_hedged(self, task: _Task, source: Source, r: Request,
+                     piece: memoryview, delay_s: float,
+                     mirror: Optional[int]) -> bool:
+        """Hedged read of one plain extent: the primary direct read races
+        a hedge leg armed after *delay_s* (the mirror at direct speed, or
+        the buffered leg).  Both legs read into their own page-aligned
+        scratch and the first to finish copies into *piece* under the
+        winner lock, so a loser never writes a destination that a
+        host→device copy may already be reading.
+
+        True when a leg delivered the extent, False when there is nothing
+        to hedge onto (the caller runs the plain ladder); raises when the
+        primary failed and nothing saved it."""
+        health = self._member_health
+        use_mirror = mirror is not None and health.allow_direct(mirror)
+        fallback_ok = bool(config.get("io_fallback"))
+        if not use_mirror and not fallback_ok:
+            return False
+        lock = threading.Lock()
+        won = threading.Event()
+        hedge_settled = threading.Event()
+        prim_settled = threading.Event()
+        state = {"winner": None, "prim_ok": False, "prim_err": None}
+        leg = f"mirror:{mirror}" if use_mirror else "buffered"
+
+        def _finish(who: str, scratch) -> bool:
+            with lock:
+                if state["winner"] is None and not task.errno_:
+                    state["winner"] = who
+                    piece[:] = scratch
+                    won.set()
+                    return True
+            return False
+
+        def _hedge_leg() -> None:
+            scratch = mv = None
+            try:
+                if won.wait(delay_s) or task.errno_:
+                    return          # the primary beat the latch
+                with lock:
+                    if state["winner"] is not None:
+                        return
+                stats.add("nr_hedge_issued")
+                stats.add("bytes_hedge_dup", r.length)
+                th0 = time.monotonic_ns()
+                if _trace.active and task.trace_id:
+                    _trace.instant("hedge_issued", tid=task.trace_id,
+                                   member=r.member, offset=r.file_off,
+                                   length=r.length, args={"leg": leg})
+                scratch = mmap.mmap(-1, max(r.length, 1))
+                mv = memoryview(scratch)[:r.length]
+                try:
+                    if use_mirror:
+                        source.read_member_direct(mirror, r.file_off, mv)
+                    else:
+                        source.read_member_buffered(r.member, r.file_off, mv)
+                except (StromError, OSError):
+                    if use_mirror:
+                        health.record_failure(mirror)
+                    stats.add("nr_hedge_cancelled")
+                    return
+                if use_mirror:
+                    health.record_success(mirror)
+                    stats.add("nr_mirror_read")
+                if _finish("hedge", mv):
+                    stats.add("nr_hedge_won")
+                    if _trace.active and task.trace_id:
+                        _trace.span("hedge_won", th0, time.monotonic_ns(),
+                                    tid=task.trace_id, member=r.member,
+                                    offset=r.file_off, length=r.length,
+                                    args={"leg": leg})
+                else:
+                    stats.add("nr_hedge_cancelled")
+            finally:
+                if mv is not None:
+                    mv.release()
+                if scratch is not None:
+                    scratch.close()
+                hedge_settled.set()
+
+        def _primary_leg() -> None:
+            scratch = mmap.mmap(-1, max(r.length, 1))   # O_DIRECT-aligned
+            mv = memoryview(scratch)[:r.length]
+            attempt = 0
+            try:
+                while True:
+                    try:
+                        source.read_member_direct(r.member, r.file_off, mv)
+                        health.record_success(r.member)
+                        break
+                    except (StromError, OSError) as e:
+                        se = _as_strom(e)
+                        if se.transient and attempt < self._retry.attempts \
+                                and not task.errno_ and not won.is_set():
+                            health.record_failure(r.member)
+                            stats.add("nr_io_retry")
+                            stats.member_error(r.member, retried=True)
+                            self._retry.sleep(attempt, self._retry_rng)
+                            attempt += 1
+                            continue
+                        # one health debit for the chunk, even when the
+                        # hedge already won
+                        health.record_failure(
+                            r.member,
+                            fatal=se.error_class is ErrorClass.PERSISTENT)
+                        stats.member_error(r.member)
+                        state["prim_err"] = se
+                        return
+                state["prim_ok"] = True
+                _finish("primary", mv)
+            finally:
+                mv.release()
+                scratch.close()
+                prim_settled.set()
+
+        # the primary races on its member's pool of legs, so the extent
+        # completes at the first landing, not behind a slow primary, and
+        # a slow member's primaries, which outlive the requests their
+        # hedge won, queue behind each other only; the hedge leg waits
+        # out the latch on this thread, which waits anyway, and holds no
+        # pool thread
+        self._member_pool(r.member, legs=True).submit(_primary_leg)
+        _hedge_leg()
+        while not won.wait(0.05):
+            if prim_settled.is_set() and hedge_settled.is_set():
+                break
+        with lock:
+            if state["winner"] is not None:
+                return True
+        if state["prim_ok"]:
+            return True
+        if fallback_ok and not task.errno_:
+            stats.add("nr_io_fallback")
+            source.read_member_buffered(r.member, r.file_off, piece)
+            return True
+        raise state["prim_err"] or StromError(
+            task.errno_ or _errno.EIO, "hedged read abandoned")
+
     def _await_native(self, task: _Task, eng, native_id: int,
                       write_ctx: Optional[tuple] = None) -> None:
         """Pool thread: wait for one native batch (outside the GIL, in
-        500 ms slices so a closing session can abandon it), then drain the
-        engine's trace ring.  A failed write batch is redriven request by
-        request on the python write leg."""
+        500 ms slices so a closing session or the watchdog can abandon
+        it), then drain the engine's trace ring.  A failed write batch is
+        redriven request by request through the write ladder."""
         err: Optional[StromError] = None
         while True:
             try:
@@ -1328,22 +2207,34 @@ class Session:
                         err = StromError(_errno.ETIMEDOUT, "native I/O "
                                          "abandoned at session close")
                         break
+                    if task.expired:
+                        # the watchdog latched ETIMEDOUT and woke the
+                        # waiters; stop pinning this thread (the latch
+                        # stays as it is)
+                        break
                     continue
                 err = e
                 break
         if _trace.active:
             self._drain_native_trace(eng)
-        if write_ctx is not None and err is not None \
-                and not self._abandon_native and not task.errno_:
-            sink, w_reqs, w_src = write_ctx
-            stats.add("nr_backend_fallback")
-            pr_warn("native write batch failed (%s); redriving %d "
-                    "request(s) on the python write leg", err, len(w_reqs))
-            err = None
-            for r in w_reqs:
-                err = self._write_request(task, sink, r, w_src)
-                if err is not None:
-                    break
+        if write_ctx is not None:
+            sink, w_reqs, w_src, n_mirror = write_ctx
+            if err is None and not task.expired:
+                if n_mirror:
+                    stats.add("nr_mirror_write", n_mirror)
+            elif err is not None and not self._abandon_native \
+                    and not task.expired and not task.errno_:
+                stats.add("nr_backend_fallback")
+                pr_warn("native write batch failed (%s); redriving %d "
+                        "request(s) on the write ladder", err, len(w_reqs))
+                err = None
+                for r in w_reqs:
+                    if task.errno_:
+                        break
+                    stats.add("nr_write_retry")
+                    e2 = self._write_request_resilient(task, sink, r, w_src)
+                    if e2 is not None and err is None:
+                        err = e2
         self._task_put(task, err)
 
     def _drain_native_trace(self, eng=None) -> int:
@@ -1428,9 +2319,14 @@ class Session:
         end may be partial; the sink has its final size).  Planning is the
         read side's (same extents, same <= dma_max requests, buffered legs
         for misaligned pieces).  Aligned legs run on the native engine
-        (IORING_OP_WRITE) when there is one; misaligned pieces ride the
-        python pool's buffered write.  Durability of buffered legs needs
-        ``sink.sync()`` after the wait."""
+        (IORING_OP_WRITE) when there is one; misaligned pieces, and every
+        leg of a sink whose write leg is overridden, walk the python write
+        ladder: transient retries, PERSISTENT errors (ENOSPC, EDQUOT,
+        EROFS) latched at once.  On a paired sink every aligned leg lands
+        on both partners; a partner the health machine routes away is
+        skipped and its extent journaled for resync.  Under
+        ``write_verify`` the wait reads every leg back.  Durability of
+        buffered legs needs ``sink.sync()`` after the wait."""
         if self._closed:
             raise StromError(_errno.EBADF, "session closed")
         if chunk_size <= 0 or (chunk_size & (chunk_size - 1)):
@@ -1447,27 +2343,55 @@ class Session:
             reqs = plan_requests(sink, [(cid, i) for i, cid in
                                         enumerate(chunk_ids)],
                                  chunk_size, src_offset)
-            use_native = (self._native is not None
+            if len(getattr(sink, "members", ())) > 1:
+                # a written stripe set is a canary target too: the canary
+                # replays its journal while a degraded member rejoins
+                self._canary_sources.add(sink)
+            if config.get("write_verify"):
+                task.write_verify = (sink, list(reqs), src)
+            use_native = (self._native is not None and bool(reqs)
                           and type(sink).write_member_direct
                           is Source.write_member_direct)
             pool_reqs = list(reqs) if not use_native else []
             if use_native:
                 self._ensure_member_lanes(sink)
                 fds = sink.member_fds()
+                health = self._member_health
                 native_reqs, native_members, native_rs = [], [], []
+                n_mirror_legs = 0
                 for r in reqs:
-                    if r.buffered or fds[r.member] < 0:
+                    mirror = sink.mirror_of(r.member)
+                    if r.buffered or fds[r.member] < 0 or \
+                            (mirror is not None and fds[mirror] < 0):
                         pool_reqs.append(r)
                         continue
+                    # mirror-coherent fan-out: primary and partner, or the
+                    # survivor alone with the other journaled
+                    legs = [r.member]
+                    if mirror is not None:
+                        away_p = health.routes_away(r.member)
+                        away_m = health.routes_away(mirror)
+                        if away_p and not away_m:
+                            self._journal_skipped(sink, r.member, r.file_off,
+                                                  r.length, task.trace_id)
+                            legs = [mirror]
+                            n_mirror_legs += 1
+                        elif away_m and not away_p:
+                            self._journal_skipped(sink, mirror, r.file_off,
+                                                  r.length, task.trace_id)
+                        else:
+                            legs.append(mirror)
+                            n_mirror_legs += 1
                     native_rs.append(r)
-                    native_reqs.append((fds[r.member], r.file_off, r.length,
-                                        r.dest_off))
-                    native_members.append(r.member)
+                    for m in legs:
+                        native_reqs.append((fds[m], r.file_off, r.length,
+                                            r.dest_off))
+                        native_members.append(m)
                 if native_reqs:
                     try:
-                        self._submit_native(task, src, native_reqs,
-                                            native_members,
-                                            write_ctx=(sink, native_rs, src))
+                        self._submit_native(
+                            task, src, native_reqs, native_members,
+                            write_ctx=(sink, native_rs, src, n_mirror_legs))
                     except StromError as e:
                         if not config.get("io_fallback"):
                             raise
@@ -1499,26 +2423,33 @@ class Session:
 
     def _do_write_request(self, task: _Task, sink: Source, r: Request,
                           src: memoryview) -> None:
-        err = None if task.errno_ else self._write_request(task, sink, r,
-                                                           src)
+        if task.errno_:
+            stats.add("nr_chunk_cancelled")
+            err = None
+        else:
+            err = self._write_request_resilient(task, sink, r, src)
         stats.gauge_add("cur_dma_count", -1)
         self._task_put(task, err)
 
-    def _write_request(self, task: _Task, sink: Source, r: Request,
-                       src: memoryview) -> Optional[StromError]:
-        """One write request on the python leg; returns the error to
-        latch, or None."""
+    def _write_request_resilient(self, task: _Task, sink: Source,
+                                 r: Request, src: memoryview
+                                 ) -> Optional[StromError]:
+        """One write request through the write ladder: a paired sink's
+        request goes to both partners (:meth:`_write_mirrored`), any other
+        to its member with retries.  Returns the error to latch, or
+        None."""
         err: Optional[StromError] = None
         t0 = time.monotonic_ns()
         try:
-            self._write_leg(sink, r, r.member,
-                            src[r.dest_off:r.dest_off + r.length])
-        except StromError as e:
-            err = e
-        except OSError as e:
-            err = StromError(e.errno or _errno.EIO, str(e))
-        except Exception as e:  # noqa: BLE001 - must latch, never go DONE
-            err = StromError(_errno.EIO, f"unexpected write failure: {e!r}")
+            piece = src[r.dest_off:r.dest_off + r.length]
+            mirror = sink.mirror_of(r.member)
+            if mirror is None:
+                self._write_leg(task, sink, r, r.member, piece)
+            else:
+                err = self._write_mirrored(task, sink, r, mirror, piece)
+        except BaseException as e:  # noqa: BLE001 - must latch, never DONE
+            err = _as_strom(e) if isinstance(e, OSError) else \
+                StromError(_errno.EIO, f"unexpected write failure: {e!r}")
         if _trace.active and task.trace_id:
             eargs: dict = {"write": True}
             if r.buffered:
@@ -1530,29 +2461,181 @@ class Session:
                         args=eargs)
         return err
 
-    def _write_leg(self, sink: Source, r: Request, member: int,
+    def _write_leg(self, task: _Task, sink: Source, r: Request, member: int,
                    piece: memoryview) -> None:
-        """One write leg (reference ``_write_leg`` without the retry and
-        the member-health machine): latencies feed the member's adaptive
-        sizer, so write-only traffic shapes the next native plan too."""
+        """One write leg with transient retries (never degraded to the
+        buffered leg: a half-direct write would need a sync to be
+        durable).  A failure debits the health machine by its class, so
+        ENOSPC fails the member and latches at once; a success feeds the
+        member's latency into SUSPECT detection and its adaptive sizer,
+        so write-only traffic drives the ladder too."""
+        health = self._member_health
+        attempt = 0
         t0 = time.monotonic_ns()
         try:
-            if r.buffered:
-                sink.write_member_buffered(member, r.file_off, piece)
-            else:
-                sink.write_member_direct(member, r.file_off, piece)
+            while True:
+                try:
+                    if r.buffered:
+                        sink.write_member_buffered(member, r.file_off, piece)
+                    else:
+                        sink.write_member_direct(member, r.file_off, piece)
+                    break
+                except (StromError, OSError) as e:
+                    se = _as_strom(e)
+                    if not se.transient or r.buffered \
+                            or attempt >= self._retry.attempts \
+                            or task.errno_:
+                        health.record_failure(
+                            member,
+                            fatal=se.error_class is ErrorClass.PERSISTENT)
+                        stats.member_error(member)
+                        # the verdict this failure left, read at once: the
+                        # canary may move the member on before the partner
+                        # leg ends
+                        se.routed_away = health.routes_away(member)
+                        raise se
+                    stats.add("nr_io_retry")
+                    stats.add("nr_write_retry")
+                    stats.member_error(member, retried=True)
+                    if _trace.active and task.trace_id:
+                        _trace.instant("retry", tid=task.trace_id,
+                                       member=member,
+                                       args={"attempt": attempt + 1,
+                                             "errno": se.errno,
+                                             "write": True})
+                    self._retry.sleep(attempt, self._retry_rng)
+                    attempt += 1
         finally:
             elapsed = time.monotonic_ns() - t0
             stats.member_add(member, r.length, elapsed)
         if not r.buffered:
-            stats.observe_latency(elapsed)
-            climit = int(config.get("coalesce_limit"))
-            if config.get("chunk_adaptive") and climit:
-                self._adaptive_cap(int(config.get("dma_max_size")), climit,
-                                   member)
-            szr = self._chunk_sizers.get(member)
-            if szr is not None:
-                szr.observe(elapsed)
+            self._observe_write(member, elapsed)
+        health.record_success(member)
+
+    def _observe_write(self, member: int, elapsed_ns: int) -> None:
+        """A direct write leg's service time into the latency histogram,
+        the health machine and the member's adaptive sizer (made here
+        under the read planner's config gates)."""
+        stats.observe_latency(elapsed_ns)
+        self._member_health.observe_latency(member, elapsed_ns)
+        climit = int(config.get("coalesce_limit"))
+        if config.get("chunk_adaptive") and climit:
+            self._adaptive_cap(int(config.get("dma_max_size")), climit,
+                               member)
+        szr = self._chunk_sizers.get(member)
+        if szr is not None:
+            szr.observe(elapsed_ns)
+
+    def _write_mirrored(self, task: _Task, sink: Source, r: Request,
+                        mirror: int, piece: memoryview
+                        ) -> Optional[StromError]:
+        """Both legs of a paired request must land.  A partner routed away
+        is skipped and journaled up front; a leg that fails and leaves its
+        member routed away degrades the same way, so the stream goes on
+        on the survivor.  A failure on a member still serving direct
+        latches: swallowing it would leave readable stale bytes with no
+        resync owner.  "Leaves routed away" is read when the leg fails,
+        not after the partner's leg: the reference reads it after, and a
+        canary that moves the member to REJOINING meanwhile turns a
+        journaled miss into a latched error with the pair diverged and
+        no resync owner."""
+        health = self._member_health
+        away_p = health.routes_away(r.member)
+        away_m = health.routes_away(mirror)
+        do_p = do_m = True
+        if away_p and not away_m:
+            self._journal_skipped(sink, r.member, r.file_off, r.length,
+                                  task.trace_id)
+            do_p = False
+        elif away_m and not away_p:
+            self._journal_skipped(sink, mirror, r.file_off, r.length,
+                                  task.trace_id)
+            do_m = False
+        p_err = m_err = None
+        if do_p:
+            try:
+                self._write_leg(task, sink, r, r.member, piece)
+            except StromError as e:
+                p_err = e
+        if do_m:
+            tm = time.monotonic_ns()
+            try:
+                self._write_leg(task, sink, r, mirror, piece)
+            except StromError as e:
+                m_err = e
+            else:
+                stats.add("nr_mirror_write")
+                if _trace.active and task.trace_id:
+                    _trace.span("mirror_write", tm, time.monotonic_ns(),
+                                tid=task.trace_id, member=r.member,
+                                offset=r.file_off, length=r.length,
+                                args={"mirror": mirror})
+        if p_err is not None and m_err is None and do_m \
+                and (getattr(p_err, "routed_away", False)
+                     or health.routes_away(r.member)):
+            self._journal_skipped(sink, r.member, r.file_off, r.length,
+                                  task.trace_id)
+            p_err = None
+        if m_err is not None and p_err is None and do_p \
+                and (getattr(m_err, "routed_away", False)
+                     or health.routes_away(mirror)):
+            self._journal_skipped(sink, mirror, r.file_off, r.length,
+                                  task.trace_id)
+            m_err = None
+        return p_err or m_err
+
+    def _verify_writes(self, sink: Source, reqs: List[Request],
+                       src: memoryview, task: _Task) -> None:
+        """``write_verify``: read every retired leg back and compare its
+        crc32c with the bytes submitted; EBADMSG on a mismatch.  A leg
+        whose member routes away was journaled (its bytes are stale until
+        the replay) and is skipped."""
+        from .scan.heap import crc32c
+        health = self._member_health
+        scratch: Optional[mmap.mmap] = None
+        try:
+            for r in reqs:
+                want = crc32c(src[r.dest_off:r.dest_off + r.length])
+                members = [r.member]
+                mirror = sink.mirror_of(r.member)
+                if mirror is not None:
+                    members.append(mirror)
+                for m in members:
+                    if health.routes_away(m):
+                        continue
+                    if r.buffered:
+                        back = bytearray(r.length)
+                        sink.read_member_buffered(m, r.file_off,
+                                                  memoryview(back))
+                        got = crc32c(back)
+                    else:
+                        if scratch is None or len(scratch) < r.length:
+                            if scratch is not None:
+                                scratch.close()
+                            scratch = mmap.mmap(-1, -(-r.length // PAGE_SIZE)
+                                                * PAGE_SIZE)
+                        mv = memoryview(scratch)[:r.length]
+                        try:
+                            sink.read_member_direct(m, r.file_off, mv)
+                            got = crc32c(mv)
+                        finally:
+                            mv.release()   # before any raise below
+                    stats.add("bytes_verify_reread", r.length)
+                    if got != want:
+                        stats.add("nr_write_verify_fail")
+                        if _trace.active and task.trace_id:
+                            _trace.instant("csum_fail", tid=task.trace_id,
+                                           member=m, offset=r.file_off,
+                                           length=r.length,
+                                           args={"write_verify": True})
+                        raise StromError(
+                            _errno.EBADMSG,
+                            f"write_verify: crc32c mismatch on member {m} at "
+                            f"file offset {r.file_off} ({r.length} bytes): "
+                            f"wrote {want:#010x}, read back {got:#010x}")
+        finally:
+            if scratch is not None:
+                scratch.close()
 
     # -- stats + lifecycle -------------------------------------------------
     def _fold_native_stats(self, eng=None) -> dict:
@@ -1589,6 +2672,9 @@ class Session:
             fed = False
             for m, h in eng.member_lat_hist_delta(used).items():
                 stats.merge_member_hist(m, h)
+                # SUSPECT detection covers the native path: the lanes'
+                # per-member histograms feed the health machine too
+                self._member_health.observe_hist(m, h)
                 szr = self._chunk_sizers.get(m)
                 if szr is not None:
                     szr.observe(_hist_mean(h))
@@ -1629,7 +2715,20 @@ class Session:
             reaped = [tid for tid, t in self._tasks.items() if t.errno_]
             self._tasks.clear()
         self._abandon_native = True   # bound the pool's shutdown
+        self._watchdog_stop.set()
+        self._canary_stop.set()
+        self._watchdog.join(timeout=2.0)
+        self._canary.join(timeout=2.0)
         self._pool.shutdown(wait=True)
+        with self._lane_lock:
+            pools, self._member_pools = self._member_pools, {}
+        for p in pools.values():
+            p.shutdown(wait=True)
+        if self._canary_buf is not None:
+            try:
+                self._canary_buf.close()
+            except BufferError:
+                pass      # a late probe still holds a view
         # detach close hooks from buffers that outlive the session: the
         # engine's destroy below frees every kernel-side fixed slot
         with self._fixed_lock:
@@ -1653,6 +2752,13 @@ class Session:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def _as_strom(e: BaseException) -> StromError:
+    """*e* as a :class:`StromError` (an OSError keeps its errno)."""
+    if isinstance(e, StromError):
+        return e
+    return StromError(getattr(e, "errno", None) or _errno.EIO, str(e))
 
 
 def _window_chunks(chunk_size: int) -> int:

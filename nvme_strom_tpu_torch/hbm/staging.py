@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import errno as _errno
 import time
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -312,8 +312,10 @@ class StagingPipeline:
         """Move ``chunk_ids`` (units of ``chunk_size`` bytes of *source*)
         into the registered destination, starting at byte ``dest_offset``.
         Entry *i* of the result's ``chunk_ids`` names the chunk at device
-        bytes ``dest_offset + i*chunk_size``.  Every chunk must be whole
-        except a partial file tail in the last position."""
+        bytes ``dest_offset + i*chunk_size``: the staged ring lands every
+        chunk in request order, the host's zero-copy landing in the
+        engine's (write-back chunks after the direct ones).  Every chunk
+        must be whole except a partial file tail in the last position."""
         if chunk_size > self.staging_bytes:
             raise StromError(_errno.EINVAL, f"chunk_size {chunk_size} exceeds "
                                             f"staging buffer "
@@ -396,21 +398,30 @@ class StagingPipeline:
             nonlocal nr_ssd, nr_ram
             bufidx, task_id, batch, start, nbytes, pos = slot
             res = self.session.memcpy_wait(task_id)
-            out_ids[pos:pos + len(batch)] = res.chunk_ids
+            out_ids[pos:pos + len(batch)] = batch
             nr_ssd += res.nr_ssd2dev
             nr_ram += res.nr_ram2dev
             t0 = time.monotonic_ns()
-            host = self._host[bufidx][:nbytes]
-            part = dest_bytes[start:start + nbytes]
+            host = self._host[bufidx]
+            # arbitration lists a batch's write-back chunks after its
+            # direct ones: each run of the staging slot lands at its
+            # chunks' requested place, so the destination is in request
+            # order with no second pass
+            runs = _request_order_runs(res.chunk_ids, batch, chunk_size) \
+                if list(res.chunk_ids) != batch else [(0, 0, nbytes)]
             if not cuda:
-                part.copy_(host)
+                for src, dst, ln in runs:
+                    dest_bytes[start + dst:start + dst + ln].copy_(
+                        host[src:src + ln])
             else:
                 if not host.is_pinned():
                     raise StromError(_errno.EFAULT, "staging slot is not "
                                                     "pinned: the copy would "
                                                     "run synchronously")
                 with torch.cuda.stream(stream):
-                    part.copy_(host, non_blocking=True)
+                    for src, dst, ln in runs:
+                        dest_bytes[start + dst:start + dst + ln].copy_(
+                            host[src:src + ln], non_blocking=True)
                     ev = torch.cuda.Event()
                     ev.record(stream)
                 self._barriers[bufidx] = ev
@@ -567,6 +578,45 @@ class StagingPipeline:
         self.close()
 
 
+def _request_order_runs(landed: Sequence[int], asked: Sequence[int],
+                        chunk_size: int) -> List[Tuple[int, int, int]]:
+    """``(staging offset, destination offset, bytes)`` runs that move the
+    whole chunks of a staging slot, landed in *landed* order, to their
+    places in *asked* (a permutation of it; a repeated chunk takes its
+    places in turn), consecutive chunks merged into one run."""
+    places: Dict[int, List[int]] = {}
+    for i, cid in enumerate(asked):
+        places.setdefault(cid, []).append(i)
+    for v in places.values():
+        v.reverse()
+    runs: List[List[int]] = []
+    for j, cid in enumerate(landed):
+        i = places[cid].pop()
+        if runs and runs[-1][0] + runs[-1][2] == j * chunk_size \
+                and runs[-1][1] + runs[-1][2] == i * chunk_size:
+            runs[-1][2] += chunk_size
+        else:
+            runs.append([j * chunk_size, i * chunk_size, chunk_size])
+    return [tuple(r) for r in runs]
+
+
+def _restore_chunk_order(out: torch.Tensor, chunk_ids: List[int],
+                         chunk_size: int) -> None:
+    """Put a load's whole chunks back in source order in place: slot *i*
+    holds ``chunk_ids[i]`` (a partial tail is always the last slot, in
+    place).  A no-op when the order already is the source's."""
+    n = len(chunk_ids)
+    if list(chunk_ids) == list(range(n)):
+        return
+    flat = out.reshape(-1).view(torch.uint8)
+    n_full = min(n, flat.numel() // chunk_size)
+    slots = flat[:n_full * chunk_size].view(n_full, chunk_size)
+    where = torch.empty(n_full, dtype=torch.int64)
+    where[torch.tensor(chunk_ids[:n_full], dtype=torch.int64)] = \
+        torch.arange(n_full, dtype=torch.int64)
+    slots.copy_(slots.index_select(0, where.to(slots.device)))
+
+
 def load_file_to_device(source: Source, *, chunk_size: Optional[int] = None,
                         session: Optional[Session] = None, device=None,
                         dtype: torch.dtype = torch.uint8,
@@ -576,7 +626,10 @@ def load_file_to_device(source: Source, *, chunk_size: Optional[int] = None,
     """One-call SSD→device load of a whole source: allocates a destination
     of the source's size in *dtype* on *device* (default ``cuda:0``;
     ``device="cpu"`` for the host), streams every chunk through the staging
-    pipeline and returns the tensor once the bytes have landed."""
+    pipeline and returns the tensor once the bytes have landed, in the
+    source's order: the staged ring lands each chunk in place, and where
+    the host's zero-copy landing took write-back chunks behind the direct
+    ones, they are put back."""
     dev = resolve_device(device)
     chunk_size = chunk_size or min(config.get("chunk_size"), 1 << 20)
     reg = hbm_registry or global_registry
@@ -594,9 +647,11 @@ def load_file_to_device(source: Source, *, chunk_size: Optional[int] = None,
             n_chunks = (source.size + chunk_size - 1) // chunk_size
             with StagingPipeline(sess, staging_bytes=staging_bytes,
                                  hbm_registry=reg) as pipe:
-                pipe.memcpy_ssd2dev(source, handle, list(range(n_chunks)),
-                                    chunk_size, device_dtype=dtype)
+                res = pipe.memcpy_ssd2dev(source, handle,
+                                          list(range(n_chunks)), chunk_size,
+                                          device_dtype=dtype)
             out = reg.get(handle).tensor
+            _restore_chunk_order(out, res.chunk_ids, chunk_size)
             if dev.type == "cuda":
                 ev = torch.cuda.Event()
                 ev.record(torch.cuda.current_stream(dev))

@@ -14,6 +14,12 @@ nullable.
 * int32 sums wrap mod 2^32; ``sumsqs`` of 4-byte columns are float32
   (this version adds the float32 terms in float64 and rounds once, the
   reference any float32 accumulation order is held to).
+* With config ``x64`` (the JAX package's ``jax_enable_x64``) 4-byte int
+  sums widen to 8 bytes and every ``sumsqs`` is float64; float sums stay
+  in the column's dtype.  Such a plan takes the torch route (B3 holds
+  32-bit accumulators).  A uint32 column's widened sums come back as
+  ``torch.int64`` (torch has no uint64 arithmetic), which
+  :func:`acc_dtypes` names uint64 on the host.
 * int64 and float64 columns (this version only; the CUDA kernel takes
   4-byte columns) accumulate in 64 bits with float64 ``sumsqs``, as the
   JAX package does under ``jax_enable_x64``; the port serves them
@@ -49,7 +55,15 @@ from ..scan.heap import HeapSchema
 from .filter import FilterPred, decode_pages, select_rows
 
 __all__ = ["GroupKey", "acc_dtypes", "make_groupby_fn", "make_groupby_fold",
-           "combine_groupby"]
+           "combine_groupby", "groupby_kernel_auto", "GROUPBY_CUDA_RATIO"]
+
+#: time of a float32 G=8 GROUP BY batch (2048 pages, abs(c1) % 8 over two
+#: float32 columns) on the torch route's step over its time through B3's
+#: wrapper, both as issued: 6.8790 ms against 0.8296 ms, measured by
+#: chip_smoke.py [8] on an NVIDIA H100 80GB HBM3 at a 700 W power limit.
+#: groupby_kernel_auto routes float aggregation to the torch route below
+#: 1.0; config ``groupby_cuda_ratio`` overrides it.
+GROUPBY_CUDA_RATIO = 8.292
 
 _I32 = np.dtype(np.int32)
 _U32 = np.dtype(np.uint32)
@@ -107,12 +121,39 @@ def acc_dtypes(agg_dt: np.dtype):
     where ``lo`` is the dtype's lowest value (the MAX sentinel) and ``hi``
     its highest (the MIN sentinel).  Sums stay in the column dtype (int32
     sums wrap), sums of squares are float32 for 4-byte columns and float64
-    for 8-byte ones."""
-    sq = _F64 if agg_dt.itemsize == 8 else _F32
+    for 8-byte ones.  Under config ``x64`` int sums are 8 bytes wide
+    (int64, uint64) and every sum of squares is float64, as the JAX
+    package's under ``jax_enable_x64``."""
+    from ..config import config
+    x64 = bool(config.get("x64"))
+    sq = _F64 if x64 or agg_dt.itemsize == 8 else _F32
     if agg_dt.kind == "f":
         return agg_dt, sq, agg_dt.type(-np.inf), agg_dt.type(np.inf)
+    acc = np.dtype(agg_dt.kind + "8") if x64 else agg_dt
     info = np.iinfo(agg_dt)
-    return agg_dt, sq, agg_dt.type(info.min), agg_dt.type(info.max)
+    return acc, sq, agg_dt.type(info.min), agg_dt.type(info.max)
+
+
+def _cuda_ratio() -> float:
+    from ..config import config
+    return float(config.get("groupby_cuda_ratio")) or GROUPBY_CUDA_RATIO
+
+
+def groupby_kernel_auto(agg_kind: str):
+    """The measured route of a GROUP BY: ``(kernel, why)`` with kernel
+    ``cuda`` (B3) or ``torch``.  Int accumulation stays on B3; float
+    accumulation goes to the torch route when B3 is not faster than it on
+    the card (the ratio :data:`GROUPBY_CUDA_RATIO`, or config
+    ``groupby_cuda_ratio``, below 1.0), as the JAX package sends it to XLA
+    below its TPU's ratio."""
+    if agg_kind != "f":
+        return "cuda", "int accumulators keep B3"
+    ratio = _cuda_ratio()
+    if ratio < 1.0:
+        return "torch", (f"float aggregation routes to the torch route "
+                         f"(measured torch/B3 time ratio {ratio:g} < 1.0)")
+    return "cuda", (f"measured torch/B3 time ratio {ratio:g} >= 1.0: B3 "
+                    f"wins float aggregation on this card")
 
 
 def _check_agg_cols(schema: HeapSchema, agg_cols):
@@ -196,9 +237,13 @@ def make_groupby_fold(schema: HeapSchema,
         key.check(schema)
     elif not callable(key):
         raise StromError(_errno.EINVAL, "key must be a GroupKey or a callable")
-    _acc, _sq, lo, hi = acc_dtypes(agg_dt)
-    wide = agg_dt.itemsize == 8
-    sq_t = torch.float64 if wide else torch.float32
+    acc, sq, lo, hi = acc_dtypes(agg_dt)
+    wide = acc.itemsize == 8      # 8-byte columns, or 4-byte ones under x64
+    sq_t = torch.float64 if sq == _F64 else torch.float32
+    # the row counts are int64 under x64 (the non-NULL counts stay int32),
+    # as the reference's
+    from ..config import config
+    cnt_t = torch.int64 if config.get("x64") else torch.int32
     nullable = [schema.col_nullable(ci) for ci in cols_idx]
     any_null = any(nullable)
 
@@ -209,7 +254,7 @@ def make_groupby_fold(schema: HeapSchema,
         sel = select_rows(predicate, cols, sel, schema, threshold)
         dev = valid.device
         out = {"count": torch.bincount(ids[sel], minlength=G)[:G]
-               .to(torch.int32)}
+               .to(cnt_t)}
         z64 = torch.zeros(G, dtype=torch.float64, device=dev)
 
         def f_sum(idx, v, dtype):
@@ -230,7 +275,8 @@ def make_groupby_fold(schema: HeapSchema,
                     x == float("-inf")
                 fin = ~(isn | pin | nin)
                 s = f_sum(k[fin], x[fin], x.dtype)
-                s2 = f_sum(k[fin], x[fin] * x[fin], sq_t)
+                xs = x[fin].to(sq_t)
+                s2 = f_sum(k[fin], xs * xs, sq_t)
                 cnt = [torch.bincount(k[c], minlength=G)[:G]
                        for c in (isn, pin, nin)]
                 s, s2 = ieee_sums(s, s2, *cnt)
@@ -254,10 +300,16 @@ def make_groupby_fold(schema: HeapSchema,
                                 device=dev).scatter_reduce(0, k, x64, "amin")
                 mx = torch.full((G,), int(lo), dtype=torch.int64,
                                 device=dev).scatter_reduce(0, k, x64, "amax")
-                if not wide:
-                    s, mn, mx = _wrap_i32(s), _wrap_i32(mn), _wrap_i32(mx)
+                if agg_dt.itemsize == 4:
+                    # mins and maxs keep the column's dtype; sums widen
+                    # under x64
+                    mn, mx = _wrap_i32(mn), _wrap_i32(mx)
+                    if not wide:
+                        s = _wrap_i32(s)
                 if agg_dt == _U32:
-                    s, mn, mx = (t.view(torch.uint32) for t in (s, mn, mx))
+                    mn, mx = mn.view(torch.uint32), mx.view(torch.uint32)
+                    if not wide:
+                        s = s.view(torch.uint32)
             sums.append(s)
             sqs.append(s2)
             mins.append(mn)

@@ -227,6 +227,10 @@ def _blocks_per_sm(device_index: int, threads: int, is_float: bool,
 def kernel_refusal(schema: HeapSchema, key, n_groups: int,
                    predicate=None) -> str:
     """Why the kernel cannot run this GROUP BY ('' = it can)."""
+    from ..config import config
+    if config.get("x64"):
+        return ("x64 accumulators (8-byte int sums, float64 sums of "
+                "squares) exceed the kernel's 32-bit accumulators")
     if not isinstance(key, GroupKey):
         return "the CUDA kernel takes a GroupKey, not a callable"
     if predicate is not None and not isinstance(predicate, FilterPred):

@@ -32,7 +32,7 @@ from .heap import PAGE_SIZE, HeapSchema
 from .pool import DmaBufferPool, DmaChunk, ResourceOwner
 
 __all__ = ["LocalCursor", "Batch", "TableScanner", "ScanLimitReached",
-           "fold_results", "cursor_chunk_count"]
+           "fold_results", "cursor_chunk_count", "scan_pool_bytes"]
 
 
 class ScanLimitReached(Exception):
@@ -119,6 +119,14 @@ class Batch:
     _handle: int = 0
 
 
+def scan_pool_bytes(chunk_size: int, async_depth: int) -> int:
+    """Bytes of a scan's pinned ring: the DMA ring (*async_depth*), the
+    batch being drawn and ``h2d_depth_max`` batches whose H2D copies
+    :meth:`TableScanner.scan_filter` keeps in flight."""
+    return chunk_size * max(async_depth + int(config.get("h2d_depth_max"))
+                            + 1, 2)
+
+
 class TableScanner:
     """Direct-load scan over a heap source."""
 
@@ -149,13 +157,9 @@ class TableScanner:
         self.cursor = cursor or LocalCursor(
             cursor_chunk_count(self.source.size, self.chunk_size))
         self._own_pool = pool is None
-        # + h2d_depth_max: scan_filter keeps that many batches alive with
-        # their H2D copies in flight, on top of the DMA ring and the
-        # batch being drawn
         self.pool = pool or DmaBufferPool(
             chunk_size=self.chunk_size,
-            total_size=self.chunk_size *
-            max(self.async_depth + int(config.get("h2d_depth_max")) + 1, 2))
+            total_size=scan_pool_bytes(self.chunk_size, self.async_depth))
         self.last_h2d_depth = 0
         self.last_batches = 0
 

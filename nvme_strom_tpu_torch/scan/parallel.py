@@ -102,6 +102,8 @@ def _query_worker(spec: dict, cursor_name: str, lock, start, out_q) -> None:
     try:
         from ..config import config
         config.restore(spec["config"])
+        # the x64 switch sets the accumulators' widths (acc_dtypes)
+        config.set("x64", bool(spec.get("x64")))
         cursor = SharedCursor(0, name=cursor_name, create=False, lock=lock)
         from .query import Query
         q = Query._from_worker_spec(spec)

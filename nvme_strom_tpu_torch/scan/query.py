@@ -119,7 +119,7 @@ from ..trace import recorder as _trace
 from ..ops.filter import FilterPred, decode_pages, global_row_positions, \
     select_rows
 from ..ops.groupby import GroupKey, _check_agg_cols, acc_dtypes, \
-    combine_groupby
+    combine_groupby, groupby_kernel_auto
 from ..ops.join import _VALUE_DTS
 from ..stats import stats
 from .heap import PAGE_SIZE, HeapSchema
@@ -431,9 +431,11 @@ class Query:
         self._residual_calls: List[Callable] = []
         self._prefix_cands: Optional[List[str]] = None
         # state of one run(): the caller's session, a worker's shared
-        # cursor, and the deepest H2D pipeline its scans reached
+        # cursor and pinned scan ring, and the deepest H2D pipeline its
+        # scans reached
         self._session = None
         self._cursor = None
+        self._worker_pool = None
         self._h2d_depth = 0
         self._vfs = False              # the run's scans read buffered
 
@@ -1308,8 +1310,22 @@ class Query:
                              f"{access_why}; {why}",
                              join_strategy=js and js[0],
                              access_path=access, **costs)
-        if cuda and kernel != "torch" and not refusal:
+        auto_why = ""
+        if cuda and kernel == "auto" and not refusal \
+                and self._op == "group_by" and self._group_cols is None:
+            # the measured route (reference scan/query.py:1280-1290): float
+            # aggregation leaves B3 where the torch route is faster on the
+            # card
+            agg_dt = _check_agg_cols(self.schema, self._group[2])[1]
+            gk, gwhy = groupby_kernel_auto(agg_dt.kind)
+            if gk == "torch":
+                auto_why = gwhy
+        if cuda and kernel != "torch" and not refusal and not auto_why:
             face, reason = "cuda", self._cuda_reason()
+        elif auto_why:
+            face = "torch"
+            reason = f"{self._torch_reason()}; PyTorch ops on {dev} " \
+                     f"({auto_why})"
         else:
             face = "torch"
             reason = f"{self._torch_reason()}; PyTorch ops on {dev}"
@@ -1775,7 +1791,8 @@ class Query:
             return self._vfs_scan(fn, dev, combine)
         with self._open_owned() as src, \
                 TableScanner(src, self.schema, session=self._session,
-                             cursor=self._cursor) as sc:
+                             cursor=self._cursor,
+                             pool=self._worker_pool) as sc:
             out = sc.scan_filter(fn, device=dev, combine=combine)
             self._h2d_depth = max(self._h2d_depth, sc.last_h2d_depth)
         return out
@@ -2017,6 +2034,11 @@ class Query:
         having = self._group[3]
         count = np.asarray(out["count"])
         sums = np.asarray(out["sums"])
+        acc_np = acc_dtypes(_check_agg_cols(self.schema, self._group[2])[1])[0]
+        if sums.dtype.kind in "iu" and sums.dtype != acc_np:
+            # x64 uint32 sums: int64 on the device (torch has no uint64
+            # arithmetic), uint64 on the host as the reference's
+            sums = sums.astype(acc_np)
         nn = np.asarray(out["nncounts"]) if "nncounts" in out else None
         base = nn if nn is not None else count
         with np.errstate(divide="ignore", invalid="ignore"):
@@ -2673,8 +2695,9 @@ class Query:
     def _worker_spec(self, dev, kernel: str, discovered, spill: bool) -> dict:
         """What a worker rebuilds the query from (picklable): the table,
         the filter's FilterPred terms, its ``where_in`` members and the SQL
-        facade's predicate trees, the terminal, the leader's route, device and config, and the resolved
-        GROUP BY keys or star dimensions."""
+        facade's predicate trees, the terminal, the leader's route, device
+        and config (``x64``, which sets the accumulators' widths, named on
+        its own), and the resolved GROUP BY keys or star dimensions."""
         from ..config import config
         spec = {"source": self.source, "schema": self.schema,
                 "config": config.snapshot(),
@@ -2684,7 +2707,8 @@ class Query:
                 "trees": list(self._trees),
                 "op": "group_sorted" if spill else self._op,
                 "agg_cols": self._agg_cols, "agg_exprs": self._agg_exprs,
-                "select": self._select, "topk": self._topk}
+                "select": self._select, "topk": self._topk,
+                "x64": bool(config.get("x64"))}
         if self._op == "star":
             spec["star"] = self._star
             spec["star_resolved"] = self._star_resolved
@@ -2743,21 +2767,38 @@ class Query:
         with the worker's ``scan_s`` (wall time from the barrier, net of
         process start and CUDA set-up), its kernel ``launches``, the
         deepest H2D pipeline it reached and its counter deltas."""
+        from ..config import config
+        from ..engine import Session
         from ..hbm.staging import resolve_device
         from ..ops import filter_cuda, groupby_cuda
+        from .executor import scan_pool_bytes
+        from .pool import DmaBufferPool
         dev = resolve_device(spec["device"])
-        if dev.type == "cuda":
-            torch.zeros(1, device=dev)
-            torch.cuda.synchronize(dev)
-        ready()
-        before = stats.snapshot()
-        l1, l3 = filter_cuda.launches, groupby_cuda.launches
-        t0 = time.monotonic()
-        self._cursor = cursor
+        # the scan's set-up before the barrier: the session's engine and
+        # the pinned ring, which four workers building them at once after
+        # it finished unevenly enough to leave one without a batch
+        sess = Session(device=dev)
+        chunk = int(config.get("chunk_size"))
+        pool = DmaBufferPool(chunk_size=chunk, total_size=scan_pool_bytes(
+            chunk, int(config.get("async_depth"))))
         try:
-            out = self._worker_partial_inner(spec, dev)
+            if dev.type == "cuda":
+                torch.zeros(1, device=dev)
+                pool.buffer.pin_cuda()
+                torch.cuda.synchronize(dev)
+            ready()
+            before = stats.snapshot()
+            l1, l3 = filter_cuda.launches, groupby_cuda.launches
+            t0 = time.monotonic()
+            self._cursor, self._session, self._worker_pool = \
+                cursor, sess, pool
+            try:
+                out = self._worker_partial_inner(spec, dev)
+            finally:
+                self._cursor = self._session = self._worker_pool = None
         finally:
-            self._cursor = None
+            pool.close()
+            sess.close()
         out["scan_s"] = time.monotonic() - t0
         out["launches"] = {"filter_pages": filter_cuda.launches - l1,
                            "groupby_pages": groupby_cuda.launches - l3}

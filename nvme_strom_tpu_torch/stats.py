@@ -24,12 +24,27 @@ package's registry uses for the same events:
   redistribution and all-gather, and the bytes they moved;
 * ``nr_shard_wait`` / ``clk_shard_wait`` — per-shard submit→completion
   waits of the sharded batch stream, with one log2-ns histogram per shard
-  (:meth:`Stats.shard_snapshot`).
+  (:meth:`Stats.shard_snapshot`);
+* the fault ladder: ``nr_io_retry`` (direct attempts repeated after a
+  transient error; ``nr_write_retry`` the writes among them),
+  ``nr_io_fallback`` (reads degraded to the buffered leg),
+  ``nr_task_timeout`` (tasks the watchdog latched ETIMEDOUT),
+  ``nr_chunk_cancelled`` (requests skipped because their task had failed),
+  ``nr_member_quarantine`` / ``nr_member_failed`` / ``nr_member_rejoin``
+  (health transitions), ``nr_canary_probe``, ``nr_hedge_issued`` /
+  ``nr_hedge_won`` / ``nr_hedge_cancelled`` and ``bytes_hedge_dup``,
+  ``nr_mirror_read`` / ``nr_mirror_write`` (extents served from, or
+  written to, a pair partner), ``nr_resync_extent`` and the gauge
+  ``resync_pending_bytes`` (the dirty-extent journal),
+  ``nr_write_verify_fail`` and ``bytes_verify_reread`` (``write_verify``);
+* ``nr_arb_blind`` — read tasks whose page-cache arbitration was skipped
+  because the filesystem's residency probe cannot see an eviction.
 
 Beside the counters: the resolved engine backend (:meth:`Stats.backend`),
 a log2-ns request-latency histogram (``LAT_HIST_BUCKETS`` buckets, fed by
 the python pool and the native engine's deltas), and per-member request,
-latency and queue-occupancy accounting (:meth:`Stats.member_snapshot`).
+latency, queue-occupancy and fault accounting (errors, retries,
+quarantines, the health state and its age: :meth:`Stats.member_snapshot`).
 The phases' wall times are flight-recorder spans (:mod:`.trace`), not
 counters.
 """
@@ -97,6 +112,10 @@ class Stats:
         self._members: Dict[int, List[int]] = {}
         self._member_hist: Dict[int, List[int]] = {}
         self._member_occ: Dict[int, List[int]] = {}
+        # member -> [errors, retries, quarantines entered, quarantined now]
+        self._member_health: Dict[int, list] = {}
+        # member -> (health state name, monotonic entry time)
+        self._member_state: Dict[int, tuple] = {}
         self._occ_last_ns = 0
         self._backend = ""
 
@@ -183,14 +202,51 @@ class Stats:
             o[0] += integral_ns
             o[1] += busy_ns
 
+    def member_error(self, member: int, *, retried: bool = False) -> None:
+        """Account one failed direct leg of *member* (and the retry it
+        took), the per-disk error half of the reference's part_stat."""
+        with self._lock:
+            h = self._member_health.setdefault(member, [0, 0, 0, False])
+            h[0] += 1
+            if retried:
+                h[1] += 1
+
+    def member_quarantine(self, member: int, active: bool) -> None:
+        """A quarantine transition: entry counts ``nr_member_quarantine``
+        and the member's ``quarantines``; exit clears the live flag."""
+        with self._lock:
+            h = self._member_health.setdefault(member, [0, 0, 0, False])
+            if active and not h[3]:
+                h[2] += 1
+                self._c["nr_member_quarantine"] = \
+                    self._c.get("nr_member_quarantine", 0) + 1
+            h[3] = active
+
+    def member_state(self, member: int, state: str) -> None:
+        """A health transition: the state's name and its entry time."""
+        with self._lock:
+            self._member_state[member] = (state, time.monotonic())
+
     def member_snapshot(self) -> Dict[int, dict]:
         """``{member: {"nreq", "bytes", "clk_ns"[, "p50_ns", "p95_ns",
-        "occ_integral_ns", "occ_busy_ns"]}}``."""
+        "occ_integral_ns", "occ_busy_ns", "errors", "retries",
+        "quarantines", "quarantined", "state", "state_s"]}}``."""
         with self._lock:
             out = {k: {"nreq": v[0], "bytes": v[1], "clk_ns": v[2]}
                    for k, v in sorted(self._members.items())}
             hists = {k: list(h) for k, h in self._member_hist.items()}
             occ = {k: list(o) for k, o in self._member_occ.items()}
+            health = {k: list(h) for k, h in self._member_health.items()}
+            states = dict(self._member_state)
+        now = time.monotonic()
+        for k, h in health.items():
+            d = out.setdefault(k, {"nreq": 0, "bytes": 0, "clk_ns": 0})
+            d.update(errors=h[0], retries=h[1], quarantines=h[2],
+                     quarantined=bool(h[3]))
+        for k, (st, since) in states.items():
+            d = out.setdefault(k, {"nreq": 0, "bytes": 0, "clk_ns": 0})
+            d["state"] = st
+            d["state_s"] = round(now - since, 3)
         for k, h in hists.items():
             d = out.setdefault(k, {"nreq": 0, "bytes": 0, "clk_ns": 0})
             p50, p95, _ = hist_percentiles(h)
@@ -253,6 +309,8 @@ class Stats:
             self._members.clear()
             self._member_hist.clear()
             self._member_occ.clear()
+            self._member_health.clear()
+            self._member_state.clear()
             self._occ_last_ns = 0
 
 

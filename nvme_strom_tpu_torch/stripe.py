@@ -9,7 +9,10 @@ differ in size the address space is a sequence of zones, each striping
 over the members that still have capacity at that depth.
 
 With them, the member→lane map of the native engine's queue pairs
-(``lane_of`` / ``lane_members``).  Left out: mirrored (``paired``) sets.
+(``lane_of`` / ``lane_members``), and mirrored sets: under
+``mirror='paired'`` member 2k+1 is a byte-identical replica of member 2k
+(RAID-10), only the primaries are address space, and ``mirror_of`` names
+a member's partner.
 """
 
 from __future__ import annotations
@@ -78,19 +81,33 @@ class StripeMap:
     """Logical→member address resolution for an N-way RAID-0 stripe set."""
 
     def __init__(self, member_sizes: Sequence[int], chunk_size: int,
-                 member_offsets: Sequence[int] | None = None):
+                 member_offsets: Sequence[int] | None = None,
+                 mirror: str = "none"):
         if chunk_size <= 0 or chunk_size % SECTOR:
             raise ValueError(f"chunk_size {chunk_size} must be a positive "
                              f"multiple of {SECTOR}")
         if not member_sizes:
             raise ValueError("need at least one member")
+        if mirror not in ("none", "paired"):
+            raise ValueError(f"mirror must be 'none' or 'paired', got "
+                             f"{mirror!r}")
         self.chunk_size = chunk_size
         self.n_members = len(member_sizes)
+        self.mirror = mirror
         # partition start offsets (the reference adds these at
         # kmod/nvme_strom.c:904-906)
         self.member_offsets = tuple(member_offsets or [0] * self.n_members)
         # usable size per member = whole chunks only (md rounds down)
         usable = [size // chunk_size * chunk_size for size in member_sizes]
+        if mirror == "paired":
+            # member 2k+1 replicates member 2k: only the primaries are
+            # address space, each pair as deep as its smaller member
+            if self.n_members < 2 or self.n_members % 2:
+                raise ValueError("mirror='paired' needs an even member "
+                                 f"count >= 2, got {self.n_members}")
+            for k in range(0, self.n_members, 2):
+                pair = min(usable[k], usable[k + 1])
+                usable[k], usable[k + 1] = pair, 0
         self.zones = self._build_zones(usable)
         self.total_size = sum(z.zone_len for z in self.zones)
         self._pow2 = (chunk_size & (chunk_size - 1)) == 0
@@ -115,6 +132,14 @@ class StripeMap:
             logical += zlen
             consumed = next_cut
         return zones
+
+    def mirror_of(self, member: int):
+        """The member holding a byte-identical replica of *member* at the
+        same offsets (its pair partner under ``mirror='paired'``), or None
+        when the set has no redundancy."""
+        if self.mirror != "paired" or not 0 <= member < self.n_members:
+            return None
+        return member ^ 1
 
     def _find_zone(self, offset: int) -> StripeZone:
         for z in self.zones:

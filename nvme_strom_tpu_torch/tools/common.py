@@ -11,7 +11,7 @@ import torch
 from ..config import parse_size
 
 __all__ = ["parse_size", "drop_page_cache", "first_mismatch",
-           "memdump_on_corruption"]
+           "chunks_mismatch", "memdump_on_corruption"]
 
 
 def drop_page_cache(path: str) -> None:
@@ -41,6 +41,34 @@ def first_mismatch(landed: torch.Tensor, path: str, nbytes: int, *,
             got = flat[off:off + n].cpu().numpy()
             if got.shape != want.shape or not np.array_equal(got, want):
                 return off, got, want
+    return None
+
+
+def chunks_mismatch(landed: torch.Tensor, source, chunk_ids, chunk: int, *,
+                    piece: int = 64 << 20):
+    """Compare a load's landed slots with the logical stream of *source*
+    (an open Source): slot *i* of *landed* must hold chunk
+    ``chunk_ids[i]`` (write-back chunks come after the direct ones).  Runs
+    of consecutive chunks are read buffered *piece* bytes at a time.
+    Returns None when identical, else ``(stream offset, landed piece,
+    stream piece)`` of the first bad run."""
+    flat = landed.reshape(-1).view(torch.uint8)
+    ids = [int(c) for c in chunk_ids]
+    per = max(piece // chunk, 1)
+    i = 0
+    while i < len(ids):
+        j = i + 1
+        while j < len(ids) and j - i < per and ids[j] == ids[j - 1] + 1:
+            j += 1
+        off = ids[i] * chunk
+        n = min((j - i) * chunk, source.size - off)
+        want = bytearray(n)
+        source.read_buffered(off, memoryview(want))
+        want = np.frombuffer(want, dtype=np.uint8)
+        got = flat[i * chunk:i * chunk + n].cpu().numpy()
+        if got.shape != want.shape or not np.array_equal(got, want):
+            return off, got, want
+        i = j
     return None
 
 

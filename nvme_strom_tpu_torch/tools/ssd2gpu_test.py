@@ -5,52 +5,65 @@ registered once, segment-pipelined transfers through pinned staging
 buffers, and an optional byte-exact check against the file (`-c`,
 `:342-372`).  Reports GB/s (10^9 bytes per second), the engine backend
 that ran (``--backend`` picks the top rung of the ladder: auto, io_uring,
-threadpool or python), the read requests issued, and the host→device copy
-ceiling measured with CUDA events.
+threadpool or python), the read requests issued, the chunks page-cache
+arbitration sent through the write-back leg, and the host→device copy
+ceiling measured with CUDA events.  Several files form a striped set
+(``--stripe-chunk``, the md-RAID-0 shape; ``--mirror paired`` for
+RAID-10), read as one logical stream.
 
 Usage: ssd2gpu_test [-c] [-n SEGS] [-s SEG_SZ] [-d DEV] [--chunk SZ]
-                    [--backend B] [--loops N] [--no-drop-cache] FILE
+                    [--backend B] [--loops N] [--no-drop-cache]
+                    [--stripe-chunk SZ] [--mirror none|paired] FILE...
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import mmap
 import os
 import sys
 import time
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 
 from ..api import StromError
-from ..engine import Session, check_file, open_source
+from ..engine import Session, Source, check_file, open_source
 from ..hbm import StagingPipeline, registry
 from ..hbm.staging import resolve_device
-from .common import (drop_page_cache, first_mismatch, memdump_on_corruption,
+from .common import (chunks_mismatch, drop_page_cache, memdump_on_corruption,
                      parse_size)
 
 __all__ = ["run_load", "measure_raw", "measure_h2d", "main", "cli"]
 
 
-def measure_raw(path: str, nbytes: int, block: int = 4 << 20) -> float:
-    """Sequential O_DIRECT pread of *path* with no framework, in GB/s: the
-    disk's own ceiling for the load."""
+def measure_raw(path: Union[str, Sequence[str]], nbytes: int,
+                block: int = 4 << 20) -> float:
+    """Sequential O_DIRECT pread with no framework, in GB/s: the disk's own
+    ceiling for the load.  A list of files reads them one after another,
+    *nbytes* in all."""
+    paths = [path] if isinstance(path, str) else list(path)
     buf = mmap.mmap(-1, block)
-    fd = os.open(path, os.O_RDONLY | os.O_DIRECT)
+    total = 0
     try:
         t0 = time.monotonic()
-        off = 0
-        while off < nbytes:
-            n = os.preadv(fd, [buf], off)
-            if n <= 0:
-                break
-            off += n
+        for p in paths:
+            fd = os.open(p, os.O_RDONLY | os.O_DIRECT)
+            try:
+                off = 0
+                while total < nbytes:
+                    n = os.preadv(fd, [buf], off)
+                    if n <= 0:
+                        break
+                    off += n
+                    total += n
+            finally:
+                os.close(fd)
         dt = time.monotonic() - t0
     finally:
-        os.close(fd)
         buf.close()
-    return off / dt / 1e9
+    return total / dt / 1e9
 
 
 def measure_h2d(dev: torch.device, nbytes: int = 64 << 20,
@@ -70,26 +83,42 @@ def measure_h2d(dev: torch.device, nbytes: int = 64 << 20,
     return nbytes / (start.elapsed_time(end) * 1e-3) / 1e9
 
 
-def run_load(path: str, *, device=None, segments: int = 6,
-             segment_size: int = 16 << 20, chunk: int = 1 << 20,
-             loops: int = 1, drop_cache: bool = True,
-             backend: Optional[str] = None) -> dict:
-    """Load the whole chunks of *path* into one preallocated tensor on
-    *device* (default ``cuda:0``) through the staging pipeline, on the
-    engine *backend* (default config ``io_backend``).
+def run_load(path: Union[str, Sequence[str], Source], *, device=None,
+             segments: int = 6, segment_size: int = 16 << 20,
+             chunk: int = 1 << 20, loops: int = 1, drop_cache: bool = True,
+             backend: Optional[str] = None, stripe_chunk: int = 512 << 10,
+             mirror: Optional[str] = None,
+             session: Optional[Session] = None) -> dict:
+    """Load the whole chunks of *path* (a file, a list of files read as
+    one striped set of *stripe_chunk* chunks, *mirror* ``none`` or
+    ``paired``, default config ``mirror``, or an open Source, read as it
+    is and left open, its page cache never dropped) into one preallocated
+    tensor on *device* (default ``cuda:0``) through the staging pipeline,
+    on the engine *backend* (default config ``io_backend``), or in
+    *session*, an open Session of the caller's (its engine and member
+    health).
 
     Returns ``{"tensor", "nbytes", "seconds" (best loop), "result" (last
-    MemCopyResult), "depth" (deepest H2D ring), "counters" (stats delta of
-    the timed loops, the engine's own counts folded in), "backend" (the
-    rung that ran), "fixed" (staging buffers that became io_uring fixed
-    buffers), "uring_errno" (why io_uring was refused, 0 if it was not)}``.
+    MemCopyResult: slot *i* of the tensor holds its ``chunk_ids[i]``),
+    "depth" (deepest H2D ring), "counters" (stats delta of the timed
+    loops, the engine's own counts folded in), "backend" (the rung that
+    ran), "fixed" (staging buffers that became io_uring fixed buffers),
+    "uring_errno" (why io_uring was refused, 0 if it was not)}``.
     """
     dev = resolve_device(device)
-    info = check_file(path)
-    if not info.supported:
-        raise StromError(22, f"{path}: not supported for direct load")
-    with open_source(path) as src, \
-            Session(device=dev, io_backend=backend) as sess:
+    if isinstance(path, Source):
+        paths, opened = [], contextlib.nullcontext(path)
+    else:
+        paths = [path] if isinstance(path, str) else list(path)
+        for p in paths:
+            if not check_file(p).supported:
+                raise StromError(22, f"{p}: not supported for direct load")
+        spec = paths[0] if len(paths) == 1 else paths
+        opened = open_source(spec, stripe_chunk_size=stripe_chunk
+                             if len(paths) > 1 else None, mirror=mirror)
+    with opened as src, \
+            (contextlib.nullcontext(session) if session is not None
+             else Session(device=dev, io_backend=backend)) as sess:
         n_chunks = src.size // chunk
         if n_chunks == 0:
             raise StromError(22, f"{path}: smaller than one chunk")
@@ -108,7 +137,8 @@ def run_load(path: str, *, device=None, segments: int = 6,
                 best = None
                 for _ in range(loops):
                     if drop_cache:
-                        drop_page_cache(path)
+                        for p in paths:
+                            drop_page_cache(p)
                     t0 = time.monotonic()
                     res = pipe.memcpy_ssd2dev(src, handle,
                                               list(range(n_chunks)), chunk)
@@ -133,7 +163,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="ssd2gpu_test", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("file")
+    ap.add_argument("file", nargs="+",
+                    help="source file; several files form a striped set "
+                         "(see --stripe-chunk)")
+    ap.add_argument("--stripe-chunk", type=parse_size, default=512 << 10,
+                    help="stripe chunk of a multi-file source (default "
+                         "512KB, the md-raid0 shape)")
+    ap.add_argument("--mirror", default=None, choices=("none", "paired"),
+                    help="a multi-file source's mirror map (default: "
+                         "config mirror); paired reads member 2k+1 as the "
+                         "replica of member 2k")
     ap.add_argument("-d", "--device", default=None,
                     help="cuda ordinal, 'cuda:N' or 'cpu' (default cuda:0)")
     ap.add_argument("-n", "--segments", type=int, default=6,
@@ -156,12 +195,16 @@ def main(argv=None) -> int:
     device = int(args.device) if (args.device or "").isdigit() \
         else args.device
     dev = resolve_device(device)
-    out = run_load(args.file, device=dev, segments=args.segments,
-                   segment_size=args.segment_size, chunk=args.chunk,
-                   loops=args.loops, drop_cache=not args.no_drop_cache,
-                   backend=args.backend)
+    files = args.file
+    out = run_load(files if len(files) > 1 else files[0], device=dev,
+                   segments=args.segments, segment_size=args.segment_size,
+                   chunk=args.chunk, loops=args.loops,
+                   drop_cache=not args.no_drop_cache, backend=args.backend,
+                   stripe_chunk=args.stripe_chunk, mirror=args.mirror)
     nbytes, secs, c = out["nbytes"], out["seconds"], out["counters"]
-    print(f"file: {args.file} ({nbytes / (1 << 20):.1f} MB)  device: {dev}  "
+    label = files[0] if len(files) == 1 else \
+        f"{len(files)}-way stripe ({args.stripe_chunk >> 10}KB chunks)"
+    print(f"file: {label} ({nbytes / (1 << 20):.1f} MB)  device: {dev}  "
           f"engine: {out['backend']} ({out['fixed']} of {args.segments} "
           f"staging buffers fixed)")
     print(f"transferred: {nbytes / 1e9:.3f} GB in {secs:.3f}s  => "
@@ -170,15 +213,24 @@ def main(argv=None) -> int:
     print(f"avg dma size: {c.get('total_dma_length', 0) / nsub / 1024:.0f}KB"
           f"  requests: {c.get('nr_submit_dma', 0)}  "
           f"tasks: {c.get('nr_ssd2dev', 0)}  "
-          f"h2d ring depth reached: {out['depth']}")
+          f"h2d ring depth reached: {out['depth']}  "
+          f"wb chunks: {out['result'].nr_ram2dev}/{out['result'].nr_chunks}")
+    if c.get("nr_mirror_read"):
+        print(f"mirror reads: {c['nr_mirror_read']}")
     if not args.no_drop_cache:
-        drop_page_cache(args.file)
-    print(f"raw O_DIRECT read: {measure_raw(args.file, nbytes):.3f} GB/s")
+        for p in files:
+            drop_page_cache(p)
+    print(f"raw O_DIRECT read: {measure_raw(files, nbytes):.3f} GB/s")
     if dev.type == "cuda":
         print(f"h2d ceiling (pinned, CUDA events): "
               f"{measure_h2d(dev):.3f} GB/s")
     if args.check:
-        bad = first_mismatch(out["tensor"], args.file, nbytes)
+        with open_source(files if len(files) > 1 else files[0],
+                         stripe_chunk_size=args.stripe_chunk
+                         if len(files) > 1 else None,
+                         mirror=args.mirror) as src:
+            bad = chunks_mismatch(out["tensor"], src,
+                                  out["result"].chunk_ids, args.chunk)
         if bad is not None:
             memdump_on_corruption(bad[1], bad[2], bad[0])
             print("CORRUPTION", file=sys.stderr)

@@ -69,6 +69,9 @@ def configs():
     flags each test sets are restored after."""
     snap, jsnap = config.snapshot(), jconfig.snapshot()
     _set_both("chunk_size", 1 << 16)
+    # the direct path, as the JAX package's tests pin it: arbitration
+    # would send the freshly written, page-cache-warm tables write-back
+    config.set("cache_arbitration", False)
     tplanner.capability_cache.invalidate()
     jplanner.capability_cache.invalidate()
     yield

@@ -406,10 +406,18 @@ def test_streamed_restore_surfaces_read_faults(tmp_path):
     save_checkpoint(path, tree)
 
     class Failing(PlainSource):
+        """A dead region at 128 KiB: its direct and buffered legs fail,
+        so the fault ladder's retries and fallback end in EIO."""
+
         def read_member_direct(self, member, file_off, dest):
             if file_off <= (128 << 10) < file_off + len(dest):
                 raise StromError(errno.EIO, "injected read error")
             super().read_member_direct(member, file_off, dest)
+
+        def read_member_buffered(self, member, file_off, dest):
+            if file_off <= (128 << 10) < file_off + len(dest):
+                raise StromError(errno.EIO, "injected read error")
+            super().read_member_buffered(member, file_off, dest)
 
     real = ck.open_source
     ck.open_source = lambda p: Failing(p, 512)

@@ -27,7 +27,7 @@ from nvme_strom_tpu_torch.config import config as tcfg
 from nvme_strom_tpu_torch.data import (DeviceLoader, RecordDataset,
                                        RecordWriter, write_records)
 from nvme_strom_tpu_torch.data.records import next_pow2
-from nvme_strom_tpu_torch.engine import PlainSource, Session, open_source
+from nvme_strom_tpu_torch.engine import Session, open_source
 from nvme_strom_tpu_torch.parallel import make_scan_mesh
 from nvme_strom_tpu_torch.scan import heap as theap
 
@@ -265,24 +265,19 @@ def test_loader_over_segmented_source_equals_reference(tmp_path):
     _same(mine, ref)
 
 
-class _FailingSource(PlainSource):
-    """Fails the direct read of the request that covers *bad* (the python
-    pool runs a source that overrides its read leg)."""
-
-    def __init__(self, path, bad):
-        super().__init__(path, 512)
-        self.bad = bad
-
-    def read_member_direct(self, member, file_off, dest):
-        if file_off <= self.bad < file_off + len(dest):
-            raise StromError(errno.EIO, f"injected read error at "
-                                        f"{self.bad}")
-        super().read_member_direct(member, file_off, dest)
-
-
 def test_loader_surfaces_a_read_error(tmp_path):
+    """A dead region under the loader (FaultPlan ``fail_offsets``: the
+    direct leg and the buffered fallback both fail) latches EIO into the
+    task and surfaces from the iterator, as the JAX package's loader does
+    on the same plan (``tests/test_data.py:259-276``); no task is left
+    behind."""
+    from nvme_strom_tpu.api import StromError as JStromError
+    from nvme_strom_tpu.testing import FakeNvmeSource as JFake
+    from nvme_strom_tpu.testing import FaultPlan as JPlan
+    from nvme_strom_tpu_torch.testing import FakeNvmeSource, FaultPlan
     _, path = _pair(tmp_path)
-    src = _FailingSource(path, 8192)
+    src = FakeNvmeSource(path, fault_plan=FaultPlan(fail_offsets={8192}),
+                         force_cached_fraction=0.0)
     try:
         with DeviceLoader(RecordDataset(path), batch_records=16,
                           chunk_size=4096, source=src, device="cpu") as dl:
@@ -293,6 +288,17 @@ def test_loader_surfaces_a_read_error(tmp_path):
             assert dl.session.pending_tasks() == []
     finally:
         src.close()
+    jsrc = JFake(path, fault_plan=JPlan(fail_offsets={8192}),
+                 force_cached_fraction=0.0)
+    try:
+        with jdata.DeviceLoader(jdata.RecordDataset(path), batch_records=16,
+                                chunk_size=4096, source=jsrc) as dl:
+            with pytest.raises(JStromError) as je:
+                for _ in dl:
+                    pass
+    finally:
+        jsrc.close()
+    assert je.value.errno == e.value.errno
 
 
 def test_backend_loss_fails_loader_not_hangs(tmp_path):

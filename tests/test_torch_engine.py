@@ -11,8 +11,19 @@ import pytest
 import nvme_strom_tpu.engine as jeng
 import nvme_strom_tpu_torch.engine as teng
 from nvme_strom_tpu_torch.api import FsKind, StromError
+from nvme_strom_tpu_torch.config import config as tcfg
 
 CHUNK = 64 << 10
+
+
+@pytest.fixture(autouse=True)
+def _direct_path():
+    # the direct path, as the JAX package's tests pin it: arbitration
+    # would send the freshly written, page-cache-warm files write-back
+    snap = tcfg.snapshot()
+    tcfg.set("cache_arbitration", False)
+    yield
+    tcfg.restore(snap)
 
 
 @pytest.fixture()
@@ -94,7 +105,13 @@ def test_check_file_matches_reference(data_file, tmp_path):
 
 
 class _FailingSource(teng.PlainSource):
+    """A dead region: the direct leg and the buffered leg both fail, so
+    the fault ladder's retries and its buffered fallback end in EIO."""
+
     def read_member_direct(self, member, file_off, dest):
+        raise OSError(errno.EIO, "injected")
+
+    def read_member_buffered(self, member, file_off, dest):
         raise OSError(errno.EIO, "injected")
 
 

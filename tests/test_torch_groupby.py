@@ -343,3 +343,135 @@ def test_kernel_matches_plain_on_card(cuda_device, agg):
                  {k: _np(v.cpu()) for k, v in want.items()},
                  _mags(cols, vis, lambda c: c[1].astype(np.int64) % 64, 64,
                        AGGS[agg], lambda c: c[0] > -3))
+
+
+# ---------------------------------------------------------------------------
+# the x64 switch (A2.10) and the measured route
+# ---------------------------------------------------------------------------
+
+@pytest.fixture()
+def x64_on():
+    from nvme_strom_tpu_torch.config import config
+    config.set("x64", True)
+    yield
+    config.set("x64", False)
+
+
+@pytest.mark.parametrize("dt", ["int32", "uint32", "float32", "int64",
+                                "float64"])
+def test_acc_dtypes_match_reference_with_and_without_x64(dt):
+    """The accumulator dtypes of each column dtype, with the switch off
+    and on, against the reference's without and under jax_enable_x64
+    (8-byte columns: the port keeps 64-bit sums without the switch, the
+    slice 8 divergence)."""
+    import jax
+    from nvme_strom_tpu.ops.groupby import acc_dtypes as jax_acc_dtypes
+    from nvme_strom_tpu_torch.config import config
+    d = np.dtype(dt)
+    for on in (False, True):
+        config.set("x64", on)
+        try:
+            mine = acc_dtypes(d)
+            with jax.enable_x64(on):
+                ref = jax_acc_dtypes(d)
+        finally:
+            config.set("x64", False)
+        if d.itemsize == 8 and not on:
+            assert mine[0] == d and mine[1] == np.float64
+        else:
+            assert (mine[0], mine[1]) == (ref[0], ref[1]), on
+        assert (mine[2], mine[3]) == (ref[2], ref[3])
+
+
+@pytest.mark.parametrize("agg", sorted(AGGS))
+def test_x64_sums_match_reference_exactly(x64_on, agg):
+    """Under the switch int32 sums are int64 and exact (no wrap), uint32
+    sums uint64-valued, every sum of squares float64: the reference's
+    XLA path under jax_enable_x64 on the same pages, and numpy int64
+    truth."""
+    import jax
+    cols, vis, pages = _table(seed=23, nonfinite=False)
+    got = make_groupby_fn(SCHEMA, GroupKey(1, 8, True), 8,
+                          agg_cols=AGGS[agg],
+                          predicate=FilterPred(((0, "le", 2),)))(
+        torch.from_numpy(pages))
+    with jax.enable_x64(True):
+        want = jax_groupby(JS, lambda c: jnp.abs(c[1]) % 8, 8,
+                           agg_cols=AGGS[agg],
+                           predicate=lambda c: c[0] <= 2)(pages)
+        want = {k: np.asarray(v) for k, v in want.items()}
+    assert got["sumsqs"].dtype == torch.float64
+    assert want["sumsqs"].dtype == np.float64
+    np.testing.assert_array_equal(got["count"].numpy(), want["count"])
+    key = np.abs(cols[1].astype(np.int64))
+    key = np.where(cols[1] == -(1 << 31), cols[1], key).astype(np.int64) % 8
+    sel = (vis != 0) & (cols[0] <= 2)
+    for j, c in enumerate(AGGS[agg]):
+        if agg == "float32":
+            assert got["sums"].dtype == torch.float32
+            tol = 1e-5 * np.abs(cols[c][sel]).astype(np.float64).sum() + 1e-6
+            assert np.abs(got["sums"][j].double().numpy()
+                          - want["sums"][j]).max() <= tol
+        else:
+            assert got["sums"].dtype == torch.int64
+            truth = np.array([cols[c][sel & (key == g)].astype(np.int64)
+                              .sum() for g in range(8)])
+            np.testing.assert_array_equal(got["sums"][j].numpy(), truth)
+            np.testing.assert_array_equal(
+                want["sums"][j].astype(np.int64), truth)
+        for k in ("mins", "maxs"):
+            np.testing.assert_array_equal(
+                _as_np(got[k][j]), want[k][j].astype(_as_np(got[k][j]).dtype))
+        np.testing.assert_allclose(got["sumsqs"][j].numpy(),
+                                   want["sumsqs"][j], rtol=1e-12)
+
+
+def _as_np(t):
+    return t.view(torch.int32).numpy().view(np.uint32) \
+        if t.dtype == torch.uint32 else t.numpy()
+
+
+def test_x64_refused_by_the_kernel_and_combined_in_64_bits(x64_on):
+    why = groupby_cuda.kernel_refusal(SCHEMA, GroupKey(1, 8), 8,
+                                      FilterPred())
+    assert "x64" in why
+    a = make_groupby_fn(SCHEMA, GroupKey(1, 4), 4, agg_cols=[0])
+    _cols, _vis, pages = _table(seed=3, nonfinite=False)
+    p = torch.from_numpy(pages)
+    half = p.shape[0] // 2
+    whole = a(p)
+    both = combine_groupby(a(p[:half]), a(p[half:]))
+    assert both["sums"].dtype == torch.int64
+    assert torch.equal(both["sums"], whole["sums"])
+
+
+@pytest.mark.parametrize("ratio", [0.5, 1.0, 2.0])
+@pytest.mark.parametrize("kind", ["i", "u", "f"])
+def test_groupby_kernel_auto_routes_as_the_reference(monkeypatch, ratio,
+                                                     kind):
+    """At the same measured ratio the port routes as the reference does
+    (its cuda for the reference's pallas, torch for xla); the port reads
+    its ratio from its own module or config, never BENCH_MATRIX.json."""
+    import nvme_strom_tpu.ops.groupby as jg
+    from nvme_strom_tpu_torch.config import config
+    from nvme_strom_tpu_torch.ops.groupby import groupby_kernel_auto
+    monkeypatch.setattr(jg, "_measured_ratio_cache", ratio)
+    config.set("groupby_cuda_ratio", ratio)
+    try:
+        mine, why = groupby_kernel_auto(kind)
+    finally:
+        config.set("groupby_cuda_ratio", 0.0)
+    ref, _ = jg.groupby_kernel_auto(kind)
+    assert mine == {"pallas": "cuda", "xla": "torch"}[ref]
+    if kind == "f":
+        assert f"{ratio:g}" in why
+
+
+def test_groupby_kernel_auto_default_is_the_cards_ratio():
+    import nvme_strom_tpu_torch.ops.groupby as tg
+    from nvme_strom_tpu_torch.ops.groupby import groupby_kernel_auto
+    kernel, why = groupby_kernel_auto("f")
+    assert f"{tg.GROUPBY_CUDA_RATIO:g}" in why
+    assert kernel == ("cuda" if tg.GROUPBY_CUDA_RATIO >= 1.0 else "torch")
+    src = open(tg.__file__).read()
+    assert "BENCH_MATRIX" not in src and "0.851" not in src

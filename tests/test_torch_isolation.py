@@ -43,7 +43,8 @@ _SCRIPT = textwrap.dedent("""
                 "data.checkpoint", "data.dtypes", "tools.strom_ckpt",
                 "ops.topk", "scan.index", "scan.executor", "ops.join",
                 "scan.sql", "scan.parallel", "eligibility", "scan.strings",
-                "tools.strom_query"):
+                "tools.strom_query", "fault", "testing.chaos",
+                "testing.stress_faults"):
         assert pkg.__name__ + "." + mod in names, mod
     import chip_smoke  # noqa: F401
     leaked = [m for m in sys.modules

@@ -777,3 +777,48 @@ def test_join_and_star_on_card_match_the_cpu(configs, table, tmp_path,
         config.restore(snap)
     assert (filter_cuda.launches, groupby_cuda.launches,
             decode_cuda.launches) == before
+
+
+def test_partitioned_join_surfaces_injected_faults(configs, tmp_path):
+    """A read fault mid-pass of the local partitioned join (a FaultPlan
+    dead region under the probe table) surfaces as StromError in both
+    packages, and the session and process go on: the healthy table
+    joins as numpy says (``tests/test_query.py:1062``, its local face)."""
+    from nvme_strom_tpu.api import StromError as JStromError
+    from nvme_strom_tpu.testing import FakeNvmeSource as JFake
+    from nvme_strom_tpu.testing import FaultPlan as JPlan
+    from nvme_strom_tpu_torch.scan.heap import PAGE_SIZE
+    from nvme_strom_tpu_torch.testing import FakeNvmeSource, FaultPlan
+    schema = HeapSchema(n_cols=2, visibility=True)
+    js = JSchema(n_cols=2, visibility=True)
+    rng = np.random.default_rng(3)
+    n = schema.tuples_per_page * 32
+    c0 = rng.integers(-100, 100, n).astype(np.int32)
+    c1 = rng.integers(0, 50, n).astype(np.int32)
+    path = str(tmp_path / "pj.heap")
+    build_heap_file(path, [c0, c1], schema)
+    keys = np.arange(-100, 100, dtype=np.int32)
+    vals = keys * 2
+    for cfg in (config, jconfig):
+        cfg.set("debug_no_threshold", True)
+        cfg.set("join_broadcast_max", 1024)
+        cfg.set("chunk_size", 64 << 10)
+    plan = Query(path, schema).join(0, keys, vals).explain(device="cpu")
+    assert plan.join_strategy.startswith("partitioned")
+    src = FakeNvmeSource(path, force_cached_fraction=0.0,
+                         fault_plan=FaultPlan(fail_offsets={4 * PAGE_SIZE}))
+    try:
+        with pytest.raises(StromError) as e:
+            Query(src, schema).join(0, keys, vals).run(device="cpu")
+    finally:
+        src.close()
+    jsrc = JFake(path, force_cached_fraction=0.0,
+                 fault_plan=JPlan(fail_offsets={4 * PAGE_SIZE}))
+    try:
+        with pytest.raises(JStromError) as je:
+            JQuery(jsrc, js).join(0, keys, vals).run()
+    finally:
+        jsrc.close()
+    assert e.value.errno == je.value.errno == errno.EIO
+    out = Query(path, schema).join(0, keys, vals).run(device="cpu")
+    assert int(out["matched"]) == int(np.isin(c0, keys).sum())

@@ -47,6 +47,9 @@ def configs():
     jconfig.set("chunk_size", 1 << 16)
     config.set("debug_no_threshold", True)
     jconfig.set("debug_no_threshold", True)
+    # the direct path, as the JAX package's tests pin it: arbitration
+    # would send the freshly written, page-cache-warm tables write-back
+    config.set("cache_arbitration", False)
     yield
     config.restore(snap)
     jconfig.restore(jsnap)

@@ -45,6 +45,9 @@ FILE_BYTES = 2 << 20
 @pytest.fixture(autouse=True)
 def _port_config():
     snap = tcfg.snapshot()
+    # the direct path, as the JAX package's tests pin it: arbitration
+    # would send this freshly written, page-cache-warm file write-back
+    tcfg.set("cache_arbitration", False)
     yield
     tcfg.restore(snap)
 
@@ -427,6 +430,13 @@ def test_coalesce_limit_cross_check_matches_reference():
     jcfg.set("coalesce_limit", 8 << 20)
 
 
+#: parts of the reference's Session the port has since ported (the fault
+#: ladder A1.6, mirrors A1.4)
+_PORTED_SESSION_PARTS = {"_read_hedged", "_read_direct_resilient",
+                         "_canary_loop", "_watchdog_loop", "_resync_replay",
+                         "_write_mirrored", "_verify_writes"}
+
+
 @pytest.mark.parametrize("name", [
     "_read_hedged",                 # hedged reads (A1.6)
     "_read_direct_resilient",       # retries beyond the engine's (A1.6)
@@ -442,10 +452,10 @@ def test_coalesce_limit_cross_check_matches_reference():
     "_autotune_scale_lanes",        # autotune (A1.9)
 ])
 def test_left_out_parts_of_the_reference_session(name):
-    """The port's Session carries none of these; each waits for its
-    ROADMAP item."""
+    """The port's Session carries the parts its slices ported and none
+    of the others; each of those waits for its ROADMAP item."""
     assert hasattr(jeng.Session, name)
-    assert not hasattr(teng.Session, name)
+    assert hasattr(teng.Session, name) is (name in _PORTED_SESSION_PARTS)
 
 
 def test_pending_tasks_and_list_buffers_match_reference(data_file):

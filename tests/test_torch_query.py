@@ -300,3 +300,101 @@ def test_transport_rates_precedence(configs, monkeypatch):
     config.set("pushdown_h2d_gbps", 3.0)
     config.set("pushdown_ssd_gbps", 2.0)
     assert planner.transport_rates() == (3.0, 2.0)
+
+
+# ---------------------------------------------------------------------------
+# 64-bit GROUP BY sums (A2.10)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture()
+def x64():
+    config.set("x64", True)
+    yield
+    config.set("x64", False)
+
+
+@pytest.mark.parametrize("agg", [[0, 2], [3], [4]])
+def test_x64_group_by_matches_jax_under_x64(configs, table, x64, agg):
+    """The switch on: the port's GROUP BY against the reference's under
+    jax_enable_x64 on the same table, dtypes and integer sums exact (no
+    int32 wrap), against numpy int64 truth too."""
+    import jax
+    path, cols, vis = table
+    got = Query(path, SCHEMA).where(FilterPred(((0, "ge", -2),))) \
+        .group_by(GroupKey(1, 7, True), 7, agg_cols=agg).run(device="cpu")
+    with jax.enable_x64(True):
+        want = JQuery(path, JS).where(lambda c: c[0] >= -2) \
+            .group_by(lambda c: jnp.abs(c[1]) % 7, 7, agg_cols=agg).run()
+        want = {k: np.asarray(v) for k, v in want.items()}
+    for k in ("count", "sums", "sumsqs", "mins", "maxs"):
+        assert np.asarray(got[k]).dtype == want[k].dtype, k
+    np.testing.assert_array_equal(got["count"], want["count"])
+    np.testing.assert_array_equal(got["mins"], want["mins"])
+    np.testing.assert_array_equal(got["maxs"], want["maxs"])
+    key = np.abs(cols[1].astype(np.int64))
+    key = np.where(cols[1] == -(1 << 31), cols[1], key) % 7
+    sel = (vis != 0) & (cols[0] >= -2)
+    for j, c in enumerate(agg):
+        if SCHEMA.col_dtype(c).kind == "f":
+            tol = 1e-5 * float(np.abs(cols[c][sel]).sum()) + 1e-6
+            assert np.abs(got["sums"][j].astype(np.float64)
+                          - want["sums"][j]).max() <= tol
+        else:
+            truth = [int(cols[c][sel & (key == g)].astype(np.int64).sum())
+                     for g in range(7)]
+            assert [int(v) for v in got["sums"][j]] == truth
+            assert [int(v) for v in want["sums"][j]] == truth
+        np.testing.assert_allclose(got["sumsqs"][j], want["sumsqs"][j],
+                                   rtol=1e-12)
+
+
+def test_x64_plan_names_the_refusal_and_workers_carry_it(configs, table,
+                                                          x64):
+    path, _cols, _vis = table
+    q = Query(path, SCHEMA).group_by(GroupKey(1, 8), 8, agg_cols=[0])
+    w = Query(path, SCHEMA).group_by_cols([0], agg_cols=[2])
+    assert "x64" in q._cuda_refusal()
+    assert w._worker_spec(torch.device("cpu"), "torch", None,
+                          False)["x64"] is True
+    config.set("x64", False)
+    assert q._cuda_refusal() == ""
+    assert w._worker_spec(torch.device("cpu"), "torch", None,
+                          False)["x64"] is False
+
+
+@pytest.mark.parametrize("ratio", [0.5, 2.0])
+@pytest.mark.parametrize("agg", [[4], [2]], ids=["float32", "int32"])
+def test_group_by_auto_plan_takes_the_measured_route(configs, table, ratio,
+                                                     agg):
+    """kernel='auto' on a CUDA device (planned without one): a float
+    GROUP BY leaves B3 for the torch route when the torch/B3 time ratio is
+    below 1.0, and the plan says why; an int GROUP BY keeps B3.  On the
+    CPU the route is torch either way and the answer the same."""
+    path = table[0]
+    config.set("groupby_cuda_ratio", ratio)
+    q = Query(path, SCHEMA).group_by(GroupKey(0, mod=8), 8, agg_cols=agg)
+    plan = q._plan(torch.device("cuda"), "auto", None, 0)
+    leaves = ratio < 1.0 and agg == [4]
+    assert plan.kernel == ("torch" if leaves else "cuda")
+    assert (f"measured torch/B3 time ratio {ratio:g} < 1.0"
+            in plan.reason) == leaves
+    cpu = q._plan(torch.device("cpu"), "auto", None, 0)
+    assert cpu.kernel == "torch" and "ratio" not in cpu.reason
+
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the plan's cuda route exists "
+                    "only on the card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_x64_group_by_plans_torch_on_the_card(configs, table, x64,
+                                               cuda_device):
+    path, _cols, _vis = table
+    plan = Query(path, SCHEMA).group_by(GroupKey(1, 8), 8, agg_cols=[0]) \
+        .explain(device=cuda_device)
+    assert plan.kernel == "torch" and "x64" in plan.reason

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 from nvme_strom_tpu_torch.api import StromError
+from nvme_strom_tpu_torch.config import config
 from nvme_strom_tpu_torch.tools.ssd2gpu_test import main, run_load
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -34,9 +35,15 @@ def test_run_load_reports_counters_and_lands_bytes(tmp_path):
     data = np.random.default_rng(1).integers(0, 256, 4 << 20,
                                              dtype=np.uint8)
     data.tofile(path)
-    out = run_load(str(path), device="cpu", segments=2,
-                   segment_size=1 << 20, chunk=256 << 10, loops=2,
-                   drop_cache=False)
+    # every chunk direct: arbitration would send the warm file write-back
+    snap = config.snapshot()
+    config.set("cache_arbitration", False)
+    try:
+        out = run_load(str(path), device="cpu", segments=2,
+                       segment_size=1 << 20, chunk=256 << 10, loops=2,
+                       drop_cache=False)
+    finally:
+        config.restore(snap)
     assert out["nbytes"] == 4 << 20 and out["seconds"] > 0
     assert np.array_equal(out["tensor"].numpy(), data)
     assert out["counters"]["nr_ssd2dev"] >= 2

@@ -29,6 +29,9 @@ ROOT = Path(__file__).resolve().parents[1]
 @pytest.fixture(autouse=True)
 def _port_config():
     snap = tcfg.snapshot()
+    # the direct path, as the JAX package's tests pin it: arbitration
+    # would send the freshly written, page-cache-warm files write-back
+    tcfg.set("cache_arbitration", False)
     yield
     tcfg.restore(snap)
     ttrace.recorder.configure()
@@ -120,6 +123,7 @@ def test_sampling_policy_matches_reference():
 def _load(mod, cfg, path):
     cfg.set("trace_policy", "all")
     cfg.set("landing", "staged")
+    cfg.set("cache_arbitration", False)   # every chunk direct
     mod_trace = ttrace if mod is teng else jtrace
     mod_trace.recorder.configure()
     mod_trace.recorder.clear()
@@ -128,7 +132,6 @@ def _load(mod, cfg, path):
         kw = {"device": "cpu"}
     else:
         from nvme_strom_tpu.hbm.staging import load_file_to_device
-        cfg.set("cache_arbitration", False)   # every chunk direct
         cfg.set("engine_backend", "uring")    # no passthrough probe
         kw = {}
     with mod.open_source(path) as src:
