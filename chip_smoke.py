@@ -9,7 +9,8 @@ aggregates, its index access paths, worker processes and meshes, and the
 planner's direct and vfs access paths over one file, a stripe set and a
 segmented relation, string columns and the SQL facade, and the engine's
 resilience (mirrors, the fault ladder, page-cache arbitration, 64-bit
-GROUP BY sums) — at full size and holds every CUDA kernel of those paths
+GROUP BY sums), and checksum verify on read with the residency tiers and
+the integrity domain — at full size and holds every CUDA kernel of those paths
 against its plain PyTorch version:
 
 1. environment: the card's name and power limit (``nvidia-smi``);
@@ -242,6 +243,38 @@ against its plain PyTorch version:
        (config ``groupby_cuda_ratio`` 0.5), both equal to numpy truth;
     g. the chaos harness's ``native_degraded`` scenario on the native
        rung (never its "native_skipped" exit).
+20. residency and integrity (``debug_no_threshold`` on, arbitration off,
+    a RAM tier and an HBM tier of 1.25 GiB each), the card's name and
+    power limit beside every number:
+    a. [5]'s checksummed table into one CUDA tensor with
+       ``checksum_verify`` off and on (bytes identical, both rates, the
+       crc32c that ran); then a flipped byte caught at each check: the
+       python pool (256 MiB through ``FakeNvmeSource``: torn once heals,
+       persistent latches EBADMSG), the native threadpool rung's wait-time
+       check (a copy with one flipped page: re-read, then EBADMSG) and the
+       staging ring's (that copy with the write-back path forced);
+    b. [4]'s file through ``ssd2gpu_test``'s path with the tiers off (the
+       cold reference), then twice with the RAM tier on: all faults, then
+       all hits with no request submitted, bytes identical, whether the
+       slabs were mlocked; each load in a new Session without a warm-up
+       batch; the fill and the hits again with every task traced, split
+       into their ``cache_hit`` and ``cache_fill`` spans;
+    c. with the HBM tier armed too: load 3 fills RAM, load 4 promotes
+       every extent on its second touch (exclusive), load 5 is served
+       from CUDA-tensor extents, and load 6 again, traced;
+       ``torch.cuda.memory_allocated`` before and after;
+    d. [5]'s aggregate (B1) and ``group_by(c0 % 64)`` (B3) through
+       ``Query.run()`` cold, RAM-resident and HBM-resident: the plan's
+       ``cache_hit_ratio`` and ``hbm_hit_ratio``, results equal to the
+       cold run, the kernels once a batch;
+    e. ``integrity=always``: a byte flipped in a RAM slab and one in an
+       HBM extent, both detected and repaired by the scrubber at 1 GiB/s
+       within 10 s, the next load equal to the file;
+    f. the first 64 MiB of [4]'s file written from a CUDA tensor while
+       resident: the next load returns the new bytes; a
+       ``save_checkpoint`` over a resident path drops its extents;
+    g. the chaos scenarios ``corrupt_once``, ``cache_churn`` and
+       ``scrub_heal`` (phase A).
 
 Every main path sets the kernels' launch counts to 0 just before it runs
 and reads them just after; each kernel of a path must have launched once
@@ -4526,6 +4559,7 @@ def _resilience_phase(torch, dev, tmp, seed, card, heap, load_path, group,
     from nvme_strom_tpu_torch.tools.common import (chunks_mismatch,
                                                    drop_page_cache)
     from nvme_strom_tpu_torch.tools.ssd2gpu_test import run_load
+    from nvme_strom_tpu_torch.trace import recorder
     path, schema, th, want_count, want_sum = heap
     table_bytes = os.path.getsize(path)
     stripe = 512 << 10
@@ -4991,6 +5025,524 @@ def _resilience_phase(torch, dev, tmp, seed, card, heap, load_path, group,
     return launched[0], launched[1]
 
 
+def _residency_phase(torch, dev, tmp, seed, card=None, heap=None,
+                     load_path=None, load_gbs=None):
+    """Phase 20: checksum verify on read, the residency tiers and the
+    integrity domain on the card (see the module docstring); *heap* is
+    [5]'s table ``(path, schema, th, count, sum)`` and *load_path* [4]'s
+    file, which [20f] overwrites in part (each made here, at full size,
+    when not given; *card* read from ``nvidia-smi`` then); *load_gbs* is
+    [4]'s cold load of that file in this run, printed beside the tiers'
+    loads.  Returns the B1 and B3 launches of [20d]."""
+    if card is None:
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True,
+                              text=True, check=True,
+                              timeout=60).stdout.strip().splitlines()[0]
+    if heap is None:
+        hpath = os.path.join(tmp, "table.heap")
+        schema, c0, c1, vis = _scan_table(hpath, seed, 131072)
+        sel = (vis != 0) & (c0 > 100)
+        heap = (hpath, schema, 100, int(sel.sum()), _int32_sum(c1[sel]))
+        del c0, c1, vis, sel
+    if load_path is None:
+        load_path = os.path.join(tmp, "load.bin")
+        _write_random_file(load_path, 1 << 30, seed)
+    import errno
+
+    from nvme_strom_tpu_torch.api import StromError
+    from nvme_strom_tpu_torch.cache import residency_cache
+    from nvme_strom_tpu_torch.config import config
+    from nvme_strom_tpu_torch.data.checkpoint import save_checkpoint
+    from nvme_strom_tpu_torch.engine import PlainSource, Session, open_source
+    from nvme_strom_tpu_torch.hbm.registry import registry
+    from nvme_strom_tpu_torch.hbm.staging import StagingPipeline
+    from nvme_strom_tpu_torch.integrity import domain
+    from nvme_strom_tpu_torch.ops import decode_cuda, filter_cuda, \
+        groupby_cuda
+    from nvme_strom_tpu_torch.ops.groupby import GroupKey
+    from nvme_strom_tpu_torch.scan.heap import (PAGE_SIZE, crc32c_impl,
+                                                verify_page_checksums)
+    from nvme_strom_tpu_torch.scan.query import Query
+    from nvme_strom_tpu_torch.stats import stats
+    from nvme_strom_tpu_torch.testing import chaos
+    from nvme_strom_tpu_torch.testing.fake import (FakeNvmeSource, FaultPlan,
+                                                   flip_resident_hbm,
+                                                   flip_resident_host)
+    from nvme_strom_tpu_torch.tiering import extent_space
+    from nvme_strom_tpu_torch.tools.common import (chunks_mismatch,
+                                                   drop_page_cache,
+                                                   first_mismatch)
+    from nvme_strom_tpu_torch.tools.ssd2gpu_test import run_load
+    from nvme_strom_tpu_torch.trace import recorder
+    path, schema, th, want_count, want_sum = heap
+    MiB = 1 << 20
+    table_bytes = os.path.getsize(path)
+    lsize = os.path.getsize(load_path) // MiB * MiB
+    n_chunks = lsize // MiB
+    tier_bytes = lsize + lsize // 4        # 1.25 GiB beside a 1 GiB file
+    on_card = dev.type == "cuda"           # launch and memory checks
+    mods = (filter_cuda, groupby_cuda, decode_cuda)
+    snap = config.snapshot()
+    t_phase = time.monotonic()
+    launched = [0, 0]
+    print(f"[20] residency and integrity on {card}: tiers of {tier_bytes} "
+          f"bytes each, cache_arbitration off (every miss reads direct and "
+          f"fills the RAM tier)")
+
+    def fail(label, what):
+        raise AssertionError(f"[20{label}] {what}")
+
+    def zero():
+        for m in mods:
+            m.launches = 0
+        stats.reset()
+
+    def check_load(label, out, lsrc):
+        bad = chunks_mismatch(out["tensor"], lsrc, out["result"].chunk_ids,
+                              MiB)
+        if bad is not None:
+            fail(label, f"landed bytes differ from the file at stream "
+                        f"offset {bad[0]}")
+
+    def staged(src, nbytes, sess):
+        h = registry.map_device_memory(nbytes, device=dev)
+        try:
+            with StagingPipeline(sess, n_buffers=6,
+                                 staging_bytes=16 * MiB) as pipe:
+                pipe.memcpy_ssd2dev(src, h, list(range(nbytes // MiB)), MiB)
+                pipe.drain()
+            return registry.get(h).tensor
+        finally:
+            registry.unmap(h)
+
+    try:
+        config.set("cache_arbitration", False)
+        # -- a. checksum verify on read --------------------------------
+        tensors, rates = [], []
+        for verify in (False, True):
+            config.set("checksum_verify", verify)
+            drop_page_cache(path)
+            out = run_load(path, device=dev)
+            if out["counters"].get("nr_csum_fail", 0):
+                fail("a", f"{out['counters']['nr_csum_fail']} checksum "
+                          f"failures on a clean table")
+            tensors.append(out["tensor"])
+            rates.append(out["nbytes"] / out["seconds"] / 1e9)
+        if not torch.equal(tensors[0], tensors[1]):
+            fail("a", "the verified load differs from the unverified one")
+        if first_mismatch(tensors[1], path, table_bytes) is not None:
+            fail("a", "the verified load differs from [5]'s file")
+        del tensors
+        # the page check's own rate on the host, over the table's head:
+        # what the verify should add is the bytes over this rate
+        vbytes = min(256 * MiB, table_bytes)
+        with open(path, "rb") as f:
+            vbuf = np.frombuffer(f.read(vbytes), dtype=np.uint8)
+        vbest = None
+        for _ in range(3):
+            t0 = time.monotonic()
+            if verify_page_checksums(vbuf):
+                fail("a", "the page check finds a bad page in the file")
+            dt = time.monotonic() - t0
+            vbest = dt if vbest is None else min(vbest, dt)
+        del vbuf
+        vrate = vbytes / vbest / 1e9
+        added = table_bytes / (rates[1] * 1e9) - table_bytes / (rates[0] * 1e9)
+        print(f"[20a] [5]'s heap table ({table_bytes} bytes, "
+              f"{table_bytes // PAGE_SIZE} checksummed pages) into one CUDA "
+              f"tensor: checksum_verify off {rates[0]:.3f} GB/s, on "
+              f"{rates[1]:.3f} GB/s ({rates[1] / rates[0]:.1%} of off), "
+              f"bytes identical both times; the verify added {added:.3f} s "
+              f"against the page check's own {table_bytes / vrate / 1e9:.3f} "
+              f"s (verify_page_checksums on the host {vrate:.3f} GB/s, "
+              f"crc32c: {crc32c_impl()}) ({card})")
+        config.set("checksum_verify", True)
+        config.set("checksum_retries", 2)
+        config.set("retry_backoff_ms", 1.0)
+        head = min(256 * MiB, table_bytes // MiB * MiB)
+        flip = head // 2 + 3 * PAGE_SIZE + 100
+        legs = []
+        for label, plan in (("heals", FaultPlan(corrupt_once_offsets={flip})),
+                            ("latches", FaultPlan(corrupt_offsets={flip}))):
+            zero()
+            src = FakeNvmeSource(path, fault_plan=plan,
+                                 force_cached_fraction=0.0)
+            err = None
+            try:
+                with Session(device=dev) as sess:
+                    got = staged(src, head, sess)
+            except StromError as e:
+                err = e.errno
+            finally:
+                src.close()
+            c = stats.snapshot()
+            if label == "heals":
+                if err is not None or first_mismatch(got, path,
+                                                     head) is not None:
+                    fail("a", f"python pool, torn once: errno {err} or "
+                              f"bytes differ")
+                del got
+            elif err != errno.EBADMSG:
+                fail("a", f"python pool, persistent flip: errno {err}, "
+                          f"want EBADMSG")
+            if not c.get("nr_csum_reread", 0):
+                fail("a", f"python pool {label}: no re-read")
+            legs.append(f"{label} (nr_csum_fail {c.get('nr_csum_fail', 0)},"
+                        f" nr_csum_reread {c.get('nr_csum_reread', 0)}"
+                        + (", EBADMSG" if err else "") + ")")
+        cpath = os.path.join(tmp, "csum_copy.heap")
+        cbytes = min(64 * MiB, table_bytes)
+        with open(path, "rb") as fi, open(cpath, "wb") as fo:
+            fo.write(fi.read(cbytes))
+        cflip = cbytes * 5 // 8 + 2 * PAGE_SIZE + 77
+        with open(cpath, "r+b") as f:
+            f.seek(cflip)
+            b = f.read(1)
+            f.seek(cflip)
+            f.write(bytes([b[0] ^ 0xFF]))
+        drop_page_cache(cpath)
+        zero()
+        err = rung = None
+        with Session(device=dev, io_backend="threadpool") as sess, \
+                PlainSource(cpath) as src:
+            rung = sess.backend_name
+            try:
+                staged(src, cbytes, sess)
+            except StromError as e:
+                err = e.errno
+        c = stats.snapshot()
+        if rung != "threadpool" or err != errno.EBADMSG \
+                or not c.get("nr_csum_reread", 0):
+            fail("a", f"native zero-copy on {rung}: errno {err}, "
+                      f"nr_csum_reread {c.get('nr_csum_reread', 0)}")
+        legs.append(f"native {rung} rung, the flip checked at wait time "
+                    f"on the retired task: nr_csum_reread "
+                    f"{c['nr_csum_reread']}, then EBADMSG")
+        config.set("cache_arbitration", True)
+        zero()
+        err = None
+        src = FakeNvmeSource(cpath, force_cached_fraction=1.0)
+        try:
+            with Session(device=dev) as sess:
+                staged(src, cbytes, sess)
+        except StromError as e:
+            err = e.errno
+        finally:
+            src.close()
+        config.set("cache_arbitration", False)
+        c = stats.snapshot()
+        if err != errno.EBADMSG:
+            fail("a", f"staging ring, write-back forced: errno {err}")
+        legs.append(f"write-back path forced, the staging ring's check: "
+                    f"nr_csum_reread {c.get('nr_csum_reread', 0)}, then "
+                    f"EBADMSG")
+        os.unlink(cpath)
+        print(f"[20a] a flipped byte at each check ({card}): python pool "
+              f"({head} bytes through FakeNvmeSource): "
+              + "; ".join(legs))
+        config.set("checksum_verify", False)
+
+        # -- b. the RAM tier -------------------------------------------
+        # every load of b and c opens its own Session and staging ring
+        # with no warm-up batch (a warm-up would touch the first chunks
+        # before the tiers see the timed load), so the cold reference
+        # here is timed the same way, with the tiers off
+        config.set("tier_ram_bytes", 0)
+        config.set("tier_hbm_bytes", 0)
+        extent_space.clear_tiers()
+
+        def traced(label, lsrc):
+            """One more load with every task traced: (GB/s, the load's
+            wall s, the sum of its cache_hit and of its cache_fill spans
+            in s); the timed loads run untraced."""
+            saved = {k: config.get(k) for k in ("trace_policy",
+                                                "trace_ring_events")}
+            config.set("trace_policy", "all")
+            config.set("trace_ring_events", 1 << 16)
+            recorder.configure()
+            recorder.clear()
+            try:
+                out = run_load(load_path, device=dev, warmup=False)
+                evs = recorder.snapshot_events()
+            finally:
+                for k, v in saved.items():
+                    config.set(k, v)
+                recorder.configure()
+                recorder.clear()
+            check_load(label, out, lsrc)
+            span = {n: sum(e[1] for e in evs if e[2] == n) / 1e9
+                    for n in ("cache_hit", "cache_fill")}
+            return (out["nbytes"] / out["seconds"] / 1e9, out["seconds"],
+                    span["cache_hit"], span["cache_fill"])
+
+        def split(t):
+            return (f"{t[0]:.3f} GB/s traced: load {t[1]:.3f} s, cache_hit "
+                    f"spans {t[2]:.3f} s ({t[2] / t[1]:.1%}), cache_fill "
+                    f"spans {t[3]:.3f} s ({t[3] / t[1]:.1%})")
+
+        mlock0 = stats.snapshot().get("nr_cache_mlock_fail", 0)
+        brates = []
+        with PlainSource(load_path) as lsrc:
+            out = run_load(load_path, device=dev, warmup=False)
+            check_load("b", out, lsrc)
+            if out["counters"].get("nr_cache_miss", 0):
+                fail("b", "the reference load went through a tier")
+            ref_gbs = out["nbytes"] / out["seconds"] / 1e9
+            del out
+            config.set("tier_ram_bytes", tier_bytes)
+            for k in range(2):
+                out = run_load(load_path, device=dev, warmup=False)
+                c, r = out["counters"], out["result"]
+                check_load("b", out, lsrc)
+                if k == 0 and (c.get("nr_tier_ram_fault", 0) != n_chunks
+                               or c.get("nr_cache_miss", 0) != n_chunks):
+                    fail("b", f"first load: {c.get('nr_tier_ram_fault')} "
+                              f"faults, {c.get('nr_cache_miss')} misses for "
+                              f"{n_chunks} chunks")
+                if k == 1 and (c.get("nr_cache_hit", 0) != n_chunks
+                               or c.get("nr_submit_dma", 0)
+                               or r.nr_ssd2dev):
+                    fail("b", f"second load: {c.get('nr_cache_hit')} hits, "
+                              f"{c.get('nr_submit_dma', 0)} requests "
+                              f"submitted, {r.nr_ssd2dev} direct chunks")
+                brates.append(out["nbytes"] / out["seconds"] / 1e9)
+                del out
+            pinned, unpinned = residency_cache.pinned_bytes(), \
+                residency_cache.unpinned_bytes()
+            # the same two loads again, traced: where a fill's and a
+            # hit's time goes
+            extent_space.clear_tiers()
+            fill_tr, hit_tr = traced("b", lsrc), traced("b", lsrc)
+        vs4 = f"; [4]'s cold load {load_gbs:.3f} GB/s" if load_gbs else ""
+        mlock_fail = stats.snapshot().get("nr_cache_mlock_fail", 0) - mlock0
+        print(f"[20b] [4]'s file through ssd2gpu_test's path, every load in "
+              f"a new Session without a warm-up batch: tiers off "
+              f"{ref_gbs:.3f} GB/s{vs4}; RAM tier on: cold {brates[0]:.3f} "
+              f"GB/s ({n_chunks} faults), then {brates[1]:.3f} GB/s all RAM "
+              f"hits ({n_chunks} nr_cache_hit, 0 requests submitted), bytes "
+              f"identical each time; slabs mlocked {pinned} bytes, unpinned "
+              f"{unpinned} bytes ({mlock_fail} mlock refusals, counted and "
+              f"run unpinned) ({card})")
+        print(f"[20b] traced again: the fill {split(fill_tr)}; the RAM hits "
+              f"{split(hit_tr)} ({card})")
+
+        # -- c. the HBM tier -------------------------------------------
+        extent_space.clear_tiers()
+        config.set("tier_hbm_bytes", tier_bytes)
+        mem0 = torch.cuda.memory_allocated(dev) if on_card else 0
+        crates = []
+        want_c = ("nr_tier_ram_fault", "nr_tier_hbm_promote", "nr_hbm_hit")
+        with PlainSource(load_path) as lsrc:
+            for k, key in enumerate(want_c):
+                out = run_load(load_path, device=dev, warmup=False)
+                c = out["counters"]
+                check_load("c", out, lsrc)
+                if c.get(key, 0) != n_chunks:
+                    fail("c", f"load {k + 3}: {key} {c.get(key, 0)} for "
+                              f"{n_chunks} chunks ({c})")
+                crates.append(out["nbytes"] / out["seconds"] / 1e9)
+                del out
+            hbm_tr = traced("c", lsrc)
+        res_c = extent_space.residency()
+        if res_c["hbm"] != lsize or res_c["ram"]:
+            fail("c", f"residency after the promotion {res_c}")
+        mem1 = torch.cuda.memory_allocated(dev) if on_card else 0
+        if on_card and mem1 - mem0 < lsize:
+            fail("c", f"the HBM tier holds {lsize} bytes but "
+                      f"memory_allocated moved {mem1 - mem0}")
+        print(f"[20c] the HBM tier armed: load 3 fills RAM "
+              f"{crates[0]:.3f} GB/s, load 4 promotes on the second touch "
+              f"({n_chunks} nr_tier_hbm_promote, exclusive: RAM empty "
+              f"after) {crates[1]:.3f} GB/s, load 5 from CUDA-tensor "
+              f"extents ({n_chunks} nr_hbm_hit) {crates[2]:.3f} GB/s, against "
+              f"b's {ref_gbs:.3f} GB/s with the tiers off; bytes identical "
+              f"each time; torch.cuda.memory_allocated {mem0} -> {mem1} "
+              f"bytes ({card})")
+        print(f"[20c] traced again: the HBM hits {split(hbm_tr)} ({card})")
+
+        # -- d. queries over the resident table --------------------------
+        n_batches = -(-table_bytes // int(config.get("chunk_size")))
+        qs = {"aggregate (B1)": (lambda: Query(path, schema).where_range(
+                  0, th + 1, None).aggregate(cols=[1]), filter_cuda),
+              "group_by(c0 % 64) (B3)": (lambda: Query(path, schema)
+                                         .where_range(0, th + 1, None)
+                                         .group_by(GroupKey(0, 64), 64,
+                                                   agg_cols=[1]),
+                                         groupby_cuda)}
+        cells = []
+        for qname, (mk, kmod) in qs.items():
+            extent_space.clear_tiers()
+            first = None
+            for label, key, ratios in (
+                    ("cold", "nr_tier_ram_fault", (0.0, 0.0)),
+                    ("RAM-resident", "nr_cache_hit", (1.0, 0.0)),
+                    ("HBM-resident", "nr_hbm_hit", (0.0, 1.0))):
+                plan = mk().explain(device=dev)
+                got = (plan.cache_hit_ratio, plan.hbm_hit_ratio)
+                if plan.access_path != "direct" or got != ratios:
+                    fail("d", f"{qname} {label}: plan {plan.access_path} "
+                              f"ratios {got}, want direct {ratios}")
+                drop_page_cache(path)
+                zero()
+                with Session(device=dev) as sess:
+                    t0 = time.monotonic()
+                    res = mk().run(device=dev, session=sess)
+                    s = time.monotonic() - t0
+                n = kmod.launches
+                moved = stats.snapshot().get(key, 0)
+                if on_card and n != n_batches:
+                    fail("d", f"{qname} {label}: {n} launches for "
+                              f"{n_batches} batches")
+                if moved != n_batches:
+                    fail("d", f"{qname} {label}: {key} {moved} for "
+                              f"{n_batches} chunks")
+                if kmod is filter_cuda:
+                    launched[0] += n
+                    if int(res["count"]) != want_count or \
+                            int(res["sums"][0]) != want_sum:
+                        fail("d", f"{qname} {label}: count "
+                                  f"{int(res['count'])}, numpy "
+                                  f"{want_count}")
+                else:
+                    launched[1] += n
+                if first is None:
+                    first = res
+                else:
+                    _same_result(fail, f"d {qname} {label}", res, first)
+                cells.append(f"{qname} {label}: {s:.3f} s = "
+                             f"{table_bytes / s / 1e9:.3f} GB/s, plan "
+                             f"cache_hit_ratio {got[0]} hbm_hit_ratio "
+                             f"{got[1]}, {n} launches, {key} {moved}")
+        print(f"[20d] [5]'s table through Query.run() on the direct path, "
+              f"each result equal to the cold run, the kernels once a batch "
+              f"({n_batches}) ({card}):")
+        for cl in cells:
+            print(f"      {cl}")
+        print(f"      reason: {plan.reason}")
+
+        # -- e. rot and the scrubber ------------------------------------
+        config.set("integrity", "always")
+        config.set("scrub_bytes_per_sec", 0)
+        extent_space.clear_tiers()
+        keep = 8
+        with Session(device=dev) as sess, PlainSource(load_path) as lsrc:
+            out = run_load(lsrc, device=dev, session=sess, warmup=False)
+            del out
+            skey = extent_space.source_key(lsrc)
+            for i in range(keep, n_chunks):     # all but 8 extents to HBM
+                lease, _tier = extent_space.lookup(skey, i * MiB, MiB)
+                lease.release()
+            res_e = extent_space.residency()
+            if res_e != {"ram": keep * MiB, "hbm": lsize - keep * MiB}:
+                fail("e", f"residency before the flips {res_e}")
+            before = stats.snapshot()
+            if not (flip_resident_host(skey, 3 * MiB, MiB, pos=4097)
+                    and flip_resident_hbm(skey, n_chunks // 2 * MiB, MiB,
+                                          pos=12345)):
+                fail("e", "a resident flip missed")
+            config.set("scrub_bytes_per_sec", 1 << 30)
+            t0 = time.monotonic()
+            while time.monotonic() - t0 < 10.0:
+                c = stats.snapshot()
+                if c.get("nr_scrub_repair", 0) \
+                        - before.get("nr_scrub_repair", 0) >= 2:
+                    break
+                time.sleep(0.02)
+            heal_s = time.monotonic() - t0
+            config.set("scrub_bytes_per_sec", 0)
+            c = stats.snapshot()
+            d = {k: c.get(k, 0) - before.get(k, 0)
+                 for k in ("nr_integrity_fail", "nr_scrub_repair",
+                           "nr_scrub_fail", "bytes_scrubbed")}
+            if d["nr_integrity_fail"] < 2 or d["nr_scrub_repair"] < 2:
+                fail("e", f"after {heal_s:.1f} s: {d}")
+            out = run_load(lsrc, device=dev, session=sess, warmup=False)
+            check_load("e", out, lsrc)
+            del out
+        print(f"[20e] integrity=always, scrubber at 1 GiB/s: one byte "
+              f"flipped in a RAM slab and one in an HBM extent, both "
+              f"detected ({d['nr_integrity_fail']} nr_integrity_fail) and "
+              f"repaired ({d['nr_scrub_repair']} nr_scrub_repair) in "
+              f"{heal_s:.2f} s ({d['bytes_scrubbed']} bytes scrubbed); the "
+              f"next load equals the file ({card})")
+
+        # -- f. coherency -------------------------------------------------
+        config.set("integrity", "off")
+        domain.configure()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 20)
+        new = torch.randint(0, 256, (64 * MiB,), dtype=torch.uint8,
+                            device=dev, generator=gen)
+        inval0 = stats.snapshot().get("nr_cache_invalidate", 0)
+        with Session(device=dev) as wsess, \
+                open_source(load_path, writable=True) as sink:
+            if on_card:
+                _staged_write(torch, wsess, sink, new)
+            else:
+                handle, buf = wsess.alloc_dma_buffer(64 * MiB)
+                buf.view()[:64 * MiB] = new.numpy().tobytes()
+                res = wsess.memcpy_ram2ssd(sink, handle, list(range(64)),
+                                           MiB)
+                wsess.memcpy_wait(res.dma_task_id)
+                sink.sync()
+                wsess.unmap_buffer(handle)
+                buf.close()
+        inval = stats.snapshot().get("nr_cache_invalidate", 0) - inval0
+        with PlainSource(load_path) as lsrc:
+            out = run_load(load_path, device=dev, warmup=False)
+            check_load("f", out, lsrc)
+            if not torch.equal(out["tensor"][:64 * MiB], new):
+                fail("f", "the load after the write returned old bytes")
+            del out
+        ck = os.path.join(tmp, "resident.strom")
+        state = {"w": torch.arange(1 << 20, dtype=torch.float32,
+                                   device=dev)}
+        save_checkpoint(ck, state)
+        with Session(device=dev) as csess, PlainSource(ck) as csrc:
+            nck = csrc.size // MiB
+            handle, _buf = csess.alloc_dma_buffer(nck * MiB)
+            res = csess.memcpy_ssd2ram(csrc, handle, list(range(nck)), MiB)
+            csess.memcpy_wait(res.dma_task_id)
+            csess.unmap_buffer(handle)
+        ck_bytes = os.path.getsize(ck)
+        fr0 = extent_space.resident_fraction([ck], ck_bytes)
+        ci0 = stats.snapshot().get("nr_cache_invalidate", 0)
+        state["w"] += 1
+        save_checkpoint(ck, state)
+        fr1 = extent_space.resident_fraction([ck], ck_bytes)
+        ci = stats.snapshot().get("nr_cache_invalidate", 0) - ci0
+        if fr0["ram"] <= 0 or any(fr1.values()) or ci < nck:
+            fail("f", f"checkpoint save: resident {fr0} -> {fr1}, {ci} "
+                      f"invalidations")
+        os.unlink(ck)
+        print(f"[20f] the first 64 MiB of [4]'s file written from a CUDA "
+              f"tensor while resident: {inval} extents invalidated, the "
+              f"next load returns the new bytes and the rest of the file; "
+              f"save_checkpoint over a resident path: RAM share "
+              f"{fr0['ram']:.3f} -> {fr1['ram']:.3f} ({ci} invalidations) "
+              f"({card})")
+
+        # -- g. chaos ----------------------------------------------------------
+        config.restore(snap)
+        extent_space.clear_tiers()
+        tally = chaos.run_all(seed, scenarios=(
+            chaos.scenario_corrupt_once, chaos.scenario_cache_churn,
+            chaos.scenario_scrub_heal), verbose=False, device=dev)
+        if tally != {"corrupt_once": 1, "cache_churn": 1, "scrub_heal": 1}:
+            fail("g", f"chaos tally {tally}")
+        print(f"[20g] chaos corrupt_once, cache_churn and scrub_heal "
+              f"(phase A) survived: {tally} ({card})")
+    finally:
+        config.restore(snap)
+        extent_space.clear_tiers()
+        extent_space.configure()
+        domain.configure()
+    print(f"[20] took {time.monotonic() - t_phase:.1f} s; B1 launches "
+          f"{launched[0]}, B3 launches {launched[1]}")
+    return launched[0], launched[1]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--load-gib", type=float, default=1.0)
@@ -5090,7 +5642,7 @@ def main() -> int:
         load_path = os.path.join(tmp, "load.bin")
         load_bytes = int(args.load_gib * (1 << 30))
         _write_random_file(load_path, load_bytes, args.seed)
-        _load_phase(torch, dev, load_path, load_bytes)
+        load_gbs = _load_phase(torch, dev, load_path, load_bytes)
         launches = filter_cuda.launches + groupby_cuda.launches \
             + decode_cuda.launches
         if launches:
@@ -5402,6 +5954,14 @@ def main() -> int:
         main_launches += res_b1
         gb_launches += res_b3
         print(f"    [19] took {time.monotonic() - t19:.1f} s")
+
+        # -- residency and integrity: verify on read, the tiers, rot ------
+        r20_b1, r20_b3 = _residency_phase(
+            torch, dev, tmp, args.seed, card,
+            (heap_path, schema, th, want_count, want_sum), load_path,
+            load_gbs)
+        main_launches += r20_b1
+        gb_launches += r20_b3
         for f in (heap_path, load_path, gb_path):
             os.unlink(f)
 

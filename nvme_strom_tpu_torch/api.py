@@ -14,7 +14,42 @@ from dataclasses import dataclass
 from typing import List, Optional
 
 __all__ = ["StromError", "ErrorClass", "FsKind", "FileInfo", "BufferInfo",
-           "MemCopyResult"]
+           "MemCopyResult", "RESIDENCY_COUNTERS"]
+
+
+#: counters of checksum verify on read, the residency tiers and the
+#: integrity domain, under the JAX package's ``STAT_FIELDS`` names
+RESIDENCY_COUNTERS = (
+    "nr_csum_fail",           # page checksum mismatches observed
+    "nr_csum_reread",         # pages re-read to heal a mismatch
+    "bytes_verify_reread",    # bytes of those re-reads
+    "nr_cache_hit",           # chunks served from the RAM tier
+    "nr_cache_miss",          # chunks that went to the engine instead
+    "nr_cache_fill",          # extents installed into RAM slabs
+    "nr_cache_evict",         # extents ARC-evicted to make room
+    "nr_cache_invalidate",    # extents dropped by a write or a save
+    "bytes_cache_hit",        # bytes served from either tier
+    "cache_resident_bytes",   # gauge: RAM-tier bytes resident
+    "nr_hbm_hit",             # chunks served from HBM extents
+    "nr_hbm_promote",         # extents placed in the HBM tier
+    "nr_hbm_demote",          # extents evicted out of the HBM tier
+    "hbm_resident_bytes",     # gauge: HBM-tier bytes resident
+    "nr_integrity_verify",    # resident checksums verified
+    "nr_integrity_fail",      # resident checksum mismatches
+    "nr_scrub_extent",        # extents the scrubber walked
+    "bytes_scrubbed",         # bytes the scrubber verified
+    "nr_scrub_repair",        # corrupt extents refilled from the SSD
+    "nr_scrub_fail",          # corrupt extents that could not be refilled
+    "nr_cache_mlock_fail",    # mlock(2) refusals: the slab runs unpinned
+    "cache_unpinned_bytes",   # gauge: resident bytes not mlocked
+    "nr_pressure_shed",       # slabs shed under the memlock budget
+    "nr_pressure_passthrough",  # fills refused under it (read from SSD)
+    "nr_tier_hbm_promote",    # second-touch promotions RAM -> HBM
+    "nr_tier_hbm_demote",     # HBM victims demoted into RAM
+    "nr_tier_ram_fault",      # demand faults filled SSD -> RAM
+    "nr_tier_ram_demote",     # RAM victims dropped to the SSD tier
+    "nr_tier_ram_shed",       # RAM residents shed under memlock pressure
+)
 
 
 class ErrorClass(enum.Enum):

@@ -3,6 +3,9 @@
 A reduced copy of the JAX package's GUC-style registry: only the knobs this
 package reads, under the same names, defaults and bounds.  Values are set
 at run time with :meth:`Config.set`; there is no file or environment tier.
+A knob may answer to a second, older name (``cache_bytes`` for
+``tier_ram_bytes``, ``hbm_cache_bytes`` for ``tier_hbm_bytes``): one stored
+value, two names, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -91,6 +94,12 @@ def _mirror(val: str) -> None:
         raise ConfigError(f"mirror must be none|paired, got {val!r}")
 
 
+def _integrity(val: str) -> None:
+    if val not in ("off", "transitions", "always"):
+        raise ConfigError(f"integrity must be off|transitions|always, "
+                          f"got {val!r}")
+
+
 def _buffer_multiple(val: int, cfg: "Config") -> None:
     chunk = cfg.get("chunk_size")
     if chunk and val % chunk:
@@ -115,6 +124,8 @@ class _Var:
     check: Optional[Callable[[Any], None]] = None
     #: validation against the other knobs' current values
     cross: Optional[Callable[[Any, "Config"], None]] = None
+    #: another name of the knob *alias_of*: one stored value, two names
+    alias_of: Optional[str] = None
 
     def parse(self, name: str, raw: Any) -> Any:
         if self.kind is bool:
@@ -267,6 +278,36 @@ _VARS: Dict[str, _Var] = {
     # read each retired write leg back at wait time and compare crc32c
     # (EBADMSG on a mismatch)
     "write_verify": _Var(False, bool),
+    # verify each landed heap page's crc32c (header word 7); a mismatch is
+    # re-read up to checksum_retries times, then the task latches EBADMSG
+    "checksum_verify": _Var(False, bool),
+    "checksum_retries": _Var(2, int, 0, 16),
+    # -- the residency tiers (the unified extent space, tiering.py) -----
+    # capacity of the RAM tier (pinned-host ARC slabs, cache.py): hits are
+    # copied out with no submission, misses fill at wait time after the
+    # fault ladder healed them; 0 = off.  Read at Session construction
+    "tier_ram_bytes": _Var(0, int, 0, 1 << 50),
+    "cache_bytes": _Var(0, int, 0, 1 << 50, alias_of="tier_ram_bytes"),
+    # capacity of the HBM tier (CUDA-tensor extents, serving/hbm_tier.py):
+    # the RAM tier's second touch promotes an extent there; 0 = off
+    "tier_hbm_bytes": _Var(0, int, 0, 1 << 50),
+    "hbm_cache_bytes": _Var(0, int, 0, 1 << 50, alias_of="tier_hbm_bytes"),
+    # one placement engine over HBM -> RAM -> SSD: promotion moves an
+    # extent up exclusively and HBM victims demote into RAM; off = three
+    # isolated tiers (no promotion, evictions drop)
+    "tier_unified": _Var(True, bool),
+    # -- the integrity domain (integrity.py) ----------------------------
+    # crc32c of resident extents: off (none stored) | transitions (stored
+    # at fill, checked at promote and demote) | always (and at every
+    # lease-served read); a mismatch fails open to the SSD.  Read at
+    # Session construction
+    "integrity": _Var("off", str, check=_integrity),
+    # the background scrubber's rate (0 = off; needs integrity != off),
+    # re-read every tick
+    "scrub_bytes_per_sec": _Var(0, int, 0),
+    # bytes the RAM tier may mlock (0 = no budget): fills past it pass
+    # through to the SSD, a shrink sheds pinned slabs
+    "memlock_budget": _Var(0, int, 0),
     # -- GROUP BY accumulators -----------------------------------------
     # 64-bit GROUP BY accumulators: 4-byte int sums widen to 8 bytes and
     # every sum of squares is float64 (the JAX package's jax_enable_x64);
@@ -295,19 +336,22 @@ class Config:
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
-        self._values = {k: v.default for k, v in _VARS.items()}
+        self._values = {k: v.default for k, v in _VARS.items()
+                        if v.alias_of is None}
 
     def get(self, name: str) -> Any:
+        var = _VARS.get(name)
+        if var is None:
+            raise ConfigError(f"unknown config var {name}")
         with self._lock:
-            try:
-                return self._values[name]
-            except KeyError:
-                raise ConfigError(f"unknown config var {name}") from None
+            return self._values[var.alias_of or name]
 
     def set(self, name: str, raw: Any) -> None:
         var = _VARS.get(name)
         if var is None:
             raise ConfigError(f"unknown config var {name}")
+        if var.alias_of is not None:
+            name, var = var.alias_of, _VARS[var.alias_of]
         val = var.parse(name, raw)
         if var.cross is not None:
             var.cross(val, self)

@@ -8,6 +8,8 @@
 //   * slicing-by-8 tables everywhere else.
 // Both take and return the finalised crc, so strom_crc32c_extend(0, p, n)
 // is crc32c(p[0:n]) and extend(extend(0, a), b) == crc32c(a + b).
+// strom_crc32c_pages checks a run of heap pages in one call: the crc32c of
+// each page with its 4-byte checksum word read as zero.
 //
 // Built by _build.py's g++ leg: g++ -O2 -std=c++17 -fPIC -pthread -shared.
 
@@ -107,6 +109,20 @@ uint32_t strom_crc32c_extend(uint32_t crc, const uint8_t* p, size_t n,
     (void)hw;
 #endif
     return ~crc_sliced(c, p, n);
+}
+
+// crc32c of each of the n_pages pages of page_size bytes at p, with the 4
+// bytes at zero_off of each page read as zeros (the heap page's checksum
+// word), into out[0:n_pages].  `hw` as for strom_crc32c_extend.
+void strom_crc32c_pages(const uint8_t* p, size_t n_pages, size_t page_size,
+                        size_t zero_off, uint32_t* out, int hw) {
+    static const uint8_t zeros[4] = {0, 0, 0, 0};
+    for (size_t i = 0; i < n_pages; i++, p += page_size) {
+        uint32_t c = strom_crc32c_extend(0, p, zero_off, hw);
+        c = strom_crc32c_extend(c, zeros, 4, hw);
+        out[i] = strom_crc32c_extend(c, p + zero_off + 4,
+                                     page_size - zero_off - 4, hw);
+    }
 }
 
 }  // extern "C"

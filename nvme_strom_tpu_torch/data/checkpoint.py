@@ -48,6 +48,7 @@ from ..hbm.staging import (AdaptiveH2DDepth, _write_slices, bounded_fence,
                            safe_device_put)
 from ..parallel.mesh import RingSharding, ShardedTensor
 from ..scan.heap import crc32c as _leaf_crc, crc32c_update as _leaf_crc_update
+from ..tiering import extent_space
 from .dtypes import numpy_dtype, torch_dtype
 
 __all__ = ["save_checkpoint", "save_checkpoint_sharded",
@@ -322,6 +323,7 @@ def save_checkpoint(path: str, tree: Any, *, direct: bool = False,
     Crash-safe: bytes land in a same-directory temp file that is fsynced
     and atomically renamed over *path* (through a symlink, its target);
     a failure mid-save never corrupts an existing checkpoint at *path*.
+    After the rename every residency-tier extent over *path* is dropped.
     """
     flat = _flatten(tree)
     entries = _entries_for(flat)
@@ -370,8 +372,9 @@ def save_checkpoint(path: str, tree: Any, *, direct: bool = False,
             _save_leaves_direct(tmp, entries, flat, header_len,
                                 session, staging_bytes)
         os.replace(tmp, path)
-        # the JAX package drops its residency-tier extents over *path*
-        # here (extent_space.invalidate_paths); the port has no tiers yet
+        # the rename installed new bytes under the old identity: drop
+        # every residency-tier extent over *path*
+        extent_space.invalidate_paths([path])
         _fsync_dir(directory)
     except BaseException:
         try:
@@ -458,7 +461,8 @@ def save_checkpoint_sharded(path: str, tree: Any) -> Dict:
     leaf before the file is created.  One process writes every shard (the
     JAX package's multi-process barriers come with the port's process
     group).  Crash-safe per save through a shared temp file renamed over
-    *path*; concurrent sharded saves to one path are not supported."""
+    *path*, after which the residency tiers drop their extents over it;
+    concurrent sharded saves to one path are not supported."""
     flat = _flatten(tree)
     entries = _entries_for(flat)
     for key, leaf in flat:
@@ -496,6 +500,7 @@ def save_checkpoint_sharded(path: str, tree: Any) -> Dict:
         finally:
             os.close(fd)
         os.replace(tmp, path)
+        extent_space.invalidate_paths([path])
         _fsync_dir(os.path.dirname(path) or ".")
     except BaseException:
         try:

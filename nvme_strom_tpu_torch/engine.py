@@ -41,8 +41,21 @@ commands (`kmod/nvme_strom.c`) as an in-process engine.
   both partners (a partner routed away is journaled for resync), and the
   ``write_verify`` read-back.
 
-Not part of this copy: checksum verify, residency tiers, autotune, NVMe
-passthrough and NUMA lane pinning.
+With config ``checksum_verify`` each landed heap page's crc32c is checked
+where it lands (the python pools after each request, the native engine's
+synchronous legs at submit, its zero-copy batches at wait time on the
+retired task): a bad page is re-read up to ``checksum_retries`` times,
+then the task latches EBADMSG.  The residency tiers of
+:mod:`.tiering` sit in front of the lanes: a task's chunks are looked up
+in the HBM tier, then the RAM tier, when it is planned; a hit is copied
+out with no submission, after the write-back chunks, and only the misses
+go on to arbitration and the lanes.  The misses fill the RAM tier at wait
+time, once the fault ladder healed them; a write invalidates every tier
+before any byte moves and again at wait time.  Each Session runs the
+integrity domain's scrubber (:mod:`.integrity`) over the tiers.
+
+Not part of this copy: autotune and readahead, NVMe passthrough and NUMA
+lane pinning.
 """
 
 from __future__ import annotations
@@ -65,8 +78,11 @@ from .config import config
 from .eligibility import probe_backing
 from .fault import (DirtyExtentJournal, HealthState, MemberHealthMachine,
                     RetryPolicy)
+from .integrity import Scrubber, domain as _integrity, \
+    verify_and_reread
 from .log import pr_warn
 from .stats import stats
+from .tiering import extent_space as _tiers
 from .trace import recorder as _trace
 
 __all__ = ["check_file", "Source", "PlainSource", "SegmentedSource",
@@ -1068,7 +1084,8 @@ class AdaptiveChunkSizer:
 class _Task:
     __slots__ = ("task_id", "pending", "frozen", "done", "errno_", "errmsg",
                  "result", "buf_handle", "t_submit", "trace_id", "deadline",
-                 "expired", "write_verify")
+                 "expired", "write_verify", "verify_reqs", "verify_src",
+                 "verify_dest", "cache_fill", "cache_invalidate")
 
     def __init__(self, task_id: int, deadline_s: float = 0.0):
         self.task_id = task_id
@@ -1090,6 +1107,16 @@ class _Task:
         # (sink, requests, source view) read back at wait time under
         # write_verify
         self.write_verify: Optional[tuple] = None
+        # native requests whose landed pages are checksum-verified at wait
+        # time (checksum_verify), with their source and destination view
+        self.verify_reqs: Optional[List["Request"]] = None
+        self.verify_src: Optional["Source"] = None
+        self.verify_dest: Optional[memoryview] = None
+        # (source key, [(base, length, dest offset)], dest, logical scale,
+        # source weakref): the misses that fill the RAM tier at wait time
+        self.cache_fill: Optional[tuple] = None
+        # (source key, extents) a write invalidates again at wait time
+        self.cache_invalidate: Optional[tuple] = None
 
 
 #: the engine ladder, top rung first
@@ -1114,7 +1141,14 @@ class Session:
     Each session owns its fault state: a retry policy read from config at
     open, the members' health machine (``_member_health``), the
     dirty-extent journal (``_resync``), a watchdog thread and a canary
-    thread; both threads stop at :meth:`close`."""
+    thread; both threads stop at :meth:`close`.
+
+    Construction also re-reads the residency tiers' capacities and the
+    integrity mode from config, and starts the scrubber thread, which
+    stops at :meth:`close` too.  The tiers are process-wide, so a
+    Session's ``device`` is not where the HBM tier places extents: that
+    is the tier's own (``cuda:0`` unless
+    :meth:`.tiering.ExtentSpace.configure` names another)."""
 
     def __init__(self, *, max_workers: Optional[int] = None, device=None,
                  io_backend: Optional[str] = None):
@@ -1129,6 +1163,10 @@ class Session:
         # trace_policy is read here, once: event sites then cost one
         # `_trace.active` test when tracing is off
         _trace.configure()
+        # the tiers' capacities and the integrity mode are read here too:
+        # the hit and fill sites then cost one branch each when off
+        _tiers.configure()
+        _integrity.configure()
         self._pool = ThreadPoolExecutor(
             max_workers=max_workers or min(int(config.get("queue_depth")),
                                            32),
@@ -1183,6 +1221,9 @@ class Session:
         self._canary = threading.Thread(target=self._canary_loop,
                                         daemon=True, name="strom-canary")
         self._canary.start()
+        # the resident extents' scrubber: idles on one wait a tick while
+        # scrub_bytes_per_sec is 0 or the integrity domain is off
+        self._scrubber = Scrubber(self)
 
     # -- the engine ladder --------------------------------------------------
     def _open_engine(self, want: str):
@@ -1573,6 +1614,38 @@ class Session:
                 # before this task latched
                 _trace.dump_on_failure(f"task {task_id} errno {task.errno_}")
             raise StromError(task.errno_, task.errmsg or "async DMA failed")
+        if task.verify_reqs:
+            # the native engine read straight into the destination: its
+            # pages are checked here, on the retired task, off the
+            # submission path, with the pools' re-read-then-EBADMSG ladder
+            reqs, task.verify_reqs = task.verify_reqs, None
+            for r in reqs:
+                self._verify_request_checksums(task, task.verify_src, r,
+                                               task.verify_dest)
+        if task.cache_fill is not None:
+            # the misses fill the RAM tier here, once the fault ladder
+            # (retry, hedge, mirror, checksum re-read) healed their bytes,
+            # so a degraded member still fills it through its mirror; a
+            # latched failure raised above and fills nothing
+            skey, fills, fdest, lscale, src_ref = task.cache_fill
+            task.cache_fill = None
+            for base, length, doff in fills:
+                tf0 = time.monotonic_ns()
+                if _tiers.fault_fill(skey, base, length,
+                                     fdest[doff:doff + length],
+                                     logical_length=int(length * lscale),
+                                     source_ref=src_ref) \
+                        and _trace.active and task.trace_id:
+                    _trace.span("cache_fill", tf0, time.monotonic_ns(),
+                                tid=task.trace_id, offset=base,
+                                length=length)
+        if task.cache_invalidate is not None:
+            # the write path's invalidation again, after the write retired:
+            # a racing read may have filled a written extent from the
+            # bytes before the write
+            skey, extents = task.cache_invalidate
+            task.cache_invalidate = None
+            _tiers.invalidate_extents(skey, extents)
         if task.write_verify is not None:
             # write_verify: the retired write legs read back here, off the
             # submission path; a torn or misdirected write raises EBADMSG
@@ -1669,6 +1742,14 @@ class Session:
         tail-packed into *wb_buffer* from its offset 0 when one is given
         (the SSD2GPU contract, :1647-1663).
 
+        With a residency tier on, each chunk is first looked up in the
+        unified extent space (HBM, then RAM): a hit takes a lease, skips
+        arbitration and the lanes, and is copied out of its tier after the
+        write-back chunks, into the slots after theirs (``nr_ram2dev``
+        counts write-back chunks and hits).  A hit whose extent was
+        invalidated between the lookup and the copy is read buffered.
+        Each direct miss fills the RAM tier at wait time.
+
         The direct chunks are planned and submitted in slices
         (:func:`_window_chunks`), so the first slice's I/O is in flight
         while later slices are planned.  On the native engine each slice
@@ -1698,6 +1779,7 @@ class Session:
             _trace.instant("submit", tid=task.trace_id, ts_ns=t0,
                            length=n * chunk_size,
                            args={"task": task.task_id, "chunks": n})
+        cache_hits: List[tuple] = []   # (cid, base, length, lease, hbm)
         try:
             spans = []
             for cid in chunk_ids:
@@ -1705,7 +1787,40 @@ class Session:
                 if base >= source.size:
                     raise StromError(_errno.EINVAL, f"chunk {cid} beyond EOF")
                 spans.append((base, min(chunk_size, source.size - base)))
-            direct_ids, wb_ids = self._arbitrate(source, chunk_ids, spans)
+            # -- the residency tiers: one top-down lookup a chunk (HBM
+            #    outranks RAM); a hit holds a lease until it is served,
+            #    only the misses go on to arbitration and the lanes ------
+            skey = None
+            miss_ids, miss_spans = chunk_ids, spans
+            if _tiers.lookup_active:
+                skey = _tiers.source_key(source)
+                miss_ids, miss_spans = [], []
+                nr_hbm = 0
+                for cid, (base, length) in zip(chunk_ids, spans):
+                    hit = _tiers.lookup(skey, base, length)
+                    if hit is None:
+                        miss_ids.append(cid)
+                        miss_spans.append((base, length))
+                        continue
+                    lease, tname = hit
+                    nr_hbm += tname == "hbm"
+                    cache_hits.append((cid, base, length, lease,
+                                       tname == "hbm"))
+                if nr_hbm:
+                    stats.add("nr_hbm_hit", nr_hbm)
+                if len(cache_hits) > nr_hbm:
+                    stats.add("nr_cache_hit", len(cache_hits) - nr_hbm)
+                if cache_hits:
+                    stats.add("bytes_cache_hit",
+                              sum(h[2] for h in cache_hits))
+                if miss_ids:
+                    stats.add("nr_cache_miss", len(miss_ids))
+                if not _tiers.fill_active:
+                    skey = None      # no RAM tier: nothing fills at wait
+            hit_ids = [h[0] for h in cache_hits]
+            direct_ids, wb_ids = self._arbitrate(source, miss_ids,
+                                                 miss_spans) \
+                if miss_ids else ([], [])
             if len(getattr(source, "members", ())) > 1:
                 # a striped source becomes a canary target: its FAILED
                 # members are probed, its journal replayed
@@ -1740,6 +1855,7 @@ class Session:
                         if mir is not None and not health.routes_away(mir):
                             remap[m] = mir
             native_failed = False
+            verify = bool(config.get("checksum_verify"))
             for w in range(0, len(entries), window):
                 tp0 = time.monotonic_ns()
                 reqs = plan_requests(source, entries[w:w + window],
@@ -1765,6 +1881,11 @@ class Session:
                         stats.member_add(r.member, r.length,
                                          time.monotonic_ns() - tb)
                         stats.add("total_dma_length", r.length)
+                        if verify:
+                            # synchronous legs are checked here: only the
+                            # native batches reach the wait-time check
+                            self._verify_request_checksums(
+                                task, source, r, dest, buffered=True)
                         continue
                     m_eff = remap.get(r.member, r.member)
                     if m_eff != r.member:
@@ -1789,6 +1910,11 @@ class Session:
                 try:
                     self._submit_native(task, dest, native_reqs,
                                         native_members)
+                    if verify:
+                        if task.verify_reqs is None:
+                            task.verify_src, task.verify_dest = source, dest
+                            task.verify_reqs = []
+                        task.verify_reqs.extend(native_rs)
                 except StromError as e:
                     # a failed native submit degrades to the python pool
                     # for this batch and the rest of the task
@@ -1815,13 +1941,54 @@ class Session:
                     _trace.span("writeback", tw0, time.monotonic_ns(),
                                 tid=task.trace_id, offset=base,
                                 length=length)
+            # -- the hits, tail-packed after the write-back slots: a copy
+            #    out of the tier, no submission (a task wholly resident
+            #    submits nothing at all) ---------------------------------
+            first = len(direct_ids) + len(wb_ids)
+            j = 0
+            while cache_hits:
+                cid, base, length, lease, hbm = cache_hits.pop(0)
+                slot = first + j
+                j += 1
+                if wb_buffer is not None:
+                    target, off = wb_buffer, slot * chunk_size
+                else:
+                    target, off = dest, dest_offset + slot * chunk_size
+                th0 = time.monotonic_ns()
+                try:
+                    if not lease.copy_into(target[off:off + length]):
+                        # invalidated (or rotted) between the lookup and
+                        # the copy: the write that staled it wins, read
+                        # the bytes fresh
+                        source.read_buffered(base, target[off:off + length])
+                finally:
+                    lease.release()
+                if _trace.active and task.trace_id:
+                    _trace.span("cache_hit", th0, time.monotonic_ns(),
+                                tid=task.trace_id, offset=base,
+                                length=length,
+                                args=({"tier": "hbm"} if hbm else None))
+            # -- the misses to fill at wait time, once the fault ladder
+            #    healed them (direct chunks land in `dest` even when a
+            #    wb_buffer is given) -------------------------------------
+            if skey is not None and direct_ids:
+                fills = []
+                for i, cid in enumerate(direct_ids):
+                    base = cid * chunk_size
+                    fills.append((base, min(chunk_size, source.size - base),
+                                  dest_offset + i * chunk_size))
+                task.cache_fill = (skey, fills, dest,
+                                   getattr(source, "logical_scale", 1.0),
+                                   weakref.ref(source))
         except BaseException:
+            while cache_hits:        # leases not served yet: unpin them
+                cache_hits.pop()[3].release()
             self._abort_submit(task, buf_handle)
             raise
         return self._finish_submit(task, MemCopyResult(
             dma_task_id=task.task_id, nr_chunks=n,
-            nr_ssd2dev=len(direct_ids), nr_ram2dev=len(wb_ids),
-            chunk_ids=list(direct_ids) + wb_ids), buf_handle)
+            nr_ssd2dev=len(direct_ids), nr_ram2dev=n - len(direct_ids),
+            chunk_ids=list(direct_ids) + wb_ids + hit_ids), buf_handle)
 
     def _submit_native(self, task: _Task, buf: memoryview,
                        native_reqs: List[Tuple[int, int, int, int]],
@@ -1909,6 +2076,8 @@ class Session:
                     dest[r.dest_off:r.dest_off + r.length])
             else:
                 self._read_direct_resilient(task, source, r, dest)
+                if config.get("checksum_verify"):
+                    self._verify_request_checksums(task, source, r, dest)
         except BaseException as e:  # noqa: BLE001 - must latch, never DONE
             err = _as_strom(e) if isinstance(e, OSError) else \
                 StromError(_errno.EIO, f"{type(e).__name__}: {e}")
@@ -2190,6 +2359,81 @@ class Session:
         raise state["prim_err"] or StromError(
             task.errno_ or _errno.EIO, "hedged read abandoned")
 
+    def _verify_request_checksums(self, task: _Task, source: Source,
+                                  r: Request, dest: memoryview,
+                                  buffered: bool = False) -> None:
+        """Checksum-verify one planned request's landed bytes: a plain
+        request as one extent, a vectored one segment by segment (each a
+        file-contiguous piece from ``file_off`` on).  A bad page is read
+        again the way its bytes were served: a *buffered* leg from its
+        member's page cache, a direct one through the fault ladder, which
+        sends a member routed away to its mirror as the first read did
+        (a raw read of the routed-away member could fail where the mirror
+        heals, or return bytes its skipped writes left stale)."""
+        from .scan.heap import PAGE_SIZE as HEAP_PAGE
+        foff = r.file_off
+        for d, ln in (r.dest_segs or ((r.dest_off, r.length),)):
+            if foff % HEAP_PAGE == 0:
+                # an extent at an offset that is not page-aligned is
+                # skipped: its pages are not addressable (a buffered leg)
+                self._verify_extent(task, source, r.member, foff,
+                                    dest[d:d + ln], buffered)
+            foff += ln
+
+    def _verify_extent(self, task: _Task, source: Source, member: int,
+                       file_off: int, piece: memoryview,
+                       buffered: bool) -> None:
+        from .scan.heap import PAGE_SIZE as HEAP_PAGE
+
+        def reread(page: int, view: memoryview) -> None:
+            off = file_off + page * HEAP_PAGE
+            if buffered:
+                source.read_member_buffered(member, off, view)
+            else:
+                self._read_direct_resilient(
+                    task, source, Request(member, off, len(view), 0), view)
+
+        verify_and_reread(piece, reread,
+                          lambda page: file_off + page * HEAP_PAGE,
+                          trace_args={"member": member, "offset": file_off,
+                                      "length": len(piece)})
+
+    def _scrub_refill(self, source: Optional[Source], base: int,
+                      length: int) -> Optional[bytes]:
+        """The scrubber's heal: read one resident extent again from the
+        SSD through the ordinary submit path, so the whole fault ladder
+        heals it and the wait-time fill puts it back under its key (the
+        corrupt entry was dropped, so this read misses).  None when the
+        source is gone or the extent is off its chunk grid."""
+        if source is None:
+            return None
+        size = getattr(source, "size", 0)
+        # the chunk grid from (base, length): a whole chunk is its own
+        # power-of-two grid; a tail's is the least power of two that
+        # covers it and divides base
+        cs = length
+        if cs & (cs - 1):
+            cs = 1 << (length - 1).bit_length()
+        while cs < size and base % cs:
+            cs <<= 1
+        if cs <= 0 or base % cs or min(cs, size - base) != length:
+            return None
+        handle = buf = None
+        try:
+            handle, buf = self.alloc_dma_buffer(max(length, PAGE_SIZE))
+            res = self.memcpy_ssd2ram(source, handle, [base // cs], cs)
+            self.memcpy_wait(res.dma_task_id)
+            return bytes(buf.view()[:length])
+        except (StromError, OSError):
+            return None
+        finally:
+            if handle is not None:
+                try:
+                    self.unmap_buffer(handle)
+                    buf.close()
+                except StromError:  # pragma: no cover - a closing session
+                    pass
+
     def _await_native(self, task: _Task, eng, native_id: int,
                       write_ctx: Optional[tuple] = None) -> None:
         """Pool thread: wait for one native batch (outside the GIL, in
@@ -2340,6 +2584,15 @@ class Session:
         src = self._get_buffer(buf_handle, src_offset + n * chunk_size)
         task = self._create_task()
         try:
+            if _tiers.lookup_active:
+                # coherency: every tier drops the extents the write
+                # touches before any byte moves, and again at wait time
+                # (a racing read may fill one from the bytes before it)
+                wkey = _tiers.source_key(sink)
+                extents = [(cid * chunk_size, chunk_size)
+                           for cid in chunk_ids]
+                _tiers.invalidate_extents(wkey, extents)
+                task.cache_invalidate = (wkey, extents)
             reqs = plan_requests(sink, [(cid, i) for i, cid in
                                         enumerate(chunk_ids)],
                                  chunk_size, src_offset)
@@ -2719,6 +2972,7 @@ class Session:
         self._canary_stop.set()
         self._watchdog.join(timeout=2.0)
         self._canary.join(timeout=2.0)
+        self._scrubber.stop()
         self._pool.shutdown(wait=True)
         with self._lane_lock:
             pools, self._member_pools = self._member_pools, {}

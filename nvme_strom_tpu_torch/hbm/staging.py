@@ -27,6 +27,13 @@ tensor, and :func:`_write_slices`, in-place copies into a preallocated
 one.  Both run on a copy stream the caller owns and return a fence (a
 CUDA event; :data:`LANDED` for the CPU's synchronous copies) that guards
 the reuse of the host buffer.
+
+With config ``checksum_verify``, a slot's write-back tail (the chunks the
+engine copied from the page cache, and the residency tiers' hits) is
+checked here, after the wait and before its H2D copy is enqueued: the
+engine's own check covers only the chunks it read direct.  A bad page is
+re-read buffered up to ``checksum_retries`` times, then the load raises
+EBADMSG.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import torch
 from ..api import MemCopyResult, StromError
 from ..config import config
 from ..engine import Session, Source
+from ..integrity import verify_and_reread
 from ..log import pr_warn
 from ..stats import stats
 from ..trace import recorder as _tr
@@ -394,10 +402,20 @@ class StagingPipeline:
         out_ids: List[Optional[int]] = [None] * len(chunk_ids)
         nr_ssd = nr_ram = 0
 
+        verify = bool(config.get("checksum_verify"))
+
         def retire(slot) -> None:
             nonlocal nr_ssd, nr_ram
             bufidx, task_id, batch, start, nbytes, pos = slot
             res = self.session.memcpy_wait(task_id)
+            if verify and res.nr_ram2dev:
+                # the last check before the bytes reach the card: the
+                # engine verified its direct chunks at wait time, the
+                # write-back tail only gets this one
+                self._verify_staged(
+                    source, res.chunk_ids[res.nr_ssd2dev:], chunk_size,
+                    self._bufs[bufidx][1].view()[
+                        res.nr_ssd2dev * chunk_size:nbytes])
             out_ids[pos:pos + len(batch)] = batch
             nr_ssd += res.nr_ssd2dev
             nr_ram += res.nr_ram2dev
@@ -522,6 +540,20 @@ class StagingPipeline:
             tasks.clear()
             if first_err is not None:
                 raise first_err
+            if config.get("checksum_verify"):
+                # the write-back tail of each command, as the staged
+                # ring checks it (the engine checked the direct chunks)
+                view, region = landing.view(), 0
+                for _tid, res in waited:
+                    rlen = min(landing.nbytes - region,
+                               len(res.chunk_ids) * chunk_size)
+                    if res.nr_ram2dev:
+                        self._verify_staged(
+                            source, res.chunk_ids[res.nr_ssd2dev:],
+                            chunk_size,
+                            view[region + res.nr_ssd2dev * chunk_size:
+                                 region + rlen])
+                    region += rlen
             hbm.adopt(landing.adopt_tensor(device_dtype), landing)
             adopted = True
             if _tr.active:
@@ -546,6 +578,26 @@ class StagingPipeline:
                     pass
             if not adopted:
                 landing.release()
+
+    def _verify_staged(self, source: Source, chunk_ids: Sequence[int],
+                       chunk_size: int, view: memoryview) -> None:
+        """Check the heap-page crc32c of a landed slot region whose slot
+        *i* holds ``chunk_ids[i]`` (so a bad page maps back to its file
+        offset for the buffered re-read); past ``checksum_retries`` heals
+        EBADMSG (CORRUPTION) is raised, and the caller reaps what is in
+        flight, as for a direct read's corruption."""
+        from ..scan.heap import PAGE_SIZE
+        if chunk_size % PAGE_SIZE:
+            return          # pages straddle chunks: not addressable
+
+        def file_offset(page: int) -> int:
+            boff = page * PAGE_SIZE
+            return chunk_ids[boff // chunk_size] * chunk_size \
+                + boff % chunk_size
+
+        verify_and_reread(
+            view, lambda page, v: source.read_buffered(file_offset(page), v),
+            file_offset, where=" in staging ring")
 
     def drain(self) -> None:
         """Block until every slot's outstanding copy has completed."""

@@ -25,7 +25,9 @@ the port's own C implementation (``csrc/strom_crc32c.cc``: the SSE4.2
 instruction, or slicing-by-8), built by ``g++`` at first use and called
 through ctypes.  The byte-at-a-time loop the JAX package falls back to
 stays here as :func:`crc32c_update_py`, the plain version the C one is
-tested against.
+tested against.  :func:`verify_page_checksums` checks landed pages
+against their header word 7 with the same implementation (checksum verify
+on read, the engine's ``checksum_verify``).
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ __all__ = ["PAGE_SIZE", "HEAP_MAGIC", "HEADER_BYTES", "HEADER_WORDS",
            "page_checksums", "crc32c_rows", "pages_from_bytes",
            "read_column", "crc32c", "crc32c_update", "crc32c_impl",
            "crc32c_update_native", "crc32c_update_py",
-           "validate_heap_header"]
+           "validate_heap_header", "page_checksum",
+           "verify_page_checksums"]
 
 PAGE_SIZE = 8192                  # BLCKSZ, matching the reference
 HEADER_BYTES = 64
@@ -129,6 +132,10 @@ def _native_crc():
     fn.restype = ctypes.c_uint32
     lib.strom_crc32c_hw.argtypes = []
     lib.strom_crc32c_hw.restype = ctypes.c_int
+    lib.strom_crc32c_pages.argtypes = [ctypes.c_void_p, ctypes.c_size_t,
+                                       ctypes.c_size_t, ctypes.c_size_t,
+                                       ctypes.c_void_p, ctypes.c_int]
+    lib.strom_crc32c_pages.restype = None
     return lib
 
 
@@ -171,6 +178,45 @@ def crc32c(data) -> int:
     """crc32c of a whole buffer, the JAX package's ``scan.heap.crc32c``:
     the same polynomial, so a checksum verifies whichever computed it."""
     return crc32c_update(0, data)
+
+
+_ZERO_WORD = bytes(4)
+
+
+def page_checksum(page) -> int:
+    """crc32c of one page with its checksum word zeroed: what the page
+    builder stores there and :func:`verify_page_checksums` recomputes."""
+    arr = _u8(page)
+    if arr.size != PAGE_SIZE:
+        raise ValueError(f"page must be {PAGE_SIZE} bytes, got {arr.size}")
+    w = CHECKSUM_WORD * 4
+    crc = crc32c_update(0, arr[:w])
+    crc = crc32c_update(crc, _ZERO_WORD)
+    return crc32c_update(crc, arr[w + 4:])
+
+
+def verify_page_checksums(data) -> list:
+    """Indices of the whole heap pages in *data* (bytes-like or a uint8
+    array) whose stored crc32c mismatches.  A page without the heap magic,
+    or with a zero checksum word (a file built without checksums), is
+    skipped, so any chunk payload is safe to check; a trailing partial
+    page is ignored (the JAX package's ``verify_page_checksums``).  The
+    pages' crc32c comes from one call into the port's C library
+    (``strom_crc32c_pages``)."""
+    arr = _u8(data)
+    n = arr.size // PAGE_SIZE
+    if n == 0:
+        return []
+    whole = arr[:n * PAGE_SIZE]
+    words = whole.view("<u4").reshape(n, PAGE_SIZE // 4)
+    stored = words[:, CHECKSUM_WORD]
+    check = (words[:, 0] == HEAP_MAGIC) & (stored != 0)
+    if not check.any():
+        return []
+    crcs = np.empty(n, dtype=np.uint32)
+    _native_crc().strom_crc32c_pages(whole.ctypes.data, n, PAGE_SIZE,
+                                     CHECKSUM_WORD * 4, crcs.ctypes.data, 1)
+    return [int(p) for p in np.nonzero(check & (crcs != stored))[0]]
 
 
 # -- schema and layout --------------------------------------------------------

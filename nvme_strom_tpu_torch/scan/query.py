@@ -96,8 +96,14 @@ The SQL facade (:mod:`.sql`) builds on this class: its plain WHERE leaves
 become FilterPred terms, and the rest a ``where`` callable carrying its
 picklable predicate tree, which worker processes rebuild.
 
+With a residency tier on, the plan reports each tier's expected hit ratio
+for the table (``cache_hit_ratio`` for RAM, ``hbm_hit_ratio`` for HBM: the
+fraction of the table's bytes resident there), and the packed leg keys its
+extents apart from the heap's (``cache_key_extra``), so the two never
+alias in a tier.
+
 Left out against the JAX package: the mesh sort and partitioned join and
-the mesh index build, and the residency tiers' hit ratios in the plan.
+the mesh index build.
 """
 
 from __future__ import annotations
@@ -246,15 +252,30 @@ class QueryPlan:
     workers: int = 0       # worker processes (0 = one process)
     cost_direct: float = 0.0
     cost_vfs: float = 0.0
+    cache_hit_ratio: float = 0.0   # expected RAM-tier hit fraction
+    hbm_hit_ratio: float = 0.0     # expected HBM-tier hit fraction
 
     def __str__(self) -> str:
         pd = f", pushdown {self.pushdown}" if self.pushdown else ""
         par = f", workers={self.workers}" if self.workers else ""
+        cache = (f"  cache-resident: ~{self.cache_hit_ratio:.0%}"
+                 if self.cache_hit_ratio > 0 else "")
+        cache += (f"  hbm-resident: ~{self.hbm_hit_ratio:.0%}"
+                  if self.hbm_hit_ratio > 0 else "")
         return (f"{self.operator} scan  [{self.access_path} path, "
                 f"{self.kernel} route on {self.device}{pd}, {self.mode}"
                 f"{par}]\n  pages: {self.n_pages}  cost: direct="
-                f"{self.cost_direct:.0f} vfs={self.cost_vfs:.0f}\n"
+                f"{self.cost_direct:.0f} vfs={self.cost_vfs:.0f}{cache}\n"
                 f"  {self.reason}")
+
+
+def _tag_packed(src, meta) -> None:
+    """Key a packed sidecar's extents apart from the heap's in the
+    residency tiers: a representation tag and the encode's generation
+    (a re-encoded sidecar never aliases a stale extent), and the logical
+    bytes each packed byte serves, which the RAM tier credits."""
+    src.cache_key_extra = ("#repr=cpk", f"#gen={meta.table_mtime_ns}")
+    src.logical_scale = meta.logical_bytes / max(meta.packed_bytes, 1)
 
 
 def _host(t: torch.Tensor, dt: np.dtype) -> np.ndarray:
@@ -1271,6 +1292,36 @@ class Query:
         return "vfs", ("table below the direct-scan threshold (page cache "
                        "wins for small tables)")
 
+    def _residency(self, why: str):
+        """``(RAM-tier ratio, HBM-tier ratio, why)``: the fraction of the
+        table's bytes each tier holds (the expected hit ratio of a scan;
+        a Session looks in HBM first) and *why* with the reference's
+        suffixes (``scan/query.py:1610-1657``)."""
+        from ..tiering import extent_space
+        ratio = hbm_ratio = 0.0
+        path, size = self._source_facts()
+        if extent_space.lookup_active and size:
+            if isinstance(self.source, list):
+                paths = list(self.source)
+            elif isinstance(self.source, str):
+                paths = [self.source]
+            else:
+                members = getattr(self.source, "members", None)
+                paths = [m.path for m in members] if members \
+                    else ([path] if path else [])
+            fr = extent_space.resident_fraction(paths, size)
+            ratio, hbm_ratio = fr.get("ram", 0.0), fr.get("hbm", 0.0)
+        if hbm_ratio > 0:
+            why += (f"; hbm tier holds ~{hbm_ratio:.0%} of the table "
+                    f"(device hits, checked before the host tier)")
+        if ratio >= 1.0:
+            why += ("; fully cache-resident: served from the residency "
+                    "tier, engine submission skipped")
+        elif ratio > 0:
+            why += (f"; residency tier holds ~{ratio:.0%} of the table "
+                    f"(memcpy hits, no mincore probe)")
+        return round(ratio, 4), round(hbm_ratio, 4), why
+
     def _plan(self, dev: torch.device, kernel: str, mesh,
               workers: int) -> QueryPlan:
         from .planner import _parallel_divisor, cost_direct_scan, \
@@ -1283,11 +1334,13 @@ class Query:
         n_pages = self._source_facts()[1] // PAGE_SIZE
         access, access_why = self._scan_access()
         n_tuples = n_pages * self.schema.tuples_per_page
+        ratio, hbm_ratio, access_why = self._residency(access_why)
         costs = dict(mode=mode, workers=nw,
                      cost_direct=cost_direct_scan(n_pages, n_tuples,
                                                   workers=nw).total,
                      cost_vfs=cost_vfs_scan(n_pages, n_tuples,
-                                            workers=nw).total)
+                                            workers=nw).total,
+                     cache_hit_ratio=ratio, hbm_hit_ratio=hbm_ratio)
         cuda = dev.type == "cuda"
         why = self._invalid()
         if not why and mesh is not None:
@@ -1777,7 +1830,8 @@ class Query:
               combine: Optional[Callable] = None,
               path: Optional[str] = None) -> dict:
         """Fold *fn* over a scan of the table (or of *path*, a packed
-        sidecar) on *dev*: through the page cache when the run planned
+        sidecar's file or open Source) on *dev*: through the page cache
+        when the run planned
         ``vfs`` (:meth:`_vfs_scan`), else the direct scan through the
         run's session, on a worker's shared cursor when the scan is the
         table's; notes the H2D depth reached."""
@@ -1987,8 +2041,10 @@ class Query:
                           int(pages.shape[0] * PAGE_SIZE * saved))
                 return decode(pages)
 
-            return self._finalize(self._project(
-                self._scan(fn, dev, path=meta.path)))
+            with open_source(meta.path) as psrc:
+                _tag_packed(psrc, meta)
+                return self._finalize(self._project(
+                    self._scan(fn, dev, path=psrc)))
         if face == "cuda":
             from ..ops.filter_cuda import filter_pages_cuda
 
@@ -2002,6 +2058,7 @@ class Query:
         acc = None
         batch = (8 << 20) // PAGE_SIZE
         with open_source(meta.path) as src:
+            _tag_packed(src, meta)
             n_pages = src.size // PAGE_SIZE
             raw = bytearray(batch * PAGE_SIZE)
             for p0 in range(0, n_pages, batch):

@@ -38,7 +38,23 @@ package's registry uses for the same events:
   ``resync_pending_bytes`` (the dirty-extent journal),
   ``nr_write_verify_fail`` and ``bytes_verify_reread`` (``write_verify``);
 * ``nr_arb_blind`` — read tasks whose page-cache arbitration was skipped
-  because the filesystem's residency probe cannot see an eviction.
+  because the filesystem's residency probe cannot see an eviction;
+* checksum verify on read: ``nr_csum_fail`` (page checksum mismatches),
+  ``nr_csum_reread`` (pages re-read to heal one) and
+  ``bytes_verify_reread``;
+* the residency tiers (:data:`.api.RESIDENCY_COUNTERS`): ``nr_cache_hit``
+  / ``nr_hbm_hit`` (chunks served from the RAM / HBM tier),
+  ``bytes_cache_hit``, ``nr_cache_miss``, ``nr_cache_fill``,
+  ``nr_cache_evict``, ``nr_cache_invalidate``, ``nr_cache_mlock_fail``,
+  ``nr_hbm_promote`` / ``nr_hbm_demote``, the unified space's
+  ``nr_tier_hbm_promote``, ``nr_tier_hbm_demote``, ``nr_tier_ram_fault``,
+  ``nr_tier_ram_demote`` and ``nr_tier_ram_shed``, the integrity domain's
+  ``nr_integrity_verify`` / ``nr_integrity_fail``, the scrubber's
+  ``nr_scrub_extent``, ``bytes_scrubbed``, ``nr_scrub_repair`` and
+  ``nr_scrub_fail``, memlock pressure's ``nr_pressure_shed`` and
+  ``nr_pressure_passthrough``, and the gauges ``cache_resident_bytes``,
+  ``cache_unpinned_bytes`` and ``hbm_resident_bytes``
+  (:meth:`Stats.gauge_set`).
 
 Beside the counters: the resolved engine backend (:meth:`Stats.backend`),
 a log2-ns request-latency histogram (``LAT_HIST_BUCKETS`` buckets, fed by
@@ -122,6 +138,10 @@ class Stats:
     def add(self, name: str, delta: int = 1) -> None:
         with self._lock:
             self._c[name] = self._c.get(name, 0) + delta
+
+    def gauge_set(self, name: str, value: int) -> None:
+        with self._lock:
+            self._c[name] = int(value)
 
     def gauge_max(self, name: str, value: int) -> None:
         with self._lock:

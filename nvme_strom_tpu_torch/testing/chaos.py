@@ -14,16 +14,20 @@ the survival contract:
 
 Read scenarios: ``fail_stop`` (slow, hedged, then dead mid-task, traced),
 ``flaky`` (random transient EIO), ``slow_hedge`` (hedges beat a slow
-member), ``rejoin`` (fail-stop, then back through canary probes alone) and
-``native_degraded`` (the native lanes read a FAILED member's extents from
-its mirror's fd).  Write scenarios: ``write_failstop`` (mirror-only
+member), ``corrupt_once`` (a torn read caught by the page checksums and
+healed by a re-read), ``rejoin`` (fail-stop, then back through canary
+probes alone), ``native_degraded`` (the native lanes read a FAILED
+member's extents from its mirror's fd), ``cache_churn`` (the RAM tier far
+below the stream, filling and evicting while a member fail-stops and a
+write invalidates, traced) and ``scrub_heal`` (a byte flipped in a RAM
+slab, caught and healed by the scrubber).  Write scenarios: ``write_failstop`` (mirror-only
 writes, then the journal replayed before HEALTHY), ``write_enospc`` (the
 first ENOSPC latches, no retry), ``write_torn_mirror`` (a replica dies
 between the legs, healed under ``write_verify``) and ``ckpt_crash`` (a
 SIGKILL mid-save leaves the installed checkpoint whole).
 
-Not here yet: ``corrupt_once``, ``scrub_heal`` and ``cache_churn``, which
-need checksum verify and the residency tiers.
+Not here yet: ``scrub_heal``'s second phase (a KV spill block's rotten
+mirror leg healed at page-in), which needs the KV block pool.
 
 ``python -m nvme_strom_tpu_torch.testing.chaos [read|write|all]
 [-d DEVICE]``; the schedule is fixed by ``STROM_CHAOS_SEED`` (default
@@ -291,6 +295,47 @@ def scenario_slow_hedge(rng: random.Random, dirpath: str,
     return "slow"
 
 
+def scenario_corrupt_once(rng: random.Random, dirpath: str,
+                          device=None) -> str:
+    """A torn read (a bit flip that heals on a re-read): the page
+    checksums catch it and the re-read repairs it transparently."""
+    import numpy as np
+
+    from ..config import config
+    from ..engine import Session
+    from ..scan.heap import PAGE_SIZE, HeapSchema, build_heap_file
+    from .fake import FakeNvmeSource, FaultPlan
+
+    config.set("checksum_verify", True)
+    config.set("task_deadline_s", 30.0)
+    schema = HeapSchema(n_cols=2, visibility=False)
+    n = schema.tuples_per_page * 4
+    path = os.path.join(dirpath, f"co{rng.randrange(1 << 16)}.heap")
+    build_heap_file(path, [np.arange(n, dtype=np.int32),
+                           (n - np.arange(n)).astype(np.int32)], schema)
+    with open(path, "rb") as f:
+        data = f.read()
+    page = rng.randrange(len(data) // PAGE_SIZE)
+    plan = FaultPlan(corrupt_once_offsets={page * PAGE_SIZE
+                                           + rng.randrange(64, PAGE_SIZE)})
+    src = FakeNvmeSource(path, fault_plan=plan, force_cached_fraction=0.0)
+    rereads_before = _counter("nr_csum_reread")
+    try:
+        with Session() as sess:
+            handle, buf = sess.alloc_dma_buffer(len(data))
+            res = sess.memcpy_ssd2ram(src, handle,
+                                      list(range(len(data) // PAGE_SIZE)),
+                                      PAGE_SIZE)
+            sess.memcpy_wait(res.dma_task_id, timeout=30.0)
+            assert bytes(buf.view()[:len(data)]) == data, \
+                "corrupt_once: repaired copy diverged"
+    finally:
+        src.close()
+    assert _counter("nr_csum_reread") > rereads_before, \
+        "corrupt_once: the flip was never detected and re-read"
+    return "corrupt_once"
+
+
 def scenario_rejoin(rng: random.Random, dirpath: str, device=None) -> str:
     """Fail-stop, then recovery: the member walks healthy -> failed in
     the task, then, through canary probes alone, failed -> rejoining ->
@@ -377,6 +422,160 @@ def scenario_native_degraded(rng: random.Random, dirpath: str,
     assert _counter("nr_mirror_read") > mirrors_before, \
         "native_degraded: no request was remapped to the mirror fd"
     return "native_degraded"
+
+
+def _tiers_off(config) -> None:
+    """Turn the RAM tier off again and empty it (a scenario's cleanup)."""
+    from ..cache import residency_cache
+    config.set("cache_bytes", 0)
+    residency_cache.clear()
+    residency_cache.configure()
+
+
+def scenario_scrub_heal(rng: random.Random, dirpath: str,
+                        device=None) -> str:
+    """Seeded bit rot in a resident RAM slab: the background scrubber
+    detects it, drops the slab and fills it again from the SSD through
+    the fault ladder, and every read stays byte-identical.  (The JAX
+    package's second phase, a KV spill block whose primary leg rots on
+    disk, healed from the mirror at page-in, waits for the KV block
+    pool.)"""
+    from ..cache import residency_cache
+    from ..config import config
+    from ..engine import Session
+    from .fake import FakeStripedNvmeSource, flip_resident_host
+
+    config.set("io_retries", 2)
+    config.set("task_deadline_s", 30.0)
+    config.set("integrity", "always")
+    config.set("scrub_bytes_per_sec", 1 << 30)
+    config.set("cache_arbitration", False)
+    config.set("cache_bytes", 16 * CHUNK)   # the whole stream stays resident
+    config.set("dma_max_size", CHUNK)
+    residency_cache.clear()
+    paths = make_mirrored_members(dirpath, tag=f"sh{rng.randrange(1 << 16)}-")
+    src = FakeStripedNvmeSource(paths, stripe_chunk_size=STRIPE,
+                                force_cached_fraction=0.0, mirror="paired")
+    want = expected_mirrored_stream(paths)
+    fails0 = _counter("nr_integrity_fail")
+    repairs0 = _counter("nr_scrub_repair")
+    try:
+        with Session(device=device) as sess:
+            got, total = read_all(sess, src)
+            assert got == want[:total], "scrub_heal: clean pass diverged"
+            keys = residency_cache.scrub_keys()
+            assert keys, "scrub_heal: nothing resident to corrupt"
+            key = rng.choice(keys)
+            assert flip_resident_host(key[0], key[1], key[2],
+                                      pos=rng.randrange(key[2])), \
+                "scrub_heal: the resident flip missed"
+            deadline = time.monotonic() + 10.0
+            while time.monotonic() < deadline \
+                    and _counter("nr_scrub_repair") <= repairs0:
+                time.sleep(0.02)
+            assert _counter("nr_scrub_repair") > repairs0, \
+                "scrub_heal: the scrubber never repaired the flipped slab"
+            assert _counter("nr_integrity_fail") > fails0, \
+                "scrub_heal: the flip was never detected"
+            got, total = read_all(sess, src)
+            assert got == want[:total], \
+                "scrub_heal: the stream diverged after the heal"
+            assert_transitions_legal(sess, "scrub_heal")
+    finally:
+        src.close()
+        _tiers_off(config)
+    return "scrub_heal"
+
+
+def scenario_cache_churn(rng: random.Random, dirpath: str,
+                         device=None) -> str:
+    """The RAM tier far below the stream while a mirrored member
+    fail-stops mid-schedule and a write invalidates between passes: every
+    pass byte-identical to the healthy stream, and the trace dump
+    schema-valid with fill -> evict -> refill in causal order on at least
+    one extent."""
+    from ..cache import residency_cache
+    from ..config import config
+    from ..engine import Session, open_source
+    from ..trace import recorder, validate_chrome_trace
+    from .fake import FaultPlan
+
+    config.set("io_retries", 2)
+    config.set("task_deadline_s", 30.0)
+    config.set("cache_arbitration", False)
+    # 3 chunks of capacity under an 8-chunk stream: every pass churns the
+    # ARC lists end to end
+    config.set("cache_bytes", 3 * CHUNK)
+    config.set("dma_max_size", CHUNK)
+    config.set("trace_policy", "all")
+    recorder.configure()
+    recorder.clear()
+    residency_cache.clear()
+    victim = rng.choice([0, 2])
+    plan = FaultPlan(failstop_member=victim,
+                     failstop_after=rng.randrange(4, 12))
+    paths = make_mirrored_members(dirpath, tag=f"cc{rng.randrange(1 << 16)}-")
+    src = _paired_fake(paths, plan)
+    fills0, evicts0 = _counter("nr_cache_fill"), _counter("nr_cache_evict")
+    inval0 = _counter("nr_cache_invalidate")
+    want = expected_mirrored_stream(paths)
+    try:
+        with Session(device=device) as sess:
+            for rnd in range(3):
+                got, total = read_all(sess, src)
+                assert got == want[:total], \
+                    f"cache_churn: pass {rnd} diverged from the healthy " \
+                    f"stream"
+                if rnd == 1:
+                    # the same bytes written through another framing of a
+                    # shared member file: the stream is unchanged, but
+                    # the tier must drop the extents over that file
+                    wpath = paths[victim + 1]      # the surviving mirror
+                    with open(wpath, "rb") as f:
+                        head = f.read(CHUNK)
+                    handle, buf = sess.alloc_dma_buffer(CHUNK)
+                    try:
+                        buf.view()[:CHUNK] = head
+                        with open_source(wpath, writable=True) as sink:
+                            res = sess.memcpy_ram2ssd(sink, handle, [0],
+                                                      CHUNK)
+                            sess.memcpy_wait(res.dma_task_id)
+                            sink.sync()
+                    finally:
+                        sess.unmap_buffer(handle)
+    finally:
+        src.close()
+        doc = recorder.chrome_trace("chaos cache_churn")
+        dump_path = recorder.dump(os.path.join(dirpath, "cache_churn.json"),
+                                  reason="chaos cache_churn")
+        config.set("trace_policy", "off")
+        recorder.configure()
+        recorder.clear()
+        _tiers_off(config)
+    assert _counter("nr_cache_fill") > fills0, "cache_churn: no fills"
+    assert _counter("nr_cache_evict") > evicts0, "cache_churn: no evictions"
+    assert _counter("nr_cache_invalidate") > inval0, \
+        "cache_churn: the write dropped nothing"
+    errs = validate_chrome_trace(doc)
+    assert not errs, \
+        f"cache_churn: the trace dump fails its schema check: {errs[:5]}"
+    by_off: dict = {}
+    for ev in doc["traceEvents"]:
+        nm = ev.get("name")
+        if nm in ("cache_fill", "cache_evict"):
+            off = ev.get("args", {}).get("offset")
+            if off is not None:
+                by_off.setdefault(off, []).append((ev["ts"], nm))
+    cycled = 0
+    for evs in by_off.values():
+        names = [nm for _, nm in sorted(evs)]
+        if any(names[i:i + 3] == ["cache_fill", "cache_evict", "cache_fill"]
+               for i in range(len(names) - 2)):
+            cycled += 1
+    assert cycled > 0, \
+        f"cache_churn: no extent shows fill->evict->refill (dump: " \
+        f"{dump_path})"
+    return "cache_churn"
 
 
 # ---------------------------------------------------------------------------
@@ -607,7 +806,9 @@ def scenario_ckpt_crash(rng: random.Random, dirpath: str,
 
 
 SCENARIOS = (scenario_fail_stop, scenario_flaky, scenario_slow_hedge,
-             scenario_rejoin, scenario_native_degraded)
+             scenario_corrupt_once, scenario_rejoin,
+             scenario_native_degraded, scenario_cache_churn,
+             scenario_scrub_heal)
 
 SCENARIOS_WRITE = (scenario_write_failstop, scenario_write_enospc,
                    scenario_write_torn_mirror, scenario_ckpt_crash)

@@ -10,10 +10,10 @@
   striped (optionally paired) member set, whose read and write legs
   consult a plan.  Overriding the legs routes every request down the
   engine's python pools, where the fault ladder runs;
-* :class:`backend_fault` — a device-backend failure at the bounded fence.
-
-Not here yet: the plan's ``corrupt_member_offsets`` tier and the resident
-bit flips, which need the integrity domain and the residency tiers.
+* :class:`backend_fault` — a device-backend failure at the bounded fence;
+* :func:`flip_resident_host` / :func:`flip_resident_hbm` — bit rot seeded
+  in a RAM-tier slab or an HBM-tier tensor, and :func:`reset_residency`,
+  which empties both tiers between tests.
 """
 
 from __future__ import annotations
@@ -32,7 +32,8 @@ from ..api import ErrorClass, StromError
 from ..engine import PlainSource, Source, StripedSource
 
 __all__ = ["make_test_file", "expected_bytes", "FaultPlan", "FakeNvmeSource",
-           "FakeStripedNvmeSource", "backend_fault"]
+           "FakeStripedNvmeSource", "backend_fault", "flip_resident_host",
+           "flip_resident_hbm", "reset_residency"]
 
 
 def _seed_hash(seed: int) -> np.uint64:
@@ -94,6 +95,13 @@ class FaultPlan:
       flipped on disk after the covering write lands (once each), for the
       ``write_verify`` read-back;
     * ``slow_write_member`` + ``slow_write_s``.
+
+    The resident-corruption tier: ``corrupt_member_offsets`` —
+    ``{member: {offsets}}``, one byte at each listed offset of that
+    member's file flipped on disk after the covering write lands (once
+    each), so one leg of a mirrored pair rots and its partner stays
+    clean.  Rot in a RAM slab or an HBM extent has no disk form: seed it
+    with :func:`flip_resident_host` / :func:`flip_resident_hbm`.
     """
 
     fail_offsets: Set[int] = field(default_factory=set)
@@ -115,6 +123,7 @@ class FaultPlan:
     write_failstop_after: int = 0
     write_rejoin_after: Optional[int] = None
     torn_write_offsets: Set[int] = field(default_factory=set)
+    corrupt_member_offsets: dict = field(default_factory=dict)
     slow_write_member: Optional[int] = None
     slow_write_s: float = 0.0
     _count: int = 0
@@ -171,6 +180,17 @@ class FaultPlan:
             self.torn_write_offsets.discard(off)
         return hit
 
+    def take_member_corrupt(self, member: Optional[int], file_off: int,
+                            length: int) -> list:
+        """Pop *member*'s rot offsets a landed write covers."""
+        offs = self.corrupt_member_offsets.get(member)
+        if not offs:
+            return []
+        hit = [off for off in offs if file_off <= off < file_off + length]
+        for off in hit:
+            offs.discard(off)
+        return hit
+
     def check(self, file_off: int, length: int,
               member: Optional[int] = None) -> None:
         """The direct read leg's gate."""
@@ -218,10 +238,12 @@ class FaultPlan:
 
 
 def _tear_landed(member_obj, plan: FaultPlan, file_off: int,
-                 length: int) -> None:
-    """Flip each torn offset a write just landed, on disk through the
-    member's buffered fd, and fsync: an O_DIRECT read-back sees it."""
-    hit = plan.take_torn(file_off, length)
+                 length: int, member: Optional[int] = None) -> None:
+    """Flip each torn offset a write just landed, and each of *member*'s
+    rot offsets, on disk through the member's buffered fd, and fsync: an
+    O_DIRECT read-back sees them."""
+    hit = plan.take_torn(file_off, length) \
+        + plan.take_member_corrupt(member, file_off, length)
     if not hit:
         return
     fd = member_obj.fd_buffered
@@ -259,14 +281,14 @@ class _FaultLegs:
         self.fault_plan.check_write(file_off, len(src), member=member)
         super().write_member_direct(member, file_off, src)
         _tear_landed(self._member_obj(member), self.fault_plan, file_off,
-                     len(src))
+                     len(src), member)
 
     def write_member_buffered(self, member: int, file_off: int,
                               src: memoryview) -> None:
         self.fault_plan.check_write(file_off, len(src), member=member)
         super().write_member_buffered(member, file_off, src)
         _tear_landed(self._member_obj(member), self.fault_plan, file_off,
-                     len(src))
+                     len(src), member)
 
     def cached_fraction(self, offset: int, length: int) -> float:
         if self.force_cached_fraction is not None:
@@ -319,6 +341,34 @@ class FakeStripedNvmeSource(_FaultLegs, StripedSource):
 
     def _member_obj(self, member: int):
         return self.members[member]
+
+
+def flip_resident_host(skey, base: int, length: int, pos: int = 0) -> bool:
+    """Flip one byte of a resident RAM-tier slab in place; False when the
+    extent is not resident."""
+    from ..cache import residency_cache
+    return residency_cache._flip_resident_byte(skey, base, length, pos)
+
+
+def flip_resident_hbm(skey, base: int, length: int, pos: int = 0) -> bool:
+    """Flip one byte of a resident HBM-tier extent on its device; False
+    when the extent is not resident."""
+    from ..serving.hbm_tier import hbm_tier
+    return hbm_tier._flip_resident_byte(skey, base, length, pos)
+
+
+def reset_residency(device="cpu") -> None:
+    """Empty both residency tiers, then re-read their capacities and the
+    integrity mode from config, the HBM tier placing on *device*: a
+    test's isolation (the tiers and the domain are process-wide)."""
+    from ..cache import residency_cache
+    from ..integrity import domain
+    from ..serving.hbm_tier import hbm_tier
+    from ..tiering import extent_space
+    residency_cache.clear()
+    hbm_tier.clear()
+    extent_space.configure(device=device)
+    domain.configure()
 
 
 class backend_fault:

@@ -88,7 +88,8 @@ def run_load(path: Union[str, Sequence[str], Source], *, device=None,
              chunk: int = 1 << 20, loops: int = 1, drop_cache: bool = True,
              backend: Optional[str] = None, stripe_chunk: int = 512 << 10,
              mirror: Optional[str] = None,
-             session: Optional[Session] = None) -> dict:
+             session: Optional[Session] = None,
+             warmup: bool = True) -> dict:
     """Load the whole chunks of *path* (a file, a list of files read as
     one striped set of *stripe_chunk* chunks, *mirror* ``none`` or
     ``paired``, default config ``mirror``, or an open Source, read as it
@@ -96,7 +97,9 @@ def run_load(path: Union[str, Sequence[str], Source], *, device=None,
     tensor on *device* (default ``cuda:0``) through the staging pipeline,
     on the engine *backend* (default config ``io_backend``), or in
     *session*, an open Session of the caller's (its engine and member
-    health).
+    health).  A warm-up load of the first staged batch precedes the timed
+    loops unless *warmup* is off (with a residency tier on, the warm-up
+    would fill and touch the first chunks before the timed load).
 
     Returns ``{"tensor", "nbytes", "seconds" (best loop), "result" (last
     MemCopyResult: slot *i* of the tensor holds its ``chunk_ids[i]``),
@@ -129,9 +132,11 @@ def run_load(path: Union[str, Sequence[str], Source], *, device=None,
                                  staging_bytes=segment_size) as pipe:
                 # warm-up: one full staged batch creates the copy stream
                 # and first-touches the device path, outside the timing
-                warm = min(segment_size // chunk, n_chunks)
-                pipe.memcpy_ssd2dev(src, handle, list(range(warm)), chunk)
-                pipe.drain()
+                if warmup:
+                    warm = min(segment_size // chunk, n_chunks)
+                    pipe.memcpy_ssd2dev(src, handle, list(range(warm)),
+                                        chunk)
+                    pipe.drain()
                 fixed = sum(sess.is_fixed(buf) for _, buf in pipe._bufs)
                 before = sess.stat_info()
                 best = None

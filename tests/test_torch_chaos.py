@@ -23,7 +23,7 @@ from nvme_strom_tpu_torch.config import config as tcfg
 from nvme_strom_tpu_torch.fault import ALLOWED_TRANSITIONS, HealthState
 from nvme_strom_tpu_torch.stats import stats as tstats
 from nvme_strom_tpu_torch.stripe import StripeMap
-from nvme_strom_tpu_torch.testing import chaos
+from nvme_strom_tpu_torch.testing import chaos, reset_residency
 from nvme_strom_tpu_torch.testing.chaos import (STRIPE,
                                                 assert_transitions_legal,
                                                 expected_mirrored_stream,
@@ -43,10 +43,12 @@ PKG = pytest.mark.parametrize("pkg", ["jax", "torch"])
 @pytest.fixture(autouse=True)
 def _port_config():
     snap = tcfg.snapshot()
+    reset_residency()
     for cfg in (jcfg, tcfg):
         cfg.set("retry_backoff_ms", 0.0)
     yield
     tcfg.restore(snap)
+    reset_residency()
 
 
 def _delta(before, after, name):
@@ -254,11 +256,41 @@ def test_flaky_mirrored_round_heals(tmp_path):
     chaos.scenario_slow_hedge, chaos.scenario_rejoin,
     chaos.scenario_native_degraded, chaos.scenario_write_failstop,
     chaos.scenario_write_enospc, chaos.scenario_write_torn_mirror,
-    chaos.scenario_ckpt_crash], ids=lambda f: f.__name__[9:])
+    chaos.scenario_ckpt_crash, chaos.scenario_corrupt_once,
+    chaos.scenario_cache_churn, chaos.scenario_scrub_heal],
+    ids=lambda f: f.__name__[9:])
 def test_chaos_scenario(scenario):
     tally = chaos.run_all(1234, scenarios=(scenario,), verbose=False,
                           device="cpu")
     assert sum(tally.values()) == 1 and "native_skipped" not in tally
+
+
+def test_chaos_corrupt_once_matches_reference(tmp_path):
+    """The same seeded torn read through both packages' scenario: the
+    same page re-read, the same tag."""
+    from nvme_strom_tpu.testing import chaos as jchaos
+    out = {}
+    for name, mod, counters, cfg in (
+            ("jax", jchaos, PKGS["jax"].counters, jcfg),
+            ("torch", chaos, PKGS["torch"].counters, tcfg)):
+        snap = cfg.snapshot()
+        before = counters()
+        d = tmp_path / name
+        d.mkdir()
+        try:
+            tag = mod.scenario_corrupt_once(random.Random(7), str(d))
+        finally:
+            cfg.restore(snap)
+        out[name] = (tag, {k: _delta(before, counters(), k)
+                           for k in ("nr_csum_fail", "nr_csum_reread")})
+    assert out["torch"] == out["jax"]
+    assert out["torch"][1]["nr_csum_reread"] == 1
+
+
+def test_read_scenarios_follow_the_reference_order():
+    from nvme_strom_tpu.testing import chaos as jchaos
+    assert [f.__name__ for f in chaos.SCENARIOS] == \
+        [f.__name__ for f in jchaos.SCENARIOS]
 
 
 def test_chaos_main_rejects_an_unknown_set(capsys):

@@ -117,3 +117,122 @@ def test_meta_roundtrip_and_freshness(tmp_path):
     st = os.stat(path)
     os.utime(path, ns=(st.st_atime_ns, st.st_mtime_ns + 1))
     assert tcp.probe_packed(path) is None
+
+
+# ---------------------------------------------------------------------------
+# packed extents in the residency tiers (the counterparts of
+# test_pushdown.py's residency tests)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture()
+def _tiers_reset():
+    from nvme_strom_tpu.cache import residency_cache as jrc
+    from nvme_strom_tpu.config import config as jcfg
+    from nvme_strom_tpu_torch.testing import reset_residency
+    snap, jsnap = config.snapshot(), jcfg.snapshot()
+    reset_residency()
+    yield
+    config.restore(snap)
+    jcfg.restore(jsnap)
+    jrc.clear()
+    jrc.configure()
+    reset_residency()
+
+
+def _mixed(dirpath, n):
+    rng = np.random.default_rng(3)
+    cols = [(np.arange(n) % 16).astype(np.int32),
+            np.repeat(np.arange((n + 511) // 512, dtype=np.int32) % 6,
+                      512)[:n],
+            rng.integers(0, 50, n).astype(np.int32)]
+    schema = HeapSchema(3, dtypes=("i4",) * 3)
+    path = os.path.join(dirpath, "t.tbl")
+    build_heap_file(path, cols, schema)
+    return path, cols
+
+
+def _packed_churn(pkg, path, cols):
+    """The reference's churn-then-recover pass through package *pkg*:
+    ``(results, evictions in churn, hits on the resident pass, resident
+    bytes, logical resident bytes)``."""
+    if pkg == "torch":
+        from nvme_strom_tpu_torch.cache import residency_cache as rc
+        from nvme_strom_tpu_torch.config import config as cfg
+        from nvme_strom_tpu_torch.scan.query import Query
+        from nvme_strom_tpu_torch.stats import stats
+        schema, run = HeapSchema(3, dtypes=("i4",) * 3), {"device": "cpu"}
+        counters = stats.snapshot
+        meta = tcp.build_packed(path, schema)
+    else:
+        from nvme_strom_tpu.cache import residency_cache as rc
+        from nvme_strom_tpu.config import config as cfg
+        from nvme_strom_tpu.scan.query import Query
+        from nvme_strom_tpu.stats import stats
+        schema, run = JSchema(3, dtypes=("i4",) * 3), {}
+
+        def counters():
+            return dict(stats.snapshot(reset_max=False).counters)
+        meta = jcp.build_packed(path, schema)
+    q = Query(path, schema).where(lambda c: c[0] > 7).aggregate([1, 2])
+    for k, v in (("pushdown", "on"), ("chunk_size", 64 << 10),
+                 ("cache_arbitration", False), ("debug_no_threshold", True),
+                 ("cache_bytes", 2 * (64 << 10))):
+        cfg.set(k, v)
+    rc.configure()
+    rc.clear()
+    results, b = [], counters()
+    for _ in range(2):
+        out = q.run(**run)
+        results.append((int(out["count"]), int(out["sums"][0]),
+                        int(out["sums"][1])))
+    evicted = counters().get("nr_cache_evict", 0) - b.get("nr_cache_evict", 0)
+    cfg.set("cache_bytes", 2 * meta.packed_bytes + (1 << 20))
+    rc.configure()
+    q.run(**run)
+    b = counters()
+    out = q.run(**run)
+    results.append((int(out["count"]), int(out["sums"][0]),
+                    int(out["sums"][1])))
+    hits = counters().get("nr_cache_hit", 0) - b.get("nr_cache_hit", 0)
+    return (results, evicted > 0, hits, rc.resident_bytes(),
+            rc.logical_resident_bytes(), q.explain(**run).pushdown)
+
+
+def test_packed_cache_hit_after_eviction_churn(tmp_path, _tiers_reset):
+    """Packed extents are cached under a representation-tagged key: churn
+    evicts them, a rescan fills them again and the next pass hits, with
+    the tier crediting the logical bytes they serve."""
+    path, cols = _mixed(str(tmp_path), 200_000)
+    mask = cols[0] > 7
+    want = (int(mask.sum()), int(cols[1][mask].sum()),
+            int(cols[2][mask].sum()))
+    ref = _packed_churn("jax", path, cols)
+    mine = _packed_churn("torch", path, cols)
+    results, churned, hits, res, lres, pd = mine
+    assert results == [want] * 3
+    assert churned and hits > 0
+    assert lres > res > 0
+    assert (results, churned, hits, res, lres, pd) == ref
+
+
+def test_packed_and_heap_cache_keys_disjoint(tmp_path):
+    """The representation tag keeps a table's packed and heap extents
+    apart in the tiers, under the reference's key."""
+    from nvme_strom_tpu.engine import open_source as jopen
+    from nvme_strom_tpu.tiering import source_key as jkey
+    from nvme_strom_tpu_torch.engine import open_source
+    from nvme_strom_tpu_torch.scan.query import _tag_packed
+    from nvme_strom_tpu_torch.tiering import source_key
+    path, _ = _mixed(str(tmp_path), 20_000)
+    meta = tcp.build_packed(path, HeapSchema(3, dtypes=("i4",) * 3))
+    with open_source(path) as heap_src, jopen(path) as jheap:
+        hk = source_key(heap_src)
+        assert hk == jkey(jheap)
+    with open_source(tcp.packed_path_for(path)) as pk_src, \
+            jopen(tcp.packed_path_for(path)) as jpk:
+        _tag_packed(pk_src, meta)
+        jpk.cache_key_extra = ("#repr=cpk", f"#gen={meta.table_mtime_ns}")
+        pk = source_key(pk_src)
+        assert pk == jkey(jpk)
+        assert pk_src.logical_scale == meta.logical_bytes / meta.packed_bytes
+    assert hk != pk and "#repr=cpk" in pk

@@ -500,3 +500,337 @@ def test_randomized_fault_plans_short(monkeypatch):
     from nvme_strom_tpu_torch.testing import stress_faults
     monkeypatch.setenv("STROM_STRESS_ROUNDS", "6")
     assert stress_faults.main() == 0
+
+
+# ---------------------------------------------------------------------------
+# checksum verify on read (the counterparts of test_faults.py's checksum
+# tests and test_saturation.py's zero-copy one)
+# ---------------------------------------------------------------------------
+
+def _heap_file(tmp_path, name="csum.heap", n_pages=4):
+    """A checksummed 4-page heap table: ``(path, bytes)``."""
+    import numpy as np
+
+    from nvme_strom_tpu_torch.scan.heap import HeapSchema, build_heap_file
+    schema = HeapSchema(n_cols=2, visibility=False)
+    n = schema.tuples_per_page * n_pages
+    path = str(tmp_path / name)
+    build_heap_file(path, [np.arange(n, dtype=np.int32),
+                           (n - np.arange(n)).astype(np.int32)], schema)
+    with open(path, "rb") as f:
+        return path, f.read()
+
+
+def _flip_on_disk(path, off):
+    with open(path, "r+b") as f:
+        f.seek(off)
+        b = f.read(1)
+        f.seek(off)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+_CSUM = ("nr_csum_fail", "nr_csum_reread", "bytes_verify_reread")
+
+
+def _csum_copy(p, path, nbytes, plan):
+    """Every 8 KiB page of *path* through a fake under *plan*: ``(bytes
+    or None, errno, error class, checksum counters' moves)``."""
+    src = p.fake.FakeNvmeSource(path, fault_plan=p.fake.FaultPlan(**plan),
+                                force_cached_fraction=0.0)
+    before = p.counters()
+    got = err = cls = None
+    try:
+        with p.eng.Session() as sess:
+            handle, buf = sess.alloc_dma_buffer(nbytes)
+            res = sess.memcpy_ssd2ram(src, handle,
+                                      list(range(nbytes // 8192)), 8192)
+            try:
+                sess.memcpy_wait(res.dma_task_id, timeout=30.0)
+                got = bytes(buf.view()[:nbytes])
+            except p.api.StromError as e:
+                err, cls = e.errno, e.error_class.value
+    finally:
+        src.close()
+    return got, err, cls, {k: _delta(before, p.counters(), k) for k in _CSUM}
+
+
+@pytest.mark.parametrize("verify,plan", [
+    (True, {"corrupt_once_offsets": {8192 + 200}}),
+    (True, {"corrupt_offsets": {2 * 8192 + 300}}),
+    (False, {"corrupt_offsets": {2 * 8192 + 300}}),
+], ids=["once_heals", "persistent_latches", "off_passes"])
+def test_checksum_verify_on_the_pools_matches_reference(tmp_path, verify,
+                                                        plan):
+    """A torn read heals by a re-read; a persistent flip latches EBADMSG
+    (CORRUPTION) after ``checksum_retries``; with the verify off the flip
+    sails through: the same bytes, errno and counter moves as the JAX
+    package."""
+    path, data = _heap_file(tmp_path)
+    _both(checksum_verify=verify, checksum_retries=2)
+    out = {name: _csum_copy(p, path, len(data),
+                            {k: set(v) for k, v in plan.items()})
+           for name, p in PKGS.items()}
+    assert out["torch"] == out["jax"]
+    got, err, cls, moved = out["torch"]
+    if "corrupt_once_offsets" in plan:
+        assert got == data and err is None
+        assert moved["nr_csum_fail"] == 1 and moved["nr_csum_reread"] == 1
+        assert moved["bytes_verify_reread"] == 8192
+    elif verify:
+        assert got is None and err == errno.EBADMSG and cls == "corruption"
+        assert moved["nr_csum_fail"] == 3 and moved["nr_csum_reread"] == 2
+    else:
+        assert got != data and len(got) == len(data)
+        assert not any(moved.values())
+
+
+def _staging_verify(p, path, nbytes):
+    if p is PKGS["torch"]:
+        from nvme_strom_tpu_torch.hbm import HbmRegistry, StagingPipeline
+        kw = {"device": "cpu"}
+    else:
+        from nvme_strom_tpu.hbm import HbmRegistry, StagingPipeline
+        kw = {}
+    src = p.fake.FakeNvmeSource(path, force_cached_fraction=1.0)
+    reg = HbmRegistry()
+    before = p.counters()
+    try:
+        with p.eng.Session() as sess:
+            h = reg.map_device_memory(nbytes, **kw)
+            try:
+                with StagingPipeline(sess, staging_bytes=2 * 8192,
+                                     hbm_registry=reg) as pipe:
+                    try:
+                        pipe.memcpy_ssd2dev(src, h,
+                                            list(range(nbytes // 8192)),
+                                            8192)
+                        err = cls = None
+                    except p.api.StromError as e:
+                        err, cls = e.errno, e.error_class.value
+            finally:
+                reg.unmap(h)
+    finally:
+        src.close()
+    return err, cls, {k: _delta(before, p.counters(), k) for k in _CSUM}
+
+
+def test_staging_ring_verify_catches_writeback_corruption(tmp_path):
+    """A flip on disk riding the write-back (page-cache) leg skips the
+    engine's direct-read check; the staging ring's check, the last one
+    before the card, latches EBADMSG."""
+    path, data = _heap_file(tmp_path)
+    _flip_on_disk(path, 8192 + 500)
+    _both(checksum_verify=True, checksum_retries=1)
+    out = {name: _staging_verify(p, path, len(data))
+           for name, p in PKGS.items()}
+    assert out["torch"] == out["jax"]
+    err, cls, moved = out["torch"]
+    assert err == errno.EBADMSG and cls == "corruption"
+    assert moved["nr_csum_reread"] == 1 and moved["nr_csum_fail"] == 2
+
+
+def test_staging_ring_verify_heals_a_torn_writeback_read(tmp_path):
+    """A write-back chunk torn once is re-read buffered by the ring's
+    check and lands whole on the destination."""
+    import torch
+
+    from nvme_strom_tpu_torch.hbm import HbmRegistry, StagingPipeline
+    path, data = _heap_file(tmp_path)
+    tcfg.set("checksum_verify", True)
+
+    class _TornOnce(tfake.FakeNvmeSource):
+        torn = False
+
+        def read_buffered(self, offset, dest):
+            super().read_buffered(offset, dest)
+            if not self.torn and offset <= 3 * 8192 + 7 < offset + len(dest):
+                dest[3 * 8192 + 7 - offset] ^= 0xFF
+                type(self).torn = True
+
+    src = _TornOnce(path, force_cached_fraction=1.0)
+    reg = HbmRegistry()
+    before = tstats.snapshot()
+    with teng.Session() as sess:
+        h = reg.map_device_memory(len(data), device="cpu")
+        with StagingPipeline(sess, staging_bytes=2 * 8192,
+                             hbm_registry=reg) as pipe:
+            pipe.memcpy_ssd2dev(src, h, list(range(len(data) // 8192)), 8192)
+        got = bytes(reg.get(h).tensor.numpy())
+        reg.unmap(h)
+    src.close()
+    assert got == data
+    assert _delta(before, tstats.snapshot(), "nr_csum_reread") == 1
+    assert torch.equal(torch.frombuffer(bytearray(got), dtype=torch.uint8),
+                       torch.frombuffer(bytearray(data), dtype=torch.uint8))
+
+
+def _native_zero_copy(p, path, nbytes):
+    p.cfg.set("cache_arbitration", False)
+    src = p.eng.PlainSource(path)
+    calls = []
+    orig = src.read_member_direct
+
+    def traced(member, file_off, buf):
+        calls.append((member, file_off, len(buf)))
+        return orig(member, file_off, buf)
+
+    # an instance attribute: the type's leg is unchanged, so the native
+    # path stays open, and the wait-time re-reads go through the trace
+    src.read_member_direct = traced
+    before = p.counters()
+    try:
+        with p.eng.Session() as sess:
+            if sess._native is None:
+                return None
+            handle, _ = sess.alloc_dma_buffer(nbytes)
+            res = sess.memcpy_ssd2ram(src, handle,
+                                      list(range(nbytes // 8192)), 8192)
+            try:
+                sess.memcpy_wait(res.dma_task_id, timeout=30.0)
+                err = cls = None
+            except p.api.StromError as e:
+                err, cls = e.errno, e.error_class.value
+    finally:
+        src.close()
+    return err, cls, {k: _delta(before, p.counters(), k) for k in _CSUM}, \
+        calls
+
+
+def test_native_zero_copy_checksum_latches_ebadmsg(tmp_path):
+    """A mismatch on a natively landed batch walks the ladder at wait
+    time, on the retired task: re-read up to ``checksum_retries``, then
+    EBADMSG.  Only the heal re-reads go through the Python read leg."""
+    path, data = _heap_file(tmp_path)
+    _flip_on_disk(path, 2 * 8192 + 300)
+    _both(checksum_verify=True, checksum_retries=2)
+    mine = _native_zero_copy(PKGS["torch"], path, len(data))
+    if mine is None:
+        pytest.skip("the port's Session came up without the native engine")
+    err, cls, moved, calls = mine
+    assert err == errno.EBADMSG and cls == "corruption"
+    assert moved["nr_csum_fail"] == 3 and moved["nr_csum_reread"] == 2
+    assert calls == [(0, 2 * 8192, 8192)] * 2
+    ref = _native_zero_copy(PKGS["jax"], path, len(data))
+    if ref is not None:
+        assert ref == mine
+
+
+def test_native_sync_legs_verify_at_submit(tmp_path):
+    """A misaligned tail read buffered beside a native batch is checked
+    at submit (it never reaches the wait-time check): a page of it that
+    stays corrupt latches EBADMSG there."""
+    path, data = _heap_file(tmp_path, n_pages=5)
+    with open(path, "ab") as f:      # 5 pages + 100 bytes: the last chunk
+        f.write(b"\0" * 100)         # (page 4 and the 100) reads buffered
+    _flip_on_disk(path, 4 * 8192 + 50)
+    tcfg.set("checksum_verify", True)
+    tcfg.set("checksum_retries", 1)
+    tcfg.set("cache_arbitration", False)
+    before = tstats.snapshot()
+    with teng.PlainSource(path) as src, teng.Session() as sess:
+        if sess._native is None:
+            pytest.skip("the Session came up without the native engine")
+        handle, _ = sess.alloc_dma_buffer(3 * 16384)
+        with pytest.raises(tapi.StromError) as ei:
+            sess.memcpy_ssd2ram(src, handle, [0, 1, 2], 16384)
+        assert ei.value.errno == errno.EBADMSG
+    assert _delta(before, tstats.snapshot(), "nr_csum_reread") == 1
+
+
+def _paired_heap(tmp_path, n_pages=8):
+    """One mirrored pair of checksummed heap members (member 1 a copy of
+    member 0): ``(paths, bytes of the logical stream)``."""
+    import shutil
+    p0, data = _heap_file(tmp_path, "m0.heap", n_pages=n_pages)
+    p1 = str(tmp_path / "m1.heap")
+    shutil.copyfile(p0, p1)
+    return [p0, p1], data
+
+
+def _paired_csum_copy(p, paths, nbytes, plan):
+    src = p.fake.FakeStripedNvmeSource(
+        paths, stripe_chunk_size=16384, fault_plan=plan,
+        force_cached_fraction=0.0, mirror="paired")
+    before = p.counters()
+    got = err = None
+    try:
+        with p.eng.Session() as sess:
+            handle, buf = sess.alloc_dma_buffer(nbytes)
+            res = sess.memcpy_ssd2ram(src, handle,
+                                      list(range(nbytes // 8192)), 8192)
+            try:
+                sess.memcpy_wait(res.dma_task_id, timeout=30.0)
+                got = bytes(buf.view()[:nbytes])
+            except p.api.StromError as e:
+                err = e.errno
+    finally:
+        src.close()
+    return got, err, {k: _delta(before, p.counters(), k)
+                      for k in _CSUM + ("nr_mirror_read",)}
+
+
+def test_checksum_reread_heals_from_the_mirror_of_a_routed_away_member(
+        tmp_path):
+    """Member 0 of a mirrored pair is fail-stopped, so its pages are read
+    from member 1, and one of them comes back torn once.  The port reads
+    the bad page again through the fault ladder, which routes member 0
+    away to member 1 as the first read did, and the bytes heal.  The JAX
+    package reads it again from member 0 itself, whose fail-stop latches
+    EIO: a divergence the port does not copy."""
+    paths, data = _paired_heap(tmp_path)
+    _both(checksum_verify=True, checksum_retries=2, io_retries=0,
+          dma_max_size=8192)
+    out = {name: _paired_csum_copy(
+        p, paths, len(data),
+        p.fake.FaultPlan(failstop_member=0, failstop_after=0,
+                         corrupt_once_offsets={3 * 8192 + 77}))
+        for name, p in PKGS.items()}
+    got, err, moved = out["torch"]
+    assert err is None and got == data
+    assert moved["nr_csum_fail"] == 1 and moved["nr_csum_reread"] == 1
+    assert moved["bytes_verify_reread"] == 8192
+    # every page and the re-read came from the partner
+    assert moved["nr_mirror_read"] == len(data) // 8192 + 1
+    ref_got, ref_err, ref_moved = out["jax"]
+    assert ref_got is None and ref_err == errno.EIO
+    assert ref_moved["nr_csum_reread"] == 1
+
+
+def test_native_checksum_reread_follows_the_mirror_remap(tmp_path):
+    """On the native engine a member routed away is read through its
+    mirror's fd.  A page torn once there is read again at wait time from
+    the mirror, never from the routed-away member, and heals."""
+    paths, data = _paired_heap(tmp_path)
+    _flip_on_disk(paths[1], 2 * 8192 + 300)
+    tcfg.set("checksum_verify", True)
+    tcfg.set("checksum_retries", 2)
+    tcfg.set("cache_arbitration", False)
+    src = teng.StripedSource(paths, 16384, mirror="paired")
+    calls = []
+    orig = src.read_member_direct
+
+    def torn_once(member, file_off, buf):
+        # the flip was a torn read: the disk is whole again by the time
+        # the first re-read arrives
+        if member == 1 and not calls:
+            _flip_on_disk(paths[1], 2 * 8192 + 300)
+        calls.append((member, file_off, len(buf)))
+        return orig(member, file_off, buf)
+
+    src.read_member_direct = torn_once
+    before = tstats.snapshot()
+    try:
+        with teng.Session() as sess:
+            if sess._native is None:
+                pytest.skip("the Session came up without the native engine")
+            sess._member_health.record_failure(0, fatal=True)
+            handle, buf = sess.alloc_dma_buffer(len(data))
+            res = sess.memcpy_ssd2ram(src, handle,
+                                      list(range(len(data) // 8192)), 8192)
+            sess.memcpy_wait(res.dma_task_id, timeout=30.0)
+            got = bytes(buf.view()[:len(data)])
+    finally:
+        src.close()
+    assert got == data
+    assert calls == [(1, 2 * 8192, 8192)]
+    assert _delta(before, tstats.snapshot(), "nr_csum_reread") == 1

@@ -44,7 +44,10 @@ _SCRIPT = textwrap.dedent("""
                 "ops.topk", "scan.index", "scan.executor", "ops.join",
                 "scan.sql", "scan.parallel", "eligibility", "scan.strings",
                 "tools.strom_query", "fault", "testing.chaos",
-                "testing.stress_faults"):
+                "testing.stress_faults", "integrity", "tiering", "cache",
+                "serving", "serving.hbm_tier", "testing.cache_gate",
+                "testing.tier_gate", "testing.scrub_gate",
+                "tools.phase_clock"):
         assert pkg.__name__ + "." + mod in names, mod
     import chip_smoke  # noqa: F401
     leaked = [m for m in sys.modules
@@ -88,6 +91,15 @@ _SCRIPT = textwrap.dedent("""
     except StromError as e:
         codes.append(e.errno)
     assert codes == [errno.ENODEV] * 6, codes
+    # the HBM tier places on the card or nowhere: no CPU stand-in
+    from nvme_strom_tpu_torch.config import config
+    from nvme_strom_tpu_torch.serving.hbm_tier import hbm_tier
+    config.set("tier_hbm_bytes", 1 << 20)
+    hbm_tier.configure()
+    assert hbm_tier.admit(("#x",), 0, 4096, bytes(4096)) is False
+    from nvme_strom_tpu_torch.testing import cache_gate, scrub_gate, tier_gate
+    assert [g.main([]) for g in (cache_gate, tier_gate, scrub_gate)] \
+        == [2, 2, 2]
     print("ISOLATED", len(names))
 """)
 

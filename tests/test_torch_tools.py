@@ -56,3 +56,34 @@ def test_ssd2gpu_test_without_cuda_raises_enodev(tmp_path):
     with pytest.raises(StromError) as e:
         main([str(path)])
     assert e.value.errno == errno.ENODEV
+
+
+def test_phase_clock_times_each_phase_from_its_lines(tmp_path):
+    """The phase clock splits a run into its tagged phases: a phase
+    lasts from the last line before it to its own last line, untagged
+    lines belong to the phase before them, and a phase that comes back
+    later adds its second block.  Run as a script, it passes the output
+    through and keeps the command's exit code."""
+    import json
+
+    from nvme_strom_tpu_torch.tools.phase_clock import phase_times
+    stamped = [(0.5, "[1] nvidia-smi\n"), (2.0, "[2] build\n"),
+               (2.5, "   detail\n"), (4.0, "[3a] B1 ok\n"),
+               (4.5, "    [3] took\n"), (7.0, "[2] again\n"),
+               (7.5, "total\n")]
+    phases, order = phase_times(stamped)
+    assert order == ["1", "2", "3"]
+    assert phases == {"1": 0.5, "2": 2.0 + 3.0, "3": 2.0}
+    script = tmp_path / "phased.py"
+    script.write_text("import sys\nprint('[1] a')\nprint('[2] b')\n"
+                      "sys.exit(3)\n")
+    out = tmp_path / "times.json"
+    tool = Path(__file__).resolve().parents[1] / "nvme_strom_tpu_torch" \
+        / "tools" / "phase_clock.py"
+    r = subprocess.run([sys.executable, str(tool), "--json", str(out),
+                        "--", sys.executable, str(script)],
+                       capture_output=True, text=True, timeout=60)
+    assert r.returncode == 3 and r.stdout == "[1] a\n[2] b\n"
+    got = json.loads(out.read_text())
+    assert got["order"] == ["1", "2"] and got["rc"] == 3
+    assert set(got["phases"]) == {"1", "2"}
