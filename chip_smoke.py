@@ -9,8 +9,9 @@ aggregates, its index access paths, worker processes and meshes, and the
 planner's direct and vfs access paths over one file, a stripe set and a
 segmented relation, string columns and the SQL facade, and the engine's
 resilience (mirrors, the fault ladder, page-cache arbitration, 64-bit
-GROUP BY sums), and checksum verify on read with the residency tiers and
-the integrity domain — at full size and holds every CUDA kernel of those paths
+GROUP BY sums), checksum verify on read with the residency tiers and the
+integrity domain, and 64-bit scalar sums, the autotune controller and
+predictive readahead — at full size and holds every CUDA kernel of those paths
 against its plain PyTorch version:
 
 1. environment: the card's name and power limit (``nvidia-smi``);
@@ -111,7 +112,8 @@ against its plain PyTorch version:
        ``kernel="cuda"`` at G=4096 is EINVAL;
     b. a 1 GiB table of TPC-H ``lineitem``'s numeric columns (dbgen's
        value ranges, 26.3M rows; int64, float64 and nullable float32
-       columns): an aggregate, ``group_by_cols`` over 50,000 suppliers
+       columns): an aggregate (its int32 sums 64-bit, as with every
+       schema holding an 8-byte column), ``group_by_cols`` over 50,000 suppliers
        and over (supplier, line number) pairs past ``max_groups`` (the
        sorted spill), ``top_k``, ``order_by``, ``quantiles``,
        ``count_distinct``, ``select`` with NULL masks, ``select(limit=)``
@@ -275,6 +277,32 @@ against its plain PyTorch version:
        ``save_checkpoint`` over a resident path drops its extents;
     g. the chaos scenarios ``corrupt_once``, ``cache_churn`` and
        ``scrub_heal`` (phase A).
+21. 64-bit sums, the autotune controller and readahead
+    (``debug_no_threshold`` on), the card's name and power limit beside
+    every number:
+    a. a 1 GiB heap table of two int32 columns near 2.05e9 and -2.05e9
+       and a uint32 column near 3.5e9 (seeded): with ``x64`` on,
+       ``Query.aggregate``, ``where_range`` on the uint32 column at 3e9,
+       SQL ``SUM`` / ``AVG``, ``SUM(c0 * 2)`` and a SQL leaf at 3e9, each
+       on the torch route (the plan names the ``x64`` refusal, no B1
+       launch) and exactly equal to numpy's int64 / uint64 truth; with it
+       off the aggregate and ``where_range`` on B1 (64 launches), their
+       sums numpy's mod 2^32; GB/s of each, cold;
+    b. [4]'s file through ``run_load(session=)``: 6 loads at the default
+       statics, 6 at bad ones (``submit_window`` 2, ``dma_max_size`` 256
+       KiB) and 6 with ``autotune`` on from the bad statics (20 ms
+       epochs), each arm in its Session, every load byte-identical; each
+       load's GB/s, the controller's steps, reverts and frozen epochs and
+       its final knobs;
+    c. [4]'s file read in order in 16 MiB spans through
+       ``memcpy_ssd2ram`` with a RAM tier of 1.25 GiB, readahead off and
+       on at 4096 MB/s with the controller's thread at 10 ms epochs, and
+       on at 1 MB/s with the issue pass by hand after each span: hit
+       ratio, the readahead counters and GB/s over the demand reads,
+       every span equal to the file, the 1 MB/s arm within rate x
+       elapsed + burst and the off arm's readahead counters 0; then
+       [5]'s aggregate (B1) with
+       readahead off and on: 64 launches, both equal to numpy.
 
 Every main path sets the kernels' launch counts to 0 just before it runs
 and reads them just after; each kernel of a path must have launched once
@@ -2541,9 +2569,9 @@ def _lineitem_phase(torch, dev, tmp, seed, n_pages):
         fail(label, f"count {int(res['count'])} vs {int(sel.sum())}")
     if int(res["sums"][0]) != int(okey[sel].sum()):
         fail(label, "l_orderkey int64 sum")
+    # an 8-byte column in the schema: the int32 columns sum in 64 bits
     for c in (1, 2, 3, 4):
-        if int(np.asarray(res["sums"][c]).view(np.uint32)) != \
-                int(cols[c][sel].astype(np.int64).sum() & 0xFFFFFFFF):
+        if int(res["sums"][c]) != int(cols[c][sel].astype(np.int64).sum()):
             fail(label, f"{LINEITEM_NAMES[c]} sum")
     if not _f_close(res["sums"][5], price[sel], 1e-12):
         fail(label, f"l_extendedprice {float(res['sums'][5])} vs "
@@ -2803,9 +2831,9 @@ def _join_phase(torch, dev, tmp, seed, path, schema, cols, nulls):
                         f"{int(emit.sum())}")
         if int(res["sums"][0]) != int(okey[emit].sum()):
             fail(label, "l_orderkey int64 sum")
-        for c in (1, 2, 3, 4):
-            if int(np.asarray(res["sums"][c]).view(np.uint32)) != \
-                    int(cols[c][emit].astype(np.int64).sum() & 0xFFFFFFFF):
+        for c in (1, 2, 3, 4):     # 64-bit: the schema has an int64
+            if int(res["sums"][c]) != \
+                    int(cols[c][emit].astype(np.int64).sum()):
                 fail(label, f"{LINEITEM_NAMES[c]} int32 sum")
         if not _f_close(res["sums"][5], price[emit], 1e-12):
             fail(label, "l_extendedprice float64 sum")
@@ -2942,8 +2970,8 @@ def _join_phase(torch, dev, tmp, seed, path, schema, cols, nulls):
     for i, want in enumerate((price_by[pkey], acct_by[skey], pay)):
         if not _f_close(res["pay_sums"][i], want, TRUTH_REL):
             fail(label, f"pay_sums[{i}]")
-    e0 = (qty * lnum).astype(np.int64).sum() & 0xFFFFFFFF
-    if int(np.asarray(res["esums"][0]).view(np.uint32)) != int(e0) or \
+    e0 = (qty * lnum).astype(np.int64).sum()
+    if int(res["esums"][0]) != int(e0) or \
             not _f_close(res["esums"][1], qty + np.float32(0.5),
                          TRUTH_REL) \
             or np.asarray(res["esums"][2]).dtype != np.float64 or \
@@ -2969,9 +2997,8 @@ def _join_phase(torch, dev, tmp, seed, path, schema, cols, nulls):
              ("bin", "*", ("col", 5), ("lit", 2))]
     label = "aggregate_exprs(3)"
     res, _plan = run(Query(path, schema).aggregate_exprs(exprs), label)
-    e0 = (qty * 100 - lnum).astype(np.int64).sum() & 0xFFFFFFFF
-    if int(res["count"]) != n or \
-            int(np.asarray(res["esums"][0]).view(np.uint32)) != int(e0) or \
+    e0 = (qty * 100 - lnum).astype(np.int64).sum()
+    if int(res["count"]) != n or int(res["esums"][0]) != int(e0) or \
             not _f_close(res["esums"][1], -qty / np.float32(2.0),
                          TRUTH_REL) or \
             not _f_close(res["esums"][2], price * 2.0, 1e-12):
@@ -5543,6 +5570,383 @@ def _residency_phase(torch, dev, tmp, seed, card=None, heap=None,
     return launched[0], launched[1]
 
 
+def _x64_table(path, seed, n_pages):
+    """[21a]'s heap table: two int32 columns near 2.05e9 (one positive,
+    one negative) and a uint32 column near 3.5e9, a tenth of the rows
+    invisible, seeded: every 4-byte integer sum passes 2^31.  Returns
+    ``(schema, [c0, c1, c2], vis)``."""
+    from nvme_strom_tpu_torch.scan.heap import HeapSchema, build_heap_file
+    schema = HeapSchema(n_cols=3, visibility=True,
+                        dtypes=("int32", "int32", "uint32"))
+    rng = np.random.default_rng(seed + 21)
+    n_rows = schema.tuples_per_page * n_pages
+    cols = [rng.integers(2_000_000_000, 2_100_000_000, n_rows,
+                         dtype=np.int32),
+            rng.integers(-2_100_000_000, -2_000_000_000, n_rows,
+                         dtype=np.int32),
+            rng.integers(3_400_000_000, 3_600_000_000, n_rows,
+                         dtype=np.int64).astype(np.uint32)]
+    vis = (rng.random(n_rows) > 0.1).astype(np.int32)
+    build_heap_file(path, cols, schema, visibility=vis)
+    return schema, cols, vis
+
+
+def _wide_sum(col, sel):
+    """numpy's 64-bit sum of *col* over *sel* (uint64 for uint32)."""
+    wide = np.uint64 if col.dtype == np.uint32 else np.int64
+    return int(col[sel].astype(wide).sum(dtype=wide))
+
+
+def _selfdriving_phase(torch, dev, tmp, seed, card=None, heap=None,
+                       load_path=None, n_pages=131072):
+    """Phase 21: 64-bit sums and wide literals under ``x64``, the autotune
+    controller and predictive readahead (see the module docstring);
+    *heap* is [5]'s table ``(path, schema, th, count, sum)`` and
+    *load_path* [4]'s file (each made here, at full size, when not
+    given).  Returns the B1 launches of [21a] and [21c]."""
+    if card is None:
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True,
+                              text=True, check=True,
+                              timeout=60).stdout.strip().splitlines()[0]
+    if heap is None:
+        hpath = os.path.join(tmp, "table.heap")
+        schema, c0, c1, vis = _scan_table(hpath, seed, 131072)
+        sel = (vis != 0) & (c0 > 100)
+        heap = (hpath, schema, 100, int(sel.sum()), _int32_sum(c1[sel]))
+        del c0, c1, vis, sel
+    if load_path is None:
+        load_path = os.path.join(tmp, "load.bin")
+        _write_random_file(load_path, 1 << 30, seed)
+    from nvme_strom_tpu_torch.config import config
+    from nvme_strom_tpu_torch.engine import PlainSource, Session, \
+        reorder_chunks
+    from nvme_strom_tpu_torch.ops import filter_cuda
+    from nvme_strom_tpu_torch.scan.query import Query
+    from nvme_strom_tpu_torch.scan.sql import sql_query
+    from nvme_strom_tpu_torch.stats import stats
+    from nvme_strom_tpu_torch.tiering import extent_space
+    from nvme_strom_tpu_torch.tools.common import (chunks_mismatch,
+                                                   drop_page_cache)
+    from nvme_strom_tpu_torch.tools.ssd2gpu_test import run_load
+    MiB = 1 << 20
+    on_card = dev.type == "cuda"           # launch checks
+    snap = config.snapshot()
+    t_phase = time.monotonic()
+    launched = 0
+
+    def fail(label, what):
+        raise AssertionError(f"[21{label}] {what}")
+
+    def counter(name):
+        return stats.snapshot().get(name, 0)
+
+    try:
+        # -- a. 64-bit sums and wide literals under x64 ---------------------
+        xpath = os.path.join(tmp, "x64.heap")
+        t0 = time.monotonic()
+        xschema, cols, vis = _x64_table(xpath, seed, n_pages)
+        build_s = time.monotonic() - t0
+        xbytes = os.path.getsize(xpath)
+        sel = vis != 0
+        big = 3_000_000_000
+        above = sel & (cols[2] >= big)
+        truth = {"count": int(sel.sum()),
+                 "sums": [_wide_sum(c, sel) for c in cols],
+                 "avg1": _wide_sum(cols[1], sel) / int(sel.sum()),
+                 "twice": int((cols[0][sel] * np.int32(2))
+                              .astype(np.int64).sum()),
+                 "above": (int(above.sum()), _wide_sum(cols[2], above))}
+        # the same sums wrapped to 32 bits, as B1 and the torch route
+        # give them without x64
+        wrapped = [s % (1 << 32) if c.dtype == np.uint32
+                   else (s + (1 << 31)) % (1 << 32) - (1 << 31)
+                   for s, c in zip(truth["sums"], cols)]
+        del above
+
+        def timed(label, fn):
+            drop_page_cache(xpath)
+            filter_cuda.launches = 0
+            t0 = time.monotonic()
+            out = fn()
+            s = time.monotonic() - t0
+            return out, s, filter_cuda.launches, \
+                f"{label} {xbytes / s / 1e9:.3f} GB/s"
+
+        cells = {}
+        for x64 in (True, False):
+            config.set("x64", x64)
+            q = Query(xpath, xschema).aggregate()
+            plan = q.explain(device=dev)
+            if x64 and (plan.kernel != "torch" or (
+                    on_card and "x64" not in plan.reason)):
+                fail("a", f"x64 on: plan {plan.kernel} ({plan.reason})")
+            if x64:
+                x64_reason = plan.reason
+            if not x64 and on_card and plan.kernel != "cuda":
+                fail("a", f"x64 off: plan {plan.kernel} ({plan.reason})")
+            res, s, n, cell = timed("aggregate", lambda: q.run(device=dev))
+            launched += n
+            want_dt = ([np.int64, np.int64, np.uint64] if x64
+                       else [np.int32, np.int32, np.uint32])
+            got_sums = [int(v) for v in res["sums"]]
+            if [np.asarray(v).dtype for v in res["sums"]] != \
+                    [np.dtype(d) for d in want_dt]:
+                fail("a", f"x64 {x64}: sums dtypes "
+                          f"{[np.asarray(v).dtype for v in res['sums']]}")
+            if int(res["count"]) != truth["count"] or got_sums != (
+                    truth["sums"] if x64 else wrapped):
+                fail("a", f"x64 {x64}: count {int(res['count'])} sums "
+                          f"{got_sums}, numpy {truth['count']} "
+                          f"{truth['sums'] if x64 else wrapped}")
+            if x64 and n:
+                fail("a", f"x64 on: {n} B1 launches on a torch plan")
+            if not x64 and on_card and n != -(-xbytes // (16 * MiB)):
+                fail("a", f"x64 off: {n} B1 launches for "
+                          f"{-(-xbytes // (16 * MiB))} batches")
+            row = [f"{cell} ({n} B1 launches)"]
+            rng_q = Query(xpath, xschema).where_range(2, big, None) \
+                .aggregate([2])
+            res, s, n, cell = timed("where_range(c2 >= 3e9)",
+                                    lambda: rng_q.run(device=dev))
+            launched += n
+            want = truth["above"] if x64 else (
+                truth["above"][0], truth["above"][1] % (1 << 32))
+            if (int(res["count"]), int(res["sums"][0])) != want:
+                fail("a", f"x64 {x64}: where_range gave "
+                          f"{int(res['count'])} {int(res['sums'][0])}, "
+                          f"numpy {want}")
+            row.append(f"{cell} ({n} B1 launches)")
+            if x64:
+                stmt = ("SELECT COUNT(*), SUM(c0), SUM(c2), AVG(c1) "
+                        "FROM t")
+                res, s, n, cell = timed("SQL SUM/AVG", lambda: sql_query(
+                    stmt, xpath, xschema, device=dev))
+                if (int(res["count(*)"]), int(res["sum(c0)"]),
+                        int(res["sum(c2)"])) != (truth["count"],
+                                                 truth["sums"][0],
+                                                 truth["sums"][2]) or \
+                        abs(float(res["avg(c1)"]) - truth["avg1"]) > 1e-3:
+                    fail("a", f"SQL {res} against numpy")
+                row.append(cell)
+                res, s, n, cell = timed("SQL SUM(c0 * 2)", lambda: sql_query(
+                    "SELECT SUM(c0 * 2) FROM t", xpath, xschema,
+                    device=dev))
+                if int(res["sum((c0 * 2))"]) != truth["twice"]:
+                    fail("a", f"SUM(c0 * 2) {res} against numpy "
+                              f"{truth['twice']}")
+                row.append(cell)
+                res, s, n, cell = timed("SQL c2 >= 3000000000", lambda:
+                                        sql_query(f"SELECT COUNT(*), SUM(c2) "
+                                                  f"FROM t WHERE c2 >= {big}",
+                                                  xpath, xschema, device=dev))
+                if (int(res["count(*)"]), int(res["sum(c2)"])) != \
+                        truth["above"]:
+                    fail("a", f"SQL leaf {res} against numpy "
+                              f"{truth['above']}")
+                row.append(cell)
+            cells[x64] = row
+        config.set("x64", False)
+        os.unlink(xpath)
+        del cols, vis, sel
+        print(f"[21a] a {xbytes}-byte heap table (int32 near 2.05e9 and "
+              f"-2.05e9, uint32 near 3.5e9; built in {build_s:.1f} s), "
+              f"each query cold ({card}):")
+        print(f"      x64 on, sums int64/uint64 equal to numpy: "
+              + "; ".join(cells[True]))
+        print(f"      (the plan: torch, {x64_reason})")
+        print(f"      x64 off (B1), sums equal to numpy mod 2^32: "
+              + "; ".join(cells[False]))
+
+        # -- b. the autotune controller from bad statics -------------------
+        lsize = os.path.getsize(load_path) // MiB * MiB
+        n_chunks = lsize // MiB
+        bad = {"submit_window": 2, "dma_max_size": 256 << 10}
+
+        def statics(which):
+            config.set("submit_window", snap["submit_window"]
+                       if which == "default" else bad["submit_window"])
+            config.set("dma_max_size", snap["dma_max_size"]
+                       if which == "default" else bad["dma_max_size"])
+
+        rates = {"default": [], "bad": [], "autotune": []}
+        with PlainSource(load_path) as lsrc:
+            def loads(arm, sess, k):
+                for _ in range(k):
+                    out = run_load(load_path, device=dev, session=sess)
+                    if chunks_mismatch(out["tensor"], lsrc,
+                                       out["result"].chunk_ids, MiB):
+                        fail("b", f"{arm}: the load differs from the file")
+                    rates[arm].append(out["nbytes"] / out["seconds"] / 1e9)
+                    del out
+
+            for arm in ("default", "bad"):
+                statics(arm)
+                with Session(device=dev) as sess:
+                    loads(arm, sess, 3)
+            statics("bad")
+            config.set("autotune", True)
+            config.set("autotune_interval_ms", 20.0)
+            s0 = {k: counter(k) for k in ("nr_autotune_step",
+                                           "nr_autotune_revert",
+                                           "nr_autotune_freeze")}
+            with Session(device=dev) as sess:
+                if sess._tuner._thread is None:
+                    fail("b", "the controller thread did not start")
+                loads("autotune", sess, 6)
+                tuner = sess._tuner
+                knobs = {m: (tuner._windows.get(m), tuner._caps.get(m))
+                         for m in sorted(tuner._windows)}
+                last = tuner.last_step
+            config.set("autotune", False)
+            config.set("autotune_interval_ms", snap["autotune_interval_ms"])
+            steps = {k: counter(k) - v for k, v in s0.items()}
+            for arm in ("default", "bad"):
+                statics(arm)
+                with Session(device=dev) as sess:
+                    loads(arm, sess, 3)
+            statics("default")
+        fmt = {a: ", ".join(f"{r:.3f}" for r in v) for a, v in rates.items()}
+        tuned_last = rates["autotune"][-1]
+        dmed = float(np.median(rates["default"]))
+        tmed = float(np.median(rates["autotune"]))
+        bmed = float(np.median(rates["bad"]))
+        print(f"[21b] [4]'s file ({lsize} bytes) through run_load(session=)"
+              f", every load byte-identical ({card}): default statics "
+              f"(window {snap['submit_window']}, dma_max_size "
+              f"{snap['dma_max_size']}) {fmt['default']} GB/s; bad statics "
+              f"(window 2, 256 KiB) {fmt['bad']} GB/s; autotune from the bad "
+              f"statics (20 ms epochs) {fmt['autotune']} GB/s: the last load "
+              f"{tuned_last / dmed:.1%}, the arm's median {tmed / dmed:.1%} "
+              f"and the bad statics' median {bmed / dmed:.1%} of the default "
+              f"statics' median")
+        print(f"      controller: {steps['nr_autotune_step']} steps, "
+              f"{steps['nr_autotune_revert']} reverts, "
+              f"{steps['nr_autotune_freeze']} frozen epochs; final knobs "
+              f"(window, cap) a member {knobs}; last decision {last!r}")
+
+        # -- c. predictive readahead into the RAM tier ----------------------
+        # off and 4096 MB/s as users run them: the controller's thread at
+        # the shortest epoch issues the prefetches beside the demand
+        # reads, and only the demand reads are timed; at 1 MB/s the issue
+        # pass runs by hand after each span, for the budget bound alone
+        config.set("cache_arbitration", False)
+        config.set("tier_ram_bytes", lsize + lsize // 4)
+        config.set("autotune_interval_ms", 10.0)
+        span = 16
+        ra = {}
+        for arm, on, budget in (("off", False, 64.0),
+                                ("on, 4096 MB/s", True, 4096.0),
+                                ("on, 1 MB/s (by hand)", True, 1.0)):
+            by_hand = budget == 1.0
+            config.set("readahead", on)
+            config.set("readahead_budget_mb_s", budget)
+            extent_space.clear_tiers()
+            extent_space.configure()
+            drop_page_cache(load_path)
+            names = ("nr_cache_hit", "nr_cache_miss", "nr_readahead_fill",
+                     "nr_readahead_skip", "nr_readahead_hit",
+                     "bytes_readahead")
+            before = {k: counter(k) for k in names}
+            busy = 0.0
+            with Session(device=dev) as sess, \
+                    PlainSource(load_path) as lsrc, \
+                    open(load_path, "rb", buffering=0) as f:
+                if on and not by_hand and sess._tuner._thread is None:
+                    fail("c", f"{arm}: the controller thread did not start")
+                if by_hand:
+                    sess._tuner.stop()     # the issue pass after each span
+                burst = sess._tuner._bucket.burst
+                handle, buf = sess.alloc_dma_buffer(span * MiB)
+                t_arm = time.monotonic()
+                for first in range(0, n_chunks, span):
+                    want = list(range(first, min(first + span, n_chunks)))
+                    t0 = time.monotonic()
+                    res = sess.memcpy_ssd2ram(lsrc, handle, want, MiB)
+                    sess.memcpy_wait(res.dma_task_id)
+                    busy += time.monotonic() - t0
+                    if by_hand:
+                        sess._tuner.step_epoch()
+                    got = reorder_chunks(
+                        np.frombuffer(buf.view()[:len(want) * MiB],
+                                      np.uint8), MiB, res.chunk_ids, want)
+                    if not np.array_equal(got, np.frombuffer(
+                            os.pread(f.fileno(), len(want) * MiB,
+                                     first * MiB), np.uint8)):
+                        fail("c", f"{arm}: span {first} differs from the "
+                                  f"file")
+                elapsed = time.monotonic() - t_arm
+                sess.unmap_buffer(handle)
+            d = {k: counter(k) - v for k, v in before.items()}
+            hits, misses = d["nr_cache_hit"], d["nr_cache_miss"]
+            ra[arm] = (hits / max(hits + misses, 1), d, lsize / busy / 1e9)
+            if not on and any(d[k] for k in names[2:]):
+                fail("c", f"readahead off moved its counters: {d}")
+            if budget == 1.0 and d["bytes_readahead"] > \
+                    budget * MiB * elapsed + burst:
+                fail("c", f"the 1 MB/s budget prefetched "
+                          f"{d['bytes_readahead']} bytes in {elapsed:.2f} s "
+                          f"(burst {burst:.0f})")
+        config.set("autotune_interval_ms", snap["autotune_interval_ms"])
+        print(f"[21c] [4]'s file in order in {span} MiB spans of 1 MiB "
+              f"chunks through memcpy_ssd2ram, a RAM tier of "
+              f"{lsize + lsize // 4} bytes, the controller's thread at 10 ms "
+              f"epochs (1 MB/s: the issue pass by hand after each span), "
+              f"GB/s over the demand reads only, every span equal to the "
+              f"file ({card}):")
+        for arm, (ratio, d, gbs) in ra.items():
+            print(f"      readahead {arm}: hit ratio {ratio:.3f} "
+                  f"({d['nr_cache_hit']} hits, {d['nr_cache_miss']} misses),"
+                  f" nr_readahead_fill {d['nr_readahead_fill']}, "
+                  f"nr_readahead_skip {d['nr_readahead_skip']}, "
+                  f"nr_readahead_hit {d['nr_readahead_hit']}, "
+                  f"bytes_readahead {d['bytes_readahead']}, {gbs:.3f} GB/s")
+
+        # the aggregate (B1) over [5]'s table with readahead on, the
+        # controller thread at its own cadence: 64 launches, the cold
+        # run's answer
+        path, schema, th, want_count, want_sum = heap
+        table_bytes = os.path.getsize(path)
+        n_batches = -(-table_bytes // int(config.get("chunk_size")))
+        config.set("readahead_budget_mb_s", 4096.0)
+        outs = []
+        for on in (False, True):
+            config.set("readahead", on)
+            extent_space.clear_tiers()
+            drop_page_cache(path)
+            filter_cuda.launches = 0
+            f0 = counter("nr_readahead_fill")
+            with Session(device=dev) as sess:
+                t0 = time.monotonic()
+                res = Query(path, schema).where_range(0, th + 1, None) \
+                    .aggregate(cols=[1]).run(device=dev, session=sess)
+                s = time.monotonic() - t0
+            n = filter_cuda.launches
+            launched += n
+            if on_card and n != n_batches:
+                fail("c", f"the aggregate, readahead {on}: {n} B1 launches "
+                          f"for {n_batches} batches")
+            if int(res["count"]) != want_count or \
+                    int(res["sums"][0]) != want_sum:
+                fail("c", f"the aggregate, readahead {on}: count "
+                          f"{int(res['count'])} sum {int(res['sums'][0])}, "
+                          f"numpy {want_count} / {want_sum}")
+            outs.append((s, n, counter("nr_readahead_fill") - f0))
+        print(f"[21c] [5]'s aggregate (B1) with the RAM tier: readahead off "
+              f"{table_bytes / outs[0][0] / 1e9:.3f} GB/s, on (the "
+              f"controller's thread, 250 ms epochs) "
+              f"{table_bytes / outs[1][0] / 1e9:.3f} GB/s ({outs[1][2]} "
+              f"prefetches); {outs[1][1]} B1 launches, both equal to numpy "
+              f"({card})")
+    finally:
+        config.restore(snap)
+        extent_space.clear_tiers()
+        extent_space.configure()
+    print(f"[21] took {time.monotonic() - t_phase:.1f} s; B1 launches "
+          f"{launched}")
+    return launched
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--load-gib", type=float, default=1.0)
@@ -5962,6 +6366,12 @@ def main() -> int:
             load_gbs)
         main_launches += r20_b1
         gb_launches += r20_b3
+
+        # -- x64 sums, the autotune controller, readahead -------------------
+        main_launches += _selfdriving_phase(
+            torch, dev, tmp, args.seed, card,
+            (heap_path, schema, th, want_count, want_sum), load_path,
+            args.scan_pages)
         for f in (heap_path, load_path, gb_path):
             os.unlink(f)
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 import errno as _errno
 import threading
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 __all__ = ["ConfigError", "Config", "config", "parse_size"]
 
@@ -308,10 +308,38 @@ _VARS: Dict[str, _Var] = {
     # bytes the RAM tier may mlock (0 = no budget): fills past it pass
     # through to the SSD, a shrink sheds pinned slabs
     "memlock_budget": _Var(0, int, 0),
-    # -- GROUP BY accumulators -----------------------------------------
-    # 64-bit GROUP BY accumulators: 4-byte int sums widen to 8 bytes and
-    # every sum of squares is float64 (the JAX package's jax_enable_x64);
-    # such a plan takes the torch route
+    # -- the self-driving data path (autotune.py) ----------------------
+    # a Session's online controller: each epoch it reads the per-member
+    # latency histograms and the delivered bytes and hill-climbs, inside
+    # each knob's bounds here, the submit window (the python member pools'
+    # width), the request cap and the hedge delay (and the native lane
+    # count when the window grows), stepping back when p99 regresses and
+    # freezing while a member is off HEALTHY.  Off: the static knobs and
+    # the adaptive chunk sizer behave exactly as before, one branch a site
+    "autotune": _Var(False, bool),
+    # the controller's epoch: how often it samples and takes one step (also
+    # the readahead predictor's issue cadence)
+    "autotune_interval_ms": _Var(250.0, float, 10.0, 60000.0),
+    # predictive readahead: a predictor a source watches demand reads
+    # (stride and successor detection) and prefetches the next span into
+    # the RAM tier through the fault ladder; needs tier_ram_bytes > 0.
+    # Prefetched extents are tagged speculative, so the ARC's ghost lists
+    # never learn from a guess
+    "readahead": _Var(False, bool),
+    # prefetch budget in MB/s (a token bucket): a prediction whose bytes
+    # the bucket cannot pay is skipped (nr_readahead_skip), never queued,
+    # so prefetch cannot starve demand reads (0 = predict, issue nothing)
+    "readahead_budget_mb_s": _Var(64.0, float, 0.0, 65536.0),
+    # -- aggregate accumulators ----------------------------------------
+    # 64-bit accumulators for every aggregate (the JAX package's
+    # jax_enable_x64): counts and 4-byte int sums widen to 8 bytes (uint32
+    # sums to uint64 on the host) in the filter, join, star, expression,
+    # packed and GROUP BY folds, every GROUP BY sum of squares is float64,
+    # and a Python int literal meets a uint32 column in [-2^31, 2^32) and
+    # a float32 one at any size.  Such a plan takes the torch route where
+    # a schema holds a 4-byte int column (B1-B3 sum in 32 bits).  A schema
+    # with an 8-byte column accumulates in 64 bits whatever this says
+    # (ops.filter.wide_sums)
     "x64": _Var(False, bool),
     # torch-route / B3 time ratio of a float32 GROUP BY batch that
     # groupby_kernel_auto routes by: below 1.0 float aggregation takes
@@ -357,6 +385,16 @@ class Config:
             var.cross(val, self)
         with self._lock:
             self._values[name] = val
+
+    def bounds(self, name: str) -> Tuple[Optional[float], Optional[float]]:
+        """A knob's declared ``(minval, maxval)`` (None where unbounded):
+        the bounds a controller may move it within."""
+        var = _VARS.get(name)
+        if var is None:
+            raise ConfigError(f"unknown config var {name}")
+        if var.alias_of is not None:
+            var = _VARS[var.alias_of]
+        return var.minval, var.maxval
 
     def snapshot(self) -> Dict[str, Any]:
         with self._lock:

@@ -54,8 +54,15 @@ time, once the fault ladder healed them; a write invalidates every tier
 before any byte moves and again at wait time.  Each Session runs the
 integrity domain's scrubber (:mod:`.integrity`) over the tiers.
 
-Not part of this copy: autotune and readahead, NVMe passthrough and NUMA
-lane pinning.
+With config ``autotune`` or ``readahead`` a Session runs its controller
+(:mod:`.autotune`): the tuned submit window, request cap, hedge delay and
+member pool widths replace the static knobs at their sites, the tuner
+hosts the adaptive chunk sizers, and a demand read trains the readahead
+predictor, whose speculative reads (``memcpy_ssd2ram(...,
+speculative=True)``) fill the RAM tier.  With both off each site costs
+one branch.
+
+Not part of this copy: NVMe passthrough and NUMA lane pinning.
 """
 
 from __future__ import annotations
@@ -74,6 +81,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from .api import (BufferInfo, ErrorClass, FileInfo, FsKind, MemCopyResult,
                   StromError)
+from .autotune import AutoTuner
 from .config import config
 from .eligibility import probe_backing
 from .fault import (DirtyExtentJournal, HealthState, MemberHealthMachine,
@@ -1177,8 +1185,14 @@ class Session:
         # backing, close callback)
         self._fixed_regs: Dict[int, tuple] = {}
         self._fixed_lock = threading.Lock()
-        # one adaptive sizer a stripe member (single files: member 0)
-        self._chunk_sizers: Dict[int, AdaptiveChunkSizer] = {}
+        # the self-driving data path: `autotune` / `readahead` are read
+        # here, and the sites test `self._tuner.enabled` / `.ra_active`
+        # (one branch each when off).  It hosts the adaptive sizers (one a
+        # stripe member; single files: member 0), so the effective cap has
+        # one writer; its thread starts once the backend is final
+        self._tuner = AutoTuner(self)
+        self._chunk_sizers: Dict[int, AdaptiveChunkSizer] = \
+            self._tuner.chunk_sizers
         # lane scale-out: one-shot at the first striped submit; engines
         # swapped out stay alive until close so in-flight waits complete
         # against the engine that accepted them
@@ -1224,6 +1238,7 @@ class Session:
         # the resident extents' scrubber: idles on one wait a tick while
         # scrub_bytes_per_sec is 0 or the integrity domain is off
         self._scrubber = Scrubber(self)
+        self._tuner.start()
 
     # -- the engine ladder --------------------------------------------------
     def _open_engine(self, want: str):
@@ -1627,14 +1642,14 @@ class Session:
             # (retry, hedge, mirror, checksum re-read) healed their bytes,
             # so a degraded member still fills it through its mirror; a
             # latched failure raised above and fills nothing
-            skey, fills, fdest, lscale, src_ref = task.cache_fill
+            skey, fills, fdest, lscale, src_ref, spec = task.cache_fill
             task.cache_fill = None
             for base, length, doff in fills:
                 tf0 = time.monotonic_ns()
                 if _tiers.fault_fill(skey, base, length,
                                      fdest[doff:doff + length],
                                      logical_length=int(length * lscale),
-                                     source_ref=src_ref) \
+                                     source_ref=src_ref, speculative=spec) \
                         and _trace.active and task.trace_id:
                     _trace.span("cache_fill", tf0, time.monotonic_ns(),
                                 tid=task.trace_id, offset=base,
@@ -1725,8 +1740,8 @@ class Session:
     def memcpy_ssd2ram(self, source: Source, buf_handle: int,
                        chunk_ids: Sequence[int], chunk_size: int, *,
                        dest_offset: int = 0,
-                       wb_buffer: Optional[memoryview] = None
-                       ) -> MemCopyResult:
+                       wb_buffer: Optional[memoryview] = None,
+                       speculative: bool = False) -> MemCopyResult:
         """MEMCPY_SSD2RAM: plan and submit asynchronously.  A chunk at or
         beyond EOF is EINVAL; a single-chunk task needs only the chunk's
         true length, which may be a partial file tail.
@@ -1757,7 +1772,11 @@ class Session:
         a member; a member the health machine routes away is read from
         its mirror's fd and lane), awaited in a pool thread; misaligned
         pieces are read buffered, synchronously, before the call returns.
-        On the python pools each request walks the fault ladder."""
+        On the python pools each request walks the fault ladder.
+
+        ``speculative`` marks a readahead prefetch: no tier lookup (the
+        issuer checked residency), no predictor training, and its fills
+        carry the tier's speculative provenance."""
         t0 = time.monotonic_ns()
         if self._closed:
             raise StromError(_errno.EBADF, "session closed")
@@ -1787,12 +1806,16 @@ class Session:
                 if base >= source.size:
                     raise StromError(_errno.EINVAL, f"chunk {cid} beyond EOF")
                 spans.append((base, min(chunk_size, source.size - base)))
+            if self._tuner.ra_active and not speculative:
+                # readahead training: every demand span, a wholly
+                # resident one too, so a warm stream keeps its model
+                self._tuner.observe_submit(source, chunk_size, chunk_ids)
             # -- the residency tiers: one top-down lookup a chunk (HBM
             #    outranks RAM); a hit holds a lease until it is served,
             #    only the misses go on to arbitration and the lanes ------
             skey = None
             miss_ids, miss_spans = chunk_ids, spans
-            if _tiers.lookup_active:
+            if _tiers.lookup_active and not speculative:
                 skey = _tiers.source_key(source)
                 miss_ids, miss_spans = [], []
                 nr_hbm = 0
@@ -1817,6 +1840,9 @@ class Session:
                     stats.add("nr_cache_miss", len(miss_ids))
                 if not _tiers.fill_active:
                     skey = None      # no RAM tier: nothing fills at wait
+            elif speculative and _tiers.fill_active:
+                # a prefetch: no lookup, but its misses fill at wait time
+                skey = _tiers.source_key(source)
             hit_ids = [h[0] for h in cache_hits]
             direct_ids, wb_ids = self._arbitrate(source, miss_ids,
                                                  miss_spans) \
@@ -1830,17 +1856,23 @@ class Session:
                           is Source.read_member_direct)
             if use_native:
                 self._ensure_member_lanes(source)
+            dma_max = int(config.get("dma_max_size"))
+            window = max(int(config.get("submit_window")), 1)
+            if self._tuner.enabled:
+                # the tuned request cap (inside dma_max_size's bounds) and
+                # window; the window still goes through _window_chunks
+                dma_max = self._tuner.dma_cap(dma_max)
+                window = max(self._tuner.submit_window(window), 1)
             # coalescing beyond dma_max is the native queue's lever; the
             # pool path keeps per-extent planning so the ladder sees every
             # extent
             climit = int(config.get("coalesce_limit")) if use_native else 0
             if climit and config.get("chunk_adaptive"):
-                dma_max = int(config.get("dma_max_size"))
                 nmem = len(getattr(source, "members", ())) or 1
                 climit = ({m: self._adaptive_cap(dma_max, climit, m)
                            for m in range(nmem)} if nmem > 1
                           else self._adaptive_cap(dma_max, climit))
-            window = _window_chunks(chunk_size)
+            window = _window_chunks(chunk_size, window)
             entries = [(cid, i) for i, cid in enumerate(direct_ids)]
             fds = source.member_fds() if use_native else None
             # degraded striping on the native path: a member routed away
@@ -1860,6 +1892,7 @@ class Session:
                 tp0 = time.monotonic_ns()
                 reqs = plan_requests(source, entries[w:w + window],
                                      chunk_size, dest_offset,
+                                     dma_max_size=dma_max,
                                      coalesce_limit=climit or None)
                 if _trace.active and task.trace_id:
                     _trace.span("plan", tp0, time.monotonic_ns(),
@@ -1979,7 +2012,7 @@ class Session:
                                   dest_offset + i * chunk_size))
                 task.cache_fill = (skey, fills, dest,
                                    getattr(source, "logical_scale", 1.0),
-                                   weakref.ref(source))
+                                   weakref.ref(source), speculative)
         except BaseException:
             while cache_hits:        # leases not served yet: unpin them
                 cache_hits.pop()[3].release()
@@ -2028,13 +2061,35 @@ class Session:
                 if pool is None:
                     width = int(config.get("member_queue_depth")) \
                         or int(config.get("queue_depth"))
+                    width = max(1, min(width, 8))
+                    if self._tuner.enabled and not legs:
+                        # the tuned window is the member's pool width,
+                        # its real concurrency on this path
+                        width = self._tuner.pool_width(member, width)
                     pool = ThreadPoolExecutor(
-                        max_workers=max(1, min(width, 8)),
+                        max_workers=width,
                         thread_name_prefix=f"strom-"
                                            f"{'leg' if legs else 'io'}"
                                            f"-m{member}")
                     self._member_pools[key] = pool
         return pool
+
+    def _submit_member(self, member: int, fn, *args, legs: bool = False
+                       ) -> None:
+        """Queue ``fn(*args)`` on *member*'s pool.  A window step retires
+        the pool (:meth:`_retire_member_pool`) on the tuner's thread; one
+        retired between the fetch and the submit refuses the work, and
+        the member's current pool takes it instead.  A refusal after
+        close stands."""
+        while True:
+            pool = self._member_pool(member, legs)
+            try:
+                pool.submit(fn, *args)
+                return
+            except RuntimeError:
+                if self._closed or \
+                        self._member_pools.get((member, legs)) is pool:
+                    raise
 
     def _submit_pool_requests(self, task: _Task, source: Source,
                               reqs: Sequence[Request],
@@ -2050,9 +2105,13 @@ class Session:
             stats.gauge_max("max_dma_count", cur)
             stats.add("nr_submit_dma")
             stats.add("total_dma_length", r.length)
-            pool = self._member_pool(r.member) if multi else self._pool
             try:
-                pool.submit(self._do_request, task, source, r, dest)
+                if multi:
+                    self._submit_member(r.member, self._do_request,
+                                        task, source, r, dest)
+                else:
+                    self._pool.submit(self._do_request, task, source, r,
+                                      dest)
             except BaseException as e:
                 stats.gauge_add("cur_dma_count", -1)
                 self._task_put(task, StromError(_errno.ESHUTDOWN, str(e)))
@@ -2176,6 +2235,10 @@ class Session:
                 return
         if not r.dest_segs and len(getattr(source, "members", ())) > 1:
             hd = health.hedge_delay_s(r.member)
+            if hd is not None and self._tuner.enabled:
+                # the tuned delay replaces hedge_ms; whether to hedge stays
+                # the health machine's call
+                hd = self._tuner.hedge_delay(r.member, hd)
             if hd is not None and self._read_hedged(task, source, r,
                                                     views[0], hd, mirror):
                 return
@@ -2342,7 +2405,7 @@ class Session:
         # hedge won, queue behind each other only; the hedge leg waits
         # out the latch on this thread, which waits anyway, and holds no
         # pool thread
-        self._member_pool(r.member, legs=True).submit(_primary_leg)
+        self._submit_member(r.member, _primary_leg, legs=True)
         _hedge_leg()
         while not won.wait(0.05):
             if prim_settled.is_set() and hedge_settled.is_set():
@@ -2498,12 +2561,28 @@ class Session:
 
     def _adaptive_cap(self, floor: int, limit: int, member: int = 0) -> int:
         """The effective coalescing cap of *member*'s sizer (made lazily,
-        remade when the bounds change)."""
-        szr = self._chunk_sizers.get(member)
-        if szr is None or szr.floor != floor or szr.limit != limit:
-            szr = self._chunk_sizers[member] = AdaptiveChunkSizer(floor,
-                                                                  limit)
-        return szr.effective
+        remade when the bounds change), through the tuner, its one writer
+        (:meth:`.autotune.AutoTuner.chunk_cap`: with ``autotune`` off the
+        sizer's own)."""
+        return self._tuner.chunk_cap(floor, limit, member)
+
+    def _retire_member_pool(self, member: int) -> None:
+        """Drop *member*'s python pool so its next submit makes one at the
+        tuned width; queued work runs on in the old pool's threads."""
+        with self._lane_lock:
+            pool = self._member_pools.pop((member, False), None)
+        if pool is not None:
+            pool.shutdown(wait=False)
+
+    def _autotune_scale_lanes(self, want: int) -> None:
+        """Rebuild the native engine with more lanes when the tuned window
+        has outgrown them (at most 16, as :meth:`_ensure_member_lanes`);
+        nothing on the python path or when wide enough."""
+        want = max(1, min(int(want), 16))
+        with self._lane_lock:
+            if self._native is None or self._native.nlanes() >= want:
+                return
+            self._scale_out_lanes(want, len(self._members_used) or 1)
 
     # -- lanes -------------------------------------------------------------
     def _ensure_member_lanes(self, source: Source) -> None:
@@ -2973,6 +3052,7 @@ class Session:
         self._watchdog.join(timeout=2.0)
         self._canary.join(timeout=2.0)
         self._scrubber.stop()
+        self._tuner.close()
         self._pool.shutdown(wait=True)
         with self._lane_lock:
             pools, self._member_pools = self._member_pools, {}
@@ -3015,14 +3095,17 @@ def _as_strom(e: BaseException) -> StromError:
     return StromError(getattr(e, "errno", None) or _errno.EIO, str(e))
 
 
-def _window_chunks(chunk_size: int) -> int:
-    """Chunks in one submission slice of a read: ``submit_window`` chunks
-    of at least 1 MiB each, the reference's design point (16 x 1 MiB).
-    Smaller chunks fill the slice up to ``submit_window`` MiB: at 8 KiB
-    pages a 16-chunk slice is a 128 KiB native batch, and the per-batch
-    submit and await cost halved the page-grained reads of the multi-host
-    loader and the ring scan (ROADMAP Queue C)."""
-    window = max(int(config.get("submit_window")), 1)
+def _window_chunks(chunk_size: int, window: Optional[int] = None) -> int:
+    """Chunks in one submission slice of a read: *window* chunks (default
+    ``submit_window``; the tuned window under autotune) of at least 1 MiB
+    each, the reference's design point (16 x 1 MiB).  Smaller chunks fill
+    the slice up to *window* MiB: at 8 KiB pages a 16-chunk slice is a
+    128 KiB native batch, and the per-batch submit and await cost halved
+    the page-grained reads of the multi-host loader and the ring scan
+    (ROADMAP Queue C)."""
+    if window is None:
+        window = int(config.get("submit_window"))
+    window = max(int(window), 1)
     return max(window, (window << 20) // max(chunk_size, 1))
 
 

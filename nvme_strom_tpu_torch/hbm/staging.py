@@ -21,6 +21,13 @@ package's int32 element ceiling and its EOVERFLOW do not exist here).  On
 the CPU the copy is synchronous and owns its bytes, so the reused slot is
 never aliased.
 
+Each command counts its route, as the JAX package's does:
+``nr_landing_direct`` or ``nr_landing_staged``, and for a command that
+could not land direct ``nr_landing_fallback`` with its reason
+(``nr_landing_fallback_alignment`` / ``_dtype`` / ``_backend``);
+``bytes_staging_copy`` counts the bytes the ring copies a second time,
+which :func:`..stats.bytes_touched_ratio` reads.
+
 The data tier (loader, checkpoint restore) moves bytes with two smaller
 helpers: :func:`safe_device_put`, an H2D of a pinned host view into a new
 tensor, and :func:`_write_slices`, in-place copies into a preallocated
@@ -357,11 +364,18 @@ class StagingPipeline:
             mode, why = plan_landing(hbm, chunk_ids, chunk_size, dest_offset,
                                      device_dtype, tail_len)
             if mode == "direct":
+                stats.add("nr_landing_direct")
                 return self._memcpy_direct(source, hbm, list(chunk_ids),
                                            chunk_size, tail_len, device_dtype)
-            if why is not None and config.get("landing") == "direct":
-                pr_warn("landing=direct but command ineligible (%s); "
-                        "falling back to the staged ring", why)
+            stats.add("nr_landing_staged")
+            if why is not None:
+                stats.add("nr_landing_fallback")
+                stats.add(f"nr_landing_fallback_{why}")
+                if _tr.active:
+                    _tr.instant("landing_fallback", args={"reason": why})
+                if config.get("landing") == "direct":
+                    pr_warn("landing=direct but command ineligible (%s); "
+                            "falling back to the staged ring", why)
             total_bytes = dest_offset + (len(chunk_ids) - 1) * chunk_size \
                 + tail_len
             if total_bytes > hbm.nbytes:
@@ -419,6 +433,9 @@ class StagingPipeline:
             out_ids[pos:pos + len(batch)] = batch
             nr_ssd += res.nr_ssd2dev
             nr_ram += res.nr_ram2dev
+            # the pinned hop touches every delivered byte a second time
+            # (what the direct landing saves): the bytes-touched ratio
+            stats.add("bytes_staging_copy", nbytes)
             t0 = time.monotonic_ns()
             host = self._host[bufidx]
             # arbitration lists a batch's write-back chunks after its

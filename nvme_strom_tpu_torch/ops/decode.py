@@ -10,7 +10,9 @@ masked count plus per-column sums, the same result as the heap filter
 Columns outside ``need_cols`` decode as zeros (projection); pages without
 ``CPK_MAGIC`` (the file's header page, zero padding) hold no rows.  Sums
 follow the filter's banks: int32 sums wrap mod 2^32, uint32 sums come back
-as ``torch.uint32`` bit patterns, float32 sums add in float32.
+as ``torch.uint32`` bit patterns, float32 sums add in float32; under config
+``x64`` the count and the 4-byte integer sums are 64-bit, as the filter's
+(:func:`.filter.wide_sums`).
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import numpy as np
 import torch
 
 from ..scan.colpack import CPK_MAGIC, ColCodec, PackedMeta
-from .filter import Cols, FilterPred, _masked_sum, page_words
+from .filter import (Cols, FilterPred, _masked_sum, page_words, row_count,
+                     wide_sums)
 
 __all__ = ["decode_block_words", "make_decode_filter_fn"]
 
@@ -97,15 +100,18 @@ def decode_block_words(words: torch.Tensor, meta: PackedMeta,
 
 def make_decode_filter_fn(meta: PackedMeta,
                           predicate: Union[FilterPred, Callable, None] = None,
-                          *, need_cols: Optional[Sequence[int]] = None
-                          ) -> Callable:
+                          *, need_cols: Optional[Sequence[int]] = None,
+                          wide: Optional[bool] = None) -> Callable:
     """Build ``run(pages_u8, threshold=0) -> {"count", "sums"}`` over a
     batch of packed pages: the selected-row count and one masked sum per
     column (index = absolute column).  ``predicate`` is a
     :class:`FilterPred` or ``predicate(cols, threshold) -> bool``; it sees
-    every column, the un-needed ones as zeros."""
+    every column, the un-needed ones as zeros.  *wide*: the
+    accumulators' width as the caller read it (None: read it here)."""
     need = tuple(need_cols) if need_cols is not None else None
     dtypes = [np.dtype(d) for d in meta.dtypes]
+    if wide is None:
+        wide = wide_sums()     # packed layouts hold 4-byte columns only
 
     def run(pages_u8: torch.Tensor, threshold=0) -> dict:
         cols, valid = decode_block_words(page_words(pages_u8), meta, need)
@@ -115,8 +121,8 @@ def make_decode_filter_fn(meta: PackedMeta,
             sel = valid & predicate(cols, threshold)
         else:
             sel = valid
-        return {"count": sel.sum(dtype=torch.int32),
-                "sums": [_masked_sum(v, sel, dt)
+        return {"count": row_count(sel, wide),
+                "sums": [_masked_sum(v, sel, dt, wide)
                          for v, dt in zip(cols, dtypes)]}
 
     return run

@@ -42,9 +42,9 @@ from ..trace import recorder as _trace
 from ..scan.colpack import ColCodec, PackedMeta
 from ..scan.heap import HEADER_WORDS, PAGE_SIZE
 from .decode import make_decode_filter_fn
-from .filter import FilterPred
+from .filter import FilterPred, wide_sums
 from .filter_cuda import _KIND, MAX_COLS, _Terms, check_pages, \
-    column_template, encode_terms, filter_grid
+    column_template, encode_terms, filter_grid, x64_refusal
 
 __all__ = ["launches", "launch", "decode_filter_pages_cuda",
            "kernel_refusal", "column_geometry", "row_slot", "staged_span",
@@ -135,8 +135,11 @@ def _blocks_per_sm(device_index: int, nc: int, smem: int) -> int:
     return blocks.value
 
 
-def kernel_refusal(meta: PackedMeta, predicate) -> str:
-    """Why the kernel cannot run *predicate* over *meta* ('' = it can)."""
+def kernel_refusal(meta: PackedMeta, predicate,
+                   wide: Optional[bool] = None) -> str:
+    """Why the kernel cannot run *predicate* over *meta* ('' = it can);
+    under 64-bit accumulation (*wide*, or config ``x64`` when None), a
+    4-byte integer column (B1's rule, :func:`.filter_cuda.x64_refusal`)."""
     if predicate is not None and not isinstance(predicate, FilterPred):
         return "the CUDA kernel takes a FilterPred, not a callable"
     if len(meta.cols) > MAX_COLS:
@@ -147,7 +150,7 @@ def kernel_refusal(meta: PackedMeta, predicate) -> str:
                    f"int32/uint32/float32"
         if meta.cols[c].codec not in _CODEC:
             return f"column {c} has codec {meta.cols[c].codec!r}"
-    return ""
+    return x64_refusal(meta.dtypes, wide)
 
 
 def _slots(meta: PackedMeta):
@@ -213,16 +216,19 @@ def decode_filter_pages_cuda(pages_u8: torch.Tensor, threshold,
                              meta: PackedMeta,
                              predicate: Union[FilterPred, Callable, None]
                              = None, *,
-                             need_cols: Optional[Sequence[int]] = None
-                             ) -> dict:
+                             need_cols: Optional[Sequence[int]] = None,
+                             wide: Optional[bool] = None) -> dict:
     """``{"count", "sums"}`` over a (B, 8192) uint8 batch of packed
     pages: the kernel for a CUDA tensor, the plain version for a CPU
     tensor.  ``sums[c]`` is column c's masked sum (zero outside
-    ``need_cols``)."""
+    ``need_cols``).  *wide*: the accumulators' width as the step's
+    builder read it (:func:`.filter.wide_sums`; None: read it now)."""
+    if wide is None:
+        wide = wide_sums()
     if pages_u8.device.type == "cpu":
-        return make_decode_filter_fn(meta, predicate, need_cols=need_cols)(
-            pages_u8, threshold)
-    why = kernel_refusal(meta, predicate)
+        return make_decode_filter_fn(meta, predicate, need_cols=need_cols,
+                                     wide=wide)(pages_u8, threshold)
+    why = kernel_refusal(meta, predicate, wide)
     if why:
         raise StromError(_errno.EINVAL, why)
     if pages_u8.device.type != "cuda":
@@ -246,4 +252,7 @@ def decode_filter_pages_cuda(pages_u8: torch.Tensor, threshold,
             sums.append(isums[slots[c]].view(torch.uint32))
         else:
             sums.append(isums[slots[c]])
-    return {"count": count[0], "sums": sums}
+    # under x64 only float-only layouts reach the kernel: their count
+    # widens as the plain version's
+    return {"count": count[0].to(torch.int64) if wide else count[0],
+            "sums": sums}

@@ -10,7 +10,11 @@ Types: int32 sums wrap mod 2^32 (int32 accumulation, as on the TPU);
 uint32 columns decode to int64 holding the unsigned value (torch has no
 uint32 arithmetic) and their sums come back as ``torch.uint32`` wrapped mod
 2^32; float32 sums accumulate in float32; int64/float64 columns decode from
-word pairs and sum in their own dtype.
+word pairs and sum in their own dtype.  Under 64-bit accumulation
+(:func:`wide_sums`: config ``x64``, or a schema with an 8-byte column) the
+counts are int64, int32 sums int64 and uint32 sums ``torch.uint64`` bit
+patterns of an int64 sum (uint64 on the host), as ``jnp.sum`` widens under
+``jax_enable_x64``; floats stay in their dtype.
 
 A predicate is either a :class:`FilterPred` (a conjunction of column
 comparisons, the form the CUDA kernel takes) or a callable
@@ -25,13 +29,18 @@ against a uint32 column; numpy integer scalars are not weak types, so
 they wrap to 32 bits and a signed one turns a uint32 column's compare
 signed (``np.uint32(3_000_000_000)`` is how a uint32 column meets a value
 above 2^31).  A float16 value is refused: jnp would compare in float16.
+Under config ``x64`` a Python int meets a uint32 column anywhere in
+[-2^31, 2^32) and a float32 column at any size (as ``float32(value)``);
+an int outside the column's own range stays EINVAL, where jnp under
+``jax_enable_x64`` wraps it into the column's type and answers for the
+wrapped value.
 """
 
 from __future__ import annotations
 
 import errno as _errno
 from dataclasses import dataclass
-from typing import Callable, Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -42,7 +51,7 @@ from ..scan.heap import PAGE_SIZE, HeapSchema
 __all__ = ["DEFAULT_SCHEMA", "FilterPred", "Cols", "page_words",
            "decode_pages", "select_rows", "global_row_positions",
            "make_filter_fn", "make_filter_fold", "scan_filter_step", "term_value",
-           "compare_view"]
+           "compare_view", "wide_sums", "row_count"]
 
 #: default demo schema: two int32 data columns + visibility
 DEFAULT_SCHEMA = HeapSchema(n_cols=2, visibility=True)
@@ -54,6 +63,24 @@ MAX_TERMS = 8
 
 
 _INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
+_UINT32_END = 1 << 32
+
+
+def wide_sums(schema=None) -> bool:
+    """Whether counts and 4-byte integer sums accumulate in 64 bits: under
+    config ``x64`` (the JAX package's ``jax_enable_x64``), and on a
+    schema with an 8-byte column, which the JAX package serves only in
+    64-bit mode (so its only answer is the 64-bit one).  Read where the
+    step is built."""
+    from ..config import config
+    return bool(config.get("x64")) or (schema is not None
+                                       and schema.has_wide)
+
+
+def row_count(mask: torch.Tensor, wide: bool) -> torch.Tensor:
+    """The selected-row count of *mask*: int64 under 64-bit accumulation,
+    else int32 (``jnp.sum`` of an int32 cast)."""
+    return mask.sum(dtype=torch.int64 if wide else torch.int32)
 
 
 def _wrap32(v: int, signed: bool):
@@ -86,7 +113,23 @@ def term_value(dt: np.dtype, value):
         return "f", np.float32(value)
     if isinstance(value, int):
         # a weak type: jnp converts it to the column's type through int32
-        # and refuses what int32 cannot hold, whatever the column's type
+        # and refuses what int32 cannot hold, whatever the column's type;
+        # in 64-bit mode through int64, so a uint32 column takes its own
+        # range and a float32 column any int
+        from ..config import config
+        if config.get("x64") and dt.kind != "i":
+            if dt.kind == "f":
+                try:
+                    return "f", np.float32(value)
+                except OverflowError:
+                    pass
+            elif _INT32_MIN <= value < _UINT32_END:
+                return "u", _wrap32(value, False)
+            raise StromError(_errno.EINVAL, f"comparison value {value} "
+                                            f"outside the range of a {dt} "
+                                            f"column (jnp under x64 would "
+                                            f"wrap it into the column's "
+                                            f"type)")
         if not _INT32_MIN <= value <= _INT32_MAX:
             raise StromError(_errno.EINVAL, f"comparison value {value} "
                                             f"outside the range a {dt} "
@@ -278,25 +321,33 @@ def global_row_positions(pages_u8: torch.Tensor,
 
 
 def _masked_sum(col: torch.Tensor, mask: torch.Tensor,
-                dt: np.dtype) -> torch.Tensor:
+                dt: np.dtype, wide: bool = False) -> torch.Tensor:
+    """The sum of *col* (decoded, of column dtype *dt*) over *mask*; with
+    *wide*, 4-byte integers sum in 64 bits (:func:`wide_sums`)."""
     picked = torch.where(mask, col, torch.zeros((), dtype=col.dtype,
                                                 device=col.device))
     if dt == np.dtype(np.int32):
-        return picked.sum(dtype=torch.int32)          # wraps mod 2^32
+        # wraps mod 2^32 unless wide
+        return picked.sum(dtype=torch.int64 if wide else torch.int32)
     if dt == np.dtype(np.uint32):
+        if wide:
+            # uint32 decodes as int64 already: its sum, as uint64 bits
+            return picked.sum(dtype=torch.int64).view(torch.uint64)
         wrapped = picked.sum() & 0xFFFFFFFF
         return wrapped.to(torch.int32).view(torch.uint32)
     return picked.sum(dtype=col.dtype)
 
 
 def make_filter_fn(schema: HeapSchema,
-                   predicate: Union[FilterPred, Callable]) -> Callable:
+                   predicate: Union[FilterPred, Callable], *,
+                   wide: Optional[bool] = None) -> Callable:
     """Build ``run(pages_u8, threshold=0) -> {"count", "sums"}``: the
     selected-row count and per-column masked sums, NULL-aware (a nullable
     column's sum skips its NULL rows, and ``nncounts`` — per-column
     non-NULL selected counts — appears when the schema has nullable
-    columns)."""
-    fold = make_filter_fold(schema, predicate)
+    columns).  *wide*: the accumulators' width as the caller read it
+    (None: :func:`wide_sums` now)."""
+    fold = make_filter_fold(schema, predicate, wide=wide)
 
     def run(pages_u8: torch.Tensor, threshold=0) -> dict:
         return fold(*decode_pages(pages_u8, schema), threshold)
@@ -305,11 +356,15 @@ def make_filter_fn(schema: HeapSchema,
 
 
 def make_filter_fold(schema: HeapSchema,
-                     predicate: Union[FilterPred, Callable, None]) -> Callable:
+                     predicate: Union[FilterPred, Callable, None], *,
+                     wide: Optional[bool] = None) -> Callable:
     """The step of :func:`make_filter_fn` on decoded columns: ``fold(cols,
     valid, threshold=0) -> {"count", "sums"[, "nncounts"]}``, any shape
-    (the index access path folds fetched rows with it)."""
+    (the index access path folds fetched rows with it).  The accumulators'
+    width (:func:`wide_sums`) is read here unless *wide* gives it."""
     any_null = any(schema.col_nullable(c) for c in range(schema.n_cols))
+    if wide is None:
+        wide = wide_sums(schema)
 
     def fold(cols, valid: torch.Tensor, threshold=0) -> dict:
         sel = select_rows(predicate, cols, valid, schema, threshold)
@@ -318,11 +373,12 @@ def make_filter_fold(schema: HeapSchema,
             n = cols.nulls.get(c)
             return sel if n is None else sel & ~n
 
-        out = {"count": sel.sum(dtype=torch.int32),
-               "sums": [_masked_sum(v, colmask(c), schema.col_dtype(c))
+        out = {"count": row_count(sel, wide),
+               "sums": [_masked_sum(v, colmask(c), schema.col_dtype(c),
+                                    wide)
                         for c, v in enumerate(cols)]}
         if any_null:
-            out["nncounts"] = [colmask(c).sum(dtype=torch.int32)
+            out["nncounts"] = [row_count(colmask(c), wide)
                                for c in range(schema.n_cols)]
         return out
 

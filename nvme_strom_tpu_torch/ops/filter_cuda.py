@@ -32,7 +32,7 @@ import ctypes
 import errno as _errno
 import functools
 import time
-from typing import Callable, Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -42,12 +42,12 @@ from ..api import StromError
 from ..trace import recorder as _trace
 from ..scan.heap import PAGE_SIZE, HeapSchema
 from .filter import (DEFAULT_SCHEMA, MAX_TERMS, STEP_PRED, FilterPred,
-                     make_filter_fn)
+                     make_filter_fn, wide_sums)
 
 __all__ = ["launches", "launch", "scan_filter_step_cuda",
            "make_filter_fn_cuda", "filter_pages_cuda", "kernel_refusal",
            "encode_terms", "column_template", "filter_grid", "check_pages",
-           "new_outputs"]
+           "new_outputs", "x64_refusal"]
 
 #: kernel launches since the last reset (set to 0 to reset)
 launches = 0
@@ -152,8 +152,13 @@ def check_pages(pages_u8: torch.Tensor) -> None:
                                         f"{pages_u8.data_ptr():#x}")
 
 
-def kernel_refusal(schema: HeapSchema, predicate) -> str:
-    """Why the kernel cannot run *predicate* over *schema* ('' = it can)."""
+def kernel_refusal(schema: HeapSchema, predicate,
+                   wide: Optional[bool] = None) -> str:
+    """Why the kernel cannot run *predicate* over *schema* ('' = it can).
+    Under 64-bit accumulation (*wide*, or :func:`.filter.wide_sums` when
+    None) an int32 or uint32 column's sum is 64-bit, which the kernel's
+    32-bit sums do not give; a float-only schema stays on the kernel,
+    its count widened."""
     if not isinstance(predicate, FilterPred):
         return "the CUDA kernel takes a FilterPred, not a callable"
     if schema.n_cols > MAX_COLS:
@@ -164,6 +169,22 @@ def kernel_refusal(schema: HeapSchema, predicate) -> str:
                    f"int32/uint32/float32"
         if schema.col_nullable(c):
             return f"column {c} is nullable; the kernel takes none"
+    return x64_refusal((schema.col_dtype(c) for c in range(schema.n_cols)),
+                       wide)
+
+
+def x64_refusal(dtypes, wide: Optional[bool] = None) -> str:
+    """The ``x64`` reason B1 and B2 refuse a layout with a 4-byte integer
+    column for ('' when the sums are 32-bit or every column is a float).
+    *wide*: :func:`.filter.wide_sums` as the caller read it (None: read
+    it now; the kernels' layouts hold 4-byte columns only, so it is
+    config ``x64``)."""
+    if not (wide_sums() if wide is None else wide):
+        return ""
+    for c, dt in enumerate(dtypes):
+        if np.dtype(dt).kind in "iu":
+            return (f"x64 accumulators: column {c} ({np.dtype(dt)}) sums "
+                    f"in 64 bits, beyond the kernel's 32-bit sums")
     return ""
 
 
@@ -231,15 +252,21 @@ def launch(pages_u8: torch.Tensor, spec: _Spec, out: torch.Tensor) -> None:
 
 
 def filter_pages_cuda(pages_u8: torch.Tensor, threshold, schema: HeapSchema,
-                      predicate: Union[FilterPred, Callable]) -> dict:
+                      predicate: Union[FilterPred, Callable], *,
+                      wide: Optional[bool] = None) -> dict:
     """``{"count", "sums"}`` over a (B, 8192) uint8 page batch: the kernel
-    for a CUDA tensor, the plain version for a CPU tensor."""
+    for a CUDA tensor, the plain version for a CPU tensor.  *wide*: the
+    accumulators' width as the step's builder read it
+    (:func:`.filter.wide_sums`; None: read it now)."""
+    if wide is None:
+        wide = wide_sums(schema)
     if pages_u8.device.type == "cpu":
-        return make_filter_fn(schema, predicate)(pages_u8, threshold)
+        return make_filter_fn(schema, predicate, wide=wide)(pages_u8,
+                                                             threshold)
     if pages_u8.device.type != "cuda":
         raise StromError(_errno.EINVAL, f"pages on {pages_u8.device}: the "
                                         f"filter runs on cuda or cpu")
-    why = kernel_refusal(schema, predicate)
+    why = kernel_refusal(schema, predicate, wide)
     if why:
         raise StromError(_errno.EINVAL, why)
     check_pages(pages_u8)
@@ -257,7 +284,10 @@ def filter_pages_cuda(pages_u8: torch.Tensor, threshold, schema: HeapSchema,
             sums.append(isums[slots[c]].view(torch.uint32))
         else:
             sums.append(isums[slots[c]])
-    return {"count": count[0], "sums": sums}
+    # under x64 only float-only schemas reach the kernel: their count
+    # widens as the plain version's (a batch's count fits 32 bits)
+    return {"count": count[0].to(torch.int64) if wide else count[0],
+            "sums": sums}
 
 
 def make_filter_fn_cuda(schema: HeapSchema,
@@ -268,8 +298,11 @@ def make_filter_fn_cuda(schema: HeapSchema,
         raise StromError(_errno.EINVAL, "predicate must be a FilterPred "
                                         "or a callable")
 
+    wide = wide_sums(schema)
+
     def run(pages_u8: torch.Tensor, threshold=0) -> dict:
-        return filter_pages_cuda(pages_u8, threshold, schema, predicate)
+        return filter_pages_cuda(pages_u8, threshold, schema, predicate,
+                                 wide=wide)
 
     return run
 

@@ -15,15 +15,17 @@ nullable.
   (this version adds the float32 terms in float64 and rounds once, the
   reference any float32 accumulation order is held to).
 * With config ``x64`` (the JAX package's ``jax_enable_x64``) 4-byte int
-  sums widen to 8 bytes and every ``sumsqs`` is float64; float sums stay
-  in the column's dtype.  Such a plan takes the torch route (B3 holds
-  32-bit accumulators).  A uint32 column's widened sums come back as
-  ``torch.int64`` (torch has no uint64 arithmetic), which
-  :func:`acc_dtypes` names uint64 on the host.
+  sums widen to 8 bytes, every ``sumsqs`` is float64 and the counts are
+  int64; float sums stay in the column's dtype.  Such a plan takes the
+  torch route (B3 holds 32-bit accumulators).  A uint32 column's widened
+  sums come back as ``torch.int64`` (torch has no uint64 arithmetic),
+  which :func:`acc_dtypes` names uint64 on the host.
 * int64 and float64 columns (this version only; the CUDA kernel takes
   4-byte columns) accumulate in 64 bits with float64 ``sumsqs``, as the
   JAX package does under ``jax_enable_x64``; the port serves them
-  without any switch.
+  without any switch, and a schema holding one accumulates as under
+  ``x64`` whatever the switch says (:func:`.filter.wide_sums`): the JAX
+  package serves such a table only in 64-bit mode.
 * A nullable column's NULL rows add nothing to its sums, sums of squares,
   mins and maxs, and are left out of its ``nncounts``; ``count`` stays
   the row count (SQL ``COUNT(*)``).
@@ -52,7 +54,7 @@ import torch
 
 from ..api import StromError
 from ..scan.heap import HeapSchema
-from .filter import FilterPred, decode_pages, select_rows
+from .filter import FilterPred, decode_pages, select_rows, wide_sums
 
 __all__ = ["GroupKey", "acc_dtypes", "make_groupby_fn", "make_groupby_fold",
            "combine_groupby", "groupby_kernel_auto", "GROUPBY_CUDA_RATIO"]
@@ -116,16 +118,16 @@ class GroupKey:
         return x
 
 
-def acc_dtypes(agg_dt: np.dtype):
+def acc_dtypes(agg_dt: np.dtype, schema: Optional[HeapSchema] = None):
     """The accumulation convention: ``(sum dtype, sumsq dtype, lo, hi)``
     where ``lo`` is the dtype's lowest value (the MAX sentinel) and ``hi``
     its highest (the MIN sentinel).  Sums stay in the column dtype (int32
     sums wrap), sums of squares are float32 for 4-byte columns and float64
-    for 8-byte ones.  Under config ``x64`` int sums are 8 bytes wide
-    (int64, uint64) and every sum of squares is float64, as the JAX
-    package's under ``jax_enable_x64``."""
-    from ..config import config
-    x64 = bool(config.get("x64"))
+    for 8-byte ones.  Under 64-bit accumulation (config ``x64``, or a
+    *schema* with an 8-byte column: :func:`.filter.wide_sums`) int sums
+    are 8 bytes wide (int64, uint64) and every sum of squares is float64,
+    as the JAX package's under ``jax_enable_x64``."""
+    x64 = wide_sums(schema)
     sq = _F64 if x64 or agg_dt.itemsize == 8 else _F32
     if agg_dt.kind == "f":
         return agg_dt, sq, agg_dt.type(-np.inf), agg_dt.type(np.inf)
@@ -237,13 +239,12 @@ def make_groupby_fold(schema: HeapSchema,
         key.check(schema)
     elif not callable(key):
         raise StromError(_errno.EINVAL, "key must be a GroupKey or a callable")
-    acc, sq, lo, hi = acc_dtypes(agg_dt)
+    acc, sq, lo, hi = acc_dtypes(agg_dt, schema)
     wide = acc.itemsize == 8      # 8-byte columns, or 4-byte ones under x64
     sq_t = torch.float64 if sq == _F64 else torch.float32
-    # the row counts are int64 under x64 (the non-NULL counts stay int32),
-    # as the reference's
-    from ..config import config
-    cnt_t = torch.int64 if config.get("x64") else torch.int32
+    # the row counts are int64 under 64-bit accumulation (the non-NULL
+    # counts stay int32), as the reference's
+    cnt_t = torch.int64 if wide_sums(schema) else torch.int32
     nullable = [schema.col_nullable(ci) for ci in cols_idx]
     any_null = any(nullable)
 

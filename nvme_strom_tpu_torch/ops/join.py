@@ -14,7 +14,9 @@ per leaf); the row steps return per-row outcomes that the query
 compresses.  Accumulators follow :func:`.groupby.acc_dtypes`: int32 sums
 wrap mod 2^32, uint32 payloads and columns (int64 holding the unsigned
 value, as the decode gives them) sum as ``torch.uint32`` wrapped mod 2^32,
-float32 in float32, 8-byte columns in their own dtype.
+float32 in float32, 8-byte columns in their own dtype.  Under 64-bit
+accumulation (:func:`.filter.wide_sums`) the counts and the 4-byte integer
+sums widen to 64 bits, as the filter's.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import torch
 
 from ..scan.heap import HeapSchema
 from .filter import (FilterPred, _masked_sum, decode_pages,
-                     global_row_positions, select_rows)
+                     global_row_positions, row_count, select_rows,
+                     wide_sums)
 
 __all__ = ["make_join_fn", "make_join_rows_fn", "make_star_fn",
            "make_star_rows_fn", "key_hash32", "hash_split_build",
@@ -200,18 +203,20 @@ def make_join_fn(schema: HeapSchema, probe_col: int,
     build = _Build(*_sorted_build(build_keys, build_values, schema,
                                   probe_col))
     sum_cols = list(range(schema.n_cols))
+    wide = wide_sums(schema)
 
     def fold(cols, valid: torch.Tensor, threshold=0) -> dict:
         _key, hit, pay, emit = _join_step(
             schema, probe_col, build, predicate, how, owner_part, cols,
             valid, threshold)
-        out = {"matched": emit.sum(dtype=torch.int32),
-               "sums": [_masked_sum(cols[c], emit, schema.col_dtype(c))
+        out = {"matched": row_count(emit, wide),
+               "sums": [_masked_sum(cols[c], emit, schema.col_dtype(c),
+                                    wide)
                         for c in sum_cols]}
         if how in ("inner", "left"):
-            out["payload_sum"] = _masked_sum(pay, hit, build.vdt)
+            out["payload_sum"] = _masked_sum(pay, hit, build.vdt, wide)
         if how == "left":
-            out["null_count"] = (emit & ~hit).sum(dtype=torch.int32)
+            out["null_count"] = row_count(emit & ~hit, wide)
         return out
 
     def run(pages_u8: torch.Tensor, threshold=0) -> dict:
@@ -297,17 +302,19 @@ def make_star_fn(schema: HeapSchema, joins, *, predicate: Predicate = None,
     the acc dtype of ``expr_dtypes[i]``).  Everything adds across batches."""
     builds = _star_builds(joins)
     sum_cols = list(range(schema.n_cols))
+    wide = wide_sums(schema)
 
     def run(pages_u8: torch.Tensor, threshold=0) -> dict:
         cols, sel = _select(schema, predicate, pages_u8, threshold)
         emit, probes = _star_probe_all(builds, cols, sel)
-        count = emit.sum(dtype=torch.int32)
+        count = row_count(emit, wide)
         out = {"count": count,
-               "sums": [_masked_sum(cols[c], emit, schema.col_dtype(c))
+               "sums": [_masked_sum(cols[c], emit, schema.col_dtype(c),
+                                    wide)
                         for c in sum_cols],
                # NULL cells decode as 0, so the sums skip them already;
                # the AVG denominators must too
-               "nncounts": [(emit & ~cols.nulls[c]).sum(dtype=torch.int32)
+               "nncounts": [row_count(emit & ~cols.nulls[c], wide)
                             if c in cols.nulls else count
                             for c in sum_cols]}
         pay_sums, null_counts = [], []
@@ -316,12 +323,13 @@ def make_star_fn(schema: HeapSchema, joins, *, predicate: Predicate = None,
                 pay_sums.append(torch.zeros((), dtype=torch.int32,
                                             device=emit.device))
             else:
-                pay_sums.append(_masked_sum(pay, emit & hit, build.vdt))
-            null_counts.append((emit & ~hit).sum(dtype=torch.int32))
+                pay_sums.append(_masked_sum(pay, emit & hit, build.vdt,
+                                            wide))
+            null_counts.append(row_count(emit & ~hit, wide))
         out["pay_sums"] = pay_sums
         out["null_counts"] = null_counts
         if expr_fns:
-            out["esums"] = [_masked_sum(f(cols), emit, dt)
+            out["esums"] = [_masked_sum(f(cols), emit, dt, wide)
                             for f, dt in zip(expr_fns, expr_dtypes)]
         return out
 

@@ -31,7 +31,7 @@ import torch
 
 from ..api import StromError
 from ..config import config
-from ..ops.filter import DEFAULT_SCHEMA, STEP_PRED
+from ..ops.filter import DEFAULT_SCHEMA, STEP_PRED, wide_sums
 from ..ops.filter_cuda import filter_pages_cuda
 from ..ops.permute import check_blocks, permute_step_plain
 from ..ops.permute_cuda import finish_ring, ring_permute_cuda
@@ -122,6 +122,8 @@ def ring_all_gather(shards: Sequence[torch.Tensor], mesh: RingMesh, *,
 
 
 def _int_bits(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype == torch.uint64:
+        return t.view(torch.int64)
     return t.view(torch.int32) if t.dtype == torch.uint32 else t
 
 
@@ -146,6 +148,7 @@ def make_ring_multi_query_scan(devices: Optional[Sequence] = None, *,
     if any(schema.col_dtype(c).kind == "f" for c in range(schema.n_cols)):
         raise StromError(_errno.EINVAL, "the ring scan folds int32 sums; the "
                                         "schema has a float column")
+    wide = wide_sums(schema)
 
     def step(shards: Sequence[torch.Tensor], thresholds) -> list:
         ths = [np.int32(t) for t in np.asarray(thresholds, np.int32)]
@@ -153,7 +156,8 @@ def make_ring_multi_query_scan(devices: Optional[Sequence] = None, *,
         acc: list = [None] * n
         for s in range(n):
             for i in range(n):
-                out = filter_pages_cuda(blocks[i], ths[i], schema, pred)
+                out = filter_pages_cuda(blocks[i], ths[i], schema, pred,
+                                        wide=wide)
                 sums = torch.stack([_int_bits(x) for x in out["sums"]])
                 acc[i] = (out["count"], sums) if acc[i] is None else \
                     (acc[i][0] + out["count"], acc[i][1] + sums)

@@ -50,14 +50,20 @@ def cursor_chunk_count(size: int, chunk_size: int) -> int:
     return n_chunks + (1 if (tail and tail % PAGE_SIZE == 0) else 0)
 
 
+#: unsigned dtypes folded and copied out as their signed twins' bits
+_UBITS = {torch.uint32: torch.int32, torch.uint64: torch.int64}
+
+
 def _add(a, b):
     if isinstance(a, dict):
         return {k: _add(a[k], b[k]) for k in a}
     if isinstance(a, (list, tuple)):
         return type(a)(_add(x, y) for x, y in zip(a, b))
-    if isinstance(a, torch.Tensor) and a.dtype == torch.uint32:
-        # no uint32 arithmetic in torch: add the bits as int32 (mod 2^32)
-        return (a.view(torch.int32) + b.view(torch.int32)).view(torch.uint32)
+    if isinstance(a, torch.Tensor) and a.dtype in _UBITS:
+        # no uint32/uint64 arithmetic in torch: add the bits as signed
+        # integers of the same width (mod 2^32, mod 2^64)
+        sd = _UBITS[a.dtype]
+        return (a.view(sd) + b.view(sd)).view(a.dtype)
     return a + b
 
 
@@ -79,6 +85,8 @@ def _to_numpy(x):
     if isinstance(x, torch.Tensor):
         if x.dtype == torch.uint32:
             return x.view(torch.int32).cpu().numpy().view(np.uint32)
+        if x.dtype == torch.uint64:
+            return x.view(torch.int64).cpu().numpy().view(np.uint64)
         return x.cpu().numpy()
     return np.asarray(x)
 

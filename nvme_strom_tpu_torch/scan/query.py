@@ -307,8 +307,8 @@ def _hv(user: Optional[Callable]) -> Callable:
 
 
 def _to_torch(x):
-    """A numpy partial as CPU tensors (uint32 as ``torch.uint32``), the
-    form the batch folds take."""
+    """A numpy partial as CPU tensors (uint32 as ``torch.uint32``, uint64
+    as ``torch.uint64``), the form the batch folds take."""
     if isinstance(x, dict):
         return {k: _to_torch(v) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
@@ -316,6 +316,8 @@ def _to_torch(x):
     a = np.array(x)
     if a.dtype == np.uint32:
         return torch.from_numpy(a.view(np.int32)).view(torch.uint32)
+    if a.dtype == np.uint64:
+        return torch.from_numpy(a.view(np.int64)).view(torch.uint64)
     return torch.from_numpy(a)
 
 
@@ -1695,9 +1697,12 @@ class Query:
             return make_groupby_fn(self.schema, key, g, agg_cols=agg,
                                    predicate=pred), combine_groupby
         if face == "cuda":
+            from ..ops.filter import wide_sums
             from ..ops.filter_cuda import filter_pages_cuda
+            wide = wide_sums(self.schema)
             return (lambda pages: self._project(
-                filter_pages_cuda(pages, 0, self.schema, pred))), None
+                filter_pages_cuda(pages, 0, self.schema, pred,
+                                  wide=wide))), None
         from ..ops.filter import make_filter_fn
         run = make_filter_fn(self.schema, pred)
         return (lambda pages: self._project(run(pages))), None
@@ -2027,10 +2032,13 @@ class Query:
             need = self._pushdown_need_cols()
             if face == "cuda":
                 from ..ops.decode_cuda import decode_filter_pages_cuda
+                from ..ops.filter import wide_sums
+                wide = wide_sums()
 
                 def decode(pages):
                     return decode_filter_pages_cuda(pages, 0, meta, pred,
-                                                    need_cols=need)
+                                                    need_cols=need,
+                                                    wide=wide)
             else:
                 from ..ops.decode import make_decode_filter_fn
                 decode = make_decode_filter_fn(meta, pred, need_cols=need)
@@ -2046,10 +2054,13 @@ class Query:
                 return self._finalize(self._project(
                     self._scan(fn, dev, path=psrc)))
         if face == "cuda":
+            from ..ops.filter import wide_sums
             from ..ops.filter_cuda import filter_pages_cuda
+            wide = wide_sums(self.schema)
 
             def heap_filter(pages):
-                return filter_pages_cuda(pages, 0, self.schema, pred)
+                return filter_pages_cuda(pages, 0, self.schema, pred,
+                                         wide=wide)
         else:
             from ..ops.filter import make_filter_fn
             heap_filter = make_filter_fn(self.schema, pred)
@@ -2091,7 +2102,8 @@ class Query:
         having = self._group[3]
         count = np.asarray(out["count"])
         sums = np.asarray(out["sums"])
-        acc_np = acc_dtypes(_check_agg_cols(self.schema, self._group[2])[1])[0]
+        acc_np = acc_dtypes(_check_agg_cols(self.schema, self._group[2])[1],
+                            self.schema)[0]
         if sums.dtype.kind in "iu" and sums.dtype != acc_np:
             # x64 uint32 sums: int64 on the device (torch has no uint64
             # arithmetic), uint64 on the host as the reference's
@@ -3034,7 +3046,7 @@ class Query:
                                                 f"high-cardinality GROUP BY "
                                                 f"over nullable aggregates "
                                                 f"is outside this subset")
-        acc_np, sq_np, lo, hi = acc_dtypes(agg_dt)
+        acc_np, sq_np, lo, hi = acc_dtypes(agg_dt, self.schema)
         return _SortedGroupAcc(len(agg_idx), acc_np, sq_np, lo, hi,
                                self._SPILL_HARD_MAX)
 
@@ -3098,15 +3110,18 @@ class Query:
 
     def _make_expr_fn(self, pred):
         """The expression-aggregate step: ``{"count", "esums"}`` a batch."""
-        from ..ops.filter import _masked_sum
+        from ..ops.filter import _masked_sum, row_count, wide_sums
         fns, dts = self._expr_parts(self._agg_exprs)
         schema = self.schema
+        wide = wide_sums(schema)
 
         def run(pages: torch.Tensor) -> dict:
             cols, valid = decode_pages(pages, schema)
             sel = select_rows(pred, cols, valid, schema)
-            return {"count": sel.sum(dtype=torch.int32),
-                    "esums": [_masked_sum(f(cols), sel, dt)
+            # each row's value stays in its expression dtype; only the
+            # sum widens
+            return {"count": row_count(sel, wide),
+                    "esums": [_masked_sum(f(cols), sel, dt, wide)
                               for f, dt in zip(fns, dts)]}
         return run
 

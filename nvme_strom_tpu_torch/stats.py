@@ -56,11 +56,23 @@ package's registry uses for the same events:
   ``cache_unpinned_bytes`` and ``hbm_resident_bytes``
   (:meth:`Stats.gauge_set`).
 
+* the landing route of each pipeline command: ``nr_landing_direct`` /
+  ``nr_landing_staged``, ``nr_landing_fallback`` and its reason
+  (``nr_landing_fallback_alignment`` / ``_dtype`` / ``_backend``), and
+  ``bytes_staging_copy`` (bytes the staged ring copied a second time);
+* the self-driving data path (:mod:`.autotune`): ``nr_autotune_step``,
+  ``nr_autotune_revert`` and ``nr_autotune_freeze`` (controller
+  decisions), ``nr_readahead_fill`` / ``nr_readahead_skip`` (prefetches
+  issued, predictions the budget skipped), ``bytes_readahead`` and
+  ``nr_readahead_hit`` (demand hits on prefetched extents, counted by the
+  RAM tier).
+
 Beside the counters: the resolved engine backend (:meth:`Stats.backend`),
 a log2-ns request-latency histogram (``LAT_HIST_BUCKETS`` buckets, fed by
 the python pool and the native engine's deltas), and per-member request,
 latency, queue-occupancy and fault accounting (errors, retries,
-quarantines, the health state and its age: :meth:`Stats.member_snapshot`).
+quarantines, the health state and its age, and the autotune controller's
+knobs: :meth:`Stats.member_snapshot`).
 The phases' wall times are flight-recorder spans (:mod:`.trace`), not
 counters.
 """
@@ -132,6 +144,8 @@ class Stats:
         self._member_health: Dict[int, list] = {}
         # member -> (health state name, monotonic entry time)
         self._member_state: Dict[int, tuple] = {}
+        # member -> the autotune controller's applied knobs
+        self._member_knobs: Dict[int, dict] = {}
         self._occ_last_ns = 0
         self._backend = ""
 
@@ -215,6 +229,27 @@ class Stats:
             for i, v in enumerate(deltas[:LAT_HIST_BUCKETS]):
                 h[i] += v
 
+    def member_hist_snapshot(self) -> Dict[int, List[int]]:
+        """``{member: [LAT_HIST_BUCKETS counts]}``, a copy of the
+        per-member latency histograms (the autotune controller reads their
+        epoch deltas)."""
+        with self._lock:
+            return {m: list(h) for m, h in self._member_hist.items()}
+
+    def member_knobs(self, member: int, *, window=None, cap=None,
+                     hedge_ms=None, step=None, freeze=None) -> None:
+        """Publish the autotune controller's applied knobs of *member*
+        (``knob_window``, ``knob_cap``, ``knob_hedge_ms``, ``knob_step``,
+        ``knob_freeze`` in its :meth:`member_snapshot` row); None leaves a
+        field as it was."""
+        with self._lock:
+            d = self._member_knobs.setdefault(member, {})
+            for k, v in (("knob_window", window), ("knob_cap", cap),
+                         ("knob_hedge_ms", hedge_ms), ("knob_step", step),
+                         ("knob_freeze", freeze)):
+                if v is not None:
+                    d[k] = v
+
     def member_occ_add(self, member: int, integral_ns: int,
                        busy_ns: int) -> None:
         with self._lock:
@@ -250,7 +285,8 @@ class Stats:
     def member_snapshot(self) -> Dict[int, dict]:
         """``{member: {"nreq", "bytes", "clk_ns"[, "p50_ns", "p95_ns",
         "occ_integral_ns", "occ_busy_ns", "errors", "retries",
-        "quarantines", "quarantined", "state", "state_s"]}}``."""
+        "quarantines", "quarantined", "state", "state_s", "knob_window",
+        "knob_cap", "knob_hedge_ms", "knob_step", "knob_freeze"]}}``."""
         with self._lock:
             out = {k: {"nreq": v[0], "bytes": v[1], "clk_ns": v[2]}
                    for k, v in sorted(self._members.items())}
@@ -258,6 +294,7 @@ class Stats:
             occ = {k: list(o) for k, o in self._member_occ.items()}
             health = {k: list(h) for k, h in self._member_health.items()}
             states = dict(self._member_state)
+            knobs = {k: dict(v) for k, v in self._member_knobs.items()}
         now = time.monotonic()
         for k, h in health.items():
             d = out.setdefault(k, {"nreq": 0, "bytes": 0, "clk_ns": 0})
@@ -277,6 +314,8 @@ class Stats:
         for k, o in occ.items():
             d = out.setdefault(k, {"nreq": 0, "bytes": 0, "clk_ns": 0})
             d["occ_integral_ns"], d["occ_busy_ns"] = o
+        for k, kn in knobs.items():
+            out.setdefault(k, {"nreq": 0, "bytes": 0, "clk_ns": 0}).update(kn)
         return out
 
     def shard_wait(self, shard: int, ns: int) -> None:
@@ -331,6 +370,7 @@ class Stats:
             self._member_occ.clear()
             self._member_health.clear()
             self._member_state.clear()
+            self._member_knobs.clear()
             self._occ_last_ns = 0
 
 

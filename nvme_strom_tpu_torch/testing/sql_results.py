@@ -5,7 +5,9 @@ object arrays, None for NULL).  Integers, positions, booleans, strings and
 None compare exactly (by value, whatever the integer dtype); floats within
 ``1e-4 * scale + 1e-6``, *scale* a bound of ``sum(|x|)`` over the rows a
 float aggregate reads (default: the larger magnitude of the two values,
-at least 1), NaN equal to NaN.  ``_analyze`` and ``_workers`` are
+at least 1), NaN equal to NaN, an infinity equal only to the same
+infinity (never to the other sign's, nor to a finite value, whatever the
+scale).  ``_analyze`` and ``_workers`` are
 telemetry: either side may carry them, and their values do not compare.
 """
 
@@ -24,6 +26,8 @@ _TELEMETRY = ("_analyze", "_workers")
 def _close(a: float, b: float, scale: Optional[float]) -> bool:
     if math.isnan(a) or math.isnan(b):
         return math.isnan(a) and math.isnan(b)
+    if math.isinf(a) or math.isinf(b):
+        return a == b
     s = max(abs(a), abs(b), 1.0) if scale is None else scale
     return abs(a - b) <= 1e-4 * s + 1e-6
 

@@ -47,7 +47,9 @@ _SCRIPT = textwrap.dedent("""
                 "testing.stress_faults", "integrity", "tiering", "cache",
                 "serving", "serving.hbm_tier", "testing.cache_gate",
                 "testing.tier_gate", "testing.scrub_gate",
-                "tools.phase_clock"):
+                "tools.phase_clock", "autotune", "daemon", "daemon.qos",
+                "testing.autotune_gate", "testing.landing_gate",
+                "testing.pushdown_gate"):
         assert pkg.__name__ + "." + mod in names, mod
     import chip_smoke  # noqa: F401
     leaked = [m for m in sys.modules

@@ -431,11 +431,13 @@ def test_coalesce_limit_cross_check_matches_reference():
 
 
 #: parts of the reference's Session the port has since ported (the fault
-#: ladder A1.6, mirrors A1.4, checksum verify and the scrubber A1.7)
+#: ladder A1.6, mirrors A1.4, checksum verify and the scrubber A1.7,
+#: autotune A1.9)
 _PORTED_SESSION_PARTS = {"_read_hedged", "_read_direct_resilient",
                          "_canary_loop", "_watchdog_loop", "_resync_replay",
                          "_write_mirrored", "_verify_writes",
-                         "_verify_request_checksums", "_scrub_refill"}
+                         "_verify_request_checksums", "_scrub_refill",
+                         "_autotune_scale_lanes"}
 
 
 @pytest.mark.parametrize("name", [
