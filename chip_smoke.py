@@ -10,8 +10,9 @@ planner's direct and vfs access paths over one file, a stripe set and a
 segmented relation, string columns and the SQL facade, and the engine's
 resilience (mirrors, the fault ladder, page-cache arbitration, 64-bit
 GROUP BY sums), checksum verify on read with the residency tiers and the
-integrity domain, and 64-bit scalar sums, the autotune controller and
-predictive readahead — at full size and holds every CUDA kernel of those paths
+integrity domain, 64-bit scalar sums, the autotune controller and
+predictive readahead, and NVMe passthrough through its emulator with NUMA
+binding — at full size and holds every CUDA kernel of those paths
 against its plain PyTorch version:
 
 1. environment: the card's name and power limit (``nvidia-smi``);
@@ -303,6 +304,25 @@ against its plain PyTorch version:
        elapsed + burst and the off arm's readahead counters 0; then
        [5]'s aggregate (B1) with
        readahead off and on: 64 launches, both equal to numpy.
+22. NVMe passthrough and NUMA binding (after [21], on [4]'s file and [5]'s
+    table), the card's name and power limit beside every number:
+    a. [4]'s file provisioned onto an emulator image in the run's temp
+       directory (64 fragments, a 2 MiB UNWRITTEN and a 3 MiB INLINE
+       range) and loaded with ``run_load`` into a preallocated tensor on
+       the python pool, through the passthrough lane and through O_DIRECT
+       in turns: ``torch.equal``, both lanes counted, GB/s of each;
+    b. [5]'s table provisioned the same way and scanned with B1 through
+       the lane and on the native rung: 64 launches each, count and sum
+       equal to numpy;
+    c. the real rung on this host: the reason an ``auto`` Session
+       counts, ``engine_backend=passthru`` with ``io_fallback`` (counted)
+       and without (raises), ``fiemap_supported`` and ``fragmentation``;
+    d. NUMA: the nodes with memory, the table's device node, a 4-member
+       stripe under ``numa_policy=node:0`` (lanes pinned, byte-identical),
+       a ``TableScanner(numa_bind=True)`` scan (B1) whose affinity is
+       restored at close, a ``DmaBufferPool`` under ``numa_node_mask``;
+    e. ``testing/passthru_gate.py`` on the card, every leg.
+    The emulator's images are deleted when the phase ends.
 
 Every main path sets the kernels' launch counts to 0 just before it runs
 and reads them just after; each kernel of a path must have launched once
@@ -5947,6 +5967,349 @@ def _selfdriving_phase(torch, dev, tmp, seed, card=None, heap=None,
     return launched
 
 
+def _pt_layout(nbytes):
+    """[22]'s extent layout of an *nbytes* file on the emulator: 64
+    fragments, an UNWRITTEN range of 2 MiB a third in and an INLINE range
+    of 3 MiB two thirds in (each at most 1/64 of the file), 512-byte
+    aligned past a 4 KiB boundary, so both lanes run."""
+    unwritten, inline = 0x800, 0x200
+    a = min(2 << 20, nbytes // 64)
+    b = min(3 << 20, nbytes // 64)
+    return 64, ((nbytes // 3 // 4096 * 4096 + 4096, a, unwritten),
+                (2 * nbytes // 3 // 4096 * 4096 + 512, b, inline))
+
+
+def _passthru_phase(torch, dev, tmp, seed, card=None, heap=None,
+                    load_path=None):
+    """Phase 22: NVMe passthrough through the emulator and the real
+    rung's refusal, then NUMA binding (see the module docstring); *heap*
+    is [5]'s table ``(path, schema, th, count, sum)`` and *load_path* [4]'s
+    file (each made here, at full size, when not given).  Returns the B1
+    launches of [22b] and [22d]."""
+    if card is None:
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True,
+                              text=True, check=True,
+                              timeout=60).stdout.strip().splitlines()[0]
+    if heap is None:
+        hpath = os.path.join(tmp, "table.heap")
+        schema, c0, c1, vis = _scan_table(hpath, seed, 131072)
+        sel = (vis != 0) & (c0 > 100)
+        heap = (hpath, schema, 100, int(sel.sum()), _int32_sum(c1[sel]))
+        del c0, c1, vis, sel
+    if load_path is None:
+        load_path = os.path.join(tmp, "load.bin")
+        _write_random_file(load_path, 1 << 30, seed)
+    from nvme_strom_tpu_torch import _native, blockmap, numa
+    from nvme_strom_tpu_torch.api import PASSTHRU_COUNTERS, StromError
+    from nvme_strom_tpu_torch.config import config
+    from nvme_strom_tpu_torch.engine import (Request, Session, _Task,
+                                             _resolve_passthru_dev,
+                                             open_source)
+    from nvme_strom_tpu_torch.ops import filter_cuda
+    from nvme_strom_tpu_torch.scan.executor import TableScanner
+    from nvme_strom_tpu_torch.scan.pool import DmaBufferPool
+    from nvme_strom_tpu_torch.stats import stats
+    from nvme_strom_tpu_torch.testing import passthru_gate
+    from nvme_strom_tpu_torch.testing.passthru_emu import (PassthruEmulator,
+                                                          pack_uring_cmd)
+    from nvme_strom_tpu_torch.tools.common import first_mismatch
+    from nvme_strom_tpu_torch.tools.ssd2gpu_test import run_load
+    on_card = dev.type == "cuda"           # launch checks
+    snap = config.snapshot()
+    t_phase = time.monotonic()
+    launched = 0
+    images = []
+
+    def fail(label, what):
+        raise AssertionError(f"[22{label}] {what}")
+
+    def deltas(before):
+        after = stats.snapshot()
+        return {k: after.get(k, 0) - before.get(k, 0)
+                for k in PASSTHRU_COUNTERS
+                if after.get(k, 0) != before.get(k, 0)}
+
+    def provision(path, name):
+        img = os.path.join(tmp, name)
+        images.append(img)
+        emu = PassthruEmulator(img)
+        frag, inel = _pt_layout(os.path.getsize(path))
+        t0 = time.monotonic()
+        exts = emu.provision(path, frag=frag, ineligible=inel)
+        return emu, exts, time.monotonic() - t0
+
+    def drop_image(emu):
+        emu.close()
+        os.unlink(images.pop())
+
+    try:
+        # every chunk direct (the host's page cache is no verdict here),
+        # no tier in front of the lanes
+        config.set("cache_arbitration", False)
+        config.set("tier_ram_bytes", 0)
+        config.set("tier_hbm_bytes", 0)
+
+        # -- a. [4]'s file through the emulator lane ----------------------
+        emu, exts, prov_s = provision(load_path, "load.img")
+        nbytes = os.path.getsize(load_path)
+        rows, tensors = [], {}
+        with open_source(load_path) as src_pt, \
+                open_source(load_path) as src_od, \
+                Session(device=dev, io_backend="python") as sess:
+            chan = emu.attach(src_pt)
+            for lane in ("passthru", "odirect", "odirect", "passthru"):
+                out = run_load(src_pt if lane == "passthru" else src_od,
+                               device=dev, session=sess)
+                # the timed load's own counts (the warm-up batch apart)
+                d = {k: v for k, v in out["counters"].items()
+                     if k in PASSTHRU_COUNTERS and v}
+                rows.append((lane, out["seconds"], d))
+                if lane not in tensors:
+                    tensors[lane] = out["tensor"]
+                del out
+            # the lane's own host cost, apart from where its bytes come
+            # from: the split of the file's requests as the pool issues
+            # them (dma_max_size each, the blockmap cached, as in the
+            # loads) and the packing of its commands
+            cs = int(config.get("dma_max_size"))
+            plan = [Request(member=0, file_off=o, length=min(cs, nbytes - o),
+                            dest_off=o) for o in range(0, nbytes, cs)]
+            split_s, pack_s = [], []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                split = sess._passthru_split(_Task(0), src_pt, plan, chan, {})
+                split_s.append(time.perf_counter() - t0)
+                cmds = [(r.passthru_off >> chan.lba_shift, r.length)
+                        for r in split if r.passthru_off is not None]
+                t0 = time.perf_counter()
+                for slba, n in cmds:
+                    pack_uring_cmd(nsid=1, slba=slba,
+                                   nlb0=(n >> chan.lba_shift) - 1, data_len=n)
+                pack_s.append(time.perf_counter() - t0)
+        pt_t, od_t = tensors["passthru"], tensors["odirect"]
+        if not torch.equal(pt_t, od_t):
+            fail("a", "the emulator lane's load differs from the O_DIRECT "
+                      "load")
+        bad = first_mismatch(pt_t, load_path, pt_t.numel())
+        if bad is not None:
+            fail("a", f"the emulator lane's load differs from the file at "
+                      f"{bad[0]}")
+        del tensors, pt_t, od_t
+        served = emu.commands_served
+        drop_image(emu)
+        pt_rows = [r for r in rows if r[0] == "passthru"]
+        od_rows = [r for r in rows if r[0] == "odirect"]
+        for lane, s, d in pt_rows:
+            if not (d.get("nr_passthru_dma", 0) > 0
+                    and d.get("nr_passthru_refused_extent", 0) > 0
+                    and 0 < d.get("bytes_passthru", 0) < nbytes):
+                fail("a", f"an emulator load's counters {d}: both lanes "
+                          f"must run")
+        for lane, s, d in od_rows:
+            if d:
+                fail("a", f"an O_DIRECT load moved passthrough counters {d}")
+        gbs = [(lane, nbytes / s / 1e9) for lane, s, _ in rows]
+        d = pt_rows[0][2]
+        print(f"[22a] [4]'s file ({nbytes} bytes) provisioned onto an "
+              f"emulator image in {prov_s:.1f} s: {len(exts)} extents, "
+              f"{sum(e.length for e in exts if not e.eligible)} bytes "
+              f"UNWRITTEN/INLINE; run_load into a preallocated {dev} "
+              f"tensor on the python pool, torch.equal to the O_DIRECT "
+              f"load and to the file; per emulator load "
+              f"nr_passthru_dma {d['nr_passthru_dma']}, bytes_passthru "
+              f"{d['bytes_passthru']}, nr_passthru_refused_extent "
+              f"{d['nr_passthru_refused_extent']} ({served} commands "
+              f"served in all)")
+        print(f"      GB/s in turns ({card}); the emulator lane's bytes "
+              f"come from a prefaulted RAM image, the O_DIRECT lane's from "
+              f"the file, so neither is the other's device rate: "
+              + ", ".join(f"{lane} {g:.3f}" for lane, g in gbs)
+              + f"; emulator / O_DIRECT time "
+              f"{sum(s for _, s, _ in pt_rows) / sum(s for _, s, _ in od_rows):.3f}")
+        gib = nbytes / (1 << 30)
+        lane_s = min(s for _, s, _ in pt_rows)
+        print(f"      the lane's host cost per GiB (best of 3, {card}): "
+              f"_passthru_split of {len(plan)} requests "
+              f"{min(split_s) / gib * 1e3:.3f} ms, packing its "
+              f"{len(cmds)} commands {min(pack_s) / gib * 1e3:.3f} ms; "
+              f"together {(min(split_s) + min(pack_s)) / lane_s * 100:.2f}% "
+              f"of the fastest emulator load")
+
+        # -- b. [5]'s table through the emulator lane, B1 ----------------
+        path, schema, th, want_count, want_sum = heap
+        table_bytes = os.path.getsize(path)
+        n_batches = -(-table_bytes // int(config.get("chunk_size")))
+        emu, exts, prov_s = provision(path, "table.img")
+        results = []
+        for lane in ("passthru", "native"):
+            before = stats.snapshot()
+            filter_cuda.launches = 0
+            with open_source(path) as src, \
+                    Session(device=dev, io_backend="python"
+                            if lane == "passthru" else None) as sess:
+                if lane == "passthru":
+                    emu.attach(src)
+                backend = sess.backend_name
+                with TableScanner(src, schema, session=sess) as sc:
+                    t0 = time.monotonic()
+                    res = sc.scan_filter(
+                        lambda p: filter_cuda.scan_filter_step_cuda(p, th),
+                        device=dev)
+                    s = time.monotonic() - t0
+            n = filter_cuda.launches
+            launched += n
+            d = deltas(before)
+            if on_card and n != n_batches:
+                fail("b", f"{lane} scan: {n} B1 launches for {n_batches} "
+                          f"batches")
+            if int(res["count"]) != want_count or int(res["sum"]) != want_sum:
+                fail("b", f"{lane} scan: count {int(res['count'])} sum "
+                          f"{int(res['sum'])}, numpy {want_count} / "
+                          f"{want_sum}")
+            if lane == "passthru" and not (
+                    d.get("nr_passthru_dma", 0) > 0
+                    and d.get("nr_passthru_refused_extent", 0) > 0):
+                fail("b", f"the emulator scan's counters {d}")
+            results.append((lane, backend, s, n, d))
+        drop_image(emu)
+        (_, _, pt_s, pt_n, pt_d), (_, nat_backend, nat_s, _, _) = results
+        print(f"[22b] [5]'s table ({table_bytes} bytes) on an emulator "
+              f"image ({len(exts)} extents, provisioned in {prov_s:.1f} s): "
+              f"TableScanner with B1 on the python pool through the lane "
+              f"{table_bytes / pt_s / 1e9:.3f} GB/s, {pt_n} launches, "
+              f"nr_passthru_dma {pt_d['nr_passthru_dma']}, "
+              f"nr_passthru_refused_extent "
+              f"{pt_d['nr_passthru_refused_extent']}; the {nat_backend} "
+              f"rung's scan {table_bytes / nat_s / 1e9:.3f} GB/s; count "
+              f"{want_count} and sum {want_sum} equal numpy in both "
+              f"({card})")
+
+        # -- c. the real rung on this host --------------------------------
+        config.set("engine_backend", "auto")
+        pdev = _resolve_passthru_dev()
+        probe = _native.passthru_probe(pdev)
+        before = stats.snapshot()
+        with Session(device=dev) as sess:
+            auto_backend = sess.backend_name
+        auto_d = deltas(before)
+        config.set("engine_backend", "passthru")
+        before = stats.snapshot()
+        with Session(device=dev) as sess:
+            fb_backend = sess.backend_name
+        fb_d = deltas(before)
+        config.set("io_fallback", False)
+        before = stats.snapshot()
+        try:
+            with Session(device=dev) as sess:
+                strict = f"opened on {sess.backend_name}"
+        except StromError as e:
+            strict = f"raised errno {e.errno} ({e})"
+        strict_d = deltas(before)
+        config.set("io_fallback", True)
+        config.set("engine_backend", "auto")
+        if probe < 0 and (auto_backend == "nvme_passthru"
+                          or not any(k.startswith("nr_passthru_refusal")
+                                     for k in auto_d)
+                          or fb_d.get("nr_passthru_fallback", 0) != 1
+                          or not strict.startswith("raised")):
+            fail("c", f"the rung refused ({probe}) but auto ran "
+                      f"{auto_backend} with {auto_d}, passthru+fallback "
+                      f"{fb_d}, passthru strict {strict}")
+        frag = blockmap.fragmentation(load_path)
+        print(f"[22c] the real rung here: device {pdev!r}, probe {probe} "
+              f"({_native.PASSTHRU_REASONS.get(probe, 'usable')}); auto "
+              f"Session ran {auto_backend}, counted {auto_d}; "
+              f"engine_backend=passthru with io_fallback ran {fb_backend}, "
+              f"counted {fb_d}; without io_fallback {strict}, counted "
+              f"{strict_d}; fiemap_supported({os.path.basename(load_path)}) "
+              f"{blockmap.fiemap_supported(load_path)}, fragmentation "
+              f"{frag}")
+
+        # -- d. NUMA -------------------------------------------------------
+        mem_nodes = numa.nodes_with_memory()
+        heap_node = numa.device_numa_node(path)
+        members = [os.path.join(tmp, f"numa{i}.bin") for i in range(4)]
+        stripe = 512 << 10
+        span = min(256 << 20, nbytes // 4 // stripe * stripe * 4)
+        with open(load_path, "rb") as f:
+            head = f.read(span)
+        for i, m in enumerate(members):
+            with open(m, "wb") as f:
+                for off in range(i * stripe, span, 4 * stripe):
+                    f.write(head[off:off + stripe])
+        config.set("numa_policy", "node:0")
+        with Session(device=dev) as sess:
+            out = run_load(members, device=dev, session=sess,
+                           stripe_chunk=stripe, warmup=False)
+            nlanes = sess._native.nlanes() if sess._native else 0
+            pinned, st_backend = sess.lanes_pinned, sess.backend_name
+        want = torch.frombuffer(bytearray(head), dtype=torch.uint8).to(dev)
+        if not torch.equal(out["tensor"].reshape(-1)[:span], want):
+            fail("d", "the 4-member stripe read under numa_policy=node:0 "
+                      "differs from the file")
+        stripe_gbs = out["nbytes"] / out["seconds"] / 1e9
+        del out, want, head
+        for m in members:
+            os.unlink(m)
+        config.set("numa_policy", "auto")
+        aff = os.sched_getaffinity(0)
+        filter_cuda.launches = 0
+        with Session(device=dev) as sess:
+            sc = TableScanner(path, schema, session=sess, numa_bind=True)
+            try:
+                bound = sc.numa_bound
+                res = sc.scan_filter(
+                    lambda p: filter_cuda.scan_filter_step_cuda(p, th),
+                    device=dev)
+            finally:
+                sc.close()
+        n = filter_cuda.launches
+        launched += n
+        if os.sched_getaffinity(0) != aff:
+            fail("d", "TableScanner(numa_bind=True) left the affinity "
+                      "changed after close()")
+        if int(res["count"]) != want_count or int(res["sum"]) != want_sum \
+                or (on_card and n != n_batches):
+            fail("d", f"numa_bind scan: count {int(res['count'])} sum "
+                      f"{int(res['sum'])} in {n} launches")
+        config.set("numa_node_mask", 1)
+        with DmaBufferPool(chunk_size=1 << 20, total_size=8 << 20) as pool:
+            chunks = [pool.alloc(timeout=1.0) for _ in range(pool.n_chunks)]
+            pool_row = (pool.nodes, pool.n_chunks,
+                        sorted({c.node for c in chunks}),
+                        [b.numa_node for b in pool.buffers])
+            for c in chunks:
+                c.release()
+        print(f"[22d] NUMA: nodes with memory {mem_nodes}; [5]'s table's "
+              f"device node {heap_node}; a 4-member stripe ({span} bytes, "
+              f"512 KiB stripes) on the {st_backend} rung under "
+              f"numa_policy=node:0: {nlanes} lanes, {pinned} pinned, "
+              f"torch.equal to the file, {stripe_gbs:.3f} GB/s; "
+              f"TableScanner(numa_bind=True) bound {bound}, {n} B1 "
+              f"launches, equal to numpy, affinity restored after close(); "
+              f"DmaBufferPool under numa_node_mask=1: nodes, chunks, nodes "
+              f"used, buffers' nodes {pool_row} ({card})")
+
+        # -- e. the gate, in process, on the card -------------------------
+        t0 = time.monotonic()
+        rc = passthru_gate.main(["-d", str(dev)])
+        if rc != 0:
+            fail("e", f"passthru_gate -d {dev} exited {rc}")
+        print(f"[22e] passthru_gate -d {dev}: every leg passed in "
+              f"{time.monotonic() - t0:.1f} s ({card})")
+    finally:
+        config.restore(snap)
+        for img in images:
+            try:
+                os.unlink(img)
+            except OSError:
+                pass
+    print(f"[22] took {time.monotonic() - t_phase:.1f} s; B1 launches "
+          f"{launched}")
+    return launched
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--load-gib", type=float, default=1.0)
@@ -6372,6 +6735,11 @@ def main() -> int:
             torch, dev, tmp, args.seed, card,
             (heap_path, schema, th, want_count, want_sum), load_path,
             args.scan_pages)
+
+        # -- NVMe passthrough through the emulator, NUMA binding ------------
+        main_launches += _passthru_phase(
+            torch, dev, tmp, args.seed, card,
+            (heap_path, schema, th, want_count, want_sum), load_path)
         for f in (heap_path, load_path, gb_path):
             os.unlink(f)
 

@@ -8,31 +8,48 @@ io_uring (or, one rung down, its own pread thread pool) entirely outside
 the GIL, with the same task-table semantics as the Python pool in
 :mod:`.engine`.
 
-The whole C ABI of ``csrc/strom_tpu.h`` (API v4) is bound except
-``nstpu_engine_lane_pin`` (NUMA lane pinning).  The NVMe passthrough rung
-is never asked for: ``NativeEngine`` takes ``io_uring`` or ``threadpool``,
-and ``auto`` walks those two rungs from Python, so the engine never probes
-a character device.
+The whole C ABI of ``csrc/strom_tpu.h`` (API v4) is bound.
+``NativeEngine`` walks its ``auto`` ladder from Python, one rung a create:
+the NVMe passthrough rung first (``nstpu_engine_create3`` with the char
+device, ``/dev/ngXnY``), then io_uring, then the threadpool.  Why the
+passthrough rung refused is kept (:meth:`NativeEngine.passthru_reason`,
+:data:`PASSTHRU_REASONS`), as the JAX package's engine keeps it for the
+same ladder walked in C.  ``nstpu_engine_lane_pin`` pins a lane's threads
+to a CPU set (the NUMA lever of ``Session._pin_lanes``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import errno as _errno
+import os
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from .api import StromError
 
 __all__ = ["NativeEngine", "native_available", "native_api_version",
-           "native_signature", "uring_probe", "API_VERSION",
-           "NATIVE_COUNTERS", "LAT_HIST_BUCKETS", "TRACE_RING_EVENTS"]
+           "native_signature", "uring_probe", "passthru_probe",
+           "passthru_refusal",
+           "API_VERSION", "NATIVE_COUNTERS", "LAT_HIST_BUCKETS",
+           "TRACE_RING_EVENTS", "PASSTHRU_REASONS"]
 
-#: NSTPU_BACKEND_IO_URING / NSTPU_BACKEND_THREADPOOL (the two rungs asked
-#: for; NSTPU_BACKEND_AUTO and _NVME_PASSTHRU never are)
-BACKEND_IO_URING, BACKEND_THREADPOOL = 1, 2
+#: NSTPU_BACKEND_* of ``csrc/strom_tpu.h`` (NSTPU_BACKEND_AUTO is never
+#: asked for: the ladder is walked here, a rung a create)
+BACKEND_IO_URING, BACKEND_THREADPOOL, BACKEND_NVME_PASSTHRU = 1, 2, 3
 _BACKEND_NAMES = {BACKEND_IO_URING: "io_uring",
-                  BACKEND_THREADPOOL: "threadpool"}
+                  BACKEND_THREADPOOL: "threadpool",
+                  BACKEND_NVME_PASSTHRU: "nvme_passthru"}
+_BACKENDS = {"io_uring": BACKEND_IO_URING,
+             "threadpool": BACKEND_THREADPOOL,
+             "nvme_passthru": BACKEND_NVME_PASSTHRU}
+
+#: ``nstpu_passthru_probe`` / ``nstpu_engine_passthru_reason`` refusal
+#: reasons (negative NSTPU_PASSTHRU_*), keyed to the counter suffix a
+#: Session counts (``nr_passthru_refusal_<reason>``)
+PASSTHRU_REASONS = {-1: "disabled", -2: "nodev", -3: "nouring",
+                    -4: "nouringcmd", -5: "lbafmt"}
+_PASSTHRU_ENOURING = -3
 
 #: NSTPU_API_VERSION of ``csrc/strom_tpu.h``
 API_VERSION = 4
@@ -61,6 +78,7 @@ NATIVE_COUNTERS = (
 LAT_HIST_BUCKETS = 64
 
 REQ_WRITE = 0x1        # NSTPU_REQ_WRITE
+REQ_PASSTHRU = 0x2     # NSTPU_REQ_PASSTHRU: file_off is a device offset
 REQ_MEMBER_SHIFT = 8   # NSTPU_REQ_MEMBER_SHIFT
 MAX_MEMBERS = 64       # NSTPU_MAX_MEMBERS
 
@@ -91,6 +109,8 @@ _SIGNATURES = (
     ("nstpu_engine_create", ctypes.c_uint64, [ctypes.c_int, ctypes.c_int]),
     ("nstpu_engine_create2", ctypes.c_uint64,
      [ctypes.c_int, ctypes.c_int, ctypes.c_int]),
+    ("nstpu_engine_create3", ctypes.c_uint64,
+     [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_char_p]),
     ("nstpu_engine_destroy", None, [ctypes.c_uint64]),
     ("nstpu_engine_backend", ctypes.c_int, [ctypes.c_uint64]),
     ("nstpu_engine_version", ctypes.c_int, []),
@@ -121,6 +141,11 @@ _SIGNATURES = (
     ("nstpu_engine_trace", ctypes.c_int, [ctypes.c_uint64, ctypes.c_int]),
     ("nstpu_engine_trace_drain", ctypes.c_int,
      [ctypes.c_uint64, ctypes.POINTER(_TraceEvent), ctypes.c_int32]),
+    ("nstpu_engine_lane_pin", ctypes.c_int,
+     [ctypes.c_uint64, ctypes.c_int32, ctypes.POINTER(ctypes.c_int32),
+      ctypes.c_int32]),
+    ("nstpu_passthru_probe", ctypes.c_int, [ctypes.c_char_p]),
+    ("nstpu_engine_passthru_reason", ctypes.c_int, [ctypes.c_uint64]),
 )
 
 _lib: Optional[ctypes.CDLL] = None
@@ -178,27 +203,65 @@ def uring_probe() -> int:
     return 0
 
 
+def _passthru_dev_arg(dev: Optional[str]) -> Optional[bytes]:
+    """The char device a passthrough create or probe names: *dev*, else
+    env ``NSTPU_PASSTHRU_DEV`` (the engine's own fallback)."""
+    dev = dev or os.environ.get("NSTPU_PASSTHRU_DEV")
+    return dev.encode() if dev else None
+
+
+def passthru_probe(dev_path: Optional[str]) -> int:
+    """Capability-probe one NVMe char device for the passthrough rung:
+    its LBA shift (>= 9) when every step of the probe passes (open,
+    ``NVME_IOCTL_ID``, an SQE128|CQE32 ring, ``IORING_OP_URING_CMD``, the
+    namespace's LBA format), else a negative refusal reason
+    (:data:`PASSTHRU_REASONS`).  Leaves no engine behind."""
+    return int(_load().nstpu_passthru_probe(
+        dev_path.encode() if dev_path else None))
+
+
+def passthru_refusal(dev_path: Optional[str]) -> int:
+    """Why a passthrough create on *dev_path* (else env
+    ``NSTPU_PASSTHRU_DEV``) failed: the probe's reason, or ``nouring``
+    when the probe passes and the create's rings did not come up."""
+    pr = int(_load().nstpu_passthru_probe(_passthru_dev_arg(dev_path)))
+    return pr if pr < 0 else _PASSTHRU_ENOURING
+
+
 class NativeEngine:
     """One native engine instance (the 'loaded kernel module' analog).
 
-    *backend* is ``io_uring``, ``threadpool`` or ``auto`` (io_uring, else
-    the threadpool); *rings* is the lane count (``<= 0``: one)."""
+    *backend* is ``nvme_passthru``, ``io_uring``, ``threadpool`` or
+    ``auto`` (the passthrough rung, then io_uring, then the threadpool);
+    *rings* is the lane count (``<= 0``: one); *passthru_dev* names the
+    NVMe char device the passthrough rung opens (else env
+    ``NSTPU_PASSTHRU_DEV``; with neither it refuses with ``nodev``)."""
 
     def __init__(self, backend: str = "auto", queue_depth: int = 32,
-                 rings: int = 0):
-        if backend not in ("auto", "io_uring", "threadpool"):
+                 rings: int = 0, passthru_dev: Optional[str] = None):
+        if backend not in ("auto", *_BACKENDS):
             raise StromError(_errno.EINVAL,
                              f"native backend {backend!r} is not one of "
-                             f"auto|io_uring|threadpool")
+                             f"auto|{'|'.join(_BACKENDS)}")
         lib = _load()
         self._lib = lib
-        rungs = [BACKEND_IO_URING, BACKEND_THREADPOOL] if backend == "auto" \
-            else [BACKEND_IO_URING if backend == "io_uring"
-                  else BACKEND_THREADPOOL]
+        rungs = [BACKEND_NVME_PASSTHRU, BACKEND_IO_URING,
+                 BACKEND_THREADPOOL] if backend == "auto" \
+            else [_BACKENDS[backend]]
+        nrings = max(int(rings), 1)
         self._h = 0
+        # why the passthrough rung refused (None: the ladder never held it)
+        self._pt_reason: Optional[int] = None
         for want in rungs:
-            self._h = lib.nstpu_engine_create2(want, queue_depth,
-                                               max(int(rings), 1))
+            if want == BACKEND_NVME_PASSTHRU:
+                dev = _passthru_dev_arg(passthru_dev)
+                self._h = lib.nstpu_engine_create3(want, queue_depth,
+                                                   nrings, dev)
+                if not self._h:
+                    self._pt_reason = passthru_refusal(passthru_dev)
+            else:
+                self._h = lib.nstpu_engine_create2(want, queue_depth,
+                                                   nrings)
             if self._h:
                 break
         if not self._h:
@@ -216,18 +279,24 @@ class NativeEngine:
     def submit(self, dest_addr: int,
                reqs: Sequence[Tuple[int, int, int, int]], *,
                write: bool = False,
-               members: Optional[Sequence[int]] = None) -> int:
+               members: Optional[Sequence[int]] = None,
+               passthru: Optional[Sequence[bool]] = None) -> int:
         """Submit one task of ``(fd, file_off, len, dest_off)`` requests;
         returns its native task id.  ``write=True`` writes the buffer span
         at dest_off to the fd instead.  ``members[i]`` attributes request
-        *i* to a stripe member for per-member accounting and its lane."""
+        *i* to a stripe member for per-member accounting and its lane.
+        ``passthru[i]`` marks request *i* a raw NVMe READ: its file_off is
+        a device byte offset (blockmap-resolved) and its fd is ignored;
+        the engine refuses the whole submit (EINVAL) unless it runs the
+        passthrough rung."""
         arr = (_Req * len(reqs))()
         base_flags = REQ_WRITE if write else 0
         for i, (fd, off, ln, doff) in enumerate(reqs):
             m = members[i] if members is not None else 0
+            pt = REQ_PASSTHRU if passthru is not None and passthru[i] else 0
             arr[i].fd = fd
-            arr[i].flags = base_flags | (min(max(m, 0), MAX_MEMBERS - 1)
-                                         << REQ_MEMBER_SHIFT)
+            arr[i].flags = base_flags | pt | (min(max(m, 0), MAX_MEMBERS - 1)
+                                              << REQ_MEMBER_SHIFT)
             arr[i].file_off = off
             arr[i].len = ln
             arr[i].dest_off = doff
@@ -254,6 +323,25 @@ class NativeEngine:
         """Lane (queue-pair) count of this engine."""
         n = self._lib.nstpu_engine_nlanes(self._h)
         return n if n > 0 else 1
+
+    def passthru_reason(self) -> int:
+        """0 when the passthrough rung is this engine's backend, else why
+        the ladder passed it (a negative key of :data:`PASSTHRU_REASONS`;
+        ``disabled`` for an engine asked for a lower rung by name)."""
+        if self._pt_reason is not None and \
+                self.backend_name != "nvme_passthru":
+            return self._pt_reason
+        return int(self._lib.nstpu_engine_passthru_reason(self._h))
+
+    def lane_pin(self, lane: int, cpus: Sequence[int]) -> bool:
+        """Pin one lane's service threads (reaper and workers) to *cpus*.
+        False for a bad lane, an empty set, or a kernel that refuses the
+        affinity: the lane keeps floating, only locality is lost."""
+        if not cpus:
+            return False
+        arr = (ctypes.c_int32 * len(cpus))(*cpus)
+        return self._lib.nstpu_engine_lane_pin(self._h, lane, arr,
+                                               len(cpus)) == 0
 
     def member_stats(self, member: int) -> Tuple[int, int, int]:
         """(completed requests, bytes, busy ns) for one stripe member."""

@@ -14,7 +14,7 @@ from dataclasses import dataclass
 from typing import List, Optional
 
 __all__ = ["StromError", "ErrorClass", "FsKind", "FileInfo", "BufferInfo",
-           "MemCopyResult", "RESIDENCY_COUNTERS"]
+           "MemCopyResult", "RESIDENCY_COUNTERS", "PASSTHRU_COUNTERS"]
 
 
 #: counters of checksum verify on read, the residency tiers and the
@@ -49,6 +49,30 @@ RESIDENCY_COUNTERS = (
     "nr_tier_ram_fault",      # demand faults filled SSD -> RAM
     "nr_tier_ram_demote",     # RAM victims dropped to the SSD tier
     "nr_tier_ram_shed",       # RAM residents shed under memlock pressure
+)
+
+
+#: counters of the NVMe passthrough lane and the blockmap, under the JAX
+#: package's ``STAT_FIELDS`` names, and the port's own per-member
+#: namespace refusals (``nr_passthru_member_<reason>``)
+PASSTHRU_COUNTERS = (
+    "nr_passthru_dma",        # requests served as raw NVMe READ commands
+    "bytes_passthru",         # bytes routed onto the passthrough lane
+    "nr_passthru_refused_extent",  # spans refused per extent (hole,
+    #                           ineligible flags, unaligned, no path)
+    "nr_passthru_fallback",   # resolved extents served off the lane
+    #                           (ladder rung, hedge win, create failure)
+    "nr_passthru_refusal_disabled",   # rung refused: NSTPU_DISABLE_PASSTHRU
+    "nr_passthru_refusal_nodev",      # rung refused: no NVMe char device
+    "nr_passthru_refusal_nouring",    # rung refused: io_uring unavailable
+    "nr_passthru_refusal_nouringcmd",  # rung refused: no URING_CMD opcode
+    "nr_passthru_refusal_lbafmt",     # rung refused: unusable LBA format
+    "nr_passthru_member_otherdev",    # a block device off the rung's
+    #                                   namespace (another drive or ns)
+    "nr_passthru_member_stacked",     # a dm/md device over the drive
+    "nr_passthru_member_nosysfs",     # sysfs could not place the file
+    "nr_blockmap_resolve",    # real FIEMAP walks (cache misses)
+    "nr_blockmap_invalidate",  # cached file->LBA maps dropped by writes
 )
 
 

@@ -70,12 +70,21 @@ def _io_backend(val: str) -> None:
 
 
 def _engine_backend(val: str) -> None:
-    if val == "passthru":
-        raise ConfigError("engine_backend=passthru: the NVMe passthrough "
-                          "rung is not part of this package")
-    if val not in ("auto", "uring", "threadpool"):
-        raise ConfigError(f"engine_backend must be auto|uring|threadpool, "
-                          f"got {val!r}")
+    if val not in ("auto", "passthru", "uring", "threadpool"):
+        raise ConfigError(f"engine_backend must be auto|passthru|uring|"
+                          f"threadpool, got {val!r}")
+
+
+def _numa_policy(val: str) -> None:
+    if val in ("auto", "off"):
+        return
+    if val.startswith("node:"):
+        try:
+            if int(val[5:]) >= 0:
+                return
+        except ValueError:
+            pass
+    raise ConfigError(f"numa_policy must be auto|off|node:N, got {val!r}")
 
 
 def _trace_policy(val: str) -> None:
@@ -210,8 +219,14 @@ _VARS: Dict[str, _Var] = {
     # pool of blocking preads in engine.py)
     "io_backend": _Var("auto", str, check=_io_backend),
     # rung of the native engine's ladder when io_backend is auto:
-    # auto (io_uring, then threadpool) | uring | threadpool
+    # auto (NVMe passthrough, then io_uring, then threadpool) | passthru
+    # (the raw NVMe rung demanded: a refusal is counted and, under
+    # io_fallback, the ladder goes on below it) | uring | threadpool
+    # (no passthrough probe, no passthrough counter: the plain ladder)
     "engine_backend": _Var("auto", str, check=_engine_backend),
+    # NVMe character device the passthrough rung probes: the first match
+    # of this glob (env NSTPU_PASSTHRU_DEV names one exactly)
+    "passthru_dev_glob": _Var("/dev/ng*n*", str),
     # step down the ladder (io_uring -> native threadpool -> python pool)
     # when an engine cannot be created or a native submit fails, and
     # degrade a read to the buffered leg once its retries are spent; off
@@ -224,6 +239,14 @@ _VARS: Dict[str, _Var] = {
     "engine_rings": _Var(0, int, 0, 16),
     # per-lane in-flight window after that scale-out; 0 = queue_depth
     "member_queue_depth": _Var(0, int, 0, 4096),
+    # NUMA placement of the engine's lanes after that scale-out: auto
+    # (each lane's threads on the CPUs of its member device's node; an
+    # unknown node leaves it floating) | node:N (every lane on node N) |
+    # off (affinity never touched)
+    "numa_policy": _Var("auto", str, check=_numa_policy),
+    # NUMA nodes a DmaBufferPool carves its per-node freelists on, as a
+    # bitmask (-1 = every node with memory)
+    "numa_node_mask": _Var(-1, int),
     # chunks planned and submitted per slice of a multi-chunk read
     "submit_window": _Var(16, int, 1, 256),
     # largest coalesced native read: file-contiguous requests of one member

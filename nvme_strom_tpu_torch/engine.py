@@ -62,7 +62,25 @@ predictor, whose speculative reads (``memcpy_ssd2ram(...,
 speculative=True)``) fill the RAM tier.  With both off each site costs
 one branch.
 
-Not part of this copy: NVMe passthrough and NUMA lane pinning.
+The NVMe passthrough lane: a task on a source with a passthrough channel
+splits each planned direct request per extent (:meth:`Session.
+_passthru_split`, :mod:`.blockmap`): runs that resolve to LBA-aligned
+device ranges become sub-requests carrying ``passthru_off`` (a device byte
+offset), the rest (holes, ineligible FIEMAP flags, misaligned heads and
+tails) ride the O_DIRECT lanes of the same task.  The channel is the
+source's own (the emulator, :mod:`.testing.passthru_emu`, serving the
+python pools, where every recovery rung that leaves the lane is counted
+``nr_passthru_fallback``), else the native engine's when it came up on
+the passthrough rung (flagged requests, raw NVMe READs through
+``IORING_OP_URING_CMD``; a member whose file sysfs does not place on
+that device's namespace reads O_DIRECT, and one on a partition adds the
+partition's start).  Config ``engine_backend`` places the rung on
+the ladder; ``uring`` and ``threadpool`` probe nothing and move no
+passthrough counter.  A write drops the sink's cached extent maps.
+
+NUMA: after the lane scale-out each lane's threads are pinned to the CPUs
+of its member device's node (config ``numa_policy``, :mod:`.numa`), and a
+:class:`DmaBuffer` given a node is faulted in by a thread bound to it.
 """
 
 from __future__ import annotations
@@ -79,6 +97,8 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+from . import blockmap
+from . import numa as _numa
 from .api import (BufferInfo, ErrorClass, FileInfo, FsKind, MemCopyResult,
                   StromError)
 from .autotune import AutoTuner
@@ -88,7 +108,7 @@ from .fault import (DirtyExtentJournal, HealthState, MemberHealthMachine,
                     RetryPolicy)
 from .integrity import Scrubber, domain as _integrity, \
     verify_and_reread
-from .log import pr_warn
+from .log import logger, pr_warn
 from .stats import stats
 from .tiering import extent_space as _tiers
 from .trace import recorder as _trace
@@ -810,13 +830,19 @@ class DmaBuffer:
     asynchronous DMA.  :meth:`close` tears down in a fixed order: the close
     callbacks (a session's io_uring fixed-buffer unregistration), then the
     CUDA unregistration, then the munmap — no registration outlives the
-    mapping."""
+    mapping.  With ``numa_node`` >= 0 the pages are locked and faulted in
+    by a thread bound to that node's CPUs, so the kernel's default local
+    policy places them there (the reference binds its pool chunks to a
+    node, pgsql/nvme_strom.c:1454-1526); :attr:`placed` says whether the
+    bind took.  -1 (the default) faults them in on the calling thread."""
 
-    def __init__(self, length: int, *, pin: Optional[bool] = None):
+    def __init__(self, length: int, *, numa_node: int = -1,
+                 pin: Optional[bool] = None):
         if length <= 0:
             raise StromError(_errno.EINVAL, "buffer length must be positive")
         length = (length + PAGE_SIZE - 1) & ~(PAGE_SIZE - 1)
         self.length = length
+        self.numa_node = numa_node
         self.hugepages = False
         mm = None
         flags = mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS
@@ -831,14 +857,30 @@ class DmaBuffer:
         self._mm = mm
         self.addr = ctypes.addressof(ctypes.c_char.from_buffer(mm))
         self.pinned = False
-        if pin if pin is not None else config.get("pin_memory"):
-            self.pinned = _libc.mlock(ctypes.c_void_p(self.addr),
-                                      ctypes.c_size_t(length)) == 0
-        mm[0:length:PAGE_SIZE] = b"\0" * len(range(0, length, PAGE_SIZE))
+        #: True when the pages were faulted in on numa_node's CPUs
+        self.placed = False
+        pin = pin if pin is not None else config.get("pin_memory")
+        if numa_node >= 0:
+            t = threading.Thread(target=self._fault_in, args=(pin, numa_node),
+                                 name="strom-numa-place")
+            t.start()
+            t.join()
+        else:
+            self._fault_in(pin, -1)
         self.cuda_registered = False
         self._close_cbs: List = []
         self._lock = threading.Lock()
         self._closing = False
+
+    def _fault_in(self, pin: bool, node: int) -> None:
+        # the thread that faults a page in decides its node: bind first
+        if node >= 0:
+            self.placed = _numa.bind_to_node(node)
+        if pin:
+            self.pinned = _libc.mlock(ctypes.c_void_p(self.addr),
+                                      ctypes.c_size_t(self.length)) == 0
+        self._mm[0:self.length:PAGE_SIZE] = \
+            b"\0" * len(range(0, self.length, PAGE_SIZE))
 
     def pin_cuda(self) -> None:
         """``cudaHostRegister`` the whole buffer (idempotent).  Raises
@@ -937,6 +979,10 @@ class Request:
     # scatters into these (dest_off, length) segments (dest_off above is
     # then the first segment's, length the span's total)
     dest_segs: Tuple[Tuple[int, int], ...] = ()
+    # the passthrough lane: the blockmap-resolved DEVICE byte offset of a
+    # request that rides raw NVMe READs; None rides O_DIRECT.  Set only by
+    # Session._passthru_split, never by plan_requests
+    passthru_off: Optional[int] = None
 
 
 def plan_requests(source: Source, chunk_entries: Sequence[Tuple[int, int]],
@@ -1093,7 +1139,8 @@ class _Task:
     __slots__ = ("task_id", "pending", "frozen", "done", "errno_", "errmsg",
                  "result", "buf_handle", "t_submit", "trace_id", "deadline",
                  "expired", "write_verify", "verify_reqs", "verify_src",
-                 "verify_dest", "cache_fill", "cache_invalidate")
+                 "verify_dest", "cache_fill", "cache_invalidate",
+                 "passthru")
 
     def __init__(self, task_id: int, deadline_s: float = 0.0):
         self.task_id = task_id
@@ -1125,10 +1172,99 @@ class _Task:
         self.cache_fill: Optional[tuple] = None
         # (source key, extents) a write invalidates again at wait time
         self.cache_invalidate: Optional[tuple] = None
+        # the passthrough channel of a task whose requests were split onto
+        # the lane: the pools' direct leg reads their passthru_off through
+        # it, and every rung that leaves the lane is counted
+        self.passthru = None
 
 
 #: the engine ladder, top rung first
-_RUNGS = ("io_uring", "threadpool", "python")
+_RUNGS = ("nvme_passthru", "io_uring", "threadpool", "python")
+
+#: the most LBAs one NVMe READ carries: cdw12's NLB is 0-based in 16 bits
+_NVME_MAX_NLB = 1 << 16
+
+
+def _resolve_passthru_dev() -> Optional[str]:
+    """The NVMe char device the passthrough rung opens: env
+    ``NSTPU_PASSTHRU_DEV``, else the first match of config
+    ``passthru_dev_glob`` (None on a host without one: the rung then
+    refuses with ``nodev``)."""
+    dev = os.environ.get("NSTPU_PASSTHRU_DEV")
+    if dev:
+        return dev
+    import glob
+    matches = sorted(glob.glob(str(config.get("passthru_dev_glob"))))
+    return matches[0] if matches else None
+
+
+def _member_path(source: "Source", member: int) -> Optional[str]:
+    """The file path of one member of *source*, or None when the member
+    has none (the blockmap needs a path)."""
+    members = getattr(source, "members", None)
+    if members:
+        if 0 <= member < len(members):
+            p = getattr(members[member], "path", None)
+            return str(p) if p else None
+        return None
+    m = getattr(source, "_m", None)
+    p = getattr(m, "path", None) if m is not None and member == 0 else None
+    return str(p) if p else None
+
+
+class _NativePassthruChannel:
+    """The channel of a native engine on the passthrough rung: requests
+    carrying ``passthru_off`` are flagged ``NSTPU_REQ_PASSTHRU`` at the
+    native submit and become URING_CMD NVMe READs in the engine.  Not
+    ``pool_ok``: the python pools have no char-device access, their
+    recovery legs read O_DIRECT.
+
+    The engine reads one namespace, the char device *dev*.  A member
+    rides the lane only when sysfs places its file on that namespace
+    (:func:`.blockmap.namespace_base`), at the partition's start added
+    to FIEMAP's offsets.  Any other member is counted once per block
+    device as ``nr_passthru_member_<reason>`` and read O_DIRECT."""
+
+    pool_ok = False
+    native = True
+
+    def __init__(self, lba_shift: int, dev: str):
+        self.lba_shift = lba_shift
+        self.lba_size = 1 << lba_shift
+        self.dev = dev
+        self._bases: Dict[int, Optional[int]] = {}
+        self._lock = threading.Lock()
+
+    def device_base(self, path: str) -> Optional[int]:
+        """The byte offset to add to *path*'s physical offsets on this
+        channel's namespace, or None when the file is not on it."""
+        try:
+            devno = blockmap.file_devno(path)
+        except OSError:
+            return None
+        with self._lock:
+            if devno in self._bases:
+                return self._bases[devno]
+            base, reason = blockmap.namespace_base(path, self.dev)
+            if base is not None and base % self.lba_size:
+                base, reason = None, "otherdev"
+            self._bases[devno] = base
+        if base is None:
+            stats.add("nr_passthru_member_" + reason)
+            pr_warn("passthrough: %s is not on %s's namespace (%s); its "
+                    "extents read O_DIRECT", path, self.dev, reason)
+        return base
+
+
+def _passthru_left_lane(task: "_Task", r: "Request") -> None:
+    """A blockmap-resolved extent served off the passthrough lane (a
+    mirror or buffered rung, a hedge win): counted, so the lane's share
+    stays observable."""
+    stats.add("nr_passthru_fallback")
+    if _trace.active and task.trace_id:
+        _trace.instant("passthru_fallback", tid=task.trace_id,
+                       member=r.member, offset=r.file_off, length=r.length,
+                       args={"reason": "ladder"})
 
 
 class Session:
@@ -1138,12 +1274,17 @@ class Session:
     buffer :meth:`alloc_dma_buffer` hands out is registered with the CUDA
     runtime.  ``io_backend`` (default: config) picks the top rung of the
     engine ladder — ``io_uring``, then the native ``threadpool``, then the
-    ``python`` pool; ``auto`` starts where config ``engine_backend`` says.
-    Each step down is logged with its errno, counted in
+    ``python`` pool; ``auto`` starts where config ``engine_backend`` says,
+    and its ``auto`` and ``passthru`` start on the NVMe passthrough rung.
+    A passthrough refusal is counted ``nr_passthru_refusal_<reason>``;
+    under ``auto`` the ladder then goes on below it silently, under
+    ``passthru`` it counts ``nr_passthru_fallback`` too.  Each step down
+    from io_uring is logged with its errno, counted in
     ``nr_backend_fallback`` and named by :attr:`backend_name`; with
-    ``io_fallback`` off the first refusal raises.  A failed build of the
-    engine always raises.  Failed tasks are retained until a wait reaps
-    them, and force-reaped at :meth:`close` (reference
+    ``io_fallback`` off the first refusal raises (a passthrough one only
+    when demanded).  A failed build of the engine always raises.  Failed
+    tasks are retained until a wait reaps them, and force-reaped at
+    :meth:`close` (reference
     ``strom_proc_release``, kmod/nvme_strom.c:2138-2166).
 
     Each session owns its fault state: a retry policy read from config at
@@ -1202,6 +1343,8 @@ class Session:
         #: errno io_uring_setup refused with when the ladder stepped past
         #: io_uring (0: not refused)
         self.uring_errno = 0
+        #: lanes the last NUMA pass pinned (:meth:`_pin_lanes`)
+        self.lanes_pinned = 0
         # the fault ladder: retry policy, member health, the journal of
         # extents a degraded member missed (replayed by the canary thread
         # before the machine lets it back to HEALTHY), per-member python
@@ -1219,6 +1362,10 @@ class Session:
         self._canary_buf: Optional[mmap.mmap] = None
         self._canary_stop = threading.Event()
         self._watchdog_stop = threading.Event()
+        # the passthrough rung: the char device it opened, and the native
+        # channel when the engine came up on it
+        self._passthru_dev: Optional[str] = None
+        self._pt_channel: Optional[_NativePassthruChannel] = None
         self._native = self._open_engine(io_backend
                                          or config.get("io_backend"))
         self.backend_name = (self._native.backend_name if self._native
@@ -1244,19 +1391,27 @@ class Session:
     def _open_engine(self, want: str):
         """The native engine on the highest rung that comes up, or None
         for the python pool."""
-        if want not in ("auto", *_RUNGS):
+        if want not in ("auto", *_RUNGS[1:]):
+            # the passthrough rung is config engine_backend's to ask for
             raise StromError(_errno.EINVAL, f"io_backend {want!r} is not one "
-                                            f"of auto|{'|'.join(_RUNGS)}")
+                                            f"of auto|{'|'.join(_RUNGS[1:])}")
         if want == "python":
             return None
+        eng_backend = config.get("engine_backend")
         top = want if want in ("io_uring", "threadpool") else \
-            {"auto": "io_uring", "uring": "io_uring",
-             "threadpool": "threadpool"}[config.get("engine_backend")]
+            {"auto": "nvme_passthru", "passthru": "nvme_passthru",
+             "uring": "io_uring", "threadpool": "threadpool"}[eng_backend]
         from . import _native
         _native._load()        # a failed build raises, whatever the rung
         fallback = bool(config.get("io_fallback"))
         rungs = _RUNGS[_RUNGS.index(top):]
         for rung, below in zip(rungs, rungs[1:]):
+            if rung == "nvme_passthru":
+                eng = self._open_passthru(_native, eng_backend == "passthru",
+                                          fallback)
+                if eng is not None:
+                    return eng
+                continue
             try:
                 return _native.NativeEngine(
                     rung, int(config.get("queue_depth")),
@@ -1275,12 +1430,116 @@ class Session:
                         "the %s backend", rung, err, os.strerror(err), below)
         return None
 
+    def _open_passthru(self, nat, demanded: bool, fallback: bool):
+        """The passthrough rung: an engine on it (and the native channel,
+        with the LBA geometry the split needs), or None with the refusal
+        counted by reason, as the JAX package counts it.  A demanded rung
+        (``engine_backend=passthru``) counts ``nr_passthru_fallback`` and,
+        with ``io_fallback`` off, raises; under ``auto`` the ladder steps
+        on below it."""
+        self._passthru_dev = _resolve_passthru_dev()
+        # the probe the engine's create runs, first: a host without the
+        # device (or with NSTPU_DISABLE_PASSTHRU) creates no engine here
+        reason = nat.passthru_probe(self._passthru_dev)
+        if reason >= 0:
+            try:
+                eng = nat.NativeEngine(
+                    "nvme_passthru", int(config.get("queue_depth")),
+                    rings=max(int(config.get("engine_rings")), 1),
+                    passthru_dev=self._passthru_dev)
+            except StromError:
+                reason = nat.passthru_refusal(self._passthru_dev)
+            else:
+                # the probe's LBA shift is the split's geometry
+                self._pt_channel = _NativePassthruChannel(
+                    reason, self._passthru_dev)
+                return eng
+        name = nat.PASSTHRU_REASONS.get(reason, "nodev")
+        stats.add("nr_passthru_refusal_" + name)
+        if _trace.active:
+            _trace.instant("passthru_fallback", args={"reason": name})
+        if demanded:
+            if not fallback:
+                raise StromError(_errno.ENODEV,
+                                 f"nvme passthrough rung refused ({name}) "
+                                 f"and io_fallback is off")
+            stats.add("nr_passthru_fallback")
+            pr_warn("nvme passthrough rung refused (%s); falling back down "
+                    "the ladder", name)
+        return None
+
+    # -- the passthrough lane ---------------------------------------------
+    def _passthru_channel(self, source: Source):
+        """The channel a task on *source* splits through: None when config
+        ``engine_backend`` pins a lower rung (the plain path, no counter
+        moves), else the source's own (the emulator attaches one), else
+        the native channel when the engine came up on the rung."""
+        if config.get("engine_backend") in ("uring", "threadpool"):
+            return None
+        chan = getattr(source, "passthru_channel", None)
+        if chan is not None:
+            return chan
+        return self._pt_channel
+
+    def _passthru_split(self, task: _Task, source: Source,
+                        reqs: List[Request], chan,
+                        remap: Dict[int, int]) -> List[Request]:
+        """Split planned requests onto the passthrough lane, per extent:
+        each plain direct request whose span the blockmap resolves to
+        LBA-aligned device ranges becomes one sub-request a physical run
+        carrying ``passthru_off``, each at most 65536 LBAs (one NVMe READ:
+        cdw12's 0-based NLB is 16 bits, and data_len 32); everything else
+        (buffered pieces, vectored stripe merges, members read from their
+        mirror, unresolved or ineligible spans, files that are not on
+        the channel's namespace) rides the O_DIRECT lanes of the same task
+        untouched.  A channel's ``device_base(path)`` is added to the
+        blockmap's offsets (None: the file is not on its device)."""
+        out: List[Request] = []
+        lba = chan.lba_size
+        cap = min(_NVME_MAX_NLB, ((1 << 32) - 1) // lba) * lba
+        for r in reqs:
+            if r.buffered or r.dest_segs or r.passthru_off is not None \
+                    or r.member in remap:
+                out.append(r)
+                continue
+            path = _member_path(source, r.member)
+            base = chan.device_base(path) if path is not None else None
+            runs = blockmap.resolve_split(path, r.file_off, r.length, lba) \
+                if base is not None else [(r.file_off, r.length, None)]
+            if all(dev is None for _f, _l, dev in runs):
+                stats.add("nr_passthru_refused_extent")
+                if _trace.active and task.trace_id:
+                    _trace.instant("passthru_refuse", tid=task.trace_id,
+                                   member=r.member, offset=r.file_off,
+                                   length=r.length)
+                out.append(r)
+                continue
+            for foff, ln, dev_off in runs:
+                doff = r.dest_off + (foff - r.file_off)
+                if dev_off is None:
+                    stats.add("nr_passthru_refused_extent")
+                    if _trace.active and task.trace_id:
+                        _trace.instant("passthru_refuse",
+                                       tid=task.trace_id, member=r.member,
+                                       offset=foff, length=ln)
+                    out.append(Request(member=r.member, file_off=foff,
+                                       length=ln, dest_off=doff))
+                    continue
+                stats.add("bytes_passthru", ln)
+                for k in range(0, ln, cap):
+                    out.append(Request(member=r.member, file_off=foff + k,
+                                       length=min(cap, ln - k),
+                                       dest_off=doff + k,
+                                       passthru_off=base + dev_off + k))
+        return out
+
     # -- buffers -----------------------------------------------------------
-    def alloc_dma_buffer(self, length: int) -> Tuple[int, DmaBuffer]:
-        """ALLOC_DMA_BUFFER: a new pinned buffer, mapped (and registered
-        with the native engine as a fixed buffer); returns ``(handle,
-        buffer)``."""
-        buf = DmaBuffer(length)
+    def alloc_dma_buffer(self, length: int, *, numa_node: int = -1
+                         ) -> Tuple[int, DmaBuffer]:
+        """ALLOC_DMA_BUFFER: a new pinned buffer (placed on *numa_node*),
+        mapped (and registered with the native engine as a fixed buffer);
+        returns ``(handle, buffer)``."""
+        buf = DmaBuffer(length, numa_node=numa_node)
         if self.device is not None and str(self.device).startswith("cuda"):
             buf.pin_cuda()
         return self.map_buffer(buf.view(), kind="pinned_host",
@@ -1886,6 +2145,14 @@ class Session:
                         mir = source.mirror_of(m)
                         if mir is not None and not health.routes_away(mir):
                             remap[m] = mir
+            # the passthrough split: one channel a task, and it must suit
+            # the executing path (native batches need the engine's own
+            # rung, the python pools a channel that serves them)
+            pt_chan = self._passthru_channel(source) if direct_ids else None
+            if pt_chan is not None and not getattr(
+                    pt_chan, "native" if use_native else "pool_ok", False):
+                pt_chan = None
+            task.passthru = pt_chan
             native_failed = False
             verify = bool(config.get("checksum_verify"))
             for w in range(0, len(entries), window):
@@ -1899,10 +2166,14 @@ class Session:
                                 tid=task.trace_id,
                                 args={"window": w // window,
                                       "requests": len(reqs)})
+                if pt_chan is not None:
+                    reqs = self._passthru_split(task, source, reqs, pt_chan,
+                                                remap)
                 if not use_native or native_failed:
                     self._submit_pool_requests(task, source, reqs, dest)
                     continue
                 native_reqs, native_members, native_rs = [], [], []
+                native_pt: List[bool] = []
                 for r in reqs:
                     if r.buffered or fds[r.member] < 0:
                         # misaligned pieces: a synchronous buffered copy,
@@ -1929,6 +2200,15 @@ class Session:
                                            offset=r.file_off,
                                            length=r.length,
                                            args={"mirror": m_eff})
+                    if r.passthru_off is not None:
+                        # a raw NVMe READ at the resolved device offset;
+                        # the member's fd rides along for bookkeeping
+                        native_reqs.append((fds[m_eff], r.passthru_off,
+                                            r.length, r.dest_off))
+                        native_members.append(m_eff)
+                        native_pt.append(True)
+                        native_rs.append(r)
+                        continue
                     # a vectored (stripe-coalesced) request splits back
                     # into its segments: the lane's deep queue holds them
                     foff = r.file_off
@@ -1936,13 +2216,16 @@ class Session:
                                        ((r.dest_off, r.length),)):
                         native_reqs.append((fds[m_eff], foff, lseg, dseg))
                         native_members.append(m_eff)
+                        native_pt.append(False)
                         foff += lseg
                     native_rs.append(r)
                 if not native_reqs:
                     continue
                 try:
                     self._submit_native(task, dest, native_reqs,
-                                        native_members)
+                                        native_members,
+                                        passthru=native_pt
+                                        if any(native_pt) else None)
                     if verify:
                         if task.verify_reqs is None:
                             task.verify_src, task.verify_dest = source, dest
@@ -2025,8 +2308,10 @@ class Session:
 
     def _submit_native(self, task: _Task, buf: memoryview,
                        native_reqs: List[Tuple[int, int, int, int]],
-                       members: List[int], write_ctx=None) -> None:
-        """One batch to the native engine; a pool thread awaits it."""
+                       members: List[int], write_ctx=None,
+                       passthru: Optional[List[bool]] = None) -> None:
+        """One batch to the native engine (``passthru[i]`` flags request
+        *i* a raw NVMe READ); a pool thread awaits it."""
         self._members_used.update(members)
         addr = ctypes.addressof(ctypes.c_char.from_buffer(buf))
         # capture the engine: a concurrent lane scale-out may swap
@@ -2034,7 +2319,7 @@ class Session:
         # accepted the batch
         nat = self._native
         nid = nat.submit(addr, native_reqs, write=write_ctx is not None,
-                         members=members)
+                         members=members, passthru=passthru)
         if _trace.active and task.trace_id:
             _trace.instant("native_submit", tid=task.trace_id,
                            length=sum(q[2] for q in native_reqs),
@@ -2172,13 +2457,26 @@ class Session:
         a TRANSIENT error retries with backoff, then degrades to the
         mirror, then to the buffered leg (``io_fallback``); a PERSISTENT
         one fails the member and goes to the mirror at once.  A vectored
-        request is one unit of the ladder."""
+        request is one unit of the ladder.
+
+        A request split onto the passthrough lane reads its direct leg
+        through the task's channel (a raw NVMe READ at ``passthru_off``);
+        every rung that serves it elsewhere (the mirror, the buffered leg)
+        counts ``nr_passthru_fallback``: the ladder itself is the same."""
         health = self._member_health
         mirror = source.mirror_of(r.member)
         segs = r.dest_segs or ((r.dest_off, r.length),)
         views = [dest[d:d + ln] for d, ln in segs]
+        pt = task.passthru if (r.passthru_off is not None and getattr(
+            task.passthru, "pool_ok", False)) else None
 
         def _read(member: int, buffered: bool = False) -> None:
+            if pt is not None:
+                if member == r.member and not buffered:
+                    pt.read(r.member, r.file_off, r.passthru_off, views[0])
+                    stats.add("nr_passthru_dma")
+                    return
+                _passthru_left_lane(task, r)
             off = r.file_off
             for v in views:
                 if buffered:
@@ -2296,12 +2594,17 @@ class Session:
 
         True when a leg delivered the extent, False when there is nothing
         to hedge onto (the caller runs the plain ladder); raises when the
-        primary failed and nothing saved it."""
+        primary failed and nothing saved it.  The primary of a request on
+        the passthrough lane reads through the task's channel; the hedge
+        leg is off the lane by construction, so its win is counted
+        ``nr_passthru_fallback``."""
         health = self._member_health
         use_mirror = mirror is not None and health.allow_direct(mirror)
         fallback_ok = bool(config.get("io_fallback"))
         if not use_mirror and not fallback_ok:
             return False
+        pt = task.passthru if (r.passthru_off is not None and getattr(
+            task.passthru, "pool_ok", False)) else None
         lock = threading.Lock()
         won = threading.Event()
         hedge_settled = threading.Event()
@@ -2350,6 +2653,8 @@ class Session:
                     stats.add("nr_mirror_read")
                 if _finish("hedge", mv):
                     stats.add("nr_hedge_won")
+                    if pt is not None:
+                        _passthru_left_lane(task, r)
                     if _trace.active and task.trace_id:
                         _trace.span("hedge_won", th0, time.monotonic_ns(),
                                     tid=task.trace_id, member=r.member,
@@ -2371,7 +2676,12 @@ class Session:
             try:
                 while True:
                     try:
-                        source.read_member_direct(r.member, r.file_off, mv)
+                        if pt is not None:
+                            pt.read(r.member, r.file_off, r.passthru_off, mv)
+                            stats.add("nr_passthru_dma")
+                        else:
+                            source.read_member_direct(r.member, r.file_off,
+                                                      mv)
                         health.record_success(r.member)
                         break
                     except (StromError, OSError) as e:
@@ -2591,10 +2901,12 @@ class Session:
         :func:`..stripe.lane_of`), so a slow member queues behind itself,
         never behind siblings (the per-NVMe-device hardware-queue analog,
         kmod/nvme_strom.c:1201-1223).  An explicit config
-        ``engine_rings`` keeps the operator's lane count."""
+        ``engine_rings`` keeps the operator's lane count.  After sizing,
+        the lanes are NUMA-pinned per config ``numa_policy``."""
         if self._native is None or self._lanes_sized:
             return
-        nmem = len(getattr(source, "members", ()) or ())
+        members = getattr(source, "members", None) or ()
+        nmem = len(members)
         if nmem <= 1:
             return
         with self._lane_lock:
@@ -2605,6 +2917,51 @@ class Session:
             if int(config.get("engine_rings")) == 0 \
                     and self._native.nlanes() < want:
                 self._scale_out_lanes(want, nmem)
+            self._pin_lanes(members)
+
+    def _pin_lanes(self, members) -> int:
+        """Pin each lane's threads (reaper and workers) to the CPUs of a
+        NUMA node per config ``numa_policy``: ``auto`` the node of the
+        backing device of the lane's first member (member % lanes), whose
+        unknown node (-1: no sysfs topology, a set across nodes) leaves
+        the lane floating; ``node:N`` node N for every lane; ``off``
+        nothing.  The reference places its DMA buffers device-locally
+        (pgsql/nvme_strom.c:1454-1526); pinning the completion path keeps
+        the reaping and the landing copy on that node.  A pin the kernel
+        refuses is logged, never raised.  Returns the lanes pinned."""
+        policy = str(config.get("numa_policy"))
+        if policy == "off" or self._native is None:
+            return 0
+        nlanes = self._native.nlanes()
+        fixed = int(policy.split(":", 1)[1]) \
+            if policy.startswith("node:") else -1
+        from .stripe import lane_members
+        pinned = 0
+        for lane in range(nlanes):
+            node = fixed
+            if node < 0:
+                served = lane_members(lane, len(members), nlanes)
+                path = getattr(members[served[0]], "path", None) \
+                    if served else None
+                if not path:
+                    continue
+                try:
+                    node = _numa.device_numa_node(str(path))
+                except (OSError, ValueError):
+                    node = -1
+            if node < 0:
+                continue
+            cpus = _numa.node_cpus(node)
+            if cpus and self._native.lane_pin(lane, cpus):
+                pinned += 1
+            else:
+                pr_warn("NUMA: lane %d not pinned to node %d (cpus %s)",
+                        lane, node, cpus)
+        if pinned:
+            logger.info("NUMA: pinned %d/%d lane(s) (policy=%s)", pinned,
+                        nlanes, policy)
+        self.lanes_pinned = pinned
+        return pinned
 
     def _scale_out_lanes(self, nlanes: int, nmem: int) -> None:
         """Swap in a fresh native engine with *nlanes* queue pairs: fixed
@@ -2617,7 +2974,8 @@ class Session:
             or int(config.get("queue_depth"))
         try:
             eng = _native.NativeEngine(self.backend_name, depth,
-                                       rings=nlanes)
+                                       rings=nlanes,
+                                       passthru_dev=self._passthru_dev)
         except StromError as e:
             pr_warn("lane scale-out to %d lanes failed (%s); keeping the "
                     "single-lane engine", nlanes, e)
@@ -2663,6 +3021,10 @@ class Session:
         src = self._get_buffer(buf_handle, src_offset + n * chunk_size)
         task = self._create_task()
         try:
+            # a write may relocate extents (copy-on-write filesystems): the
+            # sink's cached file -> LBA maps go with the tiers' extents,
+            # so the next passthrough split resolves the written layout
+            blockmap.invalidate_source(sink)
             if _tiers.lookup_active:
                 # coherency: every tier drops the extents the write
                 # touches before any byte moves, and again at wait time

@@ -6,16 +6,20 @@ claiming chunk ranges from a cursor and waiting on the oldest
 (``nvmestrom_next_chunk``, `:846-936`).  Batches land in pinned pool
 chunks, are copied to the device on a copy stream, and the filter runs on
 the compute stream overlapped with the next batches' reads and copies;
-per-tuple visibility is masked by the filter.
+per-tuple visibility is masked by the filter.  With ``numa_bind`` (the
+default) the scanning thread is bound to the storage's NUMA node for the
+scan's life, takes its pool chunks from that node first, and has its
+affinity restored at :meth:`TableScanner.close` (`pgsql/nvme_strom.c:716`).
 
-Left out against the JAX package: NUMA binding for the scan's duration,
-multi-file (segmented) sources, and the jitted K-wide ``CoalescedFold`` —
-PyTorch dispatches eagerly, so batches fold one call at a time.
+Left out against the JAX package: multi-file (segmented) sources, and
+the jitted K-wide ``CoalescedFold`` — PyTorch dispatches eagerly, so
+batches fold one call at a time.
 """
 
 from __future__ import annotations
 
 import errno as _errno
+import os
 import threading
 import time
 from dataclasses import dataclass
@@ -27,6 +31,7 @@ import torch
 from ..api import StromError
 from ..config import config
 from ..engine import Session, Source, open_source
+from ..numa import bind_to_node
 from ..stats import stats
 from .heap import PAGE_SIZE, HeapSchema
 from .pool import DmaBufferPool, DmaChunk, ResourceOwner
@@ -144,7 +149,8 @@ class TableScanner:
                  pool: Optional[DmaBufferPool] = None,
                  cursor: Optional[LocalCursor] = None,
                  chunk_size: Optional[int] = None,
-                 async_depth: Optional[int] = None):
+                 async_depth: Optional[int] = None,
+                 numa_bind: bool = True):
         self.schema = schema
         self.chunk_size = chunk_size or config.get("chunk_size")
         if self.chunk_size % PAGE_SIZE:
@@ -170,6 +176,26 @@ class TableScanner:
             total_size=scan_pool_bytes(self.chunk_size, self.async_depth))
         self.last_h2d_depth = 0
         self.last_batches = 0
+        #: True while this thread is bound to the storage's NUMA node
+        self.numa_bound = False
+        #: the node the scan's chunks are taken from first (-1: any)
+        self.numa_node = -1
+        self._prev_affinity = None
+        if numa_bind:
+            # bind to the storage's node for the scan (pgsql :716); an
+            # unknown node (-1) or a refused set leaves the thread as it
+            # was, and close() restores what a bind changed
+            try:
+                from .planner import capability_cache
+                prev = os.sched_getaffinity(0)
+                info = capability_cache.probe(
+                    getattr(self.source, "path", None) or ".")
+                self.numa_bound = bind_to_node(info.numa_node_id)
+                if self.numa_bound:
+                    self._prev_affinity = prev
+                    self.numa_node = info.numa_node_id
+            except (StromError, OSError, AttributeError):
+                pass
 
     # -- core ring ----------------------------------------------------------
     def batches(self, owner: Optional[ResourceOwner] = None, *,
@@ -186,14 +212,15 @@ class TableScanner:
             first, n = self.cursor.claim(1)
             if n == 0:
                 return False
-            chunk = self.pool.alloc(owner=owner)
+            chunk = self.pool.alloc(owner=owner,
+                                    preferred_node=self.numa_node)
             handle = None
             try:
                 # the pool's buffer backs the chunk: the session registers
                 # it as an io_uring fixed buffer once
-                handle = self.session.map_buffer(chunk.view,
-                                                 kind="pinned_host",
-                                                 backing=self.pool.buffer)
+                handle = self.session.map_buffer(
+                    chunk.view, kind="pinned_host",
+                    backing=self.pool.backing_buffer(chunk.node))
                 if first < self.n_chunks:
                     res = self.session.memcpy_ssd2ram(
                         self.source, handle, [first], self.chunk_size)
@@ -290,7 +317,7 @@ class TableScanner:
         cuda = dev.type == "cuda"
         stream = torch.cuda.Stream(device=dev) if cuda else None
         if cuda:
-            self.pool.buffer.pin_cuda()
+            self.pool.pin_cuda()
         acc = None
         depth_cap = max(1, min(int(config.get("h2d_depth_max")),
                                self.pool.n_chunks - self.async_depth - 1))
@@ -364,6 +391,14 @@ class TableScanner:
         return {} if acc is None else _to_numpy(acc)
 
     def close(self) -> None:
+        if self._prev_affinity is not None:
+            try:
+                os.sched_setaffinity(0, self._prev_affinity)
+            except OSError:
+                pass
+            self._prev_affinity = None
+            self.numa_bound = False
+            self.numa_node = -1
         if self._own_pool:
             self.pool.close()
         if self._own_session:

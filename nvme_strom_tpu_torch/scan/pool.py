@@ -1,13 +1,16 @@
-"""DMA staging buffer pool with leak recovery.
+"""NUMA-aware DMA staging buffer pool with leak recovery.
 
 Capability analog of the pgsql extension's shared DMA buffer pool
-(`pgsql/nvme_strom.c:56-111,1123-1526`): a freelist of fixed-size chunks
-carved from one pinned :class:`~..engine.DmaBuffer`, blocking allocation,
-and **leak recovery** through :class:`ResourceOwner` scopes — chunks still
-held when a scan aborts are returned automatically, and clean-exit leaks
-are warned about (``NVMEStromCleanupDMABuffer``, `:1302-1351`).
-
-Per-NUMA-node freelists are left out: the pool is one node's worth.
+(`pgsql/nvme_strom.c:56-111,1123-1526`): per-NUMA-node freelists of
+fixed-size chunks, each node's carved from one pinned
+:class:`~..engine.DmaBuffer` placed on that node, with the preferred
+node first and the others
+round-robin after it; blocking allocation; and **leak recovery** through
+:class:`ResourceOwner` scopes — chunks still held when a scan aborts are
+returned automatically, and clean-exit leaks are warned about
+(``NVMEStromCleanupDMABuffer``, `:1302-1351`).  The nodes are config
+``numa_node_mask`` intersected with the nodes that have memory
+(:func:`..numa.allowed_nodes`); a host without NUMA sysfs has one, node 0.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Dict, List, Optional
 from ..api import StromError
 from ..config import config
 from ..engine import DmaBuffer
+from ..numa import allowed_nodes
 
 __all__ = ["DmaChunk", "DmaBufferPool", "ResourceOwner"]
 
@@ -29,6 +33,8 @@ __all__ = ["DmaChunk", "DmaBufferPool", "ResourceOwner"]
 @dataclass
 class DmaChunk:
     pool: "DmaBufferPool"
+    node: int
+    index: int
     view: memoryview
     owner: Optional["ResourceOwner"] = None
     allocated: bool = False
@@ -74,40 +80,78 @@ class ResourceOwner:
 
 
 class DmaBufferPool:
-    """Freelist of ``chunk_size`` chunks of one pinned buffer."""
+    """Per-node freelists of ``chunk_size`` chunks: *total_size* split
+    evenly over the allowed nodes, rounded up so the pool never holds
+    fewer chunks than its caller sized, one pinned :class:`DmaBuffer` a
+    node, placed there.  ``numa_mask`` (default config
+    ``numa_node_mask``, -1 every node) picks the nodes."""
 
-    def __init__(self, *, total_size: int, chunk_size: Optional[int] = None):
+    def __init__(self, *, total_size: int, chunk_size: Optional[int] = None,
+                 numa_mask: Optional[int] = None):
         self.chunk_size = chunk_size or config.get("chunk_size")
         if total_size % self.chunk_size:
             raise StromError(_errno.EINVAL,
                              "pool size must be a multiple of chunk_size")
-        self.n_chunks = max(total_size // self.chunk_size, 1)
-        self.buffer = DmaBuffer(self.n_chunks * self.chunk_size)
-        view = self.buffer.view()
-        self._free: List[DmaChunk] = [
-            DmaChunk(self, view[i * self.chunk_size:
-                                   (i + 1) * self.chunk_size])
-            for i in range(self.n_chunks)]
+        mask = int(config.get("numa_node_mask")) if numa_mask is None \
+            else int(numa_mask)
+        self.nodes: List[int] = allowed_nodes(mask)
+        per_node = max(-(-(total_size // self.chunk_size)
+                         // len(self.nodes)), 1)
+        self._free: Dict[int, List[DmaChunk]] = {}
+        self.buffers: List[DmaBuffer] = []
+        try:
+            for node in self.nodes:
+                buf = DmaBuffer(per_node * self.chunk_size, numa_node=node)
+                self.buffers.append(buf)
+                view = buf.view()
+                self._free[node] = [
+                    DmaChunk(self, node, i,
+                             view[i * self.chunk_size:
+                                  (i + 1) * self.chunk_size])
+                    for i in range(per_node)]
+        except BaseException:
+            for buf in self.buffers:
+                buf.close()
+            raise
+        self.n_chunks = per_node * len(self.nodes)
         self._lock = threading.Condition()
         self._outstanding = 0
         self._closed = False
 
-    def alloc(self, *, timeout: Optional[float] = None,
+    def backing_buffer(self, node: int) -> DmaBuffer:
+        """The buffer a chunk of *node* is carved from: a scan maps each
+        chunk with it as the backing, so a session registers one io_uring
+        fixed buffer a node."""
+        return self.buffers[self.nodes.index(node)]
+
+    def pin_cuda(self) -> None:
+        """``cudaHostRegister`` every node's buffer (idempotent)."""
+        for buf in self.buffers:
+            buf.pin_cuda()
+
+    def alloc(self, *, preferred_node: int = -1,
+              timeout: Optional[float] = None,
               owner: Optional[ResourceOwner] = None) -> DmaChunk:
-        """Allocate one chunk, blocking until one is free (reference
+        """Allocate one chunk, *preferred_node* first, then the other
+        nodes in order, blocking until one is free (reference
         NVMEStromAllocDMABuffer, `pgsql/nvme_strom.c:1186-1260`)."""
+        order = list(self.nodes)
+        if preferred_node in self._free:
+            order.remove(preferred_node)
+            order.insert(0, preferred_node)
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._lock:
             while True:
                 if self._closed:
                     raise StromError(_errno.EBADF, "pool closed")
-                if self._free:
-                    chunk = self._free.pop()
-                    chunk.allocated = True
-                    self._outstanding += 1
-                    if owner is not None:
-                        owner._attach(chunk)
-                    return chunk
+                for node in order:
+                    if self._free[node]:
+                        chunk = self._free[node].pop()
+                        chunk.allocated = True
+                        self._outstanding += 1
+                        if owner is not None:
+                            owner._attach(chunk)
+                        return chunk
                 remain = None if deadline is None \
                     else deadline - time.monotonic()
                 if (remain is not None and remain <= 0) \
@@ -123,7 +167,7 @@ class DmaBufferPool:
             if not chunk.allocated:
                 return
             chunk.allocated = False
-            self._free.append(chunk)
+            self._free[chunk.node].append(chunk)
             self._outstanding -= 1
             self._lock.notify()
 
@@ -143,7 +187,8 @@ class DmaBufferPool:
             self._closed = True
             self._lock.notify_all()
         self._free.clear()
-        self.buffer.close()
+        for buf in self.buffers:
+            buf.close()
 
     def __enter__(self):
         return self

@@ -2853,7 +2853,7 @@ class Query:
         try:
             if dev.type == "cuda":
                 torch.zeros(1, device=dev)
-                pool.buffer.pin_cuda()
+                pool.pin_cuda()
                 torch.cuda.synchronize(dev)
             ready()
             before = stats.snapshot()

@@ -65,7 +65,16 @@ package's registry uses for the same events:
   decisions), ``nr_readahead_fill`` / ``nr_readahead_skip`` (prefetches
   issued, predictions the budget skipped), ``bytes_readahead`` and
   ``nr_readahead_hit`` (demand hits on prefetched extents, counted by the
-  RAM tier).
+  RAM tier);
+* the NVMe passthrough lane (:data:`.api.PASSTHRU_COUNTERS`):
+  ``nr_passthru_dma`` / ``bytes_passthru`` (raw READ commands served, bytes
+  split onto the lane), ``nr_passthru_refused_extent`` (spans the blockmap
+  refused, read O_DIRECT), ``nr_passthru_fallback`` (resolved extents
+  served off the lane), ``nr_passthru_refusal_<reason>`` (why a ladder
+  that held the rung fell past it), ``nr_passthru_member_<reason>`` (a
+  member's block device the rung's namespace does not hold: ``otherdev``,
+  ``stacked``, ``nosysfs``), ``nr_blockmap_resolve`` /
+  ``nr_blockmap_invalidate`` (FIEMAP walks, cached maps a write dropped).
 
 Beside the counters: the resolved engine backend (:meth:`Stats.backend`),
 a log2-ns request-latency histogram (``LAT_HIST_BUCKETS`` buckets, fed by

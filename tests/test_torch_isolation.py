@@ -49,7 +49,8 @@ _SCRIPT = textwrap.dedent("""
                 "testing.tier_gate", "testing.scrub_gate",
                 "tools.phase_clock", "autotune", "daemon", "daemon.qos",
                 "testing.autotune_gate", "testing.landing_gate",
-                "testing.pushdown_gate"):
+                "testing.pushdown_gate", "blockmap", "numa",
+                "testing.passthru_emu", "testing.passthru_gate"):
         assert pkg.__name__ + "." + mod in names, mod
     import chip_smoke  # noqa: F401
     leaked = [m for m in sys.modules

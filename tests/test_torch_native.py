@@ -402,9 +402,12 @@ def test_failed_build_raises_and_passthru_is_refused(monkeypatch):
         teng.Session()
     assert e.value.errno == errno.EIO
     assert teng.Session(io_backend="python").backend_name == "python"
-    with pytest.raises(ConfigError) as e:
-        tcfg.set("engine_backend", "passthru")
-    assert e.value.errno == errno.EINVAL
+    # the passthrough rung is a config value now, and refused with the
+    # engine it needs: a failed build raises on it as on every rung
+    tcfg.set("engine_backend", "passthru")
+    with pytest.raises(StromError) as e:
+        teng.Session()
+    assert e.value.errno == errno.EIO
     with pytest.raises(StromError):
         tnat.NativeEngine("nvme_passthru")
     with pytest.raises(StromError) as e:
@@ -432,12 +435,13 @@ def test_coalesce_limit_cross_check_matches_reference():
 
 #: parts of the reference's Session the port has since ported (the fault
 #: ladder A1.6, mirrors A1.4, checksum verify and the scrubber A1.7,
-#: autotune A1.9)
+#: autotune A1.9, NVMe passthrough A1.10, NUMA lane pinning A1.11)
 _PORTED_SESSION_PARTS = {"_read_hedged", "_read_direct_resilient",
                          "_canary_loop", "_watchdog_loop", "_resync_replay",
                          "_write_mirrored", "_verify_writes",
                          "_verify_request_checksums", "_scrub_refill",
-                         "_autotune_scale_lanes"}
+                         "_autotune_scale_lanes", "_passthru_split",
+                         "_pin_lanes"}
 
 
 @pytest.mark.parametrize("name", [

@@ -120,10 +120,12 @@ def test_sampling_policy_matches_reference():
     assert sum(1 for t in picked[ttrace] if t) == 5
 
 
-def _load(mod, cfg, path):
+def _load(mod, cfg, path, engine_backend="uring"):
     cfg.set("trace_policy", "all")
     cfg.set("landing", "staged")
     cfg.set("cache_arbitration", False)   # every chunk direct
+    # uring: no passthrough probe, both; auto: the rung probed first
+    cfg.set("engine_backend", engine_backend)
     mod_trace = ttrace if mod is teng else jtrace
     mod_trace.recorder.configure()
     mod_trace.recorder.clear()
@@ -132,7 +134,6 @@ def _load(mod, cfg, path):
         kw = {"device": "cpu"}
     else:
         from nvme_strom_tpu.hbm.staging import load_file_to_device
-        cfg.set("engine_backend", "uring")    # no passthrough probe
         kw = {}
     with mod.open_source(path) as src:
         out = load_file_to_device(src, chunk_size=1 << 20, **kw)
@@ -156,6 +157,40 @@ def test_traced_load_yields_the_reference_spans(tmp_path):
     doc = ttrace.chrome_trace_from_events(mine)
     assert ttrace.validate_chrome_trace(doc) == []
     assert sum(e[7] for e in mine if e[2] == "nvme") == data.size
+
+
+def _fallback_reasons(evs):
+    return sorted((e[8] or {}).get("reason") for e in evs
+                  if e[2] == "passthru_fallback")
+
+
+def test_auto_load_yields_the_reference_spans_and_rung_refusal(tmp_path):
+    """Under the default ``engine_backend=auto`` both packages probe the
+    passthrough rung first: on a host where it refuses, the traced load
+    carries the same spans and one ``passthru_fallback`` instant with the
+    same reason.  Without the JAX package's native library its Session
+    opens no engine and probes nothing, so the port's auto load is then
+    held against its own uring load plus that instant, and its reason
+    against the JAX package's name for the port's probe."""
+    import nvme_strom_tpu._native as jnat
+    import nvme_strom_tpu_torch._native as tnat
+    path = str(tmp_path / "a.bin")
+    data = np.random.default_rng(2).integers(0, 256, (2 << 20) + 4096,
+                                             dtype=np.uint8)
+    data.tofile(path)
+    got, mine = _load(teng, tcfg, path, "auto")
+    if jnat.native_available():
+        want, ref = _load(jeng, jcfg, path, "auto")
+    else:
+        want, ref = _load(teng, tcfg, path)
+        probe = tnat.passthru_probe(teng._resolve_passthru_dev())
+        ref.append((0, None, "passthru_fallback", 0, -1, -1, -1, 0,
+                    {"reason": jnat.PASSTHRU_REASONS.get(probe, "nodev")}))
+    assert got == want == data.tobytes()
+    assert sorted({e[2] for e in mine}) == sorted({e[2] for e in ref})
+    if tnat.passthru_probe(teng._resolve_passthru_dev()) < 0:
+        assert len(_fallback_reasons(mine)) == 1
+        assert _fallback_reasons(mine) == _fallback_reasons(ref)
 
 
 def test_dump_list_and_strom_trace_tool(tmp_path, capsys):
