@@ -11,9 +11,10 @@ segmented relation, string columns and the SQL facade, and the engine's
 resilience (mirrors, the fault ladder, page-cache arbitration, 64-bit
 GROUP BY sums), checksum verify on read with the residency tiers and the
 integrity domain, 64-bit scalar sums, the autotune controller and
-predictive readahead, and NVMe passthrough through its emulator with NUMA
-binding — at full size and holds every CUDA kernel of those paths
-against its plain PyTorch version:
+predictive readahead, NVMe passthrough through its emulator with NUMA
+binding, and serving (a model's layer-ordered cold start, its sharded
+form, the SSD-backed KV block pool) — at full size and holds every CUDA
+kernel of those paths against its plain PyTorch version:
 
 1. environment: the card's name and power limit (``nvidia-smi``);
 2. build: every ``nvme_strom_tpu_torch/csrc/*.cu`` with ``nvcc`` (sm_90a)
@@ -71,7 +72,7 @@ against its plain PyTorch version:
       bytes into their buffers); a stalled wait raises ETIMEDOUT, alone
       and read by a deferred ``finish_ring``, and the ring works after;
    b. a 1 GiB file through ``load_pages_multihost`` on a 4-member ring at
-      hosts 1, 2 and 4, hosts 4 with the gather, and as a 4-member RAID-0
+      hosts 1 and 2, hosts 4 with the gather, and as a 4-member RAID-0
       stripe (512 KiB chunks) with the gather, each shard and replica
       checked against the file in 64 MiB pieces;
    c. ``ring_scan_source`` over phase 5's table, four thresholds, against
@@ -323,6 +324,32 @@ against its plain PyTorch version:
        restored at close, a ``DmaBufferPool`` under ``numa_node_mask``;
     e. ``testing/passthru_gate.py`` on the card, every leg.
     The emulator's images are deleted when the phase ends.
+23. serving (after [22]), the card's name and power limit beside every
+    number:
+    a. a GPT-2 medium state_dict (355M float32 values seeded on the card,
+       1.419 GB) saved ``direct=True`` and streamed onto the card with
+       ``stream_weights`` at depth 1, 2 and 4 in turns with
+       ``restore_checkpoint`` and a raw O_DIRECT read: 26 spans, every
+       leaf ``torch.equal``, the ``weight_stream`` spans in layer order,
+       ``memory_allocated`` back after each ``close()``; the pinned
+       slots' set-up and close alone;
+    b. a copy with a byte flipped in layer 12: EBADMSG with nothing left,
+       and ``verify=False`` streams it;
+    c. ``stream_weights_sharded`` at 1, 2 and 4 hosts on a ring of 4 x
+       ``cuda:0`` (B4 in the digest handshake: 0, 2 and 12 launches), and
+       a dropped digest row: EIO before any model;
+    d. a KV cache at GPT-2 medium's geometry (64 KiB blocks: 16 tokens of
+       one layer's K and V at float16), 5 sequences x 1024 tokens x 24
+       layers = 7680 blocks, through a ``KvBlockPool`` over a 512 MiB HBM
+       tier, 1024 RAM blocks and a 4-member ``mirror='paired'`` spill set
+       of 1 GiB: append, read back by source tier, ``device_array``,
+       demand page-ins against ``resume`` of the same blocks, a release,
+       a member FAILED, a QoS-ordered shed, a chain migrated to a second
+       pool; pinned against pageable pool memory;
+    e. ``testing/coldstart_gate.py`` with ``-d cuda:0``, every leg, on
+       disarmed tiers and at ``COLDSTART_GATE_LATENCY_MS`` a request.
+    The checkpoint, its copy and the spill set are deleted when the phase
+    ends.
 
 Every main path sets the kernels' launch counts to 0 just before it runs
 and reads them just after; each kernel of a path must have launched once
@@ -1585,9 +1612,10 @@ def _write_striped(path, members, chunk, piece=64 << 20):
 
 def _multihost_path(torch, members, tmp, seed, label, nbytes=1 << 30):
     """Phase 9b: a 1 GiB seeded file through load_pages_multihost on a
-    ring over *members*: hosts 1, 2 and 4, hosts 4 with the gather, then
-    the same bytes as a 4-member RAID-0 stripe (512 KiB chunks) with the
-    gather.  Every shard and replica byte-identical to the file; B4
+    ring over *members*: hosts 1 and 2, hosts 4 with the gather (its read
+    and redistribution are hosts 4's without it, so that load is not run
+    apart), then the same bytes as a 4-member RAID-0 stripe (512 KiB
+    chunks) with the gather.  Every shard and replica byte-identical to the file; B4
     launches as designed.  The read phase and the redistribution and
     gather times are the flight recorder's ``shard_load`` and
     ``ici_permute`` spans (trace_policy sampled at rate 0: the phase spans
@@ -1609,8 +1637,8 @@ def _multihost_path(torch, members, tmp, seed, label, nbytes=1 << 30):
     n = mesh.size
     shard = nbytes // n
     total = 0
-    runs = [(1, False, "plain"), (2, False, "plain"), (4, False, "plain"),
-            (4, True, "plain"), (4, True, "md0 4x512KiB")]
+    runs = [(1, False, "plain"), (2, False, "plain"), (4, True, "plain"),
+            (4, True, "md0 4x512KiB")]
     for hosts, gather, kind in runs:
         for p in [path] + paths:
             drop_page_cache(p)
@@ -6310,6 +6338,539 @@ def _passthru_phase(torch, dev, tmp, seed, card=None, heap=None,
     return launched
 
 
+#: the latency the cold-start gate injects a request in [23e].  The gate
+#: measures overlap only while that latency dwarfs the host's own work a
+#: layer; on the H100's host the serial leg spends about 3 ms of host work
+#: on each 256 KiB layer beside its latency (84.6 ms at 4 ms, 153.6 ms at
+#: 10 ms), so at the module's 4 ms the streamed leg is host-bound and its
+#: ratio sat at 2.27-3.11x (PERF.md); at 20 ms the latency dominates
+#: again.  The 2x limit stays.
+COLDSTART_GATE_LATENCY_MS = 20.0
+
+
+def _serving_phase(torch, dev, tmp, seed, card=None, *, gpt2=None, n_seq=5,
+                   hbm_bytes=512 << 20, ram_blocks=1024, spill_bytes=1 << 30,
+                   kv_block=None):
+    """Phase 23: serving (see the module docstring).  *gpt2* is the model
+    configuration (GPT-2 medium's by default), *n_seq* the KV sequences of
+    [23d], each ``gpt2["n_positions"]`` tokens; the HBM tier, the RAM
+    blocks and the spill set's logical size as named.  Returns the B4
+    launches of [23c]'s handshakes."""
+    import errno
+    import shutil
+    from collections import OrderedDict
+
+    from nvme_strom_tpu_torch.api import StromError
+    from nvme_strom_tpu_torch.config import config
+    from nvme_strom_tpu_torch.data import (checkpoint_info,
+                                           restore_checkpoint,
+                                           save_checkpoint)
+    from nvme_strom_tpu_torch.engine import PlainSource, Session, open_source
+    from nvme_strom_tpu_torch.hbm.registry import registry
+    from nvme_strom_tpu_torch.ops import (decode_cuda, filter_cuda,
+                                          groupby_cuda, permute_cuda)
+    from nvme_strom_tpu_torch.serving import (KvBlockPool, stream_weights,
+                                              stream_weights_sharded)
+    from nvme_strom_tpu_torch.serving import weights as sw
+    from nvme_strom_tpu_torch.stats import stats
+    from nvme_strom_tpu_torch.testing import coldstart_gate
+    from nvme_strom_tpu_torch.tiering import extent_space
+    from nvme_strom_tpu_torch.tools.common import drop_page_cache
+    from nvme_strom_tpu_torch.tools.ssd2gpu_test import measure_raw
+    from nvme_strom_tpu_torch.trace import recorder
+
+    cuda = dev.type == "cuda"
+    card = card or str(dev)
+    cfg = gpt2 or GPT2_MEDIUM
+    t_phase = time.monotonic()
+    snap = config.snapshot()
+
+    def fail(step, msg):
+        raise AssertionError(f"[23{step}] {msg}")
+
+    def mem():
+        return torch.cuda.memory_allocated(dev) if cuda else 0
+
+    def counter(name):
+        return stats.snapshot().get(name, 0)
+
+    filter_cuda.launches = groupby_cuda.launches = decode_cuda.launches = 0
+    path = os.path.join(tmp, "gpt2m.serve.strom")
+    bad = os.path.join(tmp, "gpt2m.corrupt.strom")
+    kv_dir = os.path.join(tmp, "kvspill")
+    b4 = 0
+    try:
+        # -- a. cold start ---------------------------------------------------
+        t_a = time.monotonic()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 23)
+        sd = OrderedDict(
+            (name, torch.randn(shape, generator=gen, device=dev) * 0.02)
+            for name, shape in _gpt2_shapes(**cfg))
+        nbytes = sum(t.numel() * t.element_size() for t in sd.values())
+        _sync(torch, dev)
+        t0 = time.monotonic()
+        save_checkpoint(path, sd, direct=True)
+        save_s = time.monotonic() - t0
+        layers = sw._plan_layers(checkpoint_info(path))
+        if len(layers) != cfg["n_layer"] + 2:
+            fail("a", f"{len(layers)} spans, want {cfg['n_layer'] + 2}")
+        file_bytes = os.path.getsize(path)
+        largest = max(ly.nbytes for ly in layers)
+
+        def same(m, step):
+            diff = [k for k, t in sd.items()
+                    if not torch.equal(m.leaf(f"[{k!r}]"), t)]
+            if diff or len(m.keys()) != len(sd):
+                fail(step, f"{len(diff)} streamed leaves differ, first "
+                           f"{diff[:1]}")
+
+        handles0 = set(registry.list())
+
+        def held():
+            """memory_allocated less the ring permute's signal counters,
+            which persist (one (N, 2) int64 tensor a ring shape)."""
+            ring = sum(-(-f.numel() * f.element_size() // 512) * 512
+                       for ch in permute_cuda._channels.values()
+                       for f in ch.flags.values())
+            return mem() - ring
+
+        def nothing_left(step, base):
+            if held() != base or set(registry.list()) != handles0:
+                fail(step, f"memory_allocated {held()} against {base} "
+                           f"before, registry {sorted(registry.list())}")
+
+        base = held()
+        times = {}
+        for how in ("d2", "restore", "d1", "d4", "raw", "restore", "d2"):
+            drop_page_cache(path)
+            _sync(torch, dev)
+            t0 = time.monotonic()
+            if how == "raw":
+                dt = file_bytes / (measure_raw(path, file_bytes) * 1e9)
+            elif how == "restore":
+                out = restore_checkpoint(path, device=dev)
+                _sync(torch, dev)
+                dt = time.monotonic() - t0
+                del out
+            else:
+                m = stream_weights(path, device=dev, depth=int(how[1]))
+                _sync(torch, dev)
+                dt = time.monotonic() - t0
+                same(m, "a")
+                if counter("coldstart_bytes_per_sec") <= 0:
+                    fail("a", "coldstart_bytes_per_sec not set")
+                m.close()
+                del m
+                nothing_left("a", base)
+            times.setdefault(how, []).append(dt)
+        # the spans at the default depth, traced (not timed)
+        config.set("trace_policy", "all")
+        config.set("trace_ring_events", 1 << 16)
+        recorder.configure()
+        recorder.clear()
+        m = stream_weights(path, device=dev)
+        spans = sorted((e for e in recorder.snapshot_events()
+                        if e[2] == "weight_stream"), key=lambda e: e[0])
+        order = [e[8]["layer"] for e in spans]
+        span_ms = [e[1] / 1e6 for e in spans]
+        m.close()
+        del m
+        config.set("trace_policy", "off")
+        recorder.configure()
+        recorder.clear()
+        if order != list(range(len(layers))):
+            fail("a", f"weight_stream spans out of layer order: {order}")
+        nothing_left("a", base)
+        gbs = {k: (file_bytes if k == "raw" else nbytes) / min(v) / 1e9
+               for k, v in times.items()}
+        # what a stream's pinned slots cost alone: the buffer's mapping and
+        # prefault, its registration, and the close (an unregistration)
+        slot_ms = {}
+        with Session(device=dev) as sess:
+            for depth in (1, 2, 4):
+                t0 = time.monotonic()
+                if cuda:
+                    land = sw._PinnedSlots(sess, layers, depth, dev, None)
+                    t1 = time.monotonic()
+                    land.close()
+                else:
+                    t1 = time.monotonic()
+                slot_ms[depth] = ((t1 - t0) * 1e3,
+                                  (time.monotonic() - t1) * 1e3)
+        print(f"[23a] cold start of a GPT-2 medium state_dict "
+              f"({sum(t.numel() for t in sd.values())} float32 parameters, "
+              f"{nbytes} B; saved direct in {save_s:.2f} s; {len(layers)} "
+              f"spans: the embeddings, {cfg['n_layer']} layers, the final "
+              f"norm; the largest {largest} B, on a card in pieces of at "
+              f"most {sw._PIECE} B) into CUDA tensors on {dev} "
+              f"({card}), in turns (d2 restore d1 d4 raw restore d2; the "
+              f"best of two where two), cold as this host allows: "
+              f"stream_weights depth 1 / 2 (default) / 4 "
+              f"{gbs['d1']:.3f} / {gbs['d2']:.3f} / {gbs['d4']:.3f} GB/s, "
+              f"restore_checkpoint {gbs['restore']:.3f} GB/s, raw O_DIRECT "
+              f"read {gbs['raw']:.3f} GB/s; pinned slots depth x "
+              f"{min(largest, sw._PIECE)} B; every leaf torch.equal, {len(spans)} weight_stream spans "
+              f"in layer order (median {np.median(span_ms):.2f} ms a span), "
+              f"memory_allocated back to {base} B after each close; "
+              f"{time.monotonic() - t_a:.1f} s")
+        print("    [23a] pinned slots alone, set-up / close: " + "; ".join(
+            f"depth {k} {a:.1f} / {b:.1f} ms" for k, (a, b) in
+            slot_ms.items()))
+        print(f"    [23a] all samples (s): " + "; ".join(
+            f"{k} " + ", ".join(f"{x:.3f}" for x in v)
+            for k, v in times.items()))
+
+        # -- b. refusal --------------------------------------------------------
+        t_b = time.monotonic()
+        shutil.copyfile(path, bad)
+        base = held()
+        ly12 = next(ly for ly in layers if ly.label == min(12, cfg[
+            "n_layer"] - 1))
+        leaf = max(ly12.leaves, key=lambda e: e["nbytes"])
+        with open(bad, "r+b") as f:
+            f.seek(leaf["abs"] + leaf["nbytes"] // 2)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([byte[0] ^ 0x40]))
+        try:
+            m = stream_weights(bad, device=dev)
+        except StromError as e:
+            if e.errno != errno.EBADMSG:
+                fail("b", f"errno {e.errno}, want EBADMSG")
+        else:
+            m.close()
+            fail("b", "a flipped byte streamed without a refusal")
+        nothing_left("b", base)
+        m = stream_weights(bad, device=dev, verify=False)
+        name = leaf["key"][2:-2]
+        if torch.equal(m.leaf(leaf["key"]), sd[name]):
+            fail("b", "verify=False did not land the flipped byte")
+        others = [k for k in sd if k != name]
+        if not all(torch.equal(m.leaf(f"[{k!r}]"), sd[k]) for k in others):
+            fail("b", "verify=False: a leaf without the flip differs")
+        m.close()
+        del m
+        nothing_left("b", base)
+        os.unlink(bad)
+        print(f"[23b] a byte flipped in layer {ly12.label}'s leaf "
+              f"{leaf['key']}: EBADMSG with memory_allocated back to "
+              f"{base} B and no registry handle left; verify=False streams "
+              f"the copy, the flip in that leaf alone; "
+              f"{time.monotonic() - t_b:.1f} s")
+
+        # -- c. sharded cold start -------------------------------------------
+        t_c = time.monotonic()
+        rows = []
+        for h in (1, 2, 4):
+            drop_page_cache(path)
+            permute_cuda.launches = 0
+            _sync(torch, dev)
+            t0 = time.monotonic()
+            m = stream_weights_sharded(path, hosts=h, devices=[dev] * 4)
+            _sync(torch, dev)
+            dt = time.monotonic() - t0
+            launches = permute_cuda.launches
+            b4 += launches
+            same(m, "c")
+            m.close()
+            del m
+            nothing_left("c", base)
+            want = h * (h - 1) if cuda else 0
+            if launches != want:
+                fail("c", f"hosts {h}: {launches} B4 launches, want {want}")
+            rows.append(f"hosts {h} {nbytes / dt / 1e9:.3f} GB/s, "
+                        f"{launches} B4 launches")
+        permute_cuda.launches = 0
+        sw._digest_drop_host = 1
+        try:
+            stream_weights_sharded(path, hosts=2, devices=[dev] * 4)
+        except StromError as e:
+            if e.errno != errno.EIO:
+                fail("c", f"handshake fault: errno {e.errno}, want EIO")
+        else:
+            fail("c", "a missing digest row passed the handshake")
+        finally:
+            sw._digest_drop_host = None
+        b4 += permute_cuda.launches
+        nothing_left("c", base)
+        print(f"[23c] stream_weights_sharded on a ring of 4 x {dev}: "
+              f"{'; '.join(rows)} (the digest all-gather); every leaf "
+              f"torch.equal; a host's digest row dropped: EIO before any "
+              f"model, nothing left; {time.monotonic() - t_c:.1f} s")
+        del sd
+
+        # -- d. KV paging at GPT-2 medium's geometry --------------------------
+        t_d = time.monotonic()
+        if kv_block:
+            config.set("kv_block_bytes", kv_block)
+        bb = int(config.get("kv_block_bytes"))
+        tok = bb // (2 * cfg["n_embd"] * 2)          # float16 K and V
+        bps = cfg["n_layer"] * (cfg["n_positions"] // tok)
+        config.set("tier_hbm_bytes", hbm_bytes)
+        config.set("canary_interval_s", 0.0)       # step 5's FAILED holds
+        extent_space.configure(device=dev)
+        os.makedirs(kv_dir)
+        members = [os.path.join(kv_dir, f"m{i}.bin") for i in range(4)]
+        for p in members:
+            with open(p, "wb") as f:
+                f.truncate(spill_bytes // 2)       # two pairs
+        gen.manual_seed(seed + 230)
+        dev_kv = [torch.randn(bps * bb // 2, dtype=torch.float16,
+                              generator=gen, device=dev).view(torch.uint8)
+                  for _ in range(n_seq)]
+        host_kv = [t.cpu().numpy() for t in dev_kv]
+        classes = [("latency", "normal", "bulk")[s * 3 // n_seq]
+                   for s in range(n_seq)]
+
+        def blk(s, i):
+            return memoryview(host_kv[s])[i * bb:(i + 1) * bb]
+
+        c0 = stats.snapshot()
+        lines = []
+        with Session(device=dev) as sess, \
+                open_source(members, stripe_chunk_size=bb, writable=True,
+                            mirror="paired") as spill:
+            pool = KvBlockPool(sess, spill, block_bytes=bb,
+                               ram_blocks=ram_blocks)
+            # 1. append everything
+            t0 = time.monotonic()
+            for s in range(n_seq):
+                for i in range(bps):
+                    pool.append(f"s{s}", blk(s, i), qos_class=classes[s])
+            dt = time.monotonic() - t0
+            total = n_seq * bps
+            lines.append(f"1. append {total} blocks ({total * bb} B): "
+                         f"{total * bb / dt / 1e9:.3f} GB/s, "
+                         f"{total / dt:.0f} blocks/s; residency "
+                         f"{pool.residency()}")
+            # 2. read everything back, newest first, then the HBM blocks
+            split = {"hbm": [0, 0.0], "ram": [0, 0.0], "ssd": [0, 0.0]}
+            wrong = 0
+
+            def read(s, i, into=split):
+                nonlocal wrong
+                tier = pool._tables[f"s{s}"][i].tier
+                t1 = time.perf_counter()
+                got = pool.read(f"s{s}", i)
+                into[tier][1] += time.perf_counter() - t1
+                into[tier][0] += 1
+                wrong += got != blk(s, i)
+
+            for s in reversed(range(n_seq)):
+                for i in reversed(range(bps)):
+                    read(s, i)
+            for s in range(n_seq):
+                for i in range(bps):
+                    if pool._tables[f"s{s}"][i].tier == "hbm":
+                        read(s, i)
+            if wrong:
+                fail("d", f"2: {wrong} blocks read back wrong")
+            res = pool.residency()
+            if min(res.values()) == 0:
+                fail("d", f"2: a tier holds nothing: {res}")
+            lines.append("2. read back, bytes equal; by the tier each came "
+                         "from: " + ", ".join(
+                             f"{t} {n} blocks {n * bb / max(x, 1e-9) / 1e9:.3f}"
+                             f" GB/s" for t, (n, x) in split.items())
+                         + f"; residency {res}")
+            # 3. device_array of an HBM-resident sequence
+            s_d = n_seq - 1
+            t0 = time.monotonic()
+            arrs = [pool.device_array(f"s{s_d}", i) for i in range(bps)]
+            dt = time.monotonic() - t0
+            bad_arr = sum(a is None or a.device != dev or not torch.equal(
+                a, dev_kv[s_d][i * bb:(i + 1) * bb])
+                for i, a in enumerate(arrs))
+            del arrs
+            if bad_arr:
+                fail("d", f"3: {bad_arr} device arrays of s{s_d} missing or "
+                          f"differing")
+            lines.append(f"3. device_array of s{s_d}'s {bps} blocks: each "
+                         f"torch.equal on {dev}, {dt * 1e6 / bps:.1f} us a "
+                         f"block")
+            # 4. demand page-ins against resume of the same blocks, then
+            # a finished sequence released
+            s_r = n_seq - 2
+            spilled = [s for s in range(n_seq - 2)
+                       if all(b.tier == "ssd" for b in pool._tables[f"s{s}"])]
+            if not spilled:
+                fail("d", "4: no fully spilled sequence")
+            a = spilled[0]
+            n = min(ram_blocks, bps)
+            others = [(s, i) for s in range(n_seq) if s != a
+                      for i, b in enumerate(pool._tables[f"s{s}"])
+                      if b.tier == "ssd"][:n]
+            if len(others) < n:
+                fail("d", f"4: {len(others)} other spilled blocks, want {n}")
+            t0 = time.monotonic()
+            for i in range(n):
+                wrong += pool.read(f"s{a}", i) != blk(a, i)
+            demand_s = time.monotonic() - t0
+            for s, i in others:            # pages s{a}'s blocks out again
+                wrong += pool.read(f"s{s}", i) != blk(s, i)
+            if any(b.tier != "ssd" for b in pool._tables[f"s{a}"][:n]):
+                fail("d", "4: the demand-read blocks stayed resident")
+            t0 = time.monotonic()
+            got = pool.resume(f"s{a}")
+            resume_s = time.monotonic() - t0
+            wrong += sum(pool.read(f"s{a}", i) != blk(a, i) for i in range(n))
+            if got != n or wrong:
+                fail("d", f"4: resume paged in {got} of {n}, {wrong} wrong")
+            r_hbm = sum(b.tier == "hbm" for b in pool._tables[f"s{s_r}"])
+            hbm0 = pool.residency()["hbm"]
+            pool.release(f"s{s_r}")
+            if pool.residency()["hbm"] != hbm0 - r_hbm or r_hbm == 0 \
+                    or f"s{s_r}" in pool.sequences():
+                fail("d", "4: the release left blocks behind")
+            lines.append(f"4. s{a}'s first {n} blocks: demand page-ins "
+                         f"{n / demand_s:.0f} blocks/s "
+                         f"({n * bb / demand_s / 1e9:.3f} GB/s), resume "
+                         f"{n / resume_s:.0f} blocks/s "
+                         f"({n * bb / resume_s / 1e9:.3f} GB/s; "
+                         f"{demand_s / resume_s:.2f}x), bytes identical; "
+                         f"s{s_r} released ({r_hbm} HBM blocks freed)")
+            # 5. a spill member fail-stopped, a spilled sequence read
+            c = max((s for s in range(n_seq) if s not in (a, s_r)),
+                    key=lambda s: sum(b.tier == "ssd"
+                                      for b in pool._tables[f"s{s}"]))
+            n_ssd = sum(b.tier == "ssd" for b in pool._tables[f"s{c}"])
+            sess._member_health.record_failure(0, fatal=True)
+            m0 = counter("nr_mirror_read")
+            t0 = time.monotonic()
+            for i in range(bps):
+                wrong += pool.read(f"s{c}", i) != blk(c, i)
+            dt = time.monotonic() - t0
+            mir = counter("nr_mirror_read") - m0
+            if wrong or mir <= 0:
+                fail("d", f"5: {wrong} wrong, {mir} mirror reads")
+            lines.append(f"5. member 0 FAILED: s{c}'s {bps} blocks read "
+                         f"({n_ssd} from the SSD tier), {mir} page-ins "
+                         f"from the mirror, bytes identical, "
+                         f"{bps * bb / dt / 1e9:.3f} GB/s")
+            # 6. shed under QoS classes
+            def resident():
+                out = {k: 0 for k in ("latency", "normal", "bulk")}
+                for seq, table in pool._tables.items():
+                    out[classes[int(seq[1:])]] += sum(
+                        b.tier != "ssd" for b in table)
+                return out
+            r0 = resident()
+            n_shed = min(256, r0["bulk"])
+            t0 = time.monotonic()
+            shed = pool.shed(n_shed * bb)
+            dt = time.monotonic() - t0
+            r1 = resident()
+            if shed != n_shed * bb or r1["bulk"] != r0["bulk"] - n_shed \
+                    or r1["latency"] != r0["latency"] \
+                    or r1["normal"] != r0["normal"]:
+                fail("d", f"6: shed {shed} B: resident {r0} -> {r1}")
+            lines.append(f"6. shed {n_shed} blocks: every one bulk "
+                         f"(resident {r0} -> {r1}), "
+                         f"{shed / dt / 1e9:.3f} GB/s")
+            # 7. one chain migrated to a second pool
+            peer_path = os.path.join(kv_dir, "peer.bin")
+            with open(peer_path, "wb") as f:
+                f.truncate(bps * bb)
+            mseq = a
+            with Session(device=dev) as psess, \
+                    PlainSource(peer_path, writable=True) as psrc:
+                peer = KvBlockPool(psess, psrc, block_bytes=bb,
+                                   ram_blocks=ram_blocks, hbm_blocks=0)
+                t0 = time.monotonic()
+                moved = pool.migrate(f"s{mseq}", peer)
+                dt = time.monotonic() - t0
+                wrong += sum(peer.read(f"s{mseq}", i) != blk(mseq, i)
+                             for i in range(bps))
+                if moved != bps * bb or wrong or pool.blocks(f"s{mseq}"):
+                    fail("d", f"7: moved {moved}, {wrong} wrong")
+                peer.close()
+            lines.append(f"7. s{mseq} migrated to a second pool: "
+                         f"{moved / dt / 1e9:.3f} GB/s, bytes identical "
+                         f"there")
+            pool.close()
+        c1 = stats.snapshot()
+        moves = {k: c1.get(k, 0) - c0.get(k, 0) for k in (
+            "nr_kv_pagein", "nr_kv_pageout", "nr_kv_migrate",
+            "nr_kv_migrate_fail", "nr_tier_ram_fault", "nr_tier_hbm_promote",
+            "nr_pressure_shed", "nr_mirror_read")}
+        # pinned against pageable pool memory: a decode-step write to an
+        # HBM block demotes it (a copy out of the card into a RAM slot)
+        small = os.path.join(kv_dir, "small.bin")
+        with open(small, "wb") as f:
+            f.truncate(512 * bb)
+        pin_rows = {}
+        for label, sdev in (("pinned", dev), ("pageable", None)):
+            with Session(device=sdev) as s2, \
+                    PlainSource(small, writable=True) as src2:
+                t0 = time.monotonic()
+                p2 = KvBlockPool(s2, src2, block_bytes=bb, ram_blocks=512,
+                                 hbm_blocks=256)
+                setup_s = time.monotonic() - t0
+                for i in range(256):
+                    p2.append("x", blk(0, i % bps))
+                    p2.read("x", i)                  # promoted
+                t0 = time.monotonic()
+                for i in range(256):
+                    p2.write("x", i, blk(1, i % bps))
+                demote_s = time.monotonic() - t0
+                registered = p2._dma.cuda_registered
+                t0 = time.monotonic()
+                p2.close()
+                close_s = time.monotonic() - t0
+            if registered != (label == "pinned" and cuda):
+                fail("d", f"the {label} pool's buffer: cudaHostRegister "
+                          f"{registered}")
+            pin_rows[label] = (setup_s, demote_s / 256, close_s)
+        lines.append("pool memory, 256 HBM blocks written in place (each "
+                     "demoted out of the card first): " + "; ".join(
+                         f"{k} {v[1] * 1e6:.1f} us a block, set-up "
+                         f"{v[0] * 1e3:.1f} ms, close {v[2] * 1e3:.1f} ms"
+                         for k, v in pin_rows.items())
+                     + " (the pool above is pinned)")
+        del dev_kv, host_kv
+        print(f"[23d] KV paging at GPT-2 medium's geometry on {dev} "
+              f"({card}): {bb} B blocks ({tok} tokens of one layer's K and "
+              f"V at float16), {n_seq} sequences x "
+              f"{cfg['n_positions']} tokens x {cfg['n_layer']} layers = "
+              f"{n_seq * bps} blocks; HBM tier {hbm_bytes} B (pool share "
+              f"{hbm_bytes // 2 // bb} blocks), {ram_blocks} RAM blocks, a "
+              f"mirror='paired' 4-member spill set of {spill_bytes} B "
+              f"logical:")
+        for line in lines:
+            print(f"    {line}")
+        print(f"    counters {moves}; {time.monotonic() - t_d:.1f} s")
+
+        # -- e. the cold-start gate on the card -------------------------------
+        # as in a process of its own: the tiers of [23d] disarmed, the
+        # phase's config back
+        config.restore(snap)
+        extent_space.clear_tiers()
+        extent_space.configure()
+        t_e = time.monotonic()
+        if coldstart_gate.main(["-d", str(dev), "--latency-ms",
+                                str(COLDSTART_GATE_LATENCY_MS)]) != 0:
+            fail("e", "the cold-start gate failed")
+        print(f"[23e] testing/coldstart_gate.py -d {dev}: every leg passed; "
+              f"{time.monotonic() - t_e:.1f} s")
+    finally:
+        config.restore(snap)
+        sw._digest_drop_host = None
+        for p in (path, bad):
+            if os.path.exists(p):
+                os.unlink(p)
+        shutil.rmtree(kv_dir, ignore_errors=True)
+        extent_space.clear_tiers()
+        extent_space.configure()
+        recorder.configure()
+    other = filter_cuda.launches + groupby_cuda.launches \
+        + decode_cuda.launches
+    if other:
+        fail("", f"{other} B1-B3 launches on a path that has none")
+    print(f"    [23] took {time.monotonic() - t_phase:.1f} s")
+    return b4
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--load-gib", type=float, default=1.0)
@@ -6742,6 +7303,9 @@ def main() -> int:
             (heap_path, schema, th, want_count, want_sum), load_path)
         for f in (heap_path, load_path, gb_path):
             os.unlink(f)
+
+        # -- serving: weight streaming, the sharded cold start, KV paging ---
+        ring_launches += _serving_phase(torch, dev, tmp, args.seed, card)
 
         # -- string columns and the SQL facade -----------------------------
         main_launches += _sql_phase(torch, dev, tmp, args.seed)

@@ -14,7 +14,8 @@ from dataclasses import dataclass
 from typing import List, Optional
 
 __all__ = ["StromError", "ErrorClass", "FsKind", "FileInfo", "BufferInfo",
-           "MemCopyResult", "RESIDENCY_COUNTERS", "PASSTHRU_COUNTERS"]
+           "MemCopyResult", "RESIDENCY_COUNTERS", "PASSTHRU_COUNTERS",
+           "SERVING_COUNTERS"]
 
 
 #: counters of checksum verify on read, the residency tiers and the
@@ -49,6 +50,17 @@ RESIDENCY_COUNTERS = (
     "nr_tier_ram_fault",      # demand faults filled SSD -> RAM
     "nr_tier_ram_demote",     # RAM victims dropped to the SSD tier
     "nr_tier_ram_shed",       # RAM residents shed under memlock pressure
+)
+
+
+#: counters of serving (weight streaming and the KV block pool), under the
+#: JAX package's ``STAT_FIELDS`` names
+SERVING_COUNTERS = (
+    "nr_kv_pagein",           # KV blocks paged SSD -> RAM
+    "nr_kv_pageout",          # KV blocks spilled RAM -> SSD (write ladder)
+    "nr_kv_migrate",          # KV chains migrated to a peer pool
+    "nr_kv_migrate_fail",     # migrations rolled back (a peer append failed)
+    "coldstart_bytes_per_sec",  # gauge: the last weight stream's rate
 )
 
 

@@ -103,6 +103,12 @@ def _mirror(val: str) -> None:
         raise ConfigError(f"mirror must be none|paired, got {val!r}")
 
 
+def _qos_class(val: str) -> None:
+    if val not in ("latency", "normal", "bulk"):
+        raise ConfigError(f"qos_default_class must be latency|normal|bulk, "
+                          f"got {val!r}")
+
+
 def _integrity(val: str) -> None:
     if val not in ("off", "transitions", "always"):
         raise ConfigError(f"integrity must be off|transitions|always, "
@@ -319,6 +325,19 @@ _VARS: Dict[str, _Var] = {
     # extent up exclusively and HBM victims demote into RAM; off = three
     # isolated tiers (no promotion, evictions drop)
     "tier_unified": _Var(True, bool),
+    # the KV block pool's block (serving/kvcache.py): the unit of HBM
+    # pinning, RAM slotting and SSD spill I/O, a power of two
+    "tier_kv_block_bytes": _Var(64 << 10, int, 4 << 10, 16 << 20, _pow2),
+    "kv_block_bytes": _Var(64 << 10, int, 4 << 10, 16 << 20,
+                           alias_of="tier_kv_block_bytes"),
+    # -- serving (serving/weights.py, serving/kvcache.py) ---------------
+    # layers of a streamed checkpoint in flight at once during a cold start
+    "weight_stream_depth": _Var(2, int, 1, 16),
+    # KvBlockPool.migrate / shed_to_peer allowed (off: EOPNOTSUPP)
+    "kv_migrate": _Var(True, bool),
+    # QoS class of a KV sequence appended without one: latency | normal |
+    # bulk (a pressure shed takes bulk first, latency last)
+    "qos_default_class": _Var("normal", str, check=_qos_class),
     # -- the integrity domain (integrity.py) ----------------------------
     # crc32c of resident extents: off (none stored) | transitions (stored
     # at fill, checked at promote and demote) | always (and at every

@@ -118,27 +118,44 @@ def _grid_pieces(start: int, nbytes: int, grids=_GRIDS,
             + _grid_pieces(b, end - b, grids[:1], base))
 
 
-def _span_io(sess: Session, source, handle: int, view: memoryview,
-             start: int, nbytes: int, *, write: bool = False) -> None:
-    """Read file bytes ``[start, start + nbytes)`` into the mapped buffer
-    *handle* (or, with *write*, write them from it) through the engine's
-    direct path, one command a piece of :func:`_grid_pieces`, all in
-    flight together; chunks land in the caller's order."""
+def _span_submit(sess: Session, source, handle: int, start: int,
+                 nbytes: int, *, write: bool = False, dest_offset: int = 0,
+                 grids=_GRIDS) -> List[tuple]:
+    """Submit the engine commands that read file bytes ``[start, start +
+    nbytes)`` into the mapped buffer *handle* from its *dest_offset* (or,
+    with *write*, write them from it), one a piece of
+    :func:`_grid_pieces`, all in flight together; returns the pending
+    ``(task id, chunk, ids, buffer offset)`` for :func:`_span_wait`."""
     tasks = []
     try:
-        for chunk, ids, off in _grid_pieces(start, nbytes):
+        for chunk, ids, off in _grid_pieces(start, nbytes, grids):
+            off += dest_offset
             res = (sess.memcpy_ram2ssd(source, handle, ids, chunk,
                                        src_offset=off) if write else
                    sess.memcpy_ssd2ram(source, handle, ids, chunk,
                                        dest_offset=off))
             tasks.append((res.dma_task_id, chunk, ids, off))
     except BaseException:
-        for tid, *_ in tasks:      # submit failed midway: reap, bounded
-            try:
-                sess.memcpy_wait(tid, timeout=30.0)
-            except StromError:
-                pass
+        _span_reap(sess, tasks)     # submit failed midway: reap, bounded
         raise
+    return tasks
+
+
+def _span_reap(sess: Session, tasks) -> None:
+    """Wait out *tasks* whatever their outcome (an unwind's drain)."""
+    for tid, *_ in tasks:
+        try:
+            sess.memcpy_wait(tid, timeout=30.0)
+        except StromError:
+            pass
+
+
+def _span_wait(sess: Session, view: memoryview, tasks,
+               write: bool = False) -> None:
+    """Wait for the commands of :func:`_span_submit`; the chunks of each
+    read are put back in the caller's order inside *view* (the mapped
+    buffer's whole view).  The first error is raised after every task was
+    waited."""
     first_err = None
     for tid, chunk, ids, off in tasks:
         try:
@@ -151,6 +168,16 @@ def _span_io(sess: Session, source, handle: int, view: memoryview,
             raw[:] = reorder_chunks(raw, chunk, res.chunk_ids, ids)
     if first_err is not None:
         raise first_err
+
+
+def _span_io(sess: Session, source, handle: int, view: memoryview,
+             start: int, nbytes: int, *, write: bool = False) -> None:
+    """Read file bytes ``[start, start + nbytes)`` into the mapped buffer
+    *handle* (or, with *write*, write them from it) through the engine's
+    direct path, one command a piece of :func:`_grid_pieces`, all in
+    flight together; chunks land in the caller's order."""
+    _span_wait(sess, view, _span_submit(sess, source, handle, start, nbytes,
+                                        write=write), write)
 
 
 # -- tree paths ---------------------------------------------------------------

@@ -18,8 +18,9 @@ default pays one branch:
   again with the healed bytes.
 * the pressure registry (:func:`register_pool`, :func:`pools`,
   :func:`request_shed`) through which memlock pressure in the RAM tier
-  asks other holders of resident bytes to shed first.  No holder
-  registers yet: the KV block pool that does is not part of the port.
+  asks other holders of resident bytes to shed first: the KV block pool
+  (:class:`.serving.kvcache.KvBlockPool`) registers at construction, and
+  the scrubber walks its spill blocks too.
 
 :func:`verify_and_reread` is the checksum verify on read (config
 ``checksum_verify``) that the engine's read sites and the staging ring's
@@ -277,8 +278,9 @@ class Scrubber:
         return scanned
 
     def _scrub_pools(self, budget: int) -> int:
-        """The registered holders' own resident blocks (none register
-        yet); their debits are stripe members whose copy rotted."""
+        """The registered holders' own resident blocks (the KV pools'
+        spill blocks); their debits are stripe members whose copy
+        rotted."""
         scanned = 0
         for pool in pools():
             if scanned >= budget or self._stop.is_set():

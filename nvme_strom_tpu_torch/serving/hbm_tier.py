@@ -90,6 +90,47 @@ def _host_copy(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+class _Entries(OrderedDict):
+    """The tier's LRU of entries, indexed by source key as well, so that a
+    write's invalidation visits only the entries of the sources whose
+    files it shares (a pool's thousands of pinned KV blocks sit under a
+    ``#kvpool`` key no file write can touch)."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.by_skey: dict = {}
+
+    def __setitem__(self, key, value) -> None:
+        super().__setitem__(key, value)
+        self.by_skey.setdefault(key[0], set()).add(key)
+
+    def __delitem__(self, key) -> None:
+        super().__delitem__(key)
+        self._unindex(key)
+
+    def pop(self, key, *default):
+        if key in self:
+            self._unindex(key)
+        return super().pop(key, *default)
+
+    def clear(self) -> None:
+        super().clear()
+        self.by_skey.clear()
+
+    def _unindex(self, key) -> None:
+        keys = self.by_skey.get(key[0])
+        if keys is not None:
+            keys.discard(key)
+            if not keys:
+                del self.by_skey[key[0]]
+
+    def keys_sharing(self, paths: set, skey=None) -> list:
+        """The keys of every source key that is *skey* or shares a path
+        with *paths*."""
+        return [k for ks, keys in self.by_skey.items()
+                if ks == skey or paths & set(ks) for k in keys]
+
+
 class HbmLease(TierLease):
     """Refcounted pin on an HBM-resident extent: the unified
     :class:`..tiering.TierLease` holder contract under its
@@ -107,7 +148,7 @@ class HbmResidencyTier:
         self._lock = threading.Lock()
         self._cap = 0
         self._bytes = 0
-        self._entries: "OrderedDict[tuple, _Entry]" = OrderedDict()
+        self._entries: "_Entries" = _Entries()
         self._device: Optional[torch.device] = None
 
     # -- configuration ------------------------------------------------
@@ -434,13 +475,10 @@ class HbmResidencyTier:
         pathset = set(skey)
         victims = []
         with self._lock:
-            for key in list(self._entries):
+            for key in self._entries.keys_sharing(pathset, skey):
                 ks, kb, kl = key
-                if ks == skey:
-                    if not any(kb < b + l and b < kb + kl
-                               for b, l in extents):
-                        continue
-                elif not (pathset & set(ks)):
+                if ks == skey and not any(kb < b + l and b < kb + kl
+                                          for b, l in extents):
                     continue
                 victims.append(self._invalidate_locked(key))
         return self._note_invalidated(victims, extents)
@@ -451,9 +489,8 @@ class HbmResidencyTier:
         want = {os.path.realpath(p) for p in paths}
         victims = []
         with self._lock:
-            for key in list(self._entries):
-                if want & set(key[0]):
-                    victims.append(self._invalidate_locked(key))
+            for key in self._entries.keys_sharing(want):
+                victims.append(self._invalidate_locked(key))
         return self._note_invalidated(victims, [])
 
     def _invalidate_locked(self, key) -> Optional[_Entry]:

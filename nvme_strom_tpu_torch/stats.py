@@ -66,6 +66,11 @@ package's registry uses for the same events:
   issued, predictions the budget skipped), ``bytes_readahead`` and
   ``nr_readahead_hit`` (demand hits on prefetched extents, counted by the
   RAM tier);
+* serving (:data:`.api.SERVING_COUNTERS`): the KV block pool's
+  ``nr_kv_pagein`` / ``nr_kv_pageout`` (blocks paged SSD -> RAM and
+  spilled RAM -> SSD), ``nr_kv_migrate`` / ``nr_kv_migrate_fail`` (chains
+  moved to a peer pool, migrations rolled back), and the gauge
+  ``coldstart_bytes_per_sec`` (the last weight stream's landing rate);
 * the NVMe passthrough lane (:data:`.api.PASSTHRU_COUNTERS`):
   ``nr_passthru_dma`` / ``bytes_passthru`` (raw READ commands served, bytes
   split onto the lane), ``nr_passthru_refused_extent`` (spans the blockmap

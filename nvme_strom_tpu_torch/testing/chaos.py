@@ -20,14 +20,13 @@ probes alone), ``native_degraded`` (the native lanes read a FAILED
 member's extents from its mirror's fd), ``cache_churn`` (the RAM tier far
 below the stream, filling and evicting while a member fail-stops and a
 write invalidates, traced) and ``scrub_heal`` (a byte flipped in a RAM
-slab, caught and healed by the scrubber).  Write scenarios: ``write_failstop`` (mirror-only
-writes, then the journal replayed before HEALTHY), ``write_enospc`` (the
-first ENOSPC latches, no retry), ``write_torn_mirror`` (a replica dies
-between the legs, healed under ``write_verify``) and ``ckpt_crash`` (a
-SIGKILL mid-save leaves the installed checkpoint whole).
-
-Not here yet: ``scrub_heal``'s second phase (a KV spill block's rotten
-mirror leg healed at page-in), which needs the KV block pool.
+slab, caught and healed by the scrubber; then a KV spill block's rotten
+primary leg healed from its mirror at page-in, the member debited).
+Write scenarios: ``write_failstop`` (mirror-only writes, then the journal
+replayed before HEALTHY), ``write_enospc`` (the first ENOSPC latches, no
+retry), ``write_torn_mirror`` (a replica dies between the legs, healed
+under ``write_verify``) and ``ckpt_crash`` (a SIGKILL mid-save leaves the
+installed checkpoint whole).
 
 ``python -m nvme_strom_tpu_torch.testing.chaos [read|write|all]
 [-d DEVICE]``; the schedule is fixed by ``STROM_CHAOS_SEED`` (default
@@ -434,16 +433,19 @@ def _tiers_off(config) -> None:
 
 def scenario_scrub_heal(rng: random.Random, dirpath: str,
                         device=None) -> str:
-    """Seeded bit rot in a resident RAM slab: the background scrubber
-    detects it, drops the slab and fills it again from the SSD through
-    the fault ladder, and every read stays byte-identical.  (The JAX
-    package's second phase, a KV spill block whose primary leg rots on
-    disk, healed from the mirror at page-in, waits for the KV block
-    pool.)"""
+    """Seeded bit rot across the hierarchy.  Phase A: a byte flipped in a
+    resident RAM slab; the background scrubber detects it, drops the slab
+    and fills it again from the SSD through the fault ladder.  Phase B: a
+    KV spill block whose primary mirror leg rots on disk is healed from
+    the surviving replica at page-in, the rotten member debited into
+    QUARANTINED (``quarantine_after=1``).  Every read stays
+    byte-identical throughout."""
     from ..cache import residency_cache
     from ..config import config
     from ..engine import Session
-    from .fake import FakeStripedNvmeSource, flip_resident_host
+    from ..fault import HealthState
+    from ..serving.kvcache import KvBlockPool
+    from .fake import FakeStripedNvmeSource, FaultPlan, flip_resident_host
 
     config.set("io_retries", 2)
     config.set("task_deadline_s", 30.0)
@@ -452,15 +454,36 @@ def scenario_scrub_heal(rng: random.Random, dirpath: str,
     config.set("cache_arbitration", False)
     config.set("cache_bytes", 16 * CHUNK)   # the whole stream stays resident
     config.set("dma_max_size", CHUNK)
+    config.set("canary_interval_s", 0.0)    # the debit must hold
+    config.set("quarantine_after", 1)
+    config.set("quarantine_s", 60.0)
     residency_cache.clear()
     paths = make_mirrored_members(dirpath, tag=f"sh{rng.randrange(1 << 16)}-")
     src = FakeStripedNvmeSource(paths, stripe_chunk_size=STRIPE,
                                 force_cached_fraction=0.0, mirror="paired")
+    # the KV spill set: every member-0 block row carries one seeded rotten
+    # byte (flipped once the covering page-out landed); the mirror leg on
+    # member 1 stays clean, so each page-in heal is the mirror's
+    bbk = 16 << 10
+    rows = 4
+    rot = rng.randrange(64, bbk - 64)
+    spaths = []
+    for i in range(4):
+        sp = os.path.join(dirpath, f"kv{rng.randrange(1 << 16)}-{i}.bin")
+        with open(sp, "wb") as f:
+            f.truncate(rows * bbk)
+        spaths.append(sp)
+    plan = FaultPlan(corrupt_member_offsets={
+        0: {row * bbk + rot for row in range(rows)}})
+    spill = FakeStripedNvmeSource(spaths, bbk, fault_plan=plan,
+                                  force_cached_fraction=0.0,
+                                  mirror="paired", writable=True)
     want = expected_mirrored_stream(paths)
     fails0 = _counter("nr_integrity_fail")
     repairs0 = _counter("nr_scrub_repair")
     try:
         with Session(device=device) as sess:
+            # phase A: RAM-slab rot, caught and healed by the scrubber
             got, total = read_all(sess, src)
             assert got == want[:total], "scrub_heal: clean pass diverged"
             keys = residency_cache.scrub_keys()
@@ -480,11 +503,37 @@ def scenario_scrub_heal(rng: random.Random, dirpath: str,
             got, total = read_all(sess, src)
             assert got == want[:total], \
                 "scrub_heal: the stream diverged after the heal"
-            assert_transitions_legal(sess, "scrub_heal")
+            # phase B: KV spill rot healed from the mirror at page-in and
+            # debited to its member; the scrubber stops, so the debit
+            # comes from the page-in's verify
+            config.set("scrub_bytes_per_sec", 0)
+            repairs_a = _counter("nr_scrub_repair")
+            pool = KvBlockPool(sess, spill, block_bytes=bbk, ram_blocks=2,
+                               hbm_blocks=0)
+            try:
+                for i in range(6):
+                    pool.append("chaos", _kv_pat(i, bbk))
+                for i in range(6):
+                    assert pool.read("chaos", i) == _kv_pat(i, bbk), \
+                        f"scrub_heal: KV block {i} diverged after the heal"
+                assert _counter("nr_scrub_repair") > repairs_a, \
+                    "scrub_heal: no spill block was mirror-healed"
+                assert sess._member_health.state(0) is \
+                    HealthState.QUARANTINED, \
+                    f"scrub_heal: rotten member 0 ended " \
+                    f"{sess._member_health.state(0)}, wanted QUARANTINED"
+                assert_transitions_legal(sess, "scrub_heal")
+            finally:
+                pool.close()
     finally:
         src.close()
+        spill.close()
         _tiers_off(config)
     return "scrub_heal"
+
+
+def _kv_pat(i: int, n: int) -> bytes:
+    return bytes([(i * 7 + 1) % 256]) * n
 
 
 def scenario_cache_churn(rng: random.Random, dirpath: str,

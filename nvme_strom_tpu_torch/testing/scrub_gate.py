@@ -1,5 +1,5 @@
 """The resident-integrity gate: the JAX package's
-``testing/scrub_gate.py``, its RAM, HBM and pressure legs.
+``testing/scrub_gate.py``, every leg.
 
 * **RAM slab** — a byte flipped in a RAM-tier slab while a reader holds a
   lease on it: the scrubber detects the rot, drops the slab under its
@@ -9,15 +9,16 @@
 * **HBM extent** — the same for an extent in the HBM tier (a CUDA tensor
   on the card): the scrubber detects, the healed bytes are admitted
   again, and a new lease serves them byte-identical.
+* **KV spill** — a KV block pool over a mirrored spill set whose primary
+  legs rot on disk once paged out: the scrubber heals the rotten blocks
+  from the mirror leg, writes the primary again, and its debits move the
+  rotten member into QUARANTINED; every block reads back identical.
 * **Pressure** — shrinking ``memlock_budget`` mid-run sheds pinned slabs
   (``nr_pressure_shed``, ``pressure_shed`` instants in the flight
   recorder) and makes later fills pass through to the SSD
   (``nr_pressure_passthrough``), with no ENOMEM for any reader.  Where
   the host refuses every mlock the leg checks that the refusals were
   counted and ran unpinned, and says so.
-
-The JAX package's KV spill leg (a spill block's rotten primary healed
-from its mirror, the member debited) waits for the KV block pool.
 
 Usage: python -m nvme_strom_tpu_torch.testing.scrub_gate [-d DEVICE]
 (default ``cuda:0``; ``-d cpu`` runs it on the host).
@@ -182,6 +183,69 @@ def _leg_hbm_heal(dirpath: str, device) -> None:
           "SSD and admitted again, served identical")
 
 
+def _leg_kv_mirror_heal(dirpath: str, device) -> None:
+    """KV spill rot on the primary leg: the scrubber heals it from the
+    mirror, rewrites the primary, and its debits move the member into
+    QUARANTINED at ``quarantine_after=2``."""
+    from ..config import config
+    from ..engine import Session
+    from ..fault import HealthState
+    from ..serving.kvcache import KvBlockPool
+    from .fake import FakeStripedNvmeSource, FaultPlan
+
+    bbk = 16 << 10
+    rows = 4
+    # the scrubber starts once every block is appended: a page-out's
+    # write to member 0 between two heals would reset its failure count
+    _arm(config, cache_bytes=0, canary_interval_s=0.0,
+         quarantine_after=2, quarantine_s=60.0, scrub_bytes_per_sec=0)
+    spaths = []
+    for i in range(4):
+        p = os.path.join(dirpath, f"kv{i}.bin")
+        with open(p, "wb") as f:
+            f.truncate(rows * bbk)
+        spaths.append(p)
+    # every member-0 block row carries one rotten byte, flipped once the
+    # covering page-out landed; the member-1 mirror leg stays clean
+    plan = FaultPlan(corrupt_member_offsets={
+        0: {r * bbk + 97 for r in range(rows)}})
+    spill = FakeStripedNvmeSource(spaths, bbk, fault_plan=plan,
+                                  force_cached_fraction=0.0,
+                                  mirror="paired", writable=True)
+    repairs0 = _counter("nr_scrub_repair")
+    try:
+        with Session(device=device) as sess:
+            pool = KvBlockPool(sess, spill, block_bytes=bbk, ram_blocks=2,
+                               hbm_blocks=0)
+            try:
+                for i in range(6):
+                    pool.append("gate", _pat(i, bbk))
+                config.set("scrub_bytes_per_sec", 1 << 30)
+                # two of the four spilled blocks landed on the rotten
+                # member: the scrubber heals both from the mirror, and
+                # the second debit quarantines member 0
+                _await(lambda: _counter("nr_scrub_repair") >= repairs0 + 2,
+                       "two mirror heals of rotten spill blocks")
+                _await(lambda: sess._member_health.state(0)
+                       is HealthState.QUARANTINED,
+                       "member 0 quarantined by scrub debits")
+                for i in range(6):
+                    assert pool.read("gate", i) == _pat(i, bbk), \
+                        f"kv: block {i} diverged after the mirror heal"
+            finally:
+                pool.close()
+    finally:
+        spill.close()
+    print(f"scrub-gate kv leg ok: "
+          f"{_counter('nr_scrub_repair') - repairs0} spill block(s) "
+          f"healed from the mirror, the rotten member quarantined, reads "
+          f"identical")
+
+
+def _pat(i: int, n: int) -> bytes:
+    return bytes([(i * 7 + 1) % 256]) * n
+
+
 def _leg_pressure(dirpath: str, device) -> str:
     """A memlock budget shrunk mid-run: shed and pass-through, no ENOMEM,
     shown by the counters and the flight recorder's instants.  Returns
@@ -271,6 +335,7 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(prefix="strom_scrub_") as d:
             _leg_host_heal(d, dev)
             _leg_hbm_heal(d, dev)
+            _leg_kv_mirror_heal(d, dev)
             _leg_pressure(d, dev)
     except AssertionError as e:
         print(f"scrub-gate FAIL: {e}")
@@ -280,9 +345,9 @@ def main(argv=None) -> int:
         extent_space.clear_tiers()
         extent_space.configure()
         domain.configure()
-    print("scrub-gate ok: rot in the RAM and HBM tiers detected and healed "
-          "byte-identically, memlock pressure passes through without "
-          "ENOMEM")
+    print("scrub-gate ok: rot in all three tiers detected and healed "
+          "byte-identically, scrub debits quarantine the rotten member, "
+          "memlock pressure passes through without ENOMEM")
     return 0
 
 

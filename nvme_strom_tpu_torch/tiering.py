@@ -19,8 +19,7 @@ decided here, in :class:`ExtentSpace`:
   contract (:meth:`invalidate_extents` / :meth:`invalidate_paths`) that
   fans out over every tier;
 * **pins** — :meth:`pin` / :meth:`unpin` place an extent in HBM and hold
-  it there (the JAX package's KV block pool uses them; none of the port
-  does yet).
+  it there (the KV block pool's HBM tier, :mod:`.serving.kvcache`).
 
 Every lease a tier hands out is a :class:`TierLease`: one refcounted type
 with one holder contract (``copy_into`` fails open on a stale or corrupt

@@ -50,7 +50,9 @@ _SCRIPT = textwrap.dedent("""
                 "tools.phase_clock", "autotune", "daemon", "daemon.qos",
                 "testing.autotune_gate", "testing.landing_gate",
                 "testing.pushdown_gate", "blockmap", "numa",
-                "testing.passthru_emu", "testing.passthru_gate"):
+                "testing.passthru_emu", "testing.passthru_gate",
+                "serving.weights", "serving.kvcache",
+                "testing.coldstart_gate"):
         assert pkg.__name__ + "." + mod in names, mod
     import chip_smoke  # noqa: F401
     leaked = [m for m in sys.modules
