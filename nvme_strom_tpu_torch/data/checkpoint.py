@@ -482,7 +482,8 @@ def save_checkpoint_sharded(path: str, tree: Any) -> Dict:
     byte-identical, without the per-leaf crc32c (no writer holds a whole
     leaf), so either restore path reads it.
 
-    A leading-axis split writes every member's rows; a replicated leaf is
+    A leading-axis split writes each distinct row block once (the first
+    member holding it: sp lanes replicate dp blocks); a replicated leaf is
     written once, from member 0; plain tensors and arrays are written
     whole.  A leaf sharded on another axis is EINVAL, checked for every
     leaf before the file is created.  One process writes every shard (the
@@ -493,12 +494,12 @@ def save_checkpoint_sharded(path: str, tree: Any) -> Dict:
     flat = _flatten(tree)
     entries = _entries_for(flat)
     for key, leaf in flat:
-        if isinstance(leaf, ShardedTensor) and leaf.sharding.axis \
-                not in (0, None):
+        if isinstance(leaf, ShardedTensor) and \
+                not leaf.sharding.leading_only:
             raise StromError(
                 _errno.EINVAL,
                 f"leaf {key}: sharded save supports leading-axis sharding "
-                f"only (axis {leaf.sharding.axis} is split)")
+                f"only (spec {leaf.sharding.spec} splits another axis)")
     header, header_len, end = _header(entries)
     path = os.path.realpath(path)
     tmp = path + ".shared_tmp"
@@ -515,11 +516,16 @@ def save_checkpoint_sharded(path: str, tree: Any) -> Dict:
                 if not isinstance(leaf, ShardedTensor):
                     _pwrite_all(fd, _leaf_bytes(leaf, e), base)
                     continue
-                shards = leaf.shards
-                if leaf.sharding.axis is None or not e["shape"]:
-                    shards = shards[:1]    # one writer per replicated block
+                # one writer per distinct block, in row order: lanes and
+                # replicas hold copies of blocks another member writes
+                firsts: Dict[tuple, torch.Tensor] = {}
+                idxs = leaf.sharding.indices(leaf.shape) if e["shape"] \
+                    else [()] * len(leaf.shards)
+                for idx, t in zip(idxs, leaf.shards):
+                    firsts.setdefault((idx[0].start, idx[0].stop)
+                                      if idx else (0, 0), t)
                 off = base
-                for s in shards:
+                for _r, s in sorted(firsts.items()):
                     data = _tensor_u8(s).cpu().numpy()
                     _pwrite_all(fd, data, off)
                     off += data.size
@@ -759,7 +765,7 @@ def restore_checkpoint(path: str, *, shardings=None, like=None,
     for e in meta["leaves"]:
         sh = _leaf_sharding(shardings, e["key"])
         if sh is not None:
-            sh.check(f"leaf {e['key']}")
+            sh.check(f"leaf {e['key']}", tuple(e["shape"]))
             dev = dev or sh.mesh.devices[0]
     own = session is None
     sess = session or Session(device=dev)
@@ -812,28 +818,45 @@ def restore_checkpoint(path: str, *, shardings=None, like=None,
 
 def _restore_sharded(sess, source, base, dtype, shape, sharding,
                      ring: _PinnedRing, key: str) -> ShardedTensor:
-    """A leaf over a ring from per-member reads: a leading-axis split reads
-    each member's rows on their own; a replicated leaf is read once and
-    copied to every member (one read per unique row range)."""
-    what = f"leaf {key}"
+    """A leaf over a mesh from per-member reads: one SSD read per unique
+    leading-axis row range, then each member's slice of the other axes
+    cut on the host (the reference's ``_restore_sharded``).  A scalar is
+    replicated.  Members on one device that own the same slice share one
+    tensor (one H2D)."""
     mesh = sharding.mesh
     if not shape:   # scalar leaf: replicate
-        ranges = [(0, 1)] * mesh.size
+        idxs = [()] * mesh.size
         rowbytes = dtype.itemsize
     else:
-        ranges = sharding.row_ranges(shape[0], what)
+        idxs = sharding.indices(shape, f"leaf {key}")
         rowbytes = int(dtype.itemsize * np.prod(shape[1:], dtype=np.int64)) \
             if len(shape) > 1 else dtype.itemsize
     by_range: Dict[tuple, List[int]] = {}
-    for i, rkey in enumerate(ranges):
+    for i, idx in enumerate(idxs):
+        rkey = (idx[0].start, idx[0].stop) if idx else (0, 1)
         by_range.setdefault(rkey, []).append(i)
     tdtype = torch_dtype(dtype)
     shards: List[Optional[torch.Tensor]] = [None] * mesh.size
     for (r0, r1), members in by_range.items():
         host = _read_span(sess, source, base + r0 * rowbytes,
                           (r1 - r0) * rowbytes, ring)
-        sub = (r1 - r0,) + tuple(shape[1:]) if shape else ()
+        block = (r1 - r0,) + tuple(shape[1:]) if shape else ()
+        placed: Dict[tuple, torch.Tensor] = {}
         for i in members:
-            shards[i] = ring.put(host, mesh.devices[i]).view(tdtype) \
-                .reshape(sub)
+            sub = idxs[i][1:]
+            dev = mesh.devices[i]
+            pkey = (tuple((s.start, s.stop) for s in sub), dev)
+            if pkey not in placed:
+                if any(s != slice(0, n) for s, n in zip(sub, shape[1:])):
+                    # sliced as same-width words: any leaf dtype
+                    part = np.ascontiguousarray(
+                        host.view(f"<u{dtype.itemsize}").reshape(block)
+                        [(slice(None),) + tuple(sub)])
+                    placed[pkey] = ring.put(part.reshape(-1).view(np.uint8),
+                                            dev).view(tdtype) \
+                        .reshape(part.shape)
+                else:
+                    placed[pkey] = ring.put(host, dev).view(tdtype) \
+                        .reshape(block)
+            shards[i] = placed[pkey]
     return ShardedTensor(shards, sharding)

@@ -49,9 +49,10 @@ class DeviceLoader:
     shuffle : None for file order, or an int seed for per-epoch chunk
         shuffling (epoch *e* uses ``seed + e``)
     mesh : optional :class:`..parallel.mesh.RingMesh` — each batch is a
-        list of per-member tensors, member *i* holding rows
-        ``[i·b/N, (i+1)·b/N)``; otherwise ``device`` (default ``cuda:0``;
-        ``"cpu"`` for the host) gets whole batches
+        list of per-member tensors, member ``(s, d)`` holding rows
+        ``[d·b/dp, (d+1)·b/dp)`` (the sp lanes replicate the dp split,
+        one tensor where they share a device); otherwise ``device``
+        (default ``cuda:0``; ``"cpu"`` for the host) gets whole batches
     prefetch : pinned batch buffers / batches kept in flight (default 2 =
         double buffering)
     drop_remainder : trailing records that do not fill a batch (or a chunk)
@@ -98,10 +99,10 @@ class DeviceLoader:
         self.batches_per_epoch = self.n_chunks // self.chunks_per_batch
         self.shuffle = shuffle
         self.mesh = mesh
-        if mesh is not None and batch_records % mesh.size:
+        if mesh is not None and batch_records % mesh.dp:
             raise StromError(_errno.EINVAL,
                              f"batch_records {batch_records} not divisible "
-                             f"by the ring's {mesh.size} members")
+                             f"by the mesh's {mesh.dp} dp shards")
         if prefetch < 1:
             raise StromError(_errno.EINVAL, "prefetch must be >= 1")
         # where batches go, resolved before anything is allocated: with no
@@ -171,15 +172,19 @@ class DeviceLoader:
         # restore the *requested* order: a seeded shuffle must not depend
         # on the order the engine completed the chunks in
         raw = reorder_chunks(raw, self.chunk_size, res.chunk_ids, req)
-        per = self.batch_records // len(self.devices)
+        ndp = self.mesh.dp if self.mesh is not None else 1
+        per = self.batch_records // ndp
         span = per * self.ds.stride
-        out = []
+        out, placed = [], {}
         for i, dev in enumerate(self.devices):
-            t, fence = safe_device_put(raw[i * span:(i + 1) * span], dev,
-                                       stream=self._stream(dev))
-            # the pinned buffer is refilled only after this copy is done
-            self._fence[ring].append(fence)
-            out.append(self._strip(t, per))
+            k = i % ndp
+            if (k, dev) not in placed:
+                t, fence = safe_device_put(raw[k * span:(k + 1) * span], dev,
+                                           stream=self._stream(dev))
+                # the pinned buffer is refilled only after this copy is done
+                self._fence[ring].append(fence)
+                placed[k, dev] = self._strip(t, per)
+            out.append(placed[k, dev])
         return out if self.mesh is not None else out[0]
 
     def _reap(self, pending) -> None:

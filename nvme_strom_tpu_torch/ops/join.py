@@ -111,16 +111,24 @@ def hash_split_build(build_keys, build_values, n_parts: int):
     return [(bk[part == p], bv[part == p]) for p in range(n_parts)]
 
 
+def sorted_has_duplicates(keys: np.ndarray) -> bool:
+    """True when sorted *keys* hold a value twice."""
+    return bool(len(keys) > 1 and (keys[1:] == keys[:-1]).any())
+
+
 def _sorted_build(build_keys, build_values, schema: HeapSchema,
                   probe_col: int):
-    """The build side's host preparation: the unique-key check and the
-    sort.  Keys are int32; values keep their dtype (int32/uint32/float32)."""
-    if len(np.unique(build_keys)) != len(build_keys):
+    """The build side's host preparation: the sort and the unique-key
+    check on the sorted keys (equal neighbours; one sort, where
+    ``np.unique`` would sort or hash again).  Keys are int32; values keep
+    their dtype (int32/uint32/float32)."""
+    keys = np.asarray(build_keys)
+    order = np.argsort(keys, kind="stable")
+    if sorted_has_duplicates(keys[order]):
         raise ValueError("build_keys must be unique (inner join on a "
                          "dimension key)")
     if schema.col_dtype(probe_col) != np.dtype(np.int32):
         raise ValueError("probe column must be int32")
-    order = np.argsort(build_keys, kind="stable")
     return (np.asarray(build_keys, np.int32)[order],
             np.asarray(build_values, _value_dtype(build_values))[order])
 

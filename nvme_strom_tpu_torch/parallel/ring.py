@@ -96,7 +96,14 @@ def ring_all_gather(shards: Sequence[torch.Tensor], mesh: RingMesh, *,
     """All-gather per-member *shards* (each ``(rows, ...)``) by ring
     rotation: returns one ``(N * rows, ...)`` replica per member, shard
     *k* at rows ``[k * rows, (k + 1) * rows)``.  N − 1 steps; each step
-    writes straight into the gathered outputs."""
+    writes straight into the gathered outputs.  On an ``(sp, dp)`` mesh
+    each lane gathers its own dp ring (N = dp), as the reference's
+    gather over ``"dp"``."""
+    if mesh.sp > 1:
+        dp = mesh.dp
+        return [t for s in range(mesh.sp)
+                for t in ring_all_gather(shards[s * dp:(s + 1) * dp],
+                                         mesh.lane(s), backend=backend)]
     n = mesh.size
     check_blocks(shards, mesh.devices)
     rows = shards[0].shape[0]

@@ -140,7 +140,15 @@ def load_pages_multihost(source: Source, mesh: RingMesh, *,
     source, or with ``gather=True`` one full ``(n_pages, PAGE_SIZE)``
     replica per member.  With the flight recorder on, each host's read is
     a ``shard_load`` span, and the redistribution and the gather are each
-    an ``ici_permute`` span (``gather`` in its args for the second)."""
+    an ``ici_permute`` span (``gather`` in its args for the second).
+
+    On an ``(sp, dp)`` mesh the load runs over lane 0's dp ring and every
+    lane's member of dp column *d* holds what lane 0's does (the
+    reference's ``P("dp", None)``); *hosts* then divides dp."""
+    if mesh.sp > 1:
+        return mesh.replicate(load_pages_multihost(
+            source, mesh.lane(0), hosts=hosts, session=session,
+            source_factory=source_factory, backend=backend, gather=gather))
     if source.size % PAGE_SIZE:
         raise StromError(_errno.EINVAL, f"source size {source.size} not "
                                         f"page-aligned")

@@ -5,7 +5,10 @@ fan-out analog over the ring: where the reference stripes one stream
 across NVMe members in-kernel (`kmod/nvme_strom.c:823-910`), here the
 *destination* is striped — member *i* owns a disjoint page range, read
 through the engine's direct path into pinned buffers and landed on its
-device.  A sharded array is a list of per-member tensors.
+device.  A sharded array is a list of per-member tensors.  On an ``(sp,
+dp)`` mesh the pages split over dp and each dp shard is read once and
+replicated over the sp lanes (:meth:`.mesh.RingMesh.replicate`), the
+reference's ``P("dp", None)``.
 
 Landing on a card uses the port's own mechanism (:mod:`..hbm.staging`):
 ``cudaHostRegister``'d engine buffers, a copy stream per device, and
@@ -43,22 +46,22 @@ def load_pages_sharded(source: Source, mesh: RingMesh, *,
                        session: Optional[Session] = None
                        ) -> List[torch.Tensor]:
     """Direct-load a page-formatted source into per-member ``(n_pages /
-    N, PAGE_SIZE)`` uint8 shards: member *i* holds rows ``[i * r, (i + 1)
-    * r)``.  ``n_pages`` must divide evenly by the ring size."""
-    n = mesh.size
+    dp, PAGE_SIZE)`` uint8 shards: member ``(s, d)`` holds rows ``[d * r,
+    (d + 1) * r)``.  ``n_pages`` must divide evenly by dp."""
+    n = mesh.dp
     if source.size % PAGE_SIZE:
         raise StromError(_errno.EINVAL, f"source size {source.size} not "
                                         f"page-aligned")
     n_pages = source.size // PAGE_SIZE
     if n_pages % n:
         raise StromError(_errno.EINVAL, f"{n_pages} pages not divisible by "
-                                        f"{n} ring members; pad the source")
+                                        f"{n} dp shards; pad the source")
     rows = n_pages // n
     own = session is None
     sess = session or _cuda_session(mesh)
     shards = []
     try:
-        for i, dev in enumerate(mesh.devices):
+        for i, dev in enumerate(mesh.devices[:n]):
             nbytes = rows * PAGE_SIZE
             handle, buf = sess.alloc_dma_buffer(nbytes)
             try:
@@ -74,7 +77,7 @@ def load_pages_sharded(source: Source, mesh: RingMesh, *,
             finally:
                 sess.unmap_buffer(handle)
                 buf.close()
-        return shards
+        return mesh.replicate(shards)
     finally:
         if own:
             sess.close()
@@ -91,17 +94,18 @@ class ShardedBatchStream:
     and each shard's submit→completion wait goes to its own histogram
     (``stats.shard_wait``).
 
-    Yields ``(first_page, shards)`` with one ``(batch_pages / N,
-    PAGE_SIZE)`` uint8 tensor per member, on its device.  ``batch_pages``
-    must divide by the ring size; a final partial batch is not yielded
-    (callers scan tails themselves)."""
+    Yields ``(first_page, shards)``: a :class:`.mesh.Shards` of one
+    ``(batch_pages / dp, PAGE_SIZE)`` uint8 tensor per member, on its
+    device, member ``(s, d)`` holding dp shard *d* (read once, the lanes
+    sharing it).  ``batch_pages`` must divide by dp; a final partial batch
+    is not yielded (callers scan tails themselves)."""
 
     def __init__(self, source: Source, mesh: RingMesh, *, batch_pages: int,
                  session: Optional[Session] = None):
-        n = mesh.size
+        n = mesh.dp
         if batch_pages <= 0 or batch_pages % n:
             raise StromError(_errno.EINVAL, f"batch_pages {batch_pages} must "
-                                            f"divide by {n} ring members")
+                                            f"divide by {n} dp shards")
         if source.size % PAGE_SIZE:
             raise StromError(_errno.EINVAL, "source size not page-aligned")
         self.source = source
@@ -133,7 +137,7 @@ class ShardedBatchStream:
         self._fence[slot] = []
         tasks = []
         base = b * self.batch_pages
-        for k in range(self.mesh.size):
+        for k in range(self.mesh.dp):
             r0 = base + k * self.rows
             handle, _buf = self._bufs[k][slot]
             res = self.session.memcpy_ssd2ram(
@@ -206,7 +210,7 @@ class ShardedBatchStream:
         for b in range(self.n_batches):
             nxt = self._submit(b + 1) if b + 1 < self.n_batches else None
             shards = self._collect(*pending)
-            yield b * self.batch_pages, shards
+            yield b * self.batch_pages, self.mesh.replicate(shards)
             pending = nxt
 
     def close(self) -> None:
@@ -240,7 +244,8 @@ def distributed_scan_filter(source: Source, mesh: RingMesh, step, *,
                             session: Optional[Session] = None,
                             combine=None) -> dict:
     """Fold ``step(shards) -> dict`` over the source, streamed batch-wise
-    through :class:`ShardedBatchStream`; results are summed per key (or
+    through :class:`ShardedBatchStream` (*shards*: one a member, the sp
+    lanes replicating the dp shards); results are summed per key (or
     folded with *combine*) and returned as numpy.  Bounded memory: two
     pinned buffers per member plus one resident batch."""
     acc = None

@@ -27,9 +27,11 @@ one ``c0`` value are one contiguous span sorted by ``c1``.  Float columns
 are refused (build one index per float column).  The header gains
 ``key_dtypes``, the pair's column dtypes.
 
-Left out against the JAX package: the mesh build (``build_index(...,
-mesh=)``, the distributed sample sort), which waits for the port's
-meshes.
+**Mesh build**: ``build_index(..., mesh=)`` sorts through the distributed
+sample sort over the mesh's members (:mod:`..parallel.sort`) — a single
+column through the mesh ``order_by``, a pair's packed keys through two
+stable uint32 radix passes — and writes the same sidecar, byte for byte,
+as the local build.
 """
 
 from __future__ import annotations
@@ -113,7 +115,8 @@ def index_path_for(table_path: str, col) -> str:
 
 
 def build_index(table_path: str, schema, col, *,
-                index_path: Optional[str] = None, device=None) -> str:
+                index_path: Optional[str] = None, device=None,
+                mesh=None) -> str:
     """One scan of the table -> a sorted (key, position) sidecar.
 
     Returns the index path (``<table>.idx<col>`` by default).  A single
@@ -122,8 +125,10 @@ def build_index(table_path: str, schema, col, *,
     ``"cpu"`` on the host); NaN float keys are left out (they compare
     unordered; SQL indexes skip NULLs the same way).  A pair ``(c0, c1)``
     of integer columns builds from one projection scan and a stable
-    argsort of the packed keys (module docstring).  The file goes through
-    ``.tmp`` + ``fsync`` + ``os.replace``.
+    argsort of the packed keys (module docstring).  With *mesh* the sorts
+    run over its members (the gather on its first), the sidecar
+    byte-identical.  The file goes through ``.tmp`` + ``fsync`` +
+    ``os.replace``.
 
     Refused with EINVAL: a nullable or 8-byte key column, a float column
     in a composite key, and a composite key that is not a pair."""
@@ -157,17 +162,27 @@ def build_index(table_path: str, schema, col, *,
                     f"composite index col{c} is {dt}: only integer "
                     f"columns pack order-preservingly (build a single-"
                     f"column index for float keys)")
-        out = Query(table_path, schema).select([c0, c1]).run(device=device)
+        # the gather is local (on the mesh's first member), the sort not
+        out = Query(table_path, schema).select([c0, c1]).run(
+            device=mesh.devices[0] if mesh is not None and device is None
+            else device)
         packed = pack_pair(out[f"col{c0}"], out[f"col{c1}"], dt0, dt1)
-        # stable: duplicates keep build (physical) order, the contract
-        # of the single-column build
-        order = np.argsort(packed, kind="stable")
-        keys = packed[order]
-        poss = np.asarray(out["positions"], np.int64)[order]
+        pos_in = np.asarray(out["positions"], np.int64)
+        if mesh is not None:
+            from ..parallel.sort import distributed_sort_u64
+            keys, poss = distributed_sort_u64(mesh, packed, pos_in)
+        else:
+            # stable: duplicates keep build (physical) order, the
+            # contract of the single-column build
+            from ..hbm.backend import resolve_device
+            from .query import stable_order
+            order = stable_order(packed, resolve_device(device))
+            keys, poss = packed[order], pos_in[order]
         col_field = [c0, c1]
         key_dtypes = [dt0.str, dt1.str]
     else:
-        out = Query(table_path, schema).order_by(col).run(device=device)
+        out = Query(table_path, schema).order_by(col).run(device=device,
+                                                           mesh=mesh)
         keys = np.asarray(out["values"])
         poss = np.asarray(out["positions"], np.int64)
         if keys.dtype.kind == "f":

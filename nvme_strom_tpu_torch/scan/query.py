@@ -82,13 +82,16 @@ Three ways to run a scan besides the one-process scan:
   refused (EINVAL).  ``select`` and ``top_k`` come
   back in the serial scan's order.
 * ``mesh=`` (a :class:`..parallel.mesh.RingMesh`): batches stream sharded
-  over the ring (:func:`..parallel.stream.distributed_scan_filter`), the
-  plan's step runs on each member's shard and the results fold with the
+  over the mesh's dp axis (:func:`..parallel.stream.distributed_scan_filter`),
+  the plan's step runs on each dp shard and the results fold with the
   operator's combine; the pages past the last whole batch scan on the
   first member.  The sort terminals (``order_by``, ``quantiles``,
-  ``count_distinct``) and the partitioned join plan ``invalid`` under a mesh
-  (their mesh forms wait for ROADMAP A6.2); the join and star row faces run
-  on the first member.
+  ``count_distinct``) gather on the first member and sort with the
+  distributed sample sort over every member (:mod:`..parallel.sort`); a
+  join whose build side is above ``join_broadcast_max`` hash-partitions
+  the build over dp and routes each batch's rows to their key's owner
+  (:mod:`..parallel.pjoin`), both faces; the broadcast join and star row
+  faces run on the first member.
 * ``analyze=True``: the result gains ``"_analyze"``, the run's wall time and
   engine counters (EXPLAIN ANALYZE).
 
@@ -101,9 +104,6 @@ for the table (``cache_hit_ratio`` for RAM, ``hbm_hit_ratio`` for HBM: the
 fraction of the table's bytes resident there), and the packed leg keys its
 extents apart from the heap's (``cache_key_extra``), so the two never
 alias in a tier.
-
-Left out against the JAX package: the mesh sort and partitioned join and
-the mesh index build.
 """
 
 from __future__ import annotations
@@ -276,6 +276,28 @@ def _tag_packed(src, meta) -> None:
     bytes each packed byte serves, which the RAM tier credits."""
     src.cache_key_extra = ("#repr=cpk", f"#gen={meta.table_mtime_ns}")
     src.logical_scale = meta.logical_bytes / max(meta.packed_bytes, 1)
+
+
+def stable_order(keys: np.ndarray, dev: torch.device) -> np.ndarray:
+    """``np.argsort(keys, kind="stable")``, sorted by ``torch.sort(stable=
+    True)`` on *dev*: the same permutation (NaN after every number, ±0
+    equal, ties in arrival order), off the host.  Every key sorts as an
+    int64 of the same order: float32 through
+    :func:`..parallel.sort.sort_keys` (one key for both zeros, one for
+    every NaN, above +inf), so no NaN's sign bit and no device sort's
+    float handling can move a row; uint32 and uint64 by their value's
+    order."""
+    if keys.dtype == np.float32:
+        from ..parallel.sort import sort_keys
+        t = sort_keys(torch.from_numpy(np.ascontiguousarray(keys)).to(dev),
+                      "f", False)
+        return torch.sort(t, stable=True).indices.cpu().numpy()
+    if keys.dtype == np.uint32:
+        keys = keys.astype(np.int64)
+    elif keys.dtype == np.uint64:
+        keys = (keys ^ np.uint64(1 << 63)).view(np.int64)
+    t = torch.from_numpy(np.ascontiguousarray(keys)).to(dev)
+    return torch.sort(t, stable=True).indices.cpu().numpy()
 
 
 def _host(t: torch.Tensor, dt: np.dtype) -> np.ndarray:
@@ -1220,17 +1242,6 @@ class Query:
         return (f"{self._op}: decode + gather, then the host sort of the "
                 f"JAX package's one-device path")
 
-    def _mesh_refusal(self) -> str:
-        """Why the query cannot run over a mesh ('' = it can)."""
-        if self._op in ("order_by", "quantiles", "count_distinct"):
-            return (f"{self._op} over a mesh: the distributed sample sort "
-                    f"is not ported (ROADMAP A6.2); run it without mesh=")
-        if self._op == "join" and self._join_strategy()[1] > 1:
-            return ("a partitioned join over a mesh: the all_to_all row "
-                    "exchange is not ported (ROADMAP A6.2); run it without "
-                    "mesh= (local Grace passes)")
-        return ""
-
     def explain(self, *, device=None, kernel: str = "auto",
                 mesh=None) -> QueryPlan:
         """The plan ``run(device=..., kernel=..., mesh=...)`` would
@@ -1345,8 +1356,6 @@ class Query:
                      cache_hit_ratio=ratio, hbm_hit_ratio=hbm_ratio)
         cuda = dev.type == "cuda"
         why = self._invalid()
-        if not why and mesh is not None:
-            why = self._mesh_refusal()
         if not why and kernel == "cuda" and not cuda:
             why = "the CUDA kernels need a CUDA device"
         # the index branches plan only a query that is otherwise valid and
@@ -1400,9 +1409,16 @@ class Query:
                            "; the packed pages decode in PyTorch ops")
         if js is not None:
             reason += (f"; join type {self._join_how}; "
-                       f"{self._strategy_text(js)}")
+                       f"{self._strategy_text(js, mesh)}")
         if mesh is not None:
-            reason += f"; mesh of {mesh.size} members on {dev}: " + (
+            reason += f"; mesh of {mesh.size} members {mesh.shape} on " \
+                      f"{dev}: " + (
+                "the rows gather on the first member, then the distributed "
+                "sample sort (splitter election + all_to_all) over every "
+                "member"
+                if self._op in ("order_by", "quantiles", "count_distinct")
+                else "each batch's rows route to their key's owner"
+                if js is not None and js[1] > 1 else
                 "the row face runs on the first member"
                 if (self._op == "join" and self._join[3])
                 or (self._op == "star" and self._star["materialize"]) else
@@ -1630,15 +1646,18 @@ class Query:
         n = max(2, -(-nbytes // cap))
         return f"partitioned({n})", n
 
-    def _strategy_text(self, js: tuple) -> str:
+    def _strategy_text(self, js: tuple, mesh=None) -> str:
         label, n = js
         if n == 1:
             return f"join strategy {label}: the build side on the device " \
                    f"whole"
         text = (f"join strategy {label}: build side above "
-                f"join_broadcast_max: {n} hash partitions probed as "
-                f"sequential passes (Grace join), resident build bounded to "
-                f"the cap")
+                f"join_broadcast_max: " + (
+                    f"hash-repartitioned over the mesh dp axis "
+                    f"({mesh.dp} partitions), all_to_all row exchange, "
+                    f"local sorted-probe" if mesh is not None else
+                    f"{n} hash partitions probed as sequential passes "
+                    f"(Grace join), resident build bounded to the cap"))
         if self._join_src is not None:
             from ..config import config
             text += "; build side STREAMED from the on-disk table: "
@@ -1715,10 +1734,10 @@ class Query:
         ``torch`` route on the host); *kernel* is ``"auto"``, ``"cuda"`` or
         ``"torch"`` (see the module docstring).
 
-        *mesh* streams the scan sharded over a ring, on its members'
-        device (*device* is not used); *batch_pages* pages make a batch,
-        rounded down to a multiple of the ring size (default 128 pages a
-        member).  ``workers=N`` runs N worker processes (default: the
+        *mesh* streams the scan sharded over the mesh's dp axis, on its
+        members' device (*device* is not used); *batch_pages* pages make a
+        batch, rounded down to a multiple of dp (default 128 pages a dp
+        shard).  ``workers=N`` runs N worker processes (default: the
         Query's ``workers``).  *session* is an open
         :class:`..engine.Session` the leader's scans read through.
 
@@ -1803,7 +1822,8 @@ class Query:
         if self._op == "join":
             n_parts = self._join_strategy()[1]
             if n_parts > 1:
-                return self._run_join_partitioned(dev, n_parts)
+                return self._run_join_partitioned(dev, n_parts, mesh,
+                                                  batch_pages)
             if self._join_src is not None:
                 # a broadcast-sized build on disk: one projection scan,
                 # then the host-array join
@@ -1814,14 +1834,14 @@ class Query:
             self._resolve_star_builds(dev)
             if self._star["materialize"]:
                 return self._run_star_rows(dev)
+        if self._op == "order_by":
+            return self._run_order_by(dev, mesh)
+        if self._op in ("quantiles", "count_distinct"):
+            return self._run_column(dev, mesh)
         if mesh is not None:
             return self._run_mesh(plan, mesh, batch_pages)
         if self._op == "select":
             return self._run_select(dev)
-        if self._op == "order_by":
-            return self._run_order_by(dev)
-        if self._op in ("quantiles", "count_distinct"):
-            return self._run_column(dev)
         if plan.pushdown in ("chip", "host"):
             # re-probe: the sidecar may have been retired since EXPLAIN
             probe = self._pushdown_probe()
@@ -1880,13 +1900,14 @@ class Query:
         the members (``distributed_scan_filter``) and the plan's step runs
         on each member's shard (B1/B3 where the plan names ``cuda``), the
         results folded in member order with the operator's combine, so
-        ties resolve to the lower position as on one device.  The pages
-        past the last whole batch are read buffered and scanned on the
-        first member.  ``select`` gathers each shard's rows in page
+        ties resolve to the lower position as on one device.  Over an
+        ``(sp, dp)`` mesh the step runs on lane 0's dp shards: every lane
+        holds the same pages.  The pages past the last whole batch are
+        read buffered and scanned on the first member.  ``select`` gathers each shard's rows in page
         order and stops gathering once ``offset + limit`` are in."""
         from ..parallel.stream import distributed_scan_filter
         from .executor import _to_numpy, fold_results
-        dev, n = mesh.devices[0], mesh.size
+        dev, n = mesh.devices[0], mesh.dp
         chunks = None
         if self._op == "select":
             cols, limit, offset = self._select
@@ -1914,15 +1935,15 @@ class Query:
             stats.add("nr_kernel_dispatch")
 
         def step(shards):
-            for shard in shards:
+            for shard in shards[:n]:
                 take(shard)
             return {}
 
         with self._open_owned() as src:
             n_pages = src.size // PAGE_SIZE
             bp = int(batch_pages or (1 << 20) // PAGE_SIZE * n)
-            # a multiple of the ring size, at least a page a member, and no
-            # larger than the table; the remainder is the tail below
+            # a multiple of dp, at least a page a dp shard, and no larger
+            # than the table; the remainder is the tail below
             bp = min(max(bp // n * n, n), n_pages // n * n)
             covered = 0
             if bp >= n:
@@ -2238,37 +2259,111 @@ class Query:
         out["count"] = np.int64(len(out["positions"]))
         return out
 
-    def _run_order_by(self, dev) -> dict:
+    def _run_order_by(self, dev, mesh=None) -> dict:
+        """ORDER BY: gather (values, positions) on *dev*, then sort — a
+        stable sort on *dev* locally (the host's lexsort for several key
+        columns), the distributed sample sort over
+        every member of *mesh* (one key column; the result then carries
+        ``per_device_count`` and ``n_dropped``, and int32 positions, the
+        exchange's payload width)."""
         cols, descending, limit, offset = self._order
         end = None if limit is None else offset + limit
+        if mesh is not None and len(cols) > 1:
+            raise StromError(
+                _errno.EOPNOTSUPP,
+                "mesh order_by sorts one key column (the slab exchange "
+                "carries a single key); sort multi-column orderings "
+                "locally, or pre-combine the keys into one column")
         gather, fields, dtypes = self._make_gather_fn(cols)
         arrs = self._collect_rows(gather, fields, dtypes, dev)
         keys, poss = arrs[:-1], arrs[-1]
         vals = keys[0]
         if len(vals) == 0:
-            return {"values": vals, "positions": poss}
+            if mesh is None:
+                return {"values": vals, "positions": poss}
+            return {"values": vals, "positions": poss.astype(np.int32),
+                    "per_device_count": np.zeros(mesh.size, np.int32),
+                    "n_dropped": np.int32(0)}
+        if mesh is None:
+            def sort_key(k):
+                if not descending:
+                    return k
+                return -k if k.dtype.kind == "f" else ~k
+            if len(keys) == 1:
+                order = stable_order(sort_key(vals), dev)[offset:end]
+            else:
+                # np.lexsort: the LAST key is primary and the sort is
+                # stable, so reversed keys give ORDER BY cols[0], cols[1],
+                # ..., then arrival
+                order = np.lexsort(tuple(sort_key(k)
+                                         for k in reversed(keys)))[offset:end]
+            return {"values": vals[order], "positions": poss[order]}
+        from ..parallel.sort import make_distributed_sort, prefixes
+        from .executor import _to_numpy
+        if len(poss) and int(poss.max()) > (1 << 31) - 1:
+            # slab payloads are int32: a cast would wrap row identity
+            raise StromError(_errno.ERANGE,
+                             "mesh order_by row positions exceed int32; "
+                             "tables past 2^31 rows need the local sort")
+        dt = self._check_sortable_col(cols[0], "order_by")
+        out = self._mesh_sort_loop(
+            mesh, lambda devs, cap: make_distributed_sort(
+                devs, capacity=cap, dtype=dt, descending=descending)[0],
+            vals, poss.astype(np.int32))
+        counts = _to_numpy(out["count"])
+        v = _to_numpy(prefixes(out["values"], counts)[offset:end])
+        p = _to_numpy(prefixes(out["payload"], counts)[offset:end])
+        return {"values": v, "positions": p,
+                "per_device_count": counts, "n_dropped": np.int32(0)}
 
-        def sort_key(k):
-            if not descending:
-                return k
-            return -k if k.dtype.kind == "f" else ~k
-        # np.lexsort: the LAST key is primary and the sort is stable, so
-        # reversed keys give ORDER BY cols[0], cols[1], ..., then arrival
-        order = np.lexsort(tuple(sort_key(k)
-                                 for k in reversed(keys)))[offset:end]
-        return {"values": vals[order], "positions": poss[order]}
+    @staticmethod
+    def _mesh_sort_loop(mesh, factory, *arrays) -> dict:
+        """Run ``factory(devices, capacity)``'s sort on *arrays* over every
+        member of *mesh*, flattened, at the capacity
+        :func:`..parallel.sort.capacity_loop` settles on."""
+        from ..parallel.sort import capacity_loop
+        devs = list(mesh.devices)
+        return capacity_loop(len(devs), len(arrays[0]),
+                             lambda cap: factory(devs, cap)(*arrays))
 
     @staticmethod
     def _nearest_ranks(qs, n: int):
         """Nearest-rank indices into a sorted order of *n* elements."""
         return [min(n - 1, max(0, int(np.ceil(q * n)) - 1)) for q in qs]
 
-    def _run_column(self, dev) -> dict:
-        """quantiles / count_distinct over the gathered column."""
+    def _run_column(self, dev, mesh=None) -> dict:
+        """quantiles / count_distinct over the gathered column: on the host
+        locally, through the distributed sort over every member of
+        *mesh*."""
         gather, fields, dtypes = self._make_gather_fn(
             self._order[0], want_positions=False)
         (vals,) = self._collect_rows(gather, fields, dtypes, dev)
-        return self._column_result(vals)
+        if mesh is None:
+            return self._column_result(vals)
+        from .executor import _to_numpy
+        dt = self._check_sortable_col(self._order[0][0], self._op)
+        if self._op == "count_distinct":
+            from ..parallel.sort import make_distributed_distinct
+            out = self._mesh_sort_loop(
+                mesh, lambda devs, cap: make_distributed_distinct(
+                    devs, capacity=cap, dtype=dt)[0], vals)
+            return {"distinct": np.int32(out["distinct"])}
+        from ..parallel.sort import make_distributed_sort
+        qs, n = self._quantiles, len(vals)
+        if n == 0:
+            return {"quantiles": np.full(len(qs), np.nan, np.float64),
+                    "n": np.int64(0)}
+        out = self._mesh_sort_loop(
+            mesh, lambda devs, cap: make_distributed_sort(
+                devs, capacity=cap, dtype=dt, with_payload=False)[0], vals)
+        cum = np.cumsum(_to_numpy(out["count"]))
+        picked = []
+        for r in self._nearest_ranks(qs, n):
+            b = int(np.searchsorted(cum, r + 1))
+            within = r - (int(cum[b - 1]) if b else 0)
+            # one member's row holds the rank: read that row alone
+            picked.append(_to_numpy(out["values"][b])[within])
+        return {"quantiles": np.array(picked, dt), "n": np.int64(n)}
 
     def _column_result(self, vals: np.ndarray) -> dict:
         """quantiles / count_distinct of the selected column values."""
@@ -3245,7 +3340,8 @@ class Query:
         out["count"] = np.int64(len(out["positions"]))
         return out
 
-    def _run_join_partitioned(self, dev, n_parts: int) -> dict:
+    def _run_join_partitioned(self, dev, n_parts: int, mesh=None,
+                              batch_pages: Optional[int] = None) -> dict:
         """The local Grace join, for a build side above
         ``join_broadcast_max``: one scan of the fact table a hash
         partition of the build, that partition alone on the device.
@@ -3254,14 +3350,31 @@ class Query:
         probe rows whose key the pass owns, so an unpartnered row is
         emitted once.  Rows come in partition order, then arrival order
         (unspecified, as SQL without ORDER BY; equal to the broadcast
-        result as a set).  (The JAX package's mesh form, all_to_all over
-        ``parallel/pjoin.py``, waits for the port's meshes.)"""
+        result as a set).
+
+        Over a *mesh*: one scan; the build lives hash-partitioned over dp
+        (:mod:`..parallel.pjoin`, streamed from the table on disk when it
+        is one) and each batch routes its rows to their key's owner, both
+        faces (:meth:`_run_join_partitioned_mesh_rows` for rows)."""
         from ..ops.join import (hash_split_build, make_join_fn,
                                 make_join_rows_fn)
-        from .executor import fold_results
+        from .executor import _to_numpy, fold_results
         probe_col, bk, bv, materialize, limit, offset = self._join
         how = self._join_how
         pred = self._predicate()
+        if mesh is not None and materialize:
+            return self._run_join_partitioned_mesh_rows(mesh, batch_pages,
+                                                        limit, offset)
+        if mesh is not None:
+            from ..parallel.pjoin import make_partitioned_join_step
+            step = make_partitioned_join_step(
+                mesh, self.schema, probe_col, bk, bv, predicate=pred,
+                build_parts=self._streamed_build_parts(mesh, dev), how=how)
+            acc = None
+            for shards in self._mesh_page_batches(mesh, batch_pages):
+                acc = fold_results(acc, _to_numpy(step(shards)))
+                stats.add("nr_kernel_dispatch")
+            return acc or {}
         own_needed = how in ("left", "anti")
         if self._join_src is not None:
             # one partition a pass from the table on disk: a limit that
@@ -3301,6 +3414,92 @@ class Query:
             acc = fold_results(acc, self._scan(run, dev))
         # numpy per leaf: the sums list keeps each column's acc dtype
         return acc or {}
+
+    def _mesh_page_batches(self, mesh, batch_pages: Optional[int]):
+        """Lane 0's dp shards of page batches covering EVERY page of the
+        table: the sharded stream for the batch-aligned body (the
+        reference's batch size, 128 pages a dp shard by default), then
+        buffered 8 MiB reads for the tail, zero-padded to a multiple of dp
+        (zero pages decode as no valid tuples).  Shared by the mesh
+        partitioned join's two faces; a consumer that stops early closes
+        the stream."""
+        from ..parallel.stream import ShardedBatchStream
+        dp = mesh.dp
+        devs = list(mesh.devices[:dp])
+        with self._open_owned() as src:
+            n_pages = src.size // PAGE_SIZE
+            bp = int(batch_pages or (1 << 20) // PAGE_SIZE * dp)
+            bp = min(max(bp // dp * dp, dp), n_pages // dp * dp)
+            covered = 0
+            if bp >= dp:
+                with ShardedBatchStream(src, mesh, batch_pages=bp,
+                                        session=self._session) as stream:
+                    for _first, shards in stream:
+                        yield shards[:dp]
+                covered = n_pages // bp * bp
+            tail = (8 << 20) // PAGE_SIZE
+            for p0 in range(covered, n_pages, tail):
+                npg = min(tail, n_pages - p0)
+                pages = np.zeros((npg + (-npg) % dp, PAGE_SIZE), np.uint8)
+                src.read_buffered(p0 * PAGE_SIZE,
+                                  memoryview(pages[:npg].reshape(-1)))
+                r = len(pages) // dp
+                t = torch.from_numpy(pages)
+                yield [t[d * r:(d + 1) * r].to(dev)
+                       for d, dev in enumerate(devs)]
+
+    def _streamed_build_parts(self, mesh, dev):
+        """The mesh build for an on-disk build side (None when the build
+        is host arrays): partition passes bounded by ``config
+        join_build_host_max``."""
+        if self._join_src is None:
+            return None
+        from ..parallel.pjoin import partition_build_sharded_from_table
+        bt, bs, kc, vc = self._join_src
+        return partition_build_sharded_from_table(
+            bt, bs, kc, vc, mesh, session=self._session, device=dev)
+
+    def _run_join_partitioned_mesh_rows(self, mesh, batch_pages,
+                                        limit: Optional[int],
+                                        offset: int) -> dict:
+        """The mesh partitioned join's row face: each batch's rows (key and
+        position words) route to their owner, and the owners' emitted rows
+        come back to the host in owner, then sender, then arrival order;
+        the stream stops reading once ``offset + limit`` rows are in."""
+        from ..parallel.pjoin import (combine_pos_words,
+                                      make_partitioned_join_rows_step)
+        probe_col, bk, bv = self._join[:3]
+        how = self._join_how
+        step = make_partitioned_join_rows_step(
+            mesh, self.schema, probe_col, bk, bv,
+            predicate=self._predicate(),
+            build_parts=self._streamed_build_parts(mesh, mesh.devices[0]),
+            how=how)
+        stop = None if limit is None else offset + limit
+        fields, dtypes = self._join_row_fields(how)
+        chunks, gathered = [], 0
+        batches = self._mesh_page_batches(mesh, batch_pages)
+        try:
+            for shards in batches:
+                if stop is not None and gathered >= stop:
+                    break
+                out = step(shards)
+                stats.add("nr_kernel_dispatch")
+                emit = out["hit"]
+                pos = combine_pos_words(out["pos_lo"][emit].cpu().numpy(),
+                                        out["pos_hi"][emit].cpu().numpy())
+                chunks.append([pos] + [_host(out[f][emit], dt)
+                                       for f, dt in zip(fields[1:],
+                                                        dtypes[1:])])
+                gathered += len(pos)
+        finally:
+            batches.close()
+        if chunks:
+            arrs = [np.concatenate([c[i] for c in chunks])[offset:stop]
+                    for i in range(len(fields))]
+        else:
+            arrs = [np.zeros(0, dt) for dt in dtypes]
+        return self._join_rows_result(how, *arrs)
 
     def _streamed_build_partitions(self, n_parts: int, dev):
         """Yield the Grace passes' ``(keys, values)`` partitions of the

@@ -312,28 +312,58 @@ def test_sharded_save_matches_the_plain_writer(tmp_path):
 
 
 def test_second_axis_sharding_is_refused(tmp_path):
-    """The ring shards the leading axis only: a second-axis restore or save
-    is EINVAL (the reference serves P("dp", "sp"); the port's sp lanes are
-    not ported), a refusal, never a wrong answer."""
+    """The second-axis restore (``tests/test_data.py:180``) reads each
+    unique leading row range once and slices the other axes per member:
+    ``("dp", "sp")`` on an ``(sp, dp)`` mesh and ``(None, "dp")`` on a
+    one-axis ring give shards equal to the JAX package's, and ``full()``
+    reassembles the leaf.  What stays refused: a column-split save (the
+    reference's "leading-axis" error, ``tests/test_data.py:544``), ``sp``
+    that does not divide the members, and an uneven leading split."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    rng = np.random.default_rng(6)
+    w = rng.standard_normal((8, 32)).astype(np.float32)
     path = str(tmp_path / "a.strom")
-    save_checkpoint(path, {"w": np.zeros((8, 32), np.float32)})
+    save_checkpoint(path, {"w": w, "s": np.int32(3)})
+    for sp, spec, jspec in ((2, ("dp", "sp"), P("dp", "sp")),
+                            (4, ("dp", "sp"), P("dp", "sp")),
+                            (1, (None, "dp"), P(None, "dp"))):
+        mesh = make_scan_mesh(["cpu"] * 8, sp=sp)
+        sh = RingSharding(mesh, spec=spec)
+        out = restore_checkpoint(path, shardings=sh)
+        leaf = out["['w']"]
+        assert isinstance(leaf, ShardedTensor) and leaf.shape == w.shape
+        np.testing.assert_array_equal(leaf.full().numpy(), w)
+        jsh = NamedSharding(jax_mesh(jax.devices()[:8], sp=sp), jspec)
+        ref = jdata.restore_checkpoint(path,
+                                       shardings={"['w']": jsh})["['w']"]
+        want = {d: np.asarray(s.data) for s in ref.addressable_shards
+                for d in [s.device]}
+        for i, (idx, got) in enumerate(zip(sh.indices(w.shape),
+                                           leaf.shards)):
+            jdev = jsh.mesh.devices.reshape(-1)[i]
+            np.testing.assert_array_equal(got.numpy(), want[jdev])
+            np.testing.assert_array_equal(got.numpy(), w[idx])
+        assert int(out["['s']"].shards[0]) == 3     # a scalar replicates
+    # (None, "dp") on a one-axis ring is the reference's P(None, "dp")
+    assert RingSharding(make_scan_mesh(["cpu"] * 4), axis=1).spec == \
+        (None, "dp")
     mesh = make_scan_mesh(["cpu"] * 4)
-    with pytest.raises(StromError) as e:
-        restore_checkpoint(path, shardings=RingSharding(mesh, axis=1))
-    assert e.value.errno == errno.EINVAL and "leading axis" in str(e.value)
     cols = ShardedTensor([torch.zeros(8, 8)] * 4, RingSharding(mesh, axis=1))
     assert cols.shape == (8, 32)
     with pytest.raises(StromError, match="leading-axis") as e:
         save_checkpoint_sharded(str(tmp_path / "c.strom"), {"w": cols})
     assert e.value.errno == errno.EINVAL
     with pytest.raises(StromError) as e:
-        make_scan_mesh(["cpu"] * 4, sp=2)
+        make_scan_mesh(["cpu"] * 4, sp=3)
     assert e.value.errno == errno.EINVAL
-    # an uneven leading-axis split is refused too
-    with pytest.raises(StromError) as e:
-        restore_checkpoint(path, shardings=RingSharding(
-            make_scan_mesh(["cpu"] * 3)))
-    assert e.value.errno == errno.EINVAL
+    # an uneven split is refused, on either axis, before anything is read
+    for sh in (RingSharding(make_scan_mesh(["cpu"] * 3)),
+               RingSharding(make_scan_mesh(["cpu"] * 6, sp=3),
+                            spec=("dp", "sp"))):
+        with pytest.raises(StromError) as e:
+            restore_checkpoint(path, shardings=sh)
+        assert e.value.errno == errno.EINVAL
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn,
@@ -498,3 +528,41 @@ def test_strom_ckpt_info_and_verify_on_a_jax_file(tmp_path, capsys):
     _flip(path)
     assert strom_ckpt.main(["verify", "-d", "cpu", path]) == 1
     assert "crc32c mismatch" in capsys.readouterr().err
+
+
+def test_checkpoint_sharded_second_axis(tmp_path):
+    """``tests/test_data.py:180`` on the port: ``P("dp", "sp")`` over an
+    ``(sp=4, dp=2)`` mesh of 8 CPU members restores the leaf, each shard
+    its slice; the save of a leading split over an ``(sp, dp)`` mesh
+    writes each dp block once and equals the plain save, byte for byte."""
+    rng = np.random.default_rng(6)
+    w = rng.standard_normal((8, 32)).astype(np.float32)
+    path = str(tmp_path / "ck4.strom")
+    save_checkpoint(path, {"w": w})
+    mesh = make_scan_mesh(["cpu"] * 8, sp=4)
+    assert mesh.shape == {"sp": 4, "dp": 2}
+    sh = RingSharding(mesh, spec=("dp", "sp"))
+    leaf = restore_checkpoint(path, shardings=sh)["['w']"]
+    assert leaf.shape == (8, 32) and leaf.sharding is sh
+    assert [tuple(s.shape) for s in leaf.shards] == [(4, 8)] * 8
+    np.testing.assert_array_equal(leaf.full().numpy(), w)
+    for i, s in enumerate(leaf.shards):
+        d, lane = i % 2, i // 2
+        np.testing.assert_array_equal(
+            s.numpy(), w[4 * d:4 * d + 4, 8 * lane:8 * lane + 8])
+    # a leading split on the (sp, dp) mesh: lanes replicate dp blocks
+    two = make_scan_mesh(["cpu"] * 4, sp=2)
+    rows = restore_checkpoint(path, shardings=RingSharding(two))["['w']"]
+    assert rows.shards[2] is rows.shards[0]     # one device: one tensor
+    out = str(tmp_path / "rows.strom")
+    save_checkpoint_sharded(out, {"w": rows})
+    plain = str(tmp_path / "plain.strom")
+    save_checkpoint(plain, {"w": w})
+    a, b = checkpoint_info(out), checkpoint_info(plain)
+    with open(out, "rb") as f, open(plain, "rb") as g:
+        f.seek(a["data_offset"])
+        g.seek(b["data_offset"])
+        assert f.read() == g.read()
+    with pytest.raises(StromError) as e:
+        RingSharding(two, spec=("dp", "dp"))
+    assert e.value.errno == errno.EINVAL

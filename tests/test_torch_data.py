@@ -160,6 +160,29 @@ def test_loader_ring_sharded_equals_reference(tmp_path):
                                           np.asarray(ref_s.data))
 
 
+def test_loader_sp_mesh_replicates_dp_shards(tmp_path):
+    """On an ``(sp=2, dp=4)`` mesh of 8 x cpu member ``(s, d)`` holds rows
+    ``[d*b/4, (d+1)*b/4)``, the JAX loader's shard on the same mesh
+    position (``P("dp")`` replicated over sp); the lanes share a tensor."""
+    _, path = _pair(tmp_path)
+    mesh = make_scan_mesh(["cpu"] * 8, sp=2)
+    with DeviceLoader(path, batch_records=16, chunk_size=4096, shuffle=4,
+                      mesh=mesh) as dl:
+        mine = list(dl.epoch(0))
+    jm = jax_mesh(jax.devices()[:8], sp=2)
+    with jdata.DeviceLoader(path, batch_records=16, chunk_size=4096,
+                            shuffle=4, mesh=jm) as dl:
+        ref = list(dl.epoch(0))
+    assert len(mine) == len(ref) == 4
+    for shards, arr in zip(mine, ref):
+        by_dev = {s.device: np.asarray(s.data)
+                  for s in arr.addressable_shards}
+        assert len(shards) == 8 and shards[4] is shards[0]
+        for mine_s, dev in zip(shards, jm.devices.reshape(-1)):
+            assert mine_s.shape == (4, 128)
+            np.testing.assert_array_equal(mine_s.numpy(), by_dev[dev])
+
+
 @pytest.mark.parametrize("prefetch", [1, 2, 4])
 def test_loader_epochs_across_the_boundary_equal_reference(tmp_path,
                                                            prefetch):

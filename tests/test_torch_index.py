@@ -4,8 +4,8 @@
 recheck, ``QueryPlan.access_path``, the index runners, the sidecar-served
 terminals) against the JAX package's on the same heap file and the same
 sidecars.  Each test mirrors one of ``tests/test_index.py``; the two mesh
-builds are replaced by the byte-identity of both packages' sidecars and
-each package opening the other's.  The port runs with ``device="cpu"``
+builds (``:197``, ``:997``) run over the port's ``(sp, dp)`` meshes of CPU
+members against the JAX package's virtual-device meshes.  The port runs with ``device="cpu"``
 (its ``torch`` route), the JAX package on its CPU backend, both at 64 KiB
 chunks, the JAX package with ``debug_no_threshold`` so that it plans the
 direct scan as the port does.
@@ -1264,3 +1264,99 @@ def test_index_face_matches_seqscan_face_on_card(table, cuda_device):
             else:
                 _same(out, s, [k])
         _same(out, make(Query(path, schema)).run(device=CPU))
+
+
+# -- the mesh builds (tests/test_index.py:197, :997) ---------------------------
+
+def _meshes(sp):
+    import jax
+
+    from nvme_strom_tpu.parallel.mesh import make_scan_mesh as jmesh
+    from nvme_strom_tpu_torch.parallel.mesh import make_scan_mesh
+    return make_scan_mesh(["cpu"] * 4, sp=sp), jmesh(jax.devices()[:4], sp=sp)
+
+
+def _bytes(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("sp", [1, 2])
+def test_build_index_over_mesh_matches_local(table, sp):
+    """``tests/test_index.py:197``: a single-column build over a mesh
+    rides the distributed sample sort; its sidecar is byte-identical to
+    the local build's and to the JAX package's mesh build, and answers
+    lookups identically."""
+    path, schema, js, c0, c1 = table
+    mesh, jm = _meshes(sp)
+    for col in (0, 1):
+        mp = build_index(path, schema, col, mesh=mesh,
+                         index_path=path + ".meshidx")
+        lp = build_index(path, schema, col, device="cpu",
+                         index_path=path + ".localidx")
+        jp = jbuild_index(path, js, col, mesh=jm,
+                          index_path=path + ".jaxidx")
+        assert _bytes(mp) == _bytes(lp) == _bytes(jp)
+    idx, local = open_index(mp, table_path=path), open_index(
+        lp, table_path=path)
+    for key in (0, 42, 199, -1000):
+        np.testing.assert_array_equal(np.sort(idx.lookup([key])),
+                                      np.sort(local.lookup([key])))
+
+
+@pytest.mark.parametrize("sp", [1, 2])
+def test_composite_build_over_mesh_bit_identical(tmp_path, sp):
+    """``tests/test_index.py:997``: a composite build over a mesh (two
+    stable uint32 radix passes) writes the host build's sidecar byte for
+    byte, the words at 0 / 0xFFFFFFFF included, and the JAX package's."""
+    rng = np.random.default_rng(17)
+    schema, js = _schemas(n_cols=3, visibility=False,
+                          dtypes=("int32", "uint32", "int32"))
+    n = schema.tuples_per_page * 10
+    c0 = rng.integers(-20, 20, n).astype(np.int32)
+    c1 = rng.integers(0, 15, n).astype(np.uint32)
+    c2 = np.arange(n, dtype=np.int32)
+    c0[:4] = [-(1 << 31), (1 << 31) - 1, -(1 << 31), (1 << 31) - 1]
+    c1[:4] = [0, (1 << 32) - 1, (1 << 32) - 1, 0]
+    path = str(tmp_path / "mcomp.heap")
+    build_heap_file(path, [c0, c1, c2], schema)
+    mesh, jm = _meshes(sp)
+    for col in ((0, 1), (1, 0)):
+        host = build_index(path, schema, col, device="cpu",
+                           index_path=path + ".hostidx")
+        meshp = build_index(path, schema, col, mesh=mesh,
+                            index_path=path + ".meshidx")
+        jp = jbuild_index(path, js, col, mesh=jm,
+                          index_path=path + ".jaxidx")
+        assert _bytes(host) == _bytes(meshp) == _bytes(jp)
+
+
+@pytest.mark.parametrize("sp", [1, 2])
+def test_float_mesh_build_with_nan_is_the_local_builds(tmp_path, sp):
+    """A float column with ±0.0 and NaN (both signs): the mesh sidecar is
+    byte-identical to the local build's, NaN keys left out and no entry a
+    pad's (+inf, -1); without a NaN it is the JAX package's mesh sidecar
+    too.  (The reference's mesh build keeps pad entries where NaN rows
+    share a bucket with pads: ROADMAP Queue C slice 19.)"""
+    rng = np.random.default_rng(5)
+    schema, js = _schemas(n_cols=1, visibility=False, dtypes=("float32",))
+    n = schema.tuples_per_page * 6
+    f = rng.integers(-5, 5, n).astype(np.float32)
+    f[rng.random(n) < 0.1] = np.nan
+    f[:4] = [np.nan, -0.0, 0.0, -np.nan]
+    path = str(tmp_path / "f.heap")
+    build_heap_file(path, [f], schema)
+    mesh, jm = _meshes(sp)
+    mp = build_index(path, schema, 0, mesh=mesh, index_path=path + ".m")
+    lp = build_index(path, schema, 0, device="cpu", index_path=path + ".l")
+    assert _bytes(mp) == _bytes(lp)
+    idx = open_index(mp, table_path=path)
+    assert len(idx.keys) == int((~np.isnan(f)).sum())
+    assert (np.asarray(idx.positions) >= 0).all()
+    assert not np.isinf(np.asarray(idx.keys)).any()
+    f[np.isnan(f)] = 1.0           # without a NaN: the reference's too
+    build_heap_file(path, [f], schema)
+    mp = build_index(path, schema, 0, mesh=mesh, index_path=path + ".m")
+    lp = build_index(path, schema, 0, device="cpu", index_path=path + ".l")
+    jp = jbuild_index(path, js, 0, mesh=jm, index_path=path + ".j")
+    assert _bytes(mp) == _bytes(lp) == _bytes(jp)

@@ -52,7 +52,9 @@ _SCRIPT = textwrap.dedent("""
                 "testing.pushdown_gate", "blockmap", "numa",
                 "testing.passthru_emu", "testing.passthru_gate",
                 "serving.weights", "serving.kvcache",
-                "testing.coldstart_gate"):
+                "testing.coldstart_gate", "parallel.dscan",
+                "parallel.exchange", "parallel.sort", "parallel.pjoin",
+                "testing.multichip_gate"):
         assert pkg.__name__ + "." + mod in names, mod
     import chip_smoke  # noqa: F401
     leaked = [m for m in sys.modules

@@ -199,18 +199,29 @@ _A62 = {
 
 @pytest.mark.parametrize("face", sorted(_A62))
 def test_mesh_faces_waiting_for_a6_2_refused(heap, face):
-    """The mesh sort faces and the mesh partitioned join are not ported:
-    an invalid plan naming ROADMAP A6.2, EINVAL at run(); the query runs
-    without the mesh."""
+    """The faces that waited for ROADMAP A6.2 (refused until it) run over
+    the mesh now: the mesh sort terminals and the mesh partitioned join
+    plan the torch route in mesh mode and answer as the JAX package's mesh
+    run (``tests/test_query.py:327``, ``:440``, ``:837``, ``:980``) and
+    the port's local run."""
+    import jax
+
+    from nvme_strom_tpu.parallel.mesh import make_scan_mesh as jmesh
     path, *_cols = heap
     config.set("join_broadcast_max", 1 << 12)     # 4,800 bytes: 2 parts
+    jconfig.set("join_broadcast_max", 1 << 12)
     q = _A62[face](Query(path, SCHEMA))
     plan = q.explain(mesh=_mesh())
-    assert plan.kernel == "invalid" and "A6.2" in plan.reason
-    with pytest.raises(StromError) as ei:
-        q.run(mesh=_mesh())
-    assert ei.value.errno == errno.EINVAL and "A6.2" in str(ei.value)
-    assert _A62[face](Query(path, SCHEMA)).run(device=CPU)
+    assert plan.kernel == "torch" and plan.mode == "mesh", plan.reason
+    got = q.run(mesh=_mesh())
+    want = {k: v for k, v in _A62[face](JQuery(path, JS)).run(
+        mesh=jmesh(jax.devices()[:4])).items()}
+    _same(got, want, approx={"sums"} if face == "partitioned join" else ())
+    local = _A62[face](Query(path, SCHEMA)).run(device=CPU)
+    _same(got, {k: v for k, v in local.items() if k != "positions"},
+          approx={"sums"})
+    if "positions" in local:
+        _eq(got["positions"], local["positions"])
 
 
 def test_mesh_plans_skip_index_and_take_a_session(heap):
@@ -290,3 +301,170 @@ def test_analyze_kernel_dispatches_and_index_depth(heap):
     assert a["h2d_depth_reached"] == 0 and a["kernel_dispatches"] == 0
     m = vis & (c1 == 5)
     assert int(out["count"]) == int(m.sum())
+
+
+# -- the mesh sort faces (tests/test_query.py) --------------------------------
+
+def _jmesh(n=4, sp=1):
+    import jax
+
+    from nvme_strom_tpu.parallel.mesh import make_scan_mesh as jmesh
+    return jmesh(jax.devices()[:n], sp=sp)
+
+
+_SORTS = {
+    "order_by where": (
+        lambda q: q.where(FilterPred(((0, "gt", 0),))).order_by(0),
+        lambda q: q.where(lambda c: c[0] > 0).order_by(0)),
+    "order_by descending": (lambda q: q.order_by(0, descending=True),
+                            lambda q: q.order_by(0, descending=True)),
+    "order_by float": (lambda q: q.order_by(2), lambda q: q.order_by(2)),
+    "order_by float descending": (
+        lambda q: q.order_by(2, descending=True),
+        lambda q: q.order_by(2, descending=True)),
+    "order_by limit offset": (
+        lambda q: q.order_by(1, limit=50, offset=300),
+        lambda q: q.order_by(1, limit=50, offset=300)),
+    "order_by limit 0": (lambda q: q.order_by(0, limit=0),
+                         lambda q: q.order_by(0, limit=0)),
+    "quantiles": (lambda q: q.quantiles(0, [0.0, 0.1, 0.5, 0.99, 1.0]),
+                  lambda q: q.quantiles(0, [0.0, 0.1, 0.5, 0.99, 1.0])),
+    "quantiles float": (lambda q: q.quantiles(2, [0.25, 0.75]),
+                        lambda q: q.quantiles(2, [0.25, 0.75])),
+    "count_distinct where": (
+        lambda q: q.where(FilterPred(((0, "gt", 0),))).count_distinct(1),
+        lambda q: q.where(lambda c: c[0] > 0).count_distinct(1)),
+    "count_distinct float": (lambda q: q.count_distinct(2),
+                             lambda q: q.count_distinct(2)),
+    "empty order_by": (
+        lambda q: q.where(FilterPred(((0, "gt", 10 ** 6),))).order_by(0),
+        lambda q: q.where(lambda c: c[0] > 10 ** 6).order_by(0)),
+    "empty count_distinct": (
+        lambda q: q.where(FilterPred(((0, "gt", 10 ** 6),)))
+        .count_distinct(0),
+        lambda q: q.where(lambda c: c[0] > 10 ** 6).count_distinct(0)),
+    "empty quantiles": (
+        lambda q: q.where(FilterPred(((0, "gt", 10 ** 6),)))
+        .quantiles(0, [0.5]),
+        lambda q: q.where(lambda c: c[0] > 10 ** 6).quantiles(0, [0.5])),
+}
+
+
+@pytest.mark.parametrize("sp", [1, 2], ids=["ring", "sp=2"])
+@pytest.mark.parametrize("case", sorted(_SORTS))
+def test_mesh_sort_faces_match_jax_and_local(heap, case, sp):
+    """``tests/test_query.py:327`` (order_by), ``:383`` (an ``(sp=2, dp)``
+    caller mesh keeps every bucket), ``:397`` (empty: the info keys),
+    ``:440`` (count_distinct), ``:583`` (limit/offset) and ``:837``
+    (quantiles): values, positions, per-member counts and drops equal the
+    JAX mesh run's, and the values and quantiles equal the local run's."""
+    path, c0, c1, c2, vis = heap
+    port, ref = _SORTS[case]
+    mesh = make_scan_mesh([CPU] * 4, sp=sp)
+    plan = port(Query(path, SCHEMA)).explain(mesh=mesh)
+    assert plan.mode == "mesh" and plan.kernel == "torch"
+    assert "sample sort" in plan.reason
+    got = port(Query(path, SCHEMA)).run(mesh=mesh)
+    want = ref(JQuery(path, JS)).run(mesh=_jmesh(4, sp))
+    _same(got, want)
+    local = port(Query(path, SCHEMA)).run(device=CPU)
+    _same(got, {k: v for k, v in local.items() if k != "positions"})
+    if "per_device_count" in got:
+        assert len(got["per_device_count"]) == 4      # every member
+        assert int(got["n_dropped"]) == 0
+
+
+def test_mesh_order_by_positions_name_their_rows(heap):
+    path, c0, c1, c2, vis = heap
+    out = Query(path, SCHEMA).where(FilterPred(((0, "gt", 0),))) \
+        .order_by(0).run(mesh=_mesh())
+    sel = vis & (c0 > 0)
+    np.testing.assert_array_equal(out["values"], np.sort(c0[sel]))
+    assert sel[out["positions"]].all()
+    np.testing.assert_array_equal(c0[out["positions"]], out["values"])
+    assert out["positions"].dtype == np.int32
+
+
+def test_mesh_sort_capacity_loop_doubles_on_skew(tmp_path):
+    """Every key equal: the first capacity drops, the loop doubles it
+    until nothing drops, as the reference's ``_mesh_sort_loop``."""
+    schema = HeapSchema(n_cols=1, visibility=False)
+    n = schema.tuples_per_page * 8
+    path = str(tmp_path / "same.heap")
+    build_heap_file(path, [np.full(n, 7, np.int32)], schema)
+    out = Query(path, schema).order_by(0).run(mesh=_mesh())
+    assert int(out["n_dropped"]) == 0 and len(out["values"]) == n
+    assert int(np.asarray(out["per_device_count"]).max()) == n
+    want = JQuery(path, JSchema(n_cols=1, visibility=False)).order_by(0) \
+        .run(mesh=_jmesh())
+    _same(out, want)
+
+
+_NAN_FACES = {
+    "order_by": lambda q: q.order_by(0),
+    "order_by descending": lambda q: q.order_by(0, descending=True),
+    "order_by limit offset": lambda q: q.order_by(0, limit=1000, offset=10000),
+    "quantiles": lambda q: q.quantiles(0, [0.0, 0.5, 0.9, 0.99, 1.0]),
+    "count_distinct": lambda q: q.count_distinct(0),
+}
+
+
+@pytest.fixture()
+def nan_heap(tmp_path):
+    """A float32 column with NaN (both signs), ±0.0 and ±inf among small
+    integers, the NaNs a tenth of the rows: enough to share a bucket with
+    its pad slots."""
+    schema = HeapSchema(n_cols=1, visibility=False, dtypes=("float32",))
+    rng = np.random.default_rng(29)
+    n = schema.tuples_per_page * 6
+    f = rng.integers(-50, 50, n).astype(np.float32)
+    f[rng.random(n) < 0.1] = np.nan
+    f[rng.random(n) < 0.05] = -np.nan
+    f[rng.random(n) < 0.05] = -0.0
+    f[:4] = [np.inf, -np.inf, 0.0, -np.nan]
+    assert (f.view(np.uint32) == 0xFFC00000).any()
+    path = str(tmp_path / "nan.heap")
+    build_heap_file(path, [f], schema)
+    return path, schema, f
+
+
+@pytest.mark.parametrize("sp", [1, 2], ids=["ring", "sp=2"])
+@pytest.mark.parametrize("face", sorted(_NAN_FACES))
+def test_mesh_sort_faces_with_nan_match_local(nan_heap, face, sp):
+    """A NaN sorts after every number and never after a pad slot: the
+    mesh order, quantiles and distinct count of a float column holding
+    NaNs equal the local run's (values as bits, positions too) and
+    numpy's, and no position is a pad's -1."""
+    path, schema, f = nan_heap
+    got = _NAN_FACES[face](Query(path, schema)).run(
+        mesh=make_scan_mesh([CPU] * 4, sp=sp))
+    local = _NAN_FACES[face](Query(path, schema)).run(device=CPU)
+    if face == "count_distinct":
+        assert int(got["distinct"]) == int(local["distinct"]) == len(
+            np.unique(f, equal_nan=False))
+        return
+    key = "quantiles" if face == "quantiles" else "values"
+    np.testing.assert_array_equal(np.asarray(got[key]).view(np.int32),
+                                  np.asarray(local[key]).view(np.int32))
+    if face == "quantiles":
+        assert np.isnan(got[key][-2:]).all()
+        return
+    _eq(got["positions"], local["positions"])
+    assert (np.asarray(got["positions"]) >= 0).all()
+    order = np.argsort(-f if "descending" in face else f, kind="stable")
+    if "limit" in face:
+        order = order[10000:11000]
+        assert np.isnan(got["values"]).any() and not np.isnan(
+            got["values"]).all()        # the slice spans the first NaN
+    _eq(got["positions"], order)
+
+
+def test_order_by_multi_column_mesh_refused(heap):
+    """``tests/test_query.py:757``: one key column over a mesh
+    (EOPNOTSUPP, as the reference), any number locally."""
+    path, *_ = heap
+    with pytest.raises(StromError) as e:
+        Query(path, SCHEMA).order_by([0, 1]).run(mesh=_mesh())
+    assert e.value.errno == errno.EOPNOTSUPP
+    assert len(Query(path, SCHEMA).order_by([0, 1]).run(device=CPU)
+               ["values"])

@@ -148,18 +148,61 @@ def test_routes_resolve_from_the_members_and_never_substitute(port_config):
 
 
 def test_mesh_members_and_refusals():
+    """The ``(sp, dp)`` grid is the reference's ``reshape(sp, n // sp)``,
+    dp innermost (``nvme_strom_tpu/parallel/mesh.py:33-48``), with its lane
+    rings and dp columns; refused: sp that does not divide the members,
+    an empty ring, and no card for the default."""
+    from nvme_strom_tpu.parallel.mesh import make_scan_mesh as jmesh
     mesh = make_scan_mesh(["cpu"] * 3)
     assert mesh.shape == {"sp": 1, "dp": 3}
     assert mesh.devices == (torch.device("cpu"),) * 3
     assert make_scan_mesh([torch.device("cpu")] * 3).devices == mesh.devices
+    for sp in (1, 2, 4, 8):
+        grid = make_scan_mesh(["cpu"] * 8, sp=sp)
+        ref = jmesh(jax.devices()[:8], sp=sp)
+        assert grid.shape == dict(ref.shape) and grid.size == 8
+        flat = [d.id for d in ref.devices.reshape(-1)]
+        for s in range(sp):
+            lane = grid.lane(s)
+            assert lane.shape == {"sp": 1, "dp": 8 // sp}
+            assert [int(x.id) for x in ref.devices[s]] == \
+                flat[s * grid.dp:(s + 1) * grid.dp]
+        for d in range(grid.dp):
+            assert len(grid.column(d)) == sp
+    two = make_scan_mesh(["cpu"] * 4, sp=2)
+    t = [torch.arange(3) + 10 * d for d in range(2)]
+    rep = two.replicate(t)
+    # lanes on one device share the dp shard's tensor
+    assert len(rep) == 4 and rep[2] is t[0] and rep[3] is t[1]
     with pytest.raises(StromError) as e:
-        make_scan_mesh(["cpu"] * 4, sp=2)
+        make_scan_mesh(["cpu"] * 4, sp=3)
     assert e.value.errno == errno.EINVAL
     with pytest.raises(StromError):
         make_scan_mesh([])
     with pytest.raises(StromError) as e:
         make_scan_mesh()          # no CUDA device here: never the CPU
     assert e.value.errno == errno.ENODEV
+    with pytest.raises(StromError) as e:
+        make_scan_mesh(sp=2)
+    assert e.value.errno == errno.ENODEV
+
+
+def test_ring_all_gather_over_an_sp_mesh():
+    """Each lane of an ``(sp=2, dp=3)`` mesh gathers its own dp ring: every
+    member ends with the dp shards in order, as the reference's gather
+    over ``"dp"``."""
+    rng = np.random.default_rng(4)
+    mesh = make_scan_mesh(["cpu"] * 6, sp=2)
+    dp_shards = [torch.from_numpy(rng.integers(0, 256, (5, 16),
+                                               dtype=np.uint8))
+                 for _ in range(3)]
+    out = ring_all_gather(mesh.replicate(dp_shards), mesh,
+                          backend="plain")
+    want = torch.cat(dp_shards)
+    assert len(out) == 6
+    for t in out:
+        assert torch.equal(t, want)
+    assert out[0] is not out[3]        # gathered into fresh tensors
 
 
 def _jax_gather(g, n):

@@ -226,3 +226,33 @@ def test_multihost_on_card_matches_the_file(cuda_device, page_file):
     assert permute_cuda.launches - before == 4 * (2 * 3 + 3)
     for replica in out:
         assert replica.cpu().numpy().tobytes() == data
+
+
+@pytest.mark.parametrize("hosts,gather", [(1, False), (2, False),
+                                          (2, True)])
+def test_sp_mesh_loads_replicate_dp_shards(page_file, hosts, gather):
+    """On an ``(sp=2, dp=4)`` mesh the loads split over dp and the lanes
+    hold the same shard, as the JAX package's ``load_pages_sharded`` over
+    its ``(sp, dp)`` mesh (``P("dp", None)``, device by device); on one
+    device the lanes share a tensor.  The gather runs each lane's ring."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    jm = jax_mesh(jax.devices()[:8], sp=2)
+    with JPlainSource(page_file) as src:
+        ref = jax_load_sharded(src, jm)
+    assert ref.sharding == NamedSharding(jm, P("dp", None))
+    by_dev = {s.device: np.asarray(s.data) for s in ref.addressable_shards}
+    want = [by_dev[d] for d in jm.devices.reshape(-1)]
+    mesh = make_scan_mesh(["cpu"] * 8, sp=2)
+    with PlainSource(page_file) as src:
+        loaded = load_pages_sharded(src, mesh)
+        multi = load_pages_multihost(src, mesh, hosts=hosts, gather=gather)
+    data = open(page_file, "rb").read()
+    for i, (a, b, w) in enumerate(zip(loaded, multi, want)):
+        np.testing.assert_array_equal(a.numpy(), w)
+        if gather:
+            assert b.numpy().tobytes() == data
+        else:
+            np.testing.assert_array_equal(b.numpy(), w)
+    assert loaded[4] is loaded[0] and multi[5] is multi[1]
