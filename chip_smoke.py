@@ -12,9 +12,11 @@ resilience (mirrors, the fault ladder, page-cache arbitration, 64-bit
 GROUP BY sums), checksum verify on read with the residency tiers and the
 integrity domain, 64-bit scalar sums, the autotune controller and
 predictive readahead, NVMe passthrough through its emulator with NUMA
-binding, and serving (a model's layer-ordered cold start, its sharded
-form, the SSD-backed KV block pool) — at full size and holds every CUDA
-kernel of those paths against its plain PyTorch version:
+binding, serving (a model's layer-ordered cold start, its sharded form,
+the SSD-backed KV block pool), the multi-device layer, ranks over
+``torch.distributed`` and the shared serving daemon — at full size and
+holds every CUDA kernel of those paths against its plain PyTorch
+version:
 
 1. environment: the card's name and power limit (``nvidia-smi``);
 2. build: every ``nvme_strom_tpu_torch/csrc/*.cu`` with ``nvcc`` (sm_90a)
@@ -384,6 +386,22 @@ kernel of those paths against its plain PyTorch version:
        handshakes.
     The build table, the sidecars and the checkpoint are deleted when the
     phase ends.
+25. ranks and the shared serving daemon (after [24], on [5]'s table and
+    [4]'s file), the card's name and power limit beside every number:
+    a. ``testing/distributed.launch(2, 2)``: two ranks over ``gloo``,
+       each owning 2 x ``cuda:0``, through the nine checks, [5]'s table in
+       place of the fixtures' heap for ``scan_step`` and ``stream_fold``
+       (count and both sums equal to numpy on both ranks); B1 counted in
+       each rank and held against its plain version on one member batch;
+       where several cards are visible, again with a card a rank over
+       ``nccl``;
+    b. ``tools/strom_daemon.py`` as its own process: ``ssd2gpu_test
+       --daemon -c`` lands [4]'s file into a CUDA tensor through the
+       daemon's memfd ring, byte-exact, GB/s beside [4]'s; a
+       latency-class and a bulk-class tenant land it at once (each
+       tenant's bytes and p95 queue wait from ``daemon_stat``); a shared
+       KV pool with HBM blocks on the card round-trips its blocks;
+    c. ``testing/qos_gate.py``, both legs.
 
 Every main path sets the kernels' launch counts to 0 just before it runs
 and reads them just after; each kernel of a path must have launched once
@@ -7393,6 +7411,254 @@ def _multidevice_phase(torch, dev, tmp, seed, card, heap, n_pages):
     return b1, b4
 
 
+#: [25b]: the shared KV pool's blocks (64 KiB): 32 pinned in the daemon's
+#: HBM tier, 16 in RAM, the rest spilled
+DAEMON_KV_BLOCKS = 96
+DAEMON_KV_HBM_BLOCKS = 32
+#: [25a]: the ranks' batch over [5]'s table (64 MiB, 16 batches)
+RANKS_BATCH_PAGES = 8192
+
+
+def _ranks_daemon_phase(torch, dev, tmp, seed, card, scan, load):
+    """Phase 25: ranks over ``torch.distributed`` and the shared serving
+    daemon (see the module docstring).  *scan* = ``(path, schema,
+    threshold, n_pages)``, [5]'s table; *load* = ``(path, nbytes, gbs)``,
+    [4]'s file and its in-process load's GB/s.  Returns the B1 launches
+    the ranks counted."""
+    import threading
+
+    from nvme_strom_tpu_torch.daemon import DaemonSession
+    from nvme_strom_tpu_torch.stats import hist_percentiles
+    from nvme_strom_tpu_torch.testing import qos_gate
+    from nvme_strom_tpu_torch.testing.distributed import CHECKS, launch
+    from nvme_strom_tpu_torch.tools.common import first_mismatch
+    from nvme_strom_tpu_torch.tools.ssd2gpu_test import (main as ssd2gpu,
+                                                         run_daemon_load)
+
+    def fail(leg, msg):
+        raise AssertionError(f"[25{leg}] {msg}")
+
+    cuda = dev.type == "cuda"
+    card = card or str(dev)
+    t_phase = time.monotonic()
+    heap_path, schema, th, n_pages = scan
+    load_path, load_bytes, load_gbs = load
+    said = []
+
+    # -- a. two ranks over the process group --------------------------------
+    _s, c0, c1, vis = _scan_columns(seed, n_pages)
+    sel = (vis != 0) & (c0 > th)
+    table = {"path": heap_path, "n_cols": schema.n_cols,
+             "dtypes": None if schema.dtypes is None else list(schema.dtypes),
+             "visibility": schema.visibility, "threshold": th,
+             "count": int(sel.sum()),
+             "sums": [_int32_sum(c0[sel]), _int32_sum(c1[sel])],
+             "batch_pages": min(RANKS_BATCH_PAGES, n_pages)}
+    del c0, c1, vis, sel
+    runs = [("each rank 2 x cuda:0" if cuda else "each rank 2 x cpu",
+             "gloo")]
+    if cuda and torch.cuda.device_count() >= 2:
+        runs.append(("rank r 2 x cuda:r", "nccl"))
+    b1 = 0
+    for label, backend in runs:
+        t0 = time.monotonic()
+        res = launch(2, 2, os.path.join(tmp, f"ranks_{backend}"),
+                     timeout=300.0, device=dev.type, backend=backend,
+                     table=table)
+        dt = time.monotonic() - t0
+        per_rank = []
+        for r in res:
+            if set(r["checks"]) != set(CHECKS) or r["backend"] != backend:
+                fail("a", f"rank {r['process_id']}: {r}")
+            n = r["b1_launches"]["scan_step"] + r["b1_launches"][
+                "stream_fold"]
+            if cuda and (r["b1_launches"]["scan_step"] == 0
+                         or r["b1_launches"]["stream_fold"] == 0):
+                fail("a", f"rank {r['process_id']} launched no B1: "
+                          f"{r['b1_launches']}")
+            if cuda and r.get("b1_vs_plain_max_abs_err") != 0:
+                fail("a", f"B1 against its plain version: "
+                          f"{r.get('b1_vs_plain_max_abs_err')}")
+            per_rank.append(n)
+        b1 += sum(per_rank)
+        rows = [r["checks"]["pjoin_rows"] for r in res]
+        if sum(rows) != res[0]["checks"]["pjoin"]:
+            fail("a", f"join rows {rows} do not add up to "
+                      f"{res[0]['checks']['pjoin']}")
+        print(f"[25a] launch(2, 2) over {backend}, {label}: the nine checks "
+              f"exact on both ranks in {dt:.1f} s (spawn, import and group "
+              f"set-up included); [5]'s table through scan_step and "
+              f"stream_fold: count {table['count']} and sums "
+              f"{table['sums']} on both ranks; B1 launches a rank "
+              f"{per_rank} ({[r['b1_launches'] for r in res]}), B1 against "
+              f"its plain version on a member batch: max |err| "
+              f"{res[0].get('b1_vs_plain_max_abs_err', 'n/a')}; join rows "
+              f"{rows[0]} + {rows[1]} = {sum(rows)} ({card})")
+
+    # -- b. the daemon as its own process -------------------------------------
+    sock = os.path.join(tmp, "stromd.sock")
+    daemon = subprocess.Popen(
+        [sys.executable, "-m", "nvme_strom_tpu_torch.tools.strom_daemon",
+         "--socket", sock, "--dispatch", "2", "--device", str(dev),
+         "--hbm-tier", str(4 * DAEMON_KV_HBM_BLOCKS << 16)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        t0 = time.monotonic()
+        while not said or "stromd listening on" not in said[-1]:
+            line = daemon.stdout.readline()
+            if not line or len(said) > 50:
+                fail("b", f"the daemon did not start: {said}")
+            said.append(line)
+        up_s = time.monotonic() - t0
+        # the rest of its output drains here, so its pipe never fills
+        drain = threading.Thread(target=lambda: said.extend(daemon.stdout),
+                                 daemon=True)
+        drain.start()
+        # the tool's CLI form: one byte-exact landing (-c)
+        rc = ssd2gpu(["--daemon", sock, "--tenant", "cli", "-c", "-d",
+                      str(dev), load_path])
+        if rc != 0:
+            fail("b", f"ssd2gpu_test --daemon -c exit {rc}")
+        # timed landings through the memfd ring into one CUDA tensor
+        rows = []
+        for _ in range(2):
+            out = run_daemon_load(sock, load_path, device=dev,
+                                  tenant="load", segments=4)
+            bad = first_mismatch(_slots_in_order(torch, out), load_path,
+                                 out["nbytes"])
+            if bad is not None:
+                fail("b", f"landed bytes differ at offset {bad[0]}")
+            rows.append(out["nbytes"] / out["seconds"] / 1e9)
+            del out
+        print(f"[25b] strom_daemon up in {up_s:.1f} s; ssd2gpu_test "
+              f"--daemon -c: all bytes OK; [4]'s file ({load_bytes} "
+              f"bytes) through the daemon into one CUDA tensor: "
+              f"{' / '.join(f'{g:.3f}' for g in rows)} GB/s against [4]'s "
+              f"in-process {load_gbs:.3f} GB/s ({card})")
+        # two tenants at once: a latency-class and a bulk-class landing
+        got, errs = {}, []
+
+        def tenant(name, cls):
+            try:
+                o = run_daemon_load(sock, load_path, device=dev,
+                                    tenant=name, qos_class=cls,
+                                    segments=4)
+                if first_mismatch(_slots_in_order(torch, o), load_path,
+                                  o["nbytes"]) is not None:
+                    errs.append(f"{name}: bytes differ")
+                got[name] = o["nbytes"] / o["seconds"] / 1e9
+                del o
+            except Exception as e:      # noqa: BLE001 - reported below
+                errs.append(f"{name}: {e!r}")
+
+        th_ = [threading.Thread(target=tenant, args=a)
+               for a in (("lat", "latency"), ("bulk", "bulk"))]
+        t0 = time.monotonic()
+        for t in th_:
+            t.start()
+        for t in th_:
+            t.join(timeout=300)
+        both_s = time.monotonic() - t0
+        if errs or len(got) != 2:
+            fail("b", f"two tenants: {errs or got}")
+        with DaemonSession(sock, tenant="_monitor") as mon:
+            board = mon.daemon_stat()["tenants"]
+            cells = []
+            for name in ("lat", "bulk"):
+                t = board[name]
+                p95 = hist_percentiles(t["wait_hist"], qs=(0.95,))[0]
+                cells.append(f"{name} ({t['class']}): {t['bytes']} bytes in "
+                             f"{t['tasks']} tasks, p95 queue wait "
+                             f"{(p95 or 0) / 1e6:.3f} ms, "
+                             f"{got[name]:.3f} GB/s")
+                if t["bytes"] != (load_bytes >> 20 << 20):
+                    fail("b", f"{name} moved {t['bytes']} bytes")
+            print(f"[25b] two tenants at once in {both_s:.2f} s, each "
+                  f"byte-exact: {'; '.join(cells)} ({card})")
+            # the shared KV pool, its HBM blocks on the card
+            bb = 64 << 10
+            spill = []
+            for i in range(4):
+                sp = os.path.join(tmp, f"kvd{i}.bin")
+                with open(sp, "wb") as f:
+                    f.truncate(DAEMON_KV_BLOCKS * bb)
+                spill.append(sp)
+            kv = DaemonSession(sock, tenant="kv", qos_class="latency")
+            try:
+                kv.kv_open(spill, block_bytes=bb, ram_blocks=16,
+                           hbm_blocks=DAEMON_KV_HBM_BLOCKS,
+                           stripe_chunk_size=bb, mirror="paired")
+                rng = np.random.default_rng(seed + 250)
+                blobs = [rng.bytes(bb) for _ in range(DAEMON_KV_BLOCKS)]
+                t0 = time.monotonic()
+                for i, b in enumerate(blobs):
+                    if kv.kv_append("s0", b) != i:
+                        fail("b", f"kv append {i}")
+                app_s = time.monotonic() - t0
+                res_ = kv.kv_residency()
+                t0 = time.monotonic()
+                for i, b in enumerate(blobs):
+                    if kv.kv_read("s0", i) != b:
+                        fail("b", f"kv block {i} differs")
+                read_s = time.monotonic() - t0
+                # a read promotes a RAM block into the pool's HBM share
+                res_read = kv.kv_residency()
+                if res_read.get("hbm", 0) != DAEMON_KV_HBM_BLOCKS:
+                    fail("b", f"{res_read.get('hbm', 0)} KV blocks in HBM "
+                              f"after the reads, not "
+                              f"{DAEMON_KV_HBM_BLOCKS}: {res_read}")
+                kv.kv_release("s0")
+            finally:
+                kv.close()
+            print(f"[25b] shared KV pool through the daemon: "
+                  f"{DAEMON_KV_BLOCKS} blocks of {bb >> 10} KiB appended in "
+                  f"{app_s:.2f} s and read back byte-identical in "
+                  f"{read_s:.2f} s; residency after the appends {res_}, "
+                  f"after the reads {res_read} (HBM on {dev}) ({card})")
+    finally:
+        daemon.terminate()
+        try:
+            daemon.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            daemon.kill()
+            daemon.wait()
+        rest = "".join(said)
+        for sp in [os.path.join(tmp, f"kvd{i}.bin") for i in range(4)]:
+            if os.path.exists(sp):
+                os.unlink(sp)
+    if daemon.returncode != 0:
+        fail("b", f"the daemon exited {daemon.returncode}: {rest[-2000:]}")
+
+    # -- c. the QoS gate ----------------------------------------------------
+    gate_dir = os.path.join(tmp, "qos")
+    os.makedirs(gate_dir)
+    t0 = time.monotonic()
+    ratio = qos_gate._leg_fairness(gate_dir)
+    p95 = qos_gate._leg_latency_isolation(gate_dir)
+    print(f"[25c] qos_gate: 3:1 weights delivered {ratio:.2f}:1 bytes "
+          f"(limit {qos_gate.TARGET_RATIO} within {qos_gate.TOLERANCE:.0%}"
+          f"), the latency tenant's p95 queue wait {p95 / 1e6:.2f} ms "
+          f"under the bulk antagonist (limit "
+          f"{qos_gate.WAIT_P95_NS / 1e6:.0f} ms), in "
+          f"{time.monotonic() - t0:.1f} s ({card})")
+    shutil.rmtree(gate_dir, ignore_errors=True)
+    print(f"    [25] took {time.monotonic() - t_phase:.1f} s")
+    return b1
+
+
+def _slots_in_order(torch, out):
+    """A daemon landing's tensor with its chunks put back in file order
+    (slot *i* holds chunk ``result.chunk_ids[i]``)."""
+    ids = out["result"].chunk_ids
+    if ids == sorted(ids):
+        return out["tensor"]
+    chunk = out["nbytes"] // len(ids)
+    t = out["tensor"].view(len(ids), chunk)
+    order = torch.tensor(np.argsort(ids), device=t.device)
+    return t[order].reshape(-1)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--load-gib", type=float, default=1.0)
@@ -7823,8 +8089,7 @@ def main() -> int:
         main_launches += _passthru_phase(
             torch, dev, tmp, args.seed, card,
             (heap_path, schema, th, want_count, want_sum), load_path)
-        for f in (load_path, gb_path):
-            os.unlink(f)
+        os.unlink(gb_path)
 
         # -- serving: weight streaming, the sharded cold start, KV paging ---
         ring_launches += _serving_phase(torch, dev, tmp, args.seed, card)
@@ -7835,7 +8100,14 @@ def main() -> int:
                                           args.scan_pages)
         main_launches += md_b1
         ring_launches += md_b4
-        os.unlink(heap_path)
+
+        # -- ranks over torch.distributed, the shared serving daemon --------
+        main_launches += _ranks_daemon_phase(
+            torch, dev, tmp, args.seed, card,
+            (heap_path, schema, th, args.scan_pages),
+            (load_path, load_bytes, load_gbs))
+        for f in (heap_path, load_path):
+            os.unlink(f)
 
         # -- string columns and the SQL facade -----------------------------
         main_launches += _sql_phase(torch, dev, tmp, args.seed)

@@ -338,6 +338,27 @@ _VARS: Dict[str, _Var] = {
     # QoS class of a KV sequence appended without one: latency | normal |
     # bulk (a pressure shed takes bulk first, latency last)
     "qos_default_class": _Var("normal", str, check=_qos_class),
+    # -- the shared serving daemon (daemon/) ----------------------------
+    # its Unix socket; empty = the per-uid default under the temp dir
+    # (daemon.protocol.default_socket_path)
+    "daemon_socket": _Var("", str),
+    # attached sessions at most (0 = unlimited); more attaches get EAGAIN
+    "daemon_max_sessions": _Var(64, int, 0),
+    # dispatcher threads draining the QoS queue into the engine (0 = none
+    # until start_dispatchers(), the deterministic-test idiom)
+    "daemon_dispatch": _Var(2, int, 0, 64),
+    # a tenant's in-flight tasks and bytes at most (0 = unlimited): a
+    # submit past either is EAGAIN, never queued without bound
+    "daemon_quota_tasks": _Var(0, int, 0),
+    "daemon_quota_bytes": _Var(0, int, 0),
+    # deficit-round-robin quantum: the bytes one round earns a weight-1.0
+    # tenant (fairness holds within one quantum a tenant)
+    "qos_quantum": _Var(256 << 10, int, 4 << 10),
+    # DRR weight of a tenant that asks for none
+    "qos_default_weight": _Var(1.0, float, 0.001),
+    # a tenant's token-bucket rate in bytes/s (0 = unshaped) and burst
+    "qos_rate": _Var(0, int, 0),
+    "qos_burst": _Var(8 << 20, int, 64 << 10),
     # -- the integrity domain (integrity.py) ----------------------------
     # crc32c of resident extents: off (none stored) | transitions (stored
     # at fill, checked at promote and demote) | always (and at every

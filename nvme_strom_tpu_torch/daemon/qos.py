@@ -1,17 +1,43 @@
-"""Byte-rate shaping: the JAX package's ``daemon/qos.py``, reduced to its
-:class:`TokenBucket`.
+"""stromd QoS scheduler: priority classes, token-bucket shaping, and
+byte-weighted deficit round-robin across tenants.
 
-:mod:`..autotune` budgets readahead with one (``readahead_budget_mb_s``):
-a prefetch whose bytes the bucket cannot pay now is skipped, never
-waited for.  The tenants' weighted queues and latency classes of the
-daemon's scheduler are not part of this package yet."""
+A port of the JAX package's ``daemon/qos.py``, decision for decision (the
+tests feed one sequence of work items to both and compare the dispatch
+order):
+
+* **priority classes** (``latency`` > ``normal`` > ``bulk``) are strict:
+  an admissible latency-class item always dispatches before any normal or
+  bulk item, so a bulk antagonist bounds a latency tenant's queue wait at
+  roughly one in-service item;
+* **token-bucket shaping** per tenant (``qos_rate`` / ``qos_burst``)
+  gates a tenant whose head item would exceed its rate; a gated tenant
+  yields its slot (lower classes run rather than the lane idling) and
+  earns no round-robin deficit while gated;
+* **byte-weighted deficit round-robin** within a class: each round a
+  tenant earns ``quantum × weight`` bytes of deficit, and the tenant whose
+  head item needs the fewest whole rounds dispatches next (virtual
+  rounds: one pass finds the next dispatch).  Over a busy interval
+  tenants receive bytes in proportion to their weights within one
+  quantum.
+
+:mod:`..autotune` also budgets readahead with a :class:`TokenBucket`
+(``readahead_budget_mb_s``): a prefetch the bucket cannot pay now is
+skipped, never waited for.  The scheduler orders opaque
+:class:`WorkItem` objects and knows nothing of sockets or sessions.
+"""
 
 from __future__ import annotations
 
+import math
+import threading
 import time
+from collections import deque
+from typing import Callable, Dict, List, Optional, Tuple
 
-__all__ = ["TokenBucket"]
+__all__ = ["QOS_CLASSES", "TokenBucket", "WorkItem", "QosScheduler"]
 
+#: strict-priority dispatch order, highest first
+QOS_CLASSES = ("latency", "normal", "bulk")
 
 class TokenBucket:
     """Byte token bucket: ``rate`` bytes/s refill up to ``burst`` capacity.
@@ -51,3 +77,247 @@ class TokenBucket:
             return
         self._refill(now)
         self._tokens -= min(float(nbytes), self.burst)
+
+
+class WorkItem:
+    """One queued DMA command with its tenant/session attribution.
+
+    ``done`` is set exactly once — after dispatch completes (``result`` or
+    ``error`` populated) or when the item is cancelled by session teardown
+    (``cancelled`` True) — so a waiter can never hang on a reaped item."""
+
+    __slots__ = ("session_id", "tenant", "task_id", "source_handle",
+                 "buf_handle", "chunk_ids", "chunk_size", "dest_offset",
+                 "nbytes", "enqueue_ns", "dispatch_ns", "done", "result",
+                 "error", "cancelled", "trace_tid", "source", "kv",
+                 "submit_id", "speculative")
+
+    def __init__(self, *, session_id: int, tenant: str, task_id: int,
+                 source_handle: int, buf_handle: int, chunk_ids: List[int],
+                 chunk_size: int, dest_offset: int = 0,
+                 kv: Optional[tuple] = None, submit_id: Optional[str] = None,
+                 speculative: bool = False):
+        self.session_id = session_id
+        self.tenant = tenant
+        self.task_id = task_id
+        self.source_handle = source_handle
+        self.buf_handle = buf_handle
+        self.chunk_ids = list(chunk_ids)
+        self.chunk_size = int(chunk_size)
+        self.dest_offset = int(dest_offset)
+        self.nbytes = len(self.chunk_ids) * self.chunk_size
+        self.enqueue_ns = time.monotonic_ns()
+        self.dispatch_ns = 0
+        self.done = threading.Event()
+        self.result = None
+        self.error: Optional[Tuple[int, str]] = None
+        self.cancelled = False
+        self.trace_tid = 0
+        self.source = None      # server attaches the resolved source object
+        self.kv = kv            # (op, args) for KV-pool items, else None
+        self.submit_id = submit_id  # client idempotency key, else None
+        self.speculative = bool(speculative)  # a readahead fill
+
+
+class _Tenant:
+    __slots__ = ("name", "qos_class", "weight", "bucket", "queue", "deficit",
+                 "gated")
+
+    def __init__(self, name: str, qos_class: str, weight: float,
+                 bucket: TokenBucket):
+        self.name = name
+        self.qos_class = qos_class
+        self.weight = max(1e-3, float(weight))
+        self.bucket = bucket
+        self.queue: deque = deque()
+        self.deficit = 0.0
+        self.gated = False
+
+
+class QosScheduler:
+    """Strict-class + shaped + deficit-round-robin work queue.
+
+    One condition variable guards everything: enqueue/dispatch rates here
+    are per-DMA-command (milliseconds of service each), so a single lock
+    is nowhere near contended and keeps the invariants auditable."""
+
+    def __init__(self, *, quantum: int = 256 << 10,
+                 on_throttle: Optional[Callable[[str], None]] = None):
+        self._cv = threading.Condition()
+        self._quantum = max(1, int(quantum))
+        self._tenants: Dict[str, _Tenant] = {}
+        #: per-class round-robin order of tenants with queued work
+        self._active: Dict[str, deque] = {c: deque() for c in QOS_CLASSES}
+        self._depth = 0
+        self._closed = False
+        self._on_throttle = on_throttle
+
+    # -- tenant management --------------------------------------------------
+    def register_tenant(self, name: str, *, qos_class: str = "normal",
+                        weight: float = 1.0, rate: float = 0.0,
+                        burst: float = 8 << 20) -> None:
+        """Create or reconfigure a tenant (idempotent; reconfiguring keeps
+        its queue and deficit so a mid-stream weight change is smooth)."""
+        if qos_class not in QOS_CLASSES:
+            raise ValueError(f"qos_class must be one of {QOS_CLASSES}, "
+                             f"got {qos_class!r}")
+        with self._cv:
+            t = self._tenants.get(name)
+            if t is None:
+                self._tenants[name] = _Tenant(name, qos_class, weight,
+                                              TokenBucket(rate, burst))
+            else:
+                if t.qos_class != qos_class and t.queue:
+                    # move the queued tenant to its new class ring
+                    try:
+                        self._active[t.qos_class].remove(name)
+                    except ValueError:
+                        pass
+                    self._active[qos_class].append(name)
+                t.qos_class = qos_class
+                t.weight = max(1e-3, float(weight))
+                t.bucket = TokenBucket(rate, burst)
+            self._cv.notify_all()
+
+    def tenant_config(self, name: str) -> Optional[dict]:
+        with self._cv:
+            t = self._tenants.get(name)
+            if t is None:
+                return None
+            return {"class": t.qos_class, "weight": t.weight,
+                    "rate": t.bucket.rate, "queued": len(t.queue)}
+
+    # -- queue operations ---------------------------------------------------
+    def enqueue(self, item: WorkItem) -> None:
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("scheduler closed")
+            t = self._tenants.get(item.tenant)
+            if t is None:
+                raise KeyError(f"unregistered tenant {item.tenant!r}")
+            if item.speculative:
+                # readahead rides the bulk class: speculative
+                # fills re-attribute to a shadow "<tenant>#ra" tenant so
+                # strict-class dispatch drains every demand read first
+                # and the tenant's own shaping/accounting stays clean
+                shadow = item.tenant + "#ra"
+                st = self._tenants.get(shadow)
+                if st is None:
+                    st = self._tenants[shadow] = _Tenant(
+                        shadow, "bulk", t.weight,
+                        TokenBucket(t.bucket.rate, t.bucket.burst))
+                item.tenant = shadow
+                t = st
+            t.queue.append(item)
+            if len(t.queue) == 1:
+                self._active[t.qos_class].append(t.name)
+            self._depth += 1
+            self._cv.notify_all()
+
+    def depth(self) -> int:
+        with self._cv:
+            return self._depth
+
+    def next_item(self, timeout: Optional[float] = None) -> Optional[WorkItem]:
+        """Dispatch the next admissible item per class/shaping/DRR policy;
+        blocks up to *timeout* seconds (None = forever) when nothing is
+        admissible.  Returns None on timeout or scheduler close."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._cv:
+            while True:
+                if self._closed:
+                    return None
+                now = time.monotonic()
+                item, wake = self._pick(now)
+                if item is not None:
+                    self._depth -= 1
+                    item.dispatch_ns = time.monotonic_ns()
+                    return item
+                remain = None if deadline is None else deadline - now
+                if remain is not None and remain <= 0:
+                    return None
+                if wake is not None:
+                    remain = wake if remain is None else min(remain, wake)
+                self._cv.wait(remain)
+
+    def _pick(self, now: float) -> Tuple[Optional[WorkItem], Optional[float]]:
+        """One scheduling decision under the lock: highest class with an
+        admissible tenant wins; within the class, fewest virtual DRR
+        rounds wins.  Returns (item, seconds-until-a-gated-head-readies)."""
+        wake: Optional[float] = None
+        for cls in QOS_CLASSES:
+            ring = self._active[cls]
+            ready: List[Tuple[float, int, _Tenant]] = []
+            for pos, name in enumerate(ring):
+                t = self._tenants[name]
+                head: WorkItem = t.queue[0]
+                wait_s = t.bucket.ready_in(head.nbytes, now)
+                if wait_s > 0:
+                    if not t.gated:
+                        t.gated = True
+                        if self._on_throttle is not None:
+                            self._on_throttle(t.name)
+                    wake = wait_s if wake is None else min(wake, wait_s)
+                    continue
+                t.gated = False
+                q = self._quantum * t.weight
+                rounds = max(0.0, math.ceil((head.nbytes - t.deficit) / q))
+                ready.append((rounds, pos, t))
+            if not ready:
+                continue        # shaped-out class yields to lower classes
+            rounds, _pos, best = min(ready)
+            if rounds > 0:
+                # virtual rounds: advance every admissible tenant's
+                # deficit by the rounds the winner needed, in one step
+                for _r, _p, t in ready:
+                    t.deficit += rounds * self._quantum * t.weight
+            item = best.queue.popleft()
+            best.deficit -= item.nbytes
+            # rotate the winner behind its class peers; drop it from the
+            # ring (and zero its deficit) once drained, per classic DRR
+            try:
+                ring.remove(best.name)
+            except ValueError:
+                pass
+            if best.queue:
+                ring.append(best.name)
+            else:
+                best.deficit = 0.0
+            best.bucket.consume(item.nbytes, now)
+            return item, None
+        return None, wake
+
+    def drop_session(self, session_id: int) -> List[WorkItem]:
+        """Remove every queued item belonging to *session_id* (orphan
+        reaping / clean detach with work still queued).  Items are marked
+        cancelled and returned; the CALLER finalizes them (sets errors,
+        adjusts accounting, fires ``done``) so scheduler and server
+        accounting cannot drift."""
+        dropped: List[WorkItem] = []
+        with self._cv:
+            for t in self._tenants.values():
+                if not t.queue:
+                    continue
+                keep = deque()
+                for item in t.queue:
+                    if item.session_id == session_id:
+                        item.cancelled = True
+                        dropped.append(item)
+                    else:
+                        keep.append(item)
+                if len(keep) != len(t.queue):
+                    t.queue = keep
+                    if not keep:
+                        try:
+                            self._active[t.qos_class].remove(t.name)
+                        except ValueError:
+                            pass
+                        t.deficit = 0.0
+            self._depth -= len(dropped)
+            self._cv.notify_all()
+        return dropped
+
+    def close(self) -> None:
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()

@@ -300,7 +300,8 @@ def _leaf_bytes(leaf, e: Dict) -> np.ndarray:
 
 def _first_cuda_device(flat) -> Optional[torch.device]:
     for _, leaf in flat:
-        t = leaf.shards[0] if isinstance(leaf, ShardedTensor) else leaf
+        t = next((x for x in leaf.shards if x is not None), None) \
+            if isinstance(leaf, ShardedTensor) else leaf
         if isinstance(t, torch.Tensor) and t.device.type == "cuda":
             return t.device
     return None
@@ -485,63 +486,114 @@ def save_checkpoint_sharded(path: str, tree: Any) -> Dict:
     A leading-axis split writes each distinct row block once (the first
     member holding it: sp lanes replicate dp blocks); a replicated leaf is
     written once, from member 0; plain tensors and arrays are written
-    whole.  A leaf sharded on another axis is EINVAL, checked for every
-    leaf before the file is created.  One process writes every shard (the
-    JAX package's multi-process barriers come with the port's process
-    group).  Crash-safe per save through a shared temp file renamed over
-    *path*, after which the residency tiers drop their extents over it;
-    concurrent sharded saves to one path are not supported."""
+    whole, by rank 0.  Over ranks (:mod:`..parallel.dist`) every rank
+    calls this on the same tree and writes only the blocks of its own
+    members, through one shared file on a filesystem every rank reaches
+    (the reference's ``save_checkpoint_sharded``): each rank checks its
+    leaves' layouts (leading-axis splits, addressable shards of the
+    sharding's shape) before anything is written and the verdicts are
+    gathered with each rank's leaf table, so a refusal on one rank (or
+    ranks disagreeing on the table) is a refusal (EINVAL) on every rank
+    before the file exists; then rank 0 writes the header, barrier
+    ``header``, every rank writes and fsyncs its blocks, barrier ``data``,
+    rank 0 renames the file over *path*, barrier ``installed``.  Crash-safe
+    per save through the shared temp file; after the rename each rank's
+    residency tiers drop their extents over it.  Concurrent sharded saves
+    to one path are not supported."""
+    from ..parallel import dist
     flat = _flatten(tree)
     entries = _entries_for(flat)
-    for key, leaf in flat:
-        if isinstance(leaf, ShardedTensor) and \
-                not leaf.sharding.leading_only:
-            raise StromError(
-                _errno.EINVAL,
-                f"leaf {key}: sharded save supports leading-axis sharding "
-                f"only (spec {leaf.sharding.spec} splits another axis)")
+    bad = _sharded_layout_error(flat)
+    if dist.process_count() > 1:
+        # one rank's refusal is every rank's, before any barrier; ranks
+        # that disagree on the leaf table would write two headers
+        views = dist.all_gather_object((bad, entries))
+        verdicts = [v for v, _e in views if v]
+        if bad is None and verdicts:
+            bad = verdicts[0]
+        elif bad is None and any(e != entries for _v, e in views):
+            bad = "ranks disagree on the leaf table (shapes or dtypes)"
+    if bad is not None:
+        raise StromError(_errno.EINVAL, bad)
+    me = dist.process_index()
     header, header_len, end = _header(entries)
     path = os.path.realpath(path)
     tmp = path + ".shared_tmp"
-    with open(tmp, "wb") as f:
-        _write_header(f, header, header_len)
-        f.truncate(_pad(end))
-        f.flush()
-        os.fsync(f.fileno())
     try:
+        if me == 0:
+            with open(tmp, "wb") as f:
+                _write_header(f, header, header_len)
+                f.truncate(_pad(end))
+                f.flush()
+                os.fsync(f.fileno())
+        dist.barrier("header")
         fd = os.open(tmp, os.O_WRONLY)
         try:
-            for e, (key, leaf) in zip(entries, flat):
+            for e, (_key, leaf) in zip(entries, flat):
                 base = header_len + e["offset"]
                 if not isinstance(leaf, ShardedTensor):
-                    _pwrite_all(fd, _leaf_bytes(leaf, e), base)
+                    if me == 0:
+                        _pwrite_all(fd, _leaf_bytes(leaf, e), base)
                     continue
-                # one writer per distinct block, in row order: lanes and
-                # replicas hold copies of blocks another member writes
-                firsts: Dict[tuple, torch.Tensor] = {}
+                rowbytes = _row_bytes(e)
+                # one writer per distinct block, the first member holding
+                # it: lanes and replicas hold copies another member writes
+                firsts: Dict[tuple, int] = {}
                 idxs = leaf.sharding.indices(leaf.shape) if e["shape"] \
                     else [()] * len(leaf.shards)
-                for idx, t in zip(idxs, leaf.shards):
+                for i, idx in enumerate(idxs):
                     firsts.setdefault((idx[0].start, idx[0].stop)
-                                      if idx else (0, 0), t)
-                off = base
-                for _r, s in sorted(firsts.items()):
-                    data = _tensor_u8(s).cpu().numpy()
-                    _pwrite_all(fd, data, off)
-                    off += data.size
+                                      if idx else (0, 0), i)
+                for (r0, _r1), i in sorted(firsts.items()):
+                    t = leaf.shards[i]
+                    if t is None:       # another rank's member writes it
+                        continue
+                    _pwrite_all(fd, _tensor_u8(t).cpu().numpy(),
+                                base + r0 * rowbytes)
             os.fsync(fd)
         finally:
             os.close(fd)
-        os.replace(tmp, path)
+        dist.barrier("data")
+        if me == 0:
+            os.replace(tmp, path)
+            _fsync_dir(os.path.dirname(path) or ".")
+        dist.barrier("installed")
         extent_space.invalidate_paths([path])
-        _fsync_dir(os.path.dirname(path) or ".")
     except BaseException:
-        try:
-            os.unlink(tmp)
-        except OSError:
-            pass
+        if me == 0:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
         raise
     return {"path": path, "leaves": len(entries), "bytes": _pad(end)}
+
+
+def _row_bytes(e: Dict) -> int:
+    """Bytes of one leading-axis row of entry *e*'s leaf."""
+    shape = e["shape"]
+    return int(np.dtype(e["dtype"]).itemsize
+               * np.prod(shape[1:], dtype=np.int64)) \
+        if len(shape) > 1 else np.dtype(e["dtype"]).itemsize
+
+
+def _sharded_layout_error(flat) -> Optional[str]:
+    """Why this rank's sharded leaves cannot be saved, or None: a split of
+    another axis than the leading one, or an addressable shard whose shape
+    is not the sharding's."""
+    for key, leaf in flat:
+        if not isinstance(leaf, ShardedTensor):
+            continue
+        sh = leaf.sharding
+        if not sh.leading_only:
+            return (f"leaf {key}: sharded save supports leading-axis "
+                    f"sharding only (spec {sh.spec} splits another axis)")
+        want = sh.shard_shape(leaf.shape)
+        for i, t in enumerate(leaf.shards):
+            if t is not None and tuple(t.shape) != want:
+                return (f"leaf {key}: member {i}'s shard is "
+                        f"{tuple(t.shape)}, the sharding's is {want}")
+    return None
 
 
 # -- inspect ------------------------------------------------------------------
@@ -766,7 +818,7 @@ def restore_checkpoint(path: str, *, shardings=None, like=None,
         sh = _leaf_sharding(shardings, e["key"])
         if sh is not None:
             sh.check(f"leaf {e['key']}", tuple(e["shape"]))
-            dev = dev or sh.mesh.devices[0]
+            dev = dev or sh.mesh.home()
     own = session is None
     sess = session or Session(device=dev)
     out: Dict[str, Any] = {}
@@ -822,7 +874,8 @@ def _restore_sharded(sess, source, base, dtype, shape, sharding,
     leading-axis row range, then each member's slice of the other axes
     cut on the host (the reference's ``_restore_sharded``).  A scalar is
     replicated.  Members on one device that own the same slice share one
-    tensor (one H2D)."""
+    tensor (one H2D).  Only this process's members' rows are read; another
+    rank's member is None."""
     mesh = sharding.mesh
     if not shape:   # scalar leaf: replicate
         idxs = [()] * mesh.size
@@ -833,6 +886,8 @@ def _restore_sharded(sess, source, base, dtype, shape, sharding,
             if len(shape) > 1 else dtype.itemsize
     by_range: Dict[tuple, List[int]] = {}
     for i, idx in enumerate(idxs):
+        if not mesh.is_local(i):
+            continue
         rkey = (idx[0].start, idx[0].stop) if idx else (0, 1)
         by_range.setdefault(rkey, []).append(i)
     tdtype = torch_dtype(dtype)

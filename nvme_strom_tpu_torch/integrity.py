@@ -278,13 +278,16 @@ class Scrubber:
         return scanned
 
     def _scrub_pools(self, budget: int) -> int:
-        """The registered holders' own resident blocks (the KV pools'
-        spill blocks); their debits are stripe members whose copy
-        rotted."""
+        """The resident blocks of the KV pools this Session serves (their
+        spill blocks); their debits are stripe members whose copy rotted.
+        Another Session's pool is its own scrubber's: healed here, its
+        debits would land on this Session's members, never on the pool's."""
         scanned = 0
         for pool in pools():
             if scanned >= budget or self._stop.is_set():
                 break
+            if getattr(pool, "_session", None) is not self._session:
+                continue
             try:
                 done, debits = pool.scrub_spill(budget - scanned)
             except Exception:

@@ -1,7 +1,8 @@
 """Mesh-parallel paths: sharded loading, the multi-host loader, the ring
 permute (B4), all-gather and the ring multi-query scan, the distributed
 scan step with its column lanes, the bucket exchange, the sample sort and
-the partitioned join."""
+the partitioned join; over several processes, their ranks
+(:mod:`.dist`)."""
 
 from .dscan import make_distributed_scan_step, shard_pages
 from .mesh import (RingMesh, RingSharding, ShardedTensor, make_scan_mesh,

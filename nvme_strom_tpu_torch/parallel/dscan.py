@@ -17,7 +17,10 @@ dp (it is the same on every lane), the sums over both axes (disjoint
 across lanes).
 
 Each member's step is the page filter: B1 (:mod:`..ops.filter_cuda`) on a
-CUDA member, its plain version on a CPU member.  The accumulation dtypes
+CUDA member, its plain version on a CPU member.  Over ranks (:mod:`.dist`)
+each process filters its own members' shards and folds them, and the
+folds meet in one :func:`.dist.all_reduce` (the cross-process psum): the
+result is the same on every rank.  The accumulation dtypes
 are the reference's: the count and 4-byte integer sums are int32 and wrap
 (``jnp.sum`` with ``x64`` off), 64-bit under the port's ``x64``
 (:func:`..ops.filter.wide_sums`, ``jnp.sum`` under ``jax_enable_x64``);
@@ -38,6 +41,7 @@ from ..api import StromError
 from ..ops.filter import DEFAULT_SCHEMA, STEP_PRED, FilterPred, wide_sums
 from ..ops.filter_cuda import filter_pages_cuda
 from ..scan.heap import HeapSchema
+from . import dist
 from .mesh import RingMesh, Shards, make_scan_mesh
 
 __all__ = ["make_distributed_scan_step", "shard_pages"]
@@ -45,7 +49,8 @@ __all__ = ["make_distributed_scan_step", "shard_pages"]
 
 def split_pages(pages, mesh: RingMesh) -> List[torch.Tensor]:
     """A page batch (numpy or tensor, ``(B, PAGE_SIZE)``, ``B`` divisible
-    by dp) -> lane 0's dp shards, shard *d* on member *d*."""
+    by dp) -> the dp shards, shard *d* on this process's first member of
+    column *d* (None for a column with no member here)."""
     t = pages if isinstance(pages, torch.Tensor) else \
         torch.from_numpy(np.ascontiguousarray(pages))
     dp = mesh.dp
@@ -53,7 +58,9 @@ def split_pages(pages, mesh: RingMesh) -> List[torch.Tensor]:
         raise StromError(_errno.EINVAL, f"{t.shape[0]} pages do not divide "
                                         f"over dp={dp}")
     r = t.shape[0] // dp
-    return [t[d * r:(d + 1) * r].to(mesh.devices[d]) for d in range(dp)]
+    need = set(mesh.local_columns())
+    return [t[d * r:(d + 1) * r].to(mesh.column_device(d)) if d in need
+            else None for d in range(dp)]
 
 
 def shard_pages(pages, mesh: RingMesh) -> Shards:
@@ -94,15 +101,18 @@ def make_distributed_scan_step(devices: Optional[Sequence] = None, *,
     per-member shards a :class:`.stream.ShardedBatchStream` yields (over
     this mesh, or re-sharded from another's) — filters each member's dp
     shard, and folds: ``{"count": scalar, "sums": (n_cols,)}``, tensors on
-    member 0's device, the selected-row count and the per-column masked
-    sums.
+    member 0's device (this rank's first member over ranks, the same
+    values on every rank), the selected-row count and the per-column
+    masked sums.
 
     *predicate*: a :class:`..ops.filter.FilterPred` (default ``col0 >
     threshold``, the reference's ``cols[0] > threshold``), or a callable
     ``predicate(cols, threshold)`` on CPU members only (EINVAL on CUDA
     members: B1 takes FilterPred terms).  Every lane evaluates it (it may
     read any column); lanes split only the aggregation.  ``run.step``
-    returns each member's ``(count, sums)`` before the fold."""
+    returns each member's ``(count, sums)`` before the fold (None for
+    another rank's member).  *devices* may be a :class:`.mesh.RingMesh`
+    (its ranks kept)."""
     mesh = make_scan_mesh(devices, sp=sp)
     pred = STEP_PRED if predicate is None else predicate
     if mesh.device_type == "cuda" and not isinstance(pred, FilterPred):
@@ -118,15 +128,18 @@ def make_distributed_scan_step(devices: Optional[Sequence] = None, *,
         if isinstance(pages, Shards):
             if pages.mesh == mesh:
                 return pages
-            pages = torch.cat([p.to(mesh.devices[0]) for p in pages.lane0()])
+            pages = torch.cat([p.to(mesh.home()) for p in pages.lane0()])
         elif isinstance(pages, (list, tuple)):
-            pages = torch.cat([p.to(mesh.devices[0]) for p in pages])
+            pages = torch.cat([p.to(mesh.home()) for p in pages])
         return shard_pages(pages, mesh)
 
     def step(pages, threshold) -> list:
         th = np.int32(threshold)
         out = []
         for i, shard in enumerate(_shards(pages)):
+            if shard is None:
+                out.append(None)
+                continue
             lane = i // dp
             # B1 launches on the current device's stream: a member on
             # another card makes its device current first
@@ -142,12 +155,19 @@ def make_distributed_scan_step(devices: Optional[Sequence] = None, *,
 
     def run(pages, threshold) -> dict:
         parts = step(pages, threshold)
-        home = mesh.devices[0]
+        home = mesh.home()
+        mine = [p for p in parts if p is not None]
         # count: identical on every lane, folded over lane 0's dp members
-        count = sum(parts[d][0].to(home) for d in range(dp))
-        folded = [sum(_bits(p[1][c]).to(home) for p in parts)
+        # (this rank's of them; a rank without one adds a zero)
+        count = sum((parts[d][0].to(home) for d in range(dp)
+                     if parts[d] is not None),
+                    torch.zeros_like(mine[0][0]).to(home))
+        folded = [sum(_bits(p[1][c]).to(home) for p in mine)
                   for c in range(n_cols)]
-        dt = _stack_dtype([p for p in parts[0][1]])
+        if mesh.multi_process:
+            count = dist.all_reduce(count)
+            folded = [dist.all_reduce(f) for f in folded]
+        dt = _stack_dtype([p for p in mine[0][1]])
         if dt.is_floating_point:
             sums = torch.stack([f.to(torch.float32) for f in folded])
         elif dt in (torch.uint32, torch.uint64):

@@ -19,6 +19,12 @@ row whatever the skew.  Fact columns ride the int32 slab as their bits
 
 On an ``(sp, dp)`` mesh the join runs over lane 0's dp ring: the
 reference's ``P("dp", None)`` replicates the same work on every lane.
+
+Over ranks (:mod:`.dist`) each process holds the build partitions, scans
+the pages and probes for its own members of lane 0; the rows cross in
+the exchange's all-to-all, the aggregates meet in one
+:func:`.dist.all_reduce`, and the row face returns only the rows routed
+to this process's members.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from ..ops.filter import (_masked_sum, decode_pages, global_row_positions,
 from ..ops.join import (_emit_mask, _value_dtype, check_join_how,
                         key_hash32, sorted_has_duplicates)
 from ..scan.heap import HeapSchema
+from . import dist
 from .dscan import split_pages
 from .exchange import bucket_dispatch
 
@@ -50,7 +57,8 @@ _U32 = 0xFFFFFFFF
 class BuildParts(NamedTuple):
     """The hash-partitioned build side: ``keys[d]``/``vals[d]`` member
     *d*'s ``(cap,)`` partition on its device (uint32 values as int64, the
-    decode's form), ``nreal[d]`` its real rows, ``vdt`` the values' dtype,
+    decode's form; None for another rank's member), ``nreal[d]`` its real
+    rows, ``vdt`` the values' dtype,
     ``host_rows_peak`` the most build rows the host held at once while
     building (the streamed build's accounting)."""
     keys: List[torch.Tensor]
@@ -76,6 +84,10 @@ def _place(parts_k, parts_v, vdt: np.dtype, mesh, peak: int) -> BuildParts:
     devs = _lane0(mesh)
     keys, vals = [], []
     for d, dev in enumerate(devs):
+        if not mesh.is_local(d):
+            keys.append(None)
+            vals.append(None)
+            continue
         k, v = parts_k[d], parts_v[d]
         if isinstance(v, np.ndarray) and vdt == np.dtype(np.uint32):
             v = v.astype(np.int64)
@@ -96,7 +108,7 @@ def partition_build_sharded(build_keys, build_values, mesh,
     if schema.col_dtype(probe_col) != np.dtype(np.int32):
         raise ValueError("probe column must be int32")
     bv_np = np.asarray(build_values, _value_dtype(build_values))
-    dev = mesh.devices[0]
+    dev = mesh.home()
     bk = torch.from_numpy(np.ascontiguousarray(build_keys, np.int32)).to(dev)
     bk, order = torch.sort(bk, stable=True)
     if bk.shape[0] > 1 and bool((bk[1:] == bk[:-1]).any()):
@@ -147,7 +159,7 @@ def partition_build_sharded_from_table(table_path: str, build_schema,
     dt_v = build_schema.col_dtype(value_col)
     if budget is None:
         budget = int(config.get("join_build_host_max"))
-    dev = device if device is not None else mesh.devices[0]
+    dev = device if device is not None else mesh.home()
     if os.path.getsize(table_path) <= budget:
         out = Query(table_path, build_schema) \
             .select([key_col, value_col]).run(session=session, device=dev)
@@ -216,14 +228,23 @@ def _unword(w: torch.Tensor, dt: np.dtype) -> torch.Tensor:
     return w
 
 
-def _route(pages_list, schema, probe_col, predicate, extra, parts):
+def _route(pages_list, schema, probe_col, predicate, extra, parts,
+           mesh=None):
     """Decode each member's pages, route the selected rows (probe key plus
     *extra* words) to their owners, and probe there.  Returns per owner
-    ``(recv, rvalid, hit, idx)``."""
+    ``(recv, rvalid, hit, idx)`` (None for another rank's owner)."""
     dp = len(pages_list)
-    devs = [p.device for p in pages_list]
+    owners = mesh.owners[:dp] if mesh is not None and mesh.multi_process \
+        else None
+    devs = [p.device if p is not None else mesh.devices[d]
+            for d, p in enumerate(pages_list)]
     rows, buckets, oks = [], [], []
     for pages in pages_list:
+        if pages is None:
+            rows.append(None)
+            buckets.append(None)
+            oks.append(None)
+            continue
         cols, valid = decode_pages(pages, schema)
         sel = select_rows(predicate, cols, valid, schema).reshape(-1)
         probe = cols[probe_col].reshape(-1)
@@ -232,11 +253,16 @@ def _route(pages_list, schema, probe_col, predicate, extra, parts):
         buckets.append((key_hash32(probe) % dp).to(torch.int32))
         oks.append(sel)
     # capacity = the whole local batch: the exchange never drops a row
-    n = max(r.shape[0] for r in rows)
+    n = max(r.shape[0] for r in rows if r is not None)
+    if owners is not None:
+        n = int(dist.all_reduce(torch.tensor(n), "max"))
     recv, counts, _keep = bucket_dispatch(rows, buckets, oks, dp, n,
-                                          devices=devs)
+                                          devices=devs, owners=owners)
     out = []
     for b in range(dp):
+        if recv[b] is None:
+            out.append(None)
+            continue
         slot = torch.arange(dp * n, device=devs[b])
         rvalid = (slot % n) < counts[b][slot // n]
         k = parts.keys[b]
@@ -250,19 +276,33 @@ def _route(pages_list, schema, probe_col, predicate, extra, parts):
 def _shards_of(mesh, pages) -> List[torch.Tensor]:
     """Lane 0's dp shards of a batch: a list of shards as the mesh's
     streams yield (lane 0 first), or one batch to split."""
-    if isinstance(pages, (list, tuple)):
-        return list(pages[:mesh.dp])
-    return split_pages(pages, mesh)
+    got = list(pages[:mesh.dp]) if isinstance(pages, (list, tuple)) \
+        else split_pages(pages, mesh)
+    # lane 0's members of this rank only (another lane's copy of a
+    # column is not a sender)
+    return [t if mesh.is_local(d) else None for d, t in enumerate(got)]
 
 
-def _fold(parts: List[torch.Tensor], home) -> torch.Tensor:
+def _fold(parts: List[torch.Tensor], home, ranks: bool = False
+          ) -> torch.Tensor:
     """Sum per-owner scalars on *home*; unsigned ones through their signed
-    bits (torch adds no uint32)."""
+    bits (torch adds no uint32); with *ranks*, then over every rank."""
     dt = parts[0].dtype
     if dt in (torch.uint32, torch.uint64):
         sdt = torch.int32 if dt == torch.uint32 else torch.int64
-        return sum(p.view(sdt).to(home) for p in parts).view(dt)
-    return sum(p.to(home) for p in parts)
+        out = sum(p.view(sdt).to(home) for p in parts).view(dt)
+    else:
+        out = sum(p.to(home) for p in parts)
+    return dist.all_reduce(out) if ranks else out
+
+
+def _check_ranks(mesh) -> None:
+    """Over ranks, every rank needs a member of lane 0 (its share of the
+    join's fold)."""
+    if mesh.multi_process and not any(mesh.is_local(d)
+                                      for d in range(mesh.dp)):
+        raise StromError(_errno.EINVAL, f"rank {dist.process_index()} "
+                                        f"owns no member of lane 0")
 
 
 def make_partitioned_join_step(mesh, schema: HeapSchema, probe_col: int,
@@ -284,12 +324,14 @@ def make_partitioned_join_step(mesh, schema: HeapSchema, probe_col: int,
     otherwise *build_keys*/*build_values* are partitioned here."""
     check_join_how(how)
     _check_schema(schema)
+    _check_ranks(mesh)
     parts = build_parts or partition_build_sharded(
         build_keys, build_values, mesh, schema, probe_col)
     sum_cols = list(range(schema.n_cols))
     col_dts = [schema.col_dtype(c) for c in sum_cols]
     wide = wide_sums(schema)
-    home = mesh.devices[0]
+    home = mesh.home()
+    ranks = mesh.multi_process
 
     def extra(_pages, cols):
         return [_word(cols[c].reshape(-1), dt)
@@ -297,9 +339,12 @@ def make_partitioned_join_step(mesh, schema: HeapSchema, probe_col: int,
 
     def step(pages) -> dict:
         per = []
-        for (recv, rvalid, hit, idx), v in zip(
+        for routed, v in zip(
                 _route(_shards_of(mesh, pages), schema, probe_col,
-                       predicate, extra, parts), parts.vals):
+                       predicate, extra, parts, mesh), parts.vals):
+            if routed is None:
+                continue
+            recv, rvalid, hit, idx = routed
             emit = _emit_mask(how, rvalid, hit)
             o = {"matched": row_count(emit, wide),
                  "sums": [_masked_sum(_unword(recv[:, 1 + i], dt), emit, dt,
@@ -310,12 +355,12 @@ def make_partitioned_join_step(mesh, schema: HeapSchema, probe_col: int,
             if how == "left":
                 o["null_count"] = row_count(emit & ~hit, wide)
             per.append(o)
-        out = {"matched": _fold([o["matched"] for o in per], home),
-               "sums": [_fold([o["sums"][i] for o in per], home)
+        out = {"matched": _fold([o["matched"] for o in per], home, ranks),
+               "sums": [_fold([o["sums"][i] for o in per], home, ranks)
                         for i in range(len(sum_cols))]}
         for k in ("payload_sum", "null_count"):
             if k in per[0]:
-                out[k] = _fold([o[k] for o in per], home)
+                out[k] = _fold([o[k] for o in per], home, ranks)
         return out
 
     step.sum_cols = sum_cols
@@ -347,11 +392,14 @@ def make_partitioned_join_rows_step(mesh, schema: HeapSchema,
     owner order, then sender order, then arrival order, on lane 0's
     member 0; rows whose ``hit`` is False are routing pads or rows not
     emitted.  Positions travel with the row: the outcome lives on the
-    key's owner, not on the member that scanned the page."""
+    key's owner, not on the member that scanned the page.  Over ranks the
+    tensors hold only the owners of this rank (in owner order), on its
+    first member."""
     check_join_how(how)
+    _check_ranks(mesh)
     parts = build_parts or partition_build_sharded(
         build_keys, build_values, mesh, schema, probe_col)
-    home = mesh.devices[0]
+    home = mesh.home()
 
     def extra(pages, _cols):
         pos = global_row_positions(pages, schema).reshape(-1)
@@ -360,9 +408,12 @@ def make_partitioned_join_rows_step(mesh, schema: HeapSchema,
     def step(pages) -> dict:
         outs = {k: [] for k in ("hit", "key", "pos_lo", "pos_hi",
                                 "payload", "partner")}
-        for (recv, rvalid, hit, idx), v in zip(
+        for routed, v in zip(
                 _route(_shards_of(mesh, pages), schema, probe_col,
-                       predicate, extra, parts), parts.vals):
+                       predicate, extra, parts, mesh), parts.vals):
+            if routed is None:
+                continue
+            recv, rvalid, hit, idx = routed
             outs["hit"].append(_emit_mask(how, rvalid, hit).to(home))
             outs["key"].append(recv[:, 0].to(home))
             outs["pos_lo"].append(recv[:, 1].to(home))

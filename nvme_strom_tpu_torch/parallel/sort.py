@@ -29,6 +29,11 @@ order-preserving map of its bits, with ±0 one key and every NaN one key
 above +inf — the order ``jnp.sort`` and ``jnp.searchsorted`` give.
 Values ride the int32 exchange slab as their bits, and an int32 payload
 (row positions) rides beside them.
+
+Over ranks (:mod:`.dist`) each process sorts its own members' slices: the
+splitter samples meet in one gather (:func:`.dist.gather_members`, the
+reference's all_gather), the buckets cross in the exchange's all-to-all,
+and each rank keeps the buckets of its own members.
 """
 
 from __future__ import annotations
@@ -41,8 +46,9 @@ import torch
 
 from ..api import StromError
 from ..scan.executor import _to_numpy
+from . import dist
 from .exchange import bucket_dispatch, split_rows
-from .mesh import make_scan_mesh
+from .mesh import Shards, make_scan_mesh
 
 __all__ = ["make_distributed_sort", "make_distributed_distinct",
            "distributed_sort_u64", "sort_keys", "prefixes", "capacity_loop"]
@@ -110,10 +116,17 @@ def make_distributed_sort(devices: Optional[Sequence] = None, *,
     * ``n_dropped`` — elements lost to the capacity bound.
 
     The global order is row *b*'s first ``count[b]`` elements for ``b = 0
-    .. dp - 1``."""
+    .. dp - 1``.
+
+    Over ranks every rank passes the same host arrays and reads only its
+    members' slices; ``values`` and ``payload`` are then
+    :class:`.mesh.Shards` of this rank's members' rows (None for the
+    others'), while ``count`` and ``n_dropped`` are the whole mesh's on
+    every rank (on this rank's first member)."""
     mesh = make_scan_mesh(devices, sp=1)
     dp = mesh.dp
     devs = list(mesh.devices)
+    owners = mesh.owners if mesh.multi_process else None
     dt = np.dtype(dtype)
     if dt not in (np.dtype(np.int32), np.dtype(np.uint32),
                   np.dtype(np.float32)):
@@ -139,23 +152,32 @@ def make_distributed_sort(devices: Optional[Sequence] = None, *,
         vals, pays, valid = split_rows(
             [_values_tensor(values_np, dt),
              np.asarray(payload_np, np.int32), np.asarray(valid_np, bool)],
-            dp, devs, [0, -1, False])
+            dp, devs, [0, -1, False], owners)
+        home = mesh.home()
 
         # 1. splitter election, in key space
-        samples = []
-        for v, ok in zip(vals, valid):
+        samples = {}
+        for i, (v, ok) in enumerate(zip(vals, valid)):
+            if v is None:
+                continue
             w = torch.where(ok, v, torch.full_like(v, worst))
             nvalid = int(ok.sum())
             sk = torch.sort(key_of(w), stable=True).values
             qpos = ((torch.arange(dp, device=v.device) + 1) * nvalid) \
                 // (dp + 1)
-            samples.append(sk[qpos.clamp(0, v.shape[0] - 1)].to(devs[0]))
-        allk = torch.sort(torch.cat(samples), stable=True).values
-        splitters = allk[(torch.arange(dp - 1, device=devs[0]) + 1) * dp]
+            samples[i] = sk[qpos.clamp(0, v.shape[0] - 1)].to(home)
+        allk = torch.sort(torch.cat(
+            dist.gather_members(owners, samples) if owners is not None
+            else [samples[i] for i in range(dp)]), stable=True).values
+        splitters = allk[(torch.arange(dp - 1, device=home) + 1) * dp]
 
         # 2. owner per element, then the exchange
         rows, buckets = [], []
         for v, p in zip(vals, pays):
+            if v is None:
+                rows.append(None)
+                buckets.append(None)
+                continue
             buckets.append(torch.searchsorted(
                 splitters.to(v.device), key_of(v).contiguous(),
                 right=True).to(torch.int32))
@@ -163,14 +185,18 @@ def make_distributed_sort(devices: Optional[Sequence] = None, *,
                 else [_to_bits(v, kind)]
             rows.append(torch.stack(cols, -1))
         recv, counts, keep = bucket_dispatch(rows, buckets, valid, dp,
-                                             capacity, devices=devs)
+                                             capacity, devices=devs,
+                                             owners=owners)
         dropped = sum(int(ok.sum()) - int(k.sum())
-                      for ok, k in zip(valid, keep))
+                      for ok, k in zip(valid, keep) if k is not None)
 
         # 3. the received bucket's local sort; pads after every real key
-        home = devs[0]
         out_v, out_p = [], []
         for b in range(dp):
+            if recv[b] is None:
+                out_v.append(None)
+                out_p.append(None)
+                continue
             dev = devs[b]
             slot = torch.arange(dp * capacity, device=dev)
             got = (slot % capacity) < counts[b][slot // capacity]
@@ -182,11 +208,22 @@ def make_distributed_sort(devices: Optional[Sequence] = None, *,
             sv = rv[order]
             if kind == "u":
                 sv = sv.to(torch.int32).view(torch.uint32)
-            out_v.append(sv.to(home))
+            out_v.append(sv if owners is not None else sv.to(home))
             if with_payload:
                 rp = torch.where(got, recv[b][:, 1],
                                  torch.full_like(recv[b][:, 1], -1))
-                out_p.append(rp[order].to(home))
+                out_p.append(rp[order] if owners is not None
+                             else rp[order].to(home))
+        if owners is not None:
+            out = {"values": Shards(out_v, mesh),
+                   "count": torch.stack(dist.gather_members(owners, {
+                       b: counts[b].sum(dtype=torch.int32).to(home)
+                       for b in mesh.local})),
+                   "n_dropped": dist.all_reduce(torch.tensor(
+                       dropped, dtype=torch.int64)).to(torch.int32)}
+            if with_payload:
+                out["payload"] = Shards(out_p, mesh)
+            return out
         out = {"values": torch.stack(out_v),
                "count": torch.stack([c.sum(dtype=torch.int32).to(home)
                                      for c in counts]),
@@ -271,6 +308,8 @@ def make_distributed_distinct(devices=None, *, capacity: int,
         out = sort_run(values_np, valid_np=valid_np)
         total = 0
         for v, n in zip(out["values"], out["count"]):
+            if v is None:       # another rank's member: its own count
+                continue
             if u32:
                 v = v.view(torch.int32)
             n = int(n)
@@ -278,6 +317,8 @@ def make_distributed_distinct(devices=None, *, capacity: int,
             new_run = (idx < n) & ((idx == 0)
                                    | (v != torch.roll(v, 1)))
             total += int(new_run.sum())
+        if mesh.multi_process:
+            total = int(dist.all_reduce(torch.tensor(total)))
         return {"distinct": np.int32(total),
                 "n_dropped": np.asarray(int(out["n_dropped"]), np.int32)}
 

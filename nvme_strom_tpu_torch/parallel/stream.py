@@ -13,6 +13,10 @@ reference's ``P("dp", None)``.
 Landing on a card uses the port's own mechanism (:mod:`..hbm.staging`):
 ``cudaHostRegister``'d engine buffers, a copy stream per device, and
 ``torch.cuda.Event`` fences waited through the bounded backend fence.
+
+Over ranks (:mod:`.dist`) a process reads only the dp shards its own
+members hold — each host reads its own rows — and the members of other
+ranks come back as None.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ __all__ = ["load_pages_sharded", "ShardedBatchStream",
 
 
 def _cuda_session(mesh: RingMesh) -> Session:
-    return Session(device=mesh.devices[0] if mesh.device_type == "cuda"
+    return Session(device=mesh.home() if mesh.device_type == "cuda"
                    else None)
 
 
@@ -47,7 +51,8 @@ def load_pages_sharded(source: Source, mesh: RingMesh, *,
                        ) -> List[torch.Tensor]:
     """Direct-load a page-formatted source into per-member ``(n_pages /
     dp, PAGE_SIZE)`` uint8 shards: member ``(s, d)`` holds rows ``[d * r,
-    (d + 1) * r)``.  ``n_pages`` must divide evenly by dp."""
+    (d + 1) * r)``.  ``n_pages`` must divide evenly by dp.  Only this
+    process's members' rows are read; another rank's member is None."""
     n = mesh.dp
     if source.size % PAGE_SIZE:
         raise StromError(_errno.EINVAL, f"source size {source.size} not "
@@ -59,9 +64,10 @@ def load_pages_sharded(source: Source, mesh: RingMesh, *,
     rows = n_pages // n
     own = session is None
     sess = session or _cuda_session(mesh)
-    shards = []
+    shards: List[Optional[torch.Tensor]] = [None] * n
     try:
-        for i, dev in enumerate(mesh.devices[:n]):
+        for i in mesh.local_columns():
+            dev = mesh.column_device(i)
             nbytes = rows * PAGE_SIZE
             handle, buf = sess.alloc_dma_buffer(nbytes)
             try:
@@ -73,7 +79,7 @@ def load_pages_sharded(source: Source, mesh: RingMesh, *,
                     res.chunk_ids, want).reshape(rows, PAGE_SIZE)
                 # an owned copy on the member's device, made before the
                 # pinned buffer unmaps
-                shards.append(torch.from_numpy(host).to(dev, copy=True))
+                shards[i] = torch.from_numpy(host).to(dev, copy=True)
             finally:
                 sess.unmap_buffer(handle)
                 buf.close()
@@ -97,8 +103,9 @@ class ShardedBatchStream:
     Yields ``(first_page, shards)``: a :class:`.mesh.Shards` of one
     ``(batch_pages / dp, PAGE_SIZE)`` uint8 tensor per member, on its
     device, member ``(s, d)`` holding dp shard *d* (read once, the lanes
-    sharing it).  ``batch_pages`` must divide by dp; a final partial batch
-    is not yielded (callers scan tails themselves)."""
+    sharing it; only the shards of this process's members are read, and
+    another rank's member is None).  ``batch_pages`` must divide by dp; a
+    final partial batch is not yielded (callers scan tails themselves)."""
 
     def __init__(self, source: Source, mesh: RingMesh, *, batch_pages: int,
                  session: Optional[Session] = None):
@@ -118,15 +125,18 @@ class ShardedBatchStream:
         self.session = session or _cuda_session(mesh)
         self._cuda = mesh.device_type == "cuda"
         per_shard = self.rows * PAGE_SIZE
-        self._bufs = [[self.session.alloc_dma_buffer(per_shard)
-                       for _ in range(2)] for _ in range(n)]
+        #: the dp columns this process reads
+        self._cols = mesh.local_columns()
+        self._bufs = {k: [self.session.alloc_dma_buffer(per_shard)
+                          for _ in range(2)] for k in self._cols}
         self._copy: Dict[torch.device, torch.cuda.Stream] = {}
         if self._cuda:
-            for pair in self._bufs:
+            for pair in self._bufs.values():
                 for _, buf in pair:
                     buf.pin_cuda()
             self._copy = {d: torch.cuda.Stream(device=d)
-                          for d in dict.fromkeys(mesh.devices)}
+                          for d in dict.fromkeys(mesh.devices[i]
+                                                 for i in mesh.local)}
         # per ring slot: the events of the copies that read its buffers
         self._fence: List[List[torch.cuda.Event]] = [[], []]
 
@@ -135,15 +145,15 @@ class ShardedBatchStream:
         for ev in self._fence[slot]:
             bounded_fence(ev, "mesh-h2d")
         self._fence[slot] = []
-        tasks = []
+        tasks = {}
         base = b * self.batch_pages
-        for k in range(self.mesh.dp):
+        for k in self._cols:
             r0 = base + k * self.rows
             handle, _buf = self._bufs[k][slot]
             res = self.session.memcpy_ssd2ram(
                 self.source, handle, list(range(r0, r0 + self.rows)),
                 PAGE_SIZE)
-            tasks.append((res, time.monotonic_ns()))
+            tasks[k] = (res, time.monotonic_ns())
         return slot, tasks
 
     def _place(self, k: int, slot: int, done) -> torch.Tensor:
@@ -152,7 +162,7 @@ class ShardedBatchStream:
                               [:self.rows * PAGE_SIZE], PAGE_SIZE,
                               done.chunk_ids, sorted(done.chunk_ids)) \
             .reshape(self.rows, PAGE_SIZE)
-        dev = self.mesh.devices[k]
+        dev = self.mesh.column_device(k)
         if not self._cuda:
             return torch.from_numpy(host.copy())
         cur = torch.cuda.current_stream(dev)
@@ -171,8 +181,8 @@ class ShardedBatchStream:
         self._fence[slot].append(ev)
         return dst
 
-    def _collect(self, slot: int, tasks) -> List[torch.Tensor]:
-        shards: List[Optional[torch.Tensor]] = [None] * len(tasks)
+    def _collect(self, slot: int, tasks) -> List[Optional[torch.Tensor]]:
+        shards: List[Optional[torch.Tensor]] = [None] * self.mesh.dp
 
         def land(k: int, done) -> None:
             # the batch waits on its slowest shard: one log2-ns histogram
@@ -184,7 +194,7 @@ class ShardedBatchStream:
                             args={"shard": k})
             shards[k] = self._place(k, slot, done)
 
-        remaining = list(range(len(tasks)))
+        remaining = list(tasks)
         while remaining:
             progressed = False
             for k in list(remaining):
@@ -221,14 +231,14 @@ class ShardedBatchStream:
                 except StromError:
                     pass    # a latched loss fails the rest at once anyway
         self._fence = [[], []]
-        for pair in self._bufs:
+        for pair in self._bufs.values():
             for handle, buf in pair:
                 try:
                     self.session.unmap_buffer(handle)
                 except StromError:
                     pass
                 buf.close()
-        self._bufs = []
+        self._bufs = {}
         if self._own_session:
             self.session.close()
 

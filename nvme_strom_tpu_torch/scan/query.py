@@ -483,6 +483,7 @@ class Query:
         self._worker_pool = None
         self._h2d_depth = 0
         self._vfs = False              # the run's scans read buffered
+        self._ranks = None             # the run's mesh when it spans ranks
 
     # -- builders -----------------------------------------------------------
     def where(self, predicate: Union[FilterPred, Callable], *,
@@ -1250,7 +1251,7 @@ class Query:
         ``workers=`` the workers scan too, direct through their shared
         cursor, as the reference's workers do."""
         from ..hbm.staging import resolve_device
-        dev = mesh.devices[0] if mesh is not None else resolve_device(device)
+        dev = mesh.home() if mesh is not None else resolve_device(device)
         return self._plan(dev, kernel, mesh, self._workers)
 
     # -- the source and its access path -------------------------------------
@@ -1754,14 +1755,16 @@ class Query:
                                      workers=workers)
         from ..hbm.staging import resolve_device
         nw = self._workers if workers is None else int(workers)
-        dev = mesh.devices[0] if mesh is not None else resolve_device(device)
+        dev = mesh.home() if mesh is not None else resolve_device(device)
         self._session, self._h2d_depth = session, 0
+        self._ranks = mesh if mesh is not None and mesh.multi_process \
+            else None
         try:
             if nw >= 2 and mesh is None:
                 return self._run_workers(nw, dev, kernel)
             return self._run_local(dev, kernel, mesh, batch_pages)
         finally:
-            self._session, self._vfs = None, False
+            self._session, self._vfs, self._ranks = None, False, None
 
     def _run_analyze(self, session, **kw) -> dict:
         """``run(analyze=True)``: the counters before and after the run,
@@ -1805,14 +1808,22 @@ class Query:
         if plan.kernel == "invalid":
             raise StromError(_errno.EINVAL, f"query not executable: "
                                             f"{plan.reason}")
+        if mesh is not None and mesh.multi_process:
+            self._check_ranks_op()
         # the scans of this run (key discovery included) read the table on
         # the planned path; an index plan's scans take the gate's
         self._vfs = (plan.access_path if plan.access_path != "index"
                      else self._scan_access()[0]) == "vfs"
         if self._group_cols is not None:
             try:
-                self._install_group_keys(self._discover_group_keys(dev), dev)
+                self._install_group_keys(self._discover_group_keys(dev),
+                                         dev)
             except _GroupSpill:
+                if self._ranks is not None:
+                    raise StromError(_errno.EOPNOTSUPP, "group_by_cols over "
+                                     "ranks: the key set passed max_groups "
+                                     "(the sorted spill runs in one "
+                                     "process)") from None
                 return self._run_groupby_sorted(dev)
         if plan.access_path == "index":
             out = self._run_index(dev)
@@ -1905,9 +1916,7 @@ class Query:
         holds the same pages.  The pages past the last whole batch are
         read buffered and scanned on the first member.  ``select`` gathers each shard's rows in page
         order and stops gathering once ``offset + limit`` are in."""
-        from ..parallel.stream import distributed_scan_filter
         from .executor import _to_numpy, fold_results
-        dev, n = mesh.devices[0], mesh.dp
         chunks = None
         if self._op == "select":
             cols, limit, offset = self._select
@@ -1934,9 +1943,29 @@ class Query:
             acc = fold_results(acc, fn(pages), combine)
             stats.add("nr_kernel_dispatch")
 
+        self._mesh_scan(mesh, take, batch_pages)
+        if mesh.multi_process:
+            acc = self._fold_ranks(acc, combine)
+        if chunks is not None:
+            arrs = [np.concatenate([c[i] for c in chunks]) if chunks
+                    else np.zeros(0, dt) for i, dt in enumerate(dtypes)]
+            return self._select_result(cols, fields,
+                                       [a[offset:stop] for a in arrs])
+        return self._finalize({} if not acc else _to_numpy(acc))
+
+    def _mesh_scan(self, mesh, take, batch_pages) -> None:
+        """Stream the table over *mesh*: whole batches sharded over dp
+        (``distributed_scan_filter``), *take* called on each of this
+        process's lane-0 shards in member order, then the pages past the
+        last whole batch read buffered and taken on member 0 (by its
+        rank)."""
+        from ..parallel.stream import distributed_scan_filter
+        n = mesh.dp
+
         def step(shards):
             for shard in shards[:n]:
-                take(shard)
+                if shard is not None:       # another rank's member
+                    take(shard)
             return {}
 
         with self._open_owned() as src:
@@ -1950,14 +1979,33 @@ class Query:
                 distributed_scan_filter(src, mesh, step, batch_pages=bp,
                                         session=self._session)
                 covered = n_pages // bp * bp
-            for pages in _buffered_batches(src, covered, dev):
-                take(pages)
-        if chunks is not None:
-            arrs = [np.concatenate([c[i] for c in chunks]) if chunks
-                    else np.zeros(0, dt) for i, dt in enumerate(dtypes)]
-            return self._select_result(cols, fields,
-                                       [a[offset:stop] for a in arrs])
-        return self._finalize({} if not acc else _to_numpy(acc))
+            if mesh.is_local(0):
+                for pages in _buffered_batches(src, covered, mesh.home()):
+                    take(pages)
+
+    @staticmethod
+    def _fold_ranks(acc, combine):
+        """Every rank's fold of its own shards, folded in rank order with
+        the operator's *combine*: the same result on every rank (one
+        :func:`..parallel.dist.all_gather_object`)."""
+        from ..parallel import dist
+        from .executor import _to_numpy, fold_results
+        acc_all = None
+        for part in dist.all_gather_object(
+                None if acc is None else _to_numpy(acc)):
+            if part is not None:
+                acc_all = fold_results(acc_all, _to_torch(part), combine)
+        return acc_all
+
+    def _check_ranks_op(self) -> None:
+        """Over ranks a mesh runs the scan terminals that fold (aggregate,
+        GROUP BY, filters); the others gather or sort in one process."""
+        if self._op in ("select", "order_by", "quantiles",
+                        "count_distinct", "join", "star") or \
+                self._eq is not None:
+            raise StromError(_errno.EOPNOTSUPP,
+                             f"{self._op} over a mesh of several ranks: "
+                             f"run it in one process")
 
     def _replan_scan(self, plan: QueryPlan) -> QueryPlan:
         """The sidecar EXPLAIN promised went away (or went stale or
@@ -2996,7 +3044,10 @@ class Query:
         with no table I/O (keys of rows the filter drops make groups that
         select no row, which the HAVING drops); else one projection scan
         of the selected rows.  Past ``max_groups`` raises
-        :class:`_GroupSpill` for 1-2 key columns, ENOMEM for more."""
+        :class:`_GroupSpill` for 1-2 key columns, ENOMEM for more.  Over
+        the ranks of the run's mesh, each rank scans its own members'
+        shards and the key sets meet in one gather, so every rank
+        installs the same keys."""
         from .index import index_path_for, open_index, pack_pair, \
             probe_index
         cols_, _agg, _having, max_groups = self._group_cols
@@ -3026,19 +3077,12 @@ class Query:
         else:
             merged = np.zeros((0, nk), np.int64)
 
-        def collect(pages):
-            nonlocal merged
-            out = gather(pages)
-            vs = [out[f"f{i}"] for i in range(nk)]
-            if nk == 1:
-                merged = np.union1d(merged, np.unique(vs[0]))
-            elif nk == 2:
-                merged = np.union1d(merged, np.unique(
-                    pack_pair(vs[0], vs[1], dts[0], dts[1])))
-            else:
-                u = np.unique(np.stack([v.astype(np.int64) for v in vs], 1),
-                              axis=0)
-                merged = np.unique(np.concatenate([merged, u]), axis=0)
+        def merge(a, b):
+            if nk <= 2:
+                return np.union1d(a, b)
+            return np.unique(np.concatenate([a, b]), axis=0)
+
+        def check():
             if len(merged) > max_groups:
                 if nk <= 2:
                     raise _GroupSpill(len(merged))
@@ -3047,8 +3091,30 @@ class Query:
                                                 f"(raise max_groups, or use "
                                                 f"group_by with a key "
                                                 f"function)")
+
+        def collect(pages):
+            nonlocal merged
+            out = gather(pages)
+            vs = [out[f"f{i}"] for i in range(nk)]
+            if nk == 1:
+                merged = merge(merged, np.unique(vs[0]))
+            elif nk == 2:
+                merged = merge(merged, np.unique(
+                    pack_pair(vs[0], vs[1], dts[0], dts[1])))
+            else:
+                merged = merge(merged, np.unique(
+                    np.stack([v.astype(np.int64) for v in vs], 1), axis=0))
+            if self._ranks is None:     # over ranks: after the gather
+                check()
             return {}
 
+        if self._ranks is not None:
+            from ..parallel import dist
+            self._mesh_scan(self._ranks, collect, None)
+            for part in dist.all_gather_object(merged):
+                merged = merge(merged, part)
+            check()
+            return merged
         self._stream_collect(collect, dev)
         return merged
 

@@ -160,6 +160,8 @@ class Stats:
         self._member_state: Dict[int, tuple] = {}
         # member -> the autotune controller's applied knobs
         self._member_knobs: Dict[int, dict] = {}
+        # tenant -> its QoS configuration and delivery (the daemon's)
+        self._tenants: Dict[str, dict] = {}
         self._occ_last_ns = 0
         self._backend = ""
 
@@ -193,6 +195,13 @@ class Stats:
                 self._occ_last_ns = now
             self._c[name] = self._c.get(name, 0) + delta
             return self._c[name]
+
+    def count_clock(self, name: str, ns: int, n: int = 1) -> None:
+        """One ``nr_<name>`` / ``clk_<name>`` pair: *n* events, *ns*
+        nanoseconds spent in them."""
+        with self._lock:
+            self._c["nr_" + name] = self._c.get("nr_" + name, 0) + n
+            self._c["clk_" + name] = self._c.get("clk_" + name, 0) + int(ns)
 
     def set_backend(self, name: str) -> None:
         """Record the engine rung the newest session landed on
@@ -360,6 +369,68 @@ class Stats:
             out[k] = d
         return out
 
+    def _tenant(self, tenant: str) -> dict:
+        # caller holds self._lock
+        return self._tenants.setdefault(tenant, {
+            "class": "normal", "weight": 1.0, "rate": 0.0,
+            "quota_tasks": 0, "quota_bytes": 0,
+            "tasks": 0, "bytes": 0, "rejects": 0, "throttles": 0,
+            "inflight_tasks": 0, "inflight_bytes": 0,
+            "wait_hist": [0] * LAT_HIST_BUCKETS,
+        })
+
+    def tenant_configure(self, tenant: str, *, qos_class: str = None,
+                         weight: float = None, rate: float = None,
+                         quota_tasks: int = None,
+                         quota_bytes: int = None) -> None:
+        """Record a tenant's QoS configuration (the attach or configure
+        echo), so the scoreboard shows policy beside delivery; None keeps
+        the field."""
+        with self._lock:
+            t = self._tenant(tenant)
+            if qos_class is not None:
+                t["class"] = qos_class
+            if weight is not None:
+                t["weight"] = float(weight)
+            if rate is not None:
+                t["rate"] = float(rate)
+            if quota_tasks is not None:
+                t["quota_tasks"] = int(quota_tasks)
+            if quota_bytes is not None:
+                t["quota_bytes"] = int(quota_bytes)
+
+    def tenant_inflight(self, tenant: str, dtasks: int, dbytes: int) -> None:
+        """Move a tenant's in-flight gauges (admission +, finalize -)."""
+        with self._lock:
+            t = self._tenant(tenant)
+            t["inflight_tasks"] += dtasks
+            t["inflight_bytes"] += dbytes
+
+    def tenant_task(self, tenant: str, nbytes: int, wait_ns: int) -> None:
+        """One delivered task: its bytes, and its queue wait into the
+        tenant's log2-ns histogram (p50/p95 by :func:`hist_percentiles`)."""
+        with self._lock:
+            t = self._tenant(tenant)
+            t["tasks"] += 1
+            t["bytes"] += nbytes
+            t["wait_hist"][_bucket(wait_ns)] += 1
+
+    def tenant_reject(self, tenant: str) -> None:
+        with self._lock:
+            self._tenant(tenant)["rejects"] += 1
+
+    def tenant_throttle(self, tenant: str) -> None:
+        with self._lock:
+            self._tenant(tenant)["throttles"] += 1
+
+    def tenant_snapshot(self) -> Dict[str, dict]:
+        """``{tenant: {class, weight, rate, quota_tasks, quota_bytes,
+        tasks, bytes, rejects, throttles, inflight_tasks, inflight_bytes,
+        wait_hist}}``, copied so callers can diff intervals."""
+        with self._lock:
+            return {k: dict(v, wait_hist=list(v["wait_hist"]))
+                    for k, v in sorted(self._tenants.items())}
+
     def snapshot(self) -> Dict[str, int]:
         with self._lock:
             return dict(self._c)
@@ -372,7 +443,8 @@ class Stats:
                 "backend": self.backend(),
                 "members": self.member_snapshot(),
                 "lat_hist": self.lat_hist_snapshot(),
-                "shards": self.shard_snapshot()}
+                "shards": self.shard_snapshot(),
+                "tenants": self.tenant_snapshot()}
 
     def reset(self) -> None:
         with self._lock:
@@ -385,6 +457,7 @@ class Stats:
             self._member_health.clear()
             self._member_state.clear()
             self._member_knobs.clear()
+            self._tenants.clear()
             self._occ_last_ns = 0
 
 

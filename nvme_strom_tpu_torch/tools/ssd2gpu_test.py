@@ -9,17 +9,24 @@ threadpool or python), the read requests issued, the chunks page-cache
 arbitration sent through the write-back leg, and the host→device copy
 ceiling measured with CUDA events.  Several files form a striped set
 (``--stripe-chunk``, the md-RAID-0 shape; ``--mirror paired`` for
-RAID-10), read as one logical stream.
+RAID-10), read as one logical stream.  ``--daemon SOCK`` routes the SSD
+leg through a shared stromd (``tools/strom_daemon.py``): the daemon
+schedules each segment's DMA into memfd ring slots both processes map,
+and this client copies the slots into the CUDA tensor
+(:func:`run_daemon_load`).
 
 Usage: ssd2gpu_test [-c] [-n SEGS] [-s SEG_SZ] [-d DEV] [--chunk SZ]
                     [--backend B] [--loops N] [--no-drop-cache]
-                    [--stripe-chunk SZ] [--mirror none|paired] FILE...
+                    [--stripe-chunk SZ] [--mirror none|paired]
+                    [--daemon SOCK [--tenant T]] FILE...
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
+import errno as _errno
 import mmap
 import os
 import sys
@@ -35,7 +42,8 @@ from ..hbm.staging import resolve_device
 from .common import (chunks_mismatch, drop_page_cache, memdump_on_corruption,
                      parse_size)
 
-__all__ = ["run_load", "measure_raw", "measure_h2d", "main", "cli"]
+__all__ = ["run_load", "run_daemon_load", "measure_raw", "measure_h2d",
+           "main", "cli"]
 
 
 def measure_raw(path: Union[str, Sequence[str]], nbytes: int,
@@ -164,6 +172,143 @@ def run_load(path: Union[str, Sequence[str], Source], *, device=None,
             "counters": {k: v - before.get(k, 0) for k, v in after.items()}}
 
 
+class _RingSlot:
+    """One memfd ring slot of a daemon session, ``cudaHostRegister``'d
+    once when it is mapped (on a CUDA destination), with the event of the
+    last copy that read it: the slot is refilled only after that event."""
+
+    def __init__(self, dsess, nbytes: int, dev: torch.device):
+        self.handle, self.buf = dsess.alloc_dma_buffer(nbytes)
+        self.host = torch.frombuffer(self.buf.view(), dtype=torch.uint8)
+        self.event: Optional[torch.cuda.Event] = None
+        self._ref = None
+        if dev.type == "cuda":
+            self._ref = ctypes.c_char.from_buffer(self.buf._mm)
+            err = int(torch.cuda.cudart().cudaHostRegister(
+                ctypes.addressof(self._ref), self.buf.length, 0))
+            if err != 0:
+                self._ref = None
+                raise StromError(_errno.ENOMEM,
+                                 f"cudaHostRegister of a {self.buf.length}-"
+                                 f"byte memfd ring slot failed with "
+                                 f"cudaError {err}")
+
+    def ready(self) -> None:
+        """Block until the copy that last read this slot is done."""
+        if self.event is not None:
+            self.event.synchronize()
+            self.event = None
+
+    def close(self, dsess) -> None:
+        self.ready()
+        if self._ref is not None:
+            torch.cuda.cudart().cudaHostUnregister(ctypes.addressof(self._ref))
+            self._ref = None
+        self.host = None
+        dsess.unmap_buffer(self.handle)
+
+
+def run_daemon_load(socket_path: str, path: Union[str, Sequence[str]], *,
+                    device=None, tenant: Optional[str] = None,
+                    qos_class: Optional[str] = None, segments: int = 4,
+                    segment_size: int = 16 << 20, chunk: int = 1 << 20,
+                    loops: int = 1, drop_cache: bool = True,
+                    stripe_chunk: int = 512 << 10,
+                    mirror: Optional[str] = None) -> dict:
+    """Load the whole chunks of *path* into one preallocated tensor on
+    *device* (default ``cuda:0``) through the daemon at *socket_path*, as
+    tenant *tenant* (class *qos_class*).  The daemon DMAs each
+    *segment_size* segment into one of ``min(segments, 4)`` memfd ring
+    slots; this client copies a landed slot into the tensor on its copy
+    stream, and resubmits into the slot only after that copy's event.
+
+    Returns :func:`run_load`'s dict (``backend`` is ``"daemon"``,
+    ``counters`` the daemon's stats delta, ``depth`` the ring depth) plus
+    ``daemon`` (the daemon's scoreboard after the last loop)."""
+    from types import SimpleNamespace
+    from ..daemon import DaemonSession
+    dev = resolve_device(device)
+    paths = [path] if isinstance(path, str) else list(path)
+    striped = len(paths) > 1
+    seg = max(segment_size // chunk, 1) * chunk
+    per_seg = seg // chunk
+    with DaemonSession(socket_path, tenant=tenant,
+                       qos_class=qos_class) as dsess:
+        kw = {"stripe_chunk_size": stripe_chunk, "mirror": mirror} \
+            if striped else {}
+        dsrc = dsess.open_source(paths if striped else paths[0], **kw)
+        try:
+            n_chunks = dsrc.size // chunk
+            if n_chunks == 0:
+                raise StromError(_errno.EINVAL,
+                                 f"{path}: smaller than one chunk")
+            nbytes = n_chunks * chunk
+            n_segs = -(-n_chunks // per_seg)
+            out = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+            cuda = dev.type == "cuda"
+            copy = torch.cuda.Stream(device=dev) if cuda else None
+            slots = []
+            try:
+                for _ in range(max(1, min(segments, 4))):
+                    slots.append(_RingSlot(dsess, seg, dev))
+                before = dsess.stat_info()
+                best, order, wbc = None, [], 0
+                for _ in range(loops):
+                    if drop_cache:
+                        for p in paths:
+                            drop_page_cache(p)
+                    order, wbc, inflight = [], 0, []
+
+                    def retire():
+                        nonlocal wbc
+                        tid, slot, off, nb = inflight.pop(0)
+                        r = dsess.memcpy_wait(tid)
+                        order.extend(r.chunk_ids)
+                        wbc += r.nr_ram2dev
+                        if not cuda:
+                            out[off:off + nb].copy_(slot.host[:nb])
+                            return
+                        with torch.cuda.stream(copy):
+                            out[off:off + nb].copy_(slot.host[:nb],
+                                                    non_blocking=True)
+                            slot.event = torch.cuda.Event()
+                            slot.event.record(copy)
+
+                    t0 = time.monotonic()
+                    for s in range(n_segs):
+                        if len(inflight) >= len(slots):
+                            retire()
+                        slot = slots[s % len(slots)]
+                        slot.ready()        # never refill under a copy
+                        ids = list(range(s * per_seg,
+                                         min((s + 1) * per_seg, n_chunks)))
+                        r = dsess.memcpy_ssd2ram(dsrc, slot.handle, ids,
+                                                 chunk)
+                        inflight.append((r.dma_task_id, slot,
+                                         s * per_seg * chunk,
+                                         len(ids) * chunk))
+                    while inflight:
+                        retire()
+                    if cuda:
+                        copy.synchronize()
+                    dt = time.monotonic() - t0
+                    best = dt if best is None else min(best, dt)
+                after = dsess.stat_info()
+                board = dsess.daemon_stat()
+            finally:
+                for slot in slots:
+                    slot.close(dsess)
+        finally:
+            dsrc.close()
+    res = SimpleNamespace(chunk_ids=order, nr_ram2dev=wbc,
+                          nr_chunks=n_chunks)
+    return {"tensor": out, "nbytes": nbytes, "seconds": best,
+            "result": res, "depth": len(slots), "backend": "daemon",
+            "fixed": 0, "uring_errno": 0, "daemon": board,
+            "counters": {k: v - before.get(k, 0) for k, v in after.items()
+                         if isinstance(v, int)}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="ssd2gpu_test", description=__doc__,
@@ -194,6 +339,12 @@ def main(argv=None) -> int:
                     choices=("auto", "io_uring", "threadpool", "python"),
                     help="top rung of the engine ladder (default: config "
                          "io_backend)")
+    ap.add_argument("--daemon", metavar="SOCK", default=None,
+                    help="route the SSD leg through the stromd at SOCK "
+                         "(its DMA lands in shared memfd slots, the H2D "
+                         "copy stays here)")
+    ap.add_argument("--tenant", default=None,
+                    help="tenant name in --daemon mode (default pid<N>)")
     args = ap.parse_args(argv)
     if args.loops < 1:
         ap.error("--loops must be >= 1")
@@ -201,17 +352,32 @@ def main(argv=None) -> int:
         else args.device
     dev = resolve_device(device)
     files = args.file
-    out = run_load(files if len(files) > 1 else files[0], device=dev,
-                   segments=args.segments, segment_size=args.segment_size,
-                   chunk=args.chunk, loops=args.loops,
-                   drop_cache=not args.no_drop_cache, backend=args.backend,
-                   stripe_chunk=args.stripe_chunk, mirror=args.mirror)
+    spec = files if len(files) > 1 else files[0]
+    if args.daemon:
+        out = run_daemon_load(args.daemon, spec, device=dev,
+                              tenant=args.tenant, segments=args.segments,
+                              segment_size=args.segment_size,
+                              chunk=args.chunk, loops=args.loops,
+                              drop_cache=not args.no_drop_cache,
+                              stripe_chunk=args.stripe_chunk,
+                              mirror=args.mirror)
+    else:
+        out = run_load(spec, device=dev, segments=args.segments,
+                       segment_size=args.segment_size, chunk=args.chunk,
+                       loops=args.loops, drop_cache=not args.no_drop_cache,
+                       backend=args.backend, stripe_chunk=args.stripe_chunk,
+                       mirror=args.mirror)
     nbytes, secs, c = out["nbytes"], out["seconds"], out["counters"]
     label = files[0] if len(files) == 1 else \
         f"{len(files)}-way stripe ({args.stripe_chunk >> 10}KB chunks)"
-    print(f"file: {label} ({nbytes / (1 << 20):.1f} MB)  device: {dev}  "
-          f"engine: {out['backend']} ({out['fixed']} of {args.segments} "
-          f"staging buffers fixed)")
+    if args.daemon:
+        print(f"file: {label} ({nbytes / (1 << 20):.1f} MB)  device: {dev}  "
+              f"daemon: {args.daemon} ({out['depth']} memfd ring slots of "
+              f"{args.segment_size >> 20}MB)")
+    else:
+        print(f"file: {label} ({nbytes / (1 << 20):.1f} MB)  device: {dev}  "
+              f"engine: {out['backend']} ({out['fixed']} of "
+              f"{args.segments} staging buffers fixed)")
     print(f"transferred: {nbytes / 1e9:.3f} GB in {secs:.3f}s  => "
           f"{nbytes / secs / 1e9:.3f} GB/s")
     nsub = max(c.get("nr_submit_dma", 0), 1)

@@ -566,3 +566,117 @@ def test_checkpoint_sharded_second_axis(tmp_path):
     with pytest.raises(StromError) as e:
         RingSharding(two, spec=("dp", "dp"))
     assert e.value.errno == errno.EINVAL
+
+
+# -- the multi-process sharded save ---------------------------------------
+
+_SAVE_RANK = r"""
+import os, sys
+import numpy as np, torch
+from nvme_strom_tpu_torch.api import StromError
+from nvme_strom_tpu_torch.data import save_checkpoint_sharded
+from nvme_strom_tpu_torch.parallel import (RingSharding, ShardedTensor,
+                                           dist, make_scan_mesh)
+rank, port, path, bad = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                         sys.argv[4] == "1")
+dist.init_process_group(rank, 2, init_method=f"tcp://127.0.0.1:{port}",
+                        device_type="cpu")
+mesh = make_scan_mesh(["cpu"] * 2)
+w = np.arange(16 * 8, dtype=np.float32).reshape(16, 8) * 0.25
+u = np.arange(24, dtype=np.uint8).reshape(8, 3)
+spec = (None, "dp") if bad and rank == 1 else ("dp", None)
+wsh, ush = RingSharding(mesh, spec=spec), RingSharding(mesh)
+rsh = RingSharding(mesh, axis=None)
+def leaf(a, sh):
+    idx = sh.indices(a.shape)
+    return ShardedTensor([torch.from_numpy(a[idx[i]].copy())
+                          if mesh.is_local(i) else None
+                          for i in range(mesh.size)], sh)
+tree = {"w": leaf(w, wsh), "u": leaf(u, ush), "r": leaf(w[:3], rsh),
+        "step": np.int32(9), "plain": np.arange(5, dtype=np.int32)}
+try:
+    save_checkpoint_sharded(path, tree)
+    print("SAVED", flush=True)
+except StromError as e:
+    print("REFUSED", e.errno, e, flush=True)
+dist.shutdown()
+"""
+
+
+def _tree_multi():
+    w = np.arange(16 * 8, dtype=np.float32).reshape(16, 8) * 0.25
+    u = np.arange(24, dtype=np.uint8).reshape(8, 3)
+    return w, u, {"w": w, "u": u, "r": w[:3], "step": np.int32(9),
+                  "plain": np.arange(5, dtype=np.int32)}
+
+
+def _save_on_two_ranks(path, bad=False):
+    import socket
+    import subprocess
+    import sys
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _SAVE_RANK, str(r), str(port), path,
+         "1" if bad else "0"], cwd=repo, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=60)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert all(p.returncode == 0 for p in procs), outs
+    return outs
+
+
+def test_two_rank_sharded_save_is_the_one_process_and_jax_bytes(tmp_path):
+    """Two ranks, each writing its own members' rows of one file: the
+    bytes equal the single-process port's sharded save and the JAX
+    package's save_checkpoint_sharded of the same tree over 4 devices."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    path = str(tmp_path / "ranks.strom")
+    outs = _save_on_two_ranks(path)
+    assert all("SAVED" in o for o in outs), outs
+    w, u, plain_tree = _tree_multi()
+    mesh = make_scan_mesh(["cpu"] * 4)
+
+    def leaf(a, sh):
+        return ShardedTensor([torch.from_numpy(a[i].copy())
+                              for i in sh.indices(a.shape)], sh)
+    one = str(tmp_path / "one.strom")
+    save_checkpoint_sharded(one, {
+        "w": leaf(w, RingSharding(mesh, spec=("dp", None))),
+        "u": leaf(u, RingSharding(mesh)),
+        "r": leaf(w[:3], RingSharding(mesh, axis=None)),
+        "step": np.int32(9), "plain": np.arange(5, dtype=np.int32)})
+    jm = jax_mesh(jax.devices()[:4])
+
+    def jleaf(a, spec):
+        return jax.make_array_from_callback(
+            a.shape, NamedSharding(jm, spec), lambda i: a[i])
+    ref = str(tmp_path / "jax.strom")
+    jdata.save_checkpoint_sharded(ref, {
+        "w": jleaf(w, P("dp", None)), "u": jleaf(u, P("dp")),
+        "r": jleaf(w[:3], P()), "step": np.int32(9),
+        "plain": np.arange(5, dtype=np.int32)})
+    got = open(path, "rb").read()
+    assert got == open(one, "rb").read() == open(ref, "rb").read()
+    back = restore_checkpoint(path, device="cpu")
+    for k, v in plain_tree.items():
+        np.testing.assert_array_equal(back[f"['{k}']"].numpy(), v)
+    assert not [p for p in os.listdir(tmp_path) if "shared_tmp" in p]
+
+
+def test_bad_layout_on_one_rank_refuses_on_both(tmp_path):
+    """Rank 1 splits a leaf's second axis: both ranks refuse with EINVAL
+    before anything is written — neither the file nor its temp exists."""
+    path = str(tmp_path / "bad.strom")
+    outs = _save_on_two_ranks(path, bad=True)
+    for o in outs:
+        assert f"REFUSED {errno.EINVAL}" in o, outs
+        assert "leading-axis" in o, outs
+    assert os.listdir(tmp_path) == []

@@ -54,7 +54,10 @@ _SCRIPT = textwrap.dedent("""
                 "serving.weights", "serving.kvcache",
                 "testing.coldstart_gate", "parallel.dscan",
                 "parallel.exchange", "parallel.sort", "parallel.pjoin",
-                "testing.multichip_gate"):
+                "testing.multichip_gate", "parallel.dist",
+                "daemon.protocol", "daemon.client", "daemon.server",
+                "testing.distributed", "testing.qos_gate",
+                "tools.strom_daemon"):
         assert pkg.__name__ + "." + mod in names, mod
     import chip_smoke  # noqa: F401
     leaked = [m for m in sys.modules

@@ -893,3 +893,17 @@ def test_scrub_gate_kv_leg_on_the_cpu(tmp_path):
     import torch
 
     scrub_gate._leg_kv_mirror_heal(str(tmp_path), torch.device("cpu"))
+
+
+def test_scrub_gate_kv_leg_beside_another_session(tmp_path):
+    """The KV leg with a second live Session in the process: that
+    Session's scrubber must leave the pool alone (its debits would land on
+    its own members), so the pool's Session still heals both rotten
+    blocks and quarantines its member 0."""
+    import torch
+
+    other = teng.Session(device="cpu")
+    try:
+        scrub_gate._leg_kv_mirror_heal(str(tmp_path), torch.device("cpu"))
+    finally:
+        other.close()
