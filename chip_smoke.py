@@ -371,7 +371,8 @@ version:
        int32 value) build table above ``join_broadcast_max``, over every
        mesh: the aggregate face equal to the local Grace join and numpy,
        a limited row face checked row by row;
-    d. ``build_index`` over every mesh, one column and a pair: each
+    d. ``build_index`` over every ring (an ``(sp, dp)`` mesh's build is
+       its ring's: the sort flattens it), one column and a pair: each
        sidecar byte-identical to the local build's;
     e. a GPT-2 medium ``state_dict`` restored over every mesh, by the
        leading axis and by the second: ``("dp", "sp")`` on an ``(sp,
@@ -384,8 +385,8 @@ version:
        times the latency that fixed cost makes the 0.6 limit need (at
        least ``MULTICHIP_GATE_COLD_LATENCY_MS``); B4 in its gathers and
        handshakes.
-    The build table, the sidecars and the checkpoint are deleted when the
-    phase ends.
+    The checkpoint and the mesh sidecars are deleted when the phase ends;
+    the build table and column 0's local sidecar stay for [25a].
 25. ranks and the shared serving daemon (after [24], on [5]'s table and
     [4]'s file), the card's name and power limit beside every number:
     a. ``testing/distributed.launch(2, 2)``: two ranks over ``gloo``,
@@ -393,8 +394,18 @@ version:
        place of the fixtures' heap for ``scan_step`` and ``stream_fold``
        (count and both sums equal to numpy on both ranks); B1 counted in
        each rank and held against its plain version on one member batch;
-       where several cards are visible, again with a card a rank over
-       ``nccl``;
+       then every ``Query`` face over the two ranks' mesh: [24b]'s sort
+       faces, [24c]'s partitioned join (its 16M-key build table),
+       ``select`` (whole, a window and a head), ``top_k``, a GROUP BY key
+       (B3 on the members, held against its plain version on a member
+       batch) and the ``where_eq`` faces (seqscan over the mesh, and the
+       index face on [24d]'s sidecar) on [5]'s table with ``c0 > 900``,
+       each held on both ranks against numpy and the one process's run,
+       timed beside it, with each rank's engine bytes; the broadcast
+       joins, the star join, ``build_index``, the sorted spill and SQL on
+       the harness's own fixture; B1 and B3 launches a rank, both
+       non-zero; where several cards are visible, all again with a card a
+       rank over ``nccl``;
     b. ``tools/strom_daemon.py`` as its own process: ``ssd2gpu_test
        --daemon -c`` lands [4]'s file into a CUDA tensor through the
        daemon's memfd ring, byte-exact, GB/s beside [4]'s; a
@@ -412,6 +423,7 @@ kernel table.
 
 Usage: python3 chip_smoke.py [--load-gib G] [--scan-pages N] [--seed S]
        python3 chip_smoke.py --cross-card   # only the cross-card leg
+       python3 chip_smoke.py --ranks        # only [25a] (nccl on 2+ cards)
 """
 
 from __future__ import annotations
@@ -2947,8 +2959,14 @@ def _join_phase(torch, dev, tmp, seed, path, schema, cols, nulls):
         check_sums(label, res, emit)
         keys = {"inner": {"payload_sum"}, "left": {"payload_sum",
                                                    "null_count"}}
-        if set(res) != {"matched", "sums"} | keys.get(how, set()):
+        # a nullable fact column: each column's non-NULL count rides too
+        if set(res) != {"matched", "sums", "nncounts"} | keys.get(how,
+                                                                set()):
             fail(label, f"result keys {sorted(res)}")
+        if [int(x) for x in res["nncounts"]] != [
+                int((emit & ~nulls[c]).sum()) if c in nulls
+                else int(emit.sum()) for c in range(len(res["sums"]))]:
+            fail(label, f"nncounts {[int(x) for x in res['nncounts']]}")
         if "payload_sum" in res and not _f_close(
                 res["payload_sum"], pay[sel & hit], TRUTH_REL):
             fail(label, f"payload_sum {float(res['payload_sum'])}")
@@ -6935,6 +6953,14 @@ def _serving_phase(torch, dev, tmp, seed, card=None, *, gpt2=None, n_seq=5,
 MESH_TH = 900
 #: [24c]'s build side: 16M unique int32 keys, above join_broadcast_max
 MESH_BUILD_ROWS = 1 << 24
+#: [24b]'s sort faces (each after ``where c0 > MESH_TH``)
+MESH_SORT_FACES = {
+    "order_by": lambda q: q.order_by(1),
+    "order_by desc limit 1000 offset 500":
+        lambda q: q.order_by(1, descending=True, limit=1000, offset=500),
+    "quantiles": lambda q: q.quantiles(1, [0.0, 0.25, 0.5, 0.99, 1.0]),
+    "count_distinct": lambda q: q.count_distinct(0),
+}
 #: [24b]'s float table: 1024 pages of one float32 column (2.1M rows, far
 #: above the card's small-sort cutoff), a sixth of them NaN of either sign
 NAN_PAGES = 1024
@@ -7110,8 +7136,10 @@ def _nan_order_cases(torch, dev, tmp, seed, card, meshes, fail):
 def _multidevice_phase(torch, dev, tmp, seed, card, heap, n_pages):
     """Phase 24: the multi-device layer (see the module docstring) on
     *heap* = ``(path, schema)``, [5]'s table of *n_pages* pages.  Returns
-    ``(b1, b4)``: the B1 launches of [24a]'s scans and the B4 launches of
-    [24f]'s gate."""
+    ``(b1, b4, one)``: the B1 launches of [24a]'s scans, the B4 launches of
+    [24f]'s gate, and ``one`` (:func:`_one_process_refs`), the one
+    process's runs that [24b]-[24d] and then [25a] are held against; the
+    caller unlinks its build table and sidecar."""
     from collections import OrderedDict
 
     from nvme_strom_tpu_torch.config import config
@@ -7123,8 +7151,7 @@ def _multidevice_phase(torch, dev, tmp, seed, card, heap, n_pages):
     from nvme_strom_tpu_torch.parallel import (distributed_scan_filter,
                                                make_distributed_scan_step,
                                                make_scan_mesh)
-    from nvme_strom_tpu_torch.scan.heap import (PAGE_SIZE, HeapSchema,
-                                                build_heap_file)
+    from nvme_strom_tpu_torch.scan.heap import PAGE_SIZE
     from nvme_strom_tpu_torch.scan.index import build_index
     from nvme_strom_tpu_torch.scan.query import Query
     from nvme_strom_tpu_torch.testing import multichip_gate
@@ -7202,27 +7229,21 @@ def _multidevice_phase(torch, dev, tmp, seed, card, heap, n_pages):
           f"count and sums bit-exact")
 
     # -- b. the mesh sort faces ------------------------------------------
+    # the one process's runs of [24b]-[24d] first: [25a] holds its ranks
+    # against them too
+    one = _one_process_refs(torch, dev, tmp, seed, heap)
     pred = FilterPred(((0, "gt", MESH_TH),))
     sel = v & (c0 > MESH_TH)
     svals = np.sort(c1[sel], kind="stable")
     c0s = c0[sel]
-    faces = {
-        "order_by": lambda q: q.order_by(1),
-        "order_by desc limit 1000 offset 500":
-            lambda q: q.order_by(1, descending=True, limit=1000, offset=500),
-        "quantiles": lambda q: q.quantiles(1, [0.0, 0.25, 0.5, 0.99, 1.0]),
-        "count_distinct": lambda q: q.count_distinct(0),
-    }
     n_sel = len(svals)
     ranks = [min(n_sel - 1, max(0, int(np.ceil(q * n_sel)) - 1))
              for q in (0.0, 0.25, 0.5, 0.99, 1.0)]
     truth = {"order_by": svals, "order_by desc limit 1000 offset 500":
              svals[::-1][500:1500], "quantiles": svals[ranks],
              "count_distinct": len(np.unique(c0s))}
-    for name, face in faces.items():
-        t0 = time.monotonic()
-        local = face(Query(heap_path, schema).where(pred)).run(device=dev)
-        local_s = time.monotonic() - t0
+    for name, face in MESH_SORT_FACES.items():
+        local, local_s = one["faces"][name]
         for label, mesh in meshes:
             q = face(Query(heap_path, schema).where(pred))
             plan = q.explain(mesh=mesh)
@@ -7262,13 +7283,7 @@ def _multidevice_phase(torch, dev, tmp, seed, card, heap, n_pages):
     _nan_order_cases(torch, dev, tmp, seed, card, meshes, fail)
 
     # -- c. the mesh partitioned join --------------------------------------
-    bschema = HeapSchema(n_cols=2, visibility=False)
-    bpath = os.path.join(tmp, "mesh_build.heap")
-    rng = np.random.default_rng(seed + 24)
-    bkeys = rng.permutation(np.arange(-(MESH_BUILD_ROWS // 2),
-                                      MESH_BUILD_ROWS // 2, dtype=np.int32))
-    build_heap_file(bpath, [bkeys, bkeys * 3], bschema)
-    del bkeys
+    bpath, bschema = one["build"]
     bbytes = os.path.getsize(bpath)
     if bbytes <= int(config.get("join_broadcast_max")):
         fail("c", f"the build table ({bbytes} bytes) is not above "
@@ -7282,9 +7297,7 @@ def _multidevice_phase(torch, dev, tmp, seed, card, heap, n_pages):
         return Query(heap_path, schema).where(pred).join_table(
             0, bpath, bschema, 0, 1, **kw)
 
-    t0 = time.monotonic()
-    local = jq().run(device=dev)
-    local_s = time.monotonic() - t0
+    local, local_s = one["join"]
     for label, mesh in meshes:
         plan = jq().explain(mesh=mesh)
         if not (plan.join_strategy or "").startswith("partitioned") or \
@@ -7320,17 +7333,21 @@ def _multidevice_phase(torch, dev, tmp, seed, card, heap, n_pages):
     lrows = jq(materialize=True, limit=limit, offset=10).run(device=dev)
     if int(lrows["count"]) != limit or not sel[lrows["positions"]].all():
         fail("c", "the local limited row face disagrees with numpy")
-    os.unlink(bpath)
     del sel
 
     # -- d. build_index over the mesh --------------------------------------
     for col in (0, (0, 1)):
-        lp = os.path.join(tmp, "local.idx")
         mp = os.path.join(tmp, "mesh.idx")
-        t0 = time.monotonic()
-        build_index(heap_path, schema, col, index_path=lp, device=dev)
-        l_s = time.monotonic() - t0
-        for label, mesh in meshes:
+        if col == 0:    # the one process's, left for [25a]'s index face
+            lp, l_s = one["sidecar"], one["sidecar_s"]
+        else:
+            lp = os.path.join(tmp, "local.idx")
+            t0 = time.monotonic()
+            build_index(heap_path, schema, col, index_path=lp, device=dev)
+            l_s = time.monotonic() - t0
+        # the rings only: the sort flattens an (sp, dp) mesh to its
+        # members, so the grid's build is the ring's, step for step
+        for label, mesh in [(lb, m) for lb, m in meshes if m.sp == 1]:
             t0 = time.monotonic()
             build_index(heap_path, schema, col, index_path=mp, mesh=mesh)
             m_s = time.monotonic() - t0
@@ -7343,7 +7360,8 @@ def _multidevice_phase(torch, dev, tmp, seed, card, heap, n_pages):
                   f"{os.path.getsize(mp)} bytes byte-identical to the local "
                   f"build's ({card})")
             os.unlink(mp)
-        os.unlink(lp)
+        if col != 0:
+            os.unlink(lp)
     del c0, c1, v
 
     # -- e. the second-axis restore ----------------------------------------
@@ -7408,7 +7426,7 @@ def _multidevice_phase(torch, dev, tmp, seed, card, heap, n_pages):
           f"rounds: passed in "
           f"{time.monotonic() - t0:.1f} s, B4 {b4} launches ({card})")
     print(f"    [24] took {time.monotonic() - t_phase:.1f} s")
-    return b1, b4
+    return b1, b4, one
 
 
 #: [25b]: the shared KV pool's blocks (64 KiB): 32 pinned in the daemon's
@@ -7417,20 +7435,25 @@ DAEMON_KV_BLOCKS = 96
 DAEMON_KV_HBM_BLOCKS = 32
 #: [25a]: the ranks' batch over [5]'s table (64 MiB, 16 batches)
 RANKS_BATCH_PAGES = 8192
+#: [25a]: the Query faces the ranks run on [5]'s table (the harness runs
+#: its other query checks on its own fixture)
+RANKS_QUERY_FACES = ("q_select", "q_order_by", "q_quantiles",
+                     "q_count_distinct", "q_top_k", "q_group_by",
+                     "q_pjoin_query", "q_where_eq")
 
 
-def _ranks_daemon_phase(torch, dev, tmp, seed, card, scan, load):
+def _ranks_daemon_phase(torch, dev, tmp, seed, card, scan, load, one):
     """Phase 25: ranks over ``torch.distributed`` and the shared serving
     daemon (see the module docstring).  *scan* = ``(path, schema,
     threshold, n_pages)``, [5]'s table; *load* = ``(path, nbytes, gbs)``,
-    [4]'s file and its in-process load's GB/s.  Returns the B1 launches
-    the ranks counted."""
+    [4]'s file and its in-process load's GB/s; *one* = [24]'s one-process
+    results (:func:`_multidevice_phase`).  Returns ``(b1, b3)``, the B1
+    and B3 launches the ranks counted."""
     import threading
 
     from nvme_strom_tpu_torch.daemon import DaemonSession
     from nvme_strom_tpu_torch.stats import hist_percentiles
     from nvme_strom_tpu_torch.testing import qos_gate
-    from nvme_strom_tpu_torch.testing.distributed import CHECKS, launch
     from nvme_strom_tpu_torch.tools.common import first_mismatch
     from nvme_strom_tpu_torch.tools.ssd2gpu_test import (main as ssd2gpu,
                                                          run_daemon_load)
@@ -7438,62 +7461,13 @@ def _ranks_daemon_phase(torch, dev, tmp, seed, card, scan, load):
     def fail(leg, msg):
         raise AssertionError(f"[25{leg}] {msg}")
 
-    cuda = dev.type == "cuda"
     card = card or str(dev)
     t_phase = time.monotonic()
-    heap_path, schema, th, n_pages = scan
     load_path, load_bytes, load_gbs = load
     said = []
 
     # -- a. two ranks over the process group --------------------------------
-    _s, c0, c1, vis = _scan_columns(seed, n_pages)
-    sel = (vis != 0) & (c0 > th)
-    table = {"path": heap_path, "n_cols": schema.n_cols,
-             "dtypes": None if schema.dtypes is None else list(schema.dtypes),
-             "visibility": schema.visibility, "threshold": th,
-             "count": int(sel.sum()),
-             "sums": [_int32_sum(c0[sel]), _int32_sum(c1[sel])],
-             "batch_pages": min(RANKS_BATCH_PAGES, n_pages)}
-    del c0, c1, vis, sel
-    runs = [("each rank 2 x cuda:0" if cuda else "each rank 2 x cpu",
-             "gloo")]
-    if cuda and torch.cuda.device_count() >= 2:
-        runs.append(("rank r 2 x cuda:r", "nccl"))
-    b1 = 0
-    for label, backend in runs:
-        t0 = time.monotonic()
-        res = launch(2, 2, os.path.join(tmp, f"ranks_{backend}"),
-                     timeout=300.0, device=dev.type, backend=backend,
-                     table=table)
-        dt = time.monotonic() - t0
-        per_rank = []
-        for r in res:
-            if set(r["checks"]) != set(CHECKS) or r["backend"] != backend:
-                fail("a", f"rank {r['process_id']}: {r}")
-            n = r["b1_launches"]["scan_step"] + r["b1_launches"][
-                "stream_fold"]
-            if cuda and (r["b1_launches"]["scan_step"] == 0
-                         or r["b1_launches"]["stream_fold"] == 0):
-                fail("a", f"rank {r['process_id']} launched no B1: "
-                          f"{r['b1_launches']}")
-            if cuda and r.get("b1_vs_plain_max_abs_err") != 0:
-                fail("a", f"B1 against its plain version: "
-                          f"{r.get('b1_vs_plain_max_abs_err')}")
-            per_rank.append(n)
-        b1 += sum(per_rank)
-        rows = [r["checks"]["pjoin_rows"] for r in res]
-        if sum(rows) != res[0]["checks"]["pjoin"]:
-            fail("a", f"join rows {rows} do not add up to "
-                      f"{res[0]['checks']['pjoin']}")
-        print(f"[25a] launch(2, 2) over {backend}, {label}: the nine checks "
-              f"exact on both ranks in {dt:.1f} s (spawn, import and group "
-              f"set-up included); [5]'s table through scan_step and "
-              f"stream_fold: count {table['count']} and sums "
-              f"{table['sums']} on both ranks; B1 launches a rank "
-              f"{per_rank} ({[r['b1_launches'] for r in res]}), B1 against "
-              f"its plain version on a member batch: max |err| "
-              f"{res[0].get('b1_vs_plain_max_abs_err', 'n/a')}; join rows "
-              f"{rows[0]} + {rows[1]} = {sum(rows)} ({card})")
+    b1, b3 = _ranks_leg(torch, dev, tmp, seed, card, scan, one, fail)
 
     # -- b. the daemon as its own process -------------------------------------
     sock = os.path.join(tmp, "stromd.sock")
@@ -7644,7 +7618,270 @@ def _ranks_daemon_phase(torch, dev, tmp, seed, card, scan, load):
           f"{time.monotonic() - t0:.1f} s ({card})")
     shutil.rmtree(gate_dir, ignore_errors=True)
     print(f"    [25] took {time.monotonic() - t_phase:.1f} s")
-    return b1
+    return b1, b3
+
+
+def _one_process_refs(torch, dev, tmp, seed, heap):
+    """The one process's runs that [24] and [25a] hold the mesh and the
+    ranks against, on *heap* = ``(path, schema)``: [24b]'s sort faces,
+    [24c]'s join against its build table (written here) and column 0's
+    sidecar (at its default path), each timed.  Both files stay on disk
+    (the caller unlinks them)."""
+    from nvme_strom_tpu_torch.ops.filter import FilterPred
+    from nvme_strom_tpu_torch.scan.heap import HeapSchema, build_heap_file
+    from nvme_strom_tpu_torch.scan.index import build_index
+    from nvme_strom_tpu_torch.scan.query import Query
+
+    heap_path, schema = heap
+    pred = FilterPred(((0, "gt", MESH_TH),))
+    one = {"faces": {}}
+    for name, face in MESH_SORT_FACES.items():
+        t0 = time.monotonic()
+        out = face(Query(heap_path, schema).where(pred)).run(device=dev)
+        one["faces"][name] = (out, time.monotonic() - t0)
+    bschema = HeapSchema(n_cols=2, visibility=False)
+    bpath = os.path.join(tmp, "mesh_build.heap")
+    rng = np.random.default_rng(seed + 24)
+    bkeys = rng.permutation(np.arange(-(MESH_BUILD_ROWS // 2),
+                                      MESH_BUILD_ROWS // 2, dtype=np.int32))
+    build_heap_file(bpath, [bkeys, bkeys * 3], bschema)
+    del bkeys
+    t0 = time.monotonic()
+    out = Query(heap_path, schema).where(pred).join_table(
+        0, bpath, bschema, 0, 1).run(device=dev)
+    one["join"] = (out, time.monotonic() - t0)
+    one["build"] = (bpath, bschema)
+    t0 = time.monotonic()
+    one["sidecar"] = build_index(heap_path, schema, 0, device=dev)
+    one["sidecar_s"] = time.monotonic() - t0
+    return one
+
+
+def _ranks_leg(torch, dev, tmp, seed, card, scan, one, fail):
+    """[25a]: ``launch(2, 2)`` over ``gloo`` (each rank 2 x *dev*), and
+    over ``nccl`` with a card a rank where two cards are visible: the
+    nine checks with [5]'s table (*scan*) in ``scan_step`` and
+    ``stream_fold``, then the Query faces (:func:`_ranks_query_faces`)
+    held against *one*, [24]'s one-process results.  Returns the ranks'
+    ``(b1, b3)`` launches."""
+    from nvme_strom_tpu_torch.testing.distributed import CHECKS, launch
+
+    cuda = dev.type == "cuda"
+    heap_path, schema, th, n_pages = scan
+    _s, c0, c1, vis = _scan_columns(seed, n_pages)
+    sel = (vis != 0) & (c0 > th)
+    table = {"path": heap_path, "n_cols": schema.n_cols,
+             "dtypes": None if schema.dtypes is None else list(schema.dtypes),
+             "visibility": schema.visibility, "threshold": th,
+             "count": int(sel.sum()),
+             "sums": [_int32_sum(c0[sel]), _int32_sum(c1[sel])],
+             "batch_pages": min(RANKS_BATCH_PAGES, n_pages),
+             "query_faces": list(RANKS_QUERY_FACES),
+             "query_threshold": MESH_TH,
+             "join_build": {"path": one["build"][0], "n_cols": 2,
+                            "dtypes": None}}
+    del sel
+    runs = [("each rank 2 x cuda:0" if cuda else "each rank 2 x cpu",
+             "gloo")]
+    if cuda and torch.cuda.device_count() >= 2:
+        runs.append(("rank r 2 x cuda:r", "nccl"))
+    b1 = b3 = 0
+    for label, backend in runs:
+        t0 = time.monotonic()
+        work = os.path.join(tmp, f"ranks_{backend}")
+        res = launch(2, 2, work, timeout=600.0, device=dev.type,
+                     backend=backend, table=table)
+        dt = time.monotonic() - t0
+        per_rank = []
+        for r in res:
+            if set(r["checks"]) != set(CHECKS) or r["backend"] != backend:
+                fail("a", f"rank {r['process_id']}: {r}")
+            n = r["b1_launches"]["scan_step"] + r["b1_launches"][
+                "stream_fold"]
+            if cuda and (r["b1_launches"]["scan_step"] == 0
+                         or r["b1_launches"]["stream_fold"] == 0):
+                fail("a", f"rank {r['process_id']} launched no B1: "
+                          f"{r['b1_launches']}")
+            if cuda and r.get("b1_vs_plain_max_abs_err") != 0:
+                fail("a", f"B1 against its plain version: "
+                          f"{r.get('b1_vs_plain_max_abs_err')}")
+            per_rank.append(n)
+        b1 += sum(per_rank)
+        rows = [r["checks"]["pjoin_rows"] for r in res]
+        if sum(rows) != res[0]["checks"]["pjoin"]:
+            fail("a", f"join rows {rows} do not add up to "
+                      f"{res[0]['checks']['pjoin']}")
+        print(f"[25a] launch(2, 2) over {backend}, {label}: every check "
+              f"exact on both ranks in {dt:.1f} s (spawn, import and group "
+              f"set-up included); [5]'s table through scan_step and "
+              f"stream_fold: count {table['count']} and sums "
+              f"{table['sums']} on both ranks; B1 launches a rank "
+              f"{per_rank} ({[r['b1_launches'] for r in res]}), B1 against "
+              f"its plain version on a member batch: max |err| "
+              f"{res[0].get('b1_vs_plain_max_abs_err', 'n/a')}; join rows "
+              f"{rows[0]} + {rows[1]} = {sum(rows)} ({card})")
+        q1, q3 = _ranks_query_faces(
+            torch, dev, res, work, (heap_path, schema, c0, c1, vis), one,
+            label, backend, card, fail)
+        b1 += q1
+        b3 += q3
+        shutil.rmtree(work, ignore_errors=True)
+    del c0, c1, vis
+
+    return b1, b3
+
+
+def _ranks_query_faces(torch, dev, res, work, heap, one, label, backend,
+                       card, fail):
+    """[25a]'s Query faces over the two ranks: each face the ranks ran on
+    [5]'s table held on both ranks against numpy and against the one
+    process's run ([24]'s where it ran the face, else run here), with its
+    wall time over the ranks beside the one process's and each rank's
+    engine bytes; the B1 and B3 launches a rank (both non-zero on the
+    card, those of the checks on the harness's own fixture included) and
+    B3 against its plain version on a member batch.  Returns the ranks'
+    ``(b1, b3)`` launches of the query checks."""
+    from nvme_strom_tpu_torch.ops.filter import FilterPred
+    from nvme_strom_tpu_torch.ops.groupby import GroupKey
+    from nvme_strom_tpu_torch.scan.query import Query
+    from nvme_strom_tpu_torch.testing.distributed import QUERY_CHECKS
+
+    heap_path, schema, c0, c1, vis = heap
+    table_bytes = os.path.getsize(heap_path)
+    v = vis != 0
+    selm = v & (c0 > MESH_TH)
+    pos = np.flatnonzero(selm)
+    pred = FilterPred(((0, "gt", MESH_TH),))
+    outs = [dict(np.load(os.path.join(work, f"out_{r}.npz")))
+            for r in range(len(res))]
+
+    def face_out(out, name):
+        pre = name + "__"
+        return {k[len(pre):]: v for k, v in out.items() if k.startswith(pre)}
+
+    def eq(a, b):
+        return np.array_equal(np.asarray(a).astype(np.int64),
+                              np.asarray(b).astype(np.int64))
+
+    def local(build):
+        t0 = time.monotonic()
+        out = build(Query(heap_path, schema).where(pred)).run(device=dev)
+        return out, time.monotonic() - t0
+
+    svals = np.sort(c1[selm], kind="stable")
+    n_sel = len(svals)
+    qranks = [min(n_sel - 1, max(0, int(np.ceil(q * n_sel)) - 1))
+              for q in (0.0, 0.25, 0.5, 0.99, 1.0)]
+    faces24 = one["faces"]
+    mins = np.flatnonzero(selm & (c0 == c0[selm].min()))
+    top = svals[::-1][:10]
+    g = (c1[selm] % 16).astype(np.int64)
+    eq7 = np.flatnonzero(v & (c0 == 7))
+    jagg, join_s = one["join"]
+
+    def held(name, o):
+        """(ok, the one process's time and where it ran)."""
+        if name == "q_select":
+            lo, ls = local(lambda q: q.select(limit=700, offset=1000))
+            return (eq(o["all_positions"], pos)
+                    and eq(o["all_col0"], c0[pos])
+                    and eq(o["all_col1"], c1[pos])
+                    and eq(o["win_positions"], pos[1000:1700])
+                    and eq(o["win_positions"], lo["positions"])
+                    and eq(o["head_col1"], c1[pos][7:57])), ls, "here"
+        if name == "q_order_by":
+            a, a_s = faces24["order_by"]
+            d, d_s = faces24["order_by desc limit 1000 offset 500"]
+            return (eq(o["asc_values"], svals)
+                    and eq(o["asc_positions"], a["positions"])
+                    and eq(o["desc_values"], svals[::-1][500:1500])
+                    and eq(o["desc_positions"], d["positions"])
+                    and int(o["asc_n_dropped"]) == 0), a_s + d_s, "[24b]"
+        if name == "q_quantiles":
+            lq, l_s = faces24["quantiles"]
+            return (eq(o["q_quantiles"], svals[qranks])
+                    and eq(o["q_quantiles"], lq["quantiles"])), l_s, "[24b]"
+        if name == "q_count_distinct":
+            lc, l_s = faces24["count_distinct"]
+            return (int(o["d0_distinct"]) == len(np.unique(c0[selm]))
+                    == int(lc["distinct"])
+                    and int(o["d1_distinct"]) == len(np.unique(c1[selm]))
+                    ), l_s, "[24b] (column 0)"
+        if name == "q_top_k":
+            lt, ls = local(lambda q: q.top_k(1, 10))
+            return (eq(o["max_values"], top)
+                    and eq(c1[o["max_positions"]], top)
+                    and eq(o["max_positions"], lt["positions"])
+                    and eq(o["min_positions"], mins[:5])
+                    and eq(o["min_values"], c0[mins[:5]])), ls, "here"
+        if name == "q_group_by":
+            lg, ls = local(lambda q: q.group_by(GroupKey(1, mod=16), 16,
+                                                agg_cols=[0]))
+            want = [_int32_sum(c0[selm][g == k]) for k in range(16)]
+            return (eq(o["g_count"], np.bincount(g, minlength=16))
+                    and eq(o["g_sums"].reshape(-1), want)
+                    and eq(o["g_count"], lg["count"])
+                    and eq(o["g_sums"], lg["sums"])), ls, "here"
+        if name == "q_pjoin_query":
+            rp = o["rows_positions"]
+            return (int(o["agg_matched"]) == len(pos) == int(jagg["matched"])
+                    and int(o["agg_sums1"]) == _int32_sum(c1[selm])
+                    == int(jagg["sums"][1])
+                    and int(o["agg_payload_sum"])
+                    == _int32_sum(c0[selm].astype(np.int64) * 3)
+                    == int(jagg["payload_sum"])
+                    and len(rp) == 400 and selm[rp].all()
+                    and len(np.unique(rp)) == 400
+                    and eq(o["rows_keys"], c0[rp])
+                    and eq(o["rows_payload"], c0[rp] * 3)), join_s, "[24c]"
+        if name == "q_where_eq":
+            le, ls = local(lambda q: Query(heap_path, schema).where_eq(0, 7)
+                           .aggregate())
+            ok = all(int(o[f"{t}_count"]) == len(eq7) == int(le["count"])
+                     and int(o[f"{t}_sums1"]) == _int32_sum(c1[eq7])
+                     for t in ("eq_agg", "sidecar_mesh", "index"))
+            return (ok and eq(o["eq_rows_positions"], eq7)
+                    and 0 < int(o["index_dma"]) < table_bytes), ls, "here"
+        raise KeyError(name)
+
+    for name in RANKS_QUERY_FACES:
+        got = [face_out(out, name) for out in outs]
+        timing = None
+        for r, o in enumerate(got):
+            ok, local_s, where = held(name, o)
+            if not ok:
+                fail("a", f"{name} over ranks ({backend}): rank {r}'s "
+                          f"result disagrees with numpy or the one process")
+            timing = (local_s, where)
+        dma = [x["dma"][name] for x in res]
+        if name in ("q_quantiles", "q_group_by") and \
+                any(d != table_bytes // 2 for d in dma):
+            fail("a", f"{name}: bytes read a rank {dma}, not half of "
+                      f"{table_bytes}")
+        secs = [x["q_seconds"][name] for x in res]
+        print(f"[25a] {name} over 2 ranks ({backend}, {label}): "
+              f"{max(secs):.3f} s (one process {timing[0]:.3f} s, "
+              f"{timing[1]}); bytes read a rank {dma[0]} / {dma[1]} of "
+              f"{table_bytes}; equal to numpy and the one process on both "
+              f"ranks ({card})")
+    on_fixture = [n for n in QUERY_CHECKS if n not in RANKS_QUERY_FACES]
+    print(f"[25a] the harness's fixture over 2 ranks ({backend}): "
+          f"{', '.join(on_fixture)} equal on both ranks in "
+          f"{sum(res[0]['q_seconds'][n] for n in on_fixture):.3f} s")
+    q1 = [sum(x["b1_launches"][n] for n in QUERY_CHECKS) for x in res]
+    q3 = [sum(x["b3_launches"][n] for n in QUERY_CHECKS) for x in res]
+    if dev.type == "cuda":
+        if min(q1) == 0 or min(q3) == 0:
+            fail("a", f"B1 / B3 launches a rank {q1} / {q3}: a kernel "
+                      f"did not run in a rank")
+        if any(x.get("b3_vs_plain_max_abs_err") != 0 for x in res):
+            fail("a", f"B3 against its plain version: "
+                      f"{[x.get('b3_vs_plain_max_abs_err') for x in res]}")
+    print(f"    the query faces' launches a rank: B1 {q1}, B3 {q3} "
+          f"({[x['b3_launches'] for x in res][0]}); B3 against its plain "
+          f"version on a member batch: max |err| "
+          f"{res[0].get('b3_vs_plain_max_abs_err', 'n/a')}")
+    return sum(q1), sum(q3)
 
 
 def _slots_in_order(torch, out):
@@ -7666,6 +7903,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cross-card", action="store_true",
                     help="run only the cross-card leg (needs two cards)")
+    ap.add_argument("--ranks", action="store_true",
+                    help="run only [25a], the two-rank legs, on [5]'s "
+                         "table (over nccl too where two cards are "
+                         "visible)")
     args = ap.parse_args()
     if args.load_gib < 1.0 or args.scan_pages < 131072:
         ap.error("the load is at least 1 GiB and the scan 131072 pages")
@@ -7719,6 +7960,27 @@ def main() -> int:
         tmp = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
             _cross_card_leg(torch, tmp, args.seed)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(f"    total {time.monotonic() - t_start:.1f} s")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if args.ranks:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            heap_path = os.path.join(tmp, "scan.heap")
+            schema = _scan_table(heap_path, args.seed, args.scan_pages)[0]
+            one = _one_process_refs(torch, dev, tmp, args.seed,
+                                    (heap_path, schema))
+
+            def fail(leg, msg):
+                raise AssertionError(f"[25{leg}] {msg}")
+            t25 = time.monotonic()
+            _ranks_leg(torch, dev, tmp, args.seed, card,
+                       (heap_path, schema, 100, args.scan_pages), one, fail)
+            print(f"    [25a] took {time.monotonic() - t25:.1f} s")
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         print(f"    total {time.monotonic() - t_start:.1f} s")
@@ -8095,18 +8357,20 @@ def main() -> int:
         ring_launches += _serving_phase(torch, dev, tmp, args.seed, card)
 
         # -- the multi-device layer: dscan, mesh sorts, joins, index, gate --
-        md_b1, md_b4 = _multidevice_phase(torch, dev, tmp, args.seed, card,
-                                          (heap_path, schema),
-                                          args.scan_pages)
+        md_b1, md_b4, one = _multidevice_phase(
+            torch, dev, tmp, args.seed, card, (heap_path, schema),
+            args.scan_pages)
         main_launches += md_b1
         ring_launches += md_b4
 
         # -- ranks over torch.distributed, the shared serving daemon --------
-        main_launches += _ranks_daemon_phase(
+        r_b1, r_b3 = _ranks_daemon_phase(
             torch, dev, tmp, args.seed, card,
             (heap_path, schema, th, args.scan_pages),
-            (load_path, load_bytes, load_gbs))
-        for f in (heap_path, load_path):
+            (load_path, load_bytes, load_gbs), one)
+        main_launches += r_b1
+        gb_launches += r_b3
+        for f in (heap_path, load_path, one["build"][0], one["sidecar"]):
             os.unlink(f)
 
         # -- string columns and the SQL facade -----------------------------

@@ -201,9 +201,11 @@ def make_join_fn(schema: HeapSchema, probe_col: int,
     the rows the join emits (:data:`JOIN_HOWS`).
 
     Per batch: ``matched`` (emitted rows, int32), ``sums`` (a list over
-    EVERY fact column, ``run.sum_cols``, each in its acc dtype);
-    inner/left add ``payload_sum`` (matched build values, in their acc
-    dtype), left adds ``null_count`` (emitted rows without a partner).
+    EVERY fact column, ``run.sum_cols``, each in its acc dtype), and for
+    a schema with a nullable column ``nncounts`` (per column, emitted
+    non-NULL rows, as :func:`make_star_fn`'s); inner/left add
+    ``payload_sum`` (matched build values, in their acc dtype), left adds
+    ``null_count`` (emitted rows without a partner).
     ``owner_part``: see :func:`_owner_mask` (Grace passes only).
     ``run.fold(cols, valid, threshold=0)`` is the same step on decoded
     columns of any shape (the index access path's fetched rows)."""
@@ -221,6 +223,10 @@ def make_join_fn(schema: HeapSchema, probe_col: int,
                "sums": [_masked_sum(cols[c], emit, schema.col_dtype(c),
                                     wide)
                         for c in sum_cols]}
+        if cols.nulls:
+            out["nncounts"] = [row_count(emit & ~cols.nulls[c], wide)
+                               if c in cols.nulls else out["matched"]
+                               for c in sum_cols]
         if how in ("inner", "left"):
             out["payload_sum"] = _masked_sum(pay, hit, build.vdt, wide)
         if how == "left":

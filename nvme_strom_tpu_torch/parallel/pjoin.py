@@ -150,7 +150,8 @@ def partition_build_sharded_from_table(table_path: str, build_schema,
     scan (only its rows come back), sorted stably, padded and placed on
     its member.  ``host_rows_peak`` reports the largest partition held
     (at most ``cap``).  A table that changes between passes is EIO.
-    Partitions are bit-identical to the in-memory build's."""
+    Partitions are bit-identical to the in-memory build's.  Over ranks a
+    process builds only the partitions of its own members of lane 0."""
     from ..config import config
     from ..scan.query import Query
     dp = mesh.dp
@@ -179,6 +180,10 @@ def partition_build_sharded_from_table(table_path: str, build_schema,
     cap = max(1, int(sizes.max()))
     ks, vs, peak = [], [], 0
     for p in range(dp):
+        if not mesh.is_local(p):        # another rank builds it
+            ks.append(None)
+            vs.append(None)
+            continue
         part = Query(table_path, build_schema) \
             .where(lambda cols, _th=0, p=p: owner(cols) == p) \
             .select([key_col, value_col]) \
@@ -201,7 +206,7 @@ def partition_build_sharded_from_table(table_path: str, build_schema,
         vp[:n] = pv[order]
         ks.append(kp)
         vs.append(vp)
-    out = _place(ks, vs, _value_dtype(vs[0]), mesh, peak)
+    out = _place(ks, vs, _value_dtype(np.zeros(0, dt_v)), mesh, peak)
     return out._replace(nreal=[int(s) for s in sizes])
 
 
@@ -316,8 +321,10 @@ def make_partitioned_join_step(mesh, schema: HeapSchema, probe_col: int,
     :func:`..ops.join.make_join_fn`'s for the same *how* — ``matched``,
     ``sums`` over every fact column (``step.sum_cols``), inner/left
     ``payload_sum``, left ``null_count`` — in the same accumulation
-    dtypes, on lane 0's member 0.  Every routed row reaches its key's
-    owner once, so left and anti need no Grace ownership restriction.
+    dtypes, on lane 0's member 0 (``nncounts`` too where a column is
+    nullable: its NULL bits ride the slab beside the words).  Every routed
+    row reaches its key's owner once, so left and anti need no Grace
+    ownership restriction.
 
     *predicate*: a FilterPred or ``predicate(cols, threshold)``.
     *build_parts*: a prebuilt :class:`BuildParts` (the streamed build);
@@ -329,13 +336,15 @@ def make_partitioned_join_step(mesh, schema: HeapSchema, probe_col: int,
         build_keys, build_values, mesh, schema, probe_col)
     sum_cols = list(range(schema.n_cols))
     col_dts = [schema.col_dtype(c) for c in sum_cols]
+    nullable = [c for c in sum_cols if schema.col_nullable(c)]
     wide = wide_sums(schema)
     home = mesh.home()
     ranks = mesh.multi_process
 
     def extra(_pages, cols):
         return [_word(cols[c].reshape(-1), dt)
-                for c, dt in zip(sum_cols, col_dts)]
+                for c, dt in zip(sum_cols, col_dts)] + \
+            [cols.nulls[c].reshape(-1).to(torch.int32) for c in nullable]
 
     def step(pages) -> dict:
         per = []
@@ -350,6 +359,12 @@ def make_partitioned_join_step(mesh, schema: HeapSchema, probe_col: int,
                  "sums": [_masked_sum(_unword(recv[:, 1 + i], dt), emit, dt,
                                       wide)
                           for i, dt in enumerate(col_dts)]}
+            if nullable:
+                null_of = {c: recv[:, 1 + len(sum_cols) + j].bool()
+                           for j, c in enumerate(nullable)}
+                o["nncounts"] = [row_count(emit & ~null_of[c], wide)
+                                 if c in null_of else o["matched"]
+                                 for c in sum_cols]
             if how in ("inner", "left"):
                 o["payload_sum"] = _masked_sum(v[idx], hit, parts.vdt, wide)
             if how == "left":
@@ -358,6 +373,9 @@ def make_partitioned_join_step(mesh, schema: HeapSchema, probe_col: int,
         out = {"matched": _fold([o["matched"] for o in per], home, ranks),
                "sums": [_fold([o["sums"][i] for o in per], home, ranks)
                         for i in range(len(sum_cols))]}
+        if nullable:
+            out["nncounts"] = [_fold([o["nncounts"][i] for o in per], home,
+                                     ranks) for i in range(len(sum_cols))]
         for k in ("payload_sum", "null_count"):
             if k in per[0]:
                 out[k] = _fold([o[k] for o in per], home, ranks)

@@ -51,7 +51,8 @@ from .exchange import bucket_dispatch, split_rows
 from .mesh import Shards, make_scan_mesh
 
 __all__ = ["make_distributed_sort", "make_distributed_distinct",
-           "distributed_sort_u64", "sort_keys", "prefixes", "capacity_loop"]
+           "distributed_sort_u64", "sort_keys", "prefixes", "capacity_loop",
+           "whole_rows"]
 
 _U32 = 0xFFFFFFFF
 #: a pad slot's sort key: above every value's key (at most 2^32)
@@ -248,6 +249,17 @@ def capacity_loop(n_members: int, n: int, run_at) -> dict:
         capacity *= 2
 
 
+def whole_rows(rows) -> torch.Tensor:
+    """A sort's per-member rows as one ``(dp, width)`` tensor on this
+    process: *rows* itself in one process, the other ranks' rows of a
+    :class:`.mesh.Shards` gathered in (:func:`.dist.gather_members`, a
+    collective every rank calls)."""
+    if isinstance(rows, Shards) and rows.mesh.multi_process:
+        return torch.stack(dist.gather_members(rows.mesh.owners,
+                                               dict(rows.addressable())))
+    return rows
+
+
 def prefixes(rows: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     """The global order of a sort's result: row *b*'s first ``counts[b]``
     elements for each *b*, concatenated on the rows' device (the padded
@@ -267,7 +279,8 @@ def distributed_sort_u64(mesh, values: np.ndarray, payload: np.ndarray):
 
     Returns ``(sorted_values, payload_permuted)`` as host arrays.
     *payload* may be any dtype (permuted on the host; only the int32 row
-    index rides the exchange, so ``len(values)`` must fit int32)."""
+    index rides the exchange, so ``len(values)`` must fit int32).  Over
+    ranks every rank passes the same arrays and gets the same result."""
     values = np.ascontiguousarray(values, np.uint64)
     payload = np.asarray(payload)
     n = len(values)
@@ -276,15 +289,16 @@ def distributed_sort_u64(mesh, values: np.ndarray, payload: np.ndarray):
     if n > np.iinfo(np.int32).max:
         raise StromError(_errno.ERANGE, "distributed_sort_u64: row index "
                                         "exceeds int32")
-    devices = list(mesh.devices)
-    dp = len(devices)
+    flat = make_scan_mesh(mesh, sp=1)
+    dp = flat.size
     hi = (values >> np.uint64(32)).astype(np.uint32)
     lo = (values & np.uint64(0xFFFFFFFF)).astype(np.uint32)
 
     def one_pass(keys32: np.ndarray, pay: np.ndarray) -> np.ndarray:
         out = capacity_loop(dp, n, lambda cap: make_distributed_sort(
-            devices, capacity=cap, dtype=np.uint32)[0](keys32, pay))
-        return _to_numpy(prefixes(out["payload"], out["count"]))
+            flat, capacity=cap, dtype=np.uint32)[0](keys32, pay))
+        return _to_numpy(prefixes(whole_rows(out["payload"]),
+                                  out["count"]))
 
     perm1 = one_pass(lo, np.arange(n, dtype=np.int32))
     perm = one_pass(hi[perm1], perm1)

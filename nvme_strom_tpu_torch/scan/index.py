@@ -130,6 +130,12 @@ def build_index(table_path: str, schema, col, *,
     byte-identical.  The file goes through ``.tmp`` + ``fsync`` +
     ``os.replace``.
 
+    Over a mesh of several ranks every rank calls this: each gathers its
+    own members' rows (the composite's projection is the mesh ``select``),
+    the sorts run over every member, and only the owner of member 0 writes
+    the file; the ranks then meet, so every rank returns the same path
+    once the sidecar is in place (a failed write fails every rank).
+
     Refused with EINVAL: a nullable or 8-byte key column, a float column
     in a composite key, and a composite key that is not a pair."""
     from .query import Query
@@ -162,8 +168,11 @@ def build_index(table_path: str, schema, col, *,
                     f"composite index col{c} is {dt}: only integer "
                     f"columns pack order-preservingly (build a single-"
                     f"column index for float keys)")
-        # the gather is local (on the mesh's first member), the sort not
+        # one process gathers on the mesh's first member, the sort not;
+        # over ranks each gathers its own members' rows
+        ranks = mesh is not None and mesh.multi_process
         out = Query(table_path, schema).select([c0, c1]).run(
+            mesh=mesh if ranks else None,
             device=mesh.devices[0] if mesh is not None and device is None
             else device)
         packed = pack_pair(out[f"col{c0}"], out[f"col{c1}"], dt0, dt1)
@@ -198,6 +207,26 @@ def build_index(table_path: str, schema, col, *,
     }).encode()
     hlen = (16 + len(header) + _ALIGN - 1) // _ALIGN * _ALIGN
     path = index_path or index_path_for(table_path, col)
+    if mesh is not None and mesh.multi_process:
+        from ..parallel import dist
+        err = None
+        if dist.process_index() == mesh.owners[0]:
+            try:
+                _write_sidecar(path, header, hlen, keys, poss)
+            except Exception as e:      # every rank learns of it
+                err = f"{type(e).__name__}: {e}"
+        failed = [e for e in dist.all_gather_object(err) if e is not None]
+        if failed:
+            raise StromError(_errno.EIO, f"build_index: the sidecar write "
+                                         f"failed: {failed[0]}")
+        return path
+    _write_sidecar(path, header, hlen, keys, poss)
+    return path
+
+
+def _write_sidecar(path: str, header: bytes, hlen: int, keys: np.ndarray,
+                   poss: np.ndarray) -> None:
+    """The sidecar through ``.tmp`` + ``fsync`` + ``os.replace``."""
     tmp = path + ".tmp"
     try:
         with open(tmp, "wb") as f:
@@ -215,7 +244,6 @@ def build_index(table_path: str, schema, col, *,
         except OSError:
             pass
         raise
-    return path
 
 
 @dataclass

@@ -82,7 +82,7 @@ Three ways to run a scan besides the one-process scan:
   refused (EINVAL).  ``select`` and ``top_k`` come
   back in the serial scan's order.
 * ``mesh=`` (a :class:`..parallel.mesh.RingMesh`): batches stream sharded
-  over the mesh's dp axis (:func:`..parallel.stream.distributed_scan_filter`),
+  over the mesh's dp axis (:class:`..parallel.stream.ShardedBatchStream`),
   the plan's step runs on each dp shard and the results fold with the
   operator's combine; the pages past the last whole batch scan on the
   first member.  The sort terminals (``order_by``, ``quantiles``,
@@ -92,6 +92,25 @@ Three ways to run a scan besides the one-process scan:
   the build over dp and routes each batch's rows to their key's owner
   (:mod:`..parallel.pjoin`), both faces; the broadcast join and star row
   faces run on the first member.
+
+  A mesh whose members belong to several ranks (:mod:`..parallel.dist`)
+  runs every terminal, and every rank returns the same result, the one
+  process's over a mesh of the same size.  Each rank reads only its own
+  members' shards of each batch (the owner of member 0 reads the tail):
+  the folding terminals meet in one gather of the ranks' folds; the row
+  faces (``select``, the broadcast join and star row faces) gather each
+  rank's rows tagged with their (batch, member) place and merge them in
+  the one process's order, a rank stopping once it holds ``offset +
+  limit`` of its own; the sort terminals sort the ranks' rows, joined in
+  that order, over every member, and the rows of other ranks' members
+  come back through :func:`..parallel.dist.gather_members`; the
+  partitioned join routes across ranks, its row face decides the early
+  stop on all ranks together; and GROUP BY's sorted spill merges the
+  ranks' sorted states in rank order.  As in one process, a fresh sidecar
+  does not serve a mesh query: both packages plan the index only for a
+  local run, so a structured filter over a mesh is the seqscan face; the
+  index face is the local run, which reads the sidecar and the fetched
+  pages and no table scan.
 * ``analyze=True``: the result gains ``"_analyze"``, the run's wall time and
   engine counters (EXPLAIN ANALYZE).
 
@@ -484,6 +503,7 @@ class Query:
         self._h2d_depth = 0
         self._vfs = False              # the run's scans read buffered
         self._ranks = None             # the run's mesh when it spans ranks
+        self._mesh_bp = None           # the run's batch_pages
 
     # -- builders -----------------------------------------------------------
     def where(self, predicate: Union[FilterPred, Callable], *,
@@ -852,7 +872,9 @@ class Query:
         ``"anti"`` (NOT EXISTS).  Every strategy serves every face.
 
         The aggregate face folds ``matched``, ``sums`` (every fact column),
-        ``payload_sum`` (inner/left) and ``null_count`` (left).
+        ``nncounts`` (each column's non-NULL count, for a schema with a
+        nullable column), ``payload_sum`` (inner/left) and ``null_count``
+        (left).
         ``materialize=True`` returns the rows: ``{"positions", "keys",
         "count"}`` plus ``payload`` (inner/left) and ``matched`` (left),
         ``limit``/``offset`` slicing them as :meth:`select` does (the
@@ -1412,15 +1434,20 @@ class Query:
             reason += (f"; join type {self._join_how}; "
                        f"{self._strategy_text(js, mesh)}")
         if mesh is not None:
+            ranks = mesh.multi_process
+            gathers = ("each rank gathers its own members' rows and the "
+                       "ranks' rows meet in scan order" if ranks else
+                       "the rows gather on the first member")
             reason += f"; mesh of {mesh.size} members {mesh.shape} on " \
-                      f"{dev}: " + (
-                "the rows gather on the first member, then the distributed "
-                "sample sort (splitter election + all_to_all) over every "
-                "member"
+                      f"{dev}" + (f" over {len(set(mesh.owners))} ranks"
+                                  if ranks else "") + ": " + (
+                f"{gathers}, then the distributed sample sort (splitter "
+                f"election + all_to_all) over every member"
                 if self._op in ("order_by", "quantiles", "count_distinct")
                 else "each batch's rows route to their key's owner"
                 if js is not None and js[1] > 1 else
-                "the row face runs on the first member"
+                ("the row step runs on each member's shard; " + gathers
+                 if ranks else "the row face runs on the first member")
                 if (self._op == "join" and self._join[3])
                 or (self._op == "star" and self._star["materialize"]) else
                 ("each member gathers its shard's selected rows"
@@ -1748,7 +1775,20 @@ class Query:
         ``submit_syscalls``, ``kernel_dispatches`` (batch steps the scans
         ran), ``h2d_depth_reached`` (this run's deepest H2D pipeline, 0
         when no scan ran) and ``scan_GBps``.  Workers' counters fold into
-        the leader's."""
+        the leader's.
+
+        A *mesh* whose members belong to ranks that no process group
+        joins (none is up, or it has fewer ranks) is ENOTCONN: this
+        process alone would read only its own members' pages."""
+        if mesh is not None and mesh.multi_process:
+            from ..parallel import dist
+            if max(mesh.owners) >= dist.process_count():
+                raise StromError(_errno.ENOTCONN, f"the mesh's members "
+                                                  f"belong to ranks "
+                                                  f"{sorted(set(mesh.owners))}"
+                                                  f" and the process group "
+                                                  f"has {dist.process_count()}"
+                                                  f" rank(s)")
         if analyze:
             return self._run_analyze(session, device=device, kernel=kernel,
                                      mesh=mesh, batch_pages=batch_pages,
@@ -1759,6 +1799,7 @@ class Query:
         self._session, self._h2d_depth = session, 0
         self._ranks = mesh if mesh is not None and mesh.multi_process \
             else None
+        self._mesh_bp = batch_pages
         try:
             if nw >= 2 and mesh is None:
                 return self._run_workers(nw, dev, kernel)
@@ -1808,8 +1849,6 @@ class Query:
         if plan.kernel == "invalid":
             raise StromError(_errno.EINVAL, f"query not executable: "
                                             f"{plan.reason}")
-        if mesh is not None and mesh.multi_process:
-            self._check_ranks_op()
         # the scans of this run (key discovery included) read the table on
         # the planned path; an index plan's scans take the gate's
         self._vfs = (plan.access_path if plan.access_path != "index"
@@ -1819,11 +1858,6 @@ class Query:
                 self._install_group_keys(self._discover_group_keys(dev),
                                          dev)
             except _GroupSpill:
-                if self._ranks is not None:
-                    raise StromError(_errno.EOPNOTSUPP, "group_by_cols over "
-                                     "ranks: the key set passed max_groups "
-                                     "(the sorted spill runs in one "
-                                     "process)") from None
                 return self._run_groupby_sorted(dev)
         if plan.access_path == "index":
             out = self._run_index(dev)
@@ -1908,36 +1942,27 @@ class Query:
 
     def _run_mesh(self, plan: QueryPlan, mesh, batch_pages) -> dict:
         """A scan terminal over a ring: whole batches stream sharded over
-        the members (``distributed_scan_filter``) and the plan's step runs
+        the members (:meth:`_mesh_scan`) and the plan's step runs
         on each member's shard (B1/B3 where the plan names ``cuda``), the
         results folded in member order with the operator's combine, so
-        ties resolve to the lower position as on one device.  Over an
-        ``(sp, dp)`` mesh the step runs on lane 0's dp shards: every lane
-        holds the same pages.  The pages past the last whole batch are
-        read buffered and scanned on the first member.  ``select`` gathers each shard's rows in page
-        order and stops gathering once ``offset + limit`` are in."""
+        ties resolve to the lower position as on one device; over ranks
+        each rank folds its own members' shards and the folds meet in rank
+        order (:meth:`_fold_ranks`).  Over an ``(sp, dp)`` mesh the step
+        runs on lane 0's dp shards: every lane holds the same pages.  The
+        pages past the last whole batch are read buffered and scanned on
+        the first member.  ``select`` gathers each shard's rows
+        (:meth:`_mesh_rows`)."""
         from .executor import _to_numpy, fold_results
-        chunks = None
         if self._op == "select":
             cols, limit, offset = self._select
             cols = list(range(self.schema.n_cols)) if cols is None else cols
             gather, fields, dtypes = self._make_gather_fn(cols)
-            stop = None if limit is None else offset + limit
-            chunks, got = [], 0
-
-            def fn(pages):
-                nonlocal got
-                if stop is None or got < stop:
-                    out = gather(pages)
-                    chunks.append([out[f] for f in fields])
-                    got += out["n"]
-                return {}
-            combine = None
-        else:
-            fn, combine = self._build_fn(plan.kernel)
+            return self._select_result(cols, fields, self._mesh_rows(
+                gather, fields, dtypes, mesh, batch_pages, limit, offset))
+        fn, combine = self._build_fn(plan.kernel)
         acc = None
 
-        def take(pages):
+        def take(pages, _place):
             """Fold one shard's (or the tail's) step in scan order."""
             nonlocal acc
             acc = fold_results(acc, fn(pages), combine)
@@ -1946,42 +1971,75 @@ class Query:
         self._mesh_scan(mesh, take, batch_pages)
         if mesh.multi_process:
             acc = self._fold_ranks(acc, combine)
-        if chunks is not None:
-            arrs = [np.concatenate([c[i] for c in chunks]) if chunks
-                    else np.zeros(0, dt) for i, dt in enumerate(dtypes)]
-            return self._select_result(cols, fields,
-                                       [a[offset:stop] for a in arrs])
         return self._finalize({} if not acc else _to_numpy(acc))
+
+    def _mesh_rows(self, gather, fields: Sequence[str], dtypes, mesh,
+                   batch_pages, limit: Optional[int] = None,
+                   offset: int = 0) -> List[np.ndarray]:
+        """The rows *gather* selects, over *mesh*: each member's shards
+        gathered with their (batch, member) place (the tail's after every
+        batch, on member 0), the places of every rank met in one
+        :func:`..parallel.dist.all_gather_object` and sorted, which is the
+        one process's scan order, then cut to ``[offset, offset + limit)``.
+        A process stops reading once it holds ``offset + limit`` rows of
+        its own: the rows it would gather next come after all of them.
+        One array a field."""
+        from ..parallel import dist
+        from .executor import ScanLimitReached
+        stop = None if limit is None else offset + limit
+        chunks, got = [], 0
+
+        def take(pages, place):
+            nonlocal got
+            if stop is not None and got >= stop:
+                raise ScanLimitReached
+            out = gather(pages)
+            chunks.append((place, [out[f] for f in fields]))
+            got += out["n"]
+            stats.add("nr_kernel_dispatch")
+
+        self._mesh_scan(mesh, take, batch_pages)
+        if mesh.multi_process:
+            chunks = [c for part in dist.all_gather_object(chunks)
+                      for c in part]
+        chunks.sort(key=lambda c: c[0])
+        arrs = [np.concatenate([c[1][i] for c in chunks]) if chunks
+                else np.zeros(0, dt) for i, dt in enumerate(dtypes)]
+        return [a[offset:stop] for a in arrs]
 
     def _mesh_scan(self, mesh, take, batch_pages) -> None:
         """Stream the table over *mesh*: whole batches sharded over dp
-        (``distributed_scan_filter``), *take* called on each of this
-        process's lane-0 shards in member order, then the pages past the
+        (:class:`..parallel.stream.ShardedBatchStream`), ``take(pages,
+        place)`` called on each of this process's lane-0 shards in member
+        order with ``place = (batch, member)``, then the pages past the
         last whole batch read buffered and taken on member 0 (by its
-        rank)."""
-        from ..parallel.stream import distributed_scan_filter
+        rank), each tail batch placed after every whole one.  *take* may
+        raise :class:`.executor.ScanLimitReached` to stop this process's
+        reads (the stream holds no collective)."""
+        from ..parallel.stream import ShardedBatchStream
+        from .executor import ScanLimitReached
         n = mesh.dp
-
-        def step(shards):
-            for shard in shards[:n]:
-                if shard is not None:       # another rank's member
-                    take(shard)
-            return {}
-
         with self._open_owned() as src:
             n_pages = src.size // PAGE_SIZE
             bp = int(batch_pages or (1 << 20) // PAGE_SIZE * n)
             # a multiple of dp, at least a page a dp shard, and no larger
             # than the table; the remainder is the tail below
             bp = min(max(bp // n * n, n), n_pages // n * n)
-            covered = 0
-            if bp >= n:
-                distributed_scan_filter(src, mesh, step, batch_pages=bp,
-                                        session=self._session)
-                covered = n_pages // bp * bp
-            if mesh.is_local(0):
-                for pages in _buffered_batches(src, covered, mesh.home()):
-                    take(pages)
+            n_batches = n_pages // bp if bp >= n else 0
+            try:
+                if n_batches:
+                    with ShardedBatchStream(src, mesh, batch_pages=bp,
+                                            session=self._session) as stream:
+                        for first, shards in stream:
+                            for d, shard in enumerate(shards[:n]):
+                                if shard is not None:   # else another rank's
+                                    take(shard, (first // bp, d))
+                if mesh.is_local(0):
+                    for j, pages in enumerate(_buffered_batches(
+                            src, n_batches * bp, mesh.home())):
+                        take(pages, (n_batches + j, 0))
+            except ScanLimitReached:
+                pass
 
     @staticmethod
     def _fold_ranks(acc, combine):
@@ -1996,16 +2054,6 @@ class Query:
             if part is not None:
                 acc_all = fold_results(acc_all, _to_torch(part), combine)
         return acc_all
-
-    def _check_ranks_op(self) -> None:
-        """Over ranks a mesh runs the scan terminals that fold (aggregate,
-        GROUP BY, filters); the others gather or sort in one process."""
-        if self._op in ("select", "order_by", "quantiles",
-                        "count_distinct", "join", "star") or \
-                self._eq is not None:
-            raise StromError(_errno.EOPNOTSUPP,
-                             f"{self._op} over a mesh of several ranks: "
-                             f"run it in one process")
 
     def _replan_scan(self, plan: QueryPlan) -> QueryPlan:
         """The sidecar EXPLAIN promised went away (or went stale or
@@ -2259,8 +2307,14 @@ class Query:
                       offset: int = 0) -> List[np.ndarray]:
         """Stream the scan through *gather*, keep the selected rows on the
         host (one concatenation at the end), stop issuing reads once
-        ``offset + limit`` rows are in, and slice.  One array a field."""
+        ``offset + limit`` rows are in, and slice.  One array a field.
+        Over the ranks of the run's mesh, each rank gathers its own
+        members' shards and every rank returns the whole, in the scan's
+        order (:meth:`_mesh_rows`)."""
         from .executor import ScanLimitReached
+        if self._ranks is not None:
+            return self._mesh_rows(gather, fields, dtypes, self._ranks,
+                                   self._mesh_bp, limit, offset)
         stop = None if limit is None else offset + limit
         chunks = []
         gathered = 0
@@ -2313,7 +2367,10 @@ class Query:
         columns), the distributed sample sort over
         every member of *mesh* (one key column; the result then carries
         ``per_device_count`` and ``n_dropped``, and int32 positions, the
-        exchange's payload width)."""
+        exchange's payload width).  Over ranks the gather is each rank's
+        members' (:meth:`_collect_rows`), so every rank sorts the same
+        arrays, and the sorted rows of the other ranks' members come back
+        through :func:`..parallel.sort.whole_rows`."""
         cols, descending, limit, offset = self._order
         end = None if limit is None else offset + limit
         if mesh is not None and len(cols) > 1:
@@ -2346,7 +2403,8 @@ class Query:
                 order = np.lexsort(tuple(sort_key(k)
                                          for k in reversed(keys)))[offset:end]
             return {"values": vals[order], "positions": poss[order]}
-        from ..parallel.sort import make_distributed_sort, prefixes
+        from ..parallel.sort import make_distributed_sort, prefixes, \
+            whole_rows
         from .executor import _to_numpy
         if len(poss) and int(poss.max()) > (1 << 31) - 1:
             # slab payloads are int32: a cast would wrap row identity
@@ -2355,24 +2413,27 @@ class Query:
                              "tables past 2^31 rows need the local sort")
         dt = self._check_sortable_col(cols[0], "order_by")
         out = self._mesh_sort_loop(
-            mesh, lambda devs, cap: make_distributed_sort(
-                devs, capacity=cap, dtype=dt, descending=descending)[0],
+            mesh, lambda flat, cap: make_distributed_sort(
+                flat, capacity=cap, dtype=dt, descending=descending)[0],
             vals, poss.astype(np.int32))
         counts = _to_numpy(out["count"])
-        v = _to_numpy(prefixes(out["values"], counts)[offset:end])
-        p = _to_numpy(prefixes(out["payload"], counts)[offset:end])
+        v = _to_numpy(prefixes(whole_rows(out["values"]), counts)
+                      [offset:end])
+        p = _to_numpy(prefixes(whole_rows(out["payload"]), counts)
+                      [offset:end])
         return {"values": v, "positions": p,
                 "per_device_count": counts, "n_dropped": np.int32(0)}
 
     @staticmethod
     def _mesh_sort_loop(mesh, factory, *arrays) -> dict:
-        """Run ``factory(devices, capacity)``'s sort on *arrays* over every
-        member of *mesh*, flattened, at the capacity
-        :func:`..parallel.sort.capacity_loop` settles on."""
+        """Run ``factory(mesh, capacity)``'s sort on *arrays* over every
+        member of *mesh*, flattened (its owners kept), at the capacity
+        :func:`..parallel.sort.capacity_loop` settles on: its rerun
+        follows the drops of every rank, so the ranks rerun together."""
         from ..parallel.sort import capacity_loop
-        devs = list(mesh.devices)
-        return capacity_loop(len(devs), len(arrays[0]),
-                             lambda cap: factory(devs, cap)(*arrays))
+        flat = mesh.regrid(1)
+        return capacity_loop(flat.size, len(arrays[0]),
+                             lambda cap: factory(flat, cap)(*arrays))
 
     @staticmethod
     def _nearest_ranks(qs, n: int):
@@ -2382,7 +2443,8 @@ class Query:
     def _run_column(self, dev, mesh=None) -> dict:
         """quantiles / count_distinct over the gathered column: on the host
         locally, through the distributed sort over every member of
-        *mesh*."""
+        *mesh*.  Over ranks each quantile's value is read on the rank that
+        holds its row, and the picks meet in one gather."""
         gather, fields, dtypes = self._make_gather_fn(
             self._order[0], want_positions=False)
         (vals,) = self._collect_rows(gather, fields, dtypes, dev)
@@ -2393,8 +2455,8 @@ class Query:
         if self._op == "count_distinct":
             from ..parallel.sort import make_distributed_distinct
             out = self._mesh_sort_loop(
-                mesh, lambda devs, cap: make_distributed_distinct(
-                    devs, capacity=cap, dtype=dt)[0], vals)
+                mesh, lambda flat, cap: make_distributed_distinct(
+                    flat, capacity=cap, dtype=dt)[0], vals)
             return {"distinct": np.int32(out["distinct"])}
         from ..parallel.sort import make_distributed_sort
         qs, n = self._quantiles, len(vals)
@@ -2402,15 +2464,22 @@ class Query:
             return {"quantiles": np.full(len(qs), np.nan, np.float64),
                     "n": np.int64(0)}
         out = self._mesh_sort_loop(
-            mesh, lambda devs, cap: make_distributed_sort(
-                devs, capacity=cap, dtype=dt, with_payload=False)[0], vals)
+            mesh, lambda flat, cap: make_distributed_sort(
+                flat, capacity=cap, dtype=dt, with_payload=False)[0], vals)
         cum = np.cumsum(_to_numpy(out["count"]))
         picked = []
         for r in self._nearest_ranks(qs, n):
             b = int(np.searchsorted(cum, r + 1))
             within = r - (int(cum[b - 1]) if b else 0)
-            # one member's row holds the rank: read that row alone
-            picked.append(_to_numpy(out["values"][b])[within])
+            # one member's row holds the rank: read that row alone (None
+            # where another rank holds it)
+            row = out["values"][b]
+            picked.append(None if row is None else _to_numpy(row)[within])
+        if mesh.multi_process:
+            from ..parallel import dist
+            parts = dist.all_gather_object(picked)
+            picked = [next(p[i] for p in parts if p[i] is not None)
+                      for i in range(len(picked))]
         return {"quantiles": np.array(picked, dt), "n": np.int64(n)}
 
     def _column_result(self, vals: np.ndarray) -> dict:
@@ -3110,7 +3179,8 @@ class Query:
 
         if self._ranks is not None:
             from ..parallel import dist
-            self._mesh_scan(self._ranks, collect, None)
+            self._mesh_scan(self._ranks, lambda pages, _at: collect(pages),
+                            self._mesh_bp)
             for part in dist.all_gather_object(merged):
                 merged = merge(merged, part)
             check()
@@ -3213,7 +3283,8 @@ class Query:
 
     def _sorted_group_scan(self, acc: _SortedGroupAcc, dev) -> None:
         """Stream the scan into *acc*: each batch's selected rows sort by
-        packed key and ``reduceat`` into per-key partials on the host."""
+        packed key and ``reduceat`` into per-key partials on the host.
+        Over ranks, the batches of this rank's members."""
         from .index import pack_pair
         cols_, agg, _having, _mg = self._group_cols
         agg_idx, _dt = _check_agg_cols(self.schema, agg)
@@ -3230,6 +3301,10 @@ class Query:
                           pack_pair(ks[0], ks[1], dts[0], dts[1]), vals)
             return {}
 
+        if self._ranks is not None:
+            self._mesh_scan(self._ranks, lambda pages, _at: collect(pages),
+                            self._mesh_bp)
+            return
         self._stream_collect(collect, dev)
 
     def _sorted_group_result(self, acc: _SortedGroupAcc) -> dict:
@@ -3253,9 +3328,20 @@ class Query:
         """GROUP BY past ``max_groups``: each batch's selected rows sort
         by packed key and ``reduceat`` into per-key partials on the host,
         merged into a running sorted state (O(distinct keys)).  Same
-        result contract as the one-pass GROUP BY, ``key_cols`` included."""
+        result contract as the one-pass GROUP BY, ``key_cols`` included.
+        Over ranks each rank builds the state of its own members' pages,
+        and the states meet in one gather, merged in rank order (each
+        merged key updated once, as the batches' merge)."""
         acc = self._sorted_group_acc()
         self._sorted_group_scan(acc, dev)
+        if self._ranks is not None:
+            from ..parallel import dist
+            parts = dist.all_gather_object(
+                None if acc.keys is None else acc.state())
+            acc = self._sorted_group_acc()
+            for st in parts:
+                if st is not None:      # a rank that selected no row
+                    acc.merge_state(st)
         return self._sorted_group_result(acc)
 
     # -- expression aggregates and joins ------------------------------------
@@ -3486,9 +3572,11 @@ class Query:
         table: the sharded stream for the batch-aligned body (the
         reference's batch size, 128 pages a dp shard by default), then
         buffered 8 MiB reads for the tail, zero-padded to a multiple of dp
-        (zero pages decode as no valid tuples).  Shared by the mesh
-        partitioned join's two faces; a consumer that stops early closes
-        the stream."""
+        (zero pages decode as no valid tuples).  A process reads and holds
+        only its own members' shards, tail included (None for another
+        rank's), and every process yields the same number of batches.
+        Shared by the mesh partitioned join's two faces; a consumer that
+        stops early closes the stream."""
         from ..parallel.stream import ShardedBatchStream
         dp = mesh.dp
         devs = list(mesh.devices[:dp])
@@ -3506,13 +3594,19 @@ class Query:
             tail = (8 << 20) // PAGE_SIZE
             for p0 in range(covered, n_pages, tail):
                 npg = min(tail, n_pages - p0)
-                pages = np.zeros((npg + (-npg) % dp, PAGE_SIZE), np.uint8)
-                src.read_buffered(p0 * PAGE_SIZE,
-                                  memoryview(pages[:npg].reshape(-1)))
-                r = len(pages) // dp
-                t = torch.from_numpy(pages)
-                yield [t[d * r:(d + 1) * r].to(dev)
-                       for d, dev in enumerate(devs)]
+                r = -(-npg // dp)       # pages a shard, zero-padded
+                shards = []
+                for d, dev in enumerate(devs):
+                    if not mesh.is_local(d):
+                        shards.append(None)
+                        continue
+                    pages = np.zeros((r, PAGE_SIZE), np.uint8)
+                    a, b = min(d * r, npg), min((d + 1) * r, npg)
+                    if b > a:
+                        src.read_buffered((p0 + a) * PAGE_SIZE, memoryview(
+                            pages[:b - a].reshape(-1)))
+                    shards.append(torch.from_numpy(pages).to(dev))
+                yield shards
 
     def _streamed_build_parts(self, mesh, dev):
         """The mesh build for an on-disk build side (None when the build
@@ -3530,8 +3624,14 @@ class Query:
                                         offset: int) -> dict:
         """The mesh partitioned join's row face: each batch's rows (key and
         position words) route to their owner, and the owners' emitted rows
-        come back to the host in owner, then sender, then arrival order;
-        the stream stops reading once ``offset + limit`` rows are in."""
+        come back to the host in batch, then owner, then sender, then
+        arrival order; the stream stops reading once ``offset + limit``
+        rows are in.  Over ranks each rank keeps the rows of its own
+        owners, tagged with their (batch, owner) place; the rows a batch
+        emitted are summed over the ranks, so every rank stops at the same
+        batch and none leaves a collective early, and the ranks' rows
+        then meet in one gather, the whole result on every rank."""
+        from ..parallel import dist
         from ..parallel.pjoin import (combine_pos_words,
                                       make_partitioned_join_rows_step)
         probe_col, bk, bv = self._join[:3]
@@ -3539,29 +3639,43 @@ class Query:
         step = make_partitioned_join_rows_step(
             mesh, self.schema, probe_col, bk, bv,
             predicate=self._predicate(),
-            build_parts=self._streamed_build_parts(mesh, mesh.devices[0]),
+            build_parts=self._streamed_build_parts(mesh, mesh.home()),
             how=how)
         stop = None if limit is None else offset + limit
         fields, dtypes = self._join_row_fields(how)
+        owned = [d for d in range(mesh.dp) if mesh.is_local(d)]
         chunks, gathered = [], 0
         batches = self._mesh_page_batches(mesh, batch_pages)
         try:
-            for shards in batches:
+            for b, shards in enumerate(batches):
                 if stop is not None and gathered >= stop:
                     break
                 out = step(shards)
                 stats.add("nr_kernel_dispatch")
-                emit = out["hit"]
-                pos = combine_pos_words(out["pos_lo"][emit].cpu().numpy(),
-                                        out["pos_hi"][emit].cpu().numpy())
-                chunks.append([pos] + [_host(out[f][emit], dt)
-                                       for f, dt in zip(fields[1:],
-                                                        dtypes[1:])])
-                gathered += len(pos)
+                # one equal slab an owner of this process, in owner order
+                per = out["hit"].shape[0] // len(owned)
+                got = 0
+                for k, d in enumerate(owned):
+                    emit = out["hit"][k * per:(k + 1) * per]
+                    part = {f: out[f][k * per:(k + 1) * per][emit]
+                            for f in ("pos_lo", "pos_hi", *fields[1:])}
+                    pos = combine_pos_words(part["pos_lo"].cpu().numpy(),
+                                            part["pos_hi"].cpu().numpy())
+                    chunks.append(((b, d), [pos] + [
+                        _host(part[f], dt)
+                        for f, dt in zip(fields[1:], dtypes[1:])]))
+                    got += len(pos)
+                if mesh.multi_process:
+                    got = int(dist.all_reduce(torch.tensor(got)))
+                gathered += got
         finally:
             batches.close()
+        if mesh.multi_process:
+            chunks = [c for part in dist.all_gather_object(chunks)
+                      for c in part]
+        chunks.sort(key=lambda c: c[0])
         if chunks:
-            arrs = [np.concatenate([c[i] for c in chunks])[offset:stop]
+            arrs = [np.concatenate([c[1][i] for c in chunks])[offset:stop]
                     for i in range(len(fields))]
         else:
             arrs = [np.zeros(0, dt) for dt in dtypes]

@@ -988,6 +988,14 @@ def _bound_table(tables, dname: str):
     return tables[dname]
 
 
+def _sum_or_avg(fn: str, s, nn: int):
+    """SQL's ``SUM``/``AVG`` of a column whose sum is *s* over *nn*
+    non-NULL cells: NULL (None) when there is none."""
+    if not nn:
+        return None
+    return s if fn == "sum" else s / nn
+
+
 def _build_star(q: Query, joins, items, tables, limit, off, dicts):
     """The statement with two or more JOINs: every dimension probes in
     the same scan (:meth:`.query.Query.star_join`).  Faces: additive
@@ -1053,29 +1061,23 @@ def _build_star(q: Query, joins, items, tables, limit, off, dicts):
             out = {}
             n = int(res["count"])
             for it in agg_items:
+                if it.fn == "count" and it.kind != "agge":
+                    out[it.label] = n
+                    continue
                 if it.kind == "agge":
                     s = np.asarray(res["esums"][eidx[id(it)]]).item()
-                    out[it.label] = s if it.fn == "sum" else \
-                        (s / n if n else None)
-                elif it.fn == "count":
-                    out[it.label] = n
+                    nn = n
                 elif it.table is None:
+                    # NULL cells are skipped: the non-NULL count
                     s = np.asarray(res["sums"][it.col]).item()
-                    if it.fn == "sum":
-                        out[it.label] = s
-                    else:   # AVG skips NULL cells: the non-NULL count
-                        nnc = res.get("nncounts")
-                        nn = n if nnc is None \
-                            else int(np.asarray(nnc[it.col]))
-                        out[it.label] = s / nn if nn else None
+                    nnc = res.get("nncounts")
+                    nn = n if nnc is None else int(np.asarray(nnc[it.col]))
                 else:
+                    # the payload of the rows with a partner there
                     i = dim_idx[it.table]
                     s = np.asarray(res["pay_sums"][i]).item()
-                    if it.fn == "sum":
-                        out[it.label] = s
-                    else:   # AVG over the payload skips unpartnered rows
-                        hits = n - int(np.asarray(res["null_counts"][i]))
-                        out[it.label] = s / hits if hits else None
+                    nn = n - int(np.asarray(res["null_counts"][i]))
+                out[it.label] = _sum_or_avg(it.fn, s, nn)
             return out
         return q, assemble
     fact_cols = []
@@ -1146,13 +1148,20 @@ def _build_join(q: Query, join, items, tables, limit, off, dicts):
 
         def assemble(res):
             out = {}
+            n = int(res["matched"])
             for it in agg_items:
                 if it.fn == "count":
-                    out[it.label] = int(res["matched"])
+                    out[it.label] = n
                 elif it.table is None:
-                    out[it.label] = np.asarray(res["sums"][it.col]).item()
+                    nnc = res.get("nncounts")   # a nullable fact column
+                    out[it.label] = _sum_or_avg(
+                        "sum", np.asarray(res["sums"][it.col]).item(),
+                        n if nnc is None else int(np.asarray(nnc[it.col])))
                 else:
-                    out[it.label] = np.asarray(res["payload_sum"]).item()
+                    # a LEFT join's unpartnered rows have no payload
+                    out[it.label] = _sum_or_avg(
+                        "sum", np.asarray(res["payload_sum"]).item(),
+                        n - int(np.asarray(res.get("null_count", 0))))
             return out
         return q, assemble
     for it in items:
@@ -1347,9 +1356,8 @@ def _build_scalar(q: Query, items, limit, dicts):
                 if it.kind == "agg" and it.fn == "count":
                     out[it.label] = n
                     continue
-                s = np.asarray(res["esums"][tmap[id(it)]]).item()
-                out[it.label] = s if it.fn == "sum" else \
-                    (s / n if n else None)
+                out[it.label] = _sum_or_avg(
+                    it.fn, np.asarray(res["esums"][tmap[id(it)]]).item(), n)
             return out
         return q, assemble
     if len(aggs) == 1 and aggs[0].distinct:
@@ -1395,10 +1403,9 @@ def _build_scalar(q: Query, items, limit, dicts):
             if it.fn == "count":
                 out[it.label] = n if it.col is None else denom(it.col)
             else:
-                s = np.asarray(res["sums"][sum_cols.index(it.col)]).item()
-                d = denom(it.col)
-                out[it.label] = s if it.fn == "sum" else \
-                    (s / d if d else None)
+                out[it.label] = _sum_or_avg(
+                    it.fn, np.asarray(res["sums"][sum_cols.index(it.col)])
+                    .item(), denom(it.col))
         return out
     return q, assemble
 
@@ -1562,13 +1569,15 @@ def sql_query(sql: str, source, schema, tables: Optional[dict] = None,
     *run_kw* go to :meth:`.query.Query.run` (``device``, ``kernel``,
     ``mesh``, ``batch_pages``, ``session``, ``analyze``, ``workers``);
     ``session`` and ``device`` also reach the ORDER BY assembler's
-    point lookups."""
+    point lookups (over a mesh, on its first member of this process)."""
     q, assemble = parse_sql(sql, source, schema, tables=tables,
                             workers=int(run_kw.get("workers") or 0))
     res = q.run(**run_kw)
     params = inspect.signature(assemble).parameters
-    out = assemble(res, **{k: run_kw[k] for k in ("session", "device")
-                           if k in run_kw and k in params})
+    look = {k: run_kw[k] for k in ("session", "device") if k in run_kw}
+    if run_kw.get("mesh") is not None:
+        look["device"] = run_kw["mesh"].home()
+    out = assemble(res, **{k: v for k, v in look.items() if k in params})
     for k in ("_analyze", "_workers"):
         if isinstance(res, dict) and k in res:
             out[k] = res[k]

@@ -6,7 +6,7 @@ state (`pgsql/nvme_strom.c:1057-1112`); its TPU analog is multi-host SPMD,
 where every process owns a slice of the global mesh and touches only its
 **addressable** shards.  A single-process mesh cannot prove that posture,
 so this module launches separate processes joined by
-:func:`..parallel.dist.init_process_group` and runs nine checks across
+:func:`..parallel.dist.init_process_group` and runs its checks across
 them:
 
 * ``sharded_load`` — :func:`..parallel.stream.load_pages_sharded`, each
@@ -22,7 +22,25 @@ them:
 * ``pjoin`` / ``pjoin_rows`` — the partitioned join's routing and psum,
   and its row face (the rows routed to this rank's members);
 * ``group_by_cols`` — key discovery across ranks, then the fold, the same
-  result on every rank.
+  result on every rank;
+* the ``q_*`` checks — every face of :class:`..scan.query.Query` (and
+  ``sql_query``) run over the mesh of both ranks (:data:`QUERY_CHECKS`):
+  ``select``, the sort faces, ``top_k``, a GROUP BY key (B3 on CUDA
+  members), the broadcast and partitioned joins and their row faces, the
+  star join, ``where_eq`` with and without a sidecar, ``build_index``,
+  GROUP BY's sorted spill and SQL statements.  Each runs on the query
+  fixture (three columns, a tail past the last whole batch, its
+  dimension tables) or, for the faces ``launch(table=)`` names, on that
+  table.  Inside the worker ``join_broadcast_max`` is
+  :data:`JOIN_BROADCAST_MAX` (16 KiB: the fixture's 3000-key build
+  table is partitioned, its one-page dimensions broadcast) and the spill's
+  ``max_groups`` :data:`SPILL_MAX_GROUPS` (16, under the fixture's 50
+  keys), and ``cache_arbitration`` is off, so every chunk the engine
+  reads is a direct read.  Each rank checks that every rank returned the
+  same result, saves the outputs (``q_<face>__<key>``; SQL results in the
+  result JSON) and records its engine ``total_dma_length`` delta a face
+  (``result["dma"]``: its members' pages; the tail and the dimension
+  loads read buffered) with the B1 and B3 launches.
 
 Every check holds this rank's addressable shards against the file's bytes
 and numpy, and each rank saves what it computed (``out_<rank>.npz``) for
@@ -52,11 +70,29 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 
 HEAP_NAME = "table.heap"
 CKPT_NAME = "ck.strom"
+#: the query checks' fixture, its two dimensions and its partitioned build
+QUERY_NAME = "query.heap"
+DIM_NAMES = ("dim1.heap", "dim2.heap")
+BUILD_NAME = "build.heap"
+QUERY_CHECKS = ("q_select", "q_order_by", "q_quantiles", "q_count_distinct",
+                "q_top_k", "q_group_by", "q_join", "q_join_rows",
+                "q_pjoin_query", "q_star", "q_where_eq", "q_build_index",
+                "q_groupby_spill", "q_sql")
 CHECKS = ("sharded_load", "scan_step", "stream_fold", "dist_sort",
           "ckpt_restore", "ckpt_save_sharded", "pjoin", "pjoin_rows",
-          "group_by_cols")
+          "group_by_cols") + QUERY_CHECKS
+#: the workers' ``join_broadcast_max``: the query fixture's build table
+#: (three pages) is partitioned, its dimensions (a page each) broadcast
+JOIN_BROADCAST_MAX = 16 << 10
+#: the spill check's ``max_groups``: below the fixture's 50 keys of c1
+SPILL_MAX_GROUPS = 16
+#: the query fixture's pages past its whole batches (read by member 0)
+QUERY_TAIL_PAGES = 3
 
-__all__ = ["prepare_fixtures", "launch", "CHECKS", "HEAP_NAME", "CKPT_NAME"]
+__all__ = ["prepare_fixtures", "launch", "CHECKS", "QUERY_CHECKS",
+           "HEAP_NAME", "CKPT_NAME", "QUERY_NAME", "DIM_NAMES",
+           "BUILD_NAME", "JOIN_BROADCAST_MAX", "SPILL_MAX_GROUPS",
+           "query_fixture_schema"]
 
 
 # ---------------------------------------------------------------------------
@@ -68,10 +104,27 @@ def _make_schema():
     return HeapSchema(n_cols=2, visibility=True)
 
 
+def query_fixture_schema():
+    """The query fixture's schema: int32 c0 in [-100, 100), int32 c1 in
+    [0, 50), float32 c2, a visibility column."""
+    from ..scan.heap import HeapSchema
+    return HeapSchema(n_cols=3, visibility=True,
+                      dtypes=("int32", "int32", "float32"))
+
+
+def _dim_schema(float_value: bool = False):
+    from ..scan.heap import HeapSchema
+    return HeapSchema(n_cols=2, visibility=False,
+                      dtypes=("int32", "float32" if float_value else "int32"))
+
+
 def prepare_fixtures(workdir: str, n_global_devices: int) -> None:
     """Write the shared inputs every worker reads: a heap table of two
-    pages a member and a checkpoint with one dp-shardable leaf and a
-    scalar (the reference's, from the same seed)."""
+    pages a member, a checkpoint with one dp-shardable leaf and a scalar
+    (the reference's, from the same seed), and the query checks' tables:
+    the query fixture (two pages a member and :data:`QUERY_TAIL_PAGES`
+    more), two dimensions (80 keys on c0's range, 25 on c1's with a
+    float32 payload) and a 3000-key build table."""
     from ..data.checkpoint import save_checkpoint
     from ..scan.heap import build_heap_file
 
@@ -86,6 +139,24 @@ def prepare_fixtures(workdir: str, n_global_devices: int) -> None:
                     .astype(np.float32),
             "step": np.int32(7)}
     save_checkpoint(os.path.join(workdir, CKPT_NAME), tree)
+
+    qschema = query_fixture_schema()
+    qrows = qschema.tuples_per_page * (n_pages + QUERY_TAIL_PAGES)
+    qrng = np.random.default_rng(4321)
+    build_heap_file(os.path.join(workdir, QUERY_NAME), [
+        qrng.integers(-100, 100, qrows).astype(np.int32),
+        qrng.integers(0, 50, qrows).astype(np.int32),
+        qrng.standard_normal(qrows).astype(np.float32)], qschema,
+        visibility=(qrng.random(qrows) > 0.2).astype(np.int32))
+    k1 = np.arange(-40, 40, dtype=np.int32)
+    build_heap_file(os.path.join(workdir, DIM_NAMES[0]),
+                    [k1, (k1 * 7).astype(np.int32)], _dim_schema())
+    k2 = np.arange(0, 25, dtype=np.int32)
+    build_heap_file(os.path.join(workdir, DIM_NAMES[1]),
+                    [k2, (k2 * 0.5).astype(np.float32)], _dim_schema(True))
+    kb = qrng.permutation(np.arange(-1500, 1500, dtype=np.int32))
+    build_heap_file(os.path.join(workdir, BUILD_NAME),
+                    [kb, (kb * 3).astype(np.int32)], _dim_schema())
 
 
 def _free_port() -> int:
@@ -106,7 +177,11 @@ def launch(num_processes: int, devices_per_proc: int,
     chooses).  *table* (``{"path", "n_cols", "dtypes", "visibility",
     "threshold", "count", "sums", "batch_pages"}``) puts another heap
     table, with its expected ``col0 > threshold`` count and int32 sums, in
-    place of the fixture's for ``scan_step`` and ``stream_fold``.
+    place of the fixture's for ``scan_step`` and ``stream_fold``; its
+    optional ``"query_faces"`` (names of :data:`QUERY_CHECKS`) run on it
+    too, with ``col0 > query_threshold`` and, for ``q_pjoin_query``, the
+    build table ``join_build`` (``{"path", "n_cols", "dtypes"}``), in
+    ``batch_pages`` batches.
 
     Raises ``RuntimeError`` with the failing rank's log tail on a nonzero
     exit, a missing result or a failed check; the first rank to die is
@@ -238,7 +313,7 @@ def _worker_main(spec: dict) -> None:
     from ..data.checkpoint import (checkpoint_info, restore_checkpoint,
                                    save_checkpoint_sharded)
     from ..engine import open_source
-    from ..ops import filter_cuda
+    from ..ops import filter_cuda, groupby_cuda
     from ..ops.filter import STEP_PRED
     from ..parallel.dscan import make_distributed_scan_step
     from ..parallel.mesh import RingSharding, ShardedTensor, make_scan_mesh
@@ -358,6 +433,20 @@ def _worker_main(spec: dict) -> None:
                           host(torch.stack(list(p["sums"]))))))
         result["b1_vs_plain_max_abs_err"] = err
         assert err == 0, f"B1 disagrees with its plain version by {err}"
+        # ... and B3, the GROUP BY kernel of q_group_by, on the same batch
+        from ..ops.filter import FilterPred
+        from ..ops.groupby import GroupKey
+        gargs = (tschema, GroupKey(1, mod=16), 16)
+        gkw = dict(agg_cols=[0], predicate=FilterPred(((0, "gt", th),)))
+        l3 = groupby_cuda.launches
+        k = groupby_cuda.groupby_pages_cuda(one, 0, *gargs, **gkw)
+        p = groupby_cuda.groupby_pages_cuda(one.cpu(), 0, *gargs, **gkw)
+        assert groupby_cuda.launches == l3 + 1, "B3 did not launch"
+        err = max(int(np.abs(host(k[f]).astype(np.int64)
+                             - host(p[f]).astype(np.int64)).max())
+                  for f in ("count", "sums", "mins", "maxs"))
+        result["b3_vs_plain_max_abs_err"] = err
+        assert err == 0, f"B3 disagrees with its plain version by {err}"
 
     # 4. the sample sort: splitter gather and bucket all-to-all across
     #    ranks; each rank checks its own buckets against numpy
@@ -515,12 +604,288 @@ def _worker_main(spec: dict) -> None:
             saved[f"gb_{k}"] = np.asarray(v)
     result["checks"]["group_by_cols"] = int(len(want_keys))
 
+    # 8. every Query face over the ranks' mesh
+    _query_checks(spec, mesh, result, saved)
+
     np.savez(os.path.join(workdir, f"out_{rank}.npz"), **saved)
     result["ok"] = True
     with open(os.path.join(workdir, f"result_{rank}.json"), "w") as f:
         json.dump(result, f)
     dist.barrier("done")
     dist.shutdown()
+
+
+class _Table:
+    """Where a query check runs: the table, its schema, the predicate
+    ``c0 > threshold``, the batch size and the partitioned build table."""
+
+    def __init__(self, path, schema, threshold, batch_pages, build,
+                 build_schema):
+        from ..ops.filter import FilterPred
+        self.path, self.schema, self.bp = path, schema, batch_pages
+        self.threshold = int(threshold)
+        self.pred = FilterPred(((0, "gt", self.threshold),))
+        self.build, self.build_schema = build, build_schema
+        self.n_bytes = os.path.getsize(path)
+
+
+def _jsonable(v):
+    """A result value as JSON: arrays as lists, numpy scalars as Python
+    ones, None kept."""
+    if isinstance(v, dict):
+        return {k: _jsonable(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_jsonable(x) for x in v]
+    if isinstance(v, np.ndarray):
+        return [_jsonable(x) for x in v.tolist()] if v.dtype.kind == "O" \
+            else v.tolist()
+    if isinstance(v, np.generic):
+        return v.item()
+    return v
+
+
+def _flat(prefix: str, out: dict) -> Dict[str, np.ndarray]:
+    """A Query result as ``{prefix_key: array}`` (list-valued keys one
+    array an element; ``_analyze`` and plans dropped)."""
+    flat = {}
+    for k, v in out.items():
+        if k.startswith("_"):
+            continue
+        if isinstance(v, (list, tuple)):
+            for i, x in enumerate(v):
+                flat[f"{prefix}_{k}{i}"] = np.asarray(x)
+        else:
+            flat[f"{prefix}_{k}"] = np.asarray(v)
+    return flat
+
+
+def _query_faces(mesh, dims) -> Dict[str, object]:
+    """The query checks: each ``face(table) -> (outputs, sql results)``,
+    run over *mesh* (every call a collective: every rank runs the same
+    faces in the same order)."""
+    from ..ops.groupby import GroupKey
+    from ..scan.index import build_index, index_path_for, probe_index
+    from ..scan.query import Query
+    from ..scan.sql import sql_query
+    from ..parallel import dist
+
+    def run(t, build, **kw):
+        return build(Query(t.path, t.schema).where(t.pred)).run(
+            mesh=mesh, batch_pages=t.bp, **kw)
+
+    def faces(t, named):
+        out = {}
+        for tag, build in named.items():
+            out.update(_flat(tag, run(t, build)))
+        return out, None
+
+    dkeys = np.arange(-40, 40, dtype=np.int32)
+    dvals = (dkeys * 7).astype(np.int32)
+
+    def star_specs():
+        return [{"probe_col": 0, "table": dims[0], "schema": _dim_schema(),
+                 "key_col": 0, "value_col": 1, "how": "inner"},
+                {"probe_col": 1, "table": dims[1],
+                 "schema": _dim_schema(True), "key_col": 0, "value_col": 1,
+                 "how": "left"}]
+
+    def where_eq(t):
+        eq = {"eq_agg": lambda q: q.where_eq(0, 7).aggregate(),
+              "eq_rows": lambda q: q.where_eq(0, 7).select(),
+              "in_agg": lambda q: q.where_in(0, [3, 5, 7]).aggregate(),
+              "range_agg": lambda q: q.where_range(0, -5, 5).aggregate()}
+        out = {}
+        for tag, build in eq.items():
+            out.update(_flat(tag, build(Query(t.path, t.schema)).run(
+                mesh=mesh, batch_pages=t.bp)))
+        # a fresh sidecar changes no mesh plan; the local run is the index
+        # face (the sidecar and the fetched pages, no table scan).  A
+        # table's own fresh sidecar serves, else one is built over the mesh
+        # and removed after
+        ipath = index_path_for(t.path, 0)
+        built = not probe_index(ipath, t.path, expect_col=0)
+        if built:
+            ipath = build_index(t.path, t.schema, 0, mesh=mesh)
+        try:
+            q = Query(t.path, t.schema).where_eq(0, 7).aggregate()
+            plans = (q.explain(mesh=mesh).access_path,
+                     q.explain(device=mesh.home()).access_path)
+            if plans[0] == "index" or plans[1] != "index":
+                raise AssertionError(f"where_eq plans {plans}")
+            out.update(_flat("sidecar_mesh", q.run(mesh=mesh,
+                                                   batch_pages=t.bp)))
+            from ..stats import stats
+            d0 = stats.snapshot().get("total_dma_length", 0)
+            out.update(_flat("index", Query(t.path, t.schema).where_eq(
+                0, 7).aggregate().run(device=mesh.home())))
+            out["index_dma"] = np.asarray(
+                stats.snapshot().get("total_dma_length", 0) - d0)
+        finally:
+            dist.barrier("where_eq sidecar read")
+            if built and dist.process_index() == mesh.owners[0]:
+                os.unlink(ipath)
+        return out, None
+
+    def build_idx(t):
+        out = {}
+        work = os.path.dirname(dims[0])
+        for tag, col in (("c1", 1), ("pair", (0, 1))):
+            p = build_index(t.path, t.schema, col, mesh=mesh,
+                            index_path=os.path.join(work, f"q_{tag}.idx"))
+            out[tag] = np.fromfile(p, np.uint8)
+        return out, None
+
+    def spill(t):
+        # one accumulator dtype a GROUP BY: int32 c0, float32 c2
+        fagg = [2] if t.schema.n_cols > 2 else [0]
+        out = {}
+        for tag, key, agg in (("one", 1, [0]), ("pair", [0, 1], fagg)):
+            r = Query(t.path, t.schema).group_by_cols(
+                key, agg_cols=agg, max_groups=SPILL_MAX_GROUPS).run(
+                mesh=mesh, batch_pages=t.bp)
+            for i, k in enumerate(r.pop("key_cols")):
+                out[f"{tag}_key{i}"] = k
+            out.update(_flat(tag, r))
+        return out, None
+
+    def sql(t):
+        th = t.threshold
+        tables = {"d": (dims[0], _dim_schema()),
+                  "e": (dims[1], _dim_schema(True))}
+        stmts = [
+            "SELECT COUNT(*), SUM(c0), AVG(c0) FROM t WHERE c0 > 1000",
+            f"SELECT COUNT(*), SUM(c0), SUM(c1) FROM t WHERE c0 > {th}",
+            f"SELECT c0, COUNT(*), SUM(c1) FROM t WHERE c0 > {th} "
+            f"GROUP BY c0",
+            f"SELECT c0, c1 FROM t WHERE c0 > {th} ORDER BY c1 LIMIT 5",
+            "SELECT c0, c1 FROM t WHERE c0 = 7 LIMIT 4 OFFSET 2",
+            "SELECT COUNT(*), SUM(c1), SUM(d.c1) FROM t JOIN d ON c0 = d.c0",
+            "SELECT COUNT(*), SUM(c1), SUM(d.c1) FROM t JOIN d ON c0 = d.c0 "
+            "WHERE c0 > 1000",
+            "SELECT COUNT(*), SUM(c0), SUM(d.c1), SUM(e.c1) FROM t JOIN d ON "
+            "c0 = d.c0 LEFT JOIN e ON c1 = e.c0",
+            "SELECT COUNT(*), SUM(c0), SUM(d.c1), SUM(e.c1) FROM t JOIN d ON "
+            "c0 = d.c0 LEFT JOIN e ON c1 = e.c0 WHERE c0 > 1000"]
+        return None, [[q, _jsonable(sql_query(q, t.path, t.schema,
+                                              tables=tables, mesh=mesh,
+                                              batch_pages=t.bp))]
+                      for q in stmts]
+
+    return {
+        "q_select": lambda t: faces(t, {
+            "all": lambda q: q.select(),
+            "win": lambda q: q.select(limit=700, offset=1000),
+            "head": lambda q: q.select([1], limit=50, offset=7)}),
+        "q_order_by": lambda t: faces(t, {
+            "asc": lambda q: q.order_by(1),
+            "desc": lambda q: q.order_by(1, descending=True, limit=1000,
+                                         offset=500)}),
+        "q_quantiles": lambda t: faces(t, {
+            "q": lambda q: q.quantiles(1, [0.0, 0.25, 0.5, 0.99, 1.0])}),
+        "q_count_distinct": lambda t: faces(t, {
+            "d0": lambda q: q.count_distinct(0),
+            "d1": lambda q: q.count_distinct(1)}),
+        "q_top_k": lambda t: faces(t, {
+            "max": lambda q: q.top_k(1, 10),
+            "min": lambda q: q.top_k(0, 5, largest=False)}),
+        "q_group_by": lambda t: faces(t, {
+            "g": lambda q: q.group_by(GroupKey(1, mod=16), 16,
+                                      agg_cols=[0])}),
+        "q_join": lambda t: faces(t, {
+            "inner": lambda q: q.join(0, dkeys, dvals),
+            "left": lambda q: q.join(0, dkeys, dvals, how="left")}),
+        "q_join_rows": lambda t: faces(t, {
+            "inner": lambda q: q.join(0, dkeys, dvals, materialize=True,
+                                      limit=300, offset=20),
+            "left": lambda q: q.join(0, dkeys, dvals, materialize=True,
+                                     how="left")}),
+        "q_pjoin_query": lambda t: faces(t, {
+            "agg": lambda q: q.join_table(0, t.build, t.build_schema, 0, 1),
+            "rows": lambda q: q.join_table(0, t.build, t.build_schema, 0, 1,
+                                           materialize=True, limit=400,
+                                           offset=10)}),
+        "q_star": lambda t: faces(t, {
+            "agg": lambda q: q.star_join(star_specs()),
+            "rows": lambda q: q.star_join(star_specs(), materialize=True,
+                                          fact_cols=[0, 1], limit=100,
+                                          offset=5)}),
+        "q_where_eq": where_eq,
+        "q_build_index": build_idx,
+        "q_groupby_spill": spill,
+        "q_sql": sql,
+    }
+
+
+def _query_checks(spec: dict, mesh, result: dict, saved: dict) -> None:
+    """Run :data:`QUERY_CHECKS` over *mesh*: each face on the query
+    fixture or on ``spec["table"]``, its outputs held equal on every rank
+    and saved, with its time, this rank's engine bytes and its B1 / B3
+    launches."""
+    import hashlib
+
+    from ..config import config
+    from ..ops import filter_cuda, groupby_cuda
+    from ..parallel import dist
+    from ..scan.heap import HeapSchema
+    from ..stats import stats
+
+    workdir = spec["workdir"]
+    dims = [os.path.join(workdir, n) for n in DIM_NAMES]
+    fixture = _Table(os.path.join(workdir, QUERY_NAME),
+                     query_fixture_schema(), 0, None,
+                     os.path.join(workdir, BUILD_NAME), _dim_schema())
+    tab = spec.get("table") or {}
+    given = None
+    if tab.get("query_faces"):
+        jb = tab["join_build"]
+        given = _Table(
+            tab["path"], HeapSchema(
+                n_cols=int(tab["n_cols"]), visibility=bool(tab["visibility"]),
+                dtypes=None if tab.get("dtypes") is None
+                else tuple(tab["dtypes"])),
+            tab["query_threshold"], int(tab["batch_pages"]), jb["path"],
+            HeapSchema(n_cols=int(jb["n_cols"]), visibility=False,
+                       dtypes=None if jb.get("dtypes") is None
+                       else tuple(jb["dtypes"])))
+    faces = _query_faces(mesh, dims)
+    for key in ("dma", "q_seconds", "q_table", "b3_launches"):
+        result.setdefault(key, {})
+    snap = config.snapshot()
+    try:
+        config.set("join_broadcast_max", JOIN_BROADCAST_MAX)
+        # every chunk read direct, page-cached or not: the engine's bytes
+        # are then each rank's share of the table
+        config.set("cache_arbitration", False)
+        for name in QUERY_CHECKS:
+            t = given if given is not None and name in tab["query_faces"]                 else fixture
+            l1, l3 = filter_cuda.launches, groupby_cuda.launches
+            d0 = stats.snapshot().get("total_dma_length", 0)
+            dist.barrier(name)
+            t0 = time.monotonic()
+            arrays, sql = faces[name](t)
+            dt = time.monotonic() - t0
+            result["dma"][name] = int(
+                stats.snapshot().get("total_dma_length", 0) - d0)
+            result["b1_launches"][name] = filter_cuda.launches - l1
+            result["b3_launches"][name] = groupby_cuda.launches - l3
+            result["q_seconds"][name] = dt
+            result["q_table"][name] = {"path": t.path, "bytes": t.n_bytes}
+            h = hashlib.sha256()
+            for k in sorted(arrays or {}):
+                a = np.ascontiguousarray(arrays[k])
+                h.update(f"{k}:{a.dtype.str}:{a.shape}".encode())
+                h.update(a.tobytes())
+            h.update(json.dumps(sql, sort_keys=True).encode())
+            digests = dist.all_gather_object(h.hexdigest())
+            if len(set(digests)) != 1:
+                raise AssertionError(f"{name}: the ranks' results differ "
+                                     f"({digests})")
+            for k, v in (arrays or {}).items():
+                saved[f"{name}__{k}"] = v
+            result["checks"][name] = sql if sql is not None \
+                else len(arrays)
+    finally:
+        config.restore(snap)
 
 
 if __name__ == "__main__":

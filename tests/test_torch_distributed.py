@@ -8,6 +8,15 @@ outputs — its addressable shards, counts, sums, sorted buckets, join
 outcomes and GROUP BY keys — are then held against the JAX package's
 single-process results over 4 of conftest's 8 virtual devices on the same
 bytes; the rows split across ranks add up to the whole.
+
+The same launch runs every ``Query`` face over the ranks' mesh (the
+``q_*`` checks).  Each face's outputs, the same on both ranks, are held
+against the JAX package's one-process ``Query`` on the query fixture's
+bytes (over 4 virtual devices where the reference's face takes a mesh:
+the sort faces and the partitioned join): counts, integer sums, keys,
+positions and orders exact, float32 sums within ``1e-4 * sum(|x|) +
+1e-6`` (sum over the whole column), derived float64 statistics within a
+relative 1e-6.  Each rank's engine bytes stay within its members' share.
 """
 
 import os
@@ -33,8 +42,9 @@ from nvme_strom_tpu.parallel.stream import \
     distributed_scan_filter as jfold, load_pages_sharded as jload
 from nvme_strom_tpu.scan.heap import HeapSchema as JSchema
 from nvme_strom_tpu.scan.query import Query as JQuery
-from nvme_strom_tpu_torch.testing.distributed import (CHECKS, CKPT_NAME,
-                                                      HEAP_NAME, launch)
+from nvme_strom_tpu_torch.testing.distributed import (
+    BUILD_NAME, CHECKS, CKPT_NAME, DIM_NAMES, HEAP_NAME, JOIN_BROADCAST_MAX,
+    QUERY_CHECKS, QUERY_NAME, SPILL_MAX_GROUPS, launch)
 
 NPROC, DPP = 2, 2
 N = NPROC * DPP
@@ -51,8 +61,11 @@ def ran(tmp_path_factory):
 
 
 def _pages(work):
-    return np.fromfile(os.path.join(work, HEAP_NAME), np.uint8) \
-        .reshape(-1, 8192)
+    return _pages_of(os.path.join(work, HEAP_NAME))
+
+
+def _pages_of(path):
+    return np.fromfile(path, np.uint8).reshape(-1, 8192)
 
 
 def _local(rank):
@@ -291,7 +304,9 @@ def test_nccl_without_a_card_a_rank_is_refused():
 def test_mesh_with_other_ranks_members(tmp_path):
     """A mesh whose members 2-3 belong to rank 1, seen from rank 0: its
     local members, the shards it holds (None for rank 1's), the refusals
-    of what needs the whole leaf, and the Query terminals that gather."""
+    of what needs the whole leaf, and every Query face (and
+    ``build_index``, ``sql_query``) refused with ENOTCONN while no
+    process group joins rank 1."""
     import errno
     import torch
     from nvme_strom_tpu_torch.api import StromError
@@ -325,8 +340,280 @@ def test_mesh_with_other_ranks_members(tmp_path):
     n = schema.tuples_per_page * 8
     build_heap_file(path, [rng.integers(0, 9, n).astype(np.int32)
                            for _ in range(2)], schema)
-    for q in (Query(path, schema).select([0]),
-              Query(path, schema).order_by([0])):
+    # with no process group up, every face over a mesh with another
+    # rank's members is refused: this process alone reads only its half
+    from nvme_strom_tpu_torch.ops.filter import FilterPred
+    from nvme_strom_tpu_torch.ops.groupby import GroupKey
+    from nvme_strom_tpu_torch.scan.index import build_index
+    from nvme_strom_tpu_torch.scan.sql import sql_query
+    keys = np.arange(4, dtype=np.int32)
+    faces = [lambda q: q.select([0]), lambda q: q.select(limit=3),
+             lambda q: q.order_by([0]), lambda q: q.quantiles(0, [0.5]),
+             lambda q: q.count_distinct(0), lambda q: q.top_k(0, 3),
+             lambda q: q.aggregate(),
+             lambda q: q.where(FilterPred(((0, "gt", 3),))).aggregate([1]),
+             lambda q: q.group_by(GroupKey(1, mod=4), 4, agg_cols=[0]),
+             lambda q: q.group_by_cols(1, agg_cols=[0]),
+             lambda q: q.group_by_cols(1, agg_cols=[0], max_groups=2),
+             lambda q: q.join(0, keys, keys),
+             lambda q: q.join(0, keys, keys, materialize=True),
+             lambda q: q.star_join([{"probe_col": 0, "table": path,
+                                     "schema": schema, "key_col": 1,
+                                     "value_col": None, "how": "semi"}]),
+             lambda q: q.where_eq(0, 3).select(),
+             lambda q: q.where_in(0, [1, 2]).aggregate(),
+             lambda q: q.where_range(0, 1, 2).aggregate()]
+    for face in faces:
         with pytest.raises(StromError) as e:
-            q.run(mesh=mesh)
-        assert e.value.errno == errno.EOPNOTSUPP
+            face(Query(path, schema)).run(mesh=mesh)
+        assert e.value.errno == errno.ENOTCONN
+    for call in (lambda: build_index(path, schema, 0, mesh=mesh),
+                 lambda: sql_query("SELECT COUNT(*) FROM t", path, schema,
+                                   mesh=mesh)):
+        with pytest.raises(StromError) as e:
+            call()
+        assert e.value.errno == errno.ENOTCONN
+
+
+# -- every Query face over the ranks' mesh -----------------------------------
+
+QKW = dict(n_cols=3, visibility=True, dtypes=("int32", "int32", "float32"))
+DKW = (dict(n_cols=2, visibility=False),
+       dict(n_cols=2, visibility=False, dtypes=("int32", "float32")))
+#: full scans of the query fixture a face runs over the mesh (<= where a
+#: LIMIT may stop a rank early)
+SCANS = {"q_select": 3, "q_order_by": 2, "q_quantiles": 1,
+         "q_count_distinct": 2, "q_top_k": 2, "q_group_by": 1, "q_join": 2,
+         "q_join_rows": 2, "q_pjoin_query": 2, "q_star": 2,
+         "q_where_eq": 6, "q_build_index": 2, "q_groupby_spill": 4,
+         "q_sql": 11}
+EXACT_SCANS = {"q_order_by", "q_quantiles", "q_count_distinct", "q_top_k",
+               "q_group_by", "q_join", "q_pjoin_query", "q_star",
+               "q_build_index", "q_groupby_spill"}
+
+
+def _jflat(prefix, out):
+    flat = {}
+    for k, v in out.items():
+        if k.startswith("_"):
+            continue
+        if isinstance(v, (list, tuple)):
+            for i, x in enumerate(v):
+                flat[f"{prefix}_{k}{i}"] = np.asarray(x)
+        else:
+            flat[f"{prefix}_{k}"] = np.asarray(v)
+    return flat
+
+
+def _jq(work):
+    return JQuery(os.path.join(work, QUERY_NAME), JSchema(**QKW))
+
+
+def _jfaces(work, named, mesh=None):
+    out = {}
+    for tag, build in named.items():
+        q = build(_jq(work).where(lambda c: c[0] > 0))
+        out.update(_jflat(tag, q.run(mesh=mesh) if mesh is not None
+                          else q.run()))
+    return out
+
+
+def _jstar_specs(work):
+    return [{"probe_col": 0, "table": os.path.join(work, DIM_NAMES[0]),
+             "schema": JSchema(**DKW[0]), "key_col": 0, "value_col": 1,
+             "how": "inner"},
+            {"probe_col": 1, "table": os.path.join(work, DIM_NAMES[1]),
+             "schema": JSchema(**DKW[1]), "key_col": 0, "value_col": 1,
+             "how": "left"}]
+
+
+def _want(face, work):
+    """The JAX package's one-process result of *face* on the query
+    fixture, flattened as the harness saves the port's."""
+    from nvme_strom_tpu.scan.index import build_index as jbuild
+    jm = jmesh(jax.devices()[:N])
+    dk = np.arange(-40, 40, dtype=np.int32)
+    dv = (dk * 7).astype(np.int32)
+    build = os.path.join(work, BUILD_NAME)
+    if face == "q_select":
+        return _jfaces(work, {
+            "all": lambda q: q.select(),
+            "win": lambda q: q.select(limit=700, offset=1000),
+            "head": lambda q: q.select([1], limit=50, offset=7)})
+    if face == "q_order_by":
+        return _jfaces(work, {
+            "asc": lambda q: q.order_by(1),
+            "desc": lambda q: q.order_by(1, descending=True, limit=1000,
+                                         offset=500)}, jm)
+    if face == "q_quantiles":
+        return _jfaces(work, {"q": lambda q: q.quantiles(
+            1, [0.0, 0.25, 0.5, 0.99, 1.0])}, jm)
+    if face == "q_count_distinct":
+        got = _jfaces(work, {"d0": lambda q: q.count_distinct(0),
+                             "d1": lambda q: q.count_distinct(1)}, jm)
+        return {k: v for k, v in got.items() if k.endswith("_distinct")}
+    if face == "q_top_k":
+        return _jfaces(work, {"max": lambda q: q.top_k(1, 10),
+                              "min": lambda q: q.top_k(0, 5, largest=False)})
+    if face == "q_group_by":
+        return _jfaces(work, {"g": lambda q: q.group_by(
+            lambda c: c[1] % 16, 16, agg_cols=[0])})
+    if face == "q_join":
+        return _jfaces(work, {"inner": lambda q: q.join(0, dk, dv),
+                              "left": lambda q: q.join(0, dk, dv,
+                                                       how="left")})
+    if face == "q_join_rows":
+        return _jfaces(work, {
+            "inner": lambda q: q.join(0, dk, dv, materialize=True, limit=300,
+                                      offset=20),
+            "left": lambda q: q.join(0, dk, dv, materialize=True,
+                                     how="left")})
+    if face == "q_pjoin_query":
+        bs = JSchema(**DKW[0])
+        return _jfaces(work, {
+            "agg": lambda q: q.join_table(0, build, bs, 0, 1),
+            "rows": lambda q: q.join_table(0, build, bs, 0, 1,
+                                           materialize=True, limit=400,
+                                           offset=10)}, jm)
+    if face == "q_star":
+        return _jfaces(work, {
+            "agg": lambda q: q.star_join(_jstar_specs(work)),
+            "rows": lambda q: q.star_join(_jstar_specs(work),
+                                          materialize=True,
+                                          fact_cols=[0, 1], limit=100,
+                                          offset=5)})
+    if face == "q_where_eq":
+        out = {}
+        eq = _jq(work).where_eq(0, 7).aggregate().run()
+        for tag in ("eq_agg", "sidecar_mesh", "index"):
+            out.update(_jflat(tag, eq))
+        out.update(_jflat("eq_rows", _jq(work).where_eq(0, 7).select()
+                          .run()))
+        out.update(_jflat("in_agg", _jq(work).where_in(0, [3, 5, 7])
+                          .aggregate().run()))
+        out.update(_jflat("range_agg", _jq(work).where_range(0, -5, 5)
+                          .aggregate().run()))
+        return out
+    if face == "q_build_index":
+        out = {}
+        for tag, col in (("c1", 1), ("pair", (0, 1))):
+            p = jbuild(os.path.join(work, QUERY_NAME), JSchema(**QKW), col,
+                       index_path=os.path.join(work, f"j_{tag}.idx"))
+            out[tag] = np.fromfile(p, np.uint8)
+        return out
+    if face == "q_groupby_spill":
+        out = {}
+        for tag, key, agg in (("one", 1, [0]), ("pair", [0, 1], [2])):
+            r = _jq(work).group_by_cols(key, agg_cols=agg,
+                                        max_groups=SPILL_MAX_GROUPS).run()
+            for i, k in enumerate(r.pop("key_cols")):
+                out[f"{tag}_key{i}"] = np.asarray(k)
+            out.update(_jflat(tag, r))
+        return out
+    raise KeyError(face)
+
+
+def _close(face, key, got, want, scale, scale2, float_agg=False):
+    """One output: exact, or within the float tolerances (*scale* = the
+    float column's sum(|x|), *scale2* its sum(x^2); *float_agg*: a GROUP
+    BY over it, whose float64 statistics carry its float32 sums)."""
+    got, want = np.asarray(got), np.asarray(want)
+    what = f"{face}: {key}"
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    if "f" in (got.dtype.kind, want.dtype.kind):
+        g, w = got.astype(np.float64), want.astype(np.float64)
+        if float_agg and key.endswith(("sumsqs", "vars")):
+            tol = 1e-4 * scale2 + 1e-6
+        elif got.dtype == np.float32 or want.dtype == np.float32 \
+                or float_agg:
+            tol = 1e-4 * scale + 1e-6
+        else:
+            tol = 1e-6 * np.maximum(np.abs(w), 1.0)
+        ok = (np.abs(g - w) <= tol) | (np.isnan(g) & np.isnan(w))
+        assert ok.all(), (what, g, w)
+    else:
+        np.testing.assert_array_equal(got.astype(np.int64),
+                                      want.astype(np.int64), err_msg=what)
+
+
+@pytest.mark.parametrize("face", QUERY_CHECKS)
+def test_query_face_over_ranks_is_the_jax_result(ran, face):
+    """Each face over the two ranks' mesh: both ranks saved the same
+    outputs, each the JAX package's one-process result on the same bytes;
+    each rank read only its members' pages (the tail goes buffered on
+    rank 0), both together the table once a scan."""
+    work, results, outs = ran
+    import torch
+    from nvme_strom_tpu_torch.ops.filter import decode_pages
+    from nvme_strom_tpu_torch.scan.heap import HeapSchema
+    pages = _pages_of(os.path.join(work, QUERY_NAME))
+    cols, valid = decode_pages(torch.from_numpy(pages), HeapSchema(**QKW))
+    scale = float(np.abs(cols[2].numpy()).sum())
+    scale2 = float(np.square(cols[2].numpy().astype(np.float64)).sum())
+    snap = jconfig.snapshot()
+    try:
+        jconfig.set("join_broadcast_max", JOIN_BROADCAST_MAX)
+        if face == "q_sql":
+            _sql_face(work, results)
+        else:
+            want = _want(face, work)
+            pre = f"{face}__"
+            got = [{k[len(pre):]: v for k, v in out.items()
+                    if k.startswith(pre)} for out in outs]
+            assert sorted(got[0]) == sorted(got[1])
+            for k in got[0]:
+                np.testing.assert_array_equal(got[0][k], got[1][k])
+            extra = {"index_dma"} if face == "q_where_eq" else set()
+            assert set(got[0]) - extra == set(want), \
+                sorted(set(got[0]) ^ set(want))
+            for k, w in want.items():
+                fagg = face == "q_groupby_spill" and k.startswith("pair_")
+                if fagg and k.endswith("stds"):
+                    # sqrt near 0 magnifies the float32 sums' rounding:
+                    # the port's stds are its vars' roots, held above
+                    np.testing.assert_allclose(
+                        got[0][k], np.sqrt(got[0]["pair_vars"]))
+                    continue
+                _close(face, k, got[0][k], w, scale, scale2, fagg)
+    finally:
+        jconfig.restore(snap)
+    # the engine's bytes: a rank's share of every scan, the body once a
+    # scan over both ranks (the tail reads buffered, on rank 0)
+    share = 2 * 2 * 8192                    # two members, two pages each
+    dma = [r["dma"][face] for r in results]
+    if face == "q_where_eq":                # the local index face's pages
+        dma = [d - int(o["q_where_eq__index_dma"])
+               for d, o in zip(dma, outs)]
+    assert dma[0] == dma[1], dma
+    assert dma[0] <= SCANS[face] * share, (face, dma)
+    if face in EXACT_SCANS:
+        assert sum(dma) == SCANS[face] * NPROC * share, (face, dma)
+    if face == "q_where_eq":
+        # the index face read only the pages holding c0 == 7 rows
+        t = JSchema(**QKW).tuples_per_page
+        hit = np.unique(np.flatnonzero(
+            ((cols[0] == 7) & valid).numpy().reshape(-1)) // t)
+        assert all(int(o["q_where_eq__index_dma"]) == len(hit) * 8192
+                   for o in outs)
+
+
+def _sql_face(work, results):
+    """The SQL statements over the ranks, against the JAX package's
+    one-process answers; a SUM over no non-NULL row is None in the port
+    and 0 in the JAX package (the † divergence of slice 22)."""
+    from nvme_strom_tpu.scan.sql import sql_query as jsql
+    from nvme_strom_tpu_torch.testing.sql_results import assert_same_result
+    tables = {"d": (os.path.join(work, DIM_NAMES[0]), JSchema(**DKW[0])),
+              "e": (os.path.join(work, DIM_NAMES[1]), JSchema(**DKW[1]))}
+    stmts = [results[0]["checks"]["q_sql"], results[1]["checks"]["q_sql"]]
+    assert stmts[0] == stmts[1]
+    for sql, got in stmts[0]:
+        want = jsql(sql, os.path.join(work, QUERY_NAME), JSchema(**QKW),
+                    tables=tables)
+        if "c0 > 1000" in sql:
+            assert got["count(*)"] == 0
+            for k in got:
+                if k.startswith("sum("):
+                    assert got[k] is None and want[k] == 0, (sql, k)
+                    want[k] = None
+        assert_same_result(got, want, what=sql)

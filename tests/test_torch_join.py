@@ -463,10 +463,16 @@ def test_join_refuses_a_nullable_probe_column(configs, tmp_path):
     assert e.value.errno == errno.EINVAL
     with pytest.raises(Exception, match="nullable"):
         JQuery(path, JSchema(**kw)).join(0, KEYS, KEYS)
-    # a nullable fact column that is not the probe is summed as stored
+    # a nullable fact column that is not the probe is summed as stored;
+    # the port adds each column's non-NULL count over the emitted rows
+    # (SQL's SUM over none of them is NULL), which the JAX package lacks
     got = Query(path, schema).join(1, KEYS, KEYS).run(device="cpu")
     want = JQuery(path, JSchema(**kw)).join(1, KEYS, KEYS).run()
+    nn = [int(x) for x in got.pop("nncounts")]
     _same_agg(got, want)
+    emit = np.isin(np.arange(n), KEYS)
+    assert nn == [int((emit & (np.arange(n) % 3 != 0)).sum()),
+                  int(emit.sum())]
 
 
 @pytest.mark.parametrize("case", ["probe out of range", "float probe",

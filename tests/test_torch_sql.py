@@ -496,3 +496,105 @@ def test_fault_not_of_folded_leaf_is_false_not_unknown(tmp_path, configs):
         assert got["count(*)"] == truth, where
     assert jsql.sql_query("SELECT COUNT(*) FROM t WHERE c1 IS NOT NULL",
                           path, JSchema(**kw))["count(*)"] == n
+
+
+# --- SUM over no non-NULL row is NULL in the port, 0 in the JAX package --
+
+ZKW = dict(n_cols=3, visibility=False, dtypes=("int32", "int32", "float32"),
+           nullable=(False, True, True))
+DZKW = dict(n_cols=2, visibility=False)
+
+
+@pytest.fixture()
+def zero_sums(tmp_path, configs):
+    """ROADMAP's nullable 20000-row table: c0 in [0, 100), c1 and c2 NULL
+    on every c0 = 99 row and on a fifth of the others; dimension d keyed
+    0..99 (payload 10·k), e keyed 0..89 (payload 3·k)."""
+    rng = np.random.default_rng(22)
+    n = 20000
+    c0 = rng.integers(0, 100, n).astype(np.int32)
+    c1 = rng.integers(-50, 50, n).astype(np.int32)
+    c2 = rng.standard_normal(n).astype(np.float32)
+    nulls = {1: (c0 == 99) | (rng.random(n) < 0.2),
+             2: (c0 == 99) | (rng.random(n) < 0.2)}
+    path = str(tmp_path / "z.heap")
+    build_heap_file(path, [c0, c1, c2], JSchema(**ZKW), nulls=nulls)
+    tables = {}
+    for name, hi, mul in (("d", 100, 10), ("e", 90, 3)):
+        k = np.arange(hi, dtype=np.int32)
+        p = str(tmp_path / f"{name}.heap")
+        build_heap_file(p, [k, k * mul], JSchema(**DZKW))
+        tables[name] = (p, DZKW)
+    return Env(path, ZKW, tables=tables, c0=c0, c1=c1, c2=c2, nulls=nulls)
+
+
+def _zero_sum_truth(e, face):
+    """The statements of a face with numpy's answer: each label's SUM over
+    its non-NULL cells, None where there is none."""
+    def total(vals, rows):
+        return None if not rows.any() else vals[rows].sum().item()
+    nn1, nn2 = ~e.nulls[1], ~e.nulls[2]
+    eq99, none = e.c0 == 99, e.c0 > 1000
+    if face == "scalar":
+        return [("SELECT SUM(c1), AVG(c1), SUM(c2) FROM t WHERE c0 = 99",
+                 {"sum(c1)": total(e.c1, eq99 & nn1), "avg(c1)": None,
+                  "sum(c2)": total(e.c2, eq99 & nn2)}),
+                ("SELECT SUM(c0), AVG(c0) FROM t WHERE c0 > 1000",
+                 {"sum(c0)": None, "avg(c0)": None})]
+    if face == "join":
+        ge90 = e.c0 >= 90
+        return [("SELECT COUNT(*), SUM(c1), SUM(d.c1) FROM t JOIN d ON "
+                 "c0 = d.c0 WHERE c0 = 99",
+                 {"count(*)": int(eq99.sum()), "sum(c1)": total(
+                     e.c1, eq99 & nn1), "sum(d.c1)": 990 * int(eq99.sum())}),
+                ("SELECT COUNT(*), SUM(e.c1) FROM t LEFT JOIN e ON c0 = e.c0 "
+                 "WHERE c0 >= 90", {"count(*)": int(ge90.sum()),
+                                    "sum(e.c1)": None}),
+                ("SELECT COUNT(*), SUM(c0), SUM(d.c1) FROM t JOIN d ON "
+                 "c0 = d.c0 WHERE c0 > 1000",
+                 {"count(*)": 0, "sum(c0)": None, "sum(d.c1)": None})]
+    return [("SELECT COUNT(*), SUM(c1), AVG(c1), SUM(d.c1), SUM(e.c1) FROM t "
+             "JOIN d ON c0 = d.c0 LEFT JOIN e ON c0 = e.c0 WHERE c0 = 99",
+             {"count(*)": int(eq99.sum()), "sum(c1)": total(e.c1, eq99 & nn1),
+              "avg(c1)": None, "sum(d.c1)": 990 * int(eq99.sum()),
+              "sum(e.c1)": None}),
+            ("SELECT COUNT(*), SUM(c2), SUM(d.c1), SUM(e.c1) FROM t JOIN d ON "
+             "c0 = d.c0 LEFT JOIN e ON c0 = e.c0 WHERE c0 > 1000",
+             {"count(*)": 0, "sum(c2)": None, "sum(d.c1)": None,
+              "sum(e.c1)": None})]
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+@pytest.mark.parametrize("face", ["scalar", "join", "star"])
+def test_fault_sum_over_no_non_null_rows_is_null(zero_sums, face, workers):
+    """SQL's SUM over no non-NULL cell is NULL: the port's scalar, join and
+    star faces return None there, as numpy's truth, where the JAX package
+    returns 0 (its AVG in the same statement is None already).  A JOIN at
+    ``workers=2`` is refused by both packages (EINVAL), so that case
+    holds the refusal."""
+    e = zero_sums
+    for sql, truth in _zero_sum_truth(e, face):
+        assert None in truth.values() and sql
+        if face == "join" and workers:
+            with pytest.raises(StromError) as ei:
+                e.port(sql, workers=workers)
+            with pytest.raises(OSError) as ej:
+                e.jax(sql, workers=workers)
+            assert ei.value.errno == ej.value.errno == errno.EINVAL
+            assert "worker-servable" in str(ei.value)
+            continue
+        got = e.port(sql, workers=workers)
+        want = e.jax(sql, workers=workers)
+        got.pop("_workers", None)
+        want.pop("_workers", None)
+        assert set(got) == set(truth) == set(want), sql
+        for k, v in truth.items():
+            if v is None:
+                assert got[k] is None, (sql, k, got[k])
+                if k.startswith("sum("):
+                    assert want[k] == 0, (sql, k, want[k])
+                else:
+                    assert want[k] is None, (sql, k, want[k])
+            else:
+                assert_same_result({k: got[k]}, {k: v}, what=sql)
+                assert_same_result({k: got[k]}, {k: want[k]}, what=sql)

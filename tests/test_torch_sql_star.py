@@ -66,9 +66,21 @@ def jax_(sql, path, kw, tables=None):
 
 def both(sql, path, kw, tables=None, scale=None, **run):
     got = port(sql, path, kw, tables, **run)
-    assert_same_result(got, jax_(sql, path, kw, tables), scale=scale,
-                       what=sql)
+    assert_same_result(got, _null_sums(got, jax_(sql, path, kw, tables)),
+                       scale=scale, what=sql)
     return got
+
+
+def _null_sums(got, want):
+    """*want* with the JAX package's SUM over no row (0) read as the
+    port's NULL: the † divergence of slice 22, taken only where the
+    statement selected no row at all."""
+    want = dict(want)
+    for k, v in got.items():
+        if k.startswith("sum(") and v is None:
+            assert want.get("count(*)") == 0 and want[k] == 0, (k, want)
+            want[k] = None
+    return want
 
 
 def on_workers(sql, path, kw, tables=None, scale=None):
@@ -78,8 +90,8 @@ def on_workers(sql, path, kw, tables=None, scale=None):
     assert got["_workers"]["n"] == 2
     assert_same_result(got, port(sql, path, kw, tables), scale=scale,
                        what=sql)
-    assert_same_result(got, jax_(sql, path, kw, tables), scale=scale,
-                       what=sql)
+    assert_same_result(got, _null_sums(got, jax_(sql, path, kw, tables)),
+                       scale=scale, what=sql)
     return got
 
 
