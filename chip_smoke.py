@@ -14,9 +14,10 @@ integrity domain, 64-bit scalar sums, the autotune controller and
 predictive readahead, NVMe passthrough through its emulator with NUMA
 binding, serving (a model's layer-ordered cold start, its sharded form,
 the SSD-backed KV block pool), the multi-device layer, ranks over
-``torch.distributed`` and the shared serving daemon — at full size and
-holds every CUDA kernel of those paths against its plain PyTorch
-version:
+``torch.distributed`` and the shared serving daemon, the config's file
+and environment tiers with the per-process stats export read by
+``gpu_stat`` — at full size and holds every CUDA kernel of those paths
+against its plain PyTorch version:
 
 1. environment: the card's name and power limit (``nvidia-smi``);
 2. build: every ``nvme_strom_tpu_torch/csrc/*.cu`` with ``nvcc`` (sm_90a)
@@ -372,8 +373,9 @@ version:
        mesh: the aggregate face equal to the local Grace join and numpy,
        a limited row face checked row by row;
     d. ``build_index`` over every ring (an ``(sp, dp)`` mesh's build is
-       its ring's: the sort flattens it), one column and a pair: each
-       sidecar byte-identical to the local build's;
+       its ring's: the sort flattens it), one column over the whole table
+       and a pair over its first ``PAIR_INDEX_PAGES`` pages: each sidecar
+       byte-identical to the local build's;
     e. a GPT-2 medium ``state_dict`` restored over every mesh, by the
        leading axis and by the second: ``("dp", "sp")`` on an ``(sp,
        dp)`` mesh, ``(None, "dp")`` on a ring and for the embedding's odd
@@ -412,7 +414,31 @@ version:
        latency-class and a bulk-class tenant land it at once (each
        tenant's bytes and p95 queue wait from ``daemon_stat``); a shared
        KV pool with HBM blocks on the card round-trips its blocks;
+       ``gpu_stat --daemon SOCK`` prints both tenants' rows;
     c. ``testing/qos_gate.py``, both legs.
+26. the config's tiers and the stats export (after [25], on [5]'s table),
+    the card's name and power limit beside every number:
+    a. a child process whose ``STROM_TPU_CONF`` file sets ``chunk_size``
+       8m and ``async_depth`` 16 and whose ``STROM_TPU_ASYNC_DEPTH`` is 32
+       sees 8 MiB and 32 (``STROM_TPU_CACHE_ARBITRATION`` off: every page
+       is read direct); its bare Session scans the first
+       ``TIERS_CHILD_PAGES`` pages of [5]'s table with B1, equal to the
+       plain version; while it waits, ``gpu_stat -l`` lists it live,
+       ``gpu_stat -p PID --json`` reads its bytes, its B1 launches as
+       ``nr_kernel_dispatch`` and its submit, request-build and wait
+       stages, ``gpu_stat -p PID -v`` lists the scan's counters as
+       ``--json`` read them, and the ``-v`` row over the child's life
+       shows its submit, wait and plan times and its enters, H2D
+       landings and retries; its file goes with its clean exit;
+    b. [5]'s table scanned with B1 in one Session after one untimed scan,
+       in windows of at least ``EXPORT_WINDOW_S`` with the exporter on
+       or stopped in the order ``EXPORT_WINDOWS``; each window's
+       publishes are counted (none while off, some while on): GB/s of
+       each arm over all its scans, and their ratio.
+
+Every Session of the run and of its children publishes its stats under
+the run's temporary directory (``STROM_STAT_EXPORT_DIR``), never in the
+machine's shared ``/dev/shm``.
 
 Every main path sets the kernels' launch counts to 0 just before it runs
 and reads them just after; each kernel of a path must have launched once
@@ -6953,6 +6979,10 @@ def _serving_phase(torch, dev, tmp, seed, card=None, *, gpt2=None, n_seq=5,
 MESH_TH = 900
 #: [24c]'s build side: 16M unique int32 keys, above join_broadcast_max
 MESH_BUILD_ROWS = 1 << 24
+#: [24d]'s pair index: its builds run on the table's first 16384 pages
+#: (11.1M rows, far above the card's small-sort cutoff); over the whole
+#: table they took ~21 s of the script's 1200 s
+PAIR_INDEX_PAGES = 16384
 #: [24b]'s sort faces (each after ``where c0 > MESH_TH``)
 MESH_SORT_FACES = {
     "order_by": lambda q: q.order_by(1),
@@ -7336,32 +7366,39 @@ def _multidevice_phase(torch, dev, tmp, seed, card, heap, n_pages):
     del sel
 
     # -- d. build_index over the mesh --------------------------------------
-    for col in (0, (0, 1)):
+    # the pair's builds run on the table's first PAIR_INDEX_PAGES pages
+    part = os.path.join(tmp, "pair.heap")
+    with open(heap_path, "rb") as f, open(part, "wb") as g:
+        g.write(f.read(PAIR_INDEX_PAGES * PAGE_SIZE))
+    for col, path in ((0, heap_path), ((0, 1), part)):
         mp = os.path.join(tmp, "mesh.idx")
+        nbytes = os.path.getsize(path)
         if col == 0:    # the one process's, left for [25a]'s index face
             lp, l_s = one["sidecar"], one["sidecar_s"]
         else:
             lp = os.path.join(tmp, "local.idx")
             t0 = time.monotonic()
-            build_index(heap_path, schema, col, index_path=lp, device=dev)
+            build_index(path, schema, col, index_path=lp, device=dev)
             l_s = time.monotonic() - t0
         # the rings only: the sort flattens an (sp, dp) mesh to its
         # members, so the grid's build is the ring's, step for step
         for label, mesh in [(lb, m) for lb, m in meshes if m.sp == 1]:
             t0 = time.monotonic()
-            build_index(heap_path, schema, col, index_path=mp, mesh=mesh)
+            build_index(path, schema, col, index_path=mp, mesh=mesh)
             m_s = time.monotonic() - t0
             if not _files_equal(lp, mp):
                 fail("d", f"the mesh sidecar of {col} over {label} differs "
                           f"from the local build's")
-            print(f"[24d] build_index {col} over {label}: {m_s:.3f} s = "
-                  f"{table_bytes / m_s / 1e9:.3f} GB/s (local {l_s:.3f} s = "
-                  f"{table_bytes / l_s / 1e9:.3f}), sidecar "
+            print(f"[24d] build_index {col} over {label} "
+                  f"({nbytes // PAGE_SIZE} pages): {m_s:.3f} s = "
+                  f"{nbytes / m_s / 1e9:.3f} GB/s (local {l_s:.3f} s = "
+                  f"{nbytes / l_s / 1e9:.3f}), sidecar "
                   f"{os.path.getsize(mp)} bytes byte-identical to the local "
                   f"build's ({card})")
             os.unlink(mp)
         if col != 0:
             os.unlink(lp)
+    os.unlink(part)
     del c0, c1, v
 
     # -- e. the second-axis restore ----------------------------------------
@@ -7550,6 +7587,20 @@ def _ranks_daemon_phase(torch, dev, tmp, seed, card, scan, load, one):
                     fail("b", f"{name} moved {t['bytes']} bytes")
             print(f"[25b] two tenants at once in {both_s:.2f} s, each "
                   f"byte-exact: {'; '.join(cells)} ({card})")
+            # the port's stat tool asks the daemon for the same scoreboard
+            # (tenant rows stay on it after their sessions detach)
+            t0 = time.monotonic()
+            out = subprocess.run(
+                [sys.executable, "-m", "nvme_strom_tpu_torch.tools.gpu_stat",
+                 "--daemon", sock], capture_output=True, text=True,
+                timeout=120, cwd=os.path.dirname(os.path.abspath(__file__)))
+            rows = [ln.split()[0] for ln in out.stdout.splitlines()[2:]]
+            if out.returncode != 0 or not {"lat", "bulk"} <= set(rows):
+                fail("b", f"gpu_stat --daemon exit {out.returncode}: "
+                          f"{out.stdout[-2000:]}{out.stderr[-2000:]}")
+            print(f"[25b] gpu_stat --daemon {sock} in "
+                  f"{time.monotonic() - t0:.1f} s: "
+                  f"{out.stdout.splitlines()[0]}; tenant rows {rows}")
             # the shared KV pool, its HBM blocks on the card
             bb = 64 << 10
             spill = []
@@ -7896,6 +7947,337 @@ def _slots_in_order(torch, out):
     return t[order].reshape(-1)
 
 
+#: [26a]: pages of [5]'s table the child scans (16 batches of the 8 MiB
+#: chunk its config file sets)
+TIERS_CHILD_PAGES = 16384
+
+#: [26a]: the child: its config through the file and environment tiers, a
+#: bare Session's B1 scan of *path* against the plain version, then a wait
+#: on stdin while another process watches it through its stats export
+_TIERS_CHILD = """
+import json, sys
+import numpy as np
+import torch
+from nvme_strom_tpu_torch.config import config
+from nvme_strom_tpu_torch.engine import Session
+from nvme_strom_tpu_torch.ops import filter_cuda
+from nvme_strom_tpu_torch.ops.filter import scan_filter_step
+from nvme_strom_tpu_torch.scan.executor import TableScanner
+path, th = sys.argv[1], int(sys.argv[2])
+print(json.dumps({"chunk_size": config.get("chunk_size"),
+                  "async_depth": config.get("async_depth"),
+                  "cache_arbitration": config.get("cache_arbitration")}),
+      flush=True)
+dev = torch.device("cuda", 0)
+with Session(device=dev) as sess, TableScanner(path, session=sess) as sc:
+    filter_cuda.launches = 0
+    got = sc.scan_filter(lambda p: filter_cuda.scan_filter_step_cuda(p, th),
+                         device=dev)
+    launches, batches = filter_cuda.launches, sc.last_batches
+    pages = torch.from_numpy(np.fromfile(path, np.uint8)).view(
+        -1, 8192).to(dev)
+    want = scan_filter_step(pages, th)
+    torch.cuda.synchronize(dev)
+    print(json.dumps({"launches": launches, "batches": batches,
+                      "count": int(got["count"]), "sum": int(got["sum"]),
+                      "plain_count": int(want["count"]),
+                      "plain_sum": int(want["sum"]),
+                      "backend": sess.backend_name}), flush=True)
+    sys.stdin.readline()
+"""
+
+
+def _export_probe():
+    """What the host gives the stats export: whether ``/dev/shm`` (the
+    library's default directory) can be written, and whether
+    ``/proc/<pid>`` tells a live process from one that exited (what
+    ``gpu_stat -l`` reads).  The run itself publishes under its own
+    directory either way."""
+    if not os.path.isdir("/dev/shm"):
+        shm = "no /dev/shm"
+    else:
+        try:
+            fd, probe = tempfile.mkstemp(dir="/dev/shm", prefix="chip_smoke.")
+            os.close(fd)
+            os.unlink(probe)
+            shm = "/dev/shm writable"
+        except OSError as e:
+            shm = f"/dev/shm not writable ({e})"
+    child = subprocess.Popen([sys.executable, "-c", "pass"])
+    child.wait()
+    proc_ok = (os.path.exists(f"/proc/{os.getpid()}")
+               and not os.path.exists(f"/proc/{child.pid}"))
+    return proc_ok, (f"{shm}, /proc/<pid> liveness "
+                     f"{'works' if proc_ok else 'does not work'}")
+
+
+#: [26b]: the exporter's state in each timed window of scans, in turns
+#: so that a drift of the host's rate falls on both arms alike
+EXPORT_WINDOWS = ("on", "off", "off", "on") * 2
+#: [26b]: the least wall time of a window: an arm's four windows hold at
+#: least 6 s, about 10 publishes at the exporter's 0.5 s interval
+EXPORT_WINDOW_S = 1.5
+
+
+def _avg_us(counters, stage):
+    """A stage's mean time in µs from its ``nr_`` / ``clk_`` pair."""
+    return counters[f"clk_{stage}"] / max(counters[f"nr_{stage}"], 1) / 1e3
+
+
+def _tiers_export_phase(torch, dev, tmp, card, scan):
+    """Phase 26: the config's file and environment tiers, the per-process
+    stats export and ``gpu_stat`` (see the module docstring).  *scan* =
+    ``(path, schema, threshold, count, sum)``, [5]'s table and its numpy
+    truth.  Returns the B1 launches (the child's and the in-process
+    scans')."""
+    import importlib
+
+    from nvme_strom_tpu_torch.engine import Session
+    from nvme_strom_tpu_torch.ops import filter_cuda
+    from nvme_strom_tpu_torch.scan.executor import TableScanner
+    from nvme_strom_tpu_torch.scan.heap import PAGE_SIZE
+    from nvme_strom_tpu_torch.stats import stats
+    from nvme_strom_tpu_torch.tools import gpu_stat
+    from nvme_strom_tpu_torch.tools.common import drop_page_cache
+
+    def fail(leg, msg):
+        raise AssertionError(f"[26{leg}] {msg}")
+
+    t_phase = time.monotonic()
+    heap_path, _schema, th, want_count, want_sum = scan
+    repo = os.path.dirname(os.path.abspath(__file__))
+    export_dir = os.environ["STROM_STAT_EXPORT_DIR"]
+    stats_mod = importlib.import_module("nvme_strom_tpu_torch.stats")
+    if stats_mod.STAT_EXPORT_DIR != export_dir:
+        fail("", f"the port publishes under {stats_mod.STAT_EXPORT_DIR}, "
+                 f"not the run's {export_dir}")
+    proc_ok, found = _export_probe()
+    print(f"[26] stats export under the run's {export_dir}; the host: "
+          f"{found}")
+    if not proc_ok:
+        fail("", "gpu_stat -l cannot tell a live session on this host")
+
+    # -- a. a child configured through the tiers, watched by gpu_stat -----
+    part = os.path.join(tmp, "tiers.heap")
+    nbytes = TIERS_CHILD_PAGES * PAGE_SIZE
+    with open(heap_path, "rb") as f, open(part, "wb") as g:
+        g.write(f.read(nbytes))
+    conf = os.path.join(tmp, "strom_tpu.conf")
+    with open(conf, "w") as f:
+        f.write("# [26a]\nchunk_size = 8m\nasync_depth = 16\n")
+    # arbitration off: every page is read direct, so the engine's bytes
+    # count the scan on a host whose page cache holds the table too
+    env = dict(os.environ, PYTHONPATH=repo, STROM_TPU_CONF=conf,
+               STROM_TPU_ASYNC_DEPTH="32", STROM_TPU_CACHE_ARBITRATION="off")
+    env.pop("STROM_STAT_EXPORT", None)
+
+    def tool(*argv):
+        out = subprocess.run(
+            [sys.executable, "-m", "nvme_strom_tpu_torch.tools.gpu_stat",
+             *argv], env=env, cwd=repo, capture_output=True, text=True,
+            timeout=120)
+        if out.returncode != 0:
+            fail("a", f"gpu_stat {' '.join(argv)} exit {out.returncode}: "
+                      f"{out.stderr[-2000:]}")
+        return out.stdout
+
+    t0 = time.monotonic()
+    child = subprocess.Popen(
+        [sys.executable, "-c", _TIERS_CHILD, part, str(th)], env=env,
+        cwd=tmp, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        line = child.stdout.readline()
+        if not line:
+            fail("a", f"the child died: {child.stderr.read()[-3000:]}")
+        seen = json.loads(line)
+        if seen != {"chunk_size": 8 << 20, "async_depth": 32,
+                    "cache_arbitration": False}:
+            fail("a", f"the child's config {seen}: the file sets chunk_size "
+                      f"8m, the environment async_depth 32 over the file's "
+                      f"16 and cache_arbitration off")
+        line = child.stdout.readline()
+        if not line:
+            fail("a", f"the child died: {child.stderr.read()[-3000:]}")
+        res = json.loads(line)
+        t_scan = time.time()
+        child_s = time.monotonic() - t0
+        if res["count"] != res["plain_count"] or \
+                res["sum"] != res["plain_sum"]:
+            fail("a", f"B1 count/sum {res['count']}/{res['sum']} against "
+                      f"the plain version's {res['plain_count']}/"
+                      f"{res['plain_sum']}")
+        if res["launches"] != res["batches"] or res["batches"] != \
+                TIERS_CHILD_PAGES * PAGE_SIZE // (8 << 20):
+            fail("a", f"{res['launches']} B1 launches for "
+                      f"{res['batches']} batches of 8 MiB")
+        path = os.path.join(export_dir, f"strom_gpu_stat.{child.pid}.json")
+        # the exporter publishes every 0.5 s: wait for one after the scan
+        deadline = time.monotonic() + 30
+        while True:
+            try:
+                if os.stat(path).st_mtime > t_scan:
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                fail("a", f"no export at {path} after the scan")
+            time.sleep(0.1)
+        listing = tool("-l")
+        rows = [ln.split() for ln in listing.splitlines()[1:]]
+        mine = [r for r in rows if r and r[0] == str(child.pid)]
+        if len(mine) != 1 or mine[0][1] != "live":
+            fail("a", f"gpu_stat -l does not show pid {child.pid} live: "
+                      f"{listing}")
+        snap = json.loads(tool("-p", str(child.pid), "--json"))
+        c = snap["counters"]
+        checks = {
+            "total_dma_length": c["total_dma_length"] >= nbytes,
+            "nr_kernel_dispatch": c["nr_kernel_dispatch"] == res["launches"],
+            "nr_ioctl_memcpy_submit": c["nr_ioctl_memcpy_submit"] > 0,
+            "nr_setup_prps": c["nr_setup_prps"] > 0,
+            "nr_ioctl_memcpy_wait": c["nr_ioctl_memcpy_wait"] > 0}
+        if not all(checks.values()):
+            fail("a", f"the export fails "
+                      f"{sorted(k for k in checks if not checks[k])}: "
+                      f"{dict((k, c[k]) for k in checks)}")
+        # the one-shot -v lists the counters the child published: the
+        # scan's must read as --json read them (the child is idle now)
+        verbose = tool("-p", str(child.pid), "-v")
+        listed = {}
+        for ln in verbose.splitlines()[1:]:
+            kv = ln.split()
+            if len(kv) == 2 and ln.startswith("  ") and kv[1].isdigit():
+                listed[kv[0]] = int(kv[1])
+        scan_keys = [k for k in c if k.startswith(("nr_", "clk_"))
+                     and any(t in k for t in (
+                         "memcpy", "setup_prps", "submit_dma", "enter_dma",
+                         "ssd2dev", "debug", "kernel_dispatch"))]
+        scan_keys.append("total_dma_length")
+        differ = {k: (listed.get(k), c[k]) for k in scan_keys
+                  if listed.get(k) != c[k]}
+        if differ or not verbose.startswith(f"pid {child.pid} "):
+            fail("a", f"gpu_stat -p {child.pid} -v against --json "
+                      f"(-v, --json): {differ}\n{verbose[:2000]}")
+        # the row gpu_stat -v prints, over the child's whole life (its
+        # interval rows are deltas, all '--' once the child is idle)
+        head = gpu_stat._header(True).split()
+        row = gpu_stat._row(snap, {"counters": {}}, True).split()
+        col = dict(zip(head, row))
+        want = {"enters": str(c["nr_enter_dma"]),
+                "h2d": str(c["nr_debug3"]),
+                "retry": str(c["nr_io_retry"])}
+        bad = [h for h in ("submit", "wait", "plan") if col.get(h) == "--"]
+        bad += [h for h, v in want.items() if col.get(h) != v]
+        if len(row) != len(head) or bad:
+            fail("a", f"the -v row's columns {bad} against the counters "
+                      f"{want}: {col}")
+        child.stdin.write("\n")
+        child.stdin.flush()
+        if child.wait(timeout=120) != 0:
+            fail("a", f"the child exited {child.returncode}: "
+                      f"{child.stderr.read()[-3000:]}")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if os.path.exists(path):
+        fail("a", f"{path} outlived its process's clean exit")
+    os.unlink(part)
+    print(f"[26a] a child with {conf} (chunk_size 8m, async_depth 16), "
+          f"STROM_TPU_ASYNC_DEPTH=32 and STROM_TPU_CACHE_ARBITRATION=off saw "
+          f"chunk_size {seen['chunk_size']}, async_depth "
+          f"{seen['async_depth']}; its bare Session "
+          f"({res['backend']}) scanned {TIERS_CHILD_PAGES} pages of [5]'s "
+          f"table with B1 ({res['launches']} launches, count {res['count']}"
+          f" and sum {res['sum']} equal to the plain version's) in "
+          f"{child_s:.1f} s with its start; gpu_stat -l: live; -p --json: "
+          f"total_dma_length {c['total_dma_length']}, nr_kernel_dispatch "
+          f"{c['nr_kernel_dispatch']}, nr_ioctl_memcpy_submit "
+          f"{c['nr_ioctl_memcpy_submit']} (avg "
+          f"{_avg_us(c, 'ioctl_memcpy_submit'):.1f} us), nr_setup_prps "
+          f"{c['nr_setup_prps']} (avg {_avg_us(c, 'setup_prps'):.1f} us), "
+          f"nr_ioctl_memcpy_wait {c['nr_ioctl_memcpy_wait']}; -p -v: the "
+          f"{len(scan_keys)} scan counters equal --json's; the file went "
+          f"with the child's clean exit")
+    print(f"    gpu_stat -v row over the child's life: "
+          f"{gpu_stat._header(True)}")
+    print(f"                                           "
+          f"{gpu_stat._row(snap, {'counters': {}}, True)}")
+
+    # -- b. what the exporter costs a scan -----------------------------------
+    # windows of scans in the order EXPORT_WINDOWS, each at least
+    # EXPORT_WINDOW_S of wall time; the exporter runs through an "on"
+    # window and is stopped through an "off" one, and the publishes that
+    # fell inside each window are counted
+    table_bytes = os.path.getsize(heap_path)
+    launches = res["launches"]
+    arms = {"on": [], "off": []}
+    with Session(device=dev) as sess:
+        # one untimed scan first: the Session's first pinned pool and
+        # copy stream are set-up, not an arm's cost
+        filter_cuda.launches = 0
+        with TableScanner(heap_path, session=sess) as sc:
+            sc.scan_filter(lambda p: filter_cuda.scan_filter_step_cuda(p, th),
+                           device=dev)
+        if filter_cuda.launches != sc.last_batches:
+            fail("b", f"{filter_cuda.launches} launches for "
+                      f"{sc.last_batches} batches")
+        launches += filter_cuda.launches
+        for arm in EXPORT_WINDOWS:
+            if arm == "on":
+                stats.default_export_start()
+            else:
+                stats.stop_export()
+            if (stats._exporter is not None) != (arm == "on"):
+                fail("b", f"the exporter is not {arm}")
+            scans, scan_s = 0, 0.0
+            pub0, w0 = stats.exports, time.monotonic()
+            while time.monotonic() - w0 < EXPORT_WINDOW_S:
+                drop_page_cache(heap_path)
+                filter_cuda.launches = 0
+                with TableScanner(heap_path, session=sess) as sc:
+                    t0 = time.monotonic()
+                    out = sc.scan_filter(
+                        lambda p: filter_cuda.scan_filter_step_cuda(p, th),
+                        device=dev)
+                    scan_s += time.monotonic() - t0
+                    if filter_cuda.launches != sc.last_batches:
+                        fail("b", f"{filter_cuda.launches} launches for "
+                                  f"{sc.last_batches} batches")
+                launches += filter_cuda.launches
+                scans += 1
+                if int(out["count"]) != want_count or \
+                        int(out["sum"]) != want_sum:
+                    fail("b", f"count/sum {int(out['count'])}/"
+                              f"{int(out['sum'])} against numpy's "
+                              f"{want_count}/{want_sum}")
+            wall = time.monotonic() - w0
+            published = stats.exports - pub0
+            if (published > 0) != (arm == "on"):
+                fail("b", f"{published} publishes inside an exporter-{arm} "
+                          f"window of {wall:.1f} s")
+            arms[arm].append((scans, scan_s, wall, published))
+    stats.default_export_start()
+    if stats.export_errors:
+        fail("b", f"{stats.export_errors} failed publishes")
+    gbs = {a: sum(w[0] for w in ws) * table_bytes
+           / sum(w[1] for w in ws) / 1e9 for a, ws in arms.items()}
+    print(f"[26b] [5]'s table ({table_bytes} bytes) scanned with B1 after "
+          f"one untimed scan, in windows of at least {EXPORT_WINDOW_S} s, "
+          f"exporter {', '.join(EXPORT_WINDOWS)} (interval 0.5 s):")
+    for a in ("on", "off"):
+        ws = arms[a]
+        print(f"    exporter {a}: {gbs[a]:.3f} GB/s over "
+              f"{sum(w[0] for w in ws)} scans, {sum(w[3] for w in ws)} "
+              f"publishes in {sum(w[2] for w in ws):.2f} s; windows "
+              + " / ".join(f"{n * table_bytes / t / 1e9:.3f} GB/s ({n} "
+                           f"scans, {p} publishes)" for n, t, _w, p in ws))
+    print(f"    on / off {gbs['on'] / gbs['off']:.4f} ({card})")
+    print(f"    [26] took {time.monotonic() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--load-gib", type=float, default=1.0)
@@ -7915,6 +8297,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
         return 2
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    # every Session of this run and of its children publishes its stats
+    # under the run's own directory, never in the machine's shared one
+    # (read when the port's stats module is imported)
+    os.environ["STROM_STAT_EXPORT_DIR"] = os.path.join(tmp, "exports")
+    os.makedirs(os.environ["STROM_STAT_EXPORT_DIR"])
+    try:
+        return _main(args, torch, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _main(args, torch, tmp) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from nvme_strom_tpu_torch import _build
     from nvme_strom_tpu_torch.ops import decode_cuda, filter_cuda, groupby_cuda
@@ -7957,18 +8352,13 @@ def main() -> int:
         if torch.cuda.device_count() < 2:
             print("chip_smoke: --cross-card needs two cards", file=sys.stderr)
             return 2
-        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-        try:
-            _cross_card_leg(torch, tmp, args.seed)
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
+        _cross_card_leg(torch, tmp, args.seed)
         print(f"    total {time.monotonic() - t_start:.1f} s")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}))
         return 0
     if args.ranks:
-        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
             heap_path = os.path.join(tmp, "scan.heap")
             schema = _scan_table(heap_path, args.seed, args.scan_pages)[0]
@@ -7989,7 +8379,6 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         worst_f = _filter_cases(torch, dev, args.seed)
         print(f"[3a] B1 vs plain: all cases agree (max |float err| "
@@ -8370,6 +8759,11 @@ def main() -> int:
             (load_path, load_bytes, load_gbs), one)
         main_launches += r_b1
         gb_launches += r_b3
+
+        # -- the config's tiers, the stats export and gpu_stat -------------
+        main_launches += _tiers_export_phase(
+            torch, dev, tmp, card,
+            (heap_path, schema, th, want_count, want_sum))
         for f in (heap_path, load_path, one["build"][0], one["sidecar"]):
             os.unlink(f)
 

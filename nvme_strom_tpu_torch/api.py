@@ -10,12 +10,12 @@ from __future__ import annotations
 
 import enum
 import errno as _errno
-from dataclasses import dataclass
-from typing import List, Optional
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple
 
 __all__ = ["StromError", "ErrorClass", "FsKind", "FileInfo", "BufferInfo",
            "MemCopyResult", "RESIDENCY_COUNTERS", "PASSTHRU_COUNTERS",
-           "SERVING_COUNTERS"]
+           "SERVING_COUNTERS", "STAT_FIELDS", "StatInfo"]
 
 
 #: counters of checksum verify on read, the residency tiers and the
@@ -214,3 +214,95 @@ class MemCopyResult:
             raise ValueError(f"chunk conservation violated: "
                              f"{self.nr_ssd2dev}+{self.nr_ram2dev}"
                              f"!={self.nr_chunks}")
+
+
+#: every counter and gauge the registry starts at 0 (:mod:`.stats`): the
+#: JAX package's ``STAT_FIELDS`` (count + clock pairs a stage, after the
+#: reference's 26 counters, kmod/nvme_strom.c:83-106; monotonic ns), in
+#: its order, then the port's own
+STAT_FIELDS: Tuple[str, ...] = (
+    # the reference's stages and gauges
+    "nr_ioctl_memcpy_submit", "clk_ioctl_memcpy_submit",
+    "nr_ioctl_memcpy_wait", "clk_ioctl_memcpy_wait",
+    "nr_ssd2dev", "clk_ssd2dev",
+    "nr_setup_prps", "clk_setup_prps",      # the request build
+    "nr_submit_dma", "clk_submit_dma",
+    "nr_wait_dtask", "clk_wait_dtask",
+    "nr_wrong_wakeup", "total_dma_length", "cur_dma_count", "max_dma_count",
+    "nr_enter_dma", "h2d_depth_reached", "nr_kernel_dispatch",
+    # the fault ladder
+    "nr_io_retry", "nr_io_fallback", "nr_backend_fallback",
+    "nr_task_timeout", "nr_chunk_cancelled", "nr_csum_fail",
+    "nr_csum_reread", "nr_member_quarantine", "nr_member_failed",
+    "nr_member_rejoin", "nr_canary_probe", "nr_hedge_issued",
+    "nr_hedge_won", "nr_hedge_cancelled", "nr_mirror_read",
+    # bytes touched beyond the payload
+    "bytes_staging_copy", "bytes_verify_reread", "bytes_hedge_dup",
+    # the landing route
+    "nr_landing_direct", "nr_landing_staged", "nr_landing_fallback",
+    "nr_landing_fallback_alignment", "nr_landing_fallback_dtype",
+    "nr_landing_fallback_backend",
+    # queue occupancy: the mean depth while busy is integral / busy
+    "occ_integral_ns", "occ_busy_ns",
+    # the RAM tier
+    "nr_cache_hit", "nr_cache_miss", "nr_cache_fill", "nr_cache_evict",
+    "nr_cache_invalidate", "bytes_cache_hit", "cache_resident_bytes",
+    # the write ladder
+    "nr_mirror_write", "nr_write_retry", "nr_resync_extent",
+    "nr_write_verify_fail", "resync_pending_bytes",
+    # the shared serving daemon
+    "nr_session_attach", "nr_session_detach", "nr_session_reap",
+    "nr_admission_reject", "nr_qos_wait", "clk_qos_wait", "nr_qos_throttle",
+    "daemon_sessions", "qos_queue_depth",
+    # packed pushdown
+    "nr_pushdown_decode_chip", "nr_pushdown_decode_host", "bytes_wire_saved",
+    # serving and the HBM tier
+    "nr_hbm_hit", "nr_hbm_promote", "nr_hbm_demote", "nr_kv_pagein",
+    "nr_kv_pageout", "hbm_resident_bytes", "coldstart_bytes_per_sec",
+    # the integrity domain and memlock pressure
+    "nr_integrity_verify", "nr_integrity_fail", "nr_scrub_extent",
+    "bytes_scrubbed", "nr_scrub_repair", "nr_scrub_fail",
+    "nr_cache_mlock_fail", "cache_unpinned_bytes", "nr_pressure_shed",
+    "nr_pressure_passthrough",
+    # several hosts
+    "nr_shard_load", "bytes_shard_load", "nr_ici_permute", "bytes_ici",
+    "nr_shard_wait", "clk_shard_wait", "nr_kv_migrate", "nr_kv_migrate_fail",
+    # autotune and readahead
+    "nr_autotune_step", "nr_autotune_revert", "nr_autotune_freeze",
+    "nr_readahead_fill", "nr_readahead_hit", "nr_readahead_skip",
+    "bytes_readahead",
+    # NVMe passthrough and the blockmap
+    "nr_passthru_dma", "bytes_passthru", "nr_passthru_refused_extent",
+    "nr_passthru_fallback", "nr_passthru_refusal_disabled",
+    "nr_passthru_refusal_nodev", "nr_passthru_refusal_nouring",
+    "nr_passthru_refusal_nouringcmd", "nr_passthru_refusal_lbafmt",
+    "nr_blockmap_resolve", "nr_blockmap_invalidate",
+    # the unified extent space
+    "nr_tier_hbm_promote", "nr_tier_hbm_demote", "nr_tier_ram_fault",
+    "nr_tier_ram_demote", "nr_tier_ram_shed",
+    # the spare debug pairs: 1 the engine's continuations, 2 its
+    # full-queue stalls, 3 the staging pipeline's H2D landings, 4 its
+    # requests on fixed buffers
+    "nr_debug1", "clk_debug1", "nr_debug2", "clk_debug2",
+    "nr_debug3", "clk_debug3", "nr_debug4", "clk_debug4",
+    # the port's own: write requests and bytes, read tasks whose
+    # arbitration the residency probe could not see, and the members a
+    # passthrough namespace does not hold, by reason
+    "nr_write_dma", "total_write_length", "nr_arb_blind",
+    "nr_passthru_member_otherdev", "nr_passthru_member_stacked",
+    "nr_passthru_member_nosysfs",
+)
+
+
+@dataclass
+class StatInfo:
+    """One STAT_INFO snapshot (reference ``StromCmd__StatInfo``,
+    kmod/nvme_strom.h:141-171), the JAX package's ``stats.snapshot()``
+    type: the port's ``snapshot()`` returns the counters dict, and its
+    export payload carries the same ``version``, ``timestamp_ns`` and
+    ``counters`` keys."""
+
+    version: int = 1
+    has_debug: bool = False
+    timestamp_ns: int = 0
+    counters: dict = field(default_factory=dict)

@@ -1,9 +1,20 @@
 """Runtime knobs of the SSD→GPU path.
 
 A reduced copy of the JAX package's GUC-style registry: only the knobs this
-package reads, under the same names, defaults and bounds.  Values are set
-at run time with :meth:`Config.set`; there is no file or environment tier.
-A knob may answer to a second, older name (``cache_bytes`` for
+package reads, under the same names, defaults and bounds.  The tiers are,
+lowest to highest precedence, as in the JAX package:
+
+1. the defaults registered below;
+2. a config file, ``key = value`` lines with ``#`` comments, from
+   ``$STROM_TPU_CONF`` (default ``./strom_tpu.conf``);
+3. environment variables ``STROM_TPU_<NAME>`` (the name upper-cased), for
+   every registered name;
+4. :meth:`Config.set` at run time.
+
+Every file and environment value goes through :meth:`Config.set`, so the
+bounds and cross-knob checks hold for them too; the process-wide
+:data:`config` is built at import, so a bad value there makes the import
+raise.  A knob may answer to a second, older name (``cache_bytes`` for
 ``tier_ram_bytes``, ``hbm_cache_bytes`` for ``tier_hbm_bytes``): one stored
 value, two names, as in the JAX package.
 """
@@ -11,6 +22,7 @@ value, two names, as in the JAX package.
 from __future__ import annotations
 
 import errno as _errno
+import os
 import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -22,6 +34,15 @@ class ConfigError(ValueError):
     """A refused value: EINVAL, as the engine's own refusals."""
 
     errno = _errno.EINVAL
+
+
+def _parse_bool(s: str) -> bool:
+    v = s.strip().lower()
+    if v in ("1", "true", "on", "yes"):
+        return True
+    if v in ("0", "false", "off", "no"):
+        return False
+    raise ConfigError(f"invalid boolean: {s!r}")
 
 
 _SUFFIX = {"k": 1 << 10, "m": 1 << 20, "g": 1 << 30, "t": 1 << 40}
@@ -141,12 +162,11 @@ class _Var:
     cross: Optional[Callable[[Any, "Config"], None]] = None
     #: another name of the knob *alias_of*: one stored value, two names
     alias_of: Optional[str] = None
+    help: str = ""
 
     def parse(self, name: str, raw: Any) -> Any:
         if self.kind is bool:
-            if isinstance(raw, str):
-                raw = raw.strip().lower() in ("1", "true", "on", "yes")
-            return bool(raw)
+            return _parse_bool(raw) if isinstance(raw, str) else bool(raw)
         if self.kind is int and isinstance(raw, str):
             val = parse_size(raw)
         else:
@@ -171,6 +191,9 @@ _VARS: Dict[str, _Var] = {
     "seq_page_cost": _Var(0.25, float, 0.0),
     # plan the direct path whatever the table's size (a test hook)
     "debug_no_threshold": _Var(False, bool),
+    # -- the kernel module's parameters (kmod/nvme_strom.c:76-82) -------
+    "verbose": _Var(0, int, 0, 2, help="debug log verbosity"),
+    "stat_info": _Var(True, bool, help="collect per-stage statistics"),
     # strict eligibility: CHECK_FILE reports UNSUPPORTED, and the planner
     # never plans direct, unless the file sits on raw NVMe or
     # md-RAID-0 of NVMe with 64-bit DMA (the reference's hard
@@ -423,12 +446,35 @@ _VARS: Dict[str, _Var] = {
 
 
 class Config:
-    """Thread-safe knob store."""
+    """Thread-safe knob store, loaded from its file and environment tiers
+    when built."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._values = {k: v.default for k, v in _VARS.items()
                         if v.alias_of is None}
+        self._load_file()
+        self._load_env()
+
+    def _load_file(self) -> None:
+        path = os.environ.get("STROM_TPU_CONF", "strom_tpu.conf")
+        if not os.path.isfile(path):
+            return
+        with open(path) as f:
+            for lineno, line in enumerate(f, 1):
+                line = line.split("#", 1)[0].strip()
+                if not line:
+                    continue
+                if "=" not in line:
+                    raise ConfigError(f"{path}:{lineno}: expected key = value")
+                key, _, raw = line.partition("=")
+                self.set(key.strip(), raw.strip())
+
+    def _load_env(self) -> None:
+        for name in _VARS:
+            raw = os.environ.get("STROM_TPU_" + name.upper())
+            if raw is not None:
+                self.set(name, raw)
 
     def get(self, name: str) -> Any:
         var = _VARS.get(name)
@@ -449,6 +495,12 @@ class Config:
         with self._lock:
             self._values[name] = val
 
+    def peek(self, name: str) -> Any:
+        """:meth:`get` without the lock, for a site that runs once a
+        request: one dict lookup of a canonical name (no alias, no
+        unknown-name check), atomic under the GIL."""
+        return self._values[name]
+
     def bounds(self, name: str) -> Tuple[Optional[float], Optional[float]]:
         """A knob's declared ``(minval, maxval)`` (None where unbounded):
         the bounds a controller may move it within."""
@@ -466,6 +518,10 @@ class Config:
     def restore(self, snap: Dict[str, Any]) -> None:
         with self._lock:
             self._values = dict(snap)
+
+    def describe(self) -> Dict[str, _Var]:
+        """The registry: each name (aliases too) and its declaration."""
+        return dict(_VARS)
 
 
 #: process-wide store

@@ -776,7 +776,7 @@ class StromDaemon:
 
     def _op_stat(self, sess, msg, fds) -> dict:
         # the engine's own counts (its native deltas) fold in here
-        snap = self._engine.stat_info()
+        snap = self._engine.stat_info(debug=bool(msg.get("debug")))
         with self._lock:
             nsess = len(self._sessions)
         return {"counters": snap, "timestamp_ns": time.monotonic_ns(),

@@ -108,7 +108,7 @@ from .fault import (DirtyExtentJournal, HealthState, MemberHealthMachine,
                     RetryPolicy)
 from .integrity import Scrubber, domain as _integrity, \
     verify_and_reread
-from .log import logger, pr_warn
+from .log import pr_info, pr_warn
 from .stats import stats
 from .tiering import extent_space as _tiers
 from .trace import recorder as _trace
@@ -1267,6 +1267,28 @@ def _passthru_left_lane(task: "_Task", r: "Request") -> None:
                        args={"reason": "ladder"})
 
 
+#: the live sessions whose engine counters the stats exporter folds before
+#: each publish (weak: the exporter never keeps a closed session alive)
+_live_sessions: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def _fold_live_native_stats() -> None:
+    """The exporter's fold (:attr:`.stats.Stats.export_fold`): each live
+    Session's native counter deltas into :data:`stats`, under the
+    Session's fold lock, so an engine that :meth:`Session.close` is
+    destroying is never read."""
+    for sess in list(_live_sessions):
+        try:
+            with sess._fold_lock:
+                if sess._native is not None and not sess._closed:
+                    sess._fold_native_stats()
+        except Exception:   # noqa: BLE001 - observability, not control
+            pass
+
+
+stats.export_fold = _fold_live_native_stats
+
+
 class Session:
     """Engine session: buffer registry + task table + error retention.
 
@@ -1366,11 +1388,17 @@ class Session:
         # channel when the engine came up on it
         self._passthru_dev: Optional[str] = None
         self._pt_channel: Optional[_NativePassthruChannel] = None
+        self._fold_lock = threading.RLock()
         self._native = self._open_engine(io_backend
                                          or config.get("io_backend"))
         self.backend_name = (self._native.backend_name if self._native
                              else "python")
         stats.set_backend(self.backend_name)
+        # an unmodified workload is visible to `gpu_stat -l` / `-p PID`
+        # (STROM_STAT_EXPORT=0 opts out), its engine's counters folded in
+        # before each publish (stats.export_fold)
+        stats.default_export_start()
+        _live_sessions.add(self)
         if _trace.active and self._native is not None:
             # the engine's per-lane rings measure each request's device
             # window; _await_native drains them into the recorder
@@ -2161,8 +2189,10 @@ class Session:
                                      chunk_size, dest_offset,
                                      dma_max_size=dma_max,
                                      coalesce_limit=climit or None)
+                tp1 = time.monotonic_ns()
+                stats.count_clock("setup_prps", tp1 - tp0)
                 if _trace.active and task.trace_id:
-                    _trace.span("plan", tp0, time.monotonic_ns(),
+                    _trace.span("plan", tp0, tp1,
                                 tid=task.trace_id,
                                 args={"window": w // window,
                                       "requests": len(reqs)})
@@ -2301,10 +2331,12 @@ class Session:
                 cache_hits.pop()[3].release()
             self._abort_submit(task, buf_handle)
             raise
-        return self._finish_submit(task, MemCopyResult(
+        result = self._finish_submit(task, MemCopyResult(
             dma_task_id=task.task_id, nr_chunks=n,
             nr_ssd2dev=len(direct_ids), nr_ram2dev=n - len(direct_ids),
             chunk_ids=list(direct_ids) + wb_ids + hit_ids), buf_handle)
+        stats.count_clock("ioctl_memcpy_submit", time.monotonic_ns() - t0)
+        return result
 
     def _submit_native(self, task: _Task, buf: memoryview,
                        native_reqs: List[Tuple[int, int, int, int]],
@@ -2958,8 +2990,8 @@ class Session:
                 pr_warn("NUMA: lane %d not pinned to node %d (cpus %s)",
                         lane, node, cpus)
         if pinned:
-            logger.info("NUMA: pinned %d/%d lane(s) (policy=%s)", pinned,
-                        nlanes, policy)
+            pr_info("NUMA: pinned %d/%d lane(s) (policy=%s)", pinned,
+                    nlanes, policy)
         self.lanes_pinned = pinned
         return pinned
 
@@ -3008,6 +3040,7 @@ class Session:
         skipped and its extent journaled for resync.  Under
         ``write_verify`` the wait reads every leg back.  Durability of
         buffered legs needs ``sink.sync()`` after the wait."""
+        t0 = time.monotonic_ns()
         if self._closed:
             raise StromError(_errno.EBADF, "session closed")
         if chunk_size <= 0 or (chunk_size & (chunk_size - 1)):
@@ -3034,9 +3067,11 @@ class Session:
                            for cid in chunk_ids]
                 _tiers.invalidate_extents(wkey, extents)
                 task.cache_invalidate = (wkey, extents)
+            tp0 = time.monotonic_ns()
             reqs = plan_requests(sink, [(cid, i) for i, cid in
                                         enumerate(chunk_ids)],
                                  chunk_size, src_offset)
+            stats.count_clock("setup_prps", time.monotonic_ns() - tp0)
             if len(getattr(sink, "members", ())) > 1:
                 # a written stripe set is a canary target too: the canary
                 # replays its journal while a degraded member rejoins
@@ -3111,9 +3146,11 @@ class Session:
         except BaseException:
             self._abort_submit(task, buf_handle)
             raise
-        return self._finish_submit(task, MemCopyResult(
+        result = self._finish_submit(task, MemCopyResult(
             dma_task_id=task.task_id, nr_chunks=n, nr_ssd2dev=n,
             nr_ram2dev=0, chunk_ids=chunk_ids), buf_handle)
+        stats.count_clock("ioctl_memcpy_submit", time.monotonic_ns() - t0)
+        return result
 
     def _do_write_request(self, task: _Task, sink: Source, r: Request,
                           src: memoryview) -> None:
@@ -3335,58 +3372,61 @@ class Session:
     def _fold_native_stats(self, eng=None) -> dict:
         """Fold a native engine's counter deltas into :data:`stats`;
         returns the raw delta.  Called from :meth:`stat_info`, lane
-        scale-out and :meth:`close`, so no session takes its I/O
-        accounting to the grave."""
-        eng = eng if eng is not None else self._native
-        d = eng.stats_delta()
-        # nr/clk_ssd2dev and the waits are counted per Python task
-        # already; continuations, full-queue stalls and fixed-buffer
-        # requests ride the reference's spare debug counters
-        stats.merge_native({
-            "nr_submit_dma": d.get("nr_submit_dma", 0),
-            "clk_submit_dma": d.get("clk_submit_dma", 0),
-            "total_dma_length": d.get("total_dma_length", 0),
-            "nr_write_dma": d.get("nr_write_dma", 0),
-            "total_write_length": d.get("total_write_length", 0),
-            "nr_enter_dma": d.get("nr_enter_dma", 0),
-            "nr_debug1": d.get("nr_resubmit", 0),
-            "nr_debug2": d.get("nr_sq_full", 0),
-            "nr_debug4": d.get("nr_fixed_dma", 0),
-            "occ_integral_ns": d.get("occ_integral_ns", 0),
-            "occ_busy_ns": d.get("occ_busy_ns", 0),
-        })
-        used = sorted(self._members_used)
-        for m, (nreq, nbytes, ns) in eng.member_stats_delta(used).items():
-            stats.member_add(m, nbytes, ns, n=nreq)
-        # latency histograms; their mean service time feeds the adaptive
-        # sizers (native requests never pass through _do_request)
-        hd = eng.lat_hist_delta()
-        if any(hd):
-            stats.merge_native_hist(hd)
-            fed = False
-            for m, h in eng.member_lat_hist_delta(used).items():
-                stats.merge_member_hist(m, h)
-                # SUSPECT detection covers the native path: the lanes'
-                # per-member histograms feed the health machine too
-                self._member_health.observe_hist(m, h)
-                szr = self._chunk_sizers.get(m)
-                if szr is not None:
-                    szr.observe(_hist_mean(h))
-                    fed = True
-            if not fed:
-                for szr in self._chunk_sizers.values():
-                    szr.observe(_hist_mean(hd))
-        for m, (dint, dbusy) in eng.member_occ_delta(used).items():
-            stats.member_occ_add(m, dint, dbusy)
-        return d
+        scale-out, the autotune controller's thread, the stats exporter's
+        thread (before each publish) and :meth:`close`, so no session
+        takes its I/O accounting to the grave; one fold at a time."""
+        with self._fold_lock:
+            eng = eng if eng is not None else self._native
+            d = eng.stats_delta()
+            # nr/clk_ssd2dev and the waits are counted per Python task
+            # already; continuations, full-queue stalls and fixed-buffer
+            # requests ride the reference's spare debug counters
+            stats.merge_native({
+                "nr_submit_dma": d.get("nr_submit_dma", 0),
+                "clk_submit_dma": d.get("clk_submit_dma", 0),
+                "total_dma_length": d.get("total_dma_length", 0),
+                "nr_write_dma": d.get("nr_write_dma", 0),
+                "total_write_length": d.get("total_write_length", 0),
+                "nr_enter_dma": d.get("nr_enter_dma", 0),
+                "nr_debug1": d.get("nr_resubmit", 0),
+                "nr_debug2": d.get("nr_sq_full", 0),
+                "nr_debug4": d.get("nr_fixed_dma", 0),
+                "occ_integral_ns": d.get("occ_integral_ns", 0),
+                "occ_busy_ns": d.get("occ_busy_ns", 0),
+            })
+            used = sorted(self._members_used)
+            for m, (nreq, nbytes, ns) in eng.member_stats_delta(used).items():
+                stats.member_add(m, nbytes, ns, n=nreq)
+            # latency histograms; their mean service time feeds the adaptive
+            # sizers (native requests never pass through _do_request)
+            hd = eng.lat_hist_delta()
+            if any(hd):
+                stats.merge_native_hist(hd)
+                fed = False
+                for m, h in eng.member_lat_hist_delta(used).items():
+                    stats.merge_member_hist(m, h)
+                    # SUSPECT detection covers the native path: the lanes'
+                    # per-member histograms feed the health machine too
+                    self._member_health.observe_hist(m, h)
+                    szr = self._chunk_sizers.get(m)
+                    if szr is not None:
+                        szr.observe(_hist_mean(h))
+                        fed = True
+                if not fed:
+                    for szr in self._chunk_sizers.values():
+                        szr.observe(_hist_mean(hd))
+            for m, (dint, dbusy) in eng.member_occ_delta(used).items():
+                stats.member_occ_add(m, dint, dbusy)
+            return d
 
-    def stat_info(self) -> Dict[str, int]:
-        """STAT_INFO: the counters, with the live engine's deltas folded
-        in and its in-flight gauges combined."""
+    def stat_info(self, *, debug: bool = False) -> Dict[str, int]:
+        """STAT_INFO: the counters (the ``*debug*`` pairs only with
+        *debug*), with the live engine's deltas folded in and its
+        in-flight gauges combined."""
         if self._native is None:
-            return stats.snapshot()
+            return stats.snapshot(debug=debug)
         d = self._fold_native_stats()
-        snap = stats.snapshot()
+        snap = stats.snapshot(debug=debug)
         snap["cur_dma_count"] = snap.get("cur_dma_count", 0) \
             + d.get("cur_dma_count", 0)
         snap["max_dma_count"] = max(snap.get("max_dma_count", 0),
@@ -3439,8 +3479,9 @@ class Session:
             eng.reap(timeout_ms=int(timeout * 1000))
             if _trace.active:
                 self._drain_native_trace(eng)
-            self._fold_native_stats(eng)
-            eng.close()
+            with self._fold_lock:   # the exporter's fold sees _closed
+                self._fold_native_stats(eng)
+                eng.close()
         return reaped
 
     def __enter__(self):

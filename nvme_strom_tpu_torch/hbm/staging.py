@@ -464,10 +464,14 @@ class StagingPipeline:
                 if depth > self.depth_reached:
                     self.depth_reached = depth
                     stats.gauge_max("h2d_depth_reached", depth)
+            # the landing is queued behind the slot's event, which the next
+            # reuse of the slot fences: the host's time to queue it is the
+            # reference's debug3 pair (nothing here waits on the stream)
+            now = time.monotonic_ns()
+            stats.count_clock("debug3", now - t0)
             if _tr.active:
                 trid = _tr.traced_id(task_id)
                 if trid:
-                    now = time.monotonic_ns()
                     _tr.span("staging_retire", t0, now, tid=trid,
                              length=nbytes,
                              args={"batch_chunks": len(batch),

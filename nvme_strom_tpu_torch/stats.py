@@ -1,15 +1,25 @@
-"""Process-wide counters of the SSD→GPU path.
+"""Process-wide counters of the SSD→GPU path, and their export.
 
-A plain dictionary of integers under one lock, with the names the JAX
-package's registry uses for the same events:
+A dictionary of integers under one lock, every name of
+:data:`.api.STAT_FIELDS` starting at 0 (the JAX package's names for the
+same events, then the port's own).  With config ``stat_info`` off,
+:meth:`Stats.add`, :meth:`~Stats.count_clock`,
+:meth:`~Stats.observe_latency`, :meth:`~Stats.member_add`,
+:meth:`~Stats.member_error` and :meth:`~Stats.shard_wait` count nothing:
 
+* ``nr_ioctl_memcpy_submit`` / ``nr_setup_prps`` (and their ``clk_``
+  pairs) — ``Session.memcpy_ssd2ram`` / ``memcpy_ram2ssd`` calls, from
+  entry to return, and the request builds of their planning windows;
+* ``nr_debug3`` / ``clk_debug3`` — the staging pipeline's H2D landings
+  and the host time each took to queue;
 * ``nr_ssd2dev`` — memcpy tasks that completed (one per engine command);
 * ``nr_submit_dma`` / ``total_dma_length`` — read requests issued and
   their bytes (the native engine's own counts fold in through
   :meth:`Stats.merge_native` when a session's ``stat_info`` or ``close``
-  runs), ``nr_enter_dma`` its ``io_uring_enter`` calls, ``nr_debug1`` /
-  ``nr_debug2`` / ``nr_debug4`` its continuations, full-queue stalls and
-  requests that rode a fixed buffer (the reference's spare debug pairs);
+  runs, and before each export), ``nr_enter_dma`` its ``io_uring_enter``
+  calls, ``nr_debug1`` / ``nr_debug2`` / ``nr_debug4`` its continuations,
+  full-queue stalls and requests that rode a fixed buffer (the
+  reference's spare debug pairs);
 * ``nr_ioctl_memcpy_wait`` / ``clk_ioctl_memcpy_wait`` — tasks reaped by
   ``Session.memcpy_wait`` and the time spent waiting for them;
 * ``nr_write_dma`` / ``total_write_length`` — write requests and bytes;
@@ -81,6 +91,16 @@ package's registry uses for the same events:
   ``stacked``, ``nosysfs``), ``nr_blockmap_resolve`` /
   ``nr_blockmap_invalidate`` (FIEMAP walks, cached maps a write dropped).
 
+The export: a thread publishes :meth:`Stats.export_payload` every 0.5 s
+to a JSON file that ``tools/gpu_stat.py`` reads from another process (the
+reference's ``/proc/nvme-strom`` read by ``nvme_stat``).  Every Session
+starts one on the per-pid file (:func:`pid_export_path`, under
+``STROM_STAT_EXPORT_DIR``, default ``/dev/shm``) unless
+``STROM_STAT_EXPORT=0``; the tools publish to :data:`DEFAULT_STAT_EXPORT`
+(``STROM_TPU_STAT_EXPORT``).  The files are ``strom_gpu_stat.<pid>.json``
+and ``strom_gpu_stat.<uid>.json``: the JAX package's prefix is
+``strom_stat.``, so both packages' registries in one process keep apart.
+
 Beside the counters: the resolved engine backend (:meth:`Stats.backend`),
 a log2-ns request-latency histogram (``LAT_HIST_BUCKETS`` buckets, fed by
 the python pool and the native engine's deltas), and per-member request,
@@ -93,13 +113,20 @@ counters.
 
 from __future__ import annotations
 
+import json
 import os
+import re
+import tempfile
 import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+from .api import STAT_FIELDS
+from .config import config
 
 __all__ = ["Stats", "stats", "hist_percentiles", "bytes_touched_ratio",
-           "LAT_HIST_BUCKETS"]
+           "LAT_HIST_BUCKETS", "DEFAULT_STAT_EXPORT", "STAT_EXPORT_DIR",
+           "pid_export_path", "list_exports"]
 
 LAT_HIST_BUCKETS = 64
 
@@ -143,11 +170,47 @@ def _bucket(ns: int) -> int:
 #: gauges: combined at snapshot time, never summed from an engine's deltas
 _GAUGES = ("cur_dma_count", "max_dma_count")
 
+#: the well-known file a tool publishes to
+DEFAULT_STAT_EXPORT = os.environ.get(
+    "STROM_TPU_STAT_EXPORT",
+    os.path.join(tempfile.gettempdir(),
+                 f"strom_gpu_stat.{os.getuid()}.json"))
+
+#: the directory of the per-pid files every Session publishes
+STAT_EXPORT_DIR = os.environ.get(
+    "STROM_STAT_EXPORT_DIR",
+    "/dev/shm" if os.path.isdir("/dev/shm") else tempfile.gettempdir())
+
+_PID_FILE = re.compile(r"strom_gpu_stat\.(\d+)\.json")
+
+
+def pid_export_path(pid: Optional[int] = None) -> str:
+    return os.path.join(STAT_EXPORT_DIR,
+                        f"strom_gpu_stat.{pid or os.getpid()}.json")
+
+
+def list_exports() -> List[Tuple[int, str, bool]]:
+    """The per-pid export files: ``[(pid, path, alive)]``, *alive* while
+    ``/proc/<pid>`` exists (a killed process leaves its file behind)."""
+    try:
+        names = os.listdir(STAT_EXPORT_DIR)
+    except OSError:
+        return []
+    out = []
+    for name in sorted(names):
+        m = _PID_FILE.fullmatch(name)
+        path = os.path.join(STAT_EXPORT_DIR, name)
+        if m is None or path == DEFAULT_STAT_EXPORT:
+            continue
+        pid = int(m.group(1))
+        out.append((pid, path, os.path.exists(f"/proc/{pid}")))
+    return out
+
 
 class Stats:
     def __init__(self) -> None:
         self._lock = threading.Lock()
-        self._c: Dict[str, int] = {}
+        self._c: Dict[str, int] = dict.fromkeys(STAT_FIELDS, 0)
         self._shard_hist: Dict[int, List[int]] = {}
         self._hist = [0] * LAT_HIST_BUCKETS
         # member -> [nreq, bytes, ns]; latency histograms; [integral, busy]
@@ -164,8 +227,25 @@ class Stats:
         self._tenants: Dict[str, dict] = {}
         self._occ_last_ns = 0
         self._backend = ""
+        # the exporter: (thread, stop event, path)
+        self._exporter: Optional[tuple] = None
+        self._cleanup_registered = False
+        #: what :meth:`export` runs before each publish: the engine sets
+        #: its fold of every live Session's native counters here
+        self.export_fold: Optional[Callable[[], None]] = None
+        #: publishes written, and writes that failed
+        self.exports = 0
+        self.export_errors = 0
+
+    @staticmethod
+    def enabled() -> bool:
+        """Config ``stat_info``, read without the config's lock (these
+        sites run once a request)."""
+        return config.peek("stat_info")
 
     def add(self, name: str, delta: int = 1) -> None:
+        if not self.enabled():
+            return
         with self._lock:
             self._c[name] = self._c.get(name, 0) + delta
 
@@ -199,6 +279,8 @@ class Stats:
     def count_clock(self, name: str, ns: int, n: int = 1) -> None:
         """One ``nr_<name>`` / ``clk_<name>`` pair: *n* events, *ns*
         nanoseconds spent in them."""
+        if not self.enabled():
+            return
         with self._lock:
             self._c["nr_" + name] = self._c.get("nr_" + name, 0) + n
             self._c["clk_" + name] = self._c.get("clk_" + name, 0) + int(ns)
@@ -224,6 +306,8 @@ class Stats:
     def observe_latency(self, ns: int, n: int = 1) -> None:
         """*n* request completions of service time *ns* into the log2
         latency histogram."""
+        if not self.enabled():
+            return
         with self._lock:
             self._hist[_bucket(ns)] += n
 
@@ -240,6 +324,8 @@ class Stats:
                    n: int = 1) -> None:
         """Account requests against a stripe member (the reference's
         per-disk ``part_stat_add``)."""
+        if not self.enabled():
+            return
         with self._lock:
             m = self._members.setdefault(member, [0, 0, 0])
             m[0] += n
@@ -283,6 +369,8 @@ class Stats:
     def member_error(self, member: int, *, retried: bool = False) -> None:
         """Account one failed direct leg of *member* (and the retry it
         took), the per-disk error half of the reference's part_stat."""
+        if not self.enabled():
+            return
         with self._lock:
             h = self._member_health.setdefault(member, [0, 0, 0, False])
             h[0] += 1
@@ -345,6 +433,8 @@ class Stats:
         """Account one shard's submit→completion wait: the ``nr_/
         clk_shard_wait`` pair and the shard's own log2-ns histogram, so a
         straggling shard is not smeared into the aggregate."""
+        if not self.enabled():
+            return
         b = _bucket(ns)
         with self._lock:
             self._c["nr_shard_wait"] = self._c.get("nr_shard_wait", 0) + 1
@@ -431,24 +521,126 @@ class Stats:
             return {k: dict(v, wait_hist=list(v["wait_hist"]))
                     for k, v in sorted(self._tenants.items())}
 
-    def snapshot(self) -> Dict[str, int]:
+    def snapshot(self, *, debug: bool = False,
+                 reset_max: bool = False) -> Dict[str, int]:
+        """The counters, a copy; the ``*debug*`` pairs only with *debug*.
+        *reset_max* sets ``max_dma_count`` back to ``cur_dma_count`` after
+        the read, as the reference's STAT_INFO does (kmod/nvme_strom.c:
+        2087); only the exporter passes it, so every reader sees the
+        same high-water mark of an export interval."""
         with self._lock:
-            return dict(self._c)
+            counters = dict(self._c)
+            if reset_max:
+                self._c["max_dma_count"] = self._c["cur_dma_count"]
+        if not debug:
+            counters = {k: v for k, v in counters.items()
+                        if "debug" not in k}
+        return counters
 
-    def export_payload(self) -> dict:
+    def export_payload(self, *, reset_max: bool = False) -> dict:
         """One snapshot in the shape of the JAX package's per-process
-        stats export (what :func:`..trace.render_prometheus` reads)."""
+        export (what ``gpu_stat`` and :func:`..trace.render_prometheus`
+        read), the debug pairs included."""
         return {"timestamp_ns": time.monotonic_ns(), "pid": os.getpid(),
-                "version": 1, "counters": self.snapshot(),
+                "version": 1,
+                "counters": self.snapshot(debug=True, reset_max=reset_max),
                 "backend": self.backend(),
                 "members": self.member_snapshot(),
                 "lat_hist": self.lat_hist_snapshot(),
-                "shards": self.shard_snapshot(),
-                "tenants": self.tenant_snapshot()}
+                "tenants": self.tenant_snapshot(),
+                "shards": self.shard_snapshot()}
+
+    # -- the export ---------------------------------------------------------
+    def default_export_start(self) -> None:
+        """A Session's hook: publish to :func:`pid_export_path` unless
+        ``STROM_STAT_EXPORT`` is ``0``/``off``/``false`` (idempotent); the
+        file goes at a clean exit, and a killed process leaves it for
+        ``gpu_stat -l`` to flag stale."""
+        if os.environ.get("STROM_STAT_EXPORT", "1").lower() \
+                in ("0", "off", "false"):
+            return
+        path = pid_export_path()
+        self.start_export(path)
+        with self._lock:
+            if self._cleanup_registered:
+                return
+            self._cleanup_registered = True
+
+        def cleanup() -> None:
+            self.stop_export()
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+
+        import atexit
+        atexit.register(cleanup)
+
+    def start_export(self, path: Optional[str] = None,
+                     interval: float = 0.5) -> None:
+        """Start the exporter thread on *path* (default
+        :data:`DEFAULT_STAT_EXPORT`); a second start while one runs does
+        nothing."""
+        path = path or DEFAULT_STAT_EXPORT
+        stop = threading.Event()
+
+        def loop() -> None:
+            while not stop.wait(interval):
+                self.export(path)
+
+        t = threading.Thread(target=loop, daemon=True,
+                             name="strom-stat-export")
+        with self._lock:
+            if self._exporter is not None:
+                return
+            self._exporter = (t, stop, path)
+        t.start()
+
+    def stop_export(self) -> None:
+        """Stop the exporter, then write one last snapshot on this thread:
+        the file's final content is a postcondition of the call."""
+        with self._lock:
+            exp, self._exporter = self._exporter, None
+        if exp is not None:
+            t, stop, path = exp
+            stop.set()
+            t.join(timeout=5.0)    # outside the lock: export() takes it
+            self.export(path)
+
+    def export(self, path: Optional[str] = None) -> None:
+        """Publish one snapshot to *path*: a private ``mkstemp`` file
+        renamed over it, so a reader never sees half a file.  The export
+        is the one reader that resets ``max_dma_count``.  A publish is
+        counted in :attr:`exports`, a failed write in :attr:`export_errors`,
+        never raised."""
+        path = path or DEFAULT_STAT_EXPORT
+        fold = self.export_fold
+        if fold is not None:
+            try:
+                fold()
+            except Exception:   # noqa: BLE001 - a publish must not die
+                pass
+        payload = self.export_payload(reset_max=True)
+        try:
+            fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".",
+                                       prefix=os.path.basename(path) + ".")
+            try:
+                with os.fdopen(fd, "w") as f:
+                    json.dump(payload, f)
+                os.replace(tmp, path)
+            except BaseException:
+                os.unlink(tmp)
+                raise
+        except OSError:
+            self.export_errors += 1
+        else:
+            self.exports += 1
 
     def reset(self) -> None:
+        """Every counter back to 0 (each :data:`.api.STAT_FIELDS` name
+        stays), the histograms and tables emptied."""
         with self._lock:
-            self._c.clear()
+            self._c = dict.fromkeys(STAT_FIELDS, 0)
             self._shard_hist.clear()
             self._hist = [0] * LAT_HIST_BUCKETS
             self._members.clear()

@@ -39,6 +39,7 @@ from ..api import StromError
 from ..engine import Session, Source, check_file, open_source
 from ..hbm import StagingPipeline, registry
 from ..hbm.staging import resolve_device
+from ..stats import stats
 from .common import (chunks_mismatch, drop_page_cache, memdump_on_corruption,
                      parse_size)
 
@@ -146,7 +147,7 @@ def run_load(path: Union[str, Sequence[str], Source], *, device=None,
                                         chunk)
                     pipe.drain()
                 fixed = sum(sess.is_fixed(buf) for _, buf in pipe._bufs)
-                before = sess.stat_info()
+                before = sess.stat_info(debug=True)
                 best = None
                 for _ in range(loops):
                     if drop_cache:
@@ -160,7 +161,7 @@ def run_load(path: Union[str, Sequence[str], Source], *, device=None,
                         torch.cuda.synchronize(dev)
                     dt = time.monotonic() - t0
                     best = dt if best is None else min(best, dt)
-                after = sess.stat_info()
+                after = sess.stat_info(debug=True)
                 depth = pipe.depth_reached
             tensor = registry.get(handle).tensor
         finally:
@@ -351,6 +352,17 @@ def main(argv=None) -> int:
     device = int(args.device) if (args.device or "").isdigit() \
         else args.device
     dev = resolve_device(device)
+    # a concurrent `gpu_stat` watches the run (the well-known file)
+    stats.start_export()
+    try:
+        return _transfer(args, dev)
+    finally:
+        stats.stop_export()
+
+
+def _transfer(args, dev) -> int:
+    """:func:`main` after its arguments: the load (in process or through a
+    daemon), its report and its check."""
     files = args.file
     spec = files if len(files) > 1 else files[0]
     if args.daemon:

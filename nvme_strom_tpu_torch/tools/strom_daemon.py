@@ -25,6 +25,7 @@ import sys
 import threading
 
 from ..config import config, parse_size
+from ..stats import stats
 
 
 def main(argv=None) -> int:
@@ -63,24 +64,33 @@ def main(argv=None) -> int:
         config.set("tier_hbm_bytes", args.hbm_tier)
 
     from ..daemon.server import StromDaemon
-    daemon = StromDaemon(args.socket, allow_fake=args.allow_fake,
-                         max_sessions=args.max_sessions,
-                         dispatchers=args.dispatch, device=args.device)
-    stop = threading.Event()
-    for sig in (signal.SIGINT, signal.SIGTERM):
-        signal.signal(sig, lambda *_: stop.set())
-    daemon.start()
-    print(f"stromd listening on {daemon.socket_path}  "
-          f"(max sessions {daemon._max_sessions or 'unlimited'}, "
-          f"quotas {config.get('daemon_quota_tasks') or '-'} tasks / "
-          f"{config.get('daemon_quota_bytes') or '-'} bytes per tenant)",
-          flush=True)
+    # its counters and the tenants' scoreboard go to the well-known file
+    # for `gpu_stat` (`gpu_stat --daemon SOCK` asks the socket instead);
+    # started before the daemon's Session, whose own per-pid export would
+    # otherwise hold the one exporter
+    stats.start_export()
     try:
-        stop.wait()
+        daemon = StromDaemon(args.socket, allow_fake=args.allow_fake,
+                             max_sessions=args.max_sessions,
+                             dispatchers=args.dispatch, device=args.device)
+        stop = threading.Event()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            signal.signal(sig, lambda *_: stop.set())
+        daemon.start()
+        print(f"stromd listening on {daemon.socket_path}  "
+              f"(max sessions {daemon._max_sessions or 'unlimited'}, "
+              f"quotas {config.get('daemon_quota_tasks') or '-'} tasks / "
+              f"{config.get('daemon_quota_bytes') or '-'} bytes per "
+              f"tenant)", flush=True)
+        try:
+            stop.wait()
+        finally:
+            print("stromd shutting down "
+                  f"({daemon.session_count()} session(s) to reap)",
+                  flush=True)
+            daemon.close()
     finally:
-        print("stromd shutting down "
-              f"({daemon.session_count()} session(s) to reap)", flush=True)
-        daemon.close()
+        stats.stop_export()
     return 0
 
 

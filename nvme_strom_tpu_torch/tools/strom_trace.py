@@ -10,9 +10,10 @@ companion:
   strom_trace PATH               summarize one dump (tracks, spans, window)
   strom_trace --last             summarize the newest dump
   strom_trace --check PATH       validate trace-event schema (exit 1 on bad)
-  strom_trace --prom STATFILE    render a stats payload (JSON of
-                                 ``stats.export_payload()``) as a
-                                 Prometheus textfile to stdout
+  strom_trace --prom [STATFILE]  render a stats payload (JSON of
+                                 ``stats.export_payload()``; default the
+                                 sole live export, else the well-known
+                                 file) as a Prometheus textfile
   strom_trace -o OUT PATH        copy a dump after validating it
 
 Dumps land in config ``trace_dir`` (default: the temporary directory) on
@@ -31,6 +32,7 @@ import os
 import shutil
 import sys
 import time
+from typing import Optional
 
 from ..trace import (list_dumps, render_prometheus, summarize_chrome_trace,
                      trace_dir, validate_chrome_trace)
@@ -97,8 +99,20 @@ def check_cmd(path: str) -> int:
     return 0
 
 
-def prom_cmd(stat_file: str) -> int:
-    """Render a stats payload as a Prometheus textfile on stdout."""
+def prom_cmd(stat_file: Optional[str] = None) -> int:
+    """Render a stats payload as a Prometheus textfile on stdout; with no
+    file, the sole live per-pid export, else the well-known file."""
+    from ..stats import DEFAULT_STAT_EXPORT, list_exports
+    if stat_file is None:
+        live = [path for _pid, path, alive in list_exports() if alive]
+        if len(live) == 1:
+            stat_file = live[0]
+        elif os.path.exists(DEFAULT_STAT_EXPORT):
+            stat_file = DEFAULT_STAT_EXPORT
+        else:
+            print("no live stats export found; pass the snapshot file "
+                  "(gpu_stat --json > snap.json)", file=sys.stderr)
+            return 1
     try:
         with open(stat_file) as f:
             snap = json.load(f)
@@ -124,8 +138,9 @@ def main(argv=None) -> int:
     ap.add_argument("--check", action="store_true",
                     help="validate trace-event schema; exit 1 when invalid")
     ap.add_argument("--prom", action="store_true",
-                    help="render a stats payload file as a Prometheus "
-                         "textfile")
+                    help="render a stats payload file (default: the sole "
+                         "live export, else the well-known file) as a "
+                         "Prometheus textfile")
     ap.add_argument("-d", "--dir", default=None,
                     help="trace dir override (default: config trace_dir)")
     ap.add_argument("-o", "--out", default=None,
@@ -135,8 +150,6 @@ def main(argv=None) -> int:
     if args.list:
         return list_cmd(args.dir)
     if args.prom:
-        if args.path is None:
-            ap.error("--prom needs the stats payload file")
         return prom_cmd(args.path)
 
     path = args.path

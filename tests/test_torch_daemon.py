@@ -15,6 +15,7 @@ bytes through a daemon of the other.
 from __future__ import annotations
 
 import errno
+import json
 import os
 import random
 import signal
@@ -627,6 +628,75 @@ def test_strom_daemon_cli_serves_until_sigterm(tmp_path, data_file):
         if proc.poll() is None:
             proc.kill()
         proc.stdout.close()
+
+
+@pytest.fixture
+def export_dir(tmp_path, monkeypatch):
+    """The port's per-pid export directory under *tmp_path*: a Session
+    that starts the process's exporter publishes there (list it before
+    ``daemon``, whose Sessions start it)."""
+    import importlib
+    tstats = importlib.import_module("nvme_strom_tpu_torch.stats")
+    d = tmp_path / "exports"
+    d.mkdir()
+    monkeypatch.setattr(tstats, "STAT_EXPORT_DIR", str(d))
+    return d
+
+
+def test_gpu_stat_daemon_scoreboard(export_dir, daemon, data_file, capsys):
+    """``gpu_stat --daemon SOCK`` attaches a monitor tenant and prints the
+    daemon's per-tenant scoreboard, as the JAX package's ``tpu_stat
+    --daemon`` does against its daemon."""
+    from nvme_strom_tpu_torch.tools import gpu_stat
+    with DaemonSession(daemon.socket_path, tenant="t-board") as sess:
+        src = sess.open_source(data_file)
+        handle, _buf = sess.alloc_dma_buffer(4 * CHUNK)
+        r = sess.memcpy_ssd2ram(src, handle, [0, 1, 2, 3], CHUNK)
+        sess.memcpy_wait(r.dma_task_id, timeout=60)
+        rc = gpu_stat.main(["--daemon", daemon.socket_path])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert f"stromd @ {daemon.socket_path}: 2 session(s)" in out
+    # the scoreboard is the process's: tenants of earlier daemons stay
+    rows = {ln.split()[0]: ln.split() for ln in out.splitlines()[2:]}
+    assert {"t-board", "_gpu_stat"} <= set(rows)
+    assert rows["t-board"][1] == "normal"
+
+
+def test_strom_daemon_cli_publishes_its_scoreboard(tmp_path, export_dir,
+                                                   data_file, capsys):
+    """``tools/strom_daemon.py`` exports to the well-known file while it
+    serves and once more as it shuts down; ``gpu_stat --daemon`` without a
+    socket renders that export's tenants."""
+    from nvme_strom_tpu_torch.tools import gpu_stat
+    sock, export = str(tmp_path / "cli.sock"), str(tmp_path / "stromd.json")
+    env = dict(os.environ, STROM_TPU_STAT_EXPORT=export,
+               STROM_STAT_EXPORT_DIR=str(export_dir))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "nvme_strom_tpu_torch.tools.strom_daemon",
+         "--socket", sock, "--dispatch", "1", "--device", "cpu"],
+        stdout=subprocess.PIPE, text=True, cwd=_REPO, env=env)
+    try:
+        assert "stromd listening on" in proc.stdout.readline()
+        with DaemonSession(sock, tenant="t-export") as sess:
+            src = sess.open_source(data_file)
+            h, buf = sess.alloc_dma_buffer(8 * CHUNK)
+            r = sess.memcpy_ssd2ram(src, h, list(range(8)), CHUNK)
+            sess.memcpy_wait(r.dma_task_id, timeout=60)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.stdout.close()
+    snap = json.load(open(export))
+    assert snap["pid"] == proc.pid
+    assert snap["tenants"]["t-export"]["bytes"] == 8 * CHUNK
+    assert snap["counters"]["nr_session_attach"] == 1
+    rc = gpu_stat.main(["--daemon", "-f", export])
+    out = capsys.readouterr().out
+    assert rc == 0 and f"pid {proc.pid} tenants:" in out
+    assert [ln.split()[0] for ln in out.splitlines()[2:]] == ["t-export"]
 
 
 # -- the JAX package as the oracle: frames and cross-package wire ------------
